@@ -1,0 +1,41 @@
+"""PyTorch/CUDA port of ``torchmetrics_tpu``.
+
+A second package beside the JAX one, with the same module paths and names.
+It imports ``torch`` and ``numpy`` only: never ``jax``, and nothing from
+``torchmetrics_tpu``. Metrics run on the current CUDA device unless given
+``device=...``; without CUDA and without a device they raise.
+"""
+
+from torchmetrics_tpu_torch.classification import (
+    AUROC,
+    Accuracy,
+    F1Score,
+    FBetaScore,
+    MulticlassAccuracy,
+    MulticlassAUROC,
+    MulticlassF1Score,
+    MulticlassFBetaScore,
+    MulticlassPrecisionRecallCurve,
+    MulticlassStatScores,
+    PrecisionRecallCurve,
+    StatScores,
+)
+from torchmetrics_tpu_torch.core.metric import Metric
+from torchmetrics_tpu_torch.regression import MeanSquaredError
+
+__all__ = [
+    "AUROC",
+    "Accuracy",
+    "F1Score",
+    "FBetaScore",
+    "MeanSquaredError",
+    "Metric",
+    "MulticlassAUROC",
+    "MulticlassAccuracy",
+    "MulticlassF1Score",
+    "MulticlassFBetaScore",
+    "MulticlassPrecisionRecallCurve",
+    "MulticlassStatScores",
+    "PrecisionRecallCurve",
+    "StatScores",
+]

@@ -1,0 +1,104 @@
+"""Multiclass precision-recall curve, binned layout.
+
+Counterpart of ``torchmetrics_tpu/classification/precision_recall_curve.py``.
+With ``thresholds`` given (an int or a list), the state is the binned
+``(T, C, 2, 2)`` int32 confusion tensor, ``sum``-reduced. The exact layout
+(``thresholds=None``) and the sketch layout wait for a later slice.
+
+Example::
+
+    >>> import torch
+    >>> from torchmetrics_tpu_torch.classification import MulticlassPrecisionRecallCurve
+    >>> metric = MulticlassPrecisionRecallCurve(num_classes=3, thresholds=5, device="cpu")
+    >>> probs = torch.tensor([[0.8, 0.1, 0.1], [0.2, 0.7, 0.1], [0.1, 0.2, 0.7], [0.3, 0.4, 0.3]])
+    >>> metric.update(probs, torch.tensor([0, 1, 1, 2]))
+    >>> precision, recall, thresholds = metric.compute()
+    >>> precision[0]
+    tensor([0.2500, 0.5000, 1.0000, 1.0000, 0.0000, 1.0000])
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence, Tuple, Union
+
+import torch
+from torch import Tensor
+
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper, _multiclass_only
+from torchmetrics_tpu_torch.core.metric import Metric, State
+from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
+    _adjust_threshold_arg,
+    _binned_confmat_multiclass,
+    _multiclass_prc_format,
+    _validate_thresholds,
+)
+from torchmetrics_tpu_torch.utilities.compute import _safe_divide
+
+
+class _CurveBase(Metric):
+    """Shared state handling for the curve metrics (binned layout)."""
+
+    is_differentiable = False
+    higher_is_better = None
+    full_state_update = False
+    _device_attrs = ("thresholds",)
+
+    def _init_curve_state(self, thresholds: Union[int, Sequence[float], Tensor], confmat_shape: Tuple[int, ...]) -> None:
+        if thresholds is None:
+            raise NotImplementedError(
+                "thresholds=None (the exact curve layout) is not ported yet: pass an int or a list of thresholds"
+            )
+        self.thresholds = _adjust_threshold_arg(thresholds, self.device)
+        # int32 cell counts: the weights are 0/1 ignore masks, so cells are integral
+        self.add_state(
+            "confmat",
+            torch.zeros((self.thresholds.shape[0], *confmat_shape, 2, 2), dtype=torch.int32),
+            dist_reduce_fx="sum",
+        )
+
+    def _accumulate(self, state: State, binned: Tensor) -> State:
+        return {"confmat": state["confmat"] + binned.to(state["confmat"].dtype)}
+
+
+class MulticlassPrecisionRecallCurve(_CurveBase):
+    def __init__(
+        self,
+        num_classes: int,
+        thresholds: Union[int, Sequence[float], Tensor, None] = None,
+        average: Optional[str] = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _validate_thresholds(thresholds)
+        self.num_classes = num_classes
+        self.average = average
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self._init_curve_state(thresholds, (num_classes,))
+
+    def _update(self, state: State, preds: Tensor, target: Tensor) -> State:
+        p, t, w = _multiclass_prc_format(self._tensor(preds), self._tensor(target), self.num_classes, self.ignore_index)
+        return self._accumulate(state, _binned_confmat_multiclass(p, t, w, self.thresholds, self.num_classes))
+
+    def _compute(self, state: State):
+        confmat = state["confmat"]
+        tp = confmat[:, :, 1, 1]
+        fp = confmat[:, :, 0, 1]
+        fn = confmat[:, :, 1, 0]
+        ones = torch.ones((1, self.num_classes), device=confmat.device)
+        precision = torch.cat([_safe_divide(tp, tp + fp), ones], dim=0).T
+        recall = torch.cat([_safe_divide(tp, tp + fn), torch.zeros_like(ones)], dim=0).T
+        return precision, recall, self.thresholds
+
+
+class PrecisionRecallCurve(_ClassificationTaskWrapper):
+    """Task dispatch: ``PrecisionRecallCurve(task="multiclass", ...)``."""
+
+    @classmethod
+    def _create_task_metric(cls, task: str, *args: Any, **kwargs: Any) -> Metric:
+        _multiclass_only(task, cls.__name__)
+        kwargs.pop("num_labels", None)
+        return MulticlassPrecisionRecallCurve(*args, **kwargs)

@@ -1,0 +1,377 @@
+"""``Metric``, the core runtime (counterpart of ``torchmetrics_tpu/core/metric.py``).
+
+As in the JAX package, the functional core is primary and the stateful API
+is a thin eager facade over it:
+
+functional core (pure: returns new states, never writes into one):
+    ``init_state() -> State``
+    ``update_state(state, *inputs) -> State``
+    ``compute_state(state) -> result``
+    ``merge_states(a, b) -> State``
+
+facade:
+    ``update / compute / forward / reset / clone / state_dict / load_state_dict``
+
+State is a dict ``{name: Tensor | tuple[Tensor, ...]}`` plus the reserved
+int32 ``"_n"`` update counter. ``Metric`` is a plain class, not an
+``nn.Module``: ``state_dict`` holds only the persistent leaves, as in the
+JAX package, which a module's buffer registry would not keep to.
+
+A metric lives on one device, CUDA unless the caller passes another one:
+``Metric()`` on a machine without CUDA raises instead of running on the CPU.
+
+Example::
+
+    >>> import torch
+    >>> from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+    >>> metric = MulticlassAccuracy(num_classes=3, average="micro", device="cpu")
+    >>> metric.update(torch.tensor([0, 1, 2, 1]), torch.tensor([0, 1, 2, 2]))
+    >>> round(float(metric.compute()), 4)
+    0.75
+"""
+
+from __future__ import annotations
+
+from copy import deepcopy
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from torchmetrics_tpu_torch.core.reductions import Reduce, canonical_reduce, merge_leaf
+from torchmetrics_tpu_torch.utilities.data import resolve_device, to_tensor
+from torchmetrics_tpu_torch.utilities.exceptions import StateRestoreError
+from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
+
+State = Dict[str, Any]
+
+_N = "_n"  # reserved state key: int32 update counter, sum-merged
+
+# ctor kwargs of the JAX base that drive sync, compilation, non-finite guards
+# or approximate states; this port has none of them yet, so each is refused
+UNPORTED_BASE_KWARGS = frozenset(
+    {
+        "sync_on_compute",
+        "dist_sync_on_step",
+        "axis_name",
+        "jit",
+        "nan_strategy",
+        "dist_sync_fn",
+        "distributed_available_fn",
+        "process_group",
+        "compute_on_cpu",
+        "approx",
+        "approx_error",
+    }
+)
+
+
+def _move(value: Any, device: torch.device) -> Any:
+    if isinstance(value, tuple):
+        return tuple(v.to(device) for v in value)
+    return value.to(device)
+
+
+class Metric:
+    """Base class for all metrics.
+
+    Args:
+        device: where the state lives and the update runs; ``None`` means
+            the current CUDA device.
+        compute_with_cache: cache the ``compute`` result until the next
+            update or reset.
+    """
+
+    is_differentiable: Optional[bool] = None
+    higher_is_better: Optional[bool] = None
+    full_state_update: Optional[bool] = False
+
+    #: tensor attributes besides the state that live on the metric's device
+    _device_attrs: Tuple[str, ...] = ()
+
+    def __init__(self, device: Optional[Union[str, torch.device]] = None, **kwargs: Any) -> None:
+        unported = sorted(UNPORTED_BASE_KWARGS & kwargs.keys())
+        if unported:
+            raise ValueError(f"Metric arguments {unported} are not supported by the PyTorch port yet")
+        self.compute_with_cache: bool = kwargs.pop("compute_with_cache", True)
+        if kwargs:
+            raise ValueError(f"Unexpected keyword arguments: {list(kwargs)}")
+        self.device = resolve_device(device)
+        self._defaults: Dict[str, Any] = {}
+        self._reductions: Dict[str, Union[Reduce, Callable]] = {}
+        self._persistent: Dict[str, bool] = {}
+        self._value_ranges: Dict[str, Tuple[float, float]] = {}
+        self._state: State = {_N: self._zero_count()}
+        self._computed: Any = None
+        self._forward_cache: Any = None
+
+    def _zero_count(self) -> Tensor:
+        return torch.zeros((), dtype=torch.int32, device=self.device)
+
+    # ------------------------------------------------------------------ state
+    def add_state(
+        self,
+        name: str,
+        default: Union[Tensor, np.ndarray, int, float, list, Sequence],
+        dist_reduce_fx: Optional[Union[str, Callable]] = None,
+        persistent: bool = False,
+        value_range: Optional[Tuple[float, float]] = None,
+    ) -> None:
+        """Register a state leaf.
+
+        ``default`` is a tensor (tensor state) or an empty list (list state,
+        stored as a tuple of tensors). ``dist_reduce_fx`` is one of
+        sum|mean|max|min|cat, a callable, or None. ``value_range=(lo, hi)``
+        declares the values the leaf can hold.
+        """
+        if name.startswith("_"):
+            raise ValueError(f"State name {name!r} must not start with '_'")
+        if value_range is not None:
+            try:
+                lo, hi = float(value_range[0]), float(value_range[1])
+                ok = len(value_range) == 2 and lo <= hi
+            except (TypeError, ValueError, IndexError):
+                ok = False
+            if not ok:
+                raise ValueError(f"value_range must be a (lo, hi) pair with lo <= hi, got {value_range!r}")
+            self._value_ranges[name] = (lo, hi)
+        if isinstance(default, (list, tuple)):
+            if len(default) != 0:
+                raise ValueError("list-type state must start empty")
+            self._defaults[name] = ()
+            self._state[name] = ()
+        elif isinstance(default, (Tensor, np.ndarray, int, float)):
+            arr = to_tensor(default, self.device)
+            self._defaults[name] = arr
+            self._state[name] = arr.clone()
+        else:
+            raise ValueError("state variable must be a tensor or an empty list")
+        self._reductions[name] = canonical_reduce(dist_reduce_fx)
+        self._persistent[name] = persistent
+
+    # -------------------------------------------------------- functional core
+    def init_state(self) -> State:
+        """Fresh state: copies of the defaults and a zero update counter."""
+        st = {k: (v if isinstance(v, tuple) else v.clone()) for k, v in self._defaults.items()}
+        st[_N] = self._zero_count()
+        return st
+
+    def update_state(self, state: State, *args: Any, **kwargs: Any) -> State:
+        """Pure update: a new state with this batch folded in."""
+        new = dict(self._update(state, *args, **kwargs))
+        new[_N] = state[_N] + 1
+        return new
+
+    def compute_state(self, state: State) -> Any:
+        """Pure compute on a state."""
+        return self._compute(state)
+
+    def merge_states(self, a: State, b: State) -> State:
+        """Combine two states under the per-leaf reduction table (pure)."""
+        out: State = {
+            name: merge_leaf(reduce, a[name], b[name], n_a=a[_N], n_b=b[_N])
+            for name, reduce in self._reductions.items()
+        }
+        out[_N] = a[_N] + b[_N]
+        return out
+
+    # ------------------------------------------------------- subclass contract
+    def _update(self, state: State, *args: Any, **kwargs: Any) -> State:
+        raise NotImplementedError
+
+    def _compute(self, state: State) -> Any:
+        raise NotImplementedError
+
+    def _tensor(self, x: Any) -> Tensor:
+        """An input as a tensor on this metric's device (64-bit types narrowed)."""
+        return to_tensor(x, self.device)
+
+    # ----------------------------------------------------------------- facade
+    @property
+    def update_called(self) -> bool:
+        return int(self._state[_N]) > 0
+
+    @property
+    def update_count(self) -> int:
+        return int(self._state[_N])
+
+    @property
+    def metric_state(self) -> State:
+        """The current raw state (including the ``_n`` counter)."""
+        return self._state
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        """Accumulate a batch into the global state."""
+        self._computed = None
+        self._state = self.update_state(self._state, *args, **kwargs)
+
+    def compute(self) -> Any:
+        """Compute over the accumulated state."""
+        if not self.update_called:
+            rank_zero_warn(
+                f"The ``compute`` method of metric {self.__class__.__name__} was called before "
+                "the ``update`` method which may lead to errors, as metric states have not yet been updated.",
+                UserWarning,
+            )
+        if self.compute_with_cache and self._computed is not None:
+            return self._computed
+        value = self.compute_state(self._state)
+        if self.compute_with_cache:
+            self._computed = value
+        return value
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        """Batch value and global accumulation in one call.
+
+        The batch state is computed fresh, merged into the global state, and
+        ``compute`` of the batch state is returned. Metrics whose update does
+        not distribute over merge set ``full_state_update=True`` and update
+        twice instead.
+        """
+        if self.full_state_update:
+            self._state = self.update_state(self._state, *args, **kwargs)
+            batch_state = self.update_state(self.init_state(), *args, **kwargs)
+        else:
+            batch_state = self.update_state(self.init_state(), *args, **kwargs)
+            self._state = self.merge_states(self._state, batch_state)
+        self._computed = None
+        self._forward_cache = self.compute_state(batch_state)
+        return self._forward_cache
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Any:
+        return self.forward(*args, **kwargs)
+
+    def reset(self) -> None:
+        """Restore the default state."""
+        self._state = self.init_state()
+        self._computed = None
+        self._forward_cache = None
+
+    # ------------------------------------------------------------- lifecycle
+    def clone(self) -> "Metric":
+        return deepcopy(self)
+
+    def persistent(self, mode: bool = False) -> None:
+        for name in self._persistent:
+            self._persistent[name] = mode
+
+    def state_dict(self, destination: Optional[Dict] = None, prefix: str = "") -> Dict[str, Any]:
+        """Persistent state leaves: tensors, and lists of tensors for list states."""
+        destination = destination if destination is not None else {}
+        for name, persistent in self._persistent.items():
+            if persistent:
+                value = self._state[name]
+                destination[prefix + name] = list(value) if isinstance(value, tuple) else value
+        return destination
+
+    def _validate_leaf(self, name: str, value: Any) -> Any:
+        """One state leaf checked against the metric's spec and placed on its
+        device. Raises :class:`StateRestoreError` naming the leaf on a kind,
+        dtype or shape mismatch."""
+        if name not in self._defaults:
+            raise StateRestoreError(
+                f"Leaf {name!r} is not a registered state of {type(self).__name__} "
+                f"(known: {sorted(self._defaults)}).",
+                leaf=name,
+                reason="unknown-leaf",
+            )
+        default = self._defaults[name]
+        if isinstance(default, tuple):
+            if not isinstance(value, (list, tuple)):
+                raise StateRestoreError(
+                    f"List-state leaf {name!r} of {type(self).__name__} expects a sequence of tensors; "
+                    f"got {type(value).__name__}.",
+                    leaf=name,
+                    reason="kind",
+                )
+            return tuple(torch.as_tensor(v, device=self.device) for v in value)
+        if isinstance(value, (list, tuple)):
+            raise StateRestoreError(
+                f"Tensor-state leaf {name!r} of {type(self).__name__} expects a tensor; got a sequence.",
+                leaf=name,
+                reason="kind",
+            )
+        arr = torch.as_tensor(value, device=self.device)
+        if arr.dtype != default.dtype:
+            raise StateRestoreError(
+                f"State leaf {name!r} of {type(self).__name__} has dtype {arr.dtype}, expected {default.dtype}.",
+                leaf=name,
+                reason="dtype",
+            )
+        if arr.shape != default.shape:
+            raise StateRestoreError(
+                f"State leaf {name!r} of {type(self).__name__} has shape {tuple(arr.shape)}, "
+                f"expected {tuple(default.shape)}.",
+                leaf=name,
+                reason="shape",
+            )
+        return arr
+
+    def load_state_dict(self, state_dict: Mapping[str, Any], prefix: str = "") -> None:
+        """Install persisted leaves, all or nothing.
+
+        Unknown keys under ``prefix`` and expected persistent keys that are
+        missing are reported with ``rank_zero_warn``; a leaf that fails
+        validation raises :class:`StateRestoreError` before any state is
+        touched.
+        """
+        known = {prefix + name for name in self._defaults}
+        unknown = sorted(k for k in state_dict if k.startswith(prefix) and k not in known)
+        if unknown:
+            rank_zero_warn(
+                f"Ignoring {len(unknown)} unknown key(s) in state_dict for metric "
+                f"{type(self).__name__}: {unknown} (not registered states of this metric).",
+                UserWarning,
+            )
+        expected = {prefix + name for name, persistent in self._persistent.items() if persistent}
+        missing = sorted(expected - set(state_dict))
+        if missing:
+            rank_zero_warn(
+                f"Metric {type(self).__name__} expected persistent state key(s) {missing} "
+                "in state_dict but they are missing; those states keep their current values.",
+                UserWarning,
+            )
+        staged = {
+            name: self._validate_leaf(name, state_dict[prefix + name])
+            for name in self._defaults
+            if prefix + name in state_dict
+        }
+        self._state.update(staged)
+        self._computed = None
+
+    # pickling: tensors travel on the CPU, so a pickle loads on any machine
+    # that has the metric's device
+    def __getstate__(self) -> Dict[str, Any]:
+        d = self.__dict__.copy()
+        cpu = torch.device("cpu")
+        d["_state"] = {k: _move(v, cpu) for k, v in self._state.items()}
+        d["_defaults"] = {k: _move(v, cpu) for k, v in self._defaults.items()}
+        for name in self._device_attrs:
+            if d.get(name) is not None:
+                d[name] = d[name].to(cpu)
+        d["_computed"] = None
+        d["_forward_cache"] = None
+        return d
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+        self._place(self.device)
+
+    def _place(self, device: torch.device) -> None:
+        self._state = {k: _move(v, device) for k, v in self._state.items()}
+        self._defaults = {k: _move(v, device) for k, v in self._defaults.items()}
+        for name in self._device_attrs:
+            if getattr(self, name, None) is not None:
+                setattr(self, name, getattr(self, name).to(device))
+
+    def to(self, device: Union[str, torch.device]) -> "Metric":
+        """Move the state (and the metric's other tensors) to ``device``."""
+        self.device = resolve_device(device)
+        self._place(self.device)
+        self._computed = None
+        self._forward_cache = None
+        return self
+
+    def __repr__(self) -> str:
+        return f"{self.__class__.__name__}()"

@@ -1,0 +1,28 @@
+"""Exception types (counterpart of ``torchmetrics_tpu/utilities/exceptions.py``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+
+class TorchMetricsUserError(Exception):
+    """Error raised on wrong usage of the metric API."""
+
+
+class StateRestoreError(TorchMetricsUserError):
+    """A state dict failed validation before being installed.
+
+    Raised by ``Metric.load_state_dict`` and ``convert.state_from_jax`` when a
+    leaf's kind, shape or dtype does not match the metric it is loaded into,
+    before any state leaf is touched.
+
+    Attributes:
+        leaf: name of the offending state leaf.
+        reason: mismatch category: ``"kind"``, ``"shape"``, ``"dtype"`` or
+            ``"unknown-leaf"``.
+    """
+
+    def __init__(self, message: str, leaf: Optional[str] = None, reason: Optional[str] = None) -> None:
+        super().__init__(message)
+        self.leaf = leaf
+        self.reason = reason
