@@ -9,15 +9,20 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    CPU fallback;
 2. build: every CUDA kernel of the port, compiled from ``csrc/`` at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it and a few more; the counts must be
-   exactly equal. Times are CUDA-event medians with the L2 cache flushed
-   before each launch;
+   the shapes the main path gives it and the edge cases of its contract
+   (threshold grids up to 4000 with split bin ranges, duplicate, NaN and
+   +-inf thresholds, non-finite scores, C % 4 != 0, out-of-range targets
+   and ignored rows), from a random non-zero int32 state; the new states
+   must be exactly equal. Times are by CUDA events: per call of a run of
+   calls back to back, over copies of the inputs that overflow the L2 cache
+   (``time_stream_ms``), and for the kernel also one call after an L2 flush;
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
    samples x 1,000 classes in batches of 1,024, through ``update_state`` and
    ``compute_state``; every kernel of the path must have launched, and the
-   first 4 batches rerun on the port's CPU path must give the same states.
+   first 4 batches rerun on the port's CPU path must give the same states;
+   the device operations of one profiled AUROC update are listed.
 
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -51,13 +57,16 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, flush: torch.Tensor, reps: int = 30, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms, by CUDA events, L2 flushed before each rep."""
+    """Median device time of one call of ``fn`` in ms, by CUDA events around
+    it, the L2 cache flushed (a 256 MB write) before each rep. A spin of about
+    0.5 ms after the flush keeps the card busy while the host enqueues ``fn``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -65,6 +74,48 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 30, warmup: int = 3) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+L2_BYTES = 50 * 2**20
+HOST_US_PER_CALL = 200  # the spin before a timed run allows this much host time a call
+
+
+def copies_for(set_bytes: int) -> int:
+    """Copies of one input set that hold more than twice the L2 cache together."""
+    return max(2, -(-2 * L2_BYTES // set_bytes))
+
+
+def time_stream_ms(fn, arg_sets, calls: int, runs: int = 3) -> float:
+    """Device ms per call of ``fn``, called back to back as an eval loop calls it.
+
+    ``arg_sets`` are copies of the same inputs, more than twice the L2 cache in
+    all (``copies_for``), taken in turn, so each call finds its inputs cold.
+    A spin kernel holds the card while the host enqueues the ``calls`` calls,
+    so the time between the CUDA events is the device's alone; the run fails
+    if the host was not done before the spin ended. Median of ``runs`` runs.
+    """
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    per_call, host_us = [], HOST_US_PER_CALL
+    while len(per_call) < runs:
+        spin_start, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spin_start.record()
+        # cycles at the H100's 1.98 GHz boost clock: at a lower clock the spin lasts longer
+        torch.cuda._sleep(int(calls * host_us * 1e-6 * 1.98e9))
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms < spin_start.elapsed_time(start):
+            per_call.append(start.elapsed_time(end) / calls)
+        else:  # the card caught up with the host: spin longer and run again
+            check(host_us < 16 * HOST_US_PER_CALL, f"the host took {host_ms:.3f} ms to enqueue {calls} calls")
+            host_us *= 2
+    return statistics.median(per_call)
 
 
 def phase_device() -> dict:
@@ -99,64 +150,108 @@ def phase_build() -> float:
     return seconds
 
 
-def _confmat_inputs(n: int, thresholds, zero_weight_share: float, gen: torch.Generator):
+def _confmat_inputs(n: int, c: int, thresholds, zero_weight_share: float, edits, gen: torch.Generator):
+    """A formatted batch ``(probs, target, weights, thresholds)`` on the card and a random non-zero int32 state."""
     from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _adjust_threshold_arg
 
     dev = torch.device("cuda")
     thr = _adjust_threshold_arg(thresholds, dev)
-    logits = 3.0 * torch.randn((n, N_CLASSES), generator=gen, device=dev)
+    logits = 3.0 * torch.randn((n, c), generator=gen, device=dev)
     probs = torch.softmax(logits, dim=1)
-    target = torch.randint(0, N_CLASSES, (n,), generator=gen, device=dev, dtype=torch.int32)
+    target = torch.randint(0, c, (n,), generator=gen, device=dev, dtype=torch.int32)
     # scores exactly on thresholds, where `>=` decides the bin
+    finite = thr[torch.isfinite(thr)]
     rows = torch.arange(0, n, 5, device=dev)
-    probs[rows, rows % N_CLASSES] = thr[rows % thr.shape[0]]
-    probs[rows, target[rows].long()] = thr[(rows + 1) % thr.shape[0]]
+    probs[rows, rows % c] = finite[rows % finite.shape[0]]
+    probs[rows, target[rows].long()] = finite[(rows + 1) % finite.shape[0]]
     weights = (torch.rand((n,), generator=gen, device=dev) >= zero_weight_share).to(torch.float32)
-    return probs.contiguous(), target, weights, thr
+    target = torch.where(weights == 0, 0, target)  # as _multiclass_prc_format leaves an ignored row
+    if "nonfinite_scores" in edits:
+        for i, value in enumerate([float("nan"), float("inf"), float("-inf")]):
+            probs[i::7, 3 + 2 * i] = value
+            probs[torch.arange(3 + i, n, 11, device=dev), target[3 + i :: 11].long()] = value  # true classes too
+    if "out_of_range" in edits:
+        for i, value in enumerate([c, c + 3, -3]):
+            target[i::6] = value
+    state = torch.randint(-(2**20), 2**20, (thr.shape[0], c, 2, 2), generator=gen, device=dev, dtype=torch.int32)
+    return probs.contiguous(), target, weights, thr, state
 
 
 def phase_kernels(flush: torch.Tensor) -> dict:
     from torchmetrics_tpu_torch.functional.classification import precision_recall_curve as prc
-    from torchmetrics_tpu_torch.kernels.binned_confmat import binned_confmat_multiclass
+    from torchmetrics_tpu_torch.kernels import binned_confmat as kbc
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     unsorted37 = torch.rand((37,), generator=gen, device="cuda").tolist()
-    cases = [  # (what, rows, thresholds, share of zero weights); the first is the main path's
-        ("slice", BATCH, 20, 0.0),
-        ("ragged last batch", N_SAMPLES % BATCH, 20, 0.0),
-        ("fine grid", BATCH, 200, 0.0),
-        ("unsorted list, ~10% zero weights", BATCH, unsorted37, 0.1),
+    nan, inf = float("nan"), float("inf")
+    # the finite range overflows float32 here, so the search guide has one bucket
+    edge_list = [0.5, nan, 0.1, inf, -inf, 0.1, nan, 0.0, -0.0, 1.0, 0.9, 0.5, 0.05, -3e38, 3e38]
+    cases = [  # (what, rows, classes, thresholds, share of zero weights, edits); the first is the main path's
+        ("slice", BATCH, N_CLASSES, 20, 0.0, ()),
+        ("ragged last batch", N_SAMPLES % BATCH, N_CLASSES, 20, 0.0, ()),
+        ("fine grid", BATCH, N_CLASSES, 200, 0.0, ()),
+        ("unsorted list, ~10% zero weights", BATCH, N_CLASSES, unsorted37, 0.1, ()),
+        ("grid of 1000", BATCH, N_CLASSES, 1000, 0.0, ()),
+        ("grid of 4000, bin ranges split", 256, N_CLASSES, 4000, 0.0, ()),
+        ("duplicate, NaN and +-inf thresholds", BATCH, N_CLASSES, edge_list, 0.0, ()),
+        ("NaN and +-inf scores", BATCH, N_CLASSES, 20, 0.0, ("nonfinite_scores",)),
+        ("C % 4 != 0, scalar loads", BATCH, N_CLASSES + 1, 20, 0.0, ()),
+        ("out-of-range targets, ~10% ignored rows", BATCH, N_CLASSES, 20, 0.1, ("out_of_range",)),
     ]
     rows = []
-    for what, n, thresholds, zero_share in cases:
-        p, t, w, thr = _confmat_inputs(n, thresholds, zero_share, gen)
+    for what, n, c, thresholds, zero_share, edits in cases:
+        p, t, w, thr, state = _confmat_inputs(n, c, thresholds, zero_share, edits, gen)
         n_thr = thr.shape[0]
-        label = f"{what} N={n} C={N_CLASSES} T={n_thr}"
-        got = prc._binned_confmat_multiclass(p, t, w, thr, N_CLASSES)
-        want = prc._binned_confmat_multiclass_plain(p, t, w, thr, N_CLASSES)
+        sorted_thr, order = prc._sort_thresholds(thr)
+        geometry = kbc.plan(n, c, n_thr, torch.cuda.get_device_properties(0).multi_processor_count)
+        label = f"{what} N={n} C={c} T={n_thr}"
+        before = state.clone()
+        got = kbc.binned_confmat_multiclass(state, p, t, w, sorted_thr, order)
+        want = prc._binned_confmat_multiclass_accumulate_plain(state, p, t, w, thr, c)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        check(torch.equal(got, want), f"kernel and plain counts differ ({label}): max abs err {err}")
-        check(float(want[..., 1, :].sum()) > 0, f"no positive rows counted ({label})")
-        kernel_ms = time_ms(lambda: binned_confmat_multiclass(p, t, w, thr), flush)
-        wrapper_ms = time_ms(lambda: prc._binned_confmat_multiclass(p, t, w, thr, N_CLASSES), flush)
-        plain_ms = time_ms(lambda: prc._binned_confmat_multiclass_plain(p, t, w, thr, N_CLASSES), flush)
-        # least work of the kernel: read probs, target, weights, thresholds
-        # once, write the (2T + 1, C) float32 tp/pospred/actpos counts once;
-        # one compare and one add per (n, c, t)
-        nbytes = n * N_CLASSES * 4 + n * 4 * 2 + n_thr * 4 + (2 * n_thr + 1) * N_CLASSES * 4
-        nops = 2 * n * N_CLASSES * n_thr
+        check(torch.equal(got, want), f"fused update and plain state differ ({label}): max abs err {err}")
+        check(torch.equal(state, before), f"the fused update wrote into the old state ({label})")
+        check(int((want - state)[..., 1, :].sum()) > 0, f"no positive rows counted ({label})")
+        if what == "slice":  # the per-batch counts function takes the kernel on the card too
+            check(torch.equal(prc._binned_confmat_multiclass(p, t, w, thr, c),
+                              prc._binned_confmat_multiclass_plain(p, t, w, thr, c)), "per-batch counts differ")
+        if "split" in what:
+            check(geometry.grid[2] > 1, f"bins were not split ({label}: {geometry})")
+        # least work of the fused update: read probs, target, weights, the sorted
+        # thresholds and their order, and the old state once, write the new state
+        # once; bin each score with ceil(log2(T+1)) compares, plus the two suffix
+        # sums over (T+1) x C bins. The count of a design that compares every
+        # score with every threshold, 2*N*C*T (a compare and an add per
+        # (n, c, t)), is printed beside it.
+        nbytes = n * c * 4 + n * 4 * 2 + n_thr * 4 * 2 + 2 * n_thr * c * 16
+        nops = n * c * math.ceil(math.log2(n_thr + 1)) + 2 * c * (n_thr + 1)
         bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_OPS_PER_S * 1e3
+
+        # times: back to back over copies of the inputs that overflow the L2
+        # cache (the kernel record's `ms`), and one call after an L2 flush
+        sets = [(state, p, t, w)] + [tuple(x.clone() for x in (state, p, t, w))
+                                     for _ in range(copies_for(nbytes) - 1)]
+        fused = lambda s, p_, t_, w_: kbc.binned_confmat_multiclass(s, p_, t_, w_, sorted_thr, order)  # noqa: E731
+        plain = lambda s, p_, t_, w_: prc._binned_confmat_multiclass_accumulate_plain(s, p_, t_, w_, thr, c)  # noqa: E731
+        kernel_ms = time_stream_ms(fused, sets, calls=len(sets) * max(1, 96 // len(sets)))
+        plain_ms = time_stream_ms(plain, sets, calls=len(sets))
+        single_ms = time_ms(lambda: fused(state, p, t, w), flush)
+        del sets
+        # after a hundred launches through the scratch's turns, still exact
+        check(torch.equal(fused(state, p, t, w), want), f"fused update differs after the timed launches ({label})")
         row = {
-            "case": label, "n": n, "c": N_CLASSES, "t": n_thr, "max_abs_err": err,
-            "ms": kernel_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "case": label, "n": n, "c": c, "t": n_thr, "max_abs_err": err, "plan": geometry._asdict(),
+            "ms": kernel_ms, "single_flushed_ms": single_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
+            "bytes": nbytes, "ops": nops, "all_pairs_ops": 2 * n * c * n_thr, "library_ms": None,
         }
         print(
-            f"[kernel] binned_confmat_multiclass {label}: exact, kernel {kernel_ms:.4f} ms "
-            f"(wrapper, with the fp/fn/tn ops: {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-            f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), library_ms: none"
+            f"[kernel] binned_confmat_multiclass {label}: exact, fused update {kernel_ms:.4f} ms back to back "
+            f"({single_ms:.4f} ms alone after an L2 flush; tile {geometry.tile_c} classes, grid {geometry.grid}), "
+            f"plain {plain_ms:.4f} ms, "
+            f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {nbytes} bytes, {nops} ops; "
+            f"{row['all_pairs_ops']} ops comparing every score with every threshold), library_ms: none"
         )
         rows.append(row)
     return {"binned_confmat_multiclass": rows}
@@ -272,13 +367,14 @@ def phase_main_path(kernels) -> dict:
             samples.append((time.perf_counter() - t0) * 1e3)
         compute_steady_ms[name] = statistics.median(samples)
     pipelined_s, busy_s = _pipelined_pass(metrics, data)
+    auroc_ops = _profiled_update_ops(metrics["auroc"], states["auroc"], next(_batches(data, 1))["cls"])
 
     record = {
         "batches": n_batches, "launches": launches, "path_s": path_s,
         "update_ms_median": {k: statistics.median(v) for k, v in times.items()},
         "compute_first_ms": compute_ms, "compute_ms": compute_steady_ms,
         "pipelined_pass_s": pipelined_s, "pipelined_samples_per_s": N_SAMPLES / pipelined_s,
-        "profiled_device_busy_s": busy_s,
+        "profiled_device_busy_s": busy_s, "auroc_update_device_ops": auroc_ops,
         "results": {k: float(v) for k, v in results.items()},
     }
     for name in metrics:
@@ -290,7 +386,22 @@ def phase_main_path(kernels) -> dict:
     busy = "not measured" if busy_s is None else f"{busy_s:.4f} s of device time"
     print(f"[main] pipelined pass (no synchronize between updates): {pipelined_s:.4f} s, "
           f"{record['pipelined_samples_per_s']:.0f} samples/s; profiled pass: {busy}")
+    print(f"[main] one profiled AUROC update_state runs {len(auroc_ops)} device operations: "
+          f"{[name[:60] for name in auroc_ops]}")
     return record
+
+
+def _profiled_update_ops(metric, state, args):
+    """Names of the device operations (kernels, memsets, copies) of one
+    ``update_state``, in launch order, by ``torch.profiler``."""
+    metric.update_state(state, *args)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        metric.update_state(state, *args)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
 
 
 def _pipelined_pass(metrics, data):

@@ -2,13 +2,15 @@
 
 The CUDA kernel itself runs only on the card, where ``chip_smoke.py`` holds
 it against the plain version below; in these tests the port runs on the CPU, so
-``_binned_confmat_multiclass`` takes its plain PyTorch version.
+``_binned_confmat_multiclass`` and the metrics' fused update
+(``_binned_confmat_multiclass_accumulate``) take their plain PyTorch versions.
 
 The threshold grid must be bit-equal to ``jnp.linspace``, and the counts are
 sums of 0/1 weights: both are compared exactly. AUROC values are float32
 areas summed in another order than XLA's: ``rtol=1e-5``.
 """
 
+import hashlib
 import importlib
 
 import jax.numpy as jnp
@@ -102,16 +104,28 @@ def test_plain_binned_confmat_exact(thresholds, ignore_index):
 
 def test_kernel_launcher_refuses_cpu_tensors():
     preds, target = _batch(1)
+    thr, order = tprc._sort_thresholds(torch.linspace(0, 1, 5))
+    state = torch.zeros((5, C, 2, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         binned_confmat_multiclass(
-            torch.from_numpy(preds), torch.from_numpy(target), torch.ones(len(target)), torch.linspace(0, 1, 5)
+            state, torch.from_numpy(preds), torch.from_numpy(target), torch.ones(len(target)), thr, order
         )
 
 
-def test_build_keys_library_by_source_and_needs_nvcc(monkeypatch):
+def test_build_keys_library_by_source_and_needs_nvcc(monkeypatch, tmp_path):
     path = _build.library_path("binned_confmat")
     assert path.parent == _build.BUILD_DIR and path == _build.library_path("binned_confmat")
     assert path.name.startswith("libbinned_confmat-") and path.suffix == ".so"
+    # keyed by the source as it is now: the fused update's entry point, and no other
+    source = (_build.CSRC_DIR / "binned_confmat.cu").read_bytes()
+    digest = hashlib.sha256(source)
+    digest.update(" ".join(_build.NVCC_FLAGS).encode())
+    assert path.name == f"libbinned_confmat-{digest.hexdigest()[:16]}.so"
+    assert b"binned_confmat_multiclass_launch" in source and b"binned_epilogue_kernel" in source
+    changed = tmp_path / "binned_confmat.cu"
+    changed.write_bytes(source + b"\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    assert _build.library_path("binned_confmat") != path
     monkeypatch.setenv("CUDA_HOME", "")
     monkeypatch.setenv("CUDA_PATH", "")
     monkeypatch.setenv("PATH", "")
@@ -172,3 +186,26 @@ def test_exact_layout_not_ported():
         tc.MulticlassAUROC(num_classes=C, thresholds=1, device="cpu")
     with pytest.raises(ValueError):
         tc.MulticlassAUROC(num_classes=C, thresholds="20", device="cpu")
+
+
+OUT_OF_RANGE = {"C": C, "C+3": C + 3, "-3": -3}
+
+
+@pytest.mark.parametrize("ignore_index", [None, -3])
+@pytest.mark.parametrize("metric", ["MulticlassAUROC", "MulticlassPrecisionRecallCurve"])
+def test_out_of_range_targets_are_negatives_as_in_jax(metric, ignore_index):
+    """A target outside ``[0, C)`` that is not ``ignore_index`` is a negative for every class."""
+    jm = getattr(jc, metric)(num_classes=C, thresholds=20, ignore_index=ignore_index, validate_args=False)
+    tm = getattr(tc, metric)(num_classes=C, thresholds=20, ignore_index=ignore_index, validate_args=False, device="cpu")
+    js, ts = jm.init_state(), tm.init_state()
+    for seed in range(2):
+        preds, target = _batch(90 + seed)
+        for i, bad in enumerate(OUT_OF_RANGE.values()):
+            target[i::7] = bad
+        js = jm.update_state(js, jnp.asarray(preds), jnp.asarray(target))
+        ts = tm.update_state(ts, torch.from_numpy(preds), torch.from_numpy(target))
+    want = np.asarray(js["confmat"])
+    assert ts["confmat"].dtype == torch.int32 and want.dtype == np.int32
+    np.testing.assert_array_equal(ts["confmat"].numpy(), want)
+    # rows with such targets still count in every class's total
+    assert int(want[0, 0].sum()) == 2 * len(target) - (0 if ignore_index is None else 2 * len(target[2::7]))

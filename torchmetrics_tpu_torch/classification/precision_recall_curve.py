@@ -28,8 +28,9 @@ from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrappe
 from torchmetrics_tpu_torch.core.metric import Metric, State
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
     _adjust_threshold_arg,
-    _binned_confmat_multiclass,
+    _binned_confmat_multiclass_accumulate,
     _multiclass_prc_format,
+    _sort_thresholds,
     _validate_thresholds,
 )
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide
@@ -41,7 +42,7 @@ class _CurveBase(Metric):
     is_differentiable = False
     higher_is_better = None
     full_state_update = False
-    _device_attrs = ("thresholds",)
+    _device_attrs = ("thresholds", "_thresholds_sorted", "_thresholds_order")
 
     def _init_curve_state(self, thresholds: Union[int, Sequence[float], Tensor], confmat_shape: Tuple[int, ...]) -> None:
         if thresholds is None:
@@ -49,15 +50,14 @@ class _CurveBase(Metric):
                 "thresholds=None (the exact curve layout) is not ported yet: pass an int or a list of thresholds"
             )
         self.thresholds = _adjust_threshold_arg(thresholds, self.device)
+        # sorted once here, so that an update on the card adds no launch for it
+        self._thresholds_sorted, self._thresholds_order = _sort_thresholds(self.thresholds)
         # int32 cell counts: the weights are 0/1 ignore masks, so cells are integral
         self.add_state(
             "confmat",
             torch.zeros((self.thresholds.shape[0], *confmat_shape, 2, 2), dtype=torch.int32),
             dist_reduce_fx="sum",
         )
-
-    def _accumulate(self, state: State, binned: Tensor) -> State:
-        return {"confmat": state["confmat"] + binned.to(state["confmat"].dtype)}
 
 
 class MulticlassPrecisionRecallCurve(_CurveBase):
@@ -81,7 +81,11 @@ class MulticlassPrecisionRecallCurve(_CurveBase):
 
     def _update(self, state: State, preds: Tensor, target: Tensor) -> State:
         p, t, w = _multiclass_prc_format(self._tensor(preds), self._tensor(target), self.num_classes, self.ignore_index)
-        return self._accumulate(state, _binned_confmat_multiclass(p, t, w, self.thresholds, self.num_classes))
+        confmat = _binned_confmat_multiclass_accumulate(
+            state["confmat"], p, t, w, self.thresholds, self.num_classes,
+            (self._thresholds_sorted, self._thresholds_order),
+        )
+        return {"confmat": confmat}
 
     def _compute(self, state: State):
         confmat = state["confmat"]

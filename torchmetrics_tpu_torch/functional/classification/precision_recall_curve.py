@@ -5,9 +5,13 @@ This slice ports the binned layout (``thresholds`` an int or a list): the
 ``(T, C, 2, 2)`` one-vs-rest confusion counts. The exact layout
 (``thresholds=None``) waits for a later slice.
 
-``_binned_confmat_multiclass`` runs the CUDA kernel
-(``csrc/binned_confmat.cu``) for a CUDA tensor and its plain PyTorch version,
-:func:`_binned_confmat_multiclass_plain`, for a CPU tensor.
+The metric's update is :func:`_binned_confmat_multiclass_accumulate`, old
+int32 state + one formatted batch -> new state. For a CUDA tensor it is one
+call of the CUDA kernel (``csrc/binned_confmat.cu``), which bins each score
+once among the sorted thresholds and suffix-sums the bins; for a CPU tensor
+it is the plain PyTorch version, :func:`_binned_confmat_multiclass_accumulate_plain`.
+:func:`_binned_confmat_multiclass` gives one batch's float32 counts, as the
+JAX function does.
 """
 
 from __future__ import annotations
@@ -83,17 +87,30 @@ def _stack_confmat(tp: Tensor, pospred: Tensor, actpos: Tensor, total: Tensor) -
     return torch.stack([torch.stack([tn, fp], -1), torch.stack([fn, tp], -1)], -2)
 
 
+def _sort_thresholds(thresholds: Tensor) -> Tuple[Tensor, Tensor]:
+    """``(ascending thresholds, int32 index of each in ``thresholds``)``.
+
+    A stable sort: equal thresholds keep their order, NaNs go last (as
+    ``numpy.argsort(kind="stable")`` orders them). The kernel takes both.
+    """
+    values, order = torch.sort(thresholds, stable=True)
+    return values, order.to(torch.int32)
+
+
 def _binned_confmat_multiclass_plain(
     p: Tensor, target: Tensor, w: Tensor, thresholds: Tensor, num_classes: int
 ) -> Tensor:
-    """Plain PyTorch ``(T, C, 2, 2)`` float32 confusion counts.
+    """Plain PyTorch ``(T, C, 2, 2)`` float32 confusion counts of one batch.
 
     A transcription of the JAX function: ``tp`` is one (T, N) @ (N, C)
     product against the weighted one-hot, ``pospred`` contracts an
-    (N, C, T) comparison tensor with the weights.
+    (N, C, T) comparison tensor with the weights. A target outside
+    ``[0, C)`` has a zero one-hot row, so the row is a negative for every
+    class; its true-class score is read at a clamped index and counts
+    nowhere. The tests hold it equal to the JAX function, exactly.
     """
     ohw = one_hot(target, num_classes, p.dtype) * w[:, None]  # (N, C)
-    s = torch.gather(p, 1, target.long()[:, None])[:, 0]  # (N,) true-class score
+    s = torch.gather(p, 1, target.long().clamp(0, num_classes - 1)[:, None])[:, 0]  # (N,) true-class score
     pred_true = (s[:, None] >= thresholds[None, :]).to(p.dtype)  # (N, T)
     tp = pred_true.T @ ohw  # (T, C)
     cmp = (p[:, :, None] >= thresholds[None, None, :]).to(p.dtype)  # (N, C, T)
@@ -101,20 +118,57 @@ def _binned_confmat_multiclass_plain(
     return _stack_confmat(tp, pospred, ohw.sum(0), w.sum())
 
 
+def _binned_confmat_multiclass_accumulate_plain(
+    confmat: Tensor, p: Tensor, target: Tensor, w: Tensor, thresholds: Tensor, num_classes: int
+) -> Tensor:
+    """Plain PyTorch fused update: ``confmat`` + this batch's counts, int32.
+
+    The counts are float32 sums of 0/1 weights, exact integers below 2**24
+    rows a batch, as in the JAX package. The tests hold the new state equal
+    to the JAX function's counts added to the same int32 state, exactly.
+    """
+    return confmat + _binned_confmat_multiclass_plain(p, target, w, thresholds, num_classes).to(torch.int32)
+
+
+def _binned_confmat_multiclass_accumulate(
+    confmat: Tensor,
+    p: Tensor,
+    target: Tensor,
+    w: Tensor,
+    thresholds: Tensor,
+    num_classes: int,
+    sorted_thresholds: Optional[Tuple[Tensor, Tensor]] = None,
+) -> Tensor:
+    """New ``(T, C, 2, 2)`` int32 state: ``confmat`` + one formatted batch's counts.
+
+    ``state[t, c] = [[tn, fp], [fn, tp]]`` in the order of ``thresholds``;
+    ``confmat`` is only read. On a CUDA tensor it is one call of the
+    ``binned_confmat_multiclass`` kernel, which raises if it cannot launch;
+    ``sorted_thresholds`` is ``_sort_thresholds(thresholds)``, which a
+    metric computes once (sorted here when not given). On a CPU tensor it is
+    the plain version. The two are equal (``torch.equal``) on the card, in
+    ``chip_smoke.py``.
+    """
+    if p.device.type == "cpu":
+        return _binned_confmat_multiclass_accumulate_plain(confmat, p, target, w, thresholds, num_classes)
+    if p.ndim != 2 or p.shape[1] != num_classes:
+        raise ValueError(f"Expected scores for {num_classes} classes, got shape {tuple(p.shape)}")
+    if sorted_thresholds is None:
+        sorted_thresholds = _sort_thresholds(thresholds)
+    return binned_confmat_multiclass(confmat, p.contiguous(), target.contiguous(), w.contiguous(), *sorted_thresholds)
+
+
 def _binned_confmat_multiclass(
     p: Tensor, target: Tensor, w: Tensor, thresholds: Tensor, num_classes: int
 ) -> Tensor:
-    """``(T, C, 2, 2)`` float32 one-vs-rest threshold confusion counts.
+    """``(T, C, 2, 2)`` float32 one-vs-rest threshold confusion counts of one batch.
 
-    On a CUDA tensor the counts come from the ``binned_confmat_multiclass``
-    kernel, which raises if it cannot launch; on a CPU tensor from the plain
-    version.
+    The JAX function's contract, held equal to it exactly in the tests. On
+    a CPU tensor the plain version; on a CUDA tensor the fused kernel's
+    update of a zero state, cast to float32 (equal to the plain version,
+    ``torch.equal``, in ``chip_smoke.py``).
     """
     if p.device.type == "cpu":
         return _binned_confmat_multiclass_plain(p, target, w, thresholds, num_classes)
-    if p.shape[1] != num_classes:
-        raise ValueError(f"Expected scores for {num_classes} classes, got shape {tuple(p.shape)}")
-    tp, pospred, actpos = binned_confmat_multiclass(
-        p.contiguous(), target.contiguous(), w.contiguous(), thresholds.contiguous()
-    )
-    return _stack_confmat(tp, pospred, actpos, w.sum())
+    zeros = torch.zeros((thresholds.shape[0], num_classes, 2, 2), dtype=torch.int32, device=p.device)
+    return _binned_confmat_multiclass_accumulate(zeros, p, target, w, thresholds, num_classes).to(p.dtype)

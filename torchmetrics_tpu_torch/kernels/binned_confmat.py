@@ -1,16 +1,24 @@
 """Launcher of the ``binned_confmat_multiclass`` CUDA kernel (``csrc/binned_confmat.cu``).
 
-:func:`binned_confmat_multiclass` checks its inputs, launches the kernel on
-the current stream and counts its launches in
+:func:`binned_confmat_multiclass` is the fused binned-curve state update:
+it checks its inputs, enqueues the whole update (two kernels: the histogram
+and the epilogue) on the current stream with one call into the library, and
+counts its calls in
 ``binned_confmat_multiclass.launches``. It takes CUDA tensors only: the
 dispatch between the kernel and its plain PyTorch version, by the device of
-the input, is ``functional.classification.precision_recall_curve._binned_confmat_multiclass``.
+the input, is
+``functional.classification.precision_recall_curve._binned_confmat_multiclass_accumulate``.
+
+:func:`plan` is the launch geometry, kept in Python so that the CPU tests
+reach it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import functools
+import threading
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -18,82 +26,177 @@ from torch import Tensor
 from torchmetrics_tpu_torch.kernels._build import load_library
 
 SOURCE = "binned_confmat"
-_CLASS_TILE = 128  # kClassTile in the source
-_THR_TILE = 32  # kThrTile in the source
-_BLOCKS_PER_SM = 2  # rows are cut into chunks until the grid has about this many blocks per SM
+THREADS = 256  # kThreads in the source
+EPI_WARPS = 8  # kEpiWarps in the source: an epilogue block covers 32 classes x EPI_WARPS warps of bins
+GUIDE_MAX = 2048  # kGuideMax in the source: buckets of the search guide, at most
+CLASS_TILES = (128, 64, 32)  # classes a histogram block covers, widest first; 4 per thread
+HIST_BUDGET = 96 * 1024  # bytes of shared histogram a block may hold: two blocks fit on an SM
+MAX_THRESHOLDS = 16384  # the sorted thresholds sit in shared memory beside the bins
+MAX_ROWS = 2**31 - 1  # int32 counts and row indices
+_BLOCKS_PER_SM = 2
+_EPI_BLOCKS_PER_SM = 4  # epilogue blocks are 8 warps; its tail costs one load a segment above
 
 _sm_count: Dict[int, int] = {}
+_launch: Optional[ctypes._CFuncPtr] = None
+# histogram scratch by (device, stream, cells of a half): [two halves, the half the next launch adds into].
+# A launch adds into its half, which is zero, and zeroes the other; the lock keeps
+# the turns in the order the launches reach the stream.
+_scratch: Dict[Tuple[int, int, int], List] = {}
+_scratch_lock = threading.Lock()
+_MAX_SCRATCH = 16
+
+
+class Plan(NamedTuple):
+    tile_c: int  # classes of a histogram block
+    bins_per_range: int  # histogram bins of a block; T+1 bins need ceil((T+1) / bins_per_range) ranges
+    rows_per_block: int
+    grid: tuple  # the histogram kernel's (class tiles, row chunks, bin ranges)
+    bins_per_warp: int  # epilogue: bins of one warp
+    epilogue_grid: tuple  # (32-class tiles, bin segments)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(n_rows: int, n_classes: int, n_thr: int, sm_count: int) -> Plan:
+    """The launch geometry for an ``(n_rows, n_classes)`` batch and ``n_thr`` thresholds.
+
+    Histogram kernel: the widest class tile whose ``T+1`` bins fit the shared
+    budget; where even 32 classes cannot hold them, the bins split into
+    balanced ranges. Rows are cut into chunks until the grid has
+    ``_BLOCKS_PER_SM`` blocks per SM. Epilogue: bins are cut into segments of
+    ``EPI_WARPS * bins_per_warp`` until its grid has as many blocks, or each
+    warp holds one bin.
+    """
+    n_bins = n_thr + 1
+    slot_words = 0
+    for tile_c in CLASS_TILES:
+        slot_words = HIST_BUDGET // (4 * tile_c)  # int32 words of one class's bins
+        if n_bins | 1 <= slot_words:  # the source pads a class's bins to an odd count
+            break
+    ranges = _cdiv(n_bins, slot_words - 1)
+    per_range = _cdiv(n_bins, ranges)  # balanced ranges
+    class_tiles = _cdiv(n_classes, tile_c)
+    chunks = max(1, _cdiv(_BLOCKS_PER_SM * sm_count, class_tiles * ranges))
+    rows = max(n_rows, 1)
+    rows_per_block = max(1, rows // chunks)  # rounded down: at least `chunks` chunks
+    epi_tiles = _cdiv(n_classes, 32)
+    segments = max(1, _cdiv(_EPI_BLOCKS_PER_SM * sm_count, epi_tiles))
+    bins_per_warp = max(1, n_bins // (EPI_WARPS * segments))  # rounded down: at least `segments` segments
+    return Plan(
+        tile_c, per_range, rows_per_block, (class_tiles, _cdiv(rows, rows_per_block), ranges),
+        bins_per_warp, (epi_tiles, _cdiv(n_bins, EPI_WARPS * bins_per_warp)),
+    )
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _launch_fn() -> ctypes._CFuncPtr:
-    fn = load_library(SOURCE).binned_confmat_multiclass_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    global _launch
+    if _launch is None:
+        fn = load_library(SOURCE).binned_confmat_multiclass_launch
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _launch = fn
+    return _launch
 
 
-def _rows_per_block(device: torch.device, n_rows: int, n_classes: int, n_thr: int) -> int:
+def _sms(device: torch.device) -> int:
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _sm_count:
         _sm_count[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    tiles = -(-n_classes // _CLASS_TILE) * -(-n_thr // _THR_TILE)
-    chunks = max(1, -(-_BLOCKS_PER_SM * _sm_count[index] // tiles))
-    return max(1, -(-n_rows // chunks))
+    return _sm_count[index]
 
 
-def _check(name: str, x: Tensor, dtype: torch.dtype, ndim: int, device: torch.device) -> None:
-    if x.device != device:
-        raise ValueError(f"binned_confmat_multiclass: `{name}` is on {x.device}, expected {device}")
+def _check(name: str, x: Tensor, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:
     if x.dtype != dtype:
         raise ValueError(f"binned_confmat_multiclass: `{name}` has dtype {x.dtype}, expected {dtype}")
-    if x.ndim != ndim:
-        raise ValueError(f"binned_confmat_multiclass: `{name}` has {x.ndim} dims, expected {ndim}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"binned_confmat_multiclass: `{name}` has shape {tuple(x.shape)}, expected {shape}")
     if not x.is_contiguous():
         raise ValueError(f"binned_confmat_multiclass: `{name}` must be contiguous")
+    if x.device != device:
+        raise ValueError(f"binned_confmat_multiclass: `{name}` is on {x.device}, expected {device}")
 
 
 def binned_confmat_multiclass(
-    probs: Tensor, target: Tensor, weights: Tensor, thresholds: Tensor
-) -> Tuple[Tensor, Tensor, Tensor]:
-    """``(tp (T, C), pospred (T, C), actpos (C,))`` float32 counts, by the CUDA kernel.
+    confmat: Tensor, probs: Tensor, target: Tensor, weights: Tensor, sorted_thresholds: Tensor, order: Tensor
+) -> Tensor:
+    """New ``(T, C, 2, 2)`` int32 state: ``confmat`` plus this batch's counts, by the CUDA kernel.
+
+    ``state[t, c] = [[tn, fp], [fn, tp]]`` at the caller's threshold ``t``.
+    The result is a new tensor; ``confmat`` is only read. ``chip_smoke.py``
+    holds it equal (``torch.equal``, no tolerance) to
+    ``_binned_confmat_multiclass_accumulate_plain`` on the card.
 
     Args:
-        probs: ``(N, C)`` float32 scores.
-        target: ``(N,)`` int32 class labels.
-        weights: ``(N,)`` float32 row weights (the 0/1 ignore mask).
-        thresholds: ``(T,)`` float32, any order.
-    """
-    device = probs.device
-    if device.type != "cuda":
-        raise ValueError(f"binned_confmat_multiclass runs on CUDA tensors only, got one on {device}")
-    _check("probs", probs, torch.float32, 2, device)
-    _check("target", target, torch.int32, 1, device)
-    _check("weights", weights, torch.float32, 1, device)
-    _check("thresholds", thresholds, torch.float32, 1, device)
-    n_rows, n_classes = probs.shape
-    n_thr = thresholds.shape[0]
-    if target.shape[0] != n_rows or weights.shape[0] != n_rows:
-        raise ValueError(
-            f"binned_confmat_multiclass: probs has {n_rows} rows but target has {target.shape[0]} "
-            f"and weights {weights.shape[0]}"
-        )
-    if n_classes < 1 or n_thr < 1:
-        raise ValueError("binned_confmat_multiclass needs at least one class and one threshold")
-    if n_rows >= 2**24:
-        # float32 counts stay exact integers only below 2**24 rows a launch
-        raise ValueError(f"binned_confmat_multiclass takes fewer than 2**24 rows a launch, got {n_rows}")
+        confmat: ``(T, C, 2, 2)`` int32 state, 16-byte aligned.
+        probs: ``(N, C)`` float32 scores, ``N < 2**31``.
+        target: ``(N,)`` int32 class labels; one outside ``[0, C)`` makes the
+            row a negative for every class.
+        weights: ``(N,)`` float32 0/1 row mask (0 for ignored rows).
+        sorted_thresholds: ``(T,)`` float32, ascending, NaNs last
+            (``_sort_thresholds``).
+        order: ``(T,)`` int32, the caller's index of each sorted threshold.
 
-    out = torch.zeros((2 * n_thr + 1, n_classes), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        err = _launch_fn()(
-            probs.data_ptr(), target.data_ptr(), weights.data_ptr(), thresholds.data_ptr(), out.data_ptr(),
-            n_rows, n_classes, n_thr, _rows_per_block(device, n_rows, n_classes, n_thr),
-            torch.cuda.current_stream(device).cuda_stream,
+    Every check raises ``ValueError`` before anything is built or launched;
+    a CUDA error of the launch raises ``RuntimeError``.
+    """
+    if probs.ndim != 2:
+        raise ValueError(f"binned_confmat_multiclass: `probs` has {probs.ndim} dims, expected 2")
+    n_rows, n_classes = probs.shape
+    n_thr = sorted_thresholds.shape[0] if sorted_thresholds.ndim == 1 else -1
+    if n_classes < 1 or not 1 <= n_thr <= MAX_THRESHOLDS:
+        raise ValueError(
+            f"binned_confmat_multiclass needs at least one class and 1 to {MAX_THRESHOLDS} thresholds "
+            f"in one dimension, got {n_classes} classes and thresholds of shape {tuple(sorted_thresholds.shape)}"
         )
-    if err != 0:
-        raise RuntimeError(f"binned_confmat_multiclass: kernel launch failed with CUDA error {err}")
+    if n_rows > MAX_ROWS:
+        raise ValueError(f"binned_confmat_multiclass takes fewer than 2**31 rows a launch, got {n_rows}")
+    device = probs.device
+    _check("probs", probs, torch.float32, (n_rows, n_classes), device)
+    _check("target", target, torch.int32, (n_rows,), device)
+    _check("weights", weights, torch.float32, (n_rows,), device)
+    _check("sorted_thresholds", sorted_thresholds, torch.float32, (n_thr,), device)
+    _check("order", order, torch.int32, (n_thr,), device)
+    _check("confmat", confmat, torch.int32, (n_thr, n_classes, 2, 2), device)
+    if device.type != "cuda":
+        raise ValueError(f"binned_confmat_multiclass runs on CUDA tensors only, got them on {device}")
+    if confmat.data_ptr() % 16:
+        raise ValueError("binned_confmat_multiclass: `confmat` must be 16-byte aligned")
+
+    geometry = plan(n_rows, n_classes, n_thr, _sms(device))
+    new = torch.empty_like(confmat)
+    # a half: the two (T+1, C) histograms, their (S, C) epilogue segment sums, actpos (C,)
+    # and total, zeroed 16 bytes at a time
+    cells = 2 * (n_thr + 1) * n_classes + 2 * geometry.epilogue_grid[1] * n_classes + n_classes + 1
+    half = _cdiv(cells, 4) * 4
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with _scratch_lock:
+        key = (index, stream, half)
+        if key not in _scratch:
+            if len(_scratch) >= _MAX_SCRATCH:
+                del _scratch[next(iter(_scratch))]  # the oldest
+            _scratch[key] = [torch.zeros((2, half), dtype=torch.int32, device=device), 0]
+        buffers, turn = _scratch[key]
+        args = (
+            probs.data_ptr(), target.data_ptr(), weights.data_ptr(), sorted_thresholds.data_ptr(),
+            order.data_ptr(), confmat.data_ptr(), new.data_ptr(), buffers[turn].data_ptr(),
+            buffers[1 - turn].data_ptr(), n_rows, n_classes, n_thr, geometry.tile_c, geometry.bins_per_range,
+            geometry.rows_per_block, geometry.bins_per_warp, stream,
+        )
+        if index == torch.cuda.current_device():
+            err = _launch_fn()(*args)
+        else:
+            with torch.cuda.device(device):
+                err = _launch_fn()(*args)
+        if err != 0:
+            del _scratch[key]  # the halves may hold counts: the next launch starts from fresh zeros
+            raise RuntimeError(f"binned_confmat_multiclass: launch failed with CUDA error {err}")
+        _scratch[key][1] = 1 - turn
     binned_confmat_multiclass.launches += 1
-    return out[:n_thr], out[n_thr : 2 * n_thr], out[2 * n_thr]
+    return new
 
 
 binned_confmat_multiclass.launches = 0
