@@ -13,16 +13,20 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    (threshold grids up to 4000 with split bin ranges, duplicate, NaN and
    +-inf thresholds, non-finite scores, C % 4 != 0, out-of-range targets
    and ignored rows), from a random non-zero int32 state; the new states
-   must be exactly equal. Times are by CUDA events: per call of a run of
-   calls back to back, over copies of the inputs that overflow the L2 cache
-   (``time_stream_ms``), and for the kernel also one call after an L2 flush;
+   must be exactly equal. Times are CUDA-event medians of one call with the
+   L2 cache flushed before each (``time_ms``, the kernel record's ``ms`` and
+   ``plain_ms``); the kernel is also timed per call of a run of calls back to
+   back over copies of the inputs that overflow the L2 cache
+   (``time_stream_ms``, the record's ``stream_ms``), and beside it one
+   PyTorch kernel that reads the same scores (``probs.sum(0)``);
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
    samples x 1,000 classes in batches of 1,024, through ``update_state`` and
    ``compute_state``; every kernel of the path must have launched, and the
    first 4 batches rerun on the port's CPU path must give the same states;
-   the device operations of one profiled AUROC update are listed.
+   the device operations of one profiled AUROC update are listed with
+   their device times.
 
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -57,16 +61,13 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, flush: torch.Tensor, reps: int = 30, warmup: int = 3) -> float:
-    """Median device time of one call of ``fn`` in ms, by CUDA events around
-    it, the L2 cache flushed (a 256 MB write) before each rep. A spin of about
-    0.5 ms after the flush keeps the card busy while the host enqueues ``fn``."""
+    """Median device time of ``fn`` in ms, by CUDA events, L2 flushed before each rep."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(1_000_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -184,7 +185,7 @@ def phase_kernels(flush: torch.Tensor) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     unsorted37 = torch.rand((37,), generator=gen, device="cuda").tolist()
     nan, inf = float("nan"), float("inf")
-    # the finite range overflows float32 here, so the search guide has one bucket
+    # duplicates, NaN, +-inf, signed zeros and a finite span that overflows float32
     edge_list = [0.5, nan, 0.1, inf, -inf, 0.1, nan, 0.0, -0.0, 1.0, 0.9, 0.5, 0.05, -3e38, 3e38]
     cases = [  # (what, rows, classes, thresholds, share of zero weights, edits); the first is the main path's
         ("slice", BATCH, N_CLASSES, 20, 0.0, ()),
@@ -228,28 +229,28 @@ def phase_kernels(flush: torch.Tensor) -> dict:
         nops = n * c * math.ceil(math.log2(n_thr + 1)) + 2 * c * (n_thr + 1)
         bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_OPS_PER_S * 1e3
 
-        # times: back to back over copies of the inputs that overflow the L2
-        # cache (the kernel record's `ms`), and one call after an L2 flush
+        # times: one call after an L2 flush (the record's `ms` and `plain_ms`),
+        # and per call back to back over cold copies of the inputs (`stream_ms`)
+        fused = lambda s, p_, t_, w_: kbc.binned_confmat_multiclass(s, p_, t_, w_, sorted_thr, order)  # noqa: E731
+        kernel_ms = time_ms(lambda: fused(state, p, t, w), flush)
+        plain_ms = time_ms(lambda: prc._binned_confmat_multiclass_accumulate_plain(state, p, t, w, thr, c), flush)
+        read_ms = time_ms(lambda: p.sum(0), flush)  # one PyTorch kernel that reads the same scores once
         sets = [(state, p, t, w)] + [tuple(x.clone() for x in (state, p, t, w))
                                      for _ in range(copies_for(nbytes) - 1)]
-        fused = lambda s, p_, t_, w_: kbc.binned_confmat_multiclass(s, p_, t_, w_, sorted_thr, order)  # noqa: E731
-        plain = lambda s, p_, t_, w_: prc._binned_confmat_multiclass_accumulate_plain(s, p_, t_, w_, thr, c)  # noqa: E731
-        kernel_ms = time_stream_ms(fused, sets, calls=len(sets) * max(1, 96 // len(sets)))
-        plain_ms = time_stream_ms(plain, sets, calls=len(sets))
-        single_ms = time_ms(lambda: fused(state, p, t, w), flush)
+        stream_ms = time_stream_ms(fused, sets, calls=len(sets) * max(1, 96 // len(sets)))
         del sets
-        # after a hundred launches through the scratch's turns, still exact
+        # after the timed launches, each with its own scratch from the caching allocator, still exact
         check(torch.equal(fused(state, p, t, w), want), f"fused update differs after the timed launches ({label})")
         row = {
             "case": label, "n": n, "c": c, "t": n_thr, "max_abs_err": err, "plan": geometry._asdict(),
-            "ms": kernel_ms, "single_flushed_ms": single_ms, "plain_ms": plain_ms,
+            "ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms, "read_ms": read_ms,
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "ops": nops, "all_pairs_ops": 2 * n * c * n_thr, "library_ms": None,
         }
         print(
-            f"[kernel] binned_confmat_multiclass {label}: exact, fused update {kernel_ms:.4f} ms back to back "
-            f"({single_ms:.4f} ms alone after an L2 flush; tile {geometry.tile_c} classes, grid {geometry.grid}), "
-            f"plain {plain_ms:.4f} ms, "
+            f"[kernel] binned_confmat_multiclass {label}: exact, fused update {kernel_ms:.4f} ms after an L2 flush "
+            f"({stream_ms:.4f} ms a call back to back; tile {geometry.tile_c} classes, grid {geometry.grid}), "
+            f"plain {plain_ms:.4f} ms, probs.sum(0) {read_ms:.4f} ms, "
             f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {nbytes} bytes, {nops} ops; "
             f"{row['all_pairs_ops']} ops comparing every score with every threshold), library_ms: none"
         )
@@ -387,13 +388,13 @@ def phase_main_path(kernels) -> dict:
     print(f"[main] pipelined pass (no synchronize between updates): {pipelined_s:.4f} s, "
           f"{record['pipelined_samples_per_s']:.0f} samples/s; profiled pass: {busy}")
     print(f"[main] one profiled AUROC update_state runs {len(auroc_ops)} device operations: "
-          f"{[name[:60] for name in auroc_ops]}")
+          f"{[f'{name[:60]}: {us:.2f} us' for name, us in auroc_ops]}")
     return record
 
 
 def _profiled_update_ops(metric, state, args):
-    """Names of the device operations (kernels, memsets, copies) of one
-    ``update_state``, in launch order, by ``torch.profiler``."""
+    """``(name, device us)`` of each device operation (kernel, memset, copy)
+    of one ``update_state``, in launch order, by ``torch.profiler``."""
     metric.update_state(state, *args)
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -401,7 +402,7 @@ def _profiled_update_ops(metric, state, args):
         metric.update_state(state, *args)
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+    return [(e.name, e.time_range.elapsed_us()) for e in sorted(events, key=lambda e: e.time_range.start)]
 
 
 def _pipelined_pass(metrics, data):
@@ -461,7 +462,8 @@ def main() -> int:
         line["kernels"].append({
             "name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
             "launches": main["launches"][name], "max_abs_err": max(r["max_abs_err"] for r in kernel_rows[name]),
-            "ms": slice_row["ms"], "plain_ms": slice_row["plain_ms"], "bound_ms": slice_row["bound_ms"],
+            "ms": slice_row["ms"], "stream_ms": slice_row["stream_ms"], "plain_ms": slice_row["plain_ms"],
+            "bound_ms": slice_row["bound_ms"],
             "bound_by": slice_row["bound_by"], "library_ms": None,
         })
     if args.json:

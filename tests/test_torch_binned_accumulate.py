@@ -57,7 +57,7 @@ CASES = {
     "ragged_last_batch": (20, 848, 0.0, ()),
     "single_threshold": ([0.3], 40, 0.0, ()),
     "overflowing_range": ([0.5, -3e38, 0.1, 3e38, 0.2, 0.2, 0.9, INF], 96, 0.0, ("on_grid",)),
-    # a finite range so narrow (normal floats) that buckets / range overflows
+    # thresholds among the smallest normal floats, with both signed zeros
     "vanishing_range": ([1.5e-38, 0.0, 1.5e-38, -0.0, 1.2e-38], 96, 0.0, ("on_grid",)),
     "fine_list_1000": (1000, 64, 0.05, ("on_grid",)),
 }
@@ -111,31 +111,11 @@ def _emulate_kernel(state, p, target, w, thr):
     """The CUDA kernel's algorithm, step for step, in numpy."""
     sorted_thr, order = (x.numpy() for x in tprc._sort_thresholds(torch.from_numpy(thr)))
     n_thr, n_bins = len(thr), len(thr) + 1
-    # the block's search guide: buckets of a monotone float map of the finite range
-    buckets = min(1 << n_thr.bit_length(), kbc.GUIDE_MAX)
-    finite = np.nonzero(np.isfinite(sorted_thr))[0]
-    lo = sorted_thr[finite[0]] if len(finite) else np.float32(0)
-    with np.errstate(divide="ignore", over="ignore", invalid="ignore"):  # the span may overflow to inf
-        span = sorted_thr[finite[-1]] - lo if len(finite) else np.float32(0)
-        scale = np.float32(buckets) / span if span > 0 else np.float32(0)
-    scale = scale if scale <= np.finfo(np.float32).max else np.float32(0)
-
-    def bucket_of(x):
-        with np.errstate(invalid="ignore", over="ignore"):
-            t = (x - lo) * scale
-            b = np.where(t > 0, np.trunc(np.where(t > 0, t, 0)), 0)
-            return np.where(t >= np.float32(buckets - 1), buckets - 1, b).astype(np.int64)
-
-    thr_b = np.where(np.isnan(sorted_thr), buckets, bucket_of(sorted_thr))
-    start = np.searchsorted(thr_b, np.arange(buckets + 1), side="left")  # #{j : bucket_j < b}
     padded = np.append(sorted_thr, np.float32(np.nan))
-    fullest = int(np.diff(start).max())
-    top = 1 << ((fullest - 1).bit_length() - 1) if fullest > 1 else 0
-    # k = #{j : sorted_thr[j] <= p}: the packed first step at the bucket's start, then binary lifting
-    k = start[bucket_of(p)]
+    # k = #{j : sorted_thr[j] <= p} by binary lifting from 0, the largest power of two <= T first
+    k = np.zeros(p.shape, dtype=np.int64)
     with np.errstate(invalid="ignore"):
-        k = k + (padded[k] <= p)
-        step = top
+        step = 1 << (n_thr.bit_length() - 1)
         while step:
             k = k + np.where(padded[np.minimum(k + step - 1, n_thr)] <= p, step, 0)
             step >>= 1
@@ -334,11 +314,10 @@ PLAN_CASES = [  # (rows, classes, thresholds, tile_c, ranges)
 def test_launch_plan(rows, classes, n_thr, tile_c, ranges):
     geometry = kbc.plan(rows, classes, n_thr, H100_SMS)
     assert (geometry.tile_c, geometry.grid[2]) == (tile_c, ranges)
-    # shared memory of a block, as the source sizes it: the search guide (int2 a bucket), the bins
-    # padded to an odd count per class, the thresholds and a NaN after them
+    # shared memory of a block, as the source sizes it: the bins padded to an odd count per
+    # class, the thresholds and a NaN after them
     assert tile_c * (geometry.bins_per_range | 1) * 4 <= kbc.HIST_BUDGET
-    buckets = min(1 << n_thr.bit_length(), kbc.GUIDE_MAX)
-    assert (2 * (buckets + 1) + tile_c * (geometry.bins_per_range | 1) + n_thr + 1) * 4 <= 232_448  # 227 KB
+    assert (tile_c * (geometry.bins_per_range | 1) + n_thr + 1) * 4 <= 232_448  # 227 KB
     # the grid covers every class, row and bin, with balanced bin ranges
     x, y, z = geometry.grid
     assert x * tile_c >= classes > (x - 1) * tile_c

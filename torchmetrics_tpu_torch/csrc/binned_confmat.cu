@@ -36,8 +36,10 @@
 // What the design does about it:
 // - probs are read in 16-byte loads (float4) along a row when C % 4 == 0 and
 //   the base is 16-byte aligned, else in 4-byte loads with neighbouring lanes
-//   on neighbouring columns; each thread issues the loads of 4 rows before it
+//   on neighbouring columns; each thread starts the loads of 4 rows before it
 //   uses any of them, so every SM keeps many loads in flight;
+// - the 16 binary searches of a thread (4 rows x 4 columns) advance together,
+//   so their shared-memory loads overlap;
 // - counts are int32 histograms in shared memory (shared atomics; the slot of
 //   lane l, column j sits at (j * lanes + l) * odd_stride, so a warp's adds
 //   fall on 32 banks); a block flushes its non-zero bins to the global
@@ -48,30 +50,29 @@
 //   cannot hold T+1 bins, splits the bins into ranges over grid.z: a block
 //   keeps only the bins of its range and the global histogram holds them all;
 // - the grid is sized to at least 2 blocks per SM by cutting rows into chunks;
+// - the histogram kernel also sums its bins by epilogue segment, so an
+//   epilogue block reads one sum per segment above its own, not every bin;
 // - the epilogue gives 32 classes to a block, one per lane, and splits the
 //   bins among its 8 warps: each warp sums its bins, the block exchanges the
 //   sums in shared memory, and each warp walks its bins downward writing
-//   old + counts with 16-byte loads and stores, coalesced along C;
-// - the histogram scratch comes in two halves that take turns: each launch
-//   adds into the half the previous launch zeroed and zeroes the other, so no
-//   launch of its own clears it.
+//   old + counts with 16-byte loads and stores, coalesced along C. It is
+//   launched with programmatic dependent launch: it loads the old state while
+//   the histogram kernel still runs, and waits for it only before the counts.
 //
-// Device work of one update, all on the caller's stream: the histogram
-// kernel and the epilogue kernel.
+// Device work of one update, all on the caller's stream: a memset of the
+// scratch, the histogram kernel and the epilogue kernel.
 
 #include <cuda_runtime.h>
 
-#include <cfloat>
 #include <cstddef>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;    // histogram kernel: 8 warps
-constexpr int kRowsUnroll = 4;   // rows whose loads a thread issues before using any
-constexpr int kGuideMax = 2048;  // buckets of the search guide, at most
-constexpr int kEpiWarps = 8;     // epilogue: warps sharing the bins of 32 classes
-constexpr int kEpiGroup = 4;     // old state cells an epilogue thread loads together
+constexpr int kThreads = 256;   // histogram kernel: 8 warps
+constexpr int kRowsUnroll = 4;  // rows whose loads a thread starts before using any
+constexpr int kEpiWarps = 8;    // epilogue: warps sharing the bins of 32 classes
+constexpr int kEpiGroup = 4;    // old state cells an epilogue thread loads together
 
 // Programmatic dependent launch: a kernel launched with
 // cudaLaunchAttributeProgrammaticStreamSerialization may start while the
@@ -115,44 +116,27 @@ __device__ __forceinline__ void load_rows(Rows& r, const float* __restrict__ pro
   }
 }
 
-// The guide's bucket of x: floor((x - lo) * scale) clamped to [0, buckets).
-// Non-decreasing in x for every non-NaN x (IEEE subtraction and a product
-// with scale >= 0 are monotone), so a threshold in a lower bucket than a
-// score is <= the score, and one in a higher bucket is > it. A NaN product
-// (only from inf * 0 or a NaN score) goes to bucket 0.
-__device__ __forceinline__ int bucket_of(float x, float lo, float scale, int buckets) {
-  const float t = (x - lo) * scale;
-  return t >= static_cast<float>(buckets - 1) ? buckets - 1 : (t > 0.f ? static_cast<int>(t) : 0);
-}
-
 // Block (x, y, z): classes [x*tile_c, +tile_c), rows [y*rows_per_block, +rows_per_block),
 // bins [z*bins_per_range, +bins_per_range). tile_c / 4 lanes cover a row, 4 columns each.
-// Adds each kept score's weight to hpos[k][c]; blocks of range 0 also add the
-// true-class score to htp[k][c], the row to actpos[c] and, in class tile 0,
-// the row's weight to *total.
+// Adds each kept score's weight to hpos[k][c] and to its segment's sum
+// seg_pos[k / seg_bins][c]; blocks of range 0 also add the true-class score to
+// htp[k][c] and seg_tp, the row to actpos[c] and, in class tile 0, the row's
+// weight to *total.
 //
-// k = #{j : sorted_thr[j] <= p} comes from a guide built by each block in
-// shared memory: guide[b] = (start[b], sorted_thr[start[b]]) with start[b] =
-// #{j : bucket(thr[j]) < b}, NaN thresholds in no bucket. A score in bucket b
-// has k >= start[b] and k <= start[b+1]; one packed load and a compare settle
-// it when no bucket holds more than one threshold (a grid of up to
-// kGuideMax - 1 points, for one), and a binary search over at most the
-// fullest bucket settles it otherwise: ceil(log2(T+1)) steps at worst.
+// k = #{j : sorted_thr[j] <= p} by binary lifting over the sorted thresholds
+// in shared memory, a NaN after the last: ceil(log2(T+1)) steps.
 //
-// The scratch comes in two halves that take turns: this launch adds into one
-// (zero when it starts) and zeroes the other, which the previous launch used
-// and which the next one adds into. The kernel is launched in stream order
-// (no early start), so the previous launch's epilogue has read that half.
+// Launched in stream order, after the memset that zeroes the scratch.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 binned_hist_kernel(const float* __restrict__ probs, const int* __restrict__ target,
                    const float* __restrict__ weights, const float* __restrict__ sorted_thr,
                    int* __restrict__ hpos, int* __restrict__ htp, int* __restrict__ seg_pos,
                    int* __restrict__ seg_tp, int* __restrict__ actpos, int* __restrict__ total,
-                   int4* __restrict__ spare, size_t spare4, int n_rows, int n_classes, int n_thr, int buckets,
-                   int tile_c, int bins_per_range, int rows_per_block, int seg_bins) {
+                   int n_rows, int n_classes, int n_thr, int tile_c, int bins_per_range, int rows_per_block,
+                   int seg_bins) {
   extern __shared__ int smem[];
-  __shared__ int s_total, s_lo, s_hi, s_fullest;
+  __shared__ int s_total;
   const int lanes = tile_c / 4;
   const int rows_per_pass = kThreads / lanes;
   const int lane = threadIdx.x % lanes;
@@ -161,8 +145,7 @@ binned_hist_kernel(const float* __restrict__ probs, const int* __restrict__ targ
   const int bin_hi = min(bin_lo + bins_per_range, n_thr + 1);
   const int nb = bin_hi - bin_lo;
   const int nb_pad = nb | 1;  // odd: slot rows of neighbouring lanes start on other banks
-  int2* s_guide = reinterpret_cast<int2*>(smem);         // buckets + 1
-  int* s_hist = smem + 2 * (buckets + 1);                 // (tile_c slots, nb_pad)
+  int* s_hist = smem;         // (tile_c slots, nb_pad)
   float* s_thr = reinterpret_cast<float*>(s_hist + tile_c * (bins_per_range | 1));  // n_thr + 1, NaN last
   // 64-bit row indices: a chunk may end near 2**31 rows
   const long long row_begin = static_cast<long long>(blockIdx.y) * rows_per_block;
@@ -172,76 +155,22 @@ binned_hist_kernel(const float* __restrict__ probs, const int* __restrict__ targ
   const bool counts_rows = first_range && blockIdx.x == 0 && lane == 0;  // one thread a row adds to *total
 
   let_next_kernel_start();
-  // the first rows' loads go out before the guide is built, so their latency overlaps it
+  // the first rows' loads go out before the block fills its shared memory, so their latency overlaps it
   long long base = row_begin + threadIdx.x / lanes;
   Rows r;
   load_rows<kVec>(r, probs, target, weights, base, row_end, rows_per_pass, n_classes, c0, lane, lanes);
-  const size_t block = (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  const size_t n_blocks = static_cast<size_t>(gridDim.x) * gridDim.y * gridDim.z;
-  for (size_t i = block * kThreads + threadIdx.x; i < spare4; i += n_blocks * kThreads) {
-    spare[i] = make_int4(0, 0, 0, 0);
-  }
   for (int i = threadIdx.x; i <= n_thr; i += kThreads) {
     s_thr[i] = i < n_thr ? sorted_thr[i] : __int_as_float(0x7fc00000);  // NaN: never <= a score
   }
   for (int i = threadIdx.x; i < tile_c * nb_pad; i += kThreads) s_hist[i] = 0;
-  if (threadIdx.x == 0) {
-    s_total = 0;
-    s_lo = n_thr;
-    s_hi = -1;
-    s_fullest = 0;
-  }
+  if (threadIdx.x == 0) s_total = 0;
   __syncthreads();
-
-  // the finite thresholds span [sorted_thr[s_lo], sorted_thr[s_hi]]: -inf sort first, +inf and NaN last
-  for (int i = threadIdx.x; i < n_thr; i += kThreads) {
-    if (isfinite(s_thr[i])) {
-      if (i == 0 || !isfinite(s_thr[i - 1])) s_lo = i;
-      if (!isfinite(s_thr[i + 1])) s_hi = i;
-    }
-  }
-  __syncthreads();
-  const float lo = s_lo < n_thr ? s_thr[s_lo] : 0.f;
-  const float range = s_hi >= 0 ? s_thr[s_hi] - lo : 0.f;
-  float scale = range > 0.f ? static_cast<float>(buckets) / range : 0.f;
-  if (!(scale <= FLT_MAX)) scale = 0.f;  // an infinite range (or a denormal one): one bucket holds all
-  int top_all = 1;
-  while (top_all * 2 <= n_thr) top_all *= 2;
-  for (int b = threadIdx.x; b <= buckets; b += kThreads) {
-    int start = 0;  // #{j : bucket(thr[j]) < b}, a prefix of the sorted list
-    for (int step = top_all; step > 0; step >>= 1) {
-      const int j = start + step - 1;
-      if (j < n_thr) {
-        const float x = s_thr[j];
-        if (x == x && bucket_of(x, lo, scale, buckets) < b) start += step;
-      }
-    }
-    s_guide[b] = make_int2(start, __float_as_int(s_thr[start]));
-  }
-  __syncthreads();
-  int fullest = 0;
-  for (int b = threadIdx.x; b < buckets; b += kThreads) fullest = max(fullest, s_guide[b + 1].x - s_guide[b].x);
-  if (fullest > 1) atomicMax(&s_fullest, fullest);
-  __syncthreads();
-  // after the packed first step, at most fullest - 1 thresholds of the bucket are left
-  int top = 0;  // largest power of two <= s_fullest - 1: the steps then cover what is left
-  if (s_fullest > 1) {
-    top = 1;
-    while (top * 2 <= s_fullest - 1) top *= 2;
-  }
+  int top = 1;  // largest power of two <= T: the steps then cover k = 0 .. T
+  while (top * 2 <= n_thr) top *= 2;
 
   int my_total = 0;
   while (base < row_end) {
-    int k[kRowsUnroll][4];
-#pragma unroll
-    for (int u = 0; u < kRowsUnroll; ++u) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = r.v[u][j];
-        const int2 g = s_guide[bucket_of(p, lo, scale, buckets)];
-        k[u][j] = g.x + (__int_as_float(g.y) <= p ? 1 : 0);
-      }
-    }
+    int k[kRowsUnroll][4] = {};
     for (int step = top; step > 0; step >>= 1) {  // the 16 searches advance together
 #pragma unroll
       for (int u = 0; u < kRowsUnroll; ++u) {
@@ -452,41 +381,38 @@ cudaError_t launch_overlapped(void (*kernel)(Params...), dim3 grid, dim3 block, 
 template <bool kVec>
 cudaError_t launch_hist(dim3 grid, size_t smem, cudaStream_t stream, const float* probs, const int* target,
                         const float* weights, const float* sorted_thr, int* hpos, int* htp, int* seg_pos,
-                        int* seg_tp, int* actpos, int* total, int4* spare, size_t spare4, int n_rows, int n_classes,
-                        int n_thr, int buckets, int tile_c, int bins_per_range, int rows_per_block, int seg_bins) {
+                        int* seg_tp, int* actpos, int* total, int n_rows, int n_classes, int n_thr, int tile_c,
+                        int bins_per_range, int rows_per_block, int seg_bins) {
   if (smem > 48 * 1024) {  // above 48 KB only after opting in; a refused launch never runs
     const cudaError_t err = cudaFuncSetAttribute(binned_hist_kernel<kVec>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  // in stream order: everything before it on the stream has finished when it starts
+  // in stream order: the memset before it has finished when it starts
   binned_hist_kernel<kVec><<<grid, kThreads, smem, stream>>>(probs, target, weights, sorted_thr, hpos, htp, seg_pos,
-                                                            seg_tp, actpos, total, spare, spare4, n_rows, n_classes,
-                                                            n_thr, buckets, tile_c, bins_per_range, rows_per_block,
-                                                            seg_bins);
+                                                            seg_tp, actpos, total, n_rows, n_classes, n_thr, tile_c,
+                                                            bins_per_range, rows_per_block, seg_bins);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // One fused update on `stream`: new_state = old_state + the batch's counts.
-// `scratch` and `spare` are the two halves of the launcher's scratch, each of
-// 2 * (T+1) * C + 2 * S * C + C + 1 int32 rounded up to a multiple of 4, with
+// `scratch` holds 2 * (T+1) * C + 2 * S * C + C + 1 int32, with
 // S = ceil((T+1) / (kEpiWarps * bins_per_warp)) epilogue segments: the two
-// histograms, their segment sums, actpos and total. `scratch` must be zero
-// when the update starts on the stream; the update leaves `spare` zero (and
-// `scratch` not). `new_state` is written in full and may not alias
-// `old_state`. tile_c (128, 64 or 32), bins_per_range, rows_per_block and
-// the epilogue's bins_per_warp come from the launcher's plan. Two kernels:
-// the histogram, in stream order, and the epilogue, which may start while the
-// histogram kernel runs. Returns the first CUDA error (0 on success), checked
-// after each launch.
+// histograms, their segment sums, actpos and total; its contents on entry do
+// not matter. `new_state` is written in full and may not alias `old_state`.
+// tile_c (128, 64 or 32), bins_per_range, rows_per_block and the epilogue's
+// bins_per_warp come from the launcher's plan. Three device operations: a
+// memset of the scratch and the histogram kernel, in stream order, and the
+// epilogue, which may start while the histogram kernel runs. Returns the
+// first CUDA error (0 on success), checked after each.
 extern "C" int binned_confmat_multiclass_launch(const void* probs, const void* target, const void* weights,
                                                 const void* sorted_thr, const void* order, const void* old_state,
-                                                void* new_state, void* scratch, void* spare, int n_rows,
-                                                int n_classes, int n_thr, int tile_c, int bins_per_range,
-                                                int rows_per_block, int bins_per_warp, void* stream_ptr) {
+                                                void* new_state, void* scratch, int n_rows, int n_classes, int n_thr,
+                                                int tile_c, int bins_per_range, int rows_per_block, int bins_per_warp,
+                                                void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const size_t bin_cells = static_cast<size_t>(n_thr + 1) * n_classes;
   const int seg_bins = kEpiWarps * bins_per_warp;
@@ -498,27 +424,23 @@ extern "C" int binned_confmat_multiclass_launch(const void* probs, const void* t
   int* seg_tp = seg_pos + seg_cells;
   int* actpos = seg_tp + seg_cells;
   int* total = actpos + n_classes;
-  const size_t half4 = (2 * bin_cells + 2 * seg_cells + n_classes + 1 + 3) / 4;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, (2 * bin_cells + 2 * seg_cells + n_classes + 1) * sizeof(int), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
 
-  int buckets = 1;
-  while (buckets < n_thr + 1 && buckets < kGuideMax) buckets *= 2;
   const int ranges = (n_thr + 1 + bins_per_range - 1) / bins_per_range;
   const int chunks = n_rows > 0 ? (n_rows + rows_per_block - 1) / rows_per_block : 1;
   const dim3 grid((n_classes + tile_c - 1) / tile_c, chunks, ranges);
-  const size_t smem =
-      (2 * static_cast<size_t>(buckets + 1) + static_cast<size_t>(tile_c) * (bins_per_range | 1) + n_thr + 1) *
-      sizeof(int);
+  const size_t smem = (static_cast<size_t>(tile_c) * (bins_per_range | 1) + n_thr + 1) * sizeof(int);
   const bool vec = n_classes % 4 == 0 && reinterpret_cast<uintptr_t>(probs) % 16 == 0;
   const auto launch = vec ? &launch_hist<true> : &launch_hist<false>;
-  cudaError_t err = launch(grid, smem, stream, static_cast<const float*>(probs), static_cast<const int*>(target),
-                           static_cast<const float*>(weights), static_cast<const float*>(sorted_thr), hpos, htp,
-                           seg_pos, seg_tp, actpos, total, static_cast<int4*>(spare), half4, n_rows, n_classes, n_thr,
-                           buckets, tile_c, bins_per_range, rows_per_block, seg_bins);
+  err = launch(grid, smem, stream, static_cast<const float*>(probs), static_cast<const int*>(target),
+               static_cast<const float*>(weights), static_cast<const float*>(sorted_thr), hpos, htp, seg_pos, seg_tp,
+               actpos, total, n_rows, n_classes, n_thr, tile_c, bins_per_range, rows_per_block, seg_bins);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   err = launch_overlapped(binned_epilogue_kernel, dim3((n_classes + 31) / 32, segments), dim3(32 * kEpiWarps), 0,
-                          stream, hpos, htp, seg_pos, seg_tp, actpos, total, static_cast<const int*>(order),
-                          static_cast<const int4*>(old_state), static_cast<int4*>(new_state), n_classes, n_thr,
-                          bins_per_warp);
+                          stream, hpos, htp, seg_pos, seg_tp, actpos, total,
+                          static_cast<const int*>(order), static_cast<const int4*>(old_state),
+                          static_cast<int4*>(new_state), n_classes, n_thr, bins_per_warp);
   return static_cast<int>(err);
 }

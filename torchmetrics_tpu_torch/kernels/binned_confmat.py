@@ -1,9 +1,9 @@
 """Launcher of the ``binned_confmat_multiclass`` CUDA kernel (``csrc/binned_confmat.cu``).
 
 :func:`binned_confmat_multiclass` is the fused binned-curve state update:
-it checks its inputs, enqueues the whole update (two kernels: the histogram
-and the epilogue) on the current stream with one call into the library, and
-counts its calls in
+it checks its inputs, enqueues the whole update (a memset of its scratch,
+the histogram kernel and the epilogue kernel) on the current stream with
+one call into the library, and counts its calls in
 ``binned_confmat_multiclass.launches``. It takes CUDA tensors only: the
 dispatch between the kernel and its plain PyTorch version, by the device of
 the input, is
@@ -17,8 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import Tensor
@@ -28,7 +27,6 @@ from torchmetrics_tpu_torch.kernels._build import load_library
 SOURCE = "binned_confmat"
 THREADS = 256  # kThreads in the source
 EPI_WARPS = 8  # kEpiWarps in the source: an epilogue block covers 32 classes x EPI_WARPS warps of bins
-GUIDE_MAX = 2048  # kGuideMax in the source: buckets of the search guide, at most
 CLASS_TILES = (128, 64, 32)  # classes a histogram block covers, widest first; 4 per thread
 HIST_BUDGET = 96 * 1024  # bytes of shared histogram a block may hold: two blocks fit on an SM
 MAX_THRESHOLDS = 16384  # the sorted thresholds sit in shared memory beside the bins
@@ -38,12 +36,6 @@ _EPI_BLOCKS_PER_SM = 4  # epilogue blocks are 8 warps; its tail costs one load a
 
 _sm_count: Dict[int, int] = {}
 _launch: Optional[ctypes._CFuncPtr] = None
-# histogram scratch by (device, stream, cells of a half): [two halves, the half the next launch adds into].
-# A launch adds into its half, which is zero, and zeroes the other; the lock keeps
-# the turns in the order the launches reach the stream.
-_scratch: Dict[Tuple[int, int, int], List] = {}
-_scratch_lock = threading.Lock()
-_MAX_SCRATCH = 16
 
 
 class Plan(NamedTuple):
@@ -95,7 +87,7 @@ def _launch_fn() -> ctypes._CFuncPtr:
     global _launch
     if _launch is None:
         fn = load_library(SOURCE).binned_confmat_multiclass_launch
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
@@ -167,34 +159,25 @@ def binned_confmat_multiclass(
 
     geometry = plan(n_rows, n_classes, n_thr, _sms(device))
     new = torch.empty_like(confmat)
-    # a half: the two (T+1, C) histograms, their (S, C) epilogue segment sums, actpos (C,)
-    # and total, zeroed 16 bytes at a time
-    cells = 2 * (n_thr + 1) * n_classes + 2 * geometry.epilogue_grid[1] * n_classes + n_classes + 1
-    half = _cdiv(cells, 4) * 4
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with _scratch_lock:
-        key = (index, stream, half)
-        if key not in _scratch:
-            if len(_scratch) >= _MAX_SCRATCH:
-                del _scratch[next(iter(_scratch))]  # the oldest
-            _scratch[key] = [torch.zeros((2, half), dtype=torch.int32, device=device), 0]
-        buffers, turn = _scratch[key]
-        args = (
-            probs.data_ptr(), target.data_ptr(), weights.data_ptr(), sorted_thresholds.data_ptr(),
-            order.data_ptr(), confmat.data_ptr(), new.data_ptr(), buffers[turn].data_ptr(),
-            buffers[1 - turn].data_ptr(), n_rows, n_classes, n_thr, geometry.tile_c, geometry.bins_per_range,
-            geometry.rows_per_block, geometry.bins_per_warp, stream,
-        )
-        if index == torch.cuda.current_device():
+    # the two (T+1, C) histograms, their (S, C) epilogue segment sums, actpos (C,) and
+    # total; the launcher zeroes them on the stream before the histogram kernel
+    scratch = torch.empty(
+        (2 * (n_thr + 1) * n_classes + 2 * geometry.epilogue_grid[1] * n_classes + n_classes + 1,),
+        dtype=torch.int32, device=device,
+    )
+    args = (
+        probs.data_ptr(), target.data_ptr(), weights.data_ptr(), sorted_thresholds.data_ptr(), order.data_ptr(),
+        confmat.data_ptr(), new.data_ptr(), scratch.data_ptr(), n_rows, n_classes, n_thr, geometry.tile_c,
+        geometry.bins_per_range, geometry.rows_per_block, geometry.bins_per_warp,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if device.index in (None, torch.cuda.current_device()):
+        err = _launch_fn()(*args)
+    else:
+        with torch.cuda.device(device):
             err = _launch_fn()(*args)
-        else:
-            with torch.cuda.device(device):
-                err = _launch_fn()(*args)
-        if err != 0:
-            del _scratch[key]  # the halves may hold counts: the next launch starts from fresh zeros
-            raise RuntimeError(f"binned_confmat_multiclass: launch failed with CUDA error {err}")
-        _scratch[key][1] = 1 - turn
+    if err != 0:
+        raise RuntimeError(f"binned_confmat_multiclass: launch failed with CUDA error {err}")
     binned_confmat_multiclass.launches += 1
     return new
 
