@@ -19,6 +19,11 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    back over copies of the inputs that overflow the L2 cache
    (``time_stream_ms``, the record's ``stream_ms``), and beside it one
    PyTorch kernel that reads the same scores (``probs.sum(0)``);
+   ``coco_match``, the greedy COCO matcher, is held equal (``torch.equal``) to
+   its plain version at mAP's chunk (B=1024 items, D=128 detections, G=32
+   ground truths, A=4 area ranges, T=10 IoU thresholds) and at G=8, 64 and
+   256, thresholds of 1.0 over IoUs of exactly 1.0, all-crowd and
+   all-ignored items and rows of equal IoUs, timed the same way;
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
@@ -26,7 +31,26 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    ``compute_state``; every kernel of the path must have launched, and the
    first 4 batches rerun on the port's CPU path must give the same states;
    the device operations of one profiled AUROC update are listed with
-   their device times.
+   their device times;
+5. sync: the multi-device step. The same 50,000 x 1,000 scores, split over
+   the ranks in whole batches of 1,024 (the 848-row batch on the last rank),
+   go through a ``MetricCollection`` (``MulticlassAccuracy`` micro,
+   ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
+   ``MulticlassAveragePrecision(thresholds=None)``), one coalesced
+   ``sync_states`` and ``compute_states`` on every rank, in two worlds: NCCL
+   with one rank per card, and gloo with 4 ranks on card 0 (CUDA tensors).
+   Every rank's synced state must equal a single-process run over all
+   50,000 rows (integer leaves and the cat rows exactly), and AP be within
+   1e-6 of it; the collectives, bytes a bucket and sync time are printed;
+6. ragged: in the same two worlds, a different item count on every rank:
+   ``ROUGEScore`` over 1,000 seeded sentence pairs and
+   ``MeanAveragePrecision`` over a COCO-val2017-shaped seeded set (80
+   classes, about 7 ground truths and 100 detections an image, 5,000 images
+   unless ``--images`` cuts it), through ``sync_ragged_states`` and compute;
+   the item counts must survive and the results equal a single-process run.
+
+Phases 5 and 6 run each rank as a process of its own (this script with
+``--worker``); every kernel must have launched on the paths that run it.
 
 The line before the last is the kernel record (JSON); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -35,14 +59,18 @@ The line before the last is the kernel record (JSON); the last line is
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -434,41 +462,504 @@ def _pipelined_pass(metrics, data):
     return seconds, (device_us / 1e6 if device_us > 0 else None)
 
 
+# --------------------------------------------------------------- coco_match
+COCO_THRS = [0.5, 0.55, 0.6, 0.65, 0.7, 0.75, 0.8, 0.85, 0.9, 0.95]
+SM_CLOCK_HZ = 1.98e9  # H100 SXM boost clock
+DEP_OP_CYCLES = 4  # latency of one dependent FP32 operation, in cycles
+
+
+def _match_inputs(n_items, n_dets, n_gts, thrs, edits, gen):
+    """A padded matcher batch on the card: IoUs on a 0.05 grid (ties, and IoUs
+    on the thresholds), ~10 % crowd ground truths, per-area ignore masks, items
+    of 1..D real detections and 1..G real ground truths, padded rows of 0 and
+    some invalid rows of -inf."""
+    dev = torch.device("cuda")
+    n_areas = 4
+    ious = torch.round(torch.rand((n_items, n_dets, n_gts), generator=gen, device=dev) * 20) / 20
+    n_d = torch.randint(1, n_dets + 1, (n_items, 1), generator=gen, device=dev)
+    n_g = torch.randint(1, n_gts + 1, (n_items, 1), generator=gen, device=dev)
+    valid_d = torch.arange(n_dets, device=dev)[None, :] < n_d
+    valid_g = torch.arange(n_gts, device=dev)[None, :] < n_g
+    ious = torch.where(valid_d[:, :, None] & valid_g[:, None, :], ious, 0.0)
+    ious[torch.arange(0, n_items, 7, device=dev), n_dets - 1] = -float("inf")  # an invalid row of -inf
+    crowd = (torch.rand((n_items, n_gts), generator=gen, device=dev) < 0.1) & valid_g
+    ignored = crowd[:, None, :] | (torch.rand((n_items, n_areas, n_gts), generator=gen, device=dev) < 0.25)
+    if "one" in edits:  # IoUs of exactly 1.0, eligible at thr = 1.0
+        ones = torch.rand((n_items, n_dets, n_gts), generator=gen, device=dev) < 0.1
+        ious = torch.where(ones & valid_d[:, :, None] & valid_g[:, None, :], 1.0, ious)
+    if "crowd_ignored" in edits:  # whole items all crowd, or all ignored
+        crowd[0::2] = valid_g[0::2]
+        ignored[1::2] = True
+    if "ties" in edits:  # rows of equal IoUs: the last index must win
+        ious[:, ::2] = torch.where(valid_g[:, None, :], 0.7, 0.0)
+    thr = torch.tensor(thrs, dtype=torch.float32, device=dev)
+    return ious.contiguous(), crowd, ignored.contiguous(), valid_d, valid_g, thr
+
+
+def phase_matcher(flush: torch.Tensor) -> list:
+    from torchmetrics_tpu_torch.functional.detection.matcher import _match_batch_plain
+    from torchmetrics_tpu_torch.kernels import coco_match as kcm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    thr_one = COCO_THRS[:-1] + [1.0]
+    cases = [  # (what, items, detections, ground truths, thresholds, edits); the first is mAP's chunk
+        ("COCO chunk", 1024, 128, 32, COCO_THRS, ()),
+        ("G=8", 1024, 128, 8, COCO_THRS, ()),
+        ("G=64, two gts a lane", 1024, 128, 64, COCO_THRS, ()),
+        ("thr=1.0, IoUs of exactly 1.0", 1024, 128, 32, thr_one, ("one",)),
+        ("all-crowd and all-ignored items", 1024, 128, 32, COCO_THRS, ("crowd_ignored",)),
+        ("equal IoUs, last index wins", 1024, 128, 32, COCO_THRS, ("ties",)),
+        ("G=256, tile read from device memory", 256, 128, 256, COCO_THRS, ()),
+    ]
+    rows = []
+    for what, b, d, g, thrs, edits in cases:
+        args = _match_inputs(b, d, g, thrs, edits, gen)
+        a, t = args[2].shape[1], len(thrs)
+        label = f"{what} B={b} D={d} G={g} A={a} T={t}"
+        got = kcm.coco_match(*args)
+        want = _match_batch_plain(*args)
+        torch.cuda.synchronize()
+        mismatches = [int((x != y).sum()) for x, y in zip(got, want)]
+        check(all(torch.equal(x, y) for x, y in zip(got, want)), f"coco_match and plain differ ({label}): {mismatches}")
+        check(bool(want[0].any()) and not bool(want[0].all()), f"a degenerate case ({label})")
+        # least work: read the IoUs and the masks once, write both maps once; a
+        # compare and an argmax step per (b, a, t, d, g) of this batch's valid
+        # detections. The scan's chain: D dependent steps of a log2(G)-deep
+        # argmax and a carry update, at DEP_OP_CYCLES a dependent operation
+        nbytes = b * d * g * 4 + b * g * 2 + b * a * g + b * d + t * 4 + 2 * b * a * t * d
+        nops = 2 * a * t * g * int(args[3].sum())
+        bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_OPS_PER_S * 1e3
+        chain_ms = d * (math.ceil(math.log2(g)) + 2) * DEP_OP_CYCLES / SM_CLOCK_HZ * 1e3
+        kernel_ms = time_ms(lambda: kcm.coco_match(*args), flush)
+        plain_ms = time_ms(lambda: _match_batch_plain(*args), flush, reps=5, warmup=1)
+        sets = [args] + [tuple(x.clone() for x in args) for _ in range(copies_for(nbytes) - 1)]
+        stream_ms = time_stream_ms(kcm.coco_match, sets, calls=len(sets) * max(1, 48 // len(sets)))
+        del sets
+        row = {
+            "case": label, "max_abs_err": float(max(mismatches)), "ms": kernel_ms, "stream_ms": stream_ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "chain_ms": chain_ms,
+            "bytes": nbytes, "ops": nops, "library_ms": None,
+        }
+        print(
+            f"[kernel] coco_match {label}: exact, {kernel_ms:.4f} ms after an L2 flush "
+            f"({stream_ms:.4f} ms a call back to back), plain {plain_ms:.4f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
+            f"({row['bound_by']}: {nbytes} bytes, {nops} ops), dependent chain {chain_ms * 1e3:.2f} us, library_ms: none"
+        )
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------- phases 5 and 6: ranks
+WORLD_TIMEOUT_S = 420
+SYNC_METRICS = ("acc", "f1", "auroc", "ap")
+ROUGE_PAIRS, ROUGE_BATCH = 1_000, 50
+MAP_IMAGES, MAP_BATCH, MAP_CLASSES = 5_000, 100, 80  # COCO val2017: 5,000 images, 80 classes
+VOCAB = ("the a cat dog sat ran on in mat home fast slow red blue big small park street car tree man woman child "
+         "ball game over under near far house road sky water").split()
+
+
+def _rank_blocks(n_blocks: int, world: int, uneven: bool) -> list:
+    """Contiguous block ranges of each rank: even, or in proportion 1 : 2 : ... : world."""
+    weights = [r + 1 for r in range(world)] if uneven else [1] * world
+    bounds = [round(n_blocks * sum(weights[:r]) / sum(weights)) for r in range(world + 1)]
+    return [range(bounds[r], bounds[r + 1]) for r in range(world)]
+
+
+def _sync_collection(device):
+    from torchmetrics_tpu_torch.classification import (
+        MulticlassAccuracy, MulticlassAUROC, MulticlassAveragePrecision, MulticlassF1Score,
+    )
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({
+        "acc": MulticlassAccuracy(num_classes=N_CLASSES, average="micro", validate_args=False, device=device),
+        "f1": MulticlassF1Score(num_classes=N_CLASSES, average="macro", validate_args=False, device=device),
+        "auroc": MulticlassAUROC(num_classes=N_CLASSES, thresholds=20, validate_args=False, device=device),
+        "ap": MulticlassAveragePrecision(num_classes=N_CLASSES, thresholds=None, validate_args=False, device=device),
+    })
+
+
+def worker_sync(rank: int, world: int, device: torch.device) -> dict:
+    """Phase 5 on one rank: this rank's whole batches of the 50,000 x 1,000
+    set through the collection, one coalesced sync, compute; then the
+    single-process run over all 50,000 rows on this rank, to compare."""
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch.core.reductions import COLLECTIVES
+    from torchmetrics_tpu_torch.kernels.binned_confmat import binned_confmat_multiclass
+    from torchmetrics_tpu_torch.parallel.coalesce import plan_for_metrics
+
+    data = _main_path_data(torch.Generator(device=device).manual_seed(SEED))
+    batches = [b["cls"] for b in _batches(data)]
+    mine = _rank_blocks(len(batches), world, uneven=False)[rank]
+    col = _sync_collection(device)
+
+    binned_confmat_multiclass.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states = col.init_states()
+    for i in mine:
+        states = col.update_states(states, *batches[i])
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    plan = plan_for_metrics([col[k] for k in states], [states[k] for k in states])
+    dist.barrier()
+    before = dict(COLLECTIVES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    synced = col.sync_states(states)
+    torch.cuda.synchronize()
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    collectives = {k: v - before.get(k, 0) for k, v in COLLECTIVES.items() if v - before.get(k, 0)}
+    t0 = time.perf_counter()
+    values = col.compute_states(synced)
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    launches = binned_confmat_multiclass.launches
+
+    ref = col.init_states()
+    for b in batches:
+        ref = col.update_states(ref, *b)
+    ref_values = col.compute_states(ref)
+    leaves_equal = True
+    for name in states:
+        for leaf, want in ref[name].items():
+            got = synced[name][leaf]
+            if isinstance(want, tuple):  # rank after rank: the rows in the single-process order
+                want = torch.cat(want)
+                got = got[0] if len(got) == 1 else None
+            leaves_equal &= got is not None and got.dtype == want.dtype and torch.equal(got, want)
+    ap = synced["ap"]
+    return {
+        "rank": rank, "batches": len(mine), "rows": sum(batches[i][0].shape[0] for i in mine),
+        "launches": {"binned_confmat_multiclass": launches}, "update_s": update_s, "sync_ms": sync_ms,
+        "compute_ms": compute_ms, "collectives": collectives, "bucket_bytes": plan.bucket_bytes(),
+        "gathered_bytes": {k: ap[k][0].numel() * ap[k][0].element_size() for k in ("preds", "target", "weight")},
+        "ap_rows": ap["preds"][0].shape[0], "n": {k: int(v["_n"]) for k, v in synced.items()},
+        "leaves_equal": bool(leaves_equal), "values": {k: float(v) for k, v in values.items()},
+        "ref_values": {k: float(v) for k, v in ref_values.items()},
+    }
+
+
+def _sentence_pairs(n: int):
+    rng = np.random.default_rng(SEED + 3)
+    preds, target = [], []
+    for _ in range(n):
+        ref = list(rng.choice(VOCAB, int(rng.integers(6, 25))))
+        hyp = [w if rng.uniform() < 0.7 else str(rng.choice(VOCAB)) for w in ref]
+        if rng.uniform() < 0.3:
+            del hyp[int(rng.integers(0, len(hyp)))]
+        preds.append(" ".join(hyp))
+        target.append(" ".join(ref))
+    return preds, target
+
+
+def _coco_images(lo: int, hi: int):
+    """Images ``lo..hi-1`` of a COCO-val2017-shaped seeded set: 640 x 480
+    frames, 80 classes, about 7 ground truths an image (1% crowd), 100
+    detections an image: 60 % jittered copies of the ground truths, most with
+    their label, 40 % boxes anywhere; higher scores for the copies."""
+    preds, targets = [], []
+    for i in range(lo, hi):
+        rng = np.random.default_rng((SEED + 4, i))
+        n_gt = int(min(1 + rng.poisson(6), 50))
+        wh = np.exp(rng.uniform(np.log(8), np.log(400), (n_gt, 2)))
+        xy = rng.uniform(0, 1, (n_gt, 2)) * np.maximum(np.array([640, 480]) - wh, 1)
+        gt = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+        gl = rng.integers(0, MAP_CLASSES, n_gt).astype(np.int32)
+        n_copy = 60
+        src = rng.integers(0, n_gt, n_copy)
+        jitter = rng.normal(0, 0.1, (n_copy, 4)) * np.repeat(wh[src], 2, axis=1)
+        copies = gt[src] + jitter
+        dl_copy = np.where(rng.uniform(size=n_copy) < 0.85, gl[src], rng.integers(0, MAP_CLASSES, n_copy))
+        rwh = np.exp(rng.uniform(np.log(8), np.log(400), (100 - n_copy, 2)))
+        rxy = rng.uniform(0, 1, (100 - n_copy, 2)) * np.maximum(np.array([640, 480]) - rwh, 1)
+        boxes = np.concatenate([copies, np.concatenate([rxy, rxy + rwh], 1)]).astype(np.float32)
+        boxes[:, 2:] = np.maximum(boxes[:, 2:], boxes[:, :2] + 1)
+        labels = np.concatenate([dl_copy, rng.integers(0, MAP_CLASSES, 100 - n_copy)]).astype(np.int32)
+        scores = np.concatenate([rng.beta(4, 2, n_copy), rng.beta(2, 4, 100 - n_copy)]).astype(np.float32)
+        preds.append({"boxes": boxes, "scores": scores, "labels": labels})
+        targets.append({"boxes": gt, "labels": gl, "iscrowd": (rng.uniform(size=n_gt) < 0.01).astype(np.int32)})
+    return preds, targets
+
+
+def _on(device, items):
+    return [{k: torch.from_numpy(v).to(device) for k, v in d.items()} for d in items]
+
+
+def worker_ragged(rank: int, world: int, device: torch.device, n_images: int) -> dict:
+    """Phase 6 on one rank: ROUGE over its share of 1,000 sentence pairs and
+    mAP over its share of the images, a different count on every rank, through
+    the ragged sync and compute; then the single-process run to compare."""
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch.core.reductions import COLLECTIVES
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision
+    from torchmetrics_tpu_torch.kernels.coco_match import coco_match
+    from torchmetrics_tpu_torch.parallel import sync_ragged_states
+    from torchmetrics_tpu_torch.text import ROUGEScore
+
+    out = {"rank": rank}
+    preds, target = _sentence_pairs(ROUGE_PAIRS)
+    blocks = _rank_blocks(ROUGE_PAIRS // ROUGE_BATCH, world, uneven=True)
+    rouge = ROUGEScore(rouge_keys=("rouge1", "rougeL"), device=device)
+
+    def rouge_state(block_ids):
+        st = rouge.init_state()
+        for j in block_ids:
+            sl = slice(j * ROUGE_BATCH, (j + 1) * ROUGE_BATCH)
+            st = rouge.update_state(st, preds[sl], target[sl])
+        return st
+
+    st = rouge_state(blocks[rank])
+    dist.barrier()
+    t0 = time.perf_counter()
+    synced = sync_ragged_states(rouge._reductions, st)
+    out["rouge_sync_ms"] = (time.perf_counter() - t0) * 1e3
+    out["rouge_items"] = [v.shape[0] for v in synced["rouge1_fmeasure"]]
+    out["rouge"] = {k: float(v) for k, v in rouge.compute_state(synced).items()}
+    ref = rouge_state(range(ROUGE_PAIRS // ROUGE_BATCH))
+    out["rouge_ref"] = {k: float(v) for k, v in rouge.compute_state(ref).items()}
+    out["rouge_items_equal"] = all(
+        len(synced[k]) == len(ref[k]) and all(torch.equal(a, b.cpu()) for a, b in zip(synced[k], ref[k]))
+        for k in ref if k != "_n"
+    )
+
+    n_batches = -(-n_images // MAP_BATCH)
+    blocks = _rank_blocks(n_batches, world, uneven=True)
+    metric = MeanAveragePrecision(device=device)
+    ranges = {"detection_labels": (0, MAP_CLASSES - 1), "groundtruth_labels": (0, MAP_CLASSES - 1),
+              "groundtruth_crowds": (0, 1)}
+
+    def map_state(block_ids):
+        st = metric.init_state()
+        for j in block_ids:
+            p, t = _coco_images(j * MAP_BATCH, min((j + 1) * MAP_BATCH, n_images))
+            st = metric.update_state(st, _on(device, p), _on(device, t))
+        return st
+
+    st = map_state(blocks[rank])
+    out["images"] = len(st["detection_scores"])
+    coco_match.launches = 0
+    dist.barrier()
+    before = dict(COLLECTIVES)
+    t0 = time.perf_counter()
+    synced = sync_ragged_states(metric._reductions, st, value_ranges=ranges)
+    out["map_sync_ms"] = (time.perf_counter() - t0) * 1e3
+    out["map_collectives"] = {k: v - before.get(k, 0) for k, v in COLLECTIVES.items() if v - before.get(k, 0)}
+    out["map_items"] = len(synced["detection_scores"])
+    t0 = time.perf_counter()
+    value = metric.compute_state(synced)
+    torch.cuda.synchronize()
+    out["map_compute_s"] = time.perf_counter() - t0
+    out["launches"] = {"coco_match": coco_match.launches}
+    out["map"] = {k: float(v) for k, v in value.items() if v.numel() == 1 and k != "classes"}
+    ref = map_state(range(n_batches))
+    out["map_items_equal"] = all(
+        len(synced[k]) == len(ref[k]) and all(torch.equal(a, b.cpu()) for a, b in zip(synced[k], ref[k]))
+        for k in ref if k != "_n"
+    )
+    if rank == 0:  # the single-process value, once
+        t0 = time.perf_counter()
+        out["map_ref"] = {k: float(v) for k, v in metric.compute_state(ref).items() if v.numel() == 1 and k != "classes"}
+        out["map_ref_compute_s"] = time.perf_counter() - t0
+    return out
+
+
+def worker_main(args) -> int:
+    """One rank of a phase-5 or phase-6 world: ``--worker sync|ragged``."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    device = torch.device("cuda", args.rank if args.backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group(args.backend, init_method=args.init, rank=args.rank, world_size=args.world,
+                            timeout=datetime.timedelta(seconds=WORLD_TIMEOUT_S - 60))
+    try:
+        if args.worker == "sync":
+            result = worker_sync(args.rank, args.world, device)
+        else:
+            result = worker_ragged(args.rank, args.world, device, args.images)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(args.out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def run_world(phase: str, backend: str, world: int, images: int = 0) -> list:
+    """Run ``world`` ranks of ``phase`` in processes of their own; their results in rank order."""
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_{backend}_")
+    procs = []
+    for rank in range(world):
+        cmd = [sys.executable, os.path.abspath(__file__), "--worker", phase, "--backend", backend,
+               "--rank", str(rank), "--world", str(world), "--init", f"file://{tmp}/rendezvous",
+               "--out", f"{tmp}/rank{rank}.json", "--images", str(images)]
+        log = open(f"{tmp}/rank{rank}.log", "w")
+        procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + WORLD_TIMEOUT_S
+    failed = []
+    try:
+        for rank, (proc, _) in enumerate(procs):
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {rank} did not finish within {WORLD_TIMEOUT_S} s")
+                break
+            if proc.returncode:
+                failed.append(f"rank {rank} exited {proc.returncode}")
+    finally:
+        for proc, log in procs:  # stop every rank, whatever happened
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    if failed:
+        for rank in range(world):
+            with open(f"{tmp}/rank{rank}.log") as f:
+                print(f"--- {phase} {backend} rank {rank}:\n{f.read()[-3000:]}", file=sys.stderr)
+        check(False, f"{phase} world ({backend} x{world}): " + "; ".join(failed))
+    results = []
+    for rank in range(world):
+        with open(f"{tmp}/rank{rank}.json") as f:
+            results.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return results
+
+
+def _worlds() -> list:
+    """NCCL with one rank per card, and gloo with 4 ranks on card 0 (CUDA tensors)."""
+    return [("nccl", torch.cuda.device_count()), ("gloo", 4)]
+
+
+def phase_sync() -> dict:
+    record = {}
+    for backend, world in _worlds():
+        results = run_world("sync", backend, world)
+        label = f"{backend} x{world}"
+        rows = [r["rows"] for r in results]
+        check(sum(rows) == N_SAMPLES, f"[{label}] the ranks hold {rows} rows, not {N_SAMPLES} in all")
+        check(results[-1]["rows"] % BATCH == N_SAMPLES % BATCH, f"[{label}] the 848-row batch is not on the last rank")
+        first = results[0]
+        for r in results:
+            tag = f"[{label}] rank {r['rank']}"
+            check(r["leaves_equal"], f"{tag}: the synced states differ from the single-process run")
+            check(r["ap_rows"] == N_SAMPLES, f"{tag}: the AP cat state has {r['ap_rows']} rows")
+            check(set(r["n"].values()) == {-(-N_SAMPLES // BATCH)}, f"{tag}: synced update counts {r['n']}")
+            check(r["launches"]["binned_confmat_multiclass"] == r["batches"],
+                  f"{tag}: binned_confmat_multiclass launched {r['launches']} times for {r['batches']} batches")
+            for k, v in r["values"].items():
+                check(math.isfinite(v), f"{tag}: {k} = {v}")
+                tol = 1e-6 if k == "ap" else 0.0
+                check(abs(v - r["ref_values"][k]) <= tol, f"{tag}: {k} {v} vs single-process {r['ref_values'][k]}")
+                check(v == first["values"][k], f"{tag}: {k} differs from rank 0")
+        print(f"[sync] {label}: rows per rank {rows}; collectives {first['collectives']} "
+              f"(one all_reduce a bucket: {first['bucket_bytes']} bytes; AP's cat leaves gathered: "
+              f"{first['gathered_bytes']} bytes on every rank); sync {[round(r['sync_ms'], 3) for r in results]} ms, "
+              f"updates {[round(r['update_s'], 4) for r in results]} s, compute {[round(r['compute_ms'], 3) for r in results]} ms; "
+              f"values {first['values']} equal the single-process run")
+        record[label] = results
+    return record
+
+
+def phase_ragged(n_images: int) -> dict:
+    record = {}
+    for backend, world in _worlds():
+        results = run_world("ragged", backend, world, n_images)
+        label = f"{backend} x{world}"
+        first = results[0]
+        n_batches = -(-n_images // MAP_BATCH)
+        rouge_counts = [len(b) for b in _rank_blocks(ROUGE_PAIRS // ROUGE_BATCH, world, True)]
+        for r in results:
+            tag = f"[{label}] rank {r['rank']}"
+            check(r["rouge_items"] == [ROUGE_BATCH] * sum(rouge_counts), f"{tag}: ROUGE items {r['rouge_items']}")
+            check(r["rouge_items_equal"] and r["map_items_equal"], f"{tag}: synced items differ from the single process")
+            for k, v in r["rouge"].items():
+                check(abs(v - r["rouge_ref"][k]) <= 1e-6, f"{tag}: {k} {v} vs single-process {r['rouge_ref'][k]}")
+            check(r["map_items"] == n_images, f"{tag}: {r['map_items']} images after the sync, expected {n_images}")
+            check(r["map"] == first["map"], f"{tag}: mAP differs from rank 0")
+            check(r["launches"]["coco_match"] > 0, f"{tag}: coco_match never launched")
+        check(first["map"] == first["map_ref"], f"[{label}] mAP {first['map']} vs single-process {first['map_ref']}")
+        check(0.0 < first["map"]["map"] < 1.0, f"[{label}] mAP {first['map']['map']}")
+        images = [r["images"] for r in results]
+        check(sum(images) == n_images and (world == 1 or len(set(images)) == world), f"[{label}] images per rank {images}")
+        print(f"[ragged] {label}: ROUGE updates per rank {rouge_counts}, sync {[round(r['rouge_sync_ms'], 3) for r in results]} ms, "
+              f"{first['rouge']}; mAP images per rank {images} ({n_batches} batches of {MAP_BATCH}), sync "
+              f"{[round(r['map_sync_ms'], 3) for r in results]} ms, collectives {first['map_collectives']}, compute "
+              f"{[round(r['map_compute_s'], 3) for r in results]} s (single process {first['map_ref_compute_s']:.3f} s), "
+              f"coco_match launches {[r['launches']['coco_match'] for r in results]}; map {first['map']['map']:.6f}, "
+              f"map_50 {first['map']['map_50']:.6f}: equal to the single-process run")
+        record[label] = results
+    return record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--json", help="also write the full record to this file")
+    parser.add_argument("--images", type=int, default=MAP_IMAGES, help="images of the phase-6 mAP set")
+    for flag in ("--worker", "--backend", "--init", "--out"):  # one rank of a phase-5/6 world
+        parser.add_argument(flag, help=argparse.SUPPRESS)
+    for flag in ("--rank", "--world"):
+        parser.add_argument(flag, type=int, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU", file=sys.stderr)
         return 1
+    if args.worker:
+        return worker_main(args)
     sys.path.insert(0, REPO)
     from torchmetrics_tpu_torch.kernels.binned_confmat import binned_confmat_multiclass
+    from torchmetrics_tpu_torch.kernels.coco_match import coco_match
 
     kernels = [binned_confmat_multiclass]
-    sources = {"binned_confmat_multiclass": "torchmetrics_tpu_torch/csrc/binned_confmat.cu"}
-    replaces = {"binned_confmat_multiclass": "torchmetrics_tpu/functional/classification/precision_recall_curve.py:128"}
+    sources = {
+        "binned_confmat_multiclass": "torchmetrics_tpu_torch/csrc/binned_confmat.cu",
+        "coco_match": "torchmetrics_tpu_torch/csrc/coco_match.cu",
+    }
+    replaces = {
+        "binned_confmat_multiclass": "torchmetrics_tpu/functional/classification/precision_recall_curve.py:128",
+        "coco_match": "torchmetrics_tpu/functional/detection/matcher.py:29",
+    }
 
     device = phase_device()
     build_s = phase_build()
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB, past the 50 MB L2
     kernel_rows = phase_kernels(flush)
+    kernel_rows["coco_match"] = phase_matcher(flush)
     del flush
     main = phase_main_path(kernels)
+    sync = phase_sync()
+    if args.images != MAP_IMAGES:
+        print(f"[ragged] the mAP set is cut to {args.images} of COCO val2017's {MAP_IMAGES} images")
+    ragged = phase_ragged(args.images)
 
+    # launches of each kernel on the paths that run it: the eval step (phase 4),
+    # every rank of the sync worlds (phase 5) and of the ragged worlds (phase 6)
+    by_path = {
+        "binned_confmat_multiclass": {"eval": main["launches"]["binned_confmat_multiclass"]},
+        "coco_match": {},
+    }
+    for name, record in (("sync", sync), ("ragged", ragged)):
+        for label, results in record.items():
+            for kernel, count in ((k, sum(r["launches"][k] for r in results)) for k in results[0]["launches"]):
+                by_path[kernel][f"{name} {label}"] = count
     line = {"kernels": []}
-    for kernel in kernels:
-        name = kernel.__name__
-        slice_row = kernel_rows[name][0]  # the main path's shape
+    for name in ("binned_confmat_multiclass", "coco_match"):
+        first_row = kernel_rows[name][0]  # the main path's shape
+        check(all(n > 0 for n in by_path[name].values()) and by_path[name], f"{name} did not launch: {by_path[name]}")
         line["kernels"].append({
             "name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
-            "launches": main["launches"][name], "max_abs_err": max(r["max_abs_err"] for r in kernel_rows[name]),
-            "ms": slice_row["ms"], "stream_ms": slice_row["stream_ms"], "plain_ms": slice_row["plain_ms"],
-            "bound_ms": slice_row["bound_ms"],
-            "bound_by": slice_row["bound_by"], "library_ms": None,
+            "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
+            "max_abs_err": max(r["max_abs_err"] for r in kernel_rows[name]),
+            "ms": first_row["ms"], "stream_ms": first_row["stream_ms"], "plain_ms": first_row["plain_ms"],
+            "bound_ms": first_row["bound_ms"], "bound_by": first_row["bound_by"], "library_ms": None,
         })
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({"device": device, "build_s": build_s, "kernels": kernel_rows, "main_path": main}, f, indent=1)
+            json.dump({"device": device, "build_s": build_s, "kernels": kernel_rows, "main_path": main,
+                       "sync": sync, "ragged": ragged}, f, indent=1)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}}))
     return 0

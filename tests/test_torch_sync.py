@@ -1,0 +1,313 @@
+"""The port's cross-rank sync, held against the JAX package's mesh sync.
+
+One gloo world of 4 CPU ranks (``tests/helpers/torch_dist.py``) runs every
+rank check of this file once; the JAX references run in the parent, under
+``shard_map`` over 4 of the 8 virtual CPU devices that ``tests/conftest.py``
+provides, on the same numpy inputs: rank r's state is device r's.
+
+Tolerances: integer leaves exact and of JAX's dtype; float sums and means
+``rtol=1e-6`` (the ranks' float32 sum is taken in another order than
+XLA's); max, min, gathers and stacks exact. Cat states are compared as
+multisets of rows: JAX gathers each update's element over the mesh (rows
+interleave the devices per update), the port gathers each rank's rows once
+(rank after rank). AP from the synced state ``atol=1e-6``.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+
+from tests.helpers.torch_dist import run_world, worker_main
+from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassAveragePrecision, MulticlassF1Score
+from torchmetrics_tpu_torch.core.reductions import COLLECTIVES, Reduce, canonical_reduce, sync_leaf
+from torchmetrics_tpu_torch.parallel import (
+    build_sync_plan,
+    coalesced_sync_state,
+    distributed_available,
+    gather_all_arrays,
+    host_sync_state,
+    sharded_update,
+    sync_state,
+)
+
+WORLD = 4
+C = 8  # classes, as in __graft_entry__._dryrun_impl
+ROWS = 4  # rows a rank updates with, per update
+LEAVES = {  # name: (reduction, dtype, shape)
+    "sum_f": ("sum", np.float32, (3,)),
+    "sum_i": ("sum", np.int32, (2, 2)),
+    "mean_f": ("mean", np.float32, (4,)),
+    "mean_i": ("mean", np.int32, (3,)),
+    "max_f": ("max", np.float32, (5,)),
+    "min_i": ("min", np.int32, (2,)),
+    "cat_t": ("cat", np.float32, (2, 3)),
+    "none_t": ("none", np.float32, (2,)),
+    "fn": ("callable", np.float32, (3,)),
+}
+
+
+def _table(pkg):
+    """The reduction table; the callable is the per-element spread over the ranks."""
+    spread = (lambda x: x.amax(0) - x.amin(0)) if pkg == "torch" else (lambda x: x.max(0) - x.min(0))
+    return {k: (spread if r == "callable" else r) for k, (r, _, _) in LEAVES.items()}
+
+
+def _leaf_values(rank):
+    rng = np.random.default_rng(100 + rank)
+    out = {}
+    for name, (_, dtype, shape) in LEAVES.items():
+        out[name] = (rng.integers(-50, 50, shape) if dtype == np.int32 else rng.normal(size=shape)).astype(dtype)
+    out["_n"] = np.int32(1)
+    return out
+
+
+def _metric_batches(rank):
+    rng = np.random.default_rng(7 + rank)
+    out = []
+    for _ in range(2):  # two updates a rank
+        logits = rng.normal(size=(ROWS, C)).astype(np.float32)
+        logits[:, 3] = logits[:, 5]  # ties inside every row
+        probs = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+        out.append((probs.astype(np.float32), rng.integers(0, C, ROWS).astype(np.int32)))
+    return out
+
+
+def _port_metrics():
+    return {
+        "acc": MulticlassAccuracy(num_classes=C, average="micro", validate_args=False, device="cpu"),
+        "f1": MulticlassF1Score(num_classes=C, average="macro", validate_args=False, device="cpu"),
+        "ap": MulticlassAveragePrecision(num_classes=C, thresholds=None, validate_args=False, device="cpu"),
+    }
+
+
+def _rank_checks(rank, world, inputs):
+    """Everything one rank does; the parent compares the results."""
+    out = {"distributed": distributed_available()}
+    table = {k: canonical_reduce(v) for k, v in _table("torch").items()}
+    state = {k: torch.as_tensor(v) for k, v in _leaf_values(rank).items()}
+    before = Counter(COLLECTIVES)
+    out["coalesced"] = coalesced_sync_state(state, table)
+    out["collectives"] = dict(Counter(COLLECTIVES) - before)
+    plan = build_sync_plan([(table, state)])
+    out["plan"] = {
+        "n_collectives": plan.n_collectives, "n_shape_exchanges": plan.n_shape_exchanges,
+        "buckets": [(b.dtype, b.op, [s.name for s in b.slots]) for b in plan.buckets],
+        "passthrough": [name for _, name, _ in plan.passthrough],
+    }
+    out["per_leaf"] = {k: sync_leaf(table.get(k, Reduce.SUM), v) for k, v in state.items()}
+    out["host"] = host_sync_state(state, table)
+    out["sync_state"] = sync_state(state, table)
+
+    # uneven gathers: rows per rank differ, and a list state that is empty on rank 1
+    rng = np.random.default_rng(rank)
+    uneven = torch.from_numpy(rng.normal(size=(rank + 1, 3)).astype(np.float32))
+    items = tuple(torch.full((k + rank, 2), float(10 * rank + k)) for k in range(2 if rank != 1 else 0))
+    out["cat_uneven"] = sync_leaf(Reduce.CAT, uneven)
+    out["cat_list"] = sync_leaf(Reduce.CAT, items, torch.device("cpu"))
+    out["gathered"] = gather_all_arrays(torch.arange((rank + 1) * (4 - rank), dtype=torch.int32).reshape(rank + 1, 4 - rank))
+    try:
+        gather_all_arrays(uneven, group="subgroup")
+        out["group_refused"] = False
+    except ValueError:
+        out["group_refused"] = True
+
+    # the metric leg of __graft_entry__._dryrun_impl: update on this rank's shard, then sync
+    metrics = _port_metrics()
+    synced, values = {}, {}
+    for name, metric in metrics.items():
+        st = metric.init_state()
+        for probs, target in _metric_batches(rank):
+            st = metric.update_state(st, torch.from_numpy(probs), torch.from_numpy(target))
+        synced[name] = metric.sync_states(st)
+        values[name] = metric.compute_state(synced[name])
+    out["metric_states"], out["metric_values"] = synced, values
+    probs, target = inputs["shard_probs"][rank], inputs["shard_target"][rank]
+    out["sharded_update"] = sharded_update(metrics["acc"], torch.from_numpy(probs), torch.from_numpy(target))
+    return out
+
+
+# ------------------------------------------------------------------ parent side
+def _jax_mesh_sync(per_rank_states, fn):
+    """``fn(state)`` under shard_map over 4 devices, device r holding ``per_rank_states[r]``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from torchmetrics_tpu.core.compile import shard_map
+
+    mesh = Mesh(np.asarray(jax.devices()[:WORLD]), ("data",))
+    stacked = jax.tree.map(lambda *xs: jnp.stack([jnp.asarray(x) for x in xs]), *per_rank_states)
+    body = shard_map(lambda st: fn(jax.tree.map(lambda x: x[0], st)), mesh=mesh, in_specs=(P("data"),),
+                     out_specs=P(), check_vma=False)
+    return jax.tree.map(np.asarray, jax.jit(body)(stacked))
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    import jax.numpy as jnp
+
+    from torchmetrics_tpu import classification as jc
+    from torchmetrics_tpu.parallel import metric_mesh, sharded_update as jax_sharded_update
+    from torchmetrics_tpu.parallel.coalesce import bucketed_collective_count
+    from torchmetrics_tpu.parallel.sync import sync_state as jax_sync_state
+
+    rng = np.random.default_rng(3)
+    probs = rng.dirichlet(np.ones(C), size=4 * WORLD).astype(np.float32)
+    target = rng.integers(0, C, 4 * WORLD).astype(np.int32)
+    inputs = {"shard_probs": np.split(probs, WORLD), "shard_target": np.split(target, WORLD)}
+    results = run_world(__file__, inputs, tmp_path_factory.mktemp("sync_world"), WORLD)
+
+    table = _table("jax")
+    leaf_states = [_leaf_values(r) for r in range(WORLD)]
+    ref = {"leaves": _jax_mesh_sync(leaf_states, lambda st: jax_sync_state(st, table, "data"))}
+    ref["count"] = bucketed_collective_count(table, {k: jnp.asarray(v) for k, v in leaf_states[0].items()})
+
+    jmetrics = {
+        "acc": jc.MulticlassAccuracy(num_classes=C, average="micro", validate_args=False),
+        "f1": jc.MulticlassF1Score(num_classes=C, average="macro", validate_args=False),
+        "ap": jc.MulticlassAveragePrecision(num_classes=C, thresholds=None, validate_args=False),
+    }
+    ref["metric_states"], ref["metric_values"] = {}, {}
+    for name, m in jmetrics.items():
+        states = []
+        for r in range(WORLD):
+            st = m.init_state()
+            for p, t in _metric_batches(r):
+                st = m.update_state(st, jnp.asarray(p), jnp.asarray(t))
+            states.append(st)
+        synced = _jax_mesh_sync(states, lambda st, m=m: m.sync_states(st, "data"))
+        ref["metric_states"][name] = synced
+        ref["metric_values"][name] = np.asarray(m.compute_state(jax_like(synced)))
+    mesh = metric_mesh(WORLD)
+    ref["sharded_update"] = jax_sharded_update(jmetrics["acc"], jnp.asarray(probs), jnp.asarray(target), mesh=mesh)
+    return results, ref
+
+
+def jax_like(state):
+    import jax.numpy as jnp
+
+    return {k: (tuple(jnp.asarray(x) for x in v) if isinstance(v, tuple) else jnp.asarray(v)) for k, v in state.items()}
+
+
+def _assert_leaf(got, want, name):
+    got = got.numpy()
+    want = np.asarray(want)
+    assert got.dtype == want.dtype, (name, got.dtype, want.dtype)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    if np.issubdtype(want.dtype, np.floating) and name in ("sum_f", "mean_f"):
+        np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=name)
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def test_every_rank_saw_the_world(world):
+    results, _ = world
+    assert [r["distributed"] for r in results] == [True] * WORLD
+
+
+@pytest.mark.parametrize("leaf", list(LEAVES) + ["_n"])
+def test_coalesced_sync_matches_jax(world, leaf):
+    results, ref = world
+    for r in results:
+        _assert_leaf(r["coalesced"][leaf], ref["leaves"][leaf], leaf)
+
+
+@pytest.mark.parametrize("path", ["per_leaf", "host", "sync_state"])
+def test_other_sync_paths_equal_the_coalesced_sync(world, path):
+    results, _ = world
+    for r in results:
+        assert set(r[path]) == set(r["coalesced"])
+        for k, v in r["coalesced"].items():
+            assert r[path][k].dtype == v.dtype
+            torch.testing.assert_close(r[path][k], v, rtol=1e-6, atol=0)
+
+
+def test_collective_count_matches_jax_bucket_count(world):
+    results, ref = world
+    for r in results:
+        plan, counts = r["plan"], r["collectives"]
+        assert plan["n_collectives"] == ref["count"]
+        assert counts["all_reduce"] + counts["all_gather"] == ref["count"]
+        assert counts["shape_gather"] == plan["n_shape_exchanges"] == 3  # cat, none, callable
+        # the int32 sum bucket carries `_n`; the int MEAN passes through (it comes back float32)
+        assert plan["buckets"] == [
+            ("float32", "max", ["max_f"]), ("float32", "sum", ["sum_f", "mean_f"]),
+            ("int32", "min", ["min_i"]), ("int32", "sum", ["sum_i", "_n"]),
+        ]
+        assert plan["passthrough"] == ["mean_i", "cat_t", "none_t", "fn"]
+
+
+def test_uneven_cat_gathers_in_rank_order(world):
+    results, _ = world
+    want = np.concatenate([np.random.default_rng(r).normal(size=(r + 1, 3)).astype(np.float32) for r in range(WORLD)])
+    want_items = [np.full((k + r, 2), float(10 * r + k), np.float32) for r in range(WORLD) for k in range(2 if r != 1 else 0)]
+    for r in results:
+        np.testing.assert_array_equal(r["cat_uneven"].numpy(), want)
+        assert isinstance(r["cat_list"], tuple) and len(r["cat_list"]) == 1
+        np.testing.assert_array_equal(r["cat_list"][0].numpy(), np.concatenate(want_items))
+
+
+def test_gather_all_arrays_pads_and_trims_every_dim(world):
+    results, _ = world
+    for r in results:
+        assert r["group_refused"]
+        for rank, g in enumerate(r["gathered"]):
+            assert tuple(g.shape) == (rank + 1, 4 - rank) and g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy().ravel(), np.arange((rank + 1) * (4 - rank)))
+
+
+def _rows(state):
+    """A cat state's (preds | target | weight) rows, sorted: the multiset of rows."""
+    cat = [np.concatenate([np.asarray(x) for x in state[k]]) for k in ("preds", "target", "weight")]
+    rows = np.concatenate([cat[0], cat[1][:, None].astype(np.float32), cat[2][:, None]], axis=1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+@pytest.mark.parametrize("name", ["acc", "f1", "ap"])
+def test_metric_sync_matches_jax(world, name):
+    results, ref = world
+    want = ref["metric_states"][name]
+    for r in results:
+        got = r["metric_states"][name]
+        assert set(got) == set(want)
+        assert int(got["_n"]) == WORLD * 2 and got["_n"].dtype == torch.int32
+        if name == "ap":
+            assert got["preds"][0].shape == (2 * ROWS * WORLD, C)  # every rank's rows
+            np.testing.assert_array_equal(_rows(got), _rows(want))
+        else:
+            for k, w in want.items():
+                _assert_leaf(got[k], w, k)
+        np.testing.assert_allclose(r["metric_values"][name].numpy(), ref["metric_values"][name], atol=1e-6)
+
+
+def test_sharded_update_matches_jax(world):
+    results, ref = world
+    for r in results:
+        for k, w in ref["sharded_update"].items():
+            _assert_leaf(r["sharded_update"][k], w, k)
+
+
+def test_one_rank_sync_applies_the_reductions():
+    state = {"m": torch.tensor([1, 2], dtype=torch.int32), "s": torch.ones(2), "_n": torch.tensor(1, dtype=torch.int32)}
+    out = sync_state(state, {"m": "mean", "s": "sum"})
+    assert out["m"].dtype == torch.float32 and out["m"].tolist() == [1.0, 2.0]
+    assert torch.equal(out["s"], state["s"]) and int(out["_n"]) == 1
+    assert not distributed_available()
+
+
+def test_deferred_options_raise():
+    state = {"s": torch.ones(2), "_n": torch.tensor(1, dtype=torch.int32)}
+    for kwargs in ({"compression": object()}, {"weight": torch.tensor(1.0)}, {"shardings": {"s": 0}}):
+        with pytest.raises(NotImplementedError):
+            coalesced_sync_state(state, {"s": "sum"}, **kwargs)
+    with pytest.raises(NotImplementedError):
+        sharded_update(MulticlassAccuracy(num_classes=3, device="cpu"), torch.tensor([0]), torch.tensor([0]),
+                       verify_consistency=True)
+
+
+if __name__ == "__main__":
+    worker_main(_rank_checks)

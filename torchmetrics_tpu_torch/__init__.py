@@ -9,10 +9,12 @@ It imports ``torch`` and ``numpy`` only: never ``jax``, and nothing from
 from torchmetrics_tpu_torch.classification import (
     AUROC,
     Accuracy,
+    AveragePrecision,
     F1Score,
     FBetaScore,
     MulticlassAccuracy,
     MulticlassAUROC,
+    MulticlassAveragePrecision,
     MulticlassF1Score,
     MulticlassFBetaScore,
     MulticlassPrecisionRecallCurve,
@@ -20,18 +22,22 @@ from torchmetrics_tpu_torch.classification import (
     PrecisionRecallCurve,
     StatScores,
 )
+from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.core.metric import Metric
 from torchmetrics_tpu_torch.regression import MeanSquaredError
 
 __all__ = [
     "AUROC",
     "Accuracy",
+    "AveragePrecision",
     "F1Score",
     "FBetaScore",
     "MeanSquaredError",
     "Metric",
+    "MetricCollection",
     "MulticlassAUROC",
     "MulticlassAccuracy",
+    "MulticlassAveragePrecision",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
     "MulticlassPrecisionRecallCurve",

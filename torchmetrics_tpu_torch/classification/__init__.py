@@ -2,6 +2,7 @@
 
 from torchmetrics_tpu_torch.classification.accuracy import Accuracy, MulticlassAccuracy
 from torchmetrics_tpu_torch.classification.auroc import AUROC, MulticlassAUROC
+from torchmetrics_tpu_torch.classification.average_precision import AveragePrecision, MulticlassAveragePrecision
 from torchmetrics_tpu_torch.classification.f_beta import F1Score, FBetaScore, MulticlassF1Score, MulticlassFBetaScore
 from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     MulticlassPrecisionRecallCurve,
@@ -12,10 +13,12 @@ from torchmetrics_tpu_torch.classification.stat_scores import MulticlassStatScor
 __all__ = [
     "AUROC",
     "Accuracy",
+    "AveragePrecision",
     "F1Score",
     "FBetaScore",
     "MulticlassAUROC",
     "MulticlassAccuracy",
+    "MulticlassAveragePrecision",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
     "MulticlassPrecisionRecallCurve",

@@ -34,6 +34,11 @@ class MulticlassAUROC(MulticlassPrecisionRecallCurve):
 
     def __init__(self, num_classes: int, average: Optional[str] = "macro", thresholds=None,
                  ignore_index=None, validate_args: bool = True, **kwargs: Any) -> None:
+        if thresholds is None:
+            raise NotImplementedError(
+                "MulticlassAUROC(thresholds=None), the exact AUROC, is not ported yet: pass an int or a list "
+                "of thresholds"
+            )
         super().__init__(num_classes=num_classes, thresholds=thresholds, average=None,
                          ignore_index=ignore_index, validate_args=validate_args, **kwargs)
         self.average_auroc = average

@@ -1,9 +1,11 @@
-"""Multiclass precision-recall curve, binned layout.
+"""Multiclass precision-recall curve, exact and binned layouts.
 
 Counterpart of ``torchmetrics_tpu/classification/precision_recall_curve.py``.
-With ``thresholds`` given (an int or a list), the state is the binned
-``(T, C, 2, 2)`` int32 confusion tensor, ``sum``-reduced. The exact layout
-(``thresholds=None``) and the sketch layout wait for a later slice.
+With ``thresholds=None`` (exact) the state is three ``cat`` lists of the
+formatted batches: ``preds`` ``(N, C)`` float32, ``target`` ``(N,)`` int32
+and ``weight`` ``(N,)`` float32. With ``thresholds`` given (an int or a
+list) it is the binned ``(T, C, 2, 2)`` int32 confusion tensor,
+``sum``-reduced. The sketch layout waits for a later slice.
 
 Example::
 
@@ -29,15 +31,17 @@ from torchmetrics_tpu_torch.core.metric import Metric, State
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
     _adjust_threshold_arg,
     _binned_confmat_multiclass_accumulate,
+    _multiclass_exact_curves,
     _multiclass_prc_format,
     _sort_thresholds,
     _validate_thresholds,
 )
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide
+from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
 
 
 class _CurveBase(Metric):
-    """Shared state handling for the curve metrics (binned layout)."""
+    """Shared state handling for the curve metrics (exact and binned layouts)."""
 
     is_differentiable = False
     higher_is_better = None
@@ -45,11 +49,12 @@ class _CurveBase(Metric):
     _device_attrs = ("thresholds", "_thresholds_sorted", "_thresholds_order")
 
     def _init_curve_state(self, thresholds: Union[int, Sequence[float], Tensor], confmat_shape: Tuple[int, ...]) -> None:
-        if thresholds is None:
-            raise NotImplementedError(
-                "thresholds=None (the exact curve layout) is not ported yet: pass an int or a list of thresholds"
-            )
         self.thresholds = _adjust_threshold_arg(thresholds, self.device)
+        if self.thresholds is None:
+            self._thresholds_sorted = self._thresholds_order = None
+            for name in ("preds", "target", "weight"):
+                self.add_state(name, [], dist_reduce_fx="cat")
+            return
         # sorted once here, so that an update on the card adds no launch for it
         self._thresholds_sorted, self._thresholds_order = _sort_thresholds(self.thresholds)
         # int32 cell counts: the weights are 0/1 ignore masks, so cells are integral
@@ -81,13 +86,21 @@ class MulticlassPrecisionRecallCurve(_CurveBase):
 
     def _update(self, state: State, preds: Tensor, target: Tensor) -> State:
         p, t, w = _multiclass_prc_format(self._tensor(preds), self._tensor(target), self.num_classes, self.ignore_index)
+        if self.thresholds is None:
+            return {"preds": state["preds"] + (p,), "target": state["target"] + (t,), "weight": state["weight"] + (w,)}
         confmat = _binned_confmat_multiclass_accumulate(
             state["confmat"], p, t, w, self.thresholds, self.num_classes,
             (self._thresholds_sorted, self._thresholds_order),
         )
         return {"confmat": confmat}
 
+    def _exact_state(self, state: State) -> Tuple[Tensor, Tensor, Tensor]:
+        return dim_zero_cat(state["preds"]), dim_zero_cat(state["target"]), dim_zero_cat(state["weight"])
+
     def _compute(self, state: State):
+        if self.thresholds is None:  # per-class lists, as the JAX metric returns them
+            curves = [c for _, c in _multiclass_exact_curves(*self._exact_state(state), self.num_classes)]
+            return tuple([row for c in curves for row in c[i]] for i in range(3))
         confmat = state["confmat"]
         tp = confmat[:, :, 1, 1]
         fp = confmat[:, :, 0, 1]

@@ -8,6 +8,7 @@ functional core (pure: returns new states, never writes into one):
     ``update_state(state, *inputs) -> State``
     ``compute_state(state) -> result``
     ``merge_states(a, b) -> State``
+    ``sync_states(state) -> State`` (over ``torch.distributed``'s default group)
 
 facade:
     ``update / compute / forward / reset / clone / state_dict / load_state_dict``
@@ -32,6 +33,7 @@ Example::
 
 from __future__ import annotations
 
+import inspect
 from copy import deepcopy
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
@@ -176,6 +178,27 @@ class Metric:
         out[_N] = a[_N] + b[_N]
         return out
 
+    def sync_states(self, state: State, compression: Optional[Any] = None, weight: Optional[Any] = None) -> State:
+        """Cross-rank sync over the default process group (pure).
+
+        One ``all_reduce`` per (dtype, op) bucket of the reduction table
+        (:func:`torchmetrics_tpu_torch.parallel.coalesce.coalesced_sync_state`);
+        the ``_n`` counter rides the int32 sum bucket, so after one update on
+        every rank it equals the world size. A synced CAT list state is one
+        tensor of every rank's rows in rank order (the reference's order; the
+        JAX package interleaves the devices per update). ``compression`` and
+        ``weight`` are not ported yet.
+        """
+        from torchmetrics_tpu_torch.parallel.coalesce import coalesced_sync_state
+
+        sub: State = {name: state[name] for name in self._reductions}
+        sub[_N] = state[_N]
+        return coalesced_sync_state(sub, self._reductions, compression=compression, weight=weight)
+
+    def host_sync_states(self, state: State) -> State:
+        """:meth:`sync_states`: ``torch.distributed`` is already cross-process."""
+        return self.sync_states(state)
+
     # ------------------------------------------------------- subclass contract
     def _update(self, state: State, *args: Any, **kwargs: Any) -> State:
         raise NotImplementedError
@@ -241,6 +264,15 @@ class Metric:
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
         return self.forward(*args, **kwargs)
+
+    def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
+        """The kwargs that this metric's ``_update`` accepts, so that a
+        ``MetricCollection`` can pass one kwargs dict to different metrics."""
+        params = inspect.signature(self._update).parameters
+        if any(p.kind == p.VAR_KEYWORD for p in params.values()):
+            return kwargs
+        names = {n for n, p in params.items() if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)}
+        return {k: v for k, v in kwargs.items() if k in names and k != "state"}
 
     def reset(self) -> None:
         """Restore the default state."""

@@ -1,17 +1,38 @@
 """Per-state reduction specs (counterpart of ``torchmetrics_tpu/core/reductions.py``).
 
 The ``dist_reduce_fx`` given to ``Metric.add_state`` says how two copies of a
-state leaf combine. This slice ports the local pairwise merge
-(``merge_leaf``), which ``forward`` accumulation and checkpoint joining use.
-List ("cat") states are tuples of tensors.
+state leaf combine, in two lowerings of one semantic operation:
+
+* ``merge_leaf(a, b)``: the local pairwise combine that ``forward``
+  accumulation and checkpoint joining use;
+* ``sync_leaf(value)``: the cross-process combine, an eager collective on
+  ``torch.distributed``'s default process group (NCCL on the GPU, gloo on
+  the CPU). SUM, MAX and MIN are one ``all_reduce``; MEAN is a sum divided by
+  the world size (an integer leaf comes back as float32, as JAX's ``pmean``
+  true-divides it); CAT, NONE and callables gather.
+
+JAX's in-graph ``sync_leaf`` and its cross-process ``host_sync_leaf`` are one
+function here: ``torch.distributed`` is already cross-process.
+
+List ("cat") states are tuples of tensors. A synced CAT list state is a
+tuple of ONE tensor: each rank concatenates its items and the rows are
+gathered once, rank after rank, as the reference TorchMetrics orders them.
+JAX gathers each tuple element over the mesh instead, which interleaves the
+devices element by element; the rows are the same multiset.
+
+Every collective the port issues is counted in :data:`COLLECTIVES` by kind:
+``all_reduce``, ``all_gather`` (data) and ``shape_gather`` (the small
+exchange of shapes that an uneven gather needs first).
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from enum import Enum
-from typing import Any, Callable, Optional, Tuple, Union
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import Tensor
 
 
@@ -91,4 +112,146 @@ def merge_leaf(
         return torch.minimum(a, b)
     if reduce in (Reduce.CAT, Reduce.NONE):
         return tuple(a) + tuple(b)
+    raise ValueError(f"Unknown reduction {reduce}")
+
+
+# ------------------------------------------------------------- collectives
+#: collectives issued by the port's sync layer, by kind (never reset here)
+COLLECTIVES: Counter = Counter()
+
+_MAX_NDIM = 8
+# dtypes a gathered leaf may have, by code in the shape exchange
+_DTYPES = (
+    torch.float32, torch.int32, torch.bool, torch.uint8, torch.int8, torch.int16,
+    torch.int64, torch.float64, torch.float16, torch.bfloat16,
+)
+
+
+def in_group() -> bool:
+    """True when a default process group is up: collectives are issued then,
+    with one rank too; without one, a sync is local."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    """Ranks of the default process group; 1 when none is initialized."""
+    return dist.get_world_size() if in_group() else 1
+
+
+def default_device() -> torch.device:
+    """Where a collective with no tensor of its own runs: the current CUDA
+    device under NCCL, else the CPU."""
+    if in_group() and dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+_OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
+
+
+def all_reduce(x: Tensor, op: str) -> Tensor:
+    """``op`` ("sum", "max" or "min") of ``x`` over every rank, as a new tensor."""
+    out = x.clone()
+    if in_group():
+        dist.all_reduce(out, op=getattr(dist.ReduceOp, _OPS[op]))
+        COLLECTIVES["all_reduce"] += 1
+    return out
+
+
+def _all_gather_list(x: Tensor, kind: str) -> List[Tensor]:
+    """The list form of ``all_gather``, which gloo implements for CUDA tensors too."""
+    wire = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
+    out = [torch.empty_like(wire) for _ in range(world_size())]
+    dist.all_gather(out, wire)
+    COLLECTIVES[kind] += 1
+    return [o.to(torch.bool) for o in out] if x.dtype == torch.bool else out
+
+
+def _exchange_shapes(
+    x: Optional[Tensor], device: torch.device
+) -> Tuple[List[Optional[Tuple[int, ...]]], Optional[torch.dtype]]:
+    """Every rank's shape of ``x`` (``None`` where a rank has no tensor) and
+    the common dtype, by one small gather. Ranks that disagree on rank or
+    dtype all raise the same ``ValueError``."""
+    header = torch.zeros((3 + _MAX_NDIM,), dtype=torch.int64)
+    if x is not None:
+        if x.ndim > _MAX_NDIM or x.dtype not in _DTYPES:
+            raise ValueError(f"cannot gather a {x.ndim}-d {x.dtype} tensor")
+        header[0], header[1], header[2] = 1, x.ndim, _DTYPES.index(x.dtype)
+        header[3 : 3 + x.ndim] = torch.tensor(x.shape, dtype=torch.int64)
+    rows = [h.cpu() for h in _all_gather_list(header.to(device), "shape_gather")]
+    shapes: List[Optional[Tuple[int, ...]]] = []
+    kinds = set()
+    for h in rows:
+        if int(h[0]) == 0:
+            shapes.append(None)
+            continue
+        ndim = int(h[1])
+        shapes.append(tuple(int(d) for d in h[3 : 3 + ndim]))
+        kinds.add((ndim, int(h[2])))
+    if len(kinds) > 1:
+        raise ValueError(f"ranks hold tensors of different rank or dtype: {sorted(kinds)}")
+    dtype = _DTYPES[kinds.pop()[1]] if kinds else None
+    return shapes, dtype
+
+
+def gather_all_tensors(x: Optional[Tensor], device: Optional[torch.device] = None) -> List[Optional[Tensor]]:
+    """Every rank's ``x``, in rank order (``None`` for a rank that gave none).
+
+    Shapes may differ in every dimension: each rank's tensor is padded with
+    zeros to the largest size of each dimension, gathered once, and trimmed
+    back, as the reference's ``gather_all_tensors`` does. One shape exchange
+    and one data gather.
+    """
+    if not in_group():
+        return [x]
+    device = x.device if x is not None else (device or default_device())
+    shapes, dtype = _exchange_shapes(x, device)
+    present = [s for s in shapes if s is not None]
+    if not present:
+        return [None] * len(shapes)
+    top = tuple(max(dims) for dims in zip(*present))
+    buf = torch.zeros(top, dtype=dtype, device=device)
+    if x is not None:
+        buf[tuple(slice(0, d) for d in x.shape)] = x
+    gathered = _all_gather_list(buf, "all_gather")
+    return [None if s is None else g[tuple(slice(0, d) for d in s)] for g, s in zip(gathered, shapes)]
+
+
+def sync_leaf(
+    reduce: Union[Reduce, Callable],
+    value: Union[Tensor, ListState],
+    device: Optional[torch.device] = None,
+) -> Union[Tensor, ListState]:
+    """Cross-process combine of one leaf over the default process group.
+
+    sum/max/min are one ``all_reduce``; mean is a sum divided by the world
+    size (a true divide: an int32 leaf comes back float32, as JAX's
+    ``pmean``); cat gathers uneven first dims and concatenates in rank
+    order (a list state: each rank's items concatenated, gathered once, back
+    as a one-tensor tuple, or ``()`` where no rank holds an item); none
+    stacks the ranks' copies (per element of a list state, whose ranks must
+    hold as many items); a callable reduces the stacked copies. ``device``
+    places the collective of a list state that holds no item on this rank.
+    """
+    reduce = canonical_reduce(reduce)
+    if isinstance(value, tuple):
+        device = value[0].device if value else device
+        if reduce == Reduce.CAT:
+            local = torch.cat([torch.atleast_1d(v) for v in value]) if value else None
+            parts = [p for p in gather_all_tensors(local, device) if p is not None]
+            return (torch.cat(parts),) if parts else ()
+        if reduce == Reduce.NONE:
+            return tuple(torch.stack(gather_all_tensors(v)) for v in value)
+        raise ValueError(f"list state leaves combine by cat or none, not {reduce!r}")
+    if callable(reduce) and not isinstance(reduce, Reduce):
+        return reduce(torch.stack(gather_all_tensors(value)))
+    if reduce in (Reduce.SUM, Reduce.MAX, Reduce.MIN):
+        return all_reduce(value, reduce.value)
+    if reduce == Reduce.MEAN:
+        return all_reduce(value, "sum") / world_size()
+    if reduce == Reduce.CAT:
+        return torch.cat([torch.atleast_1d(v) for v in gather_all_tensors(value)])
+    if reduce == Reduce.NONE:
+        return torch.stack(gather_all_tensors(value))
     raise ValueError(f"Unknown reduction {reduce}")

@@ -1,9 +1,15 @@
-"""Binned precision-recall curve pieces for the multiclass tower.
+"""Precision-recall curve pieces for the multiclass tower, exact and binned.
 
 Counterpart of ``torchmetrics_tpu/functional/classification/precision_recall_curve.py``.
-This slice ports the binned layout (``thresholds`` an int or a list): the
-``(T, C, 2, 2)`` one-vs-rest confusion counts. The exact layout
-(``thresholds=None``) waits for a later slice.
+Two layouts, as in the JAX package:
+
+* ``thresholds=None``, exact: :func:`_binary_clf_curve` sorts the scores
+  (stable, descending), takes the cumulative true and false positives and
+  collapses each tie group onto its last point with a static shape (the
+  JAX package's reversed min-scan, here ``flip`` + ``cummin``). It works on
+  the last dimension, so all classes' curves come out of one batched sort.
+* ``thresholds`` an int or a list, binned: the ``(T, C, 2, 2)`` one-vs-rest
+  confusion counts.
 
 The metric's update is :func:`_binned_confmat_multiclass_accumulate`, old
 int32 state + one formatted batch -> new state. For a CUDA tensor it is one
@@ -23,7 +29,7 @@ import torch
 from torch import Tensor
 
 from torchmetrics_tpu_torch.kernels.binned_confmat import binned_confmat_multiclass
-from torchmetrics_tpu_torch.utilities.compute import normalize_logits_if_needed
+from torchmetrics_tpu_torch.utilities.compute import _safe_divide, normalize_logits_if_needed
 from torchmetrics_tpu_torch.utilities.data import one_hot
 
 
@@ -77,6 +83,83 @@ def _multiclass_prc_format(
         target = torch.where(ignored, 0, target)
     preds = normalize_logits_if_needed(preds.to(torch.float32), "softmax")
     return preds, target.to(torch.int32), weights
+
+
+def _binary_clf_curve(preds: Tensor, target: Tensor, weights: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
+    """Exact cumulative ``(fps, tps, thresholds)`` in descending score order, along the last dim.
+
+    Static shape: every point of a tie group is replaced by the group's last
+    point (duplicated coordinates, zero-length segments), so no curve or area
+    changes. The JAX function takes one 1-D curve; leading dims here are
+    independent curves.
+    """
+    target = target.to(torch.float32)
+    w = torch.ones_like(preds, dtype=torch.float32) if weights is None else weights
+    n = preds.shape[-1]
+    # ascending sort of -preds, as jnp.argsort(-preds, stable=True): NaN scores go last
+    _, order = torch.sort(-preds, dim=-1, stable=True)
+    preds_s = torch.gather(preds, -1, order)
+    target_s = torch.gather(target.expand_as(preds), -1, order)
+    w_s = torch.gather(w.expand_as(preds), -1, order)
+    tps = torch.cumsum(target_s * w_s, dim=-1)
+    fps = torch.cumsum((1.0 - target_s) * w_s, dim=-1)
+    # point i ends its tie group iff preds[i] != preds[i+1] (or i is last)
+    last = torch.ones_like(preds_s[..., :1], dtype=torch.bool)
+    group_end = torch.cat([preds_s[..., :-1] != preds_s[..., 1:], last], dim=-1)
+    idx = torch.where(group_end, torch.arange(n, device=preds.device), n - 1)
+    next_end = torch.flip(torch.cummin(torch.flip(idx, (-1,)), dim=-1).values, (-1,))
+    return fps.gather(-1, next_end), tps.gather(-1, next_end), preds_s.gather(-1, next_end)
+
+
+def _binary_precision_recall_curve_compute_exact(
+    preds: Tensor, target: Tensor, weights: Optional[Tensor]
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Exact ``(precision, recall, thresholds)`` along the last dim, ascending
+    thresholds, with the final (1, 0) point."""
+    fps, tps, thresholds = _binary_clf_curve(preds, target, weights)
+    precision = _safe_divide(tps, tps + fps)
+    recall = _safe_divide(tps, tps[..., -1:])
+    ones = torch.ones_like(precision[..., :1])
+    precision = torch.cat([torch.flip(precision, (-1,)), ones], dim=-1)
+    recall = torch.cat([torch.flip(recall, (-1,)), torch.zeros_like(ones)], dim=-1)
+    return precision, recall, torch.flip(thresholds, (-1,))
+
+
+def _binary_precision_recall_curve_compute_binned(confmat: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """``(precision, recall, thresholds)`` of a ``(T, ..., 2, 2)`` binned state,
+    with the final (1, 0) point appended along T."""
+    tp = confmat[..., 1, 1]
+    fp = confmat[..., 0, 1]
+    fn = confmat[..., 1, 0]
+    ones = torch.ones_like(tp[:1], dtype=torch.float32)
+    precision = torch.cat([_safe_divide(tp, tp + fp), ones], dim=0)
+    recall = torch.cat([_safe_divide(tp, tp + fn), torch.zeros_like(ones)], dim=0)
+    return precision, recall, thresholds
+
+
+def _binned_curve_update(preds: Tensor, target: Tensor, weights: Tensor, thresholds: Tensor) -> Tensor:
+    """``(T, 2, 2)`` float32 binary threshold-confusion state: ``[[tn, fp], [fn, tp]]``."""
+    pred_t = (preds[:, None] >= thresholds[None, :]).to(torch.float32)  # (N, T)
+    tw = target.to(torch.float32) * weights
+    return _stack_confmat((pred_t.T @ tw)[:, None], (pred_t.T @ weights)[:, None], tw.sum()[None], weights.sum())[:, 0]
+
+
+#: elements of a (classes, rows) block that the exact multiclass curves sort at once
+EXACT_BLOCK = 2**25
+
+
+def _multiclass_exact_curves(p: Tensor, target: Tensor, w: Tensor, num_classes: int):
+    """Exact one-vs-rest curves of all classes: yields ``(classes, (precision,
+    recall, thresholds))`` for blocks of classes, each a ``(c, N + 1)``,
+    ``(c, N + 1)``, ``(c, N)`` batch sorted in one ``torch.sort``. The JAX
+    package loops over the classes; the values are the same."""
+    n = p.shape[0]
+    step = max(1, EXACT_BLOCK // max(n, 1))
+    classes = torch.arange(num_classes, device=p.device)
+    for lo in range(0, num_classes, step):
+        cls = classes[lo : lo + step]
+        onehot = (target[None, :] == cls[:, None]).to(torch.int32)  # (c, N)
+        yield cls, _binary_precision_recall_curve_compute_exact(p[:, lo : lo + step].T, onehot, w)
 
 
 def _stack_confmat(tp: Tensor, pospred: Tensor, actpos: Tensor, total: Tensor) -> Tensor:

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 
 class TorchMetricsUserError(Exception):
@@ -26,3 +26,21 @@ class StateRestoreError(TorchMetricsUserError):
         super().__init__(message)
         self.leaf = leaf
         self.reason = reason
+
+
+class ReplicaDivergenceError(TorchMetricsUserError):
+    """Metric state disagrees across ranks that must agree.
+
+    Raised by ``parallel.ragged.sync_ragged_states(verify_consistency=True)``
+    when the ranks' update counts differ: a lost or repeated step would
+    silently skew the gathered aggregate.
+
+    Attributes:
+        leaves: names of the state leaves that diverged.
+        replicas: ranks that disagree with the majority.
+    """
+
+    def __init__(self, message: str, *, leaves: Sequence[str] = (), replicas: Optional[Sequence[int]] = None) -> None:
+        super().__init__(message)
+        self.leaves = tuple(leaves)
+        self.replicas = None if replicas is None else tuple(replicas)
