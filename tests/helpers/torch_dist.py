@@ -9,7 +9,7 @@ under xdist never share a port. A rank imports torch, numpy and the port
 only, never JAX. Each rank writes what its check function returns with
 ``torch.save``; :func:`run_world` returns the ranks' results in rank order,
 and fails with the ranks' output when a rank fails or when the world has
-not finished within ``timeout`` seconds (a hung collective fails the test
+not finished within ``JOIN_TIMEOUT_S`` seconds (a hung collective fails the test
 instead of eating the run's time limit).
 """
 
@@ -20,6 +20,7 @@ import datetime
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List
 
@@ -29,8 +30,7 @@ REPO = Path(__file__).resolve().parents[2]
 JOIN_TIMEOUT_S = 180
 
 
-def run_world(test_file: str, inputs: Dict[str, Any], tmp_path: Path, world: int = 4,
-              timeout: float = JOIN_TIMEOUT_S) -> List[Any]:
+def run_world(test_file: str, inputs: Dict[str, Any], tmp_path: Path, world: int) -> List[Any]:
     """Run ``test_file`` as ``world`` gloo ranks on ``inputs``; their results in rank order."""
     tmp_path.mkdir(parents=True, exist_ok=True)
     inputs_path = tmp_path / "inputs.pt"
@@ -45,18 +45,23 @@ def run_world(test_file: str, inputs: Dict[str, Any], tmp_path: Path, world: int
                "--out", str(tmp_path / f"rank{rank}.pt")]
         log = open(tmp_path / f"rank{rank}.log", "w")
         procs.append((subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
     failed = []
-    for rank, (proc, log) in enumerate(procs):
-        try:
-            proc.wait(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            for p, _ in procs:
-                p.kill()
-            proc.wait()
-            failed.append(f"rank {rank} did not finish within {timeout} s")
-        log.close()
-        if proc.returncode:
-            failed.append(f"rank {rank} exited {proc.returncode}")
+    try:
+        for rank, (proc, _) in enumerate(procs):
+            try:
+                proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                failed.append(f"the world did not finish within {JOIN_TIMEOUT_S} s")
+                break
+            if proc.returncode:
+                failed.append(f"rank {rank} exited {proc.returncode}")
+    finally:
+        for proc, log in procs:  # no rank outlives the test
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
     if failed:
         logs = "\n".join(f"--- rank {r}:\n{(tmp_path / f'rank{r}.log').read_text()[-4000:]}" for r in range(world))
         raise AssertionError("; ".join(failed) + "\n" + logs)

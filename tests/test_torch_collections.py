@@ -30,8 +30,9 @@ ROWS = 16
 
 
 def _bundle(pkg, **device):
-    """Metrics of which some share a state: accuracy and F1 (macro) share
-    tp/fp/tn/fn; AUROC, AP and the PR curve at 20 thresholds share confmat."""
+    """Metrics of which some share a state: both accuracies and F1 hold the
+    same per-class tp/fp/tn/fn; AUROC, AP and the PR curve at 20 thresholds
+    share confmat; the exact AP stands alone."""
     return {
         "acc_macro": pkg.MulticlassAccuracy(num_classes=C, average="macro", validate_args=False, **device),
         "acc_micro": pkg.MulticlassAccuracy(num_classes=C, average="micro", validate_args=False, **device),
