@@ -20,10 +20,12 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    (``time_stream_ms``, the record's ``stream_ms``), and beside it one
    PyTorch kernel that reads the same scores (``probs.sum(0)``);
    ``coco_match``, the greedy COCO matcher, is held equal (``torch.equal``) to
-   its plain version at mAP's chunk (B=1024 items, D=128 detections, G=32
-   ground truths, A=4 area ranges, T=10 IoU thresholds) and at G=8, 64 and
-   256, thresholds of 1.0 over IoUs of exactly 1.0, all-crowd and
-   all-ignored items and rows of equal IoUs, timed the same way;
+   its plain version on every chunk that phase 6's mAP compute launches it on
+   (the (class, image) items of the 5,000-image set, padded as the metric pads
+   them; the first chunk is timed the same way), and on synthetic batches at
+   B=1024 items, D=128 detections, A=4 area ranges, T=10 IoU thresholds and
+   G=8, 32, 64 ground truths (B=256 at G=256), thresholds of 1.0 over IoUs of
+   exactly 1.0, all-crowd and all-ignored items and rows of equal IoUs;
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
@@ -45,9 +47,11 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
 6. ragged: in the same two worlds, a different item count on every rank:
    ``ROUGEScore`` over 1,000 seeded sentence pairs and
    ``MeanAveragePrecision`` over a COCO-val2017-shaped seeded set (80
-   classes, about 7 ground truths and 100 detections an image, 5,000 images
-   unless ``--images`` cuts it), through ``sync_ragged_states`` and compute;
-   the item counts must survive and the results equal a single-process run.
+   classes, about 7 ground truths and 100 detections an image, 5,000 images),
+   through ``sync_ragged_states`` and compute; the item counts must survive,
+   the results equal a single-process run, and every rank's matcher launches
+   be the chunks phase 3 checked; the single-process compute on rank 0 runs
+   under ``torch.profiler`` for the matcher's device time.
 
 Phases 5 and 6 run each rank as a process of its own (this script with
 ``--worker``); every kernel must have launched on the paths that run it.
@@ -59,6 +63,7 @@ The line before the last is the kernel record (JSON); the last line is
 from __future__ import annotations
 
 import argparse
+import collections
 import datetime
 import json
 import math
@@ -496,14 +501,51 @@ def _match_inputs(n_items, n_dets, n_gts, thrs, edits, gen):
     return ious.contiguous(), crowd, ignored.contiguous(), valid_d, valid_g, thr
 
 
-def phase_matcher(flush: torch.Tensor) -> list:
+def _map_chunks() -> list:
+    """The matcher's arguments of each launch of the mAP compute of phase 6:
+    every (class, image) item of the 5,000-image set, in the metric's order,
+    padded as the metric pads them, on the card."""
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision
+    from torchmetrics_tpu_torch.detection.mean_ap import _matcher_items
+    from torchmetrics_tpu_torch.functional.detection.matcher import padded_chunks
+
+    metric = MeanAveragePrecision(device="cuda")
+    state = _map_state(metric, torch.device("cuda"), range(MAP_IMAGES // MAP_BATCH))
+    _, _, items = metric._class_items(state)
+    flat = [it for per_class in items for it in per_class]
+    return [args for _, args in padded_chunks(_matcher_items(flat), metric.iou_thresholds, "cuda")]
+
+
+def _shape(args) -> tuple:
+    """``(B, D, G, A, T)`` of the matcher's arguments, as ``coco_match.shapes`` counts them."""
+    ious, _, ignored, _, _, thrs = args
+    return (*ious.shape, ignored.shape[1], thrs.shape[0])
+
+
+def phase_matcher(flush: torch.Tensor):
+    """The matcher's rows (the first at phase 6's first chunk) and the count
+    of phase 6's chunks by ``(B, D, G, A, T)``."""
     from torchmetrics_tpu_torch.functional.detection.matcher import _match_batch_plain
     from torchmetrics_tpu_torch.kernels import coco_match as kcm
 
+    t0 = time.perf_counter()
+    chunks = _map_chunks()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i, args in enumerate(chunks):
+        got, want = kcm.coco_match(*args), _match_batch_plain(*args)
+        mismatches = [int((x != y).sum()) for x, y in zip(got, want)]
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"coco_match and plain differ on mAP chunk {i} {_shape(args)}: {mismatches}")
+    shapes = collections.Counter(_shape(args) for args in chunks)
+    print(f"[kernel] coco_match: exact on all {len(chunks)} chunks of the 5,000-image mAP compute, by (B, D, G, A, T) "
+          f"{dict(shapes)} (items built and padded in {build_s:.2f} s, checked in {time.perf_counter() - t0:.2f} s)")
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     thr_one = COCO_THRS[:-1] + [1.0]
-    cases = [  # (what, items, detections, ground truths, thresholds, edits); the first is mAP's chunk
-        ("COCO chunk", 1024, 128, 32, COCO_THRS, ()),
+    cases = [  # (what, items, detections, ground truths, thresholds, edits); the first is phase 6's first chunk
+        ("mAP chunk 0", chunks[0]),
+        ("D=128, G=32", 1024, 128, 32, COCO_THRS, ()),
         ("G=8", 1024, 128, 8, COCO_THRS, ()),
         ("G=64, two gts a lane", 1024, 128, 64, COCO_THRS, ()),
         ("thr=1.0, IoUs of exactly 1.0", 1024, 128, 32, thr_one, ("one",)),
@@ -511,10 +553,11 @@ def phase_matcher(flush: torch.Tensor) -> list:
         ("equal IoUs, last index wins", 1024, 128, 32, COCO_THRS, ("ties",)),
         ("G=256, tile read from device memory", 256, 128, 256, COCO_THRS, ()),
     ]
+    del chunks[1:]
     rows = []
-    for what, b, d, g, thrs, edits in cases:
-        args = _match_inputs(b, d, g, thrs, edits, gen)
-        a, t = args[2].shape[1], len(thrs)
+    for what, *spec in cases:
+        args = spec[0] if len(spec) == 1 else _match_inputs(*spec, gen)
+        b, d, g, a, t = _shape(args)
         label = f"{what} B={b} D={d} G={g} A={a} T={t}"
         got = kcm.coco_match(*args)
         want = _match_batch_plain(*args)
@@ -547,7 +590,7 @@ def phase_matcher(flush: torch.Tensor) -> list:
             f"({row['bound_by']}: {nbytes} bytes, {nops} ops), dependent chain {chain_ms * 1e3:.2f} us, library_ms: none"
         )
         rows.append(row)
-    return rows
+    return rows, shapes
 
 
 # ---------------------------------------------------- phases 5 and 6: ranks
@@ -688,7 +731,22 @@ def _on(device, items):
     return [{k: torch.from_numpy(v).to(device) for k, v in d.items()} for d in items]
 
 
-def worker_ragged(rank: int, world: int, device: torch.device, n_images: int) -> dict:
+def _map_state(metric, device, batch_ids):
+    """``metric``'s state after the image batches ``batch_ids`` of the mAP set, on ``device``."""
+    st = metric.init_state()
+    for j in batch_ids:
+        p, t = _coco_images(j * MAP_BATCH, min((j + 1) * MAP_BATCH, MAP_IMAGES))
+        st = metric.update_state(st, _on(device, p), _on(device, t))
+    return st
+
+
+def _device_s(prof, name: str = "") -> float:
+    """Device seconds of the operations a ``torch.profiler`` run recorded whose names hold ``name``."""
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name) / 1e6
+
+
+def worker_ragged(rank: int, world: int, device: torch.device) -> dict:
     """Phase 6 on one rank: ROUGE over its share of 1,000 sentence pairs and
     mAP over its share of the images, a different count on every rank, through
     the ragged sync and compute; then the single-process run to compare."""
@@ -726,22 +784,16 @@ def worker_ragged(rank: int, world: int, device: torch.device, n_images: int) ->
         for k in ref if k != "_n"
     )
 
-    n_batches = -(-n_images // MAP_BATCH)
+    n_batches = -(-MAP_IMAGES // MAP_BATCH)
     blocks = _rank_blocks(n_batches, world, uneven=True)
     metric = MeanAveragePrecision(device=device)
     ranges = {"detection_labels": (0, MAP_CLASSES - 1), "groundtruth_labels": (0, MAP_CLASSES - 1),
               "groundtruth_crowds": (0, 1)}
 
-    def map_state(block_ids):
-        st = metric.init_state()
-        for j in block_ids:
-            p, t = _coco_images(j * MAP_BATCH, min((j + 1) * MAP_BATCH, n_images))
-            st = metric.update_state(st, _on(device, p), _on(device, t))
-        return st
-
-    st = map_state(blocks[rank])
+    st = _map_state(metric, device, blocks[rank])
     out["images"] = len(st["detection_scores"])
     coco_match.launches = 0
+    coco_match.shapes.clear()
     dist.barrier()
     before = dict(COLLECTIVES)
     t0 = time.perf_counter()
@@ -754,16 +806,26 @@ def worker_ragged(rank: int, world: int, device: torch.device, n_images: int) ->
     torch.cuda.synchronize()
     out["map_compute_s"] = time.perf_counter() - t0
     out["launches"] = {"coco_match": coco_match.launches}
+    out["shapes"] = [[list(shape), n] for shape, n in coco_match.shapes.items()]
     out["map"] = {k: float(v) for k, v in value.items() if v.numel() == 1 and k != "classes"}
-    ref = map_state(range(n_batches))
+    ref = _map_state(metric, device, range(n_batches))
     out["map_items_equal"] = all(
         len(synced[k]) == len(ref[k]) and all(torch.equal(a, b.cpu()) for a, b in zip(synced[k], ref[k]))
         for k in ref if k != "_n"
     )
-    if rank == 0:  # the single-process value, once
+    if rank == 0:  # the single-process value, once, under the profiler: the matcher's device time
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         t0 = time.perf_counter()
-        out["map_ref"] = {k: float(v) for k, v in metric.compute_state(ref).items() if v.numel() == 1 and k != "classes"}
+        with torch.profiler.profile(activities=activities) as prof:
+            ref_value = metric.compute_state(ref)
+            torch.cuda.synchronize()
         out["map_ref_compute_s"] = time.perf_counter() - t0
+        out["map_ref"] = {k: float(v) for k, v in ref_value.items() if v.numel() == 1 and k != "classes"}
+        out["map_ref_device_s"] = _device_s(prof)
+        out["map_ref_coco_match_s"] = _device_s(prof, "coco_match")
+        out["map_ref_coco_match_kernels"] = sum(
+            1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "coco_match" in e.name
+        )
     return out
 
 
@@ -780,7 +842,7 @@ def worker_main(args) -> int:
         if args.worker == "sync":
             result = worker_sync(args.rank, args.world, device)
         else:
-            result = worker_ragged(args.rank, args.world, device, args.images)
+            result = worker_ragged(args.rank, args.world, device)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -789,14 +851,14 @@ def worker_main(args) -> int:
     return 0
 
 
-def run_world(phase: str, backend: str, world: int, images: int = 0) -> list:
+def run_world(phase: str, backend: str, world: int) -> list:
     """Run ``world`` ranks of ``phase`` in processes of their own; their results in rank order."""
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_{backend}_")
     procs = []
     for rank in range(world):
         cmd = [sys.executable, os.path.abspath(__file__), "--worker", phase, "--backend", backend,
                "--rank", str(rank), "--world", str(world), "--init", f"file://{tmp}/rendezvous",
-               "--out", f"{tmp}/rank{rank}.json", "--images", str(images)]
+               "--out", f"{tmp}/rank{rank}.json"]
         log = open(f"{tmp}/rank{rank}.log", "w")
         procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log))
     deadline = time.monotonic() + WORLD_TIMEOUT_S
@@ -864,13 +926,13 @@ def phase_sync() -> dict:
     return record
 
 
-def phase_ragged(n_images: int) -> dict:
+def phase_ragged(chunk_shapes: collections.Counter) -> dict:
     record = {}
     for backend, world in _worlds():
-        results = run_world("ragged", backend, world, n_images)
+        results = run_world("ragged", backend, world)
         label = f"{backend} x{world}"
         first = results[0]
-        n_batches = -(-n_images // MAP_BATCH)
+        n_batches = -(-MAP_IMAGES // MAP_BATCH)
         rouge_counts = [len(b) for b in _rank_blocks(ROUGE_PAIRS // ROUGE_BATCH, world, True)]
         for r in results:
             tag = f"[{label}] rank {r['rank']}"
@@ -878,18 +940,25 @@ def phase_ragged(n_images: int) -> dict:
             check(r["rouge_items_equal"] and r["map_items_equal"], f"{tag}: synced items differ from the single process")
             for k, v in r["rouge"].items():
                 check(abs(v - r["rouge_ref"][k]) <= 1e-6, f"{tag}: {k} {v} vs single-process {r['rouge_ref'][k]}")
-            check(r["map_items"] == n_images, f"{tag}: {r['map_items']} images after the sync, expected {n_images}")
+            check(r["map_items"] == MAP_IMAGES, f"{tag}: {r['map_items']} images after the sync, expected {MAP_IMAGES}")
             check(r["map"] == first["map"], f"{tag}: mAP differs from rank 0")
             check(r["launches"]["coco_match"] > 0, f"{tag}: coco_match never launched")
+            shapes = collections.Counter({tuple(shape): n for shape, n in r["shapes"]})
+            check(shapes == chunk_shapes, f"{tag}: coco_match launched at {dict(shapes)}, phase 3 checked {dict(chunk_shapes)}")
         check(first["map"] == first["map_ref"], f"[{label}] mAP {first['map']} vs single-process {first['map_ref']}")
         check(0.0 < first["map"]["map"] < 1.0, f"[{label}] mAP {first['map']['map']}")
         images = [r["images"] for r in results]
-        check(sum(images) == n_images and (world == 1 or len(set(images)) == world), f"[{label}] images per rank {images}")
+        check(sum(images) == MAP_IMAGES and (world == 1 or len(set(images)) == world), f"[{label}] images per rank {images}")
+        check(first["map_ref_coco_match_kernels"] == sum(chunk_shapes.values()),
+              f"[{label}] the profiler saw {first['map_ref_coco_match_kernels']} coco_match kernels")
         print(f"[ragged] {label}: ROUGE updates per rank {rouge_counts}, sync {[round(r['rouge_sync_ms'], 3) for r in results]} ms, "
               f"{first['rouge']}; mAP images per rank {images} ({n_batches} batches of {MAP_BATCH}), sync "
               f"{[round(r['map_sync_ms'], 3) for r in results]} ms, collectives {first['map_collectives']}, compute "
-              f"{[round(r['map_compute_s'], 3) for r in results]} s (single process {first['map_ref_compute_s']:.3f} s), "
-              f"coco_match launches {[r['launches']['coco_match'] for r in results]}; map {first['map']['map']:.6f}, "
+              f"{[round(r['map_compute_s'], 3) for r in results]} s; coco_match launches "
+              f"{[r['launches']['coco_match'] for r in results]} at the chunks phase 3 checked; single process on rank 0 "
+              f"under the profiler: {first['map_ref_compute_s']:.3f} s, device {first['map_ref_device_s']:.6f} s, of which "
+              f"coco_match {first['map_ref_coco_match_s']:.6f} s in {first['map_ref_coco_match_kernels']} kernels; "
+              f"map {first['map']['map']:.6f}, "
               f"map_50 {first['map']['map_50']:.6f}: equal to the single-process run")
         record[label] = results
     return record
@@ -898,7 +967,6 @@ def phase_ragged(n_images: int) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--json", help="also write the full record to this file")
-    parser.add_argument("--images", type=int, default=MAP_IMAGES, help="images of the phase-6 mAP set")
     for flag in ("--worker", "--backend", "--init", "--out"):  # one rank of a phase-5/6 world
         parser.add_argument(flag, help=argparse.SUPPRESS)
     for flag in ("--rank", "--world"):
@@ -927,13 +995,11 @@ def main() -> int:
     build_s = phase_build()
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB, past the 50 MB L2
     kernel_rows = phase_kernels(flush)
-    kernel_rows["coco_match"] = phase_matcher(flush)
+    kernel_rows["coco_match"], chunk_shapes = phase_matcher(flush)
     del flush
     main = phase_main_path(kernels)
     sync = phase_sync()
-    if args.images != MAP_IMAGES:
-        print(f"[ragged] the mAP set is cut to {args.images} of COCO val2017's {MAP_IMAGES} images")
-    ragged = phase_ragged(args.images)
+    ragged = phase_ragged(chunk_shapes)
 
     # launches of each kernel on the paths that run it: the eval step (phase 4),
     # every rank of the sync worlds (phase 5) and of the ragged worlds (phase 6)

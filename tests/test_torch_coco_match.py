@@ -110,6 +110,7 @@ def test_launcher_refuses_before_any_launch():
     with pytest.raises(ValueError, match="thresholds"):
         kcm.coco_match(*args, torch.zeros(kcm.MAX_THRESHOLDS + 1))
     assert kcm.coco_match.launches == 0
+    assert not kcm.coco_match.shapes
 
 
 @pytest.mark.parametrize("g,k", [(1, 1), (32, 1), (33, 2), (64, 2), (65, 4), (128, 4), (129, 8), (256, 8)])

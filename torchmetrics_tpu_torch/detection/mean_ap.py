@@ -121,6 +121,20 @@ def _evaluate_image(
     return (dtm >= 0), dt_ig, det_scores[d_order], int((~gt_ignore).sum())
 
 
+def _matcher_items(items: List[Dict[str, np.ndarray]]) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """The matcher's input of each (class, image) item: ``(ious (D, G))`` in
+    score order, ``crowd (G,)`` and the ground truths ignored in each area
+    range ``(A, G)``."""
+    area_bounds = np.asarray(list(_AREA_RANGES.values()))  # (A, 2)
+    out = []
+    for it in items:
+        gt_ignore = it["crowd"][None, :] | (it["gt_area"][None, :] < area_bounds[:, :1]) | (
+            it["gt_area"][None, :] > area_bounds[:, 1:]
+        )
+        out.append((it["ious"][it["order"]], it["crowd"], gt_ignore))
+    return out
+
+
 def _accumulate(tp: np.ndarray, ig: np.ndarray, scores: np.ndarray, npig: int, rec_thrs: np.ndarray):
     """pycocotools ``accumulate`` for one (class, area, maxDets) cell:
     ``(recall (T,), precision (T, R))`` from the score-ordered matches."""
@@ -258,7 +272,10 @@ class MeanAveragePrecision(Metric):
             })
         return images
 
-    def _compute(self, state: State) -> Dict[str, Tensor]:
+    def _class_items(self, state: State):
+        """``(observed labels, classes, items)``: the state's (class, image)
+        items, a list for each class, each detection list cut to the largest
+        maxDets cap in score order."""
         images = self._images(state)
         labels = [r["det_labels"] for r in images] + [r["gt_labels"] for r in images]
         observed = sorted(set(np.concatenate(labels).tolist())) if images else []
@@ -269,13 +286,7 @@ class MeanAveragePrecision(Metric):
             classes = [0] if observed else []
         else:
             classes = observed
-        iou_thrs, rec_thrs, max_dets = self.iou_thresholds, self.rec_thresholds, self.max_detection_thresholds
-        area_names = list(_AREA_RANGES)
-        area_bounds = np.asarray([_AREA_RANGES[a] for a in area_names])  # (A, 2)
-        n_t, n_r, n_k, n_a, n_m = len(iou_thrs), len(rec_thrs), len(classes), len(area_names), len(max_dets)
-        precision = -np.ones((n_t, n_r, n_k, n_a, n_m))
-        recall = -np.ones((n_t, n_k, n_a, n_m))
-
+        max_det = self.max_detection_thresholds[-1]
         # (class, image) items, image by image: the IoUs of one image are
         # computed once and sliced per class (each IoU depends on its pair only)
         class_index = {c: k for k, c in enumerate(classes)}
@@ -286,21 +297,24 @@ class MeanAveragePrecision(Metric):
                 d_sel = np.nonzero(r["det_labels"] == cls)[0]
                 g_sel = np.nonzero(r["gt_labels"] == cls)[0]
                 d_scores = r["det_scores"][d_sel]
-                d_order = np.argsort(-d_scores, kind="stable")[: max_dets[-1]]
+                d_order = np.argsort(-d_scores, kind="stable")[:max_det]
                 items[class_index[cls]].append({
                     "ious": ious[np.ix_(d_sel, g_sel)], "scores": d_scores, "crowd": r["gt_crowd"][g_sel],
                     "gt_area": r["gt_area"][g_sel], "det_area": r["det_area"][d_sel], "order": d_order,
                 })
+        return observed, classes, items
+
+    def _compute(self, state: State) -> Dict[str, Tensor]:
+        observed, classes, items = self._class_items(state)
+        iou_thrs, rec_thrs, max_dets = self.iou_thresholds, self.rec_thresholds, self.max_detection_thresholds
+        area_names = list(_AREA_RANGES)
+        n_t, n_r, n_k, n_a, n_m = len(iou_thrs), len(rec_thrs), len(classes), len(area_names), len(max_dets)
+        precision = -np.ones((n_t, n_r, n_k, n_a, n_m))
+        recall = -np.ones((n_t, n_k, n_a, n_m))
 
         if self.backend == "native":
             flat = [it for per_class in items for it in per_class]
-            matcher_items = []
-            for it in flat:
-                gt_ignore = it["crowd"][None, :] | (it["gt_area"][None, :] < area_bounds[:, :1]) | (
-                    it["gt_area"][None, :] > area_bounds[:, 1:]
-                )
-                matcher_items.append((it["ious"][it["order"]], it["crowd"], gt_ignore))
-            for it, (m, di) in zip(flat, match_batch_padded(matcher_items, iou_thrs, self.device)):
+            for it, (m, di) in zip(flat, match_batch_padded(_matcher_items(flat), iou_thrs, self.device)):
                 it["matched"], it["det_ignored"] = m, di
 
         for ki, per_class in enumerate(items):

@@ -30,7 +30,7 @@ Example::
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -96,21 +96,17 @@ def _bucket(n: int, minimum: int = 8) -> int:
 _CHUNK = 1024  # items per launch; bounds the padded buffer
 
 
-def match_batch_padded(items: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]], iou_thrs, device) -> List:
-    """Match host items ``(ious (D, G), crowd (G,), ignored (A, G))`` on ``device``.
-
-    The items are padded to shared power-of-two buckets of D, G and the item
-    count, as in the JAX package, and matched in chunks of ``_CHUNK``;
-    returns per item ``(matched (A, T, D_i), det_ignored (A, T, D_i))`` numpy
-    bool arrays, unpadded.
-    """
+def padded_chunks(items: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]], iou_thrs, device) -> Iterator:
+    """``(chunk, args)`` for each chunk of ``_CHUNK`` host items: the items and
+    :func:`match_batch`'s arguments on ``device``, padded to power-of-two
+    buckets of D and G shared by all items and of the chunk's item count, as
+    in the JAX package."""
     if not items:
-        return []
+        return
     n_dets = _bucket(max(i[0].shape[0] for i in items))
     n_gts = _bucket(max(i[0].shape[1] for i in items))
     n_areas = items[0][2].shape[0]
     thrs = torch.as_tensor(np.asarray(iou_thrs, np.float32), device=device)
-    out = []
     for lo in range(0, len(items), _CHUNK):
         chunk = items[lo : lo + _CHUNK]
         n_items = _bucket(len(chunk))
@@ -126,8 +122,17 @@ def match_batch_padded(items: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]
             ignored[b, :, :g] = ig
             valid_d[b, :d] = True
             valid_g[b, :g] = True
-        args = (torch.from_numpy(a).to(device) for a in (ious, crowd, ignored, valid_d, valid_g))
-        m, di = match_batch(*args, thrs)
+        yield chunk, tuple(torch.from_numpy(a).to(device) for a in (ious, crowd, ignored, valid_d, valid_g)) + (thrs,)
+
+
+def match_batch_padded(items: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]], iou_thrs, device) -> List:
+    """Match host items ``(ious (D, G), crowd (G,), ignored (A, G))`` on ``device``,
+    one :func:`match_batch` call a chunk of :func:`padded_chunks`; returns per
+    item ``(matched (A, T, D_i), det_ignored (A, T, D_i))`` numpy bool arrays,
+    unpadded."""
+    out = []
+    for chunk, args in padded_chunks(items, iou_thrs, device):
+        m, di = match_batch(*args)
         m, di = m.cpu().numpy(), di.cpu().numpy()
         out.extend((m[b, :, :, : it[0].shape[0]], di[b, :, :, : it[0].shape[0]]) for b, it in enumerate(chunk))
     return out

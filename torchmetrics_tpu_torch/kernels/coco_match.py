@@ -3,7 +3,8 @@
 :func:`coco_match` is the greedy COCO matcher of a padded batch of
 (class, image) items: it checks its inputs, launches one kernel on the
 current stream (a block per item and area range, a warp per IoU
-threshold) and counts its launches in ``coco_match.launches``. It takes
+threshold) and counts its launches in ``coco_match.launches`` and, by
+``(B, D, G, A, T)``, in ``coco_match.shapes``. It takes
 CUDA tensors only: the dispatch between the kernel and its plain PyTorch
 version, by the device of the input, is
 ``functional.detection.matcher.match_batch``.
@@ -11,6 +12,7 @@ version, by the device of the input, is
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Tuple
 
@@ -109,7 +111,9 @@ def coco_match(
     if err != 0:
         raise RuntimeError(f"coco_match: launch failed with CUDA error {err}")
     coco_match.launches += 1
+    coco_match.shapes[(n_items, n_dets, n_gts, n_areas, n_thr)] += 1
     return matched.view(torch.bool), det_ignored.view(torch.bool)
 
 
 coco_match.launches = 0
+coco_match.shapes = collections.Counter()
