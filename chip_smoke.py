@@ -24,8 +24,11 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    (the (class, image) items of the 5,000-image set, padded as the metric pads
    them; the first chunk is timed the same way), and on synthetic batches at
    B=1024 items, D=128 detections, A=4 area ranges, T=10 IoU thresholds and
-   G=8, 32, 64 ground truths (B=256 at G=256), thresholds of 1.0 over IoUs of
-   exactly 1.0, all-crowd and all-ignored items and rows of equal IoUs;
+   G=1, 2, 4, 8, 16, 32, 33, 64 ground truths (every lane-group width; B=256
+   at G=256), D=8 (byte stores), thresholds of 1.0 over IoUs of exactly 1.0,
+   all-crowd and all-ignored items, rows of equal IoUs, invalid rows inside
+   the live extent and items with no valid row; each case's launch plan must
+   ask for the shared memory the source counts;
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
@@ -51,7 +54,8 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    through ``sync_ragged_states`` and compute; the item counts must survive,
    the results equal a single-process run, and every rank's matcher launches
    be the chunks phase 3 checked; the single-process compute on rank 0 runs
-   under ``torch.profiler`` for the matcher's device time.
+   under ``torch.profiler`` for the matcher's device time and the device
+   operations it spends most time in.
 
 Phases 5 and 6 run each rank as a process of its own (this script with
 ``--worker``); every kernel must have launched on the paths that run it.
@@ -477,7 +481,7 @@ def _match_inputs(n_items, n_dets, n_gts, thrs, edits, gen):
     """A padded matcher batch on the card: IoUs on a 0.05 grid (ties, and IoUs
     on the thresholds), ~10 % crowd ground truths, per-area ignore masks, items
     of 1..D real detections and 1..G real ground truths, padded rows of 0 and
-    some invalid rows of -inf."""
+    some rows of -inf; ``edits`` add the contract's edge cases."""
     dev = torch.device("cuda")
     n_areas = 4
     ious = torch.round(torch.rand((n_items, n_dets, n_gts), generator=gen, device=dev) * 20) / 20
@@ -497,6 +501,11 @@ def _match_inputs(n_items, n_dets, n_gts, thrs, edits, gen):
         ignored[1::2] = True
     if "ties" in edits:  # rows of equal IoUs: the last index must win
         ious[:, ::2] = torch.where(valid_g[:, None, :], 0.7, 0.0)
+    if "gaps" in edits:  # invalid rows inside the live extent, keeping their IoUs: random ones and a run of them
+        valid_d &= torch.rand(valid_d.shape, generator=gen, device=dev) < 0.7
+        valid_d[:, n_dets // 4 : n_dets // 2] = False
+    if "empty" in edits:  # every fifth item has no valid detection
+        valid_d[::5] = False
     thr = torch.tensor(thrs, dtype=torch.float32, device=dev)
     return ious.contiguous(), crowd, ignored.contiguous(), valid_d, valid_g, thr
 
@@ -525,9 +534,14 @@ def _shape(args) -> tuple:
 def phase_matcher(flush: torch.Tensor):
     """The matcher's rows (the first at phase 6's first chunk) and the count
     of phase 6's chunks by ``(B, D, G, A, T)``."""
+    import ctypes
+
     from torchmetrics_tpu_torch.functional.detection.matcher import _match_batch_plain
     from torchmetrics_tpu_torch.kernels import coco_match as kcm
+    from torchmetrics_tpu_torch.kernels._build import load_library
 
+    shared_bytes = load_library(kcm.SOURCE).coco_match_shared_bytes
+    shared_bytes.argtypes, shared_bytes.restype = [ctypes.c_int] * 5, ctypes.c_size_t
     t0 = time.perf_counter()
     chunks = _map_chunks()
     build_s = time.perf_counter() - t0
@@ -552,6 +566,14 @@ def phase_matcher(flush: torch.Tensor):
         ("all-crowd and all-ignored items", 1024, 128, 32, COCO_THRS, ("crowd_ignored",)),
         ("equal IoUs, last index wins", 1024, 128, 32, COCO_THRS, ("ties",)),
         ("G=256, tile read from device memory", 256, 128, 256, COCO_THRS, ()),
+        ("G=1, a lane a scan", 1024, 128, 1, COCO_THRS, ()),
+        ("G=2", 1024, 128, 2, COCO_THRS, ()),
+        ("G=4", 1024, 128, 4, COCO_THRS, ()),
+        ("G=16", 1024, 128, 16, COCO_THRS, ()),
+        ("G=33, two gts a lane", 1024, 128, 33, COCO_THRS, ()),
+        ("gaps in valid_d", 1024, 128, 32, COCO_THRS, ("gaps",)),
+        ("gaps and items with no valid row", 1024, 128, 8, COCO_THRS, ("gaps", "empty")),
+        ("D=8, byte stores", 1024, 8, 8, COCO_THRS, ()),
     ]
     del chunks[1:]
     rows = []
@@ -565,14 +587,20 @@ def phase_matcher(flush: torch.Tensor):
         mismatches = [int((x != y).sum()) for x, y in zip(got, want)]
         check(all(torch.equal(x, y) for x, y in zip(got, want)), f"coco_match and plain differ ({label}): {mismatches}")
         check(bool(want[0].any()) and not bool(want[0].all()), f"a degenerate case ({label})")
-        # least work: read the IoUs and the masks once, write both maps once; a
-        # compare and an argmax step per (b, a, t, d, g) of this batch's valid
-        # detections. The scan's chain: D dependent steps of a log2(G)-deep
-        # argmax and a carry update, at DEP_OP_CYCLES a dependent operation
-        nbytes = b * d * g * 4 + b * g * 2 + b * a * g + b * d + t * 4 + 2 * b * a * t * d
-        nops = 2 * a * t * g * int(args[3].sum())
+        # least work: read the IoU rows of the valid detections, valid_d and the
+        # gt masks once, write both maps once; a compare and an argmax step per
+        # (b, a, t, d, g) of the valid detections. The scan's chain: the longest
+        # live extent's dependent steps of a log2(G)-deep argmax and a carry
+        # update, at DEP_OP_CYCLES a dependent operation
+        valid_rows = int(args[3].sum())
+        live = int((args[3] * torch.arange(1, d + 1, device=args[3].device)).amax())
+        nbytes = 4 * g * valid_rows + b * d + b * g * 2 + b * a * g + t * 4 + 2 * b * a * t * d
+        nops = 2 * a * t * g * valid_rows
         bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_OPS_PER_S * 1e3
-        chain_ms = d * (math.ceil(math.log2(g)) + 2) * DEP_OP_CYCLES / SM_CLOCK_HZ * 1e3
+        chain_ms = live * (math.ceil(math.log2(g)) + 2) * DEP_OP_CYCLES / SM_CLOCK_HZ * 1e3
+        plan = kcm.launch_plan(d, g, a, t)
+        check(plan.shared_bytes == shared_bytes(d, g, a, plan.scans_per_block, int(plan.staged)),
+              f"the launcher's shared memory {plan.shared_bytes} is not the source's ({label})")
         kernel_ms = time_ms(lambda: kcm.coco_match(*args), flush)
         plain_ms = time_ms(lambda: _match_batch_plain(*args), flush, reps=5, warmup=1)
         sets = [args] + [tuple(x.clone() for x in args) for _ in range(copies_for(nbytes) - 1)]
@@ -582,12 +610,14 @@ def phase_matcher(flush: torch.Tensor):
             "case": label, "max_abs_err": float(max(mismatches)), "ms": kernel_ms, "stream_ms": stream_ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "chain_ms": chain_ms,
-            "bytes": nbytes, "ops": nops, "library_ms": None,
+            "bytes": nbytes, "ops": nops, "valid_rows": valid_rows, "live": live, "plan": plan._asdict(),
+            "library_ms": None,
         }
         print(
             f"[kernel] coco_match {label}: exact, {kernel_ms:.4f} ms after an L2 flush "
             f"({stream_ms:.4f} ms a call back to back), plain {plain_ms:.4f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
-            f"({row['bound_by']}: {nbytes} bytes, {nops} ops), dependent chain {chain_ms * 1e3:.2f} us, library_ms: none"
+            f"({row['bound_by']}: {nbytes} bytes, {nops} ops; {valid_rows} valid rows, live extent up to {live}), "
+            f"dependent chain {chain_ms * 1e3:.2f} us, library_ms: none; plan {tuple(plan)}"
         )
         rows.append(row)
     return rows, shapes
@@ -746,6 +776,16 @@ def _device_s(prof, name: str = "") -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name) / 1e6
 
 
+def _top_device_ops(prof, n: int = 8) -> list:
+    """``[name, device s, count]`` of the ``n`` device operations a ``torch.profiler`` run spent most time in."""
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += e.time_range.elapsed_us() / 1e6
+            by_name[e.name][1] += 1
+    return sorted(([name[:90], s, c] for name, (s, c) in by_name.items()), key=lambda r: -r[1])[:n]
+
+
 def worker_ragged(rank: int, world: int, device: torch.device) -> dict:
     """Phase 6 on one rank: ROUGE over its share of 1,000 sentence pairs and
     mAP over its share of the images, a different count on every rank, through
@@ -823,6 +863,7 @@ def worker_ragged(rank: int, world: int, device: torch.device) -> dict:
         out["map_ref"] = {k: float(v) for k, v in ref_value.items() if v.numel() == 1 and k != "classes"}
         out["map_ref_device_s"] = _device_s(prof)
         out["map_ref_coco_match_s"] = _device_s(prof, "coco_match")
+        out["map_ref_top_ops"] = _top_device_ops(prof)
         out["map_ref_coco_match_kernels"] = sum(
             1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "coco_match" in e.name
         )
@@ -960,6 +1001,8 @@ def phase_ragged(chunk_shapes: collections.Counter) -> dict:
               f"coco_match {first['map_ref_coco_match_s']:.6f} s in {first['map_ref_coco_match_kernels']} kernels; "
               f"map {first['map']['map']:.6f}, "
               f"map_50 {first['map']['map_50']:.6f}: equal to the single-process run")
+        for name, sec, count in first["map_ref_top_ops"]:
+            print(f"[ragged] {label}: single-process mAP compute, device operation {name}: {sec:.6f} s in {count}")
         record[label] = results
     return record
 

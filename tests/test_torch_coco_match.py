@@ -5,7 +5,8 @@ The CUDA kernel (``csrc/coco_match.cu``) runs only on the card, where
 here the plain version must equal JAX's matcher exactly (both are boolean
 maps) on padded items with tied IoUs, crowd and ignored ground truths,
 IoUs of exactly 1.0 at ``thr=1.0``, invalid and all ``-inf`` detection rows,
-and the launcher must refuse what the kernel does not take, before any
+gaps in the valid detections, items of other live extents or none, and G
+from 1 to 64; the launch plan must fit the card, and the launcher must refuse what the kernel does not take, before any
 build or launch.
 """
 
@@ -23,7 +24,7 @@ from torchmetrics_tpu_torch.kernels import coco_match as kcm
 THRS = np.round(np.arange(0.5, 1.0, 0.05), 2).astype(np.float32)
 
 
-def _batch(seed, b=6, d=16, g=8, a=4, ties=True):
+def _batch(seed, b=6, d=16, g=8, a=4, ties=True, live=None):
     rng = np.random.default_rng(seed)
     ious = rng.uniform(0, 1, (b, d, g)).astype(np.float32)
     if ties:  # a coarse grid: equal IoUs in a row, and IoUs on the thresholds
@@ -38,6 +39,12 @@ def _batch(seed, b=6, d=16, g=8, a=4, ties=True):
     valid_g = rng.uniform(size=(b, g)) < 0.9
     ious[3, 2] = -np.inf  # an invalid row of -inf
     valid_d[3, 2] = False
+    if live == "gaps":  # a run of invalid rows, then live rows after it, in every item
+        valid_d[:, d // 4 : d // 2] = False
+        valid_d[:, -1] = True
+    elif live == "extents":  # live prefixes of other lengths, one item with no valid row
+        valid_d &= np.arange(d)[None, :] < rng.integers(1, d + 1, (b, 1))
+        valid_d[b - 1] = False
     return ious, crowd, ignored, valid_d, valid_g
 
 
@@ -47,6 +54,12 @@ CASES = {
     "no_ties": (2, THRS, {"ties": False}),
     "g_64_more_than_one_gt_a_lane": (3, THRS[:3], {"g": 64, "d": 8}),
     "one_area": (4, THRS, {"a": 1}),
+    "gaps_in_valid_detections": (6, THRS, {"live": "gaps"}),
+    "live_extents_differ_and_an_empty_item": (7, THRS, {"live": "extents"}),
+    "g_1": (8, THRS, {"g": 1, "live": "extents"}),
+    "g_2": (10, THRS, {"g": 2}),
+    "g_16": (11, THRS, {"g": 16, "live": "gaps"}),
+    "g_33": (12, THRS[:4], {"g": 33, "d": 12, "live": "extents"}),
 }
 
 
@@ -115,4 +128,39 @@ def test_launcher_refuses_before_any_launch():
 
 @pytest.mark.parametrize("g,k", [(1, 1), (32, 1), (33, 2), (64, 2), (65, 4), (128, 4), (129, 8), (256, 8)])
 def test_gts_a_lane(g, k):
-    assert kcm.gts_per_lane(g) == k
+    lanes, kpl = kcm.lane_group(g)
+    assert kpl == k and lanes * kpl >= g
+    assert lanes == 32 or kpl == 1
+
+
+@pytest.mark.parametrize("g,p", [(1, 1), (2, 2), (3, 4), (5, 8), (8, 8), (9, 16), (17, 32), (32, 32)])
+def test_lane_group_is_the_next_power_of_two(g, p):
+    assert kcm.lane_group(g) == (p, 1)
+
+
+PLANS = {  # (D, G, A, T) -> (lanes, gts a lane, scans a block, blocks an item, threads, staged)
+    "map_chunk": ((64, 8, 4, 10), (8, 1, 40, 1, 320, True)),
+    "g_32_two_blocks_an_item": ((128, 32, 4, 10), (32, 1, 20, 2, 640, True)),
+    "g_1_a_thread_a_scan": ((64, 1, 4, 10), (1, 1, 40, 1, 64, True)),
+    "g_256_tile_in_device_memory": ((128, 256, 4, 10), (32, 8, 20, 2, 640, False)),
+    "g_64_t_32": ((128, 64, 4, 32), (32, 2, 32, 4, 1024, True)),
+    "d_8": ((8, 8, 4, 10), (8, 1, 40, 1, 320, True)),
+}
+
+
+@pytest.mark.parametrize("name", list(PLANS))
+def test_launch_plan(name):
+    (d, g, a, t), want = PLANS[name]
+    plan = kcm.launch_plan(d, g, a, t)
+    assert plan[:6] == want
+    assert plan.scans_per_block * plan.blocks_per_item >= a * t > plan.scans_per_block * (plan.blocks_per_item - 1)
+    assert plan.threads <= kcm.MAX_THREADS and plan.shared_bytes <= kcm.MAX_SHARED_BYTES
+    assert plan.shared_bytes == kcm.shared_bytes(d, g, a, plan.scans_per_block, plan.staged)
+
+
+def test_launch_plan_splits_an_item_until_its_shared_memory_fits():
+    plan = kcm.launch_plan(65536, 32, 4, 32)  # 16 KB of output bits a scan: 13 blocks of 10 scans, not 4 of 32
+    assert not plan.staged and (plan.scans_per_block, plan.blocks_per_item) == (10, 13)
+    assert plan.shared_bytes <= kcm.MAX_SHARED_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        kcm.launch_plan(2**20, 8, 4, 10)

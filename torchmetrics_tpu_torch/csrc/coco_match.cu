@@ -1,5 +1,5 @@
-// Greedy COCO detection <-> ground-truth matching, one warp per
-// (item, area range, IoU threshold).
+// Greedy COCO detection <-> ground-truth matching: a block per item, a lane
+// group per (area range, IoU threshold).
 //
 // Replaces the XLA-lowered JAX matcher
 // (torchmetrics_tpu/functional/detection/matcher.py:29-78: the lax.scan of
@@ -17,38 +17,42 @@
 //
 // The last index wins ties, as `(G - 1) - argmax(vals[::-1])` does; every g
 // of the padded row takes part in the argmax, as in the JAX function. An
-// invalid detection (valid_d = 0) changes no carry.
+// invalid detection (valid_d = 0) changes no carry, and past the item's last
+// valid detection no output is set.
 //
-// Bound on the card: the call must read the IoUs (B*D*G*4 bytes) and the
-// masks and write two (B, A, T, D) byte maps: 27.6 MB at the COCO chunk
-// B=1024, D=128, G=32, A=4, T=10, 8.2 us at 3.35 TB/s (H100 SXM data sheet,
-// 700 W); a compare and an argmax step per (b, a, t, d, g) of a valid
-// detection, at most 336 M operations, take at most 5.0 us at 67 TFLOP/s.
-// Each warp's D steps form a dependent chain: a step cannot start before the
-// previous one has set its match.
+// What bounds it on the card: the least work reads the IoU rows of the valid
+// detections, the masks, and writes two (B, A, T, D) byte maps. At mAP's
+// chunk (B, D, G, A, T) = (1024, 64, 8, 4, 10), 2,474 valid rows, that is
+// 5.44 MB, 1.6 us at 3.35 TB/s (H100 SXM data sheet, 700 W); the maps are
+// 96 % of it. The scan itself is a dependent chain of d_live steps per
+// (item, area, threshold) and is bound by the instructions each step issues,
+// not by memory.
 //
 // What the design does about it:
-// - a block takes one (b, a) and T warps, one per threshold; it stages the
-//   item's (D, G) IoU tile and its valid_d bytes in shared memory once for
-//   its T warps (the tile when it fits kStageBytes), so the IoUs are read
-//   from device memory A times, not A*T times, and a step waits on no
-//   device-memory load;
-// - lane l of a warp holds ground truths l, l + 32, ... (KPL of them, in
-//   registers: crowd, ignored, valid and matched bits), so a step is a few
-//   compares a lane, two warp votes and an argmax of two single-instruction
-//   warp reductions (`__reduce_max_sync` of an order-keeping integer key of
-//   the IoU, then of the index among the lanes that hold the maximum; a
-//   ballot in place of the second when a lane holds one gt). A first form
-//   reduced (value, index) pairs in 5 rounds of two shuffles: 0.4286 ms at
-//   the COCO chunk after an L2 flush (NVIDIA H100 80GB HBM3, 700 W; this
-//   form's time is in PERF.md);
-// - a padded detection, or one with no eligible ground truth, skips the
-//   argmax: the test is the same on every lane, so the warp does not diverge;
-// - the outputs of 32 consecutive detections are held one a lane and
-//   written together, 32 bytes a store.
+// - the block finds its item's live extent d_live = 1 + the last valid
+//   detection once, and scans and stages only d < d_live (valid_d need not
+//   be a prefix, so the scan still tests it). mAP pads every item to the
+//   chunk's largest D: 96 % of its rows are padding;
+// - a block takes one item (or a share of its A*T scans where they need more
+//   than 1024 threads) and stages its live IoU rows, its valid_d bytes and
+//   its ground-truth flags (as bit masks) in shared memory once for all of
+//   its scans;
+// - a scan runs on a group of P = next_pow2(G) lanes for G <= 32 (32/P scans
+//   a warp), one ground truth a lane; for G > 32, on a whole warp with KPL
+//   ground truths a lane. A step is a few compares a lane, two warp votes
+//   masked to the group and an argmax: log2(P) xor-shuffle rounds (one
+//   `__reduce_max_sync` for P = 32) of an order-keeping integer key of the
+//   IoU, then the highest lane of the group that holds the top key (a
+//   second reduction of the index for KPL > 1);
+// - a valid detection with no eligible ground truth in any group of a warp
+//   skips the argmax: the test is warp-uniform, so the warp does not diverge;
+// - each scan keeps its output bits in registers and puts 32 steps at a time
+//   in a shared bit slab; the block then writes its rows of both (A, T, D)
+//   maps, zeros past d_live included, as 16-byte stores (bytes when D % 16).
 //
 // Inputs are bytes (torch.bool is one byte, 0 or 1); outputs are uint8 maps
-// that the wrapper views as bool.
+// that the wrapper views as bool. The launch plan (P, KPL, scans a block,
+// shared memory) is chosen by the wrapper, kernels/coco_match.py.
 
 #include <cuda_runtime.h>
 
@@ -57,6 +61,7 @@
 namespace {
 
 constexpr int kStageBytes = 96 * 1024;  // shared memory a block may use for the IoU tile
+constexpr int kMaxThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
 // A key that orders as the float does, for any float but NaN; -0.0 and +0.0,
@@ -66,58 +71,126 @@ __device__ __forceinline__ unsigned ordered_key(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-template <int KPL>
-__global__ void coco_match_kernel(const float* __restrict__ ious, const uint8_t* __restrict__ crowd,
-                                  const uint8_t* __restrict__ ignored, const uint8_t* __restrict__ valid_d,
-                                  const uint8_t* __restrict__ valid_g, const float* __restrict__ thrs,
-                                  uint8_t* __restrict__ matched, uint8_t* __restrict__ det_ignored, int D, int G,
-                                  int A, int T, int staged) {
-  extern __shared__ float tile[];
-  const int b = blockIdx.x / A;
-  const int a = blockIdx.x % A;
-  const int t = threadIdx.x >> 5;
+__device__ __forceinline__ bool bit(const unsigned* words, int i) { return (words[i >> 5] >> (i & 31)) & 1u; }
+
+// 4 bits, low first, as 4 bytes of 0 or 1 (the shifted copies do not overlap)
+__device__ __forceinline__ unsigned bytes_of_nibble(unsigned n) { return ((n & 0xfu) * 0x00204081u) & 0x01010101u; }
+
+// the largest value over each aligned group of P lanes
+template <int P>
+__device__ __forceinline__ unsigned group_max(unsigned x) {
+  if constexpr (P == 32) {
+    return __reduce_max_sync(kFull, x);
+  } else {
+#pragma unroll
+    for (int off = P / 2; off > 0; off >>= 1) x = max(x, __shfl_xor_sync(kFull, x, off));
+    return x;
+  }
+}
+
+// Shared memory of a block, in bytes, in this order: the (D, G) IoU tile
+// (when staged), the output bits [2][spb][ceil(D/32)] words, the gt masks
+// crowd, valid_g and ignored[A] of ceil(G/32) words each, valid_d bytes.
+size_t shared_bytes(int D, int G, int A, int spb, int staged) {
+  const size_t words = 2 * static_cast<size_t>(spb) * ((D + 31) / 32) + static_cast<size_t>(2 + A) * ((G + 31) / 32);
+  return (staged ? static_cast<size_t>(D) * G * sizeof(float) : 0) + words * 4 + D;
+}
+
+template <int P, int KPL>
+__global__ void __launch_bounds__(kMaxThreads)
+    coco_match_kernel(const float* __restrict__ ious, const uint8_t* __restrict__ crowd,
+                      const uint8_t* __restrict__ ignored, const uint8_t* __restrict__ valid_d,
+                      const uint8_t* __restrict__ valid_g, const float* __restrict__ thrs,
+                      uint8_t* __restrict__ matched, uint8_t* __restrict__ det_ignored, int D, int G, int A, int T,
+                      int spb, int staged) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_live;
+  const int S = A * T;
+  const int blocks_per_item = (S + spb - 1) / spb;
+  const int b = blockIdx.x / blocks_per_item;
+  const int s0 = (blockIdx.x % blocks_per_item) * spb;  // this block's scans: s0 .. s0 + n_scans - 1
+  const int n_scans = min(spb, S - s0);
+  const int W = (G + 31) >> 5;
+  const int Dw = (D + 31) >> 5;
   const int lane = threadIdx.x & 31;
+
+  float* tile = reinterpret_cast<float*>(smem);
+  unsigned* out_bits = reinterpret_cast<unsigned*>(smem + (staged ? static_cast<size_t>(D) * G * sizeof(float) : 0));
+  unsigned* gt_bits = out_bits + 2 * spb * Dw;
+  uint8_t* vd = reinterpret_cast<uint8_t*>(gt_bits + (2 + A) * W);
+
+  if (threadIdx.x == 0) s_live = 0;
+  __syncthreads();
+  int live = 0;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    const uint8_t v = valid_d[static_cast<size_t>(b) * D + i];
+    vd[i] = v;
+    if (v) live = i + 1;
+  }
+  live = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(live)));
+  if (lane == 0 && live > 0) atomicMax(&s_live, live);
+  for (int i = threadIdx.x; i < 2 * spb * Dw; i += blockDim.x) out_bits[i] = 0;
+  // the gt flags as bit masks, a word a warp: crowd, valid_g, then ignored of each area
+  for (int w = threadIdx.x >> 5; w < (2 + A) * W; w += blockDim.x >> 5) {
+    const int row = w / W;
+    const int g = (w % W) * 32 + lane;
+    bool f = false;
+    if (g < G) {
+      f = row == 0   ? crowd[static_cast<size_t>(b) * G + g]
+          : row == 1 ? valid_g[static_cast<size_t>(b) * G + g]
+                     : ignored[(static_cast<size_t>(b) * A + (row - 2)) * G + g];
+    }
+    const unsigned word = __ballot_sync(kFull, f);
+    if (lane == 0) gt_bits[w] = word;
+  }
+  __syncthreads();
+  const int d_live = s_live;
   const float* item = ious + static_cast<size_t>(b) * D * G;
-  // shared memory: the (D, G) IoU tile when staged, then the item's D valid_d bytes
-  uint8_t* vd = reinterpret_cast<uint8_t*>(tile + (staged ? D * G : 0));
-  for (int i = threadIdx.x; i < D; i += blockDim.x) vd[i] = valid_d[static_cast<size_t>(b) * D + i];
   if (staged) {
-    for (int i = threadIdx.x; i < D * G; i += blockDim.x) tile[i] = item[i];
+    for (int i = threadIdx.x; i < d_live * G; i += blockDim.x) tile[i] = item[i];
     item = tile;
   }
   __syncthreads();
 
-  // min(thr, 1.0f) that keeps a NaN threshold, as jnp.minimum does
-  const float thr = thrs[t] > 1.0f ? 1.0f : thrs[t];
-  // this lane's ground truths g = lane + 32 * k
+  // this group's scan s = (a, t); a group past the block's scans runs with
+  // no valid gt, so it votes nothing but keeps the warp's collectives whole
+  const int grp = threadIdx.x / P;
+  const int li = threadIdx.x & (P - 1);
+  const int gbase = lane & ~(P - 1);
+  unsigned gmask;
+  if constexpr (P == 32) {
+    gmask = kFull;
+  } else {
+    gmask = ((1u << P) - 1u) << gbase;
+  }
+  const bool active = grp < n_scans;
+  const int s = s0 + (active ? grp : 0);
+  const int a = s / T;
+  const float thr_in = thrs[s % T];
+  const float thr = thr_in > 1.0f ? 1.0f : thr_in;  // min(thr, 1.0f) that keeps a NaN threshold
+  const unsigned* ign_w = gt_bits + (2 + a) * W;
   bool cr[KPL], ig[KPL], vg[KPL], done[KPL];
-  unsigned ig_bits[KPL];  // the warp's ignored flags of gts 32k .. 32k + 31
 #pragma unroll
   for (int k = 0; k < KPL; ++k) {
-    const int g = lane + 32 * k;
+    const int g = li + P * k;
     const bool in = g < G;
-    cr[k] = in && crowd[static_cast<size_t>(b) * G + g];
-    ig[k] = in && ignored[(static_cast<size_t>(b) * A + a) * G + g];
-    vg[k] = in && valid_g[static_cast<size_t>(b) * G + g];
+    cr[k] = in && bit(gt_bits, g);
+    vg[k] = active && in && bit(gt_bits + W, g);
+    ig[k] = in && bit(ign_w, g);
     done[k] = false;
-    ig_bits[k] = __ballot_sync(kFull, ig[k]);
   }
-  const size_t out_row = ((static_cast<size_t>(b) * A + a) * T + t) * D;
-  uint8_t my_m = 0, my_i = 0;
 
-  for (int d = 0; d < D; ++d) {
-    // `has` is false for an invalid detection or an empty pool: then the
-    // argmax is not needed and no carry changes (both tests are warp-uniform)
-    bool has = vd[d];
-    bool m_ignored = false;
-    if (has) {
+  unsigned m_word = 0, i_word = 0;
+  for (int d = 0; d < d_live; ++d) {
+    bool has = false, m_ign = false;
+    if (vd[d]) {  // the same test in the whole block
       const float* row = item + static_cast<size_t>(d) * G;
       float v[KPL];
       bool non_ig[KPL], ig_elig[KPL];
       bool any_non = false, any_ig = false;
 #pragma unroll
       for (int k = 0; k < KPL; ++k) {
-        const int g = lane + 32 * k;
+        const int g = li + P * k;
         v[k] = g < G ? row[g] : 0.0f;
         const bool elig = g < G && v[k] >= thr && (!done[k] || cr[k]) && vg[k];
         non_ig[k] = elig && !ig[k];
@@ -125,86 +198,149 @@ __global__ void coco_match_kernel(const float* __restrict__ ious, const uint8_t*
         any_non |= non_ig[k];
         any_ig |= ig_elig[k];
       }
-      any_non = __any_sync(kFull, any_non);
-      has = any_non || __any_sync(kFull, any_ig);
-      if (has) {
+      // both votes on every lane: the groups of a warp differ in `use_non`
+      const unsigned non_votes = __ballot_sync(kFull, any_non) & gmask;
+      const unsigned ig_votes = __ballot_sync(kFull, any_ig) & gmask;
+      const bool use_non = non_votes != 0;
+      has = (non_votes | ig_votes) != 0;
+      if (__any_sync(kFull, has)) {
         float best = -INFINITY;
         int best_g = -1;
 #pragma unroll
         for (int k = 0; k < KPL; ++k) {
-          const int g = lane + 32 * k;
-          const float val = (any_non ? non_ig[k] : ig_elig[k]) ? v[k] : -INFINITY;
+          const int g = li + P * k;
+          const float val = (use_non ? non_ig[k] : ig_elig[k]) ? v[k] : -INFINITY;
           if (g < G && val >= best) {  // g rises with k: a later equal value wins
             best = val;
             best_g = g;
           }
         }
-        // (value, index) argmax over the warp, the larger index winning a tie:
-        // the largest value by one reduction of order-keeping keys, then the
-        // largest index among the lanes that hold it (a lane with no gt: key 0)
+        // (value, index) argmax over the group, the larger index winning a
+        // tie: the largest order-keeping key, then the largest index among
+        // the lanes that hold it (a lane with no gt: key 0, below any gt's)
         const unsigned key = best_g < 0 ? 0u : ordered_key(best);
-        const unsigned top = __reduce_max_sync(kFull, key);
+        const unsigned top = group_max<P>(key);
         int m;
-        if (KPL == 1) {  // g == lane: the highest lane holding the top value
-          m = 31 - __clz(__ballot_sync(kFull, key == top));
+        if constexpr (KPL == 1) {  // g == li: the highest lane of the group holding the top key
+          m = 31 - __clz(__ballot_sync(kFull, key == top) & gmask) - gbase;
         } else {
-          m = static_cast<int>(__reduce_max_sync(kFull, key == top ? static_cast<unsigned>(best_g + 1) : 0u)) - 1;
+          m = static_cast<int>(group_max<P>(key == top ? static_cast<unsigned>(best_g + 1) : 0u)) - 1;
         }
+        if (has) {
 #pragma unroll
-        for (int k = 0; k < KPL; ++k) {
-          if (m == lane + 32 * k) done[k] = true;
-          if ((m >> 5) == k) m_ignored = (ig_bits[k] >> (m & 31)) & 1u;
+          for (int k = 0; k < KPL; ++k) {
+            if (m == li + P * k) done[k] = true;
+          }
+          m_ign = bit(ign_w, m);
         }
       }
     }
-    if (lane == (d & 31)) {
-      my_m = has;
-      my_i = has && m_ignored;
-    }
-    if ((d & 31) == 31 || d == D - 1) {
-      const int d0 = d & ~31;
-      if (d0 + lane <= d) {
-        matched[out_row + d0 + lane] = my_m;
-        det_ignored[out_row + d0 + lane] = my_i;
-      }
+#ifdef COCO_MATCH_BYTE_STORES  // ablation: each group writes its bytes as it goes
+    if (li == 0 && active) {
+      const size_t at = (static_cast<size_t>(b) * S + s) * D + d;
+      matched[at] = has;
+      det_ignored[at] = has && m_ign;
     }
   }
+  if (active) {
+    for (int d = d_live + li; d < D; d += P) {
+      const size_t at = (static_cast<size_t>(b) * S + s) * D + d;
+      matched[at] = 0;
+      det_ignored[at] = 0;
+    }
+  }
+#else
+    m_word |= static_cast<unsigned>(has) << (d & 31);
+    i_word |= static_cast<unsigned>(has && m_ign) << (d & 31);
+    if ((d & 31) == 31 || d == d_live - 1) {
+      if (li == 0 && active) {
+        out_bits[grp * Dw + (d >> 5)] = m_word;
+        out_bits[(spb + grp) * Dw + (d >> 5)] = i_word;
+      }
+      m_word = i_word = 0;
+    }
+  }
+  __syncthreads();
+
+  // the block's rows s0 .. s0 + n_scans - 1 of both maps, contiguous in each
+  const size_t first = (static_cast<size_t>(b) * S + s0) * D;
+  const int n_bytes = n_scans * D;
+  for (int o = 0; o < 2; ++o) {
+    const unsigned* bits = out_bits + o * spb * Dw;
+    uint8_t* dst = (o == 0 ? matched : det_ignored) + first;
+    if ((D & 15) == 0) {  // 16 bytes a store: one row, 16-byte aligned
+      for (int c = threadIdx.x; c < n_bytes / 16; c += blockDim.x) {
+        const int r = (c * 16) / D, d = (c * 16) % D;
+        const unsigned x = bits[r * Dw + (d >> 5)] >> (d & 31);
+        reinterpret_cast<uint4*>(dst)[c] =
+            make_uint4(bytes_of_nibble(x), bytes_of_nibble(x >> 4), bytes_of_nibble(x >> 8), bytes_of_nibble(x >> 12));
+      }
+    } else {
+      for (int e = threadIdx.x; e < n_bytes; e += blockDim.x) dst[e] = bit(bits + (e / D) * Dw, e % D);
+    }
+  }
+#endif
 }
 
-template <int KPL>
+template <int P, int KPL>
 int launch(const void* ious, const void* crowd, const void* ignored, const void* valid_d, const void* valid_g,
-           const void* thrs, void* matched, void* det_ignored, int B, int D, int G, int A, int T, int staged,
+           const void* thrs, void* matched, void* det_ignored, int B, int D, int G, int A, int T, int spb, int staged,
            cudaStream_t stream) {
-  const size_t smem = (staged ? static_cast<size_t>(D) * G * sizeof(float) : 0) + D;
-  auto kernel = coco_match_kernel<KPL>;
+  const size_t smem = shared_bytes(D, G, A, spb, staged);
+  auto kernel = coco_match_kernel<P, KPL>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<B * A, 32 * T, smem, stream>>>(
+  const int threads = (spb * P + 31) / 32 * 32;
+  const int blocks = B * ((A * T + spb - 1) / spb);
+  kernel<<<blocks, threads, smem, stream>>>(
       static_cast<const float*>(ious), static_cast<const uint8_t*>(crowd), static_cast<const uint8_t*>(ignored),
       static_cast<const uint8_t*>(valid_d), static_cast<const uint8_t*>(valid_g), static_cast<const float*>(thrs),
-      static_cast<uint8_t*>(matched), static_cast<uint8_t*>(det_ignored), D, G, A, T, staged);
+      static_cast<uint8_t*>(matched), static_cast<uint8_t*>(det_ignored), D, G, A, T, spb, staged);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Shared memory one block asks for; the wrapper checks it against the card's
+// limit before it launches.
+extern "C" size_t coco_match_shared_bytes(int D, int G, int A, int spb, int staged) {
+  return shared_bytes(D, G, A, spb, staged);
+}
+
 // One launch of the matcher on `stream`. The wrapper (kernels/coco_match.py)
-// has checked every shape and type; `kpl` is ceil(G / 32) rounded up to 1, 2,
-// 4 or 8, `staged` whether the (D, G) tile fits kStageBytes. Returns the CUDA
-// error code of the launch (0 on success).
+// has checked every shape and type and chosen the plan: `p` lanes a scan
+// (1..32, a power of two), `kpl` ground truths a lane, `spb` scans a block,
+// `staged` whether the (D, G) tile fits kStageBytes. Returns the CUDA error
+// code of the launch (0 on success), or -1 / -2 for a plan the source does
+// not take.
 extern "C" int coco_match_launch(const void* ious, const void* crowd, const void* ignored, const void* valid_d,
                                  const void* valid_g, const void* thrs, void* matched, void* det_ignored, int B,
-                                 int D, int G, int A, int T, int kpl, int staged, void* stream) {
+                                 int D, int G, int A, int T, int p, int kpl, int spb, int staged, void* stream) {
   if (staged && static_cast<size_t>(D) * G * sizeof(float) > static_cast<size_t>(kStageBytes)) return -1;
+  if (spb < 1 || spb * p > kMaxThreads || p * kpl < G) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kpl) {
-    case 1: return launch<1>(ious, crowd, ignored, valid_d, valid_g, thrs, matched, det_ignored, B, D, G, A, T, staged, s);
-    case 2: return launch<2>(ious, crowd, ignored, valid_d, valid_g, thrs, matched, det_ignored, B, D, G, A, T, staged, s);
-    case 4: return launch<4>(ious, crowd, ignored, valid_d, valid_g, thrs, matched, det_ignored, B, D, G, A, T, staged, s);
-    case 8: return launch<8>(ious, crowd, ignored, valid_d, valid_g, thrs, matched, det_ignored, B, D, G, A, T, staged, s);
-    default: return -2;
-  }
+#define COCO_MATCH_CASE(P_, K_)                                                                                    \
+  if (p == P_ && kpl == K_)                                                                                        \
+    return launch<P_, K_>(ious, crowd, ignored, valid_d, valid_g, thrs, matched, det_ignored, B, D, G, A, T, spb, \
+                          staged, s);
+  COCO_MATCH_CASE(1, 1)
+  COCO_MATCH_CASE(2, 1)
+  COCO_MATCH_CASE(4, 1)
+  COCO_MATCH_CASE(8, 1)
+  COCO_MATCH_CASE(16, 1)
+  COCO_MATCH_CASE(32, 1)
+  COCO_MATCH_CASE(32, 2)
+  COCO_MATCH_CASE(32, 4)
+  COCO_MATCH_CASE(32, 8)
+  // a thread a scan, walking the ground truths itself (the ablation against lane groups)
+  COCO_MATCH_CASE(1, 2)
+  COCO_MATCH_CASE(1, 4)
+  COCO_MATCH_CASE(1, 8)
+  COCO_MATCH_CASE(1, 16)
+  COCO_MATCH_CASE(1, 32)
+#undef COCO_MATCH_CASE
+  return -2;
 }

@@ -1,12 +1,12 @@
 """Launcher of the ``coco_match`` CUDA kernel (``csrc/coco_match.cu``).
 
 :func:`coco_match` is the greedy COCO matcher of a padded batch of
-(class, image) items: it checks its inputs, launches one kernel on the
-current stream (a block per item and area range, a warp per IoU
-threshold) and counts its launches in ``coco_match.launches`` and, by
-``(B, D, G, A, T)``, in ``coco_match.shapes``. It takes
-CUDA tensors only: the dispatch between the kernel and its plain PyTorch
-version, by the device of the input, is
+(class, image) items: it checks its inputs, chooses the launch plan
+(:func:`launch_plan`: a block per item, a group of lanes per area range and
+IoU threshold), launches one kernel on the current stream and counts its
+launches in ``coco_match.launches`` and, by ``(B, D, G, A, T)``, in
+``coco_match.shapes``. It takes CUDA tensors only: the dispatch between the
+kernel and its plain PyTorch version, by the device of the input, is
 ``functional.detection.matcher.match_batch``.
 """
 
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -22,9 +22,11 @@ from torch import Tensor
 from torchmetrics_tpu_torch.kernels._build import load_library
 
 SOURCE = "coco_match"
-MAX_GTS = 256  # ground truths of one item: 8 a lane of the item's warp
-MAX_THRESHOLDS = 32  # one warp a threshold, in one block
+MAX_GTS = 256  # ground truths of one item: 8 a lane of a warp
+MAX_THRESHOLDS = 32
+MAX_THREADS = 1024  # kMaxThreads in the source: the threads of one block
 STAGE_BYTES = 96 * 1024  # kStageBytes in the source: the largest (D, G) float tile staged in shared memory
+MAX_SHARED_BYTES = 227 * 1024  # dynamic shared memory one block may use on Hopper
 
 _launch: Optional[ctypes._CFuncPtr] = None
 
@@ -33,16 +35,62 @@ def _launch_fn() -> ctypes._CFuncPtr:
     global _launch
     if _launch is None:
         fn = load_library(SOURCE).coco_match_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
 
 
-def gts_per_lane(n_gts: int) -> int:
-    """Ground truths each lane of a warp holds: ceil(G / 32), rounded up to 1, 2, 4 or 8."""
+def lane_group(n_gts: int) -> Tuple[int, int]:
+    """``(P, KPL)``: the lanes that carry one scan and the ground truths each lane holds.
+
+    For G <= 32, ``P = next_pow2(G)`` lanes, one ground truth a lane; above,
+    a whole warp with ``ceil(G / 32)`` rounded up to 2, 4 or 8 a lane.
+    """
+    if n_gts <= 32:
+        return 1 << (n_gts - 1).bit_length(), 1
     need = -(-n_gts // 32)
-    return next(k for k in (1, 2, 4, 8) if k >= need)
+    return 32, next(k for k in (2, 4, 8) if k >= need)
+
+
+def shared_bytes(n_dets: int, n_gts: int, n_areas: int, scans_per_block: int, staged: bool) -> int:
+    """Dynamic shared memory of one block, as ``shared_bytes`` in the source
+    counts it: the staged (D, G) IoU tile, two output bit slabs of
+    ``scans_per_block`` rows of ``ceil(D / 32)`` words, the ground truths'
+    crowd, valid and per-area ignored masks, the ``valid_d`` bytes."""
+    words = 2 * scans_per_block * (-(-n_dets // 32)) + (2 + n_areas) * (-(-n_gts // 32))
+    return (n_dets * n_gts * 4 if staged else 0) + 4 * words + n_dets
+
+
+class LaunchPlan(NamedTuple):
+    lanes: int  # P: lanes a scan
+    gts_per_lane: int  # KPL
+    scans_per_block: int  # of the A*T (area range, threshold) scans of one item
+    blocks_per_item: int
+    threads: int
+    staged: bool  # the (D, G) tile in shared memory, else read from device memory
+    shared_bytes: int
+
+
+def launch_plan(n_dets: int, n_gts: int, n_areas: int, n_thr: int) -> LaunchPlan:
+    """The plan of one launch: one block per item when its ``A*T`` scans fit in
+    ``MAX_THREADS`` threads, else the fewest blocks per item that hold them (and
+    more while the shared memory does not fit), the scans shared evenly."""
+    lanes, kpl = lane_group(n_gts)
+    n_scans = n_areas * n_thr
+    staged = n_dets * n_gts * 4 <= STAGE_BYTES
+    blocks = -(-n_scans * lanes // MAX_THREADS)
+    while True:
+        spb = -(-n_scans // blocks)
+        smem = shared_bytes(n_dets, n_gts, n_areas, spb, staged)
+        if smem <= MAX_SHARED_BYTES or spb == 1:
+            break
+        blocks += 1
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"coco_match: D={n_dets} detections need {smem} bytes of shared memory a block, "
+                         f"more than {MAX_SHARED_BYTES}")
+    threads = -(-spb * lanes // 32) * 32
+    return LaunchPlan(lanes, kpl, spb, -(-n_scans // spb), threads, staged, smem)
 
 
 def _check(name: str, x: Tensor, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:
@@ -84,8 +132,6 @@ def coco_match(
             f"coco_match takes 1 to {MAX_GTS} ground truths, 1 to {MAX_THRESHOLDS} thresholds and at least "
             f"one detection and area range an item, got G={n_gts}, T={n_thr}, D={n_dets}, A={n_areas}"
         )
-    if n_items * n_areas >= 2**31 or n_items * n_dets * n_gts >= 2**31:
-        raise ValueError("coco_match: the batch is too large for one launch")
     device = ious.device
     _check("ious", ious, torch.float32, (n_items, n_dets, n_gts), device)
     _check("crowd", crowd, torch.bool, (n_items, n_gts), device)
@@ -93,6 +139,9 @@ def coco_match(
     _check("valid_d", valid_d, torch.bool, (n_items, n_dets), device)
     _check("valid_g", valid_g, torch.bool, (n_items, n_gts), device)
     _check("iou_thrs", iou_thrs, torch.float32, (n_thr,), device)
+    plan = launch_plan(n_dets, n_gts, n_areas, n_thr)
+    if n_items * plan.blocks_per_item >= 2**31 or n_items * n_dets * n_gts >= 2**31:
+        raise ValueError("coco_match: the batch is too large for one launch")
     if device.type != "cuda":
         raise ValueError(f"coco_match runs on CUDA tensors only, got them on {device}")
 
@@ -100,11 +149,11 @@ def coco_match(
     det_ignored = torch.empty_like(matched)
     if n_items == 0:
         return matched.view(torch.bool), det_ignored.view(torch.bool)
-    staged = int(n_dets * n_gts * 4 <= STAGE_BYTES)
     args = (
         ious.data_ptr(), crowd.data_ptr(), ignored.data_ptr(), valid_d.data_ptr(), valid_g.data_ptr(),
         iou_thrs.data_ptr(), matched.data_ptr(), det_ignored.data_ptr(), n_items, n_dets, n_gts, n_areas, n_thr,
-        gts_per_lane(n_gts), staged, torch.cuda.current_stream(device).cuda_stream,
+        plan.lanes, plan.gts_per_lane, plan.scans_per_block, int(plan.staged),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     with torch.cuda.device(device):
         err = _launch_fn()(*args)
