@@ -541,7 +541,7 @@ def phase_matcher(flush: torch.Tensor):
     from torchmetrics_tpu_torch.kernels._build import load_library
 
     shared_bytes = load_library(kcm.SOURCE).coco_match_shared_bytes
-    shared_bytes.argtypes, shared_bytes.restype = [ctypes.c_int] * 5, ctypes.c_size_t
+    shared_bytes.argtypes, shared_bytes.restype = [ctypes.c_int] * 4, ctypes.c_size_t
     t0 = time.perf_counter()
     chunks = _map_chunks()
     build_s = time.perf_counter() - t0
@@ -599,7 +599,7 @@ def phase_matcher(flush: torch.Tensor):
         bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_OPS_PER_S * 1e3
         chain_ms = live * (math.ceil(math.log2(g)) + 2) * DEP_OP_CYCLES / SM_CLOCK_HZ * 1e3
         plan = kcm.launch_plan(d, g, a, t)
-        check(plan.shared_bytes == shared_bytes(d, g, a, plan.scans_per_block, int(plan.staged)),
+        check(plan.shared_bytes == shared_bytes(d, g, a, int(plan.staged)),
               f"the launcher's shared memory {plan.shared_bytes} is not the source's ({label})")
         kernel_ms = time_ms(lambda: kcm.coco_match(*args), flush)
         plain_ms = time_ms(lambda: _match_batch_plain(*args), flush, reps=5, warmup=1)

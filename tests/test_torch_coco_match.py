@@ -139,12 +139,12 @@ def test_lane_group_is_the_next_power_of_two(g, p):
 
 
 PLANS = {  # (D, G, A, T) -> (lanes, gts a lane, scans a block, blocks an item, threads, staged)
-    "map_chunk": ((64, 8, 4, 10), (8, 1, 40, 1, 320, True)),
-    "g_32_two_blocks_an_item": ((128, 32, 4, 10), (32, 1, 20, 2, 640, True)),
-    "g_1_a_thread_a_scan": ((64, 1, 4, 10), (1, 1, 40, 1, 64, True)),
-    "g_256_tile_in_device_memory": ((128, 256, 4, 10), (32, 8, 20, 2, 640, False)),
-    "g_64_t_32": ((128, 64, 4, 32), (32, 2, 32, 4, 1024, True)),
-    "d_8": ((8, 8, 4, 10), (8, 1, 40, 1, 320, True)),
+    "map_chunk": ((64, 8, 4, 10), (8, 1, 20, 2, 160, True)),
+    "g_32": ((128, 32, 4, 10), (32, 1, 8, 5, 256, True)),
+    "g_1_a_lane_a_scan": ((64, 1, 4, 10), (1, 1, 40, 1, 64, True)),
+    "g_256_tile_in_device_memory": ((128, 256, 4, 10), (32, 8, 8, 5, 256, False)),
+    "g_64_t_32": ((128, 64, 4, 32), (32, 2, 8, 16, 256, True)),
+    "g_2_one_block_an_item": ((8, 2, 4, 10), (2, 1, 40, 1, 96, True)),
 }
 
 
@@ -155,12 +155,10 @@ def test_launch_plan(name):
     assert plan[:6] == want
     assert plan.scans_per_block * plan.blocks_per_item >= a * t > plan.scans_per_block * (plan.blocks_per_item - 1)
     assert plan.threads <= kcm.MAX_THREADS and plan.shared_bytes <= kcm.MAX_SHARED_BYTES
-    assert plan.shared_bytes == kcm.shared_bytes(d, g, a, plan.scans_per_block, plan.staged)
+    assert plan.shared_bytes == kcm.shared_bytes(d, g, a, plan.staged)
 
 
-def test_launch_plan_splits_an_item_until_its_shared_memory_fits():
-    plan = kcm.launch_plan(65536, 32, 4, 32)  # 16 KB of output bits a scan: 13 blocks of 10 scans, not 4 of 32
-    assert not plan.staged and (plan.scans_per_block, plan.blocks_per_item) == (10, 13)
-    assert plan.shared_bytes <= kcm.MAX_SHARED_BYTES
+def test_launch_plan_refuses_what_shared_memory_cannot_hold():
+    assert kcm.launch_plan(200_000, 8, 4, 10).shared_bytes == 200_000 + 4 * 6  # valid_d bytes and the gt masks
     with pytest.raises(ValueError, match="shared memory"):
-        kcm.launch_plan(2**20, 8, 4, 10)
+        kcm.launch_plan(kcm.MAX_SHARED_BYTES, 8, 4, 10)

@@ -12,16 +12,20 @@ first held equal (``torch.equal``) to the plain version on each case.
   interface (a block per item and area range, a warp per threshold,
   ``kpl`` and ``staged`` its only plan), built as the port builds its own;
 - ``live extent``: ``csrc/coco_match.cu`` built with
-  ``-DCOCO_MATCH_BYTE_STORES`` (each group stores its bytes as it scans), a
-  whole warp a scan, a block per item and area range;
+  ``-DCOCO_MATCH_BYTE_STORES`` (one lane of each group stores its bytes as it
+  scans) and ``-DCOCO_MATCH_MAX_THREADS=1024``, a whole warp a scan, a block
+  per item and area range;
 - ``+ lane groups``: the same build, ``P = next_pow2(G)`` lanes a scan;
-- ``+ one block an item``: the same build, the launcher's plan;
-- ``+ slab stores``: the source as it is, the launcher's plan (what the
-  port launches);
+- ``+ one block an item``: the same build, blocks of up to 1,024 threads;
+- ``+ word stores``: the source with blocks of up to 1,024 threads (each
+  group stores the bytes of 32 steps at a time as 16-byte stores, the block
+  the zeros past the live extent);
+- ``+ blocks of at most 256 threads``: the source as it is, the launcher's
+  plan (what the port launches);
 - ``P = 1``: the source as it is, a lane a scan walking up to 32 ground
   truths itself (G <= 32);
-- the source as it is with smaller blocks: a block per item and area
-  range, or at most 512 or 256 threads a block.
+- word stores with other blocks: a block per item and area range, or at
+  most 512 threads a block.
 
 The ladder runs forward, then backward, in one process; both times are kept.
 """
@@ -69,8 +73,10 @@ def main() -> int:
 
     cs.phase_device()
     src = os.path.join(REPO, "torchmetrics_tpu_torch", "csrc", "coco_match.cu")
+    wide = "-DCOCO_MATCH_MAX_THREADS=1024"
     jobs = {"current": _build(src, "coco_match_ablation_current"),
-            "bytes": _build(src, "coco_match_ablation_bytes", ("-DCOCO_MATCH_BYTE_STORES",))}
+            "wide": _build(src, "coco_match_ablation_wide", (wide,)),
+            "bytes": _build(src, "coco_match_ablation_bytes", ("-DCOCO_MATCH_BYTE_STORES", wide))}
     if args.old:
         jobs["old"] = _build(args.old, "coco_match_ablation_old")
     libs = {}
@@ -132,12 +138,12 @@ def main() -> int:
     ladder += [
         ("live extent", launcher("bytes", warp_a_scan), lambda g: True),
         ("+ lane groups", launcher("bytes", groups_per_area), lambda g: True),
-        ("+ one block an item", launcher("bytes", plan), lambda g: True),
-        ("+ slab stores", launcher("current", plan), lambda g: True),
+        ("+ one block an item", launcher("bytes", capped(1024)), lambda g: True),
+        ("+ word stores", launcher("wide", capped(1024)), lambda g: True),
+        ("+ blocks of at most 256 threads", launcher("current", plan), lambda g: True),
         ("P = 1", launcher("current", lane_a_scan), lambda g: g <= 32),
-        ("slab stores, a block per item and area", launcher("current", groups_per_area), lambda g: True),
-        ("slab stores, blocks of at most 512 threads", launcher("current", capped(512)), lambda g: True),
-        ("slab stores, blocks of at most 256 threads", launcher("current", capped(256)), lambda g: True),
+        ("word stores, a block per item and area", launcher("wide", groups_per_area), lambda g: True),
+        ("word stores, blocks of at most 512 threads", launcher("wide", capped(512)), lambda g: True),
     ]
 
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")

@@ -60,8 +60,12 @@
 
 namespace {
 
+#ifndef COCO_MATCH_MAX_THREADS
+#define COCO_MATCH_MAX_THREADS 256
+#endif
+
 constexpr int kStageBytes = 96 * 1024;  // shared memory a block may use for the IoU tile
-constexpr int kMaxThreads = 1024;
+constexpr int kMaxThreads = COCO_MATCH_MAX_THREADS;  // threads of a block
 constexpr unsigned kFull = 0xffffffffu;
 
 // A key that orders as the float does, for any float but NaN; -0.0 and +0.0,
@@ -76,6 +80,25 @@ __device__ __forceinline__ bool bit(const unsigned* words, int i) { return (word
 // 4 bits, low first, as 4 bytes of 0 or 1 (the shifted copies do not overlap)
 __device__ __forceinline__ unsigned bytes_of_nibble(unsigned n) { return ((n & 0xfu) * 0x00204081u) & 0x01010101u; }
 
+// 16 bits, low first, as 16 bytes of 0 or 1
+__device__ __forceinline__ uint4 bytes_of_bits(unsigned x) {
+  return make_uint4(bytes_of_nibble(x), bytes_of_nibble(x >> 4), bytes_of_nibble(x >> 8), bytes_of_nibble(x >> 12));
+}
+
+// Bytes 32w .. 32w + 31 of an output row (fewer at the row's end) from
+// `bits`, over the P lanes of a group: 16 bytes a store when D % 16 == 0,
+// which keeps every row 16-byte aligned.
+template <int P>
+__device__ __forceinline__ void store_word(uint8_t* row, int w, unsigned bits, int D, int li) {
+  const int n = min(32, D - 32 * w);
+  uint8_t* at = row + 32 * w;
+  if ((D & 15) == 0) {
+    for (int c = li; c < n / 16; c += P) reinterpret_cast<uint4*>(at)[c] = bytes_of_bits(bits >> (16 * c));
+  } else {
+    for (int j = li; j < n; j += P) at[j] = (bits >> j) & 1u;
+  }
+}
+
 // the largest value over each aligned group of P lanes
 template <int P>
 __device__ __forceinline__ unsigned group_max(unsigned x) {
@@ -89,10 +112,10 @@ __device__ __forceinline__ unsigned group_max(unsigned x) {
 }
 
 // Shared memory of a block, in bytes, in this order: the (D, G) IoU tile
-// (when staged), the output bits [2][spb][ceil(D/32)] words, the gt masks
-// crowd, valid_g and ignored[A] of ceil(G/32) words each, valid_d bytes.
-size_t shared_bytes(int D, int G, int A, int spb, int staged) {
-  const size_t words = 2 * static_cast<size_t>(spb) * ((D + 31) / 32) + static_cast<size_t>(2 + A) * ((G + 31) / 32);
+// (when staged), the gt masks crowd, valid_g and ignored[A] of ceil(G/32)
+// words each, the valid_d bytes.
+size_t shared_bytes(int D, int G, int A, int staged) {
+  const size_t words = static_cast<size_t>(2 + A) * ((G + 31) / 32);
   return (staged ? static_cast<size_t>(D) * G * sizeof(float) : 0) + words * 4 + D;
 }
 
@@ -111,12 +134,10 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int s0 = (blockIdx.x % blocks_per_item) * spb;  // this block's scans: s0 .. s0 + n_scans - 1
   const int n_scans = min(spb, S - s0);
   const int W = (G + 31) >> 5;
-  const int Dw = (D + 31) >> 5;
   const int lane = threadIdx.x & 31;
 
   float* tile = reinterpret_cast<float*>(smem);
-  unsigned* out_bits = reinterpret_cast<unsigned*>(smem + (staged ? static_cast<size_t>(D) * G * sizeof(float) : 0));
-  unsigned* gt_bits = out_bits + 2 * spb * Dw;
+  unsigned* gt_bits = reinterpret_cast<unsigned*>(smem + (staged ? static_cast<size_t>(D) * G * sizeof(float) : 0));
   uint8_t* vd = reinterpret_cast<uint8_t*>(gt_bits + (2 + A) * W);
 
   if (threadIdx.x == 0) s_live = 0;
@@ -129,7 +150,6 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   live = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(live)));
   if (lane == 0 && live > 0) atomicMax(&s_live, live);
-  for (int i = threadIdx.x; i < 2 * spb * Dw; i += blockDim.x) out_bits[i] = 0;
   // the gt flags as bit masks, a word a warp: crowd, valid_g, then ignored of each area
   for (int w = threadIdx.x >> 5; w < (2 + A) * W; w += blockDim.x >> 5) {
     const int row = w / W;
@@ -145,6 +165,22 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   __syncthreads();
   const int d_live = s_live;
+#ifndef COCO_MATCH_BYTE_STORES
+  // every output past the last word of the live extent is 0: stored now, by
+  // the block, while the scans store the words they walk
+  const int z = min(D, 32 * ((d_live + 31) >> 5));
+  for (int o = 0; o < 2; ++o) {
+    uint8_t* dst = (o == 0 ? matched : det_ignored) + (static_cast<size_t>(b) * S + s0) * D + z;
+    if ((D & 15) == 0) {
+      const int per_row = (D - z) >> 4;
+      for (int c = threadIdx.x; c < n_scans * per_row; c += blockDim.x)
+        reinterpret_cast<uint4*>(dst + static_cast<size_t>(c / per_row) * D)[c % per_row] = make_uint4(0, 0, 0, 0);
+    } else {
+      const int per_row = D - z;
+      for (int e = threadIdx.x; e < n_scans * per_row; e += blockDim.x) dst[(e / per_row) * D + e % per_row] = 0;
+    }
+  }
+#endif
   const float* item = ious + static_cast<size_t>(b) * D * G;
   if (staged) {
     for (int i = threadIdx.x; i < d_live * G; i += blockDim.x) tile[i] = item[i];
@@ -252,31 +288,13 @@ __global__ void __launch_bounds__(kMaxThreads)
 #else
     m_word |= static_cast<unsigned>(has) << (d & 31);
     i_word |= static_cast<unsigned>(has && m_ign) << (d & 31);
-    if ((d & 31) == 31 || d == d_live - 1) {
-      if (li == 0 && active) {
-        out_bits[grp * Dw + (d >> 5)] = m_word;
-        out_bits[(spb + grp) * Dw + (d >> 5)] = i_word;
+    if ((d & 31) == 31 || d == d_live - 1) {  // a word done: its bytes go out now
+      if (active) {
+        const size_t row = (static_cast<size_t>(b) * S + s) * D;
+        store_word<P>(matched + row, d >> 5, m_word, D, li);
+        store_word<P>(det_ignored + row, d >> 5, i_word, D, li);
       }
       m_word = i_word = 0;
-    }
-  }
-  __syncthreads();
-
-  // the block's rows s0 .. s0 + n_scans - 1 of both maps, contiguous in each
-  const size_t first = (static_cast<size_t>(b) * S + s0) * D;
-  const int n_bytes = n_scans * D;
-  for (int o = 0; o < 2; ++o) {
-    const unsigned* bits = out_bits + o * spb * Dw;
-    uint8_t* dst = (o == 0 ? matched : det_ignored) + first;
-    if ((D & 15) == 0) {  // 16 bytes a store: one row, 16-byte aligned
-      for (int c = threadIdx.x; c < n_bytes / 16; c += blockDim.x) {
-        const int r = (c * 16) / D, d = (c * 16) % D;
-        const unsigned x = bits[r * Dw + (d >> 5)] >> (d & 31);
-        reinterpret_cast<uint4*>(dst)[c] =
-            make_uint4(bytes_of_nibble(x), bytes_of_nibble(x >> 4), bytes_of_nibble(x >> 8), bytes_of_nibble(x >> 12));
-      }
-    } else {
-      for (int e = threadIdx.x; e < n_bytes; e += blockDim.x) dst[e] = bit(bits + (e / D) * Dw, e % D);
     }
   }
 #endif
@@ -286,7 +304,7 @@ template <int P, int KPL>
 int launch(const void* ious, const void* crowd, const void* ignored, const void* valid_d, const void* valid_g,
            const void* thrs, void* matched, void* det_ignored, int B, int D, int G, int A, int T, int spb, int staged,
            cudaStream_t stream) {
-  const size_t smem = shared_bytes(D, G, A, spb, staged);
+  const size_t smem = shared_bytes(D, G, A, staged);
   auto kernel = coco_match_kernel<P, KPL>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -306,9 +324,7 @@ int launch(const void* ious, const void* crowd, const void* ignored, const void*
 
 // Shared memory one block asks for; the wrapper checks it against the card's
 // limit before it launches.
-extern "C" size_t coco_match_shared_bytes(int D, int G, int A, int spb, int staged) {
-  return shared_bytes(D, G, A, spb, staged);
-}
+extern "C" size_t coco_match_shared_bytes(int D, int G, int A, int staged) { return shared_bytes(D, G, A, staged); }
 
 // One launch of the matcher on `stream`. The wrapper (kernels/coco_match.py)
 // has checked every shape and type and chosen the plan: `p` lanes a scan

@@ -24,7 +24,7 @@ from torchmetrics_tpu_torch.kernels._build import load_library
 SOURCE = "coco_match"
 MAX_GTS = 256  # ground truths of one item: 8 a lane of a warp
 MAX_THRESHOLDS = 32
-MAX_THREADS = 1024  # kMaxThreads in the source: the threads of one block
+MAX_THREADS = 256  # kMaxThreads in the source: the threads of one block
 STAGE_BYTES = 96 * 1024  # kStageBytes in the source: the largest (D, G) float tile staged in shared memory
 MAX_SHARED_BYTES = 227 * 1024  # dynamic shared memory one block may use on Hopper
 
@@ -53,13 +53,11 @@ def lane_group(n_gts: int) -> Tuple[int, int]:
     return 32, next(k for k in (2, 4, 8) if k >= need)
 
 
-def shared_bytes(n_dets: int, n_gts: int, n_areas: int, scans_per_block: int, staged: bool) -> int:
+def shared_bytes(n_dets: int, n_gts: int, n_areas: int, staged: bool) -> int:
     """Dynamic shared memory of one block, as ``shared_bytes`` in the source
-    counts it: the staged (D, G) IoU tile, two output bit slabs of
-    ``scans_per_block`` rows of ``ceil(D / 32)`` words, the ground truths'
-    crowd, valid and per-area ignored masks, the ``valid_d`` bytes."""
-    words = 2 * scans_per_block * (-(-n_dets // 32)) + (2 + n_areas) * (-(-n_gts // 32))
-    return (n_dets * n_gts * 4 if staged else 0) + 4 * words + n_dets
+    counts it: the staged (D, G) IoU tile, the ground truths' crowd, valid and
+    per-area ignored bit masks, the ``valid_d`` bytes."""
+    return (n_dets * n_gts * 4 if staged else 0) + 4 * (2 + n_areas) * (-(-n_gts // 32)) + n_dets
 
 
 class LaunchPlan(NamedTuple):
@@ -74,18 +72,14 @@ class LaunchPlan(NamedTuple):
 
 def launch_plan(n_dets: int, n_gts: int, n_areas: int, n_thr: int) -> LaunchPlan:
     """The plan of one launch: one block per item when its ``A*T`` scans fit in
-    ``MAX_THREADS`` threads, else the fewest blocks per item that hold them (and
-    more while the shared memory does not fit), the scans shared evenly."""
+    ``MAX_THREADS`` threads, else the fewest blocks per item that hold them,
+    the scans shared evenly."""
     lanes, kpl = lane_group(n_gts)
     n_scans = n_areas * n_thr
     staged = n_dets * n_gts * 4 <= STAGE_BYTES
-    blocks = -(-n_scans * lanes // MAX_THREADS)
-    while True:
-        spb = -(-n_scans // blocks)
-        smem = shared_bytes(n_dets, n_gts, n_areas, spb, staged)
-        if smem <= MAX_SHARED_BYTES or spb == 1:
-            break
-        blocks += 1
+    blocks = -(-n_scans * lanes // MAX_THREADS)  # the fewest that hold the item's scans
+    spb = -(-n_scans // blocks)
+    smem = shared_bytes(n_dets, n_gts, n_areas, staged)
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"coco_match: D={n_dets} detections need {smem} bytes of shared memory a block, "
                          f"more than {MAX_SHARED_BYTES}")
