@@ -11,21 +11,16 @@ first held equal (``torch.equal``) to the plain version on each case.
 - ``earlier``: the kernel of ``--old``, a ``coco_match.cu`` with the earlier
   interface (a block per item and area range, a warp per threshold,
   ``kpl`` and ``staged`` its only plan), built as the port builds its own;
-- ``live extent``: ``csrc/coco_match.cu`` built with
-  ``-DCOCO_MATCH_BYTE_STORES`` (one lane of each group stores its bytes as it
-  scans) and ``-DCOCO_MATCH_MAX_THREADS=1024``, a whole warp a scan, a block
-  per item and area range;
-- ``+ lane groups``: the same build, ``P = next_pow2(G)`` lanes a scan;
-- ``+ one block an item``: the same build, blocks of up to 1,024 threads;
-- ``+ word stores``: the source with blocks of up to 1,024 threads (each
-  group stores the bytes of 32 steps at a time as 16-byte stores, the block
-  the zeros past the live extent);
-- ``+ blocks of at most 256 threads``: the source as it is, the launcher's
-  plan (what the port launches);
-- ``P = 1``: the source as it is, a lane a scan walking up to 32 ground
-  truths itself (G <= 32);
-- word stores with other blocks: a block per item and area range, or at
-  most 512 threads a block.
+- the source's ``COCO_MATCH_*`` macros set per build: ``MAX_THREADS`` (the
+  launch bound, 1,024 or 256 threads), ``MIN_BLOCKS`` (blocks an SM the
+  registers must allow, 1 or 4) and ``WORD_STORES`` (each group stores the
+  bytes of 32 steps at a time as 16-byte stores, in place of one byte a
+  step from one lane);
+- ``live extent``: a whole warp a scan, a block per item and area range;
+- ``+ lane groups``: ``P = next_pow2(G)`` lanes a scan;
+- ``+ one block an item``: blocks of up to 1,024 threads;
+- then blocks of at most 512 and 256 threads, 4 blocks an SM, word stores;
+- ``P = 1``: a lane a scan walking up to 32 ground truths itself (G <= 32).
 
 The ladder runs forward, then backward, in one process; both times are kept.
 """
@@ -73,10 +68,13 @@ def main() -> int:
 
     cs.phase_device()
     src = os.path.join(REPO, "torchmetrics_tpu_torch", "csrc", "coco_match.cu")
-    wide = "-DCOCO_MATCH_MAX_THREADS=1024"
-    jobs = {"current": _build(src, "coco_match_ablation_current"),
-            "wide": _build(src, "coco_match_ablation_wide", (wide,)),
-            "bytes": _build(src, "coco_match_ablation_bytes", ("-DCOCO_MATCH_BYTE_STORES", wide))}
+    builds = {  # name: the macros of csrc/coco_match.cu it is built with
+        "1024": ("-DCOCO_MATCH_MAX_THREADS=1024", "-DCOCO_MATCH_MIN_BLOCKS=1"),
+        "256": ("-DCOCO_MATCH_MAX_THREADS=256", "-DCOCO_MATCH_MIN_BLOCKS=1"),
+        "256m4": ("-DCOCO_MATCH_MAX_THREADS=256", "-DCOCO_MATCH_MIN_BLOCKS=4"),
+        "words 256m4": ("-DCOCO_MATCH_WORD_STORES", "-DCOCO_MATCH_MAX_THREADS=256", "-DCOCO_MATCH_MIN_BLOCKS=4"),
+    }
+    jobs = {key: _build(src, f"coco_match_ablation_{i}", flags) for i, (key, flags) in enumerate(builds.items())}
     if args.old:
         jobs["old"] = _build(args.old, "coco_match_ablation_old")
     libs = {}
@@ -108,10 +106,6 @@ def main() -> int:
             return matched.view(torch.bool), det_ignored.view(torch.bool)
         return run
 
-    def plan(d, g, a, t):
-        p = kcm.launch_plan(d, g, a, t)
-        return p.lanes, p.gts_per_lane, p.scans_per_block, int(p.staged)
-
     def staged(d, g):
         return int(d * g * 4 <= kcm.STAGE_BYTES)
 
@@ -136,21 +130,21 @@ def main() -> int:
         ladder.append(("earlier", launcher("old", lambda d, g, a, t: (
             next(k for k in (1, 2, 4, 8) if 32 * k >= g), staged(d, g))), lambda g: True))
     ladder += [
-        ("live extent", launcher("bytes", warp_a_scan), lambda g: True),
-        ("+ lane groups", launcher("bytes", groups_per_area), lambda g: True),
-        ("+ one block an item", launcher("bytes", capped(1024)), lambda g: True),
-        ("+ word stores", launcher("wide", capped(1024)), lambda g: True),
-        ("+ blocks of at most 256 threads", launcher("current", plan), lambda g: True),
-        ("P = 1", launcher("current", lane_a_scan), lambda g: g <= 32),
-        ("word stores, a block per item and area", launcher("wide", groups_per_area), lambda g: True),
-        ("word stores, blocks of at most 512 threads", launcher("wide", capped(512)), lambda g: True),
+        ("live extent", launcher("1024", warp_a_scan), lambda g: True),
+        ("+ lane groups", launcher("1024", groups_per_area), lambda g: True),
+        ("+ one block an item", launcher("1024", capped(1024)), lambda g: True),
+        ("blocks of at most 512 threads", launcher("1024", capped(512)), lambda g: True),
+        ("blocks of at most 256 threads", launcher("256", capped(256)), lambda g: True),
+        ("blocks of at most 256 threads, 4 an SM", launcher("256m4", capped(256)), lambda g: True),
+        ("word stores, 256 threads, 4 an SM", launcher("words 256m4", capped(256)), lambda g: True),
+        ("P = 1", launcher("256m4", lane_a_scan), lambda g: g <= 32),
     ]
 
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 2)
     print("[ablation] building phase 6's chunks", flush=True)
     cases = [("mAP chunk 0", cs._map_chunks()[0])]
-    for g in (8, 16, 32, 64):
+    for g in (8, 16, 32, 33, 64):
         cases.append((f"D=128, G={g}", cs._match_inputs(1024, 128, g, cs.COCO_THRS, (), gen)))
     cases.append(("D=128, G=256", cs._match_inputs(256, 128, 256, cs.COCO_THRS, (), gen)))
     wrong = set()

@@ -63,6 +63,9 @@ namespace {
 #ifndef COCO_MATCH_MAX_THREADS
 #define COCO_MATCH_MAX_THREADS 256
 #endif
+#ifndef COCO_MATCH_MIN_BLOCKS
+#define COCO_MATCH_MIN_BLOCKS 1
+#endif
 
 constexpr int kStageBytes = 96 * 1024;  // shared memory a block may use for the IoU tile
 constexpr int kMaxThreads = COCO_MATCH_MAX_THREADS;  // threads of a block
@@ -120,7 +123,7 @@ size_t shared_bytes(int D, int G, int A, int staged) {
 }
 
 template <int P, int KPL>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads, COCO_MATCH_MIN_BLOCKS)
     coco_match_kernel(const float* __restrict__ ious, const uint8_t* __restrict__ crowd,
                       const uint8_t* __restrict__ ignored, const uint8_t* __restrict__ valid_d,
                       const uint8_t* __restrict__ valid_g, const float* __restrict__ thrs,
@@ -165,10 +168,13 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   __syncthreads();
   const int d_live = s_live;
-#ifndef COCO_MATCH_BYTE_STORES
-  // every output past the last word of the live extent is 0: stored now, by
-  // the block, while the scans store the words they walk
+  // every output from z on is 0: stored now by the block, 16 bytes a store
+  // when D % 16 == 0, while the scans store the bytes before z
+#ifdef COCO_MATCH_WORD_STORES
   const int z = min(D, 32 * ((d_live + 31) >> 5));
+#else
+  const int z = (D & 15) == 0 ? min(D, 16 * ((d_live + 15) >> 4)) : d_live;
+#endif
   for (int o = 0; o < 2; ++o) {
     uint8_t* dst = (o == 0 ? matched : det_ignored) + (static_cast<size_t>(b) * S + s0) * D + z;
     if ((D & 15) == 0) {
@@ -180,7 +186,6 @@ __global__ void __launch_bounds__(kMaxThreads)
       for (int e = threadIdx.x; e < n_scans * per_row; e += blockDim.x) dst[(e / per_row) * D + e % per_row] = 0;
     }
   }
-#endif
   const float* item = ious + static_cast<size_t>(b) * D * G;
   if (staged) {
     for (int i = threadIdx.x; i < d_live * G; i += blockDim.x) tile[i] = item[i];
@@ -216,6 +221,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     done[k] = false;
   }
 
+  const size_t row = (static_cast<size_t>(b) * S + s) * D;  // this scan's outputs
   unsigned m_word = 0, i_word = 0;
   for (int d = 0; d < d_live; ++d) {
     bool has = false, m_ign = false;
@@ -271,30 +277,27 @@ __global__ void __launch_bounds__(kMaxThreads)
         }
       }
     }
-#ifdef COCO_MATCH_BYTE_STORES  // ablation: each group writes its bytes as it goes
-    if (li == 0 && active) {
-      const size_t at = (static_cast<size_t>(b) * S + s) * D + d;
-      matched[at] = has;
-      det_ignored[at] = has && m_ign;
-    }
-  }
-  if (active) {
-    for (int d = d_live + li; d < D; d += P) {
-      const size_t at = (static_cast<size_t>(b) * S + s) * D + d;
-      matched[at] = 0;
-      det_ignored[at] = 0;
-    }
-  }
-#else
+#ifdef COCO_MATCH_WORD_STORES  // ablation: 32 steps at a time, 16 bytes a store
     m_word |= static_cast<unsigned>(has) << (d & 31);
     i_word |= static_cast<unsigned>(has && m_ign) << (d & 31);
-    if ((d & 31) == 31 || d == d_live - 1) {  // a word done: its bytes go out now
+    if ((d & 31) == 31 || d == d_live - 1) {
       if (active) {
-        const size_t row = (static_cast<size_t>(b) * S + s) * D;
         store_word<P>(matched + row, d >> 5, m_word, D, li);
         store_word<P>(det_ignored + row, d >> 5, i_word, D, li);
       }
       m_word = i_word = 0;
+    }
+  }
+#else
+    if (li == 0 && active) {  // the step's two bytes, stored as it goes
+      matched[row + d] = has;
+      det_ignored[row + d] = has && m_ign;
+    }
+  }
+  if (active) {  // zeros from d_live up to z
+    for (int d = d_live + li; d < z; d += P) {
+      matched[row + d] = 0;
+      det_ignored[row + d] = 0;
     }
   }
 #endif
