@@ -27,8 +27,7 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    G=1, 2, 4, 8, 16, 32, 33, 64 ground truths (every lane-group width; B=256
    at G=256), D=8 (byte stores), thresholds of 1.0 over IoUs of exactly 1.0,
    all-crowd and all-ignored items, rows of equal IoUs, invalid rows inside
-   the live extent and items with no valid row; each case's launch plan must
-   ask for the shared memory the source counts;
+   the live extent and items with no valid row;
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
@@ -534,14 +533,9 @@ def _shape(args) -> tuple:
 def phase_matcher(flush: torch.Tensor):
     """The matcher's rows (the first at phase 6's first chunk) and the count
     of phase 6's chunks by ``(B, D, G, A, T)``."""
-    import ctypes
-
     from torchmetrics_tpu_torch.functional.detection.matcher import _match_batch_plain
     from torchmetrics_tpu_torch.kernels import coco_match as kcm
-    from torchmetrics_tpu_torch.kernels._build import load_library
 
-    shared_bytes = load_library(kcm.SOURCE).coco_match_shared_bytes
-    shared_bytes.argtypes, shared_bytes.restype = [ctypes.c_int] * 4, ctypes.c_size_t
     t0 = time.perf_counter()
     chunks = _map_chunks()
     build_s = time.perf_counter() - t0
@@ -599,8 +593,6 @@ def phase_matcher(flush: torch.Tensor):
         bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_OPS_PER_S * 1e3
         chain_ms = live * (math.ceil(math.log2(g)) + 2) * DEP_OP_CYCLES / SM_CLOCK_HZ * 1e3
         plan = kcm.launch_plan(d, g, a, t)
-        check(plan.shared_bytes == shared_bytes(d, g, a, int(plan.staged)),
-              f"the launcher's shared memory {plan.shared_bytes} is not the source's ({label})")
         kernel_ms = time_ms(lambda: kcm.coco_match(*args), flush)
         plain_ms = time_ms(lambda: _match_batch_plain(*args), flush, reps=5, warmup=1)
         sets = [args] + [tuple(x.clone() for x in args) for _ in range(copies_for(nbytes) - 1)]

@@ -1,5 +1,5 @@
-// Greedy COCO detection <-> ground-truth matching: a block per item, a lane
-// group per (area range, IoU threshold).
+// Greedy COCO detection <-> ground-truth matching: a block per item (or a
+// share of its scans), a group of lanes per (area range, IoU threshold).
 //
 // Replaces the XLA-lowered JAX matcher
 // (torchmetrics_tpu/functional/detection/matcher.py:29-78: the lax.scan of
@@ -17,38 +17,42 @@
 //
 // The last index wins ties, as `(G - 1) - argmax(vals[::-1])` does; every g
 // of the padded row takes part in the argmax, as in the JAX function. An
-// invalid detection (valid_d = 0) changes no carry, and past the item's last
-// valid detection no output is set.
+// invalid detection (valid_d = 0) changes no carry, so past the item's last
+// valid detection every output is 0.
 //
 // What bounds it on the card: the least work reads the IoU rows of the valid
-// detections, the masks, and writes two (B, A, T, D) byte maps. At mAP's
-// chunk (B, D, G, A, T) = (1024, 64, 8, 4, 10), 2,474 valid rows, that is
-// 5.44 MB, 1.6 us at 3.35 TB/s (H100 SXM data sheet, 700 W); the maps are
-// 96 % of it. The scan itself is a dependent chain of d_live steps per
-// (item, area, threshold) and is bound by the instructions each step issues,
-// not by memory.
+// detections, valid_d and the gt masks, and writes the two (B, A, T, D) byte
+// maps: at mAP's chunk (B, D, G, A, T) = (1024, 64, 8, 4, 10), 2,474 valid
+// rows, 5.44 MB, 1.6 us at 3.35 TB/s (H100 SXM data sheet, 700 W), the maps
+// 96 % of it. The kernel does not reach that: each scan is a chain of
+// dependent steps, and the time goes to the instructions each step issues
+// (a vote, an argmax across lanes, the carry) and to the blocks' set-up.
 //
-// What the design does about it:
+// What the design does about it (each part ablated on an H100 by
+// tools/coco_match_ablation.py; the times are in PERF.md):
 // - the block finds its item's live extent d_live = 1 + the last valid
 //   detection once, and scans and stages only d < d_live (valid_d need not
 //   be a prefix, so the scan still tests it). mAP pads every item to the
-//   chunk's largest D: 96 % of its rows are padding;
-// - a block takes one item (or a share of its A*T scans where they need more
-//   than 1024 threads) and stages its live IoU rows, its valid_d bytes and
-//   its ground-truth flags (as bit masks) in shared memory once for all of
-//   its scans;
+//   chunk's largest D, so 96 % of its rows are padding;
+// - a block stages its item's live IoU rows, valid_d bytes and gt flags
+//   (as bit masks) in shared memory once for all of its scans: all A*T of
+//   them where they fit 256 threads, else an even share. Blocks of 256
+//   threads at most keep more blocks on an SM than one block an item does;
 // - a scan runs on a group of P = next_pow2(G) lanes for G <= 32 (32/P scans
 //   a warp), one ground truth a lane; for G > 32, on a whole warp with KPL
 //   ground truths a lane. A step is a few compares a lane, two warp votes
 //   masked to the group and an argmax: log2(P) xor-shuffle rounds (one
 //   `__reduce_max_sync` for P = 32) of an order-keeping integer key of the
 //   IoU, then the highest lane of the group that holds the top key (a
-//   second reduction of the index for KPL > 1);
+//   second reduction of the index for KPL > 1). A lane a scan walking the
+//   ground truths itself (P = 1) was slower at every G from 8 to 32;
 // - a valid detection with no eligible ground truth in any group of a warp
 //   skips the argmax: the test is warp-uniform, so the warp does not diverge;
-// - each scan keeps its output bits in registers and puts 32 steps at a time
-//   in a shared bit slab; the block then writes its rows of both (A, T, D)
-//   maps, zeros past d_live included, as 16-byte stores (bytes when D % 16).
+// - one lane of each group stores the step's two bytes as it goes; the block
+//   stores the zeros past the live extent as 16-byte stores before the scans
+//   start. Gathering the bits of 32 steps into 16-byte stores, by a shared
+//   slab after the scans or by each group as it goes, was faster only at
+//   G <= 8 and slower from G = 16.
 //
 // Inputs are bytes (torch.bool is one byte, 0 or 1); outputs are uint8 maps
 // that the wrapper views as bool. The launch plan (P, KPL, scans a block,
@@ -60,15 +64,8 @@
 
 namespace {
 
-#ifndef COCO_MATCH_MAX_THREADS
-#define COCO_MATCH_MAX_THREADS 256
-#endif
-#ifndef COCO_MATCH_MIN_BLOCKS
-#define COCO_MATCH_MIN_BLOCKS 1
-#endif
-
 constexpr int kStageBytes = 96 * 1024;  // shared memory a block may use for the IoU tile
-constexpr int kMaxThreads = COCO_MATCH_MAX_THREADS;  // threads of a block
+constexpr int kMaxThreads = 256;  // threads of a block
 constexpr unsigned kFull = 0xffffffffu;
 
 // A key that orders as the float does, for any float but NaN; -0.0 and +0.0,
@@ -79,28 +76,6 @@ __device__ __forceinline__ unsigned ordered_key(float f) {
 }
 
 __device__ __forceinline__ bool bit(const unsigned* words, int i) { return (words[i >> 5] >> (i & 31)) & 1u; }
-
-// 4 bits, low first, as 4 bytes of 0 or 1 (the shifted copies do not overlap)
-__device__ __forceinline__ unsigned bytes_of_nibble(unsigned n) { return ((n & 0xfu) * 0x00204081u) & 0x01010101u; }
-
-// 16 bits, low first, as 16 bytes of 0 or 1
-__device__ __forceinline__ uint4 bytes_of_bits(unsigned x) {
-  return make_uint4(bytes_of_nibble(x), bytes_of_nibble(x >> 4), bytes_of_nibble(x >> 8), bytes_of_nibble(x >> 12));
-}
-
-// Bytes 32w .. 32w + 31 of an output row (fewer at the row's end) from
-// `bits`, over the P lanes of a group: 16 bytes a store when D % 16 == 0,
-// which keeps every row 16-byte aligned.
-template <int P>
-__device__ __forceinline__ void store_word(uint8_t* row, int w, unsigned bits, int D, int li) {
-  const int n = min(32, D - 32 * w);
-  uint8_t* at = row + 32 * w;
-  if ((D & 15) == 0) {
-    for (int c = li; c < n / 16; c += P) reinterpret_cast<uint4*>(at)[c] = bytes_of_bits(bits >> (16 * c));
-  } else {
-    for (int j = li; j < n; j += P) at[j] = (bits >> j) & 1u;
-  }
-}
 
 // the largest value over each aligned group of P lanes
 template <int P>
@@ -122,8 +97,12 @@ size_t shared_bytes(int D, int G, int A, int staged) {
   return (staged ? static_cast<size_t>(D) * G * sizeof(float) : 0) + words * 4 + D;
 }
 
+// At 8 ground truths a lane the scan would take 92 registers; held to 64, four
+// blocks (32 warps) fit an SM, which hides the loads of a tile read from
+// device memory (G = 256, D = 128: 1.20 -> 0.77 ms on an NVIDIA H100 80GB
+// HBM3 at 700 W).
 template <int P, int KPL>
-__global__ void __launch_bounds__(kMaxThreads, COCO_MATCH_MIN_BLOCKS)
+__global__ void __launch_bounds__(kMaxThreads, KPL >= 8 ? 4 : 1)
     coco_match_kernel(const float* __restrict__ ious, const uint8_t* __restrict__ crowd,
                       const uint8_t* __restrict__ ignored, const uint8_t* __restrict__ valid_d,
                       const uint8_t* __restrict__ valid_g, const float* __restrict__ thrs,
@@ -168,13 +147,10 @@ __global__ void __launch_bounds__(kMaxThreads, COCO_MATCH_MIN_BLOCKS)
   }
   __syncthreads();
   const int d_live = s_live;
-  // every output from z on is 0: stored now by the block, 16 bytes a store
-  // when D % 16 == 0, while the scans store the bytes before z
-#ifdef COCO_MATCH_WORD_STORES
-  const int z = min(D, 32 * ((d_live + 31) >> 5));
-#else
+  // every output from z = d_live rounded up to 16 bytes is 0: stored now by
+  // the block, 16 bytes a store when D % 16 == 0 (rows 16-byte aligned),
+  // while the scans store the bytes before z
   const int z = (D & 15) == 0 ? min(D, 16 * ((d_live + 15) >> 4)) : d_live;
-#endif
   for (int o = 0; o < 2; ++o) {
     uint8_t* dst = (o == 0 ? matched : det_ignored) + (static_cast<size_t>(b) * S + s0) * D + z;
     if ((D & 15) == 0) {
@@ -221,8 +197,7 @@ __global__ void __launch_bounds__(kMaxThreads, COCO_MATCH_MIN_BLOCKS)
     done[k] = false;
   }
 
-  const size_t row = (static_cast<size_t>(b) * S + s) * D;  // this scan's outputs
-  unsigned m_word = 0, i_word = 0;
+  const size_t out = (static_cast<size_t>(b) * S + s) * D;  // this scan's outputs
   for (int d = 0; d < d_live; ++d) {
     bool has = false, m_ign = false;
     if (vd[d]) {  // the same test in the whole block
@@ -277,30 +252,17 @@ __global__ void __launch_bounds__(kMaxThreads, COCO_MATCH_MIN_BLOCKS)
         }
       }
     }
-#ifdef COCO_MATCH_WORD_STORES  // ablation: 32 steps at a time, 16 bytes a store
-    m_word |= static_cast<unsigned>(has) << (d & 31);
-    i_word |= static_cast<unsigned>(has && m_ign) << (d & 31);
-    if ((d & 31) == 31 || d == d_live - 1) {
-      if (active) {
-        store_word<P>(matched + row, d >> 5, m_word, D, li);
-        store_word<P>(det_ignored + row, d >> 5, i_word, D, li);
-      }
-      m_word = i_word = 0;
-    }
-  }
-#else
     if (li == 0 && active) {  // the step's two bytes, stored as it goes
-      matched[row + d] = has;
-      det_ignored[row + d] = has && m_ign;
+      matched[out + d] = has;
+      det_ignored[out + d] = has && m_ign;
     }
   }
   if (active) {  // zeros from d_live up to z
     for (int d = d_live + li; d < z; d += P) {
-      matched[row + d] = 0;
-      det_ignored[row + d] = 0;
+      matched[out + d] = 0;
+      det_ignored[out + d] = 0;
     }
   }
-#endif
 }
 
 template <int P, int KPL>
@@ -324,10 +286,6 @@ int launch(const void* ious, const void* crowd, const void* ignored, const void*
 }
 
 }  // namespace
-
-// Shared memory one block asks for; the wrapper checks it against the card's
-// limit before it launches.
-extern "C" size_t coco_match_shared_bytes(int D, int G, int A, int staged) { return shared_bytes(D, G, A, staged); }
 
 // One launch of the matcher on `stream`. The wrapper (kernels/coco_match.py)
 // has checked every shape and type and chosen the plan: `p` lanes a scan
@@ -354,12 +312,6 @@ extern "C" int coco_match_launch(const void* ious, const void* crowd, const void
   COCO_MATCH_CASE(32, 2)
   COCO_MATCH_CASE(32, 4)
   COCO_MATCH_CASE(32, 8)
-  // a thread a scan, walking the ground truths itself (the ablation against lane groups)
-  COCO_MATCH_CASE(1, 2)
-  COCO_MATCH_CASE(1, 4)
-  COCO_MATCH_CASE(1, 8)
-  COCO_MATCH_CASE(1, 16)
-  COCO_MATCH_CASE(1, 32)
 #undef COCO_MATCH_CASE
   return -2;
 }

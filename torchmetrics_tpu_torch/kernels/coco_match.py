@@ -23,7 +23,7 @@ from torchmetrics_tpu_torch.kernels._build import load_library
 
 SOURCE = "coco_match"
 MAX_GTS = 256  # ground truths of one item: 8 a lane of a warp
-MAX_THRESHOLDS = 32
+MAX_THRESHOLDS = 32  # as the earlier kernel took; the launch plan would split more over blocks
 MAX_THREADS = 256  # kMaxThreads in the source: the threads of one block
 STAGE_BYTES = 96 * 1024  # kStageBytes in the source: the largest (D, G) float tile staged in shared memory
 MAX_SHARED_BYTES = 227 * 1024  # dynamic shared memory one block may use on Hopper
