@@ -48,11 +48,13 @@
 //   ground truths itself (P = 1) was slower at every G from 8 to 32;
 // - a valid detection with no eligible ground truth in any group of a warp
 //   skips the argmax: the test is warp-uniform, so the warp does not diverge;
-// - one lane of each group stores the step's two bytes as it goes; the block
-//   stores the zeros past the live extent as 16-byte stores before the scans
-//   start. Gathering the bits of 32 steps into 16-byte stores, by a shared
-//   slab after the scans or by each group as it goes, was faster only at
-//   G <= 8 and slower from G = 16.
+// - the block stores the zeros past the live extent as 16-byte stores before
+//   the scans start. A group of 8 or more lanes stores each step's two bytes
+//   from one lane as it goes; a group of up to 4 lanes (8 or more scans a
+//   warp) gathers 32 steps and stores them as 16-byte stores. Gathering was
+//   3-4x faster at G <= 4, and slower from G = 16 (by a shared slab after
+//   the scans, or by each group as it goes); at G = 8 it lost on mAP's chunk
+//   and won by 5 % at D = 128.
 //
 // Inputs are bytes (torch.bool is one byte, 0 or 1); outputs are uint8 maps
 // that the wrapper views as bool. The launch plan (P, KPL, scans a block,
@@ -76,6 +78,27 @@ __device__ __forceinline__ unsigned ordered_key(float f) {
 }
 
 __device__ __forceinline__ bool bit(const unsigned* words, int i) { return (words[i >> 5] >> (i & 31)) & 1u; }
+
+// 4 bits, low first, as 4 bytes of 0 or 1 (the shifted copies do not overlap)
+__device__ __forceinline__ unsigned bytes_of_nibble(unsigned n) { return ((n & 0xfu) * 0x00204081u) & 0x01010101u; }
+
+// Bytes 32w .. 32w + 31 of an output row (fewer at the row's end) from
+// `bits`, over the P lanes of a group: 16 bytes a store when D % 16 == 0,
+// which keeps every row 16-byte aligned.
+template <int P>
+__device__ __forceinline__ void store_word(uint8_t* row, int w, unsigned bits, int D, int li) {
+  const int n = min(32, D - 32 * w);
+  uint8_t* at = row + 32 * w;
+  if ((D & 15) == 0) {
+    for (int c = li; c < n / 16; c += P) {
+      const unsigned x = bits >> (16 * c);
+      reinterpret_cast<uint4*>(at)[c] =
+          make_uint4(bytes_of_nibble(x), bytes_of_nibble(x >> 4), bytes_of_nibble(x >> 8), bytes_of_nibble(x >> 12));
+    }
+  } else {
+    for (int j = li; j < n; j += P) at[j] = (bits >> j) & 1u;
+  }
+}
 
 // the largest value over each aligned group of P lanes
 template <int P>
@@ -147,10 +170,15 @@ __global__ void __launch_bounds__(kMaxThreads, KPL >= 8 ? 4 : 1)
   }
   __syncthreads();
   const int d_live = s_live;
-  // every output from z = d_live rounded up to 16 bytes is 0: stored now by
-  // the block, 16 bytes a store when D % 16 == 0 (rows 16-byte aligned),
-  // while the scans store the bytes before z
-  const int z = (D & 15) == 0 ? min(D, 16 * ((d_live + 15) >> 4)) : d_live;
+  // The scans store the bytes before z, as 32-step words for groups of up to
+  // 4 lanes (8 or more scans a warp, whose single bytes would scatter over
+  // as many rows) and a byte a step from one lane of a wider group. Every
+  // output from z on is 0: stored now by the block, 16 bytes a store when
+  // D % 16 == 0 (rows 16-byte aligned).
+  constexpr bool kWordStores = P <= 4;
+  const int z = kWordStores         ? min(D, 32 * ((d_live + 31) >> 5))
+                : (D & 15) == 0 ? min(D, 16 * ((d_live + 15) >> 4))
+                                  : d_live;
   for (int o = 0; o < 2; ++o) {
     uint8_t* dst = (o == 0 ? matched : det_ignored) + (static_cast<size_t>(b) * S + s0) * D + z;
     if ((D & 15) == 0) {
@@ -198,6 +226,7 @@ __global__ void __launch_bounds__(kMaxThreads, KPL >= 8 ? 4 : 1)
   }
 
   const size_t out = (static_cast<size_t>(b) * S + s) * D;  // this scan's outputs
+  unsigned m_word = 0, i_word = 0;
   for (int d = 0; d < d_live; ++d) {
     bool has = false, m_ign = false;
     if (vd[d]) {  // the same test in the whole block
@@ -252,12 +281,22 @@ __global__ void __launch_bounds__(kMaxThreads, KPL >= 8 ? 4 : 1)
         }
       }
     }
-    if (li == 0 && active) {  // the step's two bytes, stored as it goes
+    if constexpr (kWordStores) {
+      m_word |= static_cast<unsigned>(has) << (d & 31);
+      i_word |= static_cast<unsigned>(has && m_ign) << (d & 31);
+      if ((d & 31) == 31 || d == d_live - 1) {
+        if (active) {
+          store_word<P>(matched + out, d >> 5, m_word, D, li);
+          store_word<P>(det_ignored + out, d >> 5, i_word, D, li);
+        }
+        m_word = i_word = 0;
+      }
+    } else if (li == 0 && active) {  // the step's two bytes, stored as it goes
       matched[out + d] = has;
       det_ignored[out + d] = has && m_ign;
     }
   }
-  if (active) {  // zeros from d_live up to z
+  if (!kWordStores && active) {  // zeros from d_live up to z
     for (int d = d_live + li; d < z; d += P) {
       matched[out + d] = 0;
       det_ignored[out + d] = 0;
