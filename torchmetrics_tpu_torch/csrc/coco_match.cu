@@ -28,8 +28,8 @@
 // dependent steps, and the time goes to the instructions each step issues
 // (a vote, an argmax across lanes, the carry) and to the blocks' set-up.
 //
-// What the design does about it (each part ablated on an H100 by
-// tools/coco_match_ablation.py; the times are in PERF.md):
+// What the design does about it (each part ablated on an H100; PERF.md has
+// the times and names the script):
 // - the block finds its item's live extent d_live = 1 + the last valid
 //   detection once, and scans and stages only d < d_live (valid_d need not
 //   be a prefix, so the scan still tests it). mAP pads every item to the
@@ -52,7 +52,7 @@
 //   the scans start. A group of 8 or more lanes stores each step's two bytes
 //   from one lane as it goes; a group of up to 4 lanes (8 or more scans a
 //   warp) gathers 32 steps and stores them as 16-byte stores. Gathering was
-//   3-4x faster at G <= 4, and slower from G = 16 (by a shared slab after
+//   1.9-3.6x faster at G <= 4 and slower from G = 16 (by a shared slab after
 //   the scans, or by each group as it goes); at G = 8 it lost on mAP's chunk
 //   and won by 5 % at D = 128.
 //
