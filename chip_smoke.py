@@ -560,11 +560,12 @@ def phase_matcher(flush: torch.Tensor):
         ("all-crowd and all-ignored items", 1024, 128, 32, COCO_THRS, ("crowd_ignored",)),
         ("equal IoUs, last index wins", 1024, 128, 32, COCO_THRS, ("ties",)),
         ("G=256, tile read from device memory", 256, 128, 256, COCO_THRS, ()),
-        ("G=1, a lane a scan", 1024, 128, 1, COCO_THRS, ()),
+        ("G=1, a group of 8 lanes", 1024, 128, 1, COCO_THRS, ()),
         ("G=2", 1024, 128, 2, COCO_THRS, ()),
         ("G=4", 1024, 128, 4, COCO_THRS, ()),
         ("G=16", 1024, 128, 16, COCO_THRS, ()),
         ("G=33, two gts a lane", 1024, 128, 33, COCO_THRS, ()),
+        ("G=128, four gts a lane", 1024, 128, 128, COCO_THRS, ()),
         ("gaps in valid_d", 1024, 128, 32, COCO_THRS, ("gaps",)),
         ("gaps and items with no valid row", 1024, 128, 8, COCO_THRS, ("gaps", "empty")),
         ("D=8, byte stores", 1024, 8, 8, COCO_THRS, ()),

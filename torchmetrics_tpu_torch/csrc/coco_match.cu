@@ -38,23 +38,22 @@
 //   (as bit masks) in shared memory once for all of its scans: all A*T of
 //   them where they fit 256 threads, else an even share. Blocks of 256
 //   threads at most keep more blocks on an SM than one block an item does;
-// - a scan runs on a group of P = next_pow2(G) lanes for G <= 32 (32/P scans
-//   a warp), one ground truth a lane; for G > 32, on a whole warp with KPL
-//   ground truths a lane. A step is a few compares a lane, two warp votes
-//   masked to the group and an argmax: log2(P) xor-shuffle rounds (one
-//   `__reduce_max_sync` for P = 32) of an order-keeping integer key of the
-//   IoU, then the highest lane of the group that holds the top key (a
-//   second reduction of the index for KPL > 1). A lane a scan walking the
-//   ground truths itself (P = 1) was slower at every G from 8 to 32;
+// - a scan runs on a group of P = max(8, next_pow2(G)) lanes for G <= 32
+//   (32/P scans a warp), one ground truth a lane, the lanes past G idle (mAP
+//   pads G to a multiple of 8, so it sends no G < 8); for G > 32, on a whole
+//   warp with KPL ground truths a lane. A step is a few compares a lane,
+//   two warp votes masked to the group and an argmax: log2(P) xor-shuffle
+//   rounds (one `__reduce_max_sync` for P = 32) of an order-keeping integer
+//   key of the IoU, then the highest lane of the group that holds the top
+//   key (a second reduction of the index for KPL > 1). A lane a scan walking
+//   the ground truths itself (P = 1) was slower at every G from 8 to 32;
 // - a valid detection with no eligible ground truth in any group of a warp
 //   skips the argmax: the test is warp-uniform, so the warp does not diverge;
 // - the block stores the zeros past the live extent as 16-byte stores before
-//   the scans start. A group of 8 or more lanes stores each step's two bytes
-//   from one lane as it goes; a group of up to 4 lanes (8 or more scans a
-//   warp) gathers 32 steps and stores them as 16-byte stores. Gathering was
-//   1.9-3.6x faster at G <= 4 and slower from G = 16 (by a shared slab after
-//   the scans, or by each group as it goes); at G = 8 it lost on mAP's chunk
-//   and won by 5 % at D = 128.
+//   the scans start, and one lane of a group stores each step's two bytes as
+//   it goes. Gathering a scan's bits into 16-byte stores (by a shared slab
+//   after the scans, or by each group as it goes) was slower on mAP's chunk
+//   and from G = 16, and won only where mAP sends nothing (G <= 8 at D = 128).
 //
 // Inputs are bytes (torch.bool is one byte, 0 or 1); outputs are uint8 maps
 // that the wrapper views as bool. The launch plan (P, KPL, scans a block,
@@ -79,27 +78,6 @@ __device__ __forceinline__ unsigned ordered_key(float f) {
 
 __device__ __forceinline__ bool bit(const unsigned* words, int i) { return (words[i >> 5] >> (i & 31)) & 1u; }
 
-// 4 bits, low first, as 4 bytes of 0 or 1 (the shifted copies do not overlap)
-__device__ __forceinline__ unsigned bytes_of_nibble(unsigned n) { return ((n & 0xfu) * 0x00204081u) & 0x01010101u; }
-
-// Bytes 32w .. 32w + 31 of an output row (fewer at the row's end) from
-// `bits`, over the P lanes of a group: 16 bytes a store when D % 16 == 0,
-// which keeps every row 16-byte aligned.
-template <int P>
-__device__ __forceinline__ void store_word(uint8_t* row, int w, unsigned bits, int D, int li) {
-  const int n = min(32, D - 32 * w);
-  uint8_t* at = row + 32 * w;
-  if ((D & 15) == 0) {
-    for (int c = li; c < n / 16; c += P) {
-      const unsigned x = bits >> (16 * c);
-      reinterpret_cast<uint4*>(at)[c] =
-          make_uint4(bytes_of_nibble(x), bytes_of_nibble(x >> 4), bytes_of_nibble(x >> 8), bytes_of_nibble(x >> 12));
-    }
-  } else {
-    for (int j = li; j < n; j += P) at[j] = (bits >> j) & 1u;
-  }
-}
-
 // the largest value over each aligned group of P lanes
 template <int P>
 __device__ __forceinline__ unsigned group_max(unsigned x) {
@@ -110,14 +88,6 @@ __device__ __forceinline__ unsigned group_max(unsigned x) {
     for (int off = P / 2; off > 0; off >>= 1) x = max(x, __shfl_xor_sync(kFull, x, off));
     return x;
   }
-}
-
-// Shared memory of a block, in bytes, in this order: the (D, G) IoU tile
-// (when staged), the gt masks crowd, valid_g and ignored[A] of ceil(G/32)
-// words each, the valid_d bytes.
-size_t shared_bytes(int D, int G, int A, int staged) {
-  const size_t words = static_cast<size_t>(2 + A) * ((G + 31) / 32);
-  return (staged ? static_cast<size_t>(D) * G * sizeof(float) : 0) + words * 4 + D;
 }
 
 // At 8 ground truths a lane the scan would take 92 registers; held to 64, four
@@ -131,6 +101,9 @@ __global__ void __launch_bounds__(kMaxThreads, KPL >= 8 ? 4 : 1)
                       const uint8_t* __restrict__ valid_g, const float* __restrict__ thrs,
                       uint8_t* __restrict__ matched, uint8_t* __restrict__ det_ignored, int D, int G, int A, int T,
                       int spb, int staged) {
+  // shared memory, in this order: the (D, G) IoU tile (when staged), the gt
+  // masks crowd, valid_g and ignored[A] of ceil(G/32) words each, the valid_d
+  // bytes; its size is the launcher's `shared_bytes`
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_live;
   const int S = A * T;
@@ -170,15 +143,10 @@ __global__ void __launch_bounds__(kMaxThreads, KPL >= 8 ? 4 : 1)
   }
   __syncthreads();
   const int d_live = s_live;
-  // The scans store the bytes before z, as 32-step words for groups of up to
-  // 4 lanes (8 or more scans a warp, whose single bytes would scatter over
-  // as many rows) and a byte a step from one lane of a wider group. Every
-  // output from z on is 0: stored now by the block, 16 bytes a store when
-  // D % 16 == 0 (rows 16-byte aligned).
-  constexpr bool kWordStores = P <= 4;
-  const int z = kWordStores         ? min(D, 32 * ((d_live + 31) >> 5))
-                : (D & 15) == 0 ? min(D, 16 * ((d_live + 15) >> 4))
-                                  : d_live;
+  // The scans store the bytes before z, a byte a step from one lane of each
+  // group. Every output from z on is 0: stored now by the block, 16 bytes a
+  // store when D % 16 == 0 (rows 16-byte aligned).
+  const int z = (D & 15) == 0 ? min(D, 16 * ((d_live + 15) >> 4)) : d_live;
   for (int o = 0; o < 2; ++o) {
     uint8_t* dst = (o == 0 ? matched : det_ignored) + (static_cast<size_t>(b) * S + s0) * D + z;
     if ((D & 15) == 0) {
@@ -226,7 +194,6 @@ __global__ void __launch_bounds__(kMaxThreads, KPL >= 8 ? 4 : 1)
   }
 
   const size_t out = (static_cast<size_t>(b) * S + s) * D;  // this scan's outputs
-  unsigned m_word = 0, i_word = 0;
   for (int d = 0; d < d_live; ++d) {
     bool has = false, m_ign = false;
     if (vd[d]) {  // the same test in the whole block
@@ -281,22 +248,12 @@ __global__ void __launch_bounds__(kMaxThreads, KPL >= 8 ? 4 : 1)
         }
       }
     }
-    if constexpr (kWordStores) {
-      m_word |= static_cast<unsigned>(has) << (d & 31);
-      i_word |= static_cast<unsigned>(has && m_ign) << (d & 31);
-      if ((d & 31) == 31 || d == d_live - 1) {
-        if (active) {
-          store_word<P>(matched + out, d >> 5, m_word, D, li);
-          store_word<P>(det_ignored + out, d >> 5, i_word, D, li);
-        }
-        m_word = i_word = 0;
-      }
-    } else if (li == 0 && active) {  // the step's two bytes, stored as it goes
+    if (li == 0 && active) {  // the step's two bytes, stored as it goes
       matched[out + d] = has;
       det_ignored[out + d] = has && m_ign;
     }
   }
-  if (!kWordStores && active) {  // zeros from d_live up to z
+  if (active) {  // zeros from d_live up to z
     for (int d = d_live + li; d < z; d += P) {
       matched[out + d] = 0;
       det_ignored[out + d] = 0;
@@ -307,12 +264,10 @@ __global__ void __launch_bounds__(kMaxThreads, KPL >= 8 ? 4 : 1)
 template <int P, int KPL>
 int launch(const void* ious, const void* crowd, const void* ignored, const void* valid_d, const void* valid_g,
            const void* thrs, void* matched, void* det_ignored, int B, int D, int G, int A, int T, int spb, int staged,
-           cudaStream_t stream) {
-  const size_t smem = shared_bytes(D, G, A, staged);
+           int smem, cudaStream_t stream) {
   auto kernel = coco_match_kernel<P, KPL>;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int threads = (spb * P + 31) / 32 * 32;
@@ -328,23 +283,22 @@ int launch(const void* ious, const void* crowd, const void* ignored, const void*
 
 // One launch of the matcher on `stream`. The wrapper (kernels/coco_match.py)
 // has checked every shape and type and chosen the plan: `p` lanes a scan
-// (1..32, a power of two), `kpl` ground truths a lane, `spb` scans a block,
-// `staged` whether the (D, G) tile fits kStageBytes. Returns the CUDA error
+// (8, 16 or 32), `kpl` ground truths a lane, `spb` scans a block, `staged`
+// whether the (D, G) tile fits kStageBytes, `smem` the block's dynamic shared
+// memory in bytes (the launcher's `shared_bytes`). Returns the CUDA error
 // code of the launch (0 on success), or -1 / -2 for a plan the source does
 // not take.
 extern "C" int coco_match_launch(const void* ious, const void* crowd, const void* ignored, const void* valid_d,
                                  const void* valid_g, const void* thrs, void* matched, void* det_ignored, int B,
-                                 int D, int G, int A, int T, int p, int kpl, int spb, int staged, void* stream) {
+                                 int D, int G, int A, int T, int p, int kpl, int spb, int staged, int smem,
+                                 void* stream) {
   if (staged && static_cast<size_t>(D) * G * sizeof(float) > static_cast<size_t>(kStageBytes)) return -1;
   if (spb < 1 || spb * p > kMaxThreads || p * kpl < G) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define COCO_MATCH_CASE(P_, K_)                                                                                    \
   if (p == P_ && kpl == K_)                                                                                        \
     return launch<P_, K_>(ious, crowd, ignored, valid_d, valid_g, thrs, matched, det_ignored, B, D, G, A, T, spb, \
-                          staged, s);
-  COCO_MATCH_CASE(1, 1)
-  COCO_MATCH_CASE(2, 1)
-  COCO_MATCH_CASE(4, 1)
+                          staged, smem, s);
   COCO_MATCH_CASE(8, 1)
   COCO_MATCH_CASE(16, 1)
   COCO_MATCH_CASE(32, 1)

@@ -35,7 +35,7 @@ def _launch_fn() -> ctypes._CFuncPtr:
     global _launch
     if _launch is None:
         fn = load_library(SOURCE).coco_match_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
@@ -44,19 +44,21 @@ def _launch_fn() -> ctypes._CFuncPtr:
 def lane_group(n_gts: int) -> Tuple[int, int]:
     """``(P, KPL)``: the lanes that carry one scan and the ground truths each lane holds.
 
-    For G <= 32, ``P = next_pow2(G)`` lanes, one ground truth a lane; above,
-    a whole warp with ``ceil(G / 32)`` rounded up to 2, 4 or 8 a lane.
+    For G <= 32, ``P = max(8, next_pow2(G))`` lanes, one ground truth a lane
+    (mAP pads G to a multiple of 8, so narrower groups would serve no caller);
+    above, a whole warp with ``ceil(G / 32)`` rounded up to 2, 4 or 8 a lane.
     """
     if n_gts <= 32:
-        return 1 << (n_gts - 1).bit_length(), 1
+        return max(8, 1 << (n_gts - 1).bit_length()), 1
     need = -(-n_gts // 32)
     return 32, next(k for k in (2, 4, 8) if k >= need)
 
 
 def shared_bytes(n_dets: int, n_gts: int, n_areas: int, staged: bool) -> int:
-    """Dynamic shared memory of one block, as ``shared_bytes`` in the source
-    counts it: the staged (D, G) IoU tile, the ground truths' crowd, valid and
-    per-area ignored bit masks, the ``valid_d`` bytes."""
+    """Dynamic shared memory of one block, in the order the kernel lays it out:
+    the staged (D, G) IoU tile, the ground truths' crowd, valid and per-area
+    ignored bit masks, the ``valid_d`` bytes. The launch passes it to the
+    kernel as its size."""
     return (n_dets * n_gts * 4 if staged else 0) + 4 * (2 + n_areas) * (-(-n_gts // 32)) + n_dets
 
 
@@ -146,7 +148,7 @@ def coco_match(
     args = (
         ious.data_ptr(), crowd.data_ptr(), ignored.data_ptr(), valid_d.data_ptr(), valid_g.data_ptr(),
         iou_thrs.data_ptr(), matched.data_ptr(), det_ignored.data_ptr(), n_items, n_dets, n_gts, n_areas, n_thr,
-        plan.lanes, plan.gts_per_lane, plan.scans_per_block, int(plan.staged),
+        plan.lanes, plan.gts_per_lane, plan.scans_per_block, int(plan.staged), plan.shared_bytes,
         torch.cuda.current_stream(device).cuda_stream,
     )
     with torch.cuda.device(device):
