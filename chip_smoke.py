@@ -27,7 +27,17 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    G=1, 2, 4, 8, 16, 32, 33, 64 ground truths (every lane-group width; B=256
    at G=256), D=8 (byte stores), thresholds of 1.0 over IoUs of exactly 1.0,
    all-crowd and all-ignored items, rows of equal IoUs, invalid rows inside
-   the live extent and items with no valid row;
+   the live extent and items with no valid row; ``confmat_multiclass``, the
+   fused multiclass confusion-matrix update, is held equal (``torch.equal``)
+   to its plain version from a random non-zero int32 state at ImageNet-1k's
+   batch (1,024 x 1,000 float32, the first record row) and a Cityscapes-shaped
+   batch ((2, 19, 1024, 2048) float32, int64 targets, ~5 % void 255), and at
+   C = 2, 3, 19, 1000, 1001, rows of NaN, ties, +-0.0 and -inf, targets C,
+   C+3, -3 and -(C*C+1), out-of-range integer labels, ignore_index None, 255
+   and -3, int32 and int64 targets, float16 and bfloat16 scores and an empty
+   batch; at the two main-path shapes it is timed as the others are, beside
+   ``torch.bincount(target * C + preds.argmax(1))`` (two PyTorch calls, a
+   yardstick, not the record's single-call ``library_ms``);
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
@@ -54,7 +64,20 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    the results equal a single-process run, and every rank's matcher launches
    be the chunks phase 3 checked; the single-process compute on rank 0 runs
    under ``torch.profiler`` for the matcher's device time and the device
-   operations it spends most time in.
+   operations it spends most time in;
+7. classification tower, one card, no sync: (i) the ImageNet-1k set through a
+   ``MetricCollection`` of the confusion matrix, Cohen's kappa, MCC and the
+   Jaccard index (C=1,000) with macro precision, recall and specificity, and
+   the composite ``1 - MulticlassAccuracy(average="micro")`` (top-1 error);
+   the compute groups formed on the first batch are given to the timed
+   collection, so ``confmat_multiclass`` must launch once a batch, 49 times;
+   (ii) mIoU and the confusion matrix over 24 Cityscapes-shaped images (of
+   the val set's 500, cut for the run's time) in batches of 2,
+   ``ignore_index=255``; (iii) eight multilabel metrics over a MS-COCO 2014
+   val-shaped set, 40,504 images x 80 labels in batches of 256; (iv) binary
+   selective prediction over (i)'s scores (max softmax score, target "top-1
+   correct"). Every leg reruns its first 4 batches on the port's CPU path
+   and needs equal int32 states, and prints its update medians and values.
 
 Phases 5 and 6 run each rank as a process of its own (this script with
 ``--worker``); every kernel must have launched on the paths that run it.
@@ -616,6 +639,137 @@ def phase_matcher(flush: torch.Tensor):
     return rows, shapes
 
 
+# ---------------------------------------------------------- confmat_multiclass
+SEG_SHAPE = (2, 19, 1024, 2048)  # Cityscapes-shaped logits of one batch: 2 images, 19 classes, 1024 x 2048
+SEG_IGNORE = 255  # Cityscapes' void label
+
+
+def _seg_batch(gen: torch.Generator, dtype=torch.float32):
+    """A Cityscapes-shaped batch on the card: logits (2, 19, 1024, 2048) with the
+    true class boosted on 3 pixels in 4, int64 targets, ~5 % of them 255."""
+    dev = torch.device("cuda")
+    n, c, h, w = SEG_SHAPE
+    target = torch.randint(0, c, (n, h, w), generator=gen, device=dev)
+    logits = torch.randn(SEG_SHAPE, generator=gen, device=dev, dtype=dtype)
+    boost = 4.0 * (torch.rand((n, 1, h, w), generator=gen, device=dev) < 0.75).to(dtype)
+    logits.scatter_add_(1, target[:, None], boost)
+    target[torch.rand((n, h, w), generator=gen, device=dev) < 0.05] = SEG_IGNORE
+    return logits, target
+
+
+def _confmat_case(n, c, spatial, gen, dtype=torch.float32, target_dtype=torch.int64, edits=()):
+    """Scores (N, C, *S) of ``dtype`` (or int32 labels with "labels") and targets (N, *S) on the card."""
+    dev = torch.device("cuda")
+    shape = (n, *spatial)
+    target = torch.randint(0, c, shape, generator=gen, device=dev, dtype=target_dtype)
+    scores = torch.randn((n, c, *spatial), generator=gen, device=dev).to(dtype)
+    if n and "edge_rows" in edits:  # where the argmax rule decides: NaN, ties, signed zeros, all -inf
+        nan, inf = float("nan"), float("inf")
+        rows = scores.view(n, c, -1)[:, :, 0]
+        rows[0::9] = nan
+        rows[1::9, c // 2] = nan
+        rows[1::9, c - 1] = nan
+        rows[2::9] = 0.25
+        rows[3::9, 0], rows[3::9, c - 1] = 7.0, 7.0
+        rows[4::9] = -0.0
+        rows[4::9, c - 1] = 0.0
+        rows[5::9] = -inf
+        rows[6::9, c - 1] = inf
+        rows[7::9] = -inf
+        rows[7::9, c // 2] = nan
+    if n and "out_of_range" in edits:  # wrapped (C, C+3, -3) and dropped (-(C*C+1)) flat indices
+        flat = target.view(-1)
+        for i, value in enumerate([c, c + 3, -3, -(c * c + 1)]):
+            flat[i::10] = value
+    if "labels" in edits:
+        scores = torch.randint(-3, c + 3, shape, generator=gen, device=dev, dtype=torch.int32)  # out of range too
+    return scores.contiguous(), target
+
+
+def phase_confmat(flush: torch.Tensor) -> list:
+    """``confmat_multiclass`` against its plain version on the card, and its times at
+    the main path's shapes: ImageNet-1k's batch (the first row) and a Cityscapes batch."""
+    from torchmetrics_tpu_torch.kernels import confmat as kcm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    cases = [  # (what, batch or (N, C, spatial, kwargs), ignore_index); the first two are the main path's shapes
+        ("ImageNet-1k batch (a)", (BATCH, N_CLASSES, (), {}), None),
+        ("Cityscapes batch (b)", _seg_batch(gen), SEG_IGNORE),
+        ("C=2", (BATCH, 2, (), {}), None),
+        ("C=3, spatial", (64, 3, (16, 16), {}), None),
+        ("C=19", (BATCH, 19, (), {}), None),
+        ("C=1001, scalar loads", (BATCH, 1001, (), {}), None),
+        ("C=1000, NaN, tie, +-0.0 and -inf rows", (BATCH, N_CLASSES, (), {"edits": ("edge_rows",)}), None),
+        ("C=19 spatial, NaN, tie, +-0.0 and -inf rows", (8, 19, (64, 64), {"edits": ("edge_rows",)}), None),
+        ("C=3, NaN, tie, +-0.0 and -inf rows", (BATCH, 3, (), {"edits": ("edge_rows",)}), None),
+        ("C=1000, targets C, C+3, -3, -(C*C+1)", (BATCH, N_CLASSES, (), {"edits": ("out_of_range",)}), None),
+        ("C=19 spatial, targets C, C+3, -3, -(C*C+1)", (4, 19, (32, 32), {"edits": ("out_of_range",)}), None),
+        ("C=19, out-of-range integer labels", (BATCH, 19, (8,), {"edits": ("labels",)}), None),
+        ("C=1000, out-of-range integer labels", (BATCH, N_CLASSES, (), {"edits": ("labels",)}), None),
+        ("C=19, ignore_index=-3", (4, 19, (32, 32), {"edits": ("out_of_range",)}), -3),
+        ("C=1000, ignore_index=255", (BATCH, N_CLASSES, (), {}), 255),
+        ("C=1000, int32 targets", (BATCH, N_CLASSES, (), {"target_dtype": torch.int32}), None),
+        ("C=1000, float16 scores", (BATCH, N_CLASSES, (), {"dtype": torch.float16, "edits": ("edge_rows",)}), None),
+        ("C=1000, bfloat16 scores", (BATCH, N_CLASSES, (), {"dtype": torch.bfloat16}), None),
+        ("C=19 spatial, float16 scores", (4, 19, (32, 32), {"dtype": torch.float16, "edits": ("edge_rows",)}), None),
+        ("C=19 spatial, bfloat16 scores", (4, 19, (32, 32), {"dtype": torch.bfloat16}), None),
+        ("empty batch", (0, 19, (), {}), None),
+    ]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for what, spec, ignore_index in cases:
+        preds, target = spec if isinstance(spec[0], torch.Tensor) else _confmat_case(*spec[:3], gen, **spec[3])
+        c = N_CLASSES if what.startswith("ImageNet") else (19 if what.startswith("City") else spec[1])
+        state = torch.randint(-(2**20), 2**20, (c, c), generator=gen, device="cuda", dtype=torch.int32)
+        got = kcm.confmat_multiclass(state.clone(), preds, target, ignore_index)
+        want = kcm._confmat_multiclass_plain(state.clone(), preds, target, ignore_index)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        label = f"{what}: preds {tuple(preds.shape)} {str(preds.dtype)[6:]}, target {str(target.dtype)[6:]}, " \
+                f"ignore_index {ignore_index}"
+        check(torch.equal(got, want), f"confmat_multiclass and plain differ ({label}): max abs err {err}")
+        added = int((want - state).sum())
+        check(added > 0 or preds.numel() == 0, f"no pair counted ({label})")
+        if not (what.endswith("(a)") or what.endswith("(b)")):
+            rows.append({"case": label, "what": what, "max_abs_err": err, "added": added})
+            continue
+        # least work: read the scores and the targets once, read and write the state cells
+        # this batch touches; compare every score once
+        touched = int((want != state).sum())
+        nbytes = preds.numel() * preds.element_size() + target.numel() * target.element_size() + 8 * touched
+        nops = preds.numel()
+        bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_OPS_PER_S * 1e3
+        n, k, inner = kcm._layout(state, preds, target)
+        plan = kcm.plan(n * inner, k, inner, c, False, sms)
+        timed = state.clone()  # the timed launches add into it, far below 2**31
+        kernel_ms = time_ms(lambda: kcm.confmat_multiclass(timed, preds, target, ignore_index), flush)
+        plain_ms = time_ms(lambda: kcm._confmat_multiclass_plain(timed, preds, target, ignore_index), flush,
+                           reps=10, warmup=1)
+        two_call_ms = time_ms(lambda: torch.bincount(target.view(-1) * c + preds.argmax(1).view(-1), minlength=c * c),
+                              flush, reps=10, warmup=1)
+        sets = [(timed, preds, target)] + [(timed, preds.clone(), target.clone())
+                                           for _ in range(copies_for(nbytes) - 1)]
+        stream_ms = time_stream_ms(lambda s_, p_, t_: kcm.confmat_multiclass(s_, p_, t_, ignore_index), sets,
+                                   calls=len(sets) * max(1, 48 // len(sets)))
+        del sets
+        after = kcm.confmat_multiclass(state.clone(), preds, target, ignore_index)
+        check(torch.equal(after, want), f"confmat_multiclass differs after the timed launches ({label})")
+        row = {
+            "case": label, "max_abs_err": err, "added": added, "plan": plan._asdict(), "ms": kernel_ms,
+            "stream_ms": stream_ms, "plain_ms": plain_ms, "two_call_ms": two_call_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": nops, "touched_cells": touched, "library_ms": None,
+        }
+        print(f"[kernel] confmat_multiclass {label}: exact, {kernel_ms:.4f} ms after an L2 flush "
+              f"({stream_ms:.4f} ms a call back to back; plan {tuple(plan)}), plain {plain_ms:.4f} ms, "
+              f"argmax + bincount (two calls, a yardstick) {two_call_ms:.4f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
+              f"({row['bound_by']}: {nbytes} bytes, {nops} compares; {touched} cells touched), library_ms: none")
+        rows.append(row)
+    print(f"[kernel] confmat_multiclass: exact on all {len(cases)} cases, the two above and "
+          + "; ".join(r["what"] for r in rows if "ms" not in r))
+    return rows
+
+
 # ---------------------------------------------------- phases 5 and 6: ranks
 WORLD_TIMEOUT_S = 420
 SYNC_METRICS = ("acc", "f1", "auroc", "ap")
@@ -1000,6 +1154,235 @@ def phase_ragged(chunk_shapes: collections.Counter) -> dict:
     return record
 
 
+# ------------------------------------------------------ phase 7: the classification tower
+SEG_IMAGES = 24  # of Cityscapes val's 500, cut for the run's time
+COCO_ML_IMAGES, COCO_ML_LABELS, COCO_ML_BATCH = 40_504, 80, 256  # MS-COCO 2014 val, its 80 labels
+CPU_RERUN_BATCHES = 4
+
+
+def _grouped(make, first_batch):
+    """``make(device, compute_groups)`` built twice on the card: once with automatic
+    compute groups, updated with the first batch to form them, then with those groups
+    given, so that every batch, the first too, runs one update a group."""
+    probe = make("cuda", True)
+    probe.update(*first_batch)
+    groups = [list(members) for members in probe.compute_groups.values()]
+    return make("cuda", groups), groups
+
+
+def _states_of(collection, extra=()) -> dict:
+    """Copies of every leaf of every member's state (and of ``extra`` metrics')."""
+    out = {}
+    for name, metric in list(collection.items(keep_base=True)) + list(extra):
+        for leaf, value in metric.metric_state.items():
+            out[f"{name}.{leaf}"] = tuple(v.clone() for v in value) if isinstance(value, tuple) else value.clone()
+    return out
+
+
+def _check_cpu_rerun(leg: str, card: dict, cpu: dict) -> int:
+    """The card's integer states after the first batches equal the CPU path's; returns the leaves compared."""
+    check(card.keys() == cpu.keys(), f"[tower {leg}] leaves {sorted(card)} vs {sorted(cpu)}")
+    compared = 0
+    for key, want in cpu.items():
+        got = card[key]
+        pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+        for g, w in pairs:
+            check(g.dtype == w.dtype, f"[tower {leg}] {key} dtype {g.dtype} vs {w.dtype}")
+            if w.dtype == torch.int32:
+                check(torch.equal(g.cpu(), w), f"[tower {leg}] {key} differs between the card and the CPU")
+                compared += 1
+    return compared
+
+
+def _run_leg(leg, make, batches, extra=None):
+    """Drive ``batches()`` (a generator of card batches) through the grouped collection
+    (and ``extra``, a metric outside it); the first batches again on the CPU path."""
+    from torchmetrics_tpu_torch.kernels.confmat import confmat_multiclass
+
+    batch_iter = batches()
+    first = next(batch_iter)
+    col, groups = _grouped(make, first)
+    extra_card = extra("cuda") if extra else None
+    times, extra_times, early = [], [], None
+    confmat_multiclass.launches = 0
+    torch.cuda.synchronize()
+    t_leg = time.perf_counter()
+    for i, batch in enumerate(b for it in ([first], batch_iter) for b in it):
+        t0 = time.perf_counter()
+        col.update(*batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if extra_card is not None:
+            t0 = time.perf_counter()
+            extra_card.update(*batch)
+            torch.cuda.synchronize()
+            extra_times.append((time.perf_counter() - t0) * 1e3)
+        if i + 1 == CPU_RERUN_BATCHES:
+            early = _states_of(col, [("extra", extra_card.metric_b)] if extra_card is not None else [])
+    n_batches = i + 1
+    values = col.compute()
+    extra_value = extra_card.compute() if extra_card is not None else None
+    torch.cuda.synchronize()
+    leg_s = time.perf_counter() - t_leg
+    launches = confmat_multiclass.launches
+
+    cpu_col = make("cpu", groups)
+    cpu_extra = extra("cpu") if extra else None
+    for batch in (b for _, b in zip(range(CPU_RERUN_BATCHES), batches())):
+        cpu_batch = [x.cpu() for x in batch]
+        cpu_col.update(*cpu_batch)
+        if cpu_extra is not None:
+            cpu_extra.update(*cpu_batch)
+    compared = _check_cpu_rerun(leg, early, _states_of(cpu_col, [("extra", cpu_extra.metric_b)] if cpu_extra else []))
+    return {
+        "batches": n_batches, "groups": groups, "launches": launches, "leg_s": leg_s,
+        "update_ms_median": statistics.median(times),
+        "extra_update_ms_median": statistics.median(extra_times) if extra_times else None,
+        "values": {k: v.tolist() if v.numel() <= 4 else f"{tuple(v.shape)} {str(v.dtype)[6:]}" for k, v in values.items()},
+        "tensors": values, "extra_value": None if extra_value is None else float(extra_value),
+        "cpu_leaves_equal": compared,
+    }
+
+
+def _tower_imagenet(device, compute_groups):
+    from torchmetrics_tpu_torch import classification as tc
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    kw = {"num_classes": N_CLASSES, "device": device}
+    return MetricCollection({
+        "confmat": tc.MulticlassConfusionMatrix(**kw), "kappa": tc.MulticlassCohenKappa(**kw),
+        "mcc": tc.MulticlassMatthewsCorrCoef(**kw), "jaccard": tc.MulticlassJaccardIndex(average="macro", **kw),
+        "precision": tc.MulticlassPrecision(average="macro", **kw), "recall": tc.MulticlassRecall(average="macro", **kw),
+        "specificity": tc.MulticlassSpecificity(average="macro", **kw),
+    }, compute_groups=compute_groups)
+
+
+def _top1_error(device):
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+
+    return 1 - MulticlassAccuracy(num_classes=N_CLASSES, average="micro", device=device)
+
+
+def _tower_cityscapes(device, compute_groups):
+    from torchmetrics_tpu_torch import classification as tc
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    kw = {"num_classes": SEG_SHAPE[1], "ignore_index": SEG_IGNORE, "device": device}
+    return MetricCollection({"miou": tc.MulticlassJaccardIndex(**kw), "confmat": tc.MulticlassConfusionMatrix(**kw)},
+                            compute_groups=compute_groups)
+
+
+def _tower_coco(device, compute_groups):
+    from torchmetrics_tpu_torch import classification as tc
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    kw = {"num_labels": COCO_ML_LABELS, "device": device}
+    return MetricCollection({
+        "accuracy": tc.MultilabelAccuracy(**kw), "f1": tc.MultilabelF1Score(average="macro", **kw),
+        "precision": tc.MultilabelPrecision(**kw), "recall": tc.MultilabelRecall(**kw),
+        "hamming": tc.MultilabelHammingDistance(**kw), "confmat": tc.MultilabelConfusionMatrix(**kw),
+        "jaccard": tc.MultilabelJaccardIndex(**kw), "mcc": tc.MultilabelMatthewsCorrCoef(**kw),
+    }, compute_groups=compute_groups)
+
+
+def _tower_binary(device, compute_groups):
+    from torchmetrics_tpu_torch import classification as tc
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({
+        "accuracy": tc.BinaryAccuracy(device=device), "f1": tc.BinaryF1Score(device=device),
+        "kappa": tc.BinaryCohenKappa(device=device), "jaccard": tc.BinaryJaccardIndex(device=device),
+        "confmat": tc.BinaryConfusionMatrix(device=device),
+    }, compute_groups=compute_groups)
+
+
+def _coco_multilabel_data(gen: torch.Generator):
+    """MS-COCO 2014 val's shape: 40,504 images x 80 labels, about 2.9 labels an
+    image; sigmoid scores of a classifier that separates them, on the card."""
+    dev = torch.device("cuda")
+    target = (torch.rand((COCO_ML_IMAGES, COCO_ML_LABELS), generator=gen, device=dev) < 2.9 / COCO_ML_LABELS)
+    logits = 1.5 * torch.randn((COCO_ML_IMAGES, COCO_ML_LABELS), generator=gen, device=dev) + 4.0 * target - 2.0
+    return torch.sigmoid(logits), target.to(torch.int32)
+
+
+def phase_tower() -> dict:
+    """Phase 7: the classification tower on one card, no sync. (i) the ImageNet-1k set
+    through the confusion-matrix family and the stat scores, and the top-1 error
+    composite; (ii) Cityscapes-shaped segmentation; (iii) COCO-shaped multilabel;
+    (iv) binary selective prediction over (i)'s scores."""
+    from torchmetrics_tpu_torch.kernels.confmat import confmat_multiclass
+
+    record = {}
+    probs, target, _, _ = _main_path_data(torch.Generator(device="cuda").manual_seed(SEED))
+    imagenet = lambda: ((probs[s:s + BATCH], target[s:s + BATCH]) for s in range(0, N_SAMPLES, BATCH))  # noqa: E731
+    leg = _run_leg("imagenet", _tower_imagenet, imagenet, extra=_top1_error)
+    n = leg["batches"]
+    grouped = next(g for g in leg["groups"] if "confmat" in g)
+    check(sorted(grouped)[:4] == ["confmat", "jaccard", "kappa", "mcc"] and len(grouped) == 4,
+          f"[tower imagenet] the confusion-matrix metrics did not merge into one group: {leg['groups']}")
+    check(leg["launches"] == n == -(-N_SAMPLES // BATCH),
+          f"[tower imagenet] confmat_multiclass launched {leg['launches']} times for {n} batches")
+    confmat = leg["tensors"]["confmat"]
+    check(int(confmat.sum()) == N_SAMPLES and confmat.dtype == torch.int32, "[tower imagenet] confmat counts")
+    top1 = 1.0 - float(confmat.diagonal().sum()) / N_SAMPLES
+    check(abs(leg["extra_value"] - top1) <= 1e-6, f"[tower imagenet] top-1 error {leg['extra_value']} vs {top1}")
+    for k in ("kappa", "mcc", "jaccard", "precision", "recall", "specificity"):
+        v = leg["tensors"][k]
+        check(v.shape == () and bool(torch.isfinite(v)) and 0.0 < float(v) <= 1.0, f"[tower imagenet] {k} = {v}")
+    record["imagenet"] = leg
+    del probs, target
+
+    def cityscapes():
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        return (_seg_batch(gen) for _ in range(SEG_IMAGES // SEG_SHAPE[0]))
+
+    leg = _run_leg("cityscapes", _tower_cityscapes, cityscapes)
+    check(leg["groups"] == [["miou", "confmat"]] or leg["groups"] == [["confmat", "miou"]],
+          f"[tower cityscapes] groups {leg['groups']}")
+    check(leg["launches"] == leg["batches"] == SEG_IMAGES // SEG_SHAPE[0],
+          f"[tower cityscapes] confmat_multiclass launched {leg['launches']} times for {leg['batches']} batches")
+    pixels = int(leg["tensors"]["confmat"].sum())
+    total = SEG_IMAGES * SEG_SHAPE[2] * SEG_SHAPE[3]
+    check(0.93 * total < pixels < 0.97 * total, f"[tower cityscapes] {pixels} of {total} pixels counted (~5 % void)")
+    check(0.0 < float(leg["tensors"]["miou"]) < 1.0, f"[tower cityscapes] mIoU {leg['tensors']['miou']}")
+    record["cityscapes"] = leg
+
+    scores, labels = _coco_multilabel_data(torch.Generator(device="cuda").manual_seed(SEED + 6))
+    coco = lambda: ((scores[s:s + COCO_ML_BATCH], labels[s:s + COCO_ML_BATCH])  # noqa: E731
+                    for s in range(0, COCO_ML_IMAGES, COCO_ML_BATCH))
+    leg = _run_leg("coco", _tower_coco, coco)
+    check(leg["launches"] == 0, "[tower coco] the multilabel path launched confmat_multiclass")
+    check(int(leg["tensors"]["confmat"].sum()) == COCO_ML_IMAGES * COCO_ML_LABELS, "[tower coco] confmat counts")
+    for k, v in leg["tensors"].items():
+        check(bool(torch.isfinite(v.float()).all()), f"[tower coco] {k} = {v}")
+    record["coco"] = leg
+    del scores, labels
+
+    probs, target, _, _ = _main_path_data(torch.Generator(device="cuda").manual_seed(SEED))
+    conf, pred = probs.max(1)
+    correct = (pred == target).to(torch.int32)
+    del probs
+    binary = lambda: ((conf[s:s + BATCH], correct[s:s + BATCH]) for s in range(0, N_SAMPLES, BATCH))  # noqa: E731
+    leg = _run_leg("binary", _tower_binary, binary)
+    check(leg["launches"] == 0, "[tower binary] the binary path launched confmat_multiclass")
+    cm = leg["tensors"]["confmat"]
+    check(int(cm.sum()) == N_SAMPLES and int(cm[1].sum()) == int(correct.sum()), "[tower binary] confmat counts")
+    record["binary"] = leg
+
+    for name, leg in record.items():
+        extra = "" if leg["extra_update_ms_median"] is None else \
+            f"; top1_error = 1 - MulticlassAccuracy: update median {leg['extra_update_ms_median']:.4f} ms, " \
+            f"value {leg['extra_value']:.6f}"
+        print(f"[tower] {name}: {leg['batches']} batches in {leg['leg_s']:.3f} s; compute groups {leg['groups']}; "
+              f"collection update median {leg['update_ms_median']:.4f} ms (host clock, a synchronize after each "
+              f"update){extra}; confmat_multiclass launches {leg['launches']}; first {CPU_RERUN_BATCHES} batches "
+              f"equal on the CPU path ({leg['cpu_leaves_equal']} int32 leaves); values {leg['values']}")
+        del leg["tensors"]
+    print(f"[tower] cityscapes: {SEG_IMAGES} images of the val set's 500 (cut for the run's time), "
+          f"{SEG_IMAGES // SEG_SHAPE[0]} batches of {SEG_SHAPE}")
+    return record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--json", help="also write the full record to this file")
@@ -1015,16 +1398,17 @@ def main() -> int:
         return worker_main(args)
     sys.path.insert(0, REPO)
     from torchmetrics_tpu_torch.kernels.binned_confmat import binned_confmat_multiclass
-    from torchmetrics_tpu_torch.kernels.coco_match import coco_match
 
     kernels = [binned_confmat_multiclass]
     sources = {
         "binned_confmat_multiclass": "torchmetrics_tpu_torch/csrc/binned_confmat.cu",
         "coco_match": "torchmetrics_tpu_torch/csrc/coco_match.cu",
+        "confmat_multiclass": "torchmetrics_tpu_torch/csrc/confmat.cu",
     }
     replaces = {
         "binned_confmat_multiclass": "torchmetrics_tpu/functional/classification/precision_recall_curve.py:128",
         "coco_match": "torchmetrics_tpu/functional/detection/matcher.py:29",
+        "confmat_multiclass": "torchmetrics_tpu/functional/classification/confusion_matrix.py:65",
     }
 
     device = phase_device()
@@ -1032,23 +1416,26 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB, past the 50 MB L2
     kernel_rows = phase_kernels(flush)
     kernel_rows["coco_match"], chunk_shapes = phase_matcher(flush)
+    kernel_rows["confmat_multiclass"] = phase_confmat(flush)
     del flush
     main = phase_main_path(kernels)
     sync = phase_sync()
     ragged = phase_ragged(chunk_shapes)
+    tower = phase_tower()
 
     # launches of each kernel on the paths that run it: the eval step (phase 4),
     # every rank of the sync worlds (phase 5) and of the ragged worlds (phase 6)
     by_path = {
         "binned_confmat_multiclass": {"eval": main["launches"]["binned_confmat_multiclass"]},
         "coco_match": {},
+        "confmat_multiclass": {f"tower {leg}": tower[leg]["launches"] for leg in ("imagenet", "cityscapes")},
     }
     for name, record in (("sync", sync), ("ragged", ragged)):
         for label, results in record.items():
             for kernel, count in ((k, sum(r["launches"][k] for r in results)) for k in results[0]["launches"]):
                 by_path[kernel][f"{name} {label}"] = count
     line = {"kernels": []}
-    for name in ("binned_confmat_multiclass", "coco_match"):
+    for name in ("binned_confmat_multiclass", "coco_match", "confmat_multiclass"):
         first_row = kernel_rows[name][0]  # the main path's shape
         check(all(n > 0 for n in by_path[name].values()) and by_path[name], f"{name} did not launch: {by_path[name]}")
         line["kernels"].append({
@@ -1057,11 +1444,12 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in kernel_rows[name]),
             "ms": first_row["ms"], "stream_ms": first_row["stream_ms"], "plain_ms": first_row["plain_ms"],
             "bound_ms": first_row["bound_ms"], "bound_by": first_row["bound_by"], "library_ms": None,
+            **({"two_call_ms": first_row["two_call_ms"]} if "two_call_ms" in first_row else {}),
         })
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"device": device, "build_s": build_s, "kernels": kernel_rows, "main_path": main,
-                       "sync": sync, "ragged": ragged}, f, indent=1)
+                       "sync": sync, "ragged": ragged, "tower": tower}, f, indent=1)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}}))
     return 0

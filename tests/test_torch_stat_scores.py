@@ -15,15 +15,15 @@ import torch
 
 import torchmetrics_tpu.classification as jc
 import torchmetrics_tpu_torch.classification as tc
-import torchmetrics_tpu_torch.functional.classification.stat_scores as tfs
 from torchmetrics_tpu.utilities import compute as jcompute
 from torchmetrics_tpu.utilities import data as jdata
 from torchmetrics_tpu_torch.utilities import compute as tcompute
 from torchmetrics_tpu_torch.utilities import data as tdata
 
-# the JAX package's functional namespace re-exports a function named
+# both packages' functional namespaces re-export a function named
 # `stat_scores`, which hides the module of that name from attribute imports
 jfs = importlib.import_module("torchmetrics_tpu.functional.classification.stat_scores")
+tfs = importlib.import_module("torchmetrics_tpu_torch.functional.classification.stat_scores")
 
 RTOL, ATOL = 1e-6, 1e-7
 C = 7
@@ -221,8 +221,10 @@ def test_task_wrappers():
     assert isinstance(tc.F1Score("multiclass", num_classes=3, device="cpu"), tc.MulticlassF1Score)
     assert isinstance(tc.FBetaScore(task="multiclass", beta=0.5, num_classes=3, device="cpu"), tc.MulticlassFBetaScore)
     assert isinstance(tc.StatScores(task="multiclass", num_classes=3, device="cpu"), tc.MulticlassStatScores)
+    assert isinstance(tc.Accuracy(task="binary", device="cpu"), tc.BinaryAccuracy)
+    assert isinstance(tc.Accuracy(task="multilabel", num_labels=3, device="cpu"), tc.MultilabelAccuracy)
     with pytest.raises(ValueError, match="not ported"):
-        tc.Accuracy(task="binary", device="cpu")
+        tc.AUROC(task="binary", device="cpu")
     with pytest.raises(ValueError, match="not supported"):
         tc.Accuracy(task="regression", device="cpu")
     with pytest.raises(ValueError, match="beta"):

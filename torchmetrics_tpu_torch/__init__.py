@@ -10,8 +10,13 @@ from torchmetrics_tpu_torch.classification import (
     AUROC,
     Accuracy,
     AveragePrecision,
+    CohenKappa,
+    ConfusionMatrix,
     F1Score,
     FBetaScore,
+    HammingDistance,
+    JaccardIndex,
+    MatthewsCorrCoef,
     MulticlassAccuracy,
     MulticlassAUROC,
     MulticlassAveragePrecision,
@@ -19,10 +24,15 @@ from torchmetrics_tpu_torch.classification import (
     MulticlassFBetaScore,
     MulticlassPrecisionRecallCurve,
     MulticlassStatScores,
+    NegativePredictiveValue,
+    Precision,
     PrecisionRecallCurve,
+    Recall,
+    Specificity,
     StatScores,
 )
 from torchmetrics_tpu_torch.collections import MetricCollection
+from torchmetrics_tpu_torch.core.composition import CompositionalMetric
 from torchmetrics_tpu_torch.core.metric import Metric
 from torchmetrics_tpu_torch.regression import MeanSquaredError
 
@@ -30,8 +40,14 @@ __all__ = [
     "AUROC",
     "Accuracy",
     "AveragePrecision",
+    "CohenKappa",
+    "CompositionalMetric",
+    "ConfusionMatrix",
     "F1Score",
     "FBetaScore",
+    "HammingDistance",
+    "JaccardIndex",
+    "MatthewsCorrCoef",
     "MeanSquaredError",
     "Metric",
     "MetricCollection",
@@ -42,6 +58,10 @@ __all__ = [
     "MulticlassFBetaScore",
     "MulticlassPrecisionRecallCurve",
     "MulticlassStatScores",
+    "NegativePredictiveValue",
+    "Precision",
     "PrecisionRecallCurve",
+    "Recall",
+    "Specificity",
     "StatScores",
 ]

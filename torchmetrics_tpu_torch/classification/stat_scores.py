@@ -1,4 +1,4 @@
-"""Stat-scores base class and ``MulticlassStatScores``.
+"""Stat-scores base class and the ``StatScores`` family for the three tasks.
 
 Counterpart of ``torchmetrics_tpu/classification/stat_scores.py``. Under
 ``global`` averaging the tp/fp/tn/fn states are int32 arrays with ``sum``
@@ -12,13 +12,19 @@ from typing import Any, Optional, Tuple
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper, _multiclass_only
+from torchmetrics_tpu_torch.classification.base import STAT_DROPS, _ClassificationTaskWrapper, _dispatch_task
 from torchmetrics_tpu_torch.core.metric import Metric, State
 from torchmetrics_tpu_torch.functional.classification._reduce import _stat_reduce
 from torchmetrics_tpu_torch.functional.classification.stat_scores import (
+    _binary_format,
+    _binary_stat_scores_update,
+    _binary_validate_args,
     _indicator_stat_scores,
     _multiclass_indicators,
     _multiclass_validate_args,
+    _multilabel_format,
+    _multilabel_stat_scores_update,
+    _multilabel_validate_args,
 )
 from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
 
@@ -72,6 +78,54 @@ class _AbstractStatScores(Metric):
         )
 
 
+def _stack_stats(tp: Tensor, fp: Tensor, tn: Tensor, fn: Tensor) -> Tensor:
+    return torch.stack([tp, fp, tn, fn, tp + fn], dim=-1).to(torch.int32)
+
+
+class BinaryStatScores(_AbstractStatScores):
+    """Binary tp/fp/tn/fn.
+
+    Example::
+
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.classification import BinaryStatScores
+        >>> metric = BinaryStatScores(device="cpu")
+        >>> metric.update(torch.tensor([0.2, 0.8, 0.6, 0.3]), torch.tensor([0, 1, 0, 1]))
+        >>> metric.compute().tolist()  # tp, fp, tn, fn, support
+        [1, 1, 1, 1, 2]
+    """
+
+    is_differentiable = False
+    higher_is_better = None
+    full_state_update = False
+
+    def __init__(
+        self,
+        threshold: float = 0.5,
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        zero_division: float = 0.0,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _binary_validate_args(threshold, multidim_average, ignore_index)
+        self.threshold = threshold
+        self.multidim_average = multidim_average
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self.zero_division = zero_division
+        self._create_state(1, multidim_average)
+
+    def _update(self, state: State, preds: Tensor, target: Tensor) -> State:
+        p, t, v = _binary_format(self._tensor(preds), self._tensor(target), self.threshold, self.ignore_index)
+        return self._update_stats(state, *_binary_stat_scores_update(p, t, v, self.multidim_average))
+
+    def _compute(self, state: State) -> Tensor:
+        return _stack_stats(*self._final_state(state))
+
+
 class MulticlassStatScores(_AbstractStatScores):
     """Multiclass per-class tp/fp/tn/fn.
 
@@ -120,18 +174,69 @@ class MulticlassStatScores(_AbstractStatScores):
         return self._update_stats(state, tp, fp, tn, fn)
 
     def _compute(self, state: State) -> Tensor:
-        tp, fp, tn, fn = self._final_state(state)
-        if self.average == "micro":
-            tp, fp, tn, fn = tp.sum(-1), fp.sum(-1), tn.sum(-1), fn.sum(-1)
-        return torch.stack([tp, fp, tn, fn, tp + fn], dim=-1).to(torch.int32)
+        return _averaged_stats(self._final_state(state), self.average)
+
+
+def _averaged_stats(stats: Tuple[Tensor, Tensor, Tensor, Tensor], average: Optional[str]) -> Tensor:
+    if average == "micro":
+        stats = tuple(x.sum(-1) for x in stats)
+    return _stack_stats(*stats)
+
+
+class MultilabelStatScores(_AbstractStatScores):
+    """Multilabel per-label tp/fp/tn/fn.
+
+    Example::
+
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.classification import MultilabelStatScores
+        >>> metric = MultilabelStatScores(num_labels=3, average="micro", device="cpu")
+        >>> metric.update(torch.tensor([[0.9, 0.2, 0.7], [0.1, 0.8, 0.3]]), torch.tensor([[1, 0, 0], [0, 1, 1]]))
+        >>> metric.compute().tolist()  # tp, fp, tn, fn, support
+        [2, 1, 2, 1, 3]
+    """
+
+    is_differentiable = False
+    higher_is_better = None
+    full_state_update = False
+    _multilabel = True
+
+    def __init__(
+        self,
+        num_labels: int,
+        threshold: float = 0.5,
+        average: Optional[str] = "macro",
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        zero_division: float = 0.0,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _multilabel_validate_args(num_labels, threshold, average, multidim_average, ignore_index)
+        self.num_labels = num_labels
+        self.threshold = threshold
+        self.average = average
+        self.multidim_average = multidim_average
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self.zero_division = zero_division
+        self._create_state(num_labels, multidim_average)
+
+    def _update(self, state: State, preds: Tensor, target: Tensor) -> State:
+        p, t, v = _multilabel_format(self._tensor(preds), self._tensor(target), self.threshold, self.ignore_index)
+        return self._update_stats(state, *_multilabel_stat_scores_update(p, t, v, self.multidim_average))
+
+    def _compute(self, state: State) -> Tensor:
+        return _averaged_stats(self._final_state(state), self.average)
 
 
 class StatScores(_ClassificationTaskWrapper):
-    """Task dispatch: ``StatScores(task="multiclass", ...)``."""
+    """Task dispatch: ``StatScores(task="binary" | "multiclass" | "multilabel", ...)``."""
 
     @classmethod
     def _create_task_metric(cls, task: str, *args: Any, **kwargs: Any) -> Metric:
-        _multiclass_only(task, cls.__name__)
-        kwargs.pop("threshold", None)
-        kwargs.pop("num_labels", None)
-        return MulticlassStatScores(*args, **kwargs)
+        kwargs.pop("task", None)
+        classes = {"binary": BinaryStatScores, "multiclass": MulticlassStatScores, "multilabel": MultilabelStatScores}
+        return _dispatch_task(task, classes, STAT_DROPS, (), kwargs)

@@ -2,8 +2,9 @@
 
 Metrics whose states are equal after the first update form a compute group:
 from then on only the group's leader runs ``update`` and the members share
-its state. As in the JAX package, states are never written into, so sharing
-is plain reference assignment.
+its state. Sharing is plain reference assignment: the members read the
+leader's state dict, so a leaf the leader's update writes into in place (the
+multiclass confusion matrix) is the members' too.
 
 The functional API threads ``{leader name: state}`` dicts through
 ``init_states -> update_states -> sync_states -> compute_states``;

@@ -3,7 +3,8 @@
 As in the JAX package, the functional core is primary and the stateful API
 is a thin eager facade over it:
 
-functional core (pure: returns new states, never writes into one):
+functional core (returns new states; only the multiclass confusion-matrix
+family writes into the state it is given, see ``update_state``):
     ``init_state() -> State``
     ``update_state(state, *inputs) -> State``
     ``compute_state(state) -> result``
@@ -160,7 +161,13 @@ class Metric:
         return st
 
     def update_state(self, state: State, *args: Any, **kwargs: Any) -> State:
-        """Pure update: a new state with this batch folded in."""
+        """A new state dict with this batch folded in.
+
+        The input state's tensors are left as they are, except the ``confmat``
+        leaf of ``MulticlassConfusionMatrix`` and its subclasses, which one
+        kernel launch adds into in place (as the reference torchmetrics
+        does): clone such a state first to keep it.
+        """
         new = dict(self._update(state, *args, **kwargs))
         new[_N] = state[_N] + 1
         return new
@@ -407,3 +414,117 @@ class Metric:
 
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}()"
+
+    def __hash__(self) -> int:
+        # identity plus state names, as in the JAX package: ``__eq__`` below
+        # builds a composition, and without this Python would make metrics
+        # unhashable (no sets, no dict keys)
+        return hash((id(self), tuple(self._defaults.keys())))
+
+    # ------------------------------------------------------------- arithmetic
+    # Each operator builds a lazy ``CompositionalMetric``; ``__eq__`` and
+    # ``__ne__`` too, so compare metrics by identity (``is``), never ``==``.
+    def _compose(self, op: Callable, other: Any, reverse: bool = False) -> "Metric":
+        from torchmetrics_tpu_torch.core.composition import CompositionalMetric
+
+        return CompositionalMetric(op, other, self) if reverse else CompositionalMetric(op, self, other)
+
+    def __add__(self, other: Any) -> "Metric":
+        return self._compose(torch.add, other)
+
+    def __radd__(self, other: Any) -> "Metric":
+        return self._compose(torch.add, other, reverse=True)
+
+    def __sub__(self, other: Any) -> "Metric":
+        return self._compose(torch.sub, other)
+
+    def __rsub__(self, other: Any) -> "Metric":
+        return self._compose(torch.sub, other, reverse=True)
+
+    def __mul__(self, other: Any) -> "Metric":
+        return self._compose(torch.mul, other)
+
+    def __rmul__(self, other: Any) -> "Metric":
+        return self._compose(torch.mul, other, reverse=True)
+
+    def __truediv__(self, other: Any) -> "Metric":
+        return self._compose(torch.true_divide, other)
+
+    def __rtruediv__(self, other: Any) -> "Metric":
+        return self._compose(torch.true_divide, other, reverse=True)
+
+    def __floordiv__(self, other: Any) -> "Metric":
+        return self._compose(torch.floor_divide, other)
+
+    def __rfloordiv__(self, other: Any) -> "Metric":
+        return self._compose(torch.floor_divide, other, reverse=True)
+
+    def __mod__(self, other: Any) -> "Metric":
+        return self._compose(torch.remainder, other)
+
+    def __rmod__(self, other: Any) -> "Metric":
+        return self._compose(torch.remainder, other, reverse=True)
+
+    def __pow__(self, other: Any) -> "Metric":
+        return self._compose(torch.pow, other)
+
+    def __rpow__(self, other: Any) -> "Metric":
+        return self._compose(torch.pow, other, reverse=True)
+
+    def __matmul__(self, other: Any) -> "Metric":
+        return self._compose(torch.matmul, other)
+
+    def __rmatmul__(self, other: Any) -> "Metric":
+        return self._compose(torch.matmul, other, reverse=True)
+
+    def __and__(self, other: Any) -> "Metric":
+        return self._compose(torch.bitwise_and, other)
+
+    def __rand__(self, other: Any) -> "Metric":
+        return self._compose(torch.bitwise_and, other, reverse=True)
+
+    def __or__(self, other: Any) -> "Metric":
+        return self._compose(torch.bitwise_or, other)
+
+    def __ror__(self, other: Any) -> "Metric":
+        return self._compose(torch.bitwise_or, other, reverse=True)
+
+    def __xor__(self, other: Any) -> "Metric":
+        return self._compose(torch.bitwise_xor, other)
+
+    def __rxor__(self, other: Any) -> "Metric":
+        return self._compose(torch.bitwise_xor, other, reverse=True)
+
+    def __eq__(self, other: Any) -> "Metric":  # type: ignore[override]
+        return self._compose(torch.eq, other)
+
+    def __ne__(self, other: Any) -> "Metric":  # type: ignore[override]
+        return self._compose(torch.ne, other)
+
+    def __lt__(self, other: Any) -> "Metric":
+        return self._compose(torch.lt, other)
+
+    def __le__(self, other: Any) -> "Metric":
+        return self._compose(torch.le, other)
+
+    def __gt__(self, other: Any) -> "Metric":
+        return self._compose(torch.gt, other)
+
+    def __ge__(self, other: Any) -> "Metric":
+        return self._compose(torch.ge, other)
+
+    def __neg__(self) -> "Metric":
+        return self._compose(torch.neg, None)
+
+    def __pos__(self) -> "Metric":
+        # ``abs``, as in the JAX package
+        return self._compose(torch.abs, None)
+
+    def __abs__(self) -> "Metric":
+        return self._compose(torch.abs, None)
+
+    def __invert__(self) -> "Metric":
+        return self._compose(torch.logical_not, None)
+
+    def __getitem__(self, idx: Any) -> "Metric":
+        return self._compose(lambda x: x[idx], None)

@@ -1,0 +1,129 @@
+from torchmetrics_tpu_torch.functional.classification.accuracy import (
+    accuracy,
+    binary_accuracy,
+    multiclass_accuracy,
+    multilabel_accuracy,
+)
+from torchmetrics_tpu_torch.functional.classification.average_precision import multiclass_average_precision
+from torchmetrics_tpu_torch.functional.classification.cohen_kappa import (
+    binary_cohen_kappa,
+    cohen_kappa,
+    multiclass_cohen_kappa,
+)
+from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
+    binary_confusion_matrix,
+    confusion_matrix,
+    multiclass_confusion_matrix,
+    multilabel_confusion_matrix,
+)
+from torchmetrics_tpu_torch.functional.classification.f_beta import (
+    binary_f1_score,
+    binary_fbeta_score,
+    f1_score,
+    fbeta_score,
+    multiclass_f1_score,
+    multiclass_fbeta_score,
+    multilabel_f1_score,
+    multilabel_fbeta_score,
+)
+from torchmetrics_tpu_torch.functional.classification.hamming import (
+    binary_hamming_distance,
+    hamming_distance,
+    multiclass_hamming_distance,
+    multilabel_hamming_distance,
+)
+from torchmetrics_tpu_torch.functional.classification.jaccard import (
+    binary_jaccard_index,
+    jaccard_index,
+    multiclass_jaccard_index,
+    multilabel_jaccard_index,
+)
+from torchmetrics_tpu_torch.functional.classification.matthews_corrcoef import (
+    binary_matthews_corrcoef,
+    matthews_corrcoef,
+    multiclass_matthews_corrcoef,
+    multilabel_matthews_corrcoef,
+)
+from torchmetrics_tpu_torch.functional.classification.negative_predictive_value import (
+    binary_negative_predictive_value,
+    multiclass_negative_predictive_value,
+    multilabel_negative_predictive_value,
+    negative_predictive_value,
+)
+from torchmetrics_tpu_torch.functional.classification.precision_recall import (
+    binary_precision,
+    binary_recall,
+    multiclass_precision,
+    multiclass_recall,
+    multilabel_precision,
+    multilabel_recall,
+    precision,
+    recall,
+)
+from torchmetrics_tpu_torch.functional.classification.specificity import (
+    binary_specificity,
+    multiclass_specificity,
+    multilabel_specificity,
+    specificity,
+)
+from torchmetrics_tpu_torch.functional.classification.stat_scores import (
+    binary_stat_scores,
+    multiclass_stat_scores,
+    multilabel_stat_scores,
+    stat_scores,
+)
+
+__all__ = [
+    "accuracy",
+    "binary_accuracy",
+    "binary_cohen_kappa",
+    "binary_confusion_matrix",
+    "binary_f1_score",
+    "binary_fbeta_score",
+    "binary_hamming_distance",
+    "binary_jaccard_index",
+    "binary_matthews_corrcoef",
+    "binary_negative_predictive_value",
+    "binary_precision",
+    "binary_recall",
+    "binary_specificity",
+    "binary_stat_scores",
+    "cohen_kappa",
+    "confusion_matrix",
+    "f1_score",
+    "fbeta_score",
+    "hamming_distance",
+    "jaccard_index",
+    "matthews_corrcoef",
+    "multiclass_accuracy",
+    "multiclass_average_precision",
+    "multiclass_cohen_kappa",
+    "multiclass_confusion_matrix",
+    "multiclass_f1_score",
+    "multiclass_fbeta_score",
+    "multiclass_hamming_distance",
+    "multiclass_jaccard_index",
+    "multiclass_matthews_corrcoef",
+    "multiclass_negative_predictive_value",
+    "multiclass_precision",
+    "multiclass_recall",
+    "multiclass_specificity",
+    "multiclass_stat_scores",
+    "multilabel_accuracy",
+    "multilabel_confusion_matrix",
+    "multilabel_f1_score",
+    "multilabel_fbeta_score",
+    "multilabel_hamming_distance",
+    "multilabel_jaccard_index",
+    "multilabel_matthews_corrcoef",
+    "multilabel_negative_predictive_value",
+    "multilabel_precision",
+    "multilabel_recall",
+    "multilabel_specificity",
+    "multilabel_stat_scores",
+    "negative_predictive_value",
+    "precision",
+    "recall",
+    "specificity",
+    "stat_scores",
+]
