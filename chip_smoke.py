@@ -32,7 +32,7 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    to its plain version from a random non-zero int32 state at ImageNet-1k's
    batch (1,024 x 1,000 float32, the first record row) and a Cityscapes-shaped
    batch ((2, 19, 1024, 2048) float32, int64 targets, ~5 % void 255), and at
-   C = 2, 3, 19, 1000, 1001, rows of NaN, ties, +-0.0 and -inf, targets C,
+   C = 2, 3, 19, 1000, 1001, S % 4 != 0, rows of NaN, ties, +-0.0 and -inf, targets C,
    C+3, -3 and -(C*C+1), out-of-range integer labels, ignore_index None, 255
    and -3, int32 and int64 targets, float16 and bfloat16 scores and an empty
    batch; at the two main-path shapes it is timed as the others are, beside
@@ -697,6 +697,7 @@ def phase_confmat(flush: torch.Tensor) -> list:
         ("Cityscapes batch (b)", _seg_batch(gen), SEG_IGNORE),
         ("C=2", (BATCH, 2, (), {}), None),
         ("C=3, spatial", (64, 3, (16, 16), {}), None),
+        ("C=19, spatial, S % 4 != 0: a thread a pixel", (4, 19, (9, 7), {}), None),
         ("C=19", (BATCH, 19, (), {}), None),
         ("C=1001, scalar loads", (BATCH, 1001, (), {}), None),
         ("C=1000, NaN, tie, +-0.0 and -inf rows", (BATCH, N_CLASSES, (), {"edits": ("edge_rows",)}), None),

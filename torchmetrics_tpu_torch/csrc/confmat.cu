@@ -30,12 +30,15 @@
 // What the design does about it:
 // - two layouts. Rows of many scores (S == 1, K >= 32) take a warp a row: the
 //   lanes read the row in 16-byte loads where the row is 16-byte aligned
-//   (else a score a lane, neighbouring lanes on neighbouring scores), each
-//   lane keeps its own (max, index), and five shuffles merge the lanes under
-//   the rules above. Everything else (segmentation's (N, C, H, W), few
+//   (else a score a lane, neighbouring lanes on neighbouring scores), all of
+//   a lane's loads of a round issued before its compares (a 1,000-score row
+//   is one round), each lane keeps its own (max, index), and five shuffles
+//   merge the lanes under the rules above. Everything else (segmentation's (N, C, H, W), few
 //   classes, labels) takes a thread an element: a thread walks the K scores of
 //   its pixel at stride S, so a warp's loads of one class are 32 neighbouring
-//   pixels, coalesced;
+//   pixels, coalesced. Where S % 4 == 0 and the scores and targets are
+//   16-byte aligned, a thread takes four neighbouring pixels, one vector load
+//   a class, so each load moves 4x the bytes and four argmax chains overlap;
 // - contention. Where 4*C*C bytes fit in 32 KB (C <= 90), each block counts
 //   into a (C, C) histogram of its own in shared memory and flushes its
 //   non-zero cells to the state with one int32 atomic each. Otherwise the
@@ -99,22 +102,46 @@ __device__ __forceinline__ void add_cells(int* hist, int cell) {
   if (cell >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(hist + cell, __popc(peers));
 }
 
+// A lane's share of a row: all the loads of a round are issued before any
+// compare, so a round costs one memory latency; a row of 1,000 float32 scores
+// is one round of 8 16-byte loads a lane.
+constexpr int kRoundLoads = 8;
+
 template <typename T>
 __device__ __forceinline__ void scan_row(const T* __restrict__ row, int n_scores, bool vec, float& best, int& arg) {
   const int lane = threadIdx.x & 31;
   if (vec) {  // 16-byte loads; n_scores is a multiple of the vector width
     constexpr int kV = 16 / sizeof(T);
     const float4* v16 = reinterpret_cast<const float4*>(row);
-#pragma unroll 4
-    for (int j = lane; j < n_scores / kV; j += 32) {
-      const float4 raw = v16[j];
-      const T* chunk = reinterpret_cast<const T*>(&raw);
+    const int n_vec = n_scores / kV;
+    for (int j0 = lane; j0 < n_vec; j0 += 32 * kRoundLoads) {
+      float4 raw[kRoundLoads];
 #pragma unroll
-      for (int q = 0; q < kV; ++q) take(widen(chunk[q]), j * kV + q, best, arg);
+      for (int u = 0; u < kRoundLoads; ++u) {
+        if (j0 + 32 * u < n_vec) raw[u] = v16[j0 + 32 * u];
+      }
+#pragma unroll
+      for (int u = 0; u < kRoundLoads; ++u) {
+        const int j = j0 + 32 * u;
+        const T* chunk = reinterpret_cast<const T*>(&raw[u]);
+        if (j < n_vec) {
+#pragma unroll
+          for (int q = 0; q < kV; ++q) take(widen(chunk[q]), j * kV + q, best, arg);
+        }
+      }
     }
   } else {
-#pragma unroll 4
-    for (int k = lane; k < n_scores; k += 32) take(widen(row[k]), k, best, arg);
+    for (int k0 = lane; k0 < n_scores; k0 += 32 * 4 * kRoundLoads) {
+      float v[4 * kRoundLoads];
+#pragma unroll
+      for (int u = 0; u < 4 * kRoundLoads; ++u) {
+        if (k0 + 32 * u < n_scores) v[u] = widen(row[k0 + 32 * u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4 * kRoundLoads; ++u) {
+        if (k0 + 32 * u < n_scores) take(v[u], k0 + 32 * u, best, arg);
+      }
+    }
   }
 }
 
@@ -210,11 +237,80 @@ __global__ void __launch_bounds__(256) confmat_elements_kernel(Args a) {
   close_hist(a, smem);
 }
 
+// Four neighbouring scores in one load: 16 bytes of float32, 8 of float16 or bfloat16.
+template <typename T>
+struct Quad {
+  using V = uint2;
+};
+template <>
+struct Quad<float> {
+  using V = float4;
+};
+
+template <typename T>
+__device__ __forceinline__ void load_quad(const T* p, float (&v)[4]) {
+  const typename Quad<T>::V raw = *reinterpret_cast<const typename Quad<T>::V*>(p);
+  const T* x = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = widen(x[q]);
+}
+
+__device__ __forceinline__ void load_targets(const int* p, long long (&t)[4]) {
+  const int4 r = *reinterpret_cast<const int4*>(p);
+  t[0] = r.x, t[1] = r.y, t[2] = r.z, t[3] = r.w;
+}
+
+__device__ __forceinline__ void load_targets(const long long* p, long long (&t)[4]) {
+  const longlong2 lo = reinterpret_cast<const longlong2*>(p)[0], hi = reinterpret_cast<const longlong2*>(p)[1];
+  t[0] = lo.x, t[1] = lo.y, t[2] = hi.x, t[3] = hi.y;
+}
+
+// A thread four neighbouring elements (inner % 4 == 0, scores and targets 16-byte
+// aligned): one vector load a class, four argmax chains side by side.
+template <typename T, typename U>
+__global__ void __launch_bounds__(256) confmat_quads_kernel(Args a) {
+  extern __shared__ int smem[];
+  int* hist = open_hist(a, smem);
+  const T* preds = static_cast<const T*>(a.preds);
+  const U* target = static_cast<const U*>(a.target);
+  const long long n_quads = static_cast<long long>(a.n_rows) * a.inner / 4;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x + (threadIdx.x - lane); base < n_quads;
+       base += stride) {  // warp-uniform, as in the elements kernel
+    const long long g = base + lane;
+    int cells[4] = {-1, -1, -1, -1};
+    if (g < n_quads) {
+      const long long e = 4 * g, row = e / a.inner, s = e - row * a.inner;
+      const T* x = preds + row * a.n_scores * a.inner + s;
+      float best[4], v[4];
+      int arg[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) best[q] = neg_inf(), arg[q] = INT_MAX;
+#pragma unroll 2
+      for (int k = 0; k < a.n_scores; ++k) {
+        load_quad(x + static_cast<long long>(k) * a.inner, v);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) take(v[q], k, best[q], arg[q]);
+      }
+      long long t[4];
+      load_targets(target + e, t);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) cells[q] = pair_cell(t[q], arg[q], a.n_classes, a.cells, a.has_ignore, a.ignore);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) add_cells(hist, cells[q]);
+  }
+  close_hist(a, smem);
+}
+
 template <typename T, typename U>
 cudaError_t launch_typed(int mode, const Args& a, int blocks, int threads, cudaStream_t stream) {
   const size_t smem = a.shared ? static_cast<size_t>(a.cells) * sizeof(int) : 0;
   if (mode == 0) {
     confmat_rows_kernel<T, U><<<blocks, threads, smem, stream>>>(a);
+  } else if (a.vec) {
+    confmat_quads_kernel<T, U><<<blocks, threads, smem, stream>>>(a);
   } else {
     confmat_elements_kernel<T, U, false><<<blocks, threads, smem, stream>>>(a);
   }
@@ -261,9 +357,11 @@ extern "C" int confmat_multiclass_launch(const void* preds, int pred_kind, const
   a.has_ignore = has_ignore != 0;
   a.shared = shared != 0;
   a.ignore = ignore_index;
+  // vector loads: along a row of scores (mode 0), or across four neighbouring elements (mode 1)
   const int elem_bytes = pred_kind == 0 ? 4 : 2;
-  a.vec = mode == 0 && (static_cast<long long>(n_scores) * elem_bytes) % 16 == 0 &&
-          reinterpret_cast<uintptr_t>(preds) % 16 == 0;
+  const bool aligned = reinterpret_cast<uintptr_t>(preds) % 16 == 0;
+  a.vec = mode == 0 ? aligned && (static_cast<long long>(n_scores) * elem_bytes) % 16 == 0
+                    : mode == 1 && aligned && inner % 4 == 0 && reinterpret_cast<uintptr_t>(target) % 16 == 0;
   if ((mode == 2) != (pred_kind >= 3)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = target_kind == 0 ? launch_target<int>(pred_kind, mode, a, blocks, threads, stream)
                                            : launch_target<long long>(pred_kind, mode, a, blocks, threads, stream);
