@@ -25,6 +25,7 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _multilabel_format,
     _multilabel_stat_scores_update,
     _multilabel_validate_args,
+    _stack_stats,
 )
 from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
 
@@ -78,10 +79,6 @@ class _AbstractStatScores(Metric):
         )
 
 
-def _stack_stats(tp: Tensor, fp: Tensor, tn: Tensor, fn: Tensor) -> Tensor:
-    return torch.stack([tp, fp, tn, fn, tp + fn], dim=-1).to(torch.int32)
-
-
 class BinaryStatScores(_AbstractStatScores):
     """Binary tp/fp/tn/fn.
 
@@ -123,7 +120,7 @@ class BinaryStatScores(_AbstractStatScores):
         return self._update_stats(state, *_binary_stat_scores_update(p, t, v, self.multidim_average))
 
     def _compute(self, state: State) -> Tensor:
-        return _stack_stats(*self._final_state(state))
+        return _stack_stats(self._final_state(state))
 
 
 class MulticlassStatScores(_AbstractStatScores):
@@ -174,13 +171,7 @@ class MulticlassStatScores(_AbstractStatScores):
         return self._update_stats(state, tp, fp, tn, fn)
 
     def _compute(self, state: State) -> Tensor:
-        return _averaged_stats(self._final_state(state), self.average)
-
-
-def _averaged_stats(stats: Tuple[Tensor, Tensor, Tensor, Tensor], average: Optional[str]) -> Tensor:
-    if average == "micro":
-        stats = tuple(x.sum(-1) for x in stats)
-    return _stack_stats(*stats)
+        return _stack_stats(self._final_state(state), self.average)
 
 
 class MultilabelStatScores(_AbstractStatScores):
@@ -229,7 +220,7 @@ class MultilabelStatScores(_AbstractStatScores):
         return self._update_stats(state, *_multilabel_stat_scores_update(p, t, v, self.multidim_average))
 
     def _compute(self, state: State) -> Tensor:
-        return _averaged_stats(self._final_state(state), self.average)
+        return _stack_stats(self._final_state(state), self.average)
 
 
 class StatScores(_ClassificationTaskWrapper):

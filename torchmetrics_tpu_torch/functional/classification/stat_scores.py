@@ -61,6 +61,14 @@ def _binary_format(
     return preds.to(torch.int32), target.to(torch.int32), valid
 
 
+def _stack_stats(stats: Tuple[Tensor, Tensor, Tensor, Tensor], average: Optional[str] = None) -> Tensor:
+    """int32 tp, fp, tn, fn and support (tp + fn) on the last dim; summed over the classes for micro."""
+    if average == "micro":
+        stats = tuple(x.sum(-1) for x in stats)
+    tp, fp, tn, fn = stats
+    return torch.stack([tp, fp, tn, fn, tp + fn], dim=-1).to(torch.int32)
+
+
 def _sum_over(x: Tensor, dims: Tuple[int, ...]) -> Tensor:
     # ``jnp.sum(x, axis=())`` reduces nothing; torch's ``sum(dim=())`` reduces everything
     return x.sum(dim=dims) if dims else x
@@ -94,8 +102,7 @@ def binary_stat_scores(
     if validate_args:
         _binary_validate_args(threshold, multidim_average, ignore_index)
     p, t, v = _binary_format(*_as_tensors(preds, target), threshold, ignore_index)
-    tp, fp, tn, fn = _binary_stat_scores_update(p, t, v, multidim_average)
-    return torch.stack([tp, fp, tn, fn, tp + fn], dim=-1).to(torch.int32)
+    return _stack_stats(_binary_stat_scores_update(p, t, v, multidim_average))
 
 
 def _binary_validate_args(threshold, multidim_average, ignore_index) -> None:
@@ -194,10 +201,7 @@ def multiclass_stat_scores(
     if validate_args:
         _multiclass_validate_args(num_classes, top_k, average, multidim_average, ignore_index)
     pred_ind, targ_ind, valid = _multiclass_indicators(*_as_tensors(preds, target), num_classes, top_k, ignore_index)
-    tp, fp, tn, fn = _indicator_stat_scores(pred_ind, targ_ind, valid, multidim_average)
-    if average == "micro":
-        tp, fp, tn, fn = tp.sum(-1), fp.sum(-1), tn.sum(-1), fn.sum(-1)
-    return torch.stack([tp, fp, tn, fn, tp + fn], dim=-1).to(torch.int32)
+    return _stack_stats(_indicator_stat_scores(pred_ind, targ_ind, valid, multidim_average), average)
 
 
 def _multilabel_validate_args(num_labels, threshold, average, multidim_average, ignore_index) -> None:
@@ -247,10 +251,7 @@ def multilabel_stat_scores(
     if validate_args:
         _multilabel_validate_args(num_labels, threshold, average, multidim_average, ignore_index)
     p, t, v = _multilabel_format(*_as_tensors(preds, target), threshold, ignore_index)
-    tp, fp, tn, fn = _multilabel_stat_scores_update(p, t, v, multidim_average)
-    if average == "micro":
-        tp, fp, tn, fn = tp.sum(-1), fp.sum(-1), tn.sum(-1), fn.sum(-1)
-    return torch.stack([tp, fp, tn, fn, tp + fn], dim=-1).to(torch.int32)
+    return _stack_stats(_multilabel_stat_scores_update(p, t, v, multidim_average), average)
 
 
 def _check_count(name: str, value: Any) -> None:
