@@ -38,6 +38,13 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    batch; at the two main-path shapes it is timed as the others are, beside
    ``torch.bincount(target * C + preds.argmax(1))`` (two PyTorch calls, a
    yardstick, not the record's single-call ``library_ms``);
+   ``binned_confmat_multilabel``, the per-label binned update, is held equal
+   (``torch.equal``) to its plain version at phase 8's COCO batch (256 x 80,
+   T=100) and binary batch (1,024 x 1, T=200), with ignored elements, NaN and
+   +-inf scores, unsorted, duplicate, NaN and +-inf thresholds, split bin
+   ranges (T=4000), all-zero weights, L % 4 != 0 and L=1000; the two phase 8
+   shapes are timed beside ``bucketize`` + two ``bincount`` + ``flip``/``cumsum``
+   (several PyTorch calls, a yardstick);
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
@@ -55,7 +62,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    with one rank per card, and gloo with 4 ranks on card 0 (CUDA tensors).
    Every rank's synced state must equal a single-process run over all
    50,000 rows (integer leaves and the cat rows exactly), and AP be within
-   1e-6 of it; the collectives, bytes a bucket and sync time are printed;
+   1e-6 of it; the collectives, bytes a bucket and sync time are printed.
+   A second collection (mean, sum, max, cat, R2 and Pearson, whose sync is
+   its own) syncs the rows' top score and whether it is right, timed apart;
+   every rank must equal the single-process run;
 6. ragged: in the same two worlds, a different item count on every rank:
    ``ROUGEScore`` over 1,000 seeded sentence pairs and
    ``MeanAveragePrecision`` over a COCO-val2017-shaped seeded set (80
@@ -77,7 +87,23 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    val-shaped set, 40,504 images x 80 labels in batches of 256; (iv) binary
    selective prediction over (i)'s scores (max softmax score, target "top-1
    correct"). Every leg reruns its first 4 batches on the port's CPU path
-   and needs equal int32 states, and prints its update medians and values.
+   and needs equal int32 states, and prints its update medians and values;
+8. the curve family, aggregation and regression, one card, no sync: (i) phase
+   4's 50,000 x 1,000 scores through the exact ``MulticlassAUROC`` and
+   ``MulticlassROC`` (a 200 MB cat state, one exact compute over 1,000
+   columns, no kernel); (ii) (iii)'s MS-COCO-shaped 40,504 x 80 set in
+   batches of 256 through ``MultilabelAUROC``, ``MultilabelAveragePrecision``
+   and ``MultilabelPrecisionRecallCurve`` at ``thresholds=100`` (one compute
+   group: exactly 159 ``binned_confmat_multilabel`` launches) and the exact
+   ``MultilabelAveragePrecision``; (iii) (iv)'s 50,000 binary rows through the
+   exact ``BinaryAUROC`` (also at ``max_fpr=0.05``), ``BinaryAveragePrecision``
+   and ``BinaryROC`` and ``BinaryAUROC(thresholds=200)`` (exactly 49 launches
+   at one label); (iv) NYU Depth V2's labelled test split's shape, 654 seeded
+   480 x 640 depth maps in batches of 8, through seven regression metrics and
+   the mean, max and running mean of the per-batch L1 loss. Every leg reruns
+   its first 4 batches on the CPU path (integer states equal, float states and
+   values within a stated tolerance); every other new class runs over a seeded
+   10,000-row set and is held against the CPU path.
 
 Phases 5 and 6 run each rank as a process of its own (this script with
 ``--worker``); every kernel must have launched on the paths that run it.
@@ -91,6 +117,7 @@ from __future__ import annotations
 import argparse
 import collections
 import datetime
+import importlib
 import json
 import math
 import os
@@ -315,6 +342,138 @@ def phase_kernels(flush: torch.Tensor) -> dict:
         )
         rows.append(row)
     return {"binned_confmat_multiclass": rows}
+
+
+def _multilabel_inputs(n: int, labels: int, thresholds, zero_weight_share: float, edits, gen: torch.Generator):
+    """A formatted multilabel batch ``(probs, target, weights, thresholds)`` on the card (sigmoid scores,
+    ~30 % positives, some scores exactly on thresholds) and a random non-zero int32 state."""
+    from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _adjust_threshold_arg
+
+    dev = torch.device("cuda")
+    thr = _adjust_threshold_arg(thresholds, dev)
+    probs = torch.sigmoid(2.0 * torch.randn((n, labels), generator=gen, device=dev))
+    target = (torch.rand((n, labels), generator=gen, device=dev) < 0.3).to(torch.int32)
+    finite = thr[torch.isfinite(thr)]
+    cells = torch.arange(0, n * labels, 5, device=dev)
+    probs.view(-1)[cells] = finite[cells % finite.shape[0]]  # where `>=` decides the bin
+    weights = (torch.rand((n, labels), generator=gen, device=dev) >= zero_weight_share).to(torch.float32)
+    if "zero_weights" in edits:
+        weights.zero_()
+    target = torch.where(weights == 0, 0, target)  # as _multilabel_prc_format leaves an ignored element
+    if "nonfinite_scores" in edits:
+        for i, value in enumerate([float("nan"), float("inf"), float("-inf")]):
+            probs.view(-1)[i::7] = value
+    state = torch.randint(-(2**20), 2**20, (thr.shape[0], labels, 2, 2), generator=gen, device=dev, dtype=torch.int32)
+    return probs.contiguous(), target, weights, thr, state
+
+
+def _bucketize_bincount(probs, target, weights, sorted_thr):
+    """The same counts by PyTorch calls, a yardstick: ``bucketize`` each score among the
+    sorted thresholds, ``bincount`` of ``label * (T + 1) + bin`` weighted by ``w`` and by
+    ``w * target``, and the suffix sums by ``flip`` + ``cumsum``."""
+    n_thr, labels = sorted_thr.shape[0], probs.shape[1]
+    bins = torch.bucketize(probs, sorted_thr, right=True)
+    flat = (torch.arange(labels, device=probs.device) * (n_thr + 1) + bins).view(-1)
+    hpos = torch.bincount(flat, weights=weights.view(-1), minlength=labels * (n_thr + 1)).view(labels, -1)
+    htp = torch.bincount(flat, weights=(weights * target).view(-1), minlength=labels * (n_thr + 1)).view(labels, -1)
+    return torch.flip(torch.cumsum(torch.flip(hpos, (1,)), 1), (1,)), torch.flip(torch.cumsum(torch.flip(htp, (1,)), 1), (1,))
+
+
+ML_LABELS, ML_THRESHOLDS = 80, 100  # phase 8 (ii): MS-COCO's 80 labels at thresholds=100
+BIN_THRESHOLDS = 200  # phase 8 (iii): BinaryAUROC(thresholds=200)
+MAX_STREAM_COPIES = 200
+
+
+def phase_multilabel_kernel(flush: torch.Tensor) -> list:
+    """``binned_confmat_multilabel`` against its plain version on the card, timed at the
+    two shapes phase 8 gives it: the COCO batch (256, 80) at T=100 (the first row) and
+    the binary batch at one label, (1024, 1) at T=200."""
+    prc = importlib.import_module("torchmetrics_tpu_torch.functional.classification.precision_recall_curve")
+    from torchmetrics_tpu_torch.kernels import binned_confmat as kbc
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    nan, inf = float("nan"), float("inf")
+    unsorted_dups = [0.7, 0.2, 0.2, 0.95, 0.01, 0.5, 0.5, 0.33, 0.9, 0.9]
+    edge_list = [0.5, nan, 0.1, inf, -inf, 0.1, nan, 0.0, -0.0, 1.0, 0.9, 0.5, 0.05, -3e38, 3e38]
+    cases = [  # (what, rows, labels, thresholds, share of ignored elements, edits); the first two are phase 8's
+        ("COCO batch (a)", COCO_ML_BATCH, ML_LABELS, ML_THRESHOLDS, 0.0, ()),
+        ("binary batch, one label (b)", BATCH, 1, BIN_THRESHOLDS, 0.0, ()),
+        ("last binary batch, one label", N_SAMPLES % BATCH, 1, BIN_THRESHOLDS, 0.0, ()),
+        ("~15% ignore_index elements", COCO_ML_BATCH, ML_LABELS, ML_THRESHOLDS, 0.15, ()),
+        ("one label, ~15% ignored", BATCH, 1, BIN_THRESHOLDS, 0.15, ()),
+        ("NaN and +-inf scores", COCO_ML_BATCH, ML_LABELS, ML_THRESHOLDS, 0.0, ("nonfinite_scores",)),
+        ("one label, NaN and +-inf scores", BATCH, 1, BIN_THRESHOLDS, 0.0, ("nonfinite_scores",)),
+        ("unsorted and duplicate thresholds", COCO_ML_BATCH, ML_LABELS, unsorted_dups, 0.0, ()),
+        ("duplicate, NaN and +-inf thresholds", COCO_ML_BATCH, ML_LABELS, edge_list, 0.0, ()),
+        ("grid of 4000, bin ranges split", COCO_ML_BATCH, ML_LABELS, 4000, 0.0, ()),
+        ("all-zero weights", COCO_ML_BATCH, ML_LABELS, ML_THRESHOLDS, 0.0, ("zero_weights",)),
+        ("L % 4 != 0, scalar loads", COCO_ML_BATCH, ML_LABELS + 1, ML_THRESHOLDS, 0.1, ()),
+        ("L=1000", BATCH, 1000, 20, 0.05, ()),
+    ]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for what, n, labels, thresholds, zero_share, edits in cases:
+        p, t, w, thr, state = _multilabel_inputs(n, labels, thresholds, zero_share, edits, gen)
+        n_thr = thr.shape[0]
+        sorted_thr, order = prc._sort_thresholds(thr)
+        geometry = kbc.plan(n, labels, n_thr, sms, one_wave=True)  # as the launcher plans it
+        label = f"{what} N={n} L={labels} T={n_thr}"
+        before = state.clone()
+        got = kbc.binned_confmat_multilabel(state, p, t, w, sorted_thr, order)
+        want = prc._binned_confmat_multilabel_accumulate_plain(state, p, t, w, thr)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), f"binned_confmat_multilabel and plain state differ ({label}): max abs err {err}")
+        check(torch.equal(state, before), f"the multilabel update wrote into the old state ({label})")
+        added = int((want - state)[..., 1, :].sum())
+        check(added > 0 or "zero_weights" in edits, f"no positive counted ({label})")
+        check(added == 0 or "zero_weights" not in edits, f"zero weights counted ({label})")
+        if "split" in what:
+            check(geometry.grid[2] > 1, f"bins were not split ({label}: {geometry})")
+        if labels == 1 and what.endswith("(b)"):  # the binary per-batch counts take the kernel on the card too
+            check(torch.equal(prc._binned_curve_update(p[:, 0], t[:, 0], w[:, 0], thr),
+                              prc._binned_confmat_multilabel_plain(p, t, w, thr)[:, 0]), "binary per-batch counts differ")
+        if what.endswith("(a)"):
+            check(torch.equal(prc._binned_confmat_multilabel(p, t, w, thr),
+                              prc._binned_confmat_multilabel_plain(p, t, w, thr)), "multilabel per-batch counts differ")
+        if not (what.endswith("(a)") or what.endswith("(b)")):
+            rows.append({"case": label, "what": what, "max_abs_err": err, "plan": geometry._asdict()})
+            continue
+        # least work: read probs, target and weights, the sorted thresholds and their
+        # order once, read the old state and write the new one; bin each score with
+        # ceil(log2(T+1)) compares, plus the two suffix sums over (T+1) x L bins
+        nbytes = 3 * n * labels * 4 + 2 * n_thr * 4 + 2 * n_thr * labels * 16
+        nops = n * labels * math.ceil(math.log2(n_thr + 1)) + 2 * labels * (n_thr + 1)
+        bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_OPS_PER_S * 1e3
+        fused = lambda s, p_, t_, w_: kbc.binned_confmat_multilabel(s, p_, t_, w_, sorted_thr, order)  # noqa: E731
+        kernel_ms = time_ms(lambda: fused(state, p, t, w), flush)
+        plain_ms = time_ms(lambda: prc._binned_confmat_multilabel_accumulate_plain(state, p, t, w, thr), flush)
+        bincount_ms = time_ms(lambda: _bucketize_bincount(p, t, w, sorted_thr), flush)
+        # at most MAX_STREAM_COPIES copies: a call is three device operations, and more calls than the
+        # launch queue holds would block the host behind the spin (the one-label batch's copies stay in L2)
+        copies = min(copies_for(nbytes), MAX_STREAM_COPIES)
+        sets = [(state, p, t, w)] + [tuple(x.clone() for x in (state, p, t, w)) for _ in range(copies - 1)]
+        stream_ms = time_stream_ms(fused, sets, calls=len(sets) * max(1, 96 // len(sets)))
+        del sets
+        check(torch.equal(fused(state, p, t, w), want), f"multilabel update differs after the timed launches ({label})")
+        row = {
+            "case": label, "what": what, "n": n, "l": labels, "t": n_thr, "max_abs_err": err,
+            "plan": geometry._asdict(), "ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms,
+            "bucketize_bincount_ms": bincount_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes, "ops": nops,
+            "library_ms": None,
+        }
+        print(
+            f"[kernel] binned_confmat_multilabel {label}: exact, {kernel_ms:.4f} ms after an L2 flush "
+            f"({stream_ms:.4f} ms a call back to back; tile {geometry.tile_c}, grid {geometry.grid}), "
+            f"plain {plain_ms:.4f} ms, bucketize + 2 bincount + flip/cumsum (several calls, a yardstick) "
+            f"{bincount_ms:.4f} ms, bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {nbytes} bytes, "
+            f"{nops} ops), library_ms: none"
+        )
+        rows.append(row)
+    print(f"[kernel] binned_confmat_multilabel: exact on all {len(cases)} cases, the two above and "
+          + "; ".join(r["what"] for r in rows if "ms" not in r))
+    return rows
 
 
 def _main_path_data(gen: torch.Generator):
@@ -801,6 +960,27 @@ def _sync_collection(device):
     })
 
 
+def _sync_collection2(device):
+    """Phase 5's second collection: the sums, max and cat of the aggregators, R2 and
+    Pearson's moments (its own sync), over the rows' top score and whether it is right."""
+    from torchmetrics_tpu_torch import aggregation as agg, regression as reg
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({
+        "mean": agg.MeanMetric(device=device), "sum": agg.SumMetric(device=device), "max": agg.MaxMetric(device=device),
+        "cat": agg.CatMetric(device=device), "pearson": reg.PearsonCorrCoef(device=device),
+        "r2": reg.R2Score(device=device),
+    })
+
+
+def _collection2_inputs(probs, target) -> dict:
+    conf, pred = probs.max(1)
+    return {"value": conf, "preds": conf, "target": (pred == target).to(torch.float32)}
+
+
+SYNC2_RTOL = 1e-5  # float sums and Pearson's pairwise merge against one pass in order; max and cat exact
+
+
 def worker_sync(rank: int, world: int, device: torch.device) -> dict:
     """Phase 5 on one rank: this rank's whole batches of the 50,000 x 1,000
     set through the collection, one coalesced sync, compute; then the
@@ -852,7 +1032,33 @@ def worker_sync(rank: int, world: int, device: torch.device) -> dict:
                 got = got[0] if len(got) == 1 else None
             leaves_equal &= got is not None and got.dtype == want.dtype and torch.equal(got, want)
     ap = synced["ap"]
+
+    # the second collection, synced and timed apart: every rank against one process over every row
+    col2 = _sync_collection2(device)
+    states2 = col2.init_states()
+    for i in mine:
+        states2 = col2.update_states(states2, **_collection2_inputs(*batches[i]))
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    synced2 = col2.sync_states(states2)
+    torch.cuda.synchronize()
+    sync2_ms = (time.perf_counter() - t0) * 1e3
+    values2 = col2.compute_states(synced2)
+    ref2 = col2.init_states()
+    for b in batches:
+        ref2 = col2.update_states(ref2, **_collection2_inputs(*b))
+    ref_values2 = col2.compute_states(ref2)
+    equal2 = {}
+    for k, want in ref_values2.items():
+        got = values2[k]
+        exact = k in ("max", "cat")
+        equal2[k] = bool(got.shape == want.shape and (torch.equal(got, want) if exact else
+                                                      torch.allclose(got, want, rtol=SYNC2_RTOL, atol=0)))
     return {
+        "col2_sync_ms": sync2_ms, "col2_equal": equal2, "col2_cat_rows": int(values2["cat"].shape[0]),
+        "col2_pearson_n": float(synced2["pearson"]["n_total"]),
+        "col2_values": {k: float(v) for k, v in values2.items() if v.numel() == 1},
         "rank": rank, "batches": len(mine), "rows": sum(batches[i][0].shape[0] for i in mine),
         "launches": {"binned_confmat_multiclass": launches}, "update_s": update_s, "sync_ms": sync_ms,
         "compute_ms": compute_ms, "collectives": collectives, "bucket_bytes": plan.bucket_bytes(),
@@ -1106,6 +1312,13 @@ def phase_sync() -> dict:
                 tol = 1e-6 if k == "ap" else 0.0
                 check(abs(v - r["ref_values"][k]) <= tol, f"{tag}: {k} {v} vs single-process {r['ref_values'][k]}")
                 check(v == first["values"][k], f"{tag}: {k} differs from rank 0")
+        for r in results:
+            tag = f"[{label}] rank {r['rank']}, second collection"
+            check(all(r["col2_equal"].values()), f"{tag}: differs from the single-process run: {r['col2_equal']}")
+            check(r["col2_cat_rows"] == N_SAMPLES and r["col2_pearson_n"] == N_SAMPLES, f"{tag}: rows")
+        print(f"[sync] {label}: second collection (mean, sum, max, cat, R2, Pearson by its own sync): sync "
+              f"{[round(r['col2_sync_ms'], 3) for r in results]} ms; values {first['col2_values']} equal the "
+              f"single-process run on every rank (max and cat exactly, the rest within rtol {SYNC2_RTOL})")
         print(f"[sync] {label}: rows per rank {rows}; collectives {first['collectives']} "
               f"(one all_reduce a bucket: {first['bucket_bytes']} bytes; AP's cat leaves gathered: "
               f"{first['gathered_bytes']} bytes on every rank); sync {[round(r['sync_ms'], 3) for r in results]} ms, "
@@ -1384,6 +1597,309 @@ def phase_tower() -> dict:
     return record
 
 
+# ------------------------------------ phase 8: the curve family, aggregation and regression
+DEPTH_MAPS, DEPTH_HW, DEPTH_BATCH = 654, (480, 640), 8  # NYU Depth V2's labelled test split: 654 maps of 480 x 640
+OTHER_ROWS, OTHER_BATCH = 10_000, 2_500
+# float states and values, the card against the CPU path (sums of up to ~10 M float32 terms in another order)
+FLOAT_RTOL, FLOAT_ATOL = 1e-4, 1e-5
+
+
+def _copy(value):
+    if isinstance(value, dict):
+        return {k: _copy(v) for k, v in value.items()}
+    if isinstance(value, (tuple, list)):
+        return type(value)(_copy(v) for v in value)
+    return value.clone()
+
+
+def _snapshot(col) -> dict:
+    """Copies of every member's state."""
+    return {name: _copy(m.metric_state) for name, m in col.items(keep_base=True)}
+
+
+def _cpu(x):
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
+def _assert_same(tag: str, got, want) -> int:
+    """``got`` (the card) against ``want`` (the CPU path): integer tensors equal, float ones
+    within FLOAT_RTOL / FLOAT_ATOL (NaNs in place); returns the tensors compared."""
+    if isinstance(want, dict):
+        check(set(got) == set(want), f"{tag}: keys {sorted(got)} vs {sorted(want)}")
+        return sum(_assert_same(f"{tag}.{k}", got[k], want[k]) for k in want)
+    if isinstance(want, (tuple, list)):
+        check(len(got) == len(want), f"{tag}: {len(got)} items vs {len(want)}")
+        return sum(_assert_same(f"{tag}[{i}]", g, w) for i, (g, w) in enumerate(zip(got, want)))
+    got = got.cpu()
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{tag}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    if not want.dtype.is_floating_point:
+        check(torch.equal(got, want), f"{tag} differs between the card and the CPU")
+    else:
+        try:
+            torch.testing.assert_close(got, want, rtol=FLOAT_RTOL, atol=FLOAT_ATOL, equal_nan=True)
+        except AssertionError as err:
+            check(False, f"{tag}: card and CPU differ: {err}")
+    return 1
+
+
+def _value_summary(value):
+    if isinstance(value, (tuple, list)):
+        return [_value_summary(v) for v in value[:3]] + ([f"... {len(value)} items"] if len(value) > 3 else [])
+    return value.tolist() if value.numel() <= 4 else f"{tuple(value.shape)} {str(value.dtype)[6:]}"
+
+
+def _curve_leg(leg, make, batches, kernels) -> dict:
+    """Drive ``batches()`` (``(args, kwargs)`` of card tensors) through ``make("cuda", groups)``,
+    the compute groups formed on the first batch by a probe collection, so that every batch
+    runs one update a group; the launches of ``kernels`` are counted from 0 over this run
+    only. The first batches run again on the CPU path: the states and the values after them
+    must match."""
+    batch_iter = batches()
+    first = next(batch_iter)
+    probe = make("cuda", True)
+    probe.update(*first[0], **first[1])
+    groups = [list(members) for members in probe.compute_groups.values()]
+    del probe
+    col = make("cuda", groups)
+    times, early = [], None
+    for kernel in kernels:
+        kernel.launches = 0
+    torch.cuda.synchronize()
+    t_leg = time.perf_counter()
+    for i, (args, kwargs) in enumerate(b for it in ([first], batch_iter) for b in it):
+        t0 = time.perf_counter()
+        col.update(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i + 1 == CPU_RERUN_BATCHES:
+            early = _snapshot(col)
+    t0 = time.perf_counter()
+    values = col.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    leg_s = time.perf_counter() - t_leg
+    launches = {k.__name__: k.launches for k in kernels}
+
+    cpu_col = make("cpu", groups)
+    for args, kwargs in (b for _, b in zip(range(CPU_RERUN_BATCHES), batches())):
+        cpu_col.update(*map(_cpu, args), **{k: _cpu(v) for k, v in kwargs.items()})
+    compared = _assert_same(f"[curves {leg}] states after {CPU_RERUN_BATCHES} batches", early, _snapshot(cpu_col))
+    card_values = {name: col[name].compute_state(early[name]) for name in early}
+    compared += _assert_same(f"[curves {leg}] values after {CPU_RERUN_BATCHES} batches", card_values,
+                             {name: m.compute() for name, m in cpu_col.items(keep_base=True)})
+    return {
+        "batches": i + 1, "groups": groups, "launches": launches, "leg_s": leg_s,
+        "update_ms_median": statistics.median(times), "compute_ms": compute_ms,
+        "values": {k: _value_summary(v) for k, v in values.items()}, "tensors": values, "cpu_compared": compared,
+    }
+
+
+def _curves_imagenet(device, compute_groups):
+    from torchmetrics_tpu_torch import classification as tc
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    kw = {"num_classes": N_CLASSES, "thresholds": None, "device": device}
+    return MetricCollection({"auroc": tc.MulticlassAUROC(average="macro", **kw), "roc": tc.MulticlassROC(**kw)},
+                            compute_groups=compute_groups)
+
+
+def _curves_coco(device, compute_groups):
+    from torchmetrics_tpu_torch import classification as tc
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    kw = {"num_labels": COCO_ML_LABELS, "device": device}
+    return MetricCollection({
+        "auroc": tc.MultilabelAUROC(thresholds=ML_THRESHOLDS, **kw),
+        "ap": tc.MultilabelAveragePrecision(thresholds=ML_THRESHOLDS, **kw),
+        "prc": tc.MultilabelPrecisionRecallCurve(thresholds=ML_THRESHOLDS, **kw),
+        "ap_exact": tc.MultilabelAveragePrecision(thresholds=None, **kw),
+    }, compute_groups=compute_groups)
+
+
+def _curves_binary(device, compute_groups):
+    from torchmetrics_tpu_torch import classification as tc
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({
+        "auroc": tc.BinaryAUROC(thresholds=None, device=device),
+        "auroc_fpr05": tc.BinaryAUROC(thresholds=None, max_fpr=0.05, device=device),
+        "auroc_200": tc.BinaryAUROC(thresholds=BIN_THRESHOLDS, device=device),
+        "ap": tc.BinaryAveragePrecision(thresholds=None, device=device),
+        "roc": tc.BinaryROC(thresholds=None, device=device),
+    }, compute_groups=compute_groups)
+
+
+def _curves_depth(device, compute_groups):
+    from torchmetrics_tpu_torch import aggregation as agg, regression as reg
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({
+        "mae": reg.MeanAbsoluteError(device=device), "rmse": reg.MeanSquaredError(squared=False, device=device),
+        "msle": reg.MeanSquaredLogError(device=device), "mape": reg.MeanAbsolutePercentageError(device=device),
+        "r2": reg.R2Score(device=device), "explained_variance": reg.ExplainedVariance(device=device),
+        "pearson": reg.PearsonCorrCoef(device=device),
+        "loss_mean": agg.MeanMetric(device=device), "loss_max": agg.MaxMetric(device=device),
+        "loss_running": agg.RunningMean(window=10, device=device),
+    }, compute_groups=compute_groups)
+
+
+def _depth_data(gen: torch.Generator):
+    """NYU Depth V2's labelled test split's shape on the card: 654 float32 depth maps of
+    480 x 640, seeded in 0.5-10 m, and predictions with ~10 % relative and 5 cm absolute
+    seeded error (at least 1 cm)."""
+    dev = torch.device("cuda")
+    target = 0.5 + 9.5 * torch.rand((DEPTH_MAPS, *DEPTH_HW), generator=gen, device=dev)
+    noise = torch.randn((DEPTH_MAPS, *DEPTH_HW), generator=gen, device=dev)
+    preds = target * (1.0 + 0.1 * noise)
+    noise.normal_(generator=gen)
+    preds = torch.clamp(preds + 0.05 * noise, min=0.01)
+    del noise
+    return preds, target
+
+
+def _other_metrics(device) -> dict:
+    """Every other new class of the slice: ``{name: (metric, input kind)}``."""
+    from torchmetrics_tpu_torch import aggregation as agg, regression as reg
+
+    kw = {"device": device}
+    return {
+        "sum": (agg.SumMetric(**kw), "value"), "min": (agg.MinMetric(**kw), "value"),
+        "cat": (agg.CatMetric(**kw), "value"), "running_sum": (agg.RunningSum(window=3, **kw), "value"),
+        "concordance": (reg.ConcordanceCorrCoef(**kw), "pair"), "spearman": (reg.SpearmanCorrCoef(**kw), "pair"),
+        "kendall": (reg.KendallRankCorrCoef(**kw), "pair"),
+        "smape": (reg.SymmetricMeanAbsolutePercentageError(**kw), "pair"),
+        "wmape": (reg.WeightedMeanAbsolutePercentageError(**kw), "pair"),
+        "log_cosh": (reg.LogCoshError(**kw), "pair"), "minkowski": (reg.MinkowskiDistance(p=3.0, **kw), "pair"),
+        "tweedie": (reg.TweedieDevianceScore(power=1.5, **kw), "positive"),
+        "csi": (reg.CriticalSuccessIndex(threshold=0.5, **kw), "pair"),
+        "rse": (reg.RelativeSquaredError(**kw), "pair"), "kl": (reg.KLDivergence(**kw), "distribution"),
+        "cosine": (reg.CosineSimilarity(reduction="mean", **kw), "vectors"),
+    }
+
+
+def _other_data(gen: torch.Generator) -> dict:
+    dev = torch.device("cuda")
+    x = torch.randn((OTHER_ROWS,), generator=gen, device=dev)
+    y = x + 0.3 * torch.randn((OTHER_ROWS,), generator=gen, device=dev)
+    v = torch.randn((OTHER_ROWS, 8), generator=gen, device=dev)
+    return {
+        "value": (10.0 * x,), "pair": (x, y), "positive": (x.abs() + 0.1, y.abs() + 0.1),
+        "distribution": (torch.softmax(v, 1), torch.softmax(v + 0.5 * torch.randn_like(v), 1)),
+        "vectors": (v, v + 0.3 * torch.randn((OTHER_ROWS, 8), generator=gen, device=dev)),
+    }
+
+
+def phase_curves() -> dict:
+    """Phase 8 on one card, no sync: (i) the exact multiclass AUROC and ROC over the
+    ImageNet-1k set; (ii) the COCO-shaped multilabel curves, binned and exact; (iii) the
+    binary curves over the selective-prediction rows; (iv) dense depth regression with
+    the loss aggregators; then every other new class over a 10,000-row set."""
+    from torchmetrics_tpu_torch.kernels.binned_confmat import binned_confmat_multiclass, binned_confmat_multilabel
+
+    kernels = (binned_confmat_multiclass, binned_confmat_multilabel)
+    n_batches = -(-N_SAMPLES // BATCH)
+    record = {}
+    probs, target, _, _ = _main_path_data(torch.Generator(device="cuda").manual_seed(SEED))
+    imagenet = lambda: (((probs[s:s + BATCH], target[s:s + BATCH]), {}) for s in range(0, N_SAMPLES, BATCH))  # noqa: E731
+    leg = _curve_leg("imagenet", _curves_imagenet, imagenet, kernels)
+    check(leg["groups"] in ([["auroc", "roc"]], [["roc", "auroc"]]), f"[curves imagenet] groups {leg['groups']}")
+    check(leg["launches"] == {"binned_confmat_multiclass": 0, "binned_confmat_multilabel": 0},
+          f"[curves imagenet] the exact path launched {leg['launches']}")
+    auroc, (fprs, tprs, thrs) = leg["tensors"]["auroc"], leg["tensors"]["roc"]
+    check(auroc.shape == () and 0.5 < float(auroc) < 1.0, f"[curves imagenet] AUROC {auroc}")
+    check(len(fprs) == len(tprs) == len(thrs) == N_CLASSES, "[curves imagenet] ROC curves a class")
+    check(all(f.shape == (N_SAMPLES + 1,) and float(f[-1]) == 1.0 and float(t[-1]) == 1.0 for f, t in zip(fprs, tprs)),
+          "[curves imagenet] every ROC curve runs from (0, 0) to (1, 1) over 50,001 points")
+    record["imagenet"] = leg
+    del imagenet
+
+    scores, labels = _coco_multilabel_data(torch.Generator(device="cuda").manual_seed(SEED + 6))
+    coco = lambda: (((scores[s:s + COCO_ML_BATCH], labels[s:s + COCO_ML_BATCH]), {})  # noqa: E731
+                    for s in range(0, COCO_ML_IMAGES, COCO_ML_BATCH))
+    leg = _curve_leg("coco", _curves_coco, coco, kernels)
+    coco_batches = -(-COCO_ML_IMAGES // COCO_ML_BATCH)
+    check(sorted(map(sorted, leg["groups"])) == [["ap", "auroc", "prc"], ["ap_exact"]], f"[curves coco] groups {leg['groups']}")
+    check(leg["launches"] == {"binned_confmat_multiclass": 0, "binned_confmat_multilabel": coco_batches},
+          f"[curves coco] launches {leg['launches']}, expected {coco_batches} binned_confmat_multilabel")
+    for k in ("auroc", "ap", "ap_exact"):
+        v = leg["tensors"][k]
+        check(v.shape == () and 0.5 < float(v) <= 1.0, f"[curves coco] {k} = {v}")
+    check(abs(float(leg["tensors"]["ap"]) - float(leg["tensors"]["ap_exact"])) < 0.03,
+          f"[curves coco] binned AP {leg['tensors']['ap']} far from the exact {leg['tensors']['ap_exact']}")
+    check(leg["tensors"]["prc"][0].shape == (COCO_ML_LABELS, ML_THRESHOLDS + 1), "[curves coco] PR curve shape")
+    record["coco"] = leg
+    del scores, labels, coco
+
+    conf, pred = probs.max(1)
+    correct = (pred == target).to(torch.int32)
+    del probs, target
+    binary = lambda: (((conf[s:s + BATCH], correct[s:s + BATCH]), {}) for s in range(0, N_SAMPLES, BATCH))  # noqa: E731
+    leg = _curve_leg("binary", _curves_binary, binary, kernels)
+    check(sorted(map(sorted, leg["groups"])) == [["ap", "auroc", "auroc_fpr05", "roc"], ["auroc_200"]],
+          f"[curves binary] groups {leg['groups']}")
+    check(leg["launches"] == {"binned_confmat_multiclass": 0, "binned_confmat_multilabel": n_batches},
+          f"[curves binary] launches {leg['launches']}, expected {n_batches} binned_confmat_multilabel")
+    t = leg["tensors"]
+    check(abs(float(t["auroc"]) - float(t["auroc_200"])) < 0.03, f"[curves binary] AUROC {t['auroc']} vs binned {t['auroc_200']}")
+    check(0.5 <= float(t["auroc_fpr05"]) <= 1.0, f"[curves binary] partial AUROC {t['auroc_fpr05']}")
+    check(t["roc"][0].shape == (N_SAMPLES + 1,), "[curves binary] ROC points")
+    record["binary"] = leg
+    del conf, correct, binary
+
+    preds, depth = _depth_data(torch.Generator(device="cuda").manual_seed(SEED + 8))
+
+    def depth_batches():
+        for s in range(0, DEPTH_MAPS, DEPTH_BATCH):
+            p, t = preds[s:s + DEPTH_BATCH], depth[s:s + DEPTH_BATCH]
+            loss = (p - t).abs().mean()  # the eval loop's per-batch L1 loss
+            yield (), {"preds": p.reshape(-1), "target": t.reshape(-1), "value": loss}
+
+    leg = _curve_leg("depth", _curves_depth, depth_batches, kernels)
+    check(leg["launches"] == {"binned_confmat_multiclass": 0, "binned_confmat_multilabel": 0},
+          f"[curves depth] launches {leg['launches']}")
+    check(leg["batches"] == -(-DEPTH_MAPS // DEPTH_BATCH), f"[curves depth] {leg['batches']} batches")
+    losses = torch.stack([kw["value"] for _, kw in depth_batches()])
+    t = leg["tensors"]
+    check(abs(float(t["loss_mean"]) - float(losses.mean())) <= 1e-5 * float(losses.mean()), "[curves depth] mean loss")
+    check(float(t["loss_max"]) == float(losses.max()), "[curves depth] max loss")
+    check(abs(float(t["loss_running"]) - float(losses[-10:].mean())) <= 1e-5 * float(losses.mean()),
+          "[curves depth] running mean of the last 10 losses")
+    check(0.0 < float(t["r2"]) < 1.0 and 0.0 < float(t["pearson"]) < 1.0, f"[curves depth] R2 {t['r2']}, r {t['pearson']}")
+    for k, v in t.items():
+        check(bool(torch.isfinite(v).all()), f"[curves depth] {k} = {v}")
+    record["depth"] = leg
+    del preds, depth
+
+    # every other new class: the card against the CPU path over one seeded set
+    data = _other_data(torch.Generator(device="cuda").manual_seed(SEED + 9))
+    card, cpu = _other_metrics("cuda"), _other_metrics("cpu")
+    others, t0 = {}, time.perf_counter()
+    for name, (metric, kind) in card.items():
+        for s in range(0, OTHER_ROWS, OTHER_BATCH):
+            args = [x[s:s + OTHER_BATCH] for x in data[kind]]
+            metric.update(*args)
+            cpu[name][0].update(*(a.cpu() for a in args))
+        value = metric.compute()
+        _assert_same(f"[curves others] {name}", value, cpu[name][0].compute())
+        _assert_same(f"[curves others] {name} state", metric.metric_state, cpu[name][0].metric_state)
+        others[name] = _value_summary(value)
+    record["others"] = {"values": others, "s": time.perf_counter() - t0}
+
+    for name, leg in record.items():
+        if name == "others":
+            continue
+        print(f"[curves] {name}: {leg['batches']} batches in {leg['leg_s']:.3f} s; compute groups {leg['groups']}; "
+              f"collection update median {leg['update_ms_median']:.4f} ms (host clock, a synchronize after each), "
+              f"compute {leg['compute_ms']:.4f} ms; launches {leg['launches']}; first {CPU_RERUN_BATCHES} batches "
+              f"match the CPU path ({leg['cpu_compared']} tensors: integers equal, floats within rtol {FLOAT_RTOL}, "
+              f"atol {FLOAT_ATOL}); values {leg['values']}")
+        del leg["tensors"]
+    print(f"[curves] others: {len(others)} classes over {OTHER_ROWS} seeded rows on the card equal the CPU path "
+          f"(rtol {FLOAT_RTOL}, atol {FLOAT_ATOL}) in {record['others']['s']:.2f} s: {others}")
+    return record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--json", help="also write the full record to this file")
@@ -1405,11 +1921,13 @@ def main() -> int:
         "binned_confmat_multiclass": "torchmetrics_tpu_torch/csrc/binned_confmat.cu",
         "coco_match": "torchmetrics_tpu_torch/csrc/coco_match.cu",
         "confmat_multiclass": "torchmetrics_tpu_torch/csrc/confmat.cu",
+        "binned_confmat_multilabel": "torchmetrics_tpu_torch/csrc/binned_confmat.cu",
     }
     replaces = {
         "binned_confmat_multiclass": "torchmetrics_tpu/functional/classification/precision_recall_curve.py:128",
         "coco_match": "torchmetrics_tpu/functional/detection/matcher.py:29",
         "confmat_multiclass": "torchmetrics_tpu/functional/classification/confusion_matrix.py:65",
+        "binned_confmat_multilabel": "torchmetrics_tpu/functional/classification/precision_recall_curve.py:152",
     }
 
     device = phase_device()
@@ -1418,11 +1936,13 @@ def main() -> int:
     kernel_rows = phase_kernels(flush)
     kernel_rows["coco_match"], chunk_shapes = phase_matcher(flush)
     kernel_rows["confmat_multiclass"] = phase_confmat(flush)
+    kernel_rows["binned_confmat_multilabel"] = phase_multilabel_kernel(flush)
     del flush
     main = phase_main_path(kernels)
     sync = phase_sync()
     ragged = phase_ragged(chunk_shapes)
     tower = phase_tower()
+    curves = phase_curves()
 
     # launches of each kernel on the paths that run it: the eval step (phase 4),
     # every rank of the sync worlds (phase 5) and of the ragged worlds (phase 6)
@@ -1430,13 +1950,15 @@ def main() -> int:
         "binned_confmat_multiclass": {"eval": main["launches"]["binned_confmat_multiclass"]},
         "coco_match": {},
         "confmat_multiclass": {f"tower {leg}": tower[leg]["launches"] for leg in ("imagenet", "cityscapes")},
+        "binned_confmat_multilabel": {f"curves {leg}": curves[leg]["launches"]["binned_confmat_multilabel"]
+                                      for leg in ("coco", "binary")},
     }
     for name, record in (("sync", sync), ("ragged", ragged)):
         for label, results in record.items():
             for kernel, count in ((k, sum(r["launches"][k] for r in results)) for k in results[0]["launches"]):
                 by_path[kernel][f"{name} {label}"] = count
     line = {"kernels": []}
-    for name in ("binned_confmat_multiclass", "coco_match", "confmat_multiclass"):
+    for name in ("binned_confmat_multiclass", "coco_match", "confmat_multiclass", "binned_confmat_multilabel"):
         first_row = kernel_rows[name][0]  # the main path's shape
         check(all(n > 0 for n in by_path[name].values()) and by_path[name], f"{name} did not launch: {by_path[name]}")
         line["kernels"].append({
@@ -1445,12 +1967,12 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in kernel_rows[name]),
             "ms": first_row["ms"], "stream_ms": first_row["stream_ms"], "plain_ms": first_row["plain_ms"],
             "bound_ms": first_row["bound_ms"], "bound_by": first_row["bound_by"], "library_ms": None,
-            **({"two_call_ms": first_row["two_call_ms"]} if "two_call_ms" in first_row else {}),
+            **{k: first_row[k] for k in ("two_call_ms", "bucketize_bincount_ms") if k in first_row},
         })
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"device": device, "build_s": build_s, "kernels": kernel_rows, "main_path": main,
-                       "sync": sync, "ragged": ragged, "tower": tower}, f, indent=1)
+                       "sync": sync, "ragged": ragged, "tower": tower, "curves": curves}, f, indent=1)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}}))
     return 0

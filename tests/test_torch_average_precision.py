@@ -71,8 +71,8 @@ def test_batched_curves_equal_one_curve_at_a_time():
     p, t = _batch(4)
     w = torch.ones(p.shape[0])
     pt = torch.from_numpy(p)
-    for cls, (prec, rec, thr) in tfp._multiclass_exact_curves(pt, torch.from_numpy(t), w, C):
-        for i, c in enumerate(cls.tolist()):
+    for lo, hi, (prec, rec, thr) in tfp._exact_column_curves(pt, torch.from_numpy(t), w):
+        for i, c in enumerate(range(lo, hi)):
             one = tfp._binary_precision_recall_curve_compute_exact(pt[:, c], torch.from_numpy((t == c).astype(np.int32)), w)
             for batched, single in zip((prec[i], rec[i], thr[i]), one):
                 assert torch.equal(batched, single)
@@ -160,7 +160,11 @@ def test_exact_state_layout_and_jax_state_carry():
 
 def test_task_wrapper_and_auroc_exact_refused():
     assert isinstance(tc.AveragePrecision(task="multiclass", num_classes=3, device="cpu"), tc.MulticlassAveragePrecision)
-    with pytest.raises(ValueError):
-        tc.AveragePrecision(task="binary", device="cpu")
-    with pytest.raises(NotImplementedError, match="thresholds=None"):
-        tc.MulticlassAUROC(num_classes=3, thresholds=None, device="cpu")
+    assert isinstance(tc.AveragePrecision(task="binary", device="cpu"), tc.BinaryAveragePrecision)
+    with pytest.raises(ValueError, match="not supported"):
+        tc.AveragePrecision(task="ranking", device="cpu")
+    # the exact AUROC is ported; its sketch layout is what stays refused
+    exact = tc.MulticlassAUROC(num_classes=3, thresholds=None, device="cpu")
+    assert {exact._reductions[k].value for k in ("preds", "target", "weight")} == {"cat"}
+    with pytest.raises(ValueError, match="approx"):
+        tc.MulticlassAUROC(num_classes=3, thresholds=None, approx="sketch", device="cpu")

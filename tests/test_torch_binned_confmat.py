@@ -180,8 +180,10 @@ def test_multiclass_pr_curve_parity():
 
 
 def test_exact_layout_not_ported():
-    with pytest.raises(NotImplementedError, match="thresholds=None"):
-        tc.MulticlassAUROC(num_classes=C, device="cpu")
+    # the exact layout is ported (cat states); its sketch replacement is not
+    assert "confmat" not in tc.MulticlassAUROC(num_classes=C, device="cpu")._defaults
+    with pytest.raises(ValueError, match="approx"):
+        tc.MulticlassAUROC(num_classes=C, approx="sketch", device="cpu")
     with pytest.raises(ValueError):
         tc.MulticlassAUROC(num_classes=C, thresholds=1, device="cpu")
     with pytest.raises(ValueError):

@@ -269,6 +269,15 @@ def test_port_imports_no_jax_at_run_time():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_isolation_covers_every_new_module():
+    modules = set(_port_modules())
+    for name in ("aggregation", "classification.roc", "functional.classification.auroc",
+                 "functional.classification.roc", "functional.regression.correlation",
+                 "functional.regression.variance", "regression.correlation", "regression.variance",
+                 "regression.distribution"):
+        assert f"torchmetrics_tpu_torch.{name}" in modules
+
+
 def _imported_roots(path):
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):

@@ -223,8 +223,9 @@ def test_task_wrappers():
     assert isinstance(tc.StatScores(task="multiclass", num_classes=3, device="cpu"), tc.MulticlassStatScores)
     assert isinstance(tc.Accuracy(task="binary", device="cpu"), tc.BinaryAccuracy)
     assert isinstance(tc.Accuracy(task="multilabel", num_labels=3, device="cpu"), tc.MultilabelAccuracy)
-    with pytest.raises(ValueError, match="not ported"):
-        tc.AUROC(task="binary", device="cpu")
+    assert isinstance(tc.AUROC(task="binary", device="cpu"), tc.BinaryAUROC)  # the curve family has every task
+    with pytest.raises(ValueError, match="not supported"):
+        tc.AUROC(task="regression", device="cpu")
     with pytest.raises(ValueError, match="not supported"):
         tc.Accuracy(task="regression", device="cpu")
     with pytest.raises(ValueError, match="beta"):

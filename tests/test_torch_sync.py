@@ -11,6 +11,13 @@ XLA's); max, min, gathers and stacks exact. Cat states are compared as
 multisets of rows: JAX gathers each update's element over the mesh (rows
 interleave the devices per update), the port gathers each rank's rows once
 (rank after rank). AP from the synced state ``atol=1e-6``.
+
+The same world also syncs the metrics whose sync is not a sum of leaves:
+Pearson's moments (its own ``sync_states``, alone and inside a
+``MetricCollection``; ranks hold different row counts), ``CatMetric``'s cat,
+``MaxMetric``/``MinMetric``, and the exact ``BinaryAUROC``'s cat states.
+Pearson's moments within ``rtol=1e-5`` (a float32 pairwise combine), its
+value and the AUROC within ``atol=1e-6``.
 """
 
 from __future__ import annotations
@@ -22,7 +29,14 @@ import pytest
 import torch
 
 from tests.helpers.torch_dist import run_world, worker_main
-from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassAveragePrecision, MulticlassF1Score
+from torchmetrics_tpu_torch import aggregation as tagg
+from torchmetrics_tpu_torch.classification import (
+    BinaryAUROC,
+    MulticlassAccuracy,
+    MulticlassAveragePrecision,
+    MulticlassF1Score,
+)
+from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.core.reductions import COLLECTIVES, Reduce, canonical_reduce, sync_leaf
 from torchmetrics_tpu_torch.parallel import (
     build_sync_plan,
@@ -84,6 +98,41 @@ def _port_metrics():
     }
 
 
+SLICE6 = ("pearson", "cat", "max", "min", "auroc")
+
+
+def _slice6_metrics(pkg):
+    if pkg == "torch":
+        from torchmetrics_tpu_torch.regression import PearsonCorrCoef
+
+        agg, kw = tagg, {"device": "cpu"}
+        auroc = BinaryAUROC(thresholds=None, **kw)
+    else:
+        from torchmetrics_tpu import aggregation as agg
+        from torchmetrics_tpu.classification import BinaryAUROC as JaxBinaryAUROC
+        from torchmetrics_tpu.regression import PearsonCorrCoef
+
+        kw = {}
+        auroc = JaxBinaryAUROC(thresholds=None)
+    return {"pearson": PearsonCorrCoef(num_outputs=2, **kw), "cat": agg.CatMetric(**kw), "max": agg.MaxMetric(**kw),
+            "min": agg.MinMetric(**kw), "auroc": auroc}
+
+
+def _slice6_batches(rank):
+    """Two updates a rank of each metric's inputs; Pearson's rows differ between the ranks."""
+    rng = np.random.default_rng(50 + rank)
+    out = {k: [] for k in SLICE6}
+    for rows in ((rank + 1) * 3, 4):
+        x = rng.normal(size=(rows, 2)).astype(np.float32)
+        out["pearson"].append((x, (x + 0.5 * rng.normal(size=(rows, 2))).astype(np.float32)))
+    for _ in range(2):
+        out["cat"].append((rng.normal(size=3).astype(np.float32),))
+        out["max"].append((rng.normal(size=5).astype(np.float32),))
+        out["min"].append((rng.normal(size=5).astype(np.float32),))
+        out["auroc"].append((np.round(rng.uniform(size=6), 1).astype(np.float32), rng.integers(0, 2, 6)))
+    return out
+
+
 def _rank_checks(rank, world, inputs):
     """Everything one rank does; the parent compares the results."""
     out = {"distributed": distributed_available()}
@@ -127,6 +176,25 @@ def _rank_checks(rank, world, inputs):
     out["metric_states"], out["metric_values"] = synced, values
     probs, target = inputs["shard_probs"][rank], inputs["shard_target"][rank]
     out["sharded_update"] = sharded_update(metrics["acc"], torch.from_numpy(probs), torch.from_numpy(target))
+
+    # metrics whose sync is not a sum of leaves
+    out["slice6"] = {}
+    batches = _slice6_batches(rank)
+    for name, metric in _slice6_metrics("torch").items():
+        st = metric.init_state()
+        for args in batches[name]:
+            st = metric.update_state(st, *map(torch.from_numpy, args))
+        synced = metric.sync_states(st)
+        out["slice6"][name] = (synced, metric.compute_state(synced))
+    from torchmetrics_tpu_torch.regression import MeanAbsoluteError, PearsonCorrCoef, R2Score
+
+    col = MetricCollection({"pearson": PearsonCorrCoef(num_outputs=2, device="cpu"),
+                            "r2": R2Score(num_outputs=2, device="cpu"), "mae": MeanAbsoluteError(device="cpu")},
+                           compute_groups=False)
+    states = col.init_states()
+    for args in batches["pearson"]:
+        states = col.update_states(states, *map(torch.from_numpy, args))
+    out["collection"] = col.sync_states(states)
     return out
 
 
@@ -182,6 +250,16 @@ def world(tmp_path_factory):
         synced = _jax_mesh_sync(states, lambda st, m=m: m.sync_states(st, "data"))
         ref["metric_states"][name] = synced
         ref["metric_values"][name] = np.asarray(m.compute_state(jax_like(synced)))
+    ref["slice6"] = {}
+    for name, m in _slice6_metrics("jax").items():
+        states = []
+        for r in range(WORLD):
+            st = m.init_state()
+            for args in _slice6_batches(r)[name]:
+                st = m.update_state(st, *map(jnp.asarray, args))
+            states.append(st)
+        synced = _jax_mesh_sync(states, lambda st, m=m: m.sync_states(st, "data"))
+        ref["slice6"][name] = (synced, np.asarray(m.compute_state(jax_like(synced))))
     mesh = metric_mesh(WORLD)
     ref["sharded_update"] = jax_sharded_update(jmetrics["acc"], jnp.asarray(probs), jnp.asarray(target), mesh=mesh)
     return results, ref
@@ -311,3 +389,45 @@ def test_deferred_options_raise():
 
 if __name__ == "__main__":
     worker_main(_rank_checks)
+
+
+@pytest.mark.parametrize("name", SLICE6)
+def test_non_sum_syncs_match_jax(world, name):
+    results, ref = world
+    want, want_value = ref["slice6"][name]
+    for r in results:
+        got, value = r["slice6"][name]
+        assert set(got) == set(want)
+        assert int(got["_n"]) == WORLD * 2 and got["_n"].dtype == torch.int32
+        if name == "pearson":
+            for k in ("mean_x", "mean_y", "var_x", "var_y", "corr_xy", "n_total"):
+                assert got[k].dtype == torch.float32 and got[k].shape == np.asarray(want[k]).shape
+                np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-5, atol=1e-6, err_msg=k)
+            assert float(got["n_total"]) == sum((r_ + 1) * 3 + 4 for r_ in range(WORLD))
+        elif name == "cat":  # rank after rank in the port, device-interleaved in JAX: the same values
+            np.testing.assert_array_equal(np.sort(got["value"][0].numpy()),
+                                          np.sort(np.concatenate([np.asarray(x) for x in want["value"]])))
+        elif name == "auroc":
+            np.testing.assert_array_equal(_rows_1d(got), _rows_1d(want))
+        else:
+            leaf = f"{name}_value"
+            _assert_leaf(got[leaf], want[leaf], leaf)
+        if name == "cat":  # its value is the gathered values, in each package's order
+            value, want_value = np.sort(value.numpy()), np.sort(want_value)
+        np.testing.assert_allclose(np.asarray(value), want_value, rtol=0, atol=1e-6)
+
+
+def _rows_1d(state):
+    rows = np.stack([np.concatenate([np.asarray(x, np.float32) for x in state[k]]) for k in ("preds", "target", "weight")], 1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def test_collection_sync_calls_pearsons_own_sync(world):
+    results, _ = world
+    for r in results:
+        alone, _ = r["slice6"]["pearson"]
+        synced = r["collection"]["pearson"]
+        for k, v in alone.items():
+            assert torch.equal(synced[k], v), k
+        assert int(r["collection"]["r2"]["total"]) == sum((r_ + 1) * 3 + 4 for r_ in range(WORLD))
+        assert int(r["collection"]["mae"]["_n"]) == WORLD * 2

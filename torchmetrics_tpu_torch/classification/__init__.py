@@ -1,5 +1,5 @@
-"""Classification metrics of the port: the stat-scores and confusion-matrix families for
-the three tasks, and the multiclass curves."""
+"""Classification metrics of the port: the stat-scores and confusion-matrix families and
+the curve family (precision-recall curve, ROC, AUROC, average precision) for the three tasks."""
 
 from torchmetrics_tpu_torch.classification.accuracy import (
     Accuracy,
@@ -7,8 +7,13 @@ from torchmetrics_tpu_torch.classification.accuracy import (
     MulticlassAccuracy,
     MultilabelAccuracy,
 )
-from torchmetrics_tpu_torch.classification.auroc import AUROC, MulticlassAUROC
-from torchmetrics_tpu_torch.classification.average_precision import AveragePrecision, MulticlassAveragePrecision
+from torchmetrics_tpu_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC, MultilabelAUROC
+from torchmetrics_tpu_torch.classification.average_precision import (
+    AveragePrecision,
+    BinaryAveragePrecision,
+    MulticlassAveragePrecision,
+    MultilabelAveragePrecision,
+)
 from torchmetrics_tpu_torch.classification.cohen_kappa import BinaryCohenKappa, CohenKappa, MulticlassCohenKappa
 from torchmetrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
@@ -61,9 +66,12 @@ from torchmetrics_tpu_torch.classification.precision_recall import (
     Recall,
 )
 from torchmetrics_tpu_torch.classification.precision_recall_curve import (
+    BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
+    MultilabelPrecisionRecallCurve,
     PrecisionRecallCurve,
 )
+from torchmetrics_tpu_torch.classification.roc import ROC, BinaryROC, MulticlassROC, MultilabelROC
 from torchmetrics_tpu_torch.classification.specificity import (
     BinarySpecificity,
     MulticlassSpecificity,
@@ -78,10 +86,12 @@ from torchmetrics_tpu_torch.classification.stat_scores import (
 )
 
 __all__ = [
-    "AUROC",
     "Accuracy",
+    "AUROC",
     "AveragePrecision",
     "BinaryAccuracy",
+    "BinaryAUROC",
+    "BinaryAveragePrecision",
     "BinaryCohenKappa",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
@@ -91,7 +101,9 @@ __all__ = [
     "BinaryMatthewsCorrCoef",
     "BinaryNegativePredictiveValue",
     "BinaryPrecision",
+    "BinaryPrecisionRecallCurve",
     "BinaryRecall",
+    "BinaryROC",
     "BinarySpecificity",
     "BinaryStatScores",
     "CohenKappa",
@@ -101,8 +113,8 @@ __all__ = [
     "HammingDistance",
     "JaccardIndex",
     "MatthewsCorrCoef",
-    "MulticlassAUROC",
     "MulticlassAccuracy",
+    "MulticlassAUROC",
     "MulticlassAveragePrecision",
     "MulticlassCohenKappa",
     "MulticlassConfusionMatrix",
@@ -115,9 +127,12 @@ __all__ = [
     "MulticlassPrecision",
     "MulticlassPrecisionRecallCurve",
     "MulticlassRecall",
+    "MulticlassROC",
     "MulticlassSpecificity",
     "MulticlassStatScores",
     "MultilabelAccuracy",
+    "MultilabelAUROC",
+    "MultilabelAveragePrecision",
     "MultilabelConfusionMatrix",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
@@ -126,13 +141,16 @@ __all__ = [
     "MultilabelMatthewsCorrCoef",
     "MultilabelNegativePredictiveValue",
     "MultilabelPrecision",
+    "MultilabelPrecisionRecallCurve",
     "MultilabelRecall",
+    "MultilabelROC",
     "MultilabelSpecificity",
     "MultilabelStatScores",
     "NegativePredictiveValue",
     "Precision",
     "PrecisionRecallCurve",
     "Recall",
+    "ROC",
     "Specificity",
     "StatScores",
 ]

@@ -1,9 +1,7 @@
 """Task-string dispatch base (counterpart of ``torchmetrics_tpu/classification/base.py``).
 
 ``Accuracy(task="multiclass", num_classes=5)`` returns a
-``MulticlassAccuracy`` instance from ``__new__``. The curve family (AUROC,
-average precision, PR curve) has the multiclass task only so far; its other
-tasks raise.
+``MulticlassAccuracy`` instance from ``__new__``.
 """
 
 from __future__ import annotations
@@ -42,9 +40,3 @@ def _dispatch_task(
         raise ValueError(f"Task {task} not supported!")
     return classes[task](*args, **{k: v for k, v in kwargs.items() if k not in drops.get(task, ())})
 
-
-def _multiclass_only(task: Any, name: str) -> None:
-    if str(task) in ("binary", "multilabel"):
-        raise ValueError(f"{name}(task={task!r}) is not ported yet: the PyTorch port has the multiclass task only")
-    if str(task) != "multiclass":
-        raise ValueError(f"Task {task} not supported!")

@@ -4,7 +4,8 @@ The state is one int32 ``confmat`` leaf with ``sum`` reduction: ``(2, 2)``,
 ``(C, C)`` or ``(L, 2, 2)``. The multiclass update adds into it in place, by
 one launch of the ``confmat_multiclass`` CUDA kernel on the card (its plain
 version on the CPU), so its ``update_state`` returns the tensor it was given:
-copy a state first to keep it. Cohen's kappa, MCC and the Jaccard index
+copy a state first to keep it. ``compute``, ``forward``'s batch value and
+``state_dict`` hand out copies of it. Cohen's kappa, MCC and the Jaccard index
 subclass these classes, so under a ``MetricCollection``'s compute groups one
 update serves them all.
 """
@@ -87,6 +88,8 @@ class MulticlassConfusionMatrix(_ConfusionMatrixBase):
         >>> metric.compute().tolist()
         [[1, 0, 0], [0, 1, 0], [0, 1, 1]]
     """
+
+    _inplace_leaves = ("confmat",)
 
     def __init__(self, num_classes: int, normalize: Optional[str] = None,
                  ignore_index: Optional[int] = None, validate_args: bool = True, **kwargs: Any) -> None:

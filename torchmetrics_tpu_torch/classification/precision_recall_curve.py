@@ -1,11 +1,16 @@
-"""Multiclass precision-recall curve, exact and binned layouts.
+"""Precision-recall curves for the three tasks, exact and binned layouts.
 
 Counterpart of ``torchmetrics_tpu/classification/precision_recall_curve.py``.
 With ``thresholds=None`` (exact) the state is three ``cat`` lists of the
-formatted batches: ``preds`` ``(N, C)`` float32, ``target`` ``(N,)`` int32
-and ``weight`` ``(N,)`` float32. With ``thresholds`` given (an int or a
-list) it is the binned ``(T, C, 2, 2)`` int32 confusion tensor,
-``sum``-reduced. The sketch layout waits for a later slice.
+formatted batches: ``preds`` float32, ``target`` int32 and ``weight``
+float32, ``(N,)`` each for the binary task, ``(N, C)``, ``(N,)``, ``(N,)``
+for the multiclass one and ``(N, L)`` each for the multilabel one. With
+``thresholds`` given (an int or a list) it is the binned int32 confusion
+tensor, ``(T, 2, 2)``, ``(T, C, 2, 2)`` or ``(T, L, 2, 2)``, ``sum``-reduced,
+which one launch of a ``csrc/binned_confmat.cu`` kernel updates on the card:
+``binned_confmat_multiclass`` for the multiclass task,
+``binned_confmat_multilabel`` for the other two. The sketch layout
+(``approx="sketch"``) waits for a later slice.
 
 Example::
 
@@ -26,22 +31,39 @@ from typing import Any, Optional, Sequence, Tuple, Union
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper, _multiclass_only
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper, _dispatch_task
 from torchmetrics_tpu_torch.core.metric import Metric, State
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
     _adjust_threshold_arg,
+    _binary_precision_recall_curve_compute_binned,
+    _binary_precision_recall_curve_compute_exact,
+    _binary_prc_format,
     _binned_confmat_multiclass_accumulate,
-    _multiclass_exact_curves,
+    _binned_confmat_multilabel_accumulate,
+    _binned_curve_accumulate,
+    _binned_curves,
+    _column_curve_lists,
     _multiclass_prc_format,
+    _multilabel_prc_format,
     _sort_thresholds,
     _validate_thresholds,
 )
-from torchmetrics_tpu_torch.utilities.compute import _safe_divide
 from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
+
+# the kwargs the curve task wrapper drops before it builds the task's class, as the JAX wrapper does
+CURVE_DROPS = {
+    "binary": ("num_classes", "num_labels", "average"),
+    "multiclass": ("num_labels",),
+    "multilabel": ("num_classes", "average"),
+}
 
 
 class _CurveBase(Metric):
-    """Shared state handling for the curve metrics (exact and binned layouts)."""
+    """Shared state handling for the curve metrics (exact and binned layouts).
+
+    A subclass sets ``_format`` (the batch formatting of its task) and
+    ``_accumulate_binned`` (its binned state update).
+    """
 
     is_differentiable = False
     higher_is_better = None
@@ -64,6 +86,56 @@ class _CurveBase(Metric):
             dist_reduce_fx="sum",
         )
 
+    def _update(self, state: State, preds: Tensor, target: Tensor) -> State:
+        p, t, w = self._format(self._tensor(preds), self._tensor(target))
+        if self.thresholds is None:
+            return {"preds": state["preds"] + (p,), "target": state["target"] + (t,), "weight": state["weight"] + (w,)}
+        sorted_thresholds = (self._thresholds_sorted, self._thresholds_order)
+        return {"confmat": self._accumulate_binned(state["confmat"], p, t, w, sorted_thresholds)}
+
+    def _exact_state(self, state: State) -> Tuple[Tensor, Tensor, Tensor]:
+        return dim_zero_cat(state["preds"]), dim_zero_cat(state["target"]), dim_zero_cat(state["weight"])
+
+
+class BinaryPrecisionRecallCurve(_CurveBase):
+    """Binary precision-recall curve.
+
+    Example::
+
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.classification import BinaryPrecisionRecallCurve
+        >>> metric = BinaryPrecisionRecallCurve(device="cpu")
+        >>> metric.update(torch.tensor([0.1, 0.6, 0.35, 0.8]), torch.tensor([0, 1, 0, 1]))
+        >>> precision, recall, thresholds = metric.compute()
+        >>> precision
+        tensor([0.5000, 0.6667, 1.0000, 1.0000, 1.0000])
+    """
+
+    def __init__(
+        self,
+        thresholds: Union[int, Sequence[float], Tensor, None] = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _validate_thresholds(thresholds)
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self._init_curve_state(thresholds, ())
+
+    def _format(self, preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+        return _binary_prc_format(preds, target, self.ignore_index)
+
+    def _accumulate_binned(self, confmat, p, t, w, sorted_thresholds) -> Tensor:
+        return _binned_curve_accumulate(confmat, p, t, w, self.thresholds, sorted_thresholds)
+
+    def _compute(self, state: State):
+        if self.thresholds is None:
+            return _binary_precision_recall_curve_compute_exact(*self._exact_state(state))
+        return _binary_precision_recall_curve_compute_binned(state["confmat"], self.thresholds)
+
 
 class MulticlassPrecisionRecallCurve(_CurveBase):
     def __init__(
@@ -84,38 +156,53 @@ class MulticlassPrecisionRecallCurve(_CurveBase):
         self.validate_args = validate_args
         self._init_curve_state(thresholds, (num_classes,))
 
-    def _update(self, state: State, preds: Tensor, target: Tensor) -> State:
-        p, t, w = _multiclass_prc_format(self._tensor(preds), self._tensor(target), self.num_classes, self.ignore_index)
-        if self.thresholds is None:
-            return {"preds": state["preds"] + (p,), "target": state["target"] + (t,), "weight": state["weight"] + (w,)}
-        confmat = _binned_confmat_multiclass_accumulate(
-            state["confmat"], p, t, w, self.thresholds, self.num_classes,
-            (self._thresholds_sorted, self._thresholds_order),
-        )
-        return {"confmat": confmat}
+    def _format(self, preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+        return _multiclass_prc_format(preds, target, self.num_classes, self.ignore_index)
 
-    def _exact_state(self, state: State) -> Tuple[Tensor, Tensor, Tensor]:
-        return dim_zero_cat(state["preds"]), dim_zero_cat(state["target"]), dim_zero_cat(state["weight"])
+    def _accumulate_binned(self, confmat, p, t, w, sorted_thresholds) -> Tensor:
+        return _binned_confmat_multiclass_accumulate(confmat, p, t, w, self.thresholds, self.num_classes,
+                                                     sorted_thresholds)
 
     def _compute(self, state: State):
         if self.thresholds is None:  # per-class lists, as the JAX metric returns them
-            curves = [c for _, c in _multiclass_exact_curves(*self._exact_state(state), self.num_classes)]
-            return tuple([row for c in curves for row in c[i]] for i in range(3))
-        confmat = state["confmat"]
-        tp = confmat[:, :, 1, 1]
-        fp = confmat[:, :, 0, 1]
-        fn = confmat[:, :, 1, 0]
-        ones = torch.ones((1, self.num_classes), device=confmat.device)
-        precision = torch.cat([_safe_divide(tp, tp + fp), ones], dim=0).T
-        recall = torch.cat([_safe_divide(tp, tp + fn), torch.zeros_like(ones)], dim=0).T
-        return precision, recall, self.thresholds
+            return _column_curve_lists(*self._exact_state(state))
+        return _binned_curves(state["confmat"], self.thresholds)
+
+
+class MultilabelPrecisionRecallCurve(_CurveBase):
+    def __init__(
+        self,
+        num_labels: int,
+        thresholds: Union[int, Sequence[float], Tensor, None] = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _validate_thresholds(thresholds)
+        self.num_labels = num_labels
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self._init_curve_state(thresholds, (num_labels,))
+
+    def _format(self, preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+        return _multilabel_prc_format(preds, target, self.num_labels, self.ignore_index)
+
+    def _accumulate_binned(self, confmat, p, t, w, sorted_thresholds) -> Tensor:
+        return _binned_confmat_multilabel_accumulate(confmat, p, t, w, self.thresholds, sorted_thresholds)
+
+    def _compute(self, state: State):
+        if self.thresholds is None:  # per-label lists, as the JAX metric returns them
+            return _column_curve_lists(*self._exact_state(state))
+        return _binned_curves(state["confmat"], self.thresholds)
 
 
 class PrecisionRecallCurve(_ClassificationTaskWrapper):
-    """Task dispatch: ``PrecisionRecallCurve(task="multiclass", ...)``."""
+    """Task dispatch: ``PrecisionRecallCurve(task="binary" | "multiclass" | "multilabel", ...)``."""
 
     @classmethod
     def _create_task_metric(cls, task: str, *args: Any, **kwargs: Any) -> Metric:
-        _multiclass_only(task, cls.__name__)
-        kwargs.pop("num_labels", None)
-        return MulticlassPrecisionRecallCurve(*args, **kwargs)
+        classes = {"binary": BinaryPrecisionRecallCurve, "multiclass": MulticlassPrecisionRecallCurve,
+                   "multilabel": MultilabelPrecisionRecallCurve}
+        return _dispatch_task(task, classes, CURVE_DROPS, args, kwargs)

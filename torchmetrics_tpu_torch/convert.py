@@ -5,6 +5,10 @@ pytree. The JAX side turns its state into numpy first
 (``{k: np.asarray(v) for k, v in state.items()}``, list states as lists of
 arrays); :func:`state_from_jax` checks it against the port metric's spec and
 places it on the metric's device. A synced JAX state loads the same way.
+Every state kind of the port carries over: int32 counters and binned curve
+states, float32 sums, the cat lists of the exact curves, ``CatMetric`` and
+the rank correlations, Pearson's moments, and the aggregators' values and
+ring buffers (with their ``_n`` counter, which picks the next slot).
 :func:`collection_states_from_jax` does it for every member state of a
 ``MetricCollection`` (``{leader name: state}``).
 """

@@ -70,6 +70,17 @@ UNPORTED_BASE_KWARGS = frozenset(
 )
 
 
+def _copy_shared(value: Any, storages: set) -> Any:
+    """``value`` with every tensor in it that lives in one of ``storages`` copied."""
+    if isinstance(value, Tensor):
+        return value.clone() if value.untyped_storage().data_ptr() in storages else value
+    if isinstance(value, (list, tuple)):
+        return type(value)(_copy_shared(v, storages) for v in value)
+    if isinstance(value, dict):
+        return {k: _copy_shared(v, storages) for k, v in value.items()}
+    return value
+
+
 def _move(value: Any, device: torch.device) -> Any:
     if isinstance(value, tuple):
         return tuple(v.to(device) for v in value)
@@ -93,8 +104,17 @@ class Metric:
     #: tensor attributes besides the state that live on the metric's device
     _device_attrs: Tuple[str, ...] = ()
 
+    #: state leaves that ``_update`` adds into in place (the multiclass
+    #: confusion matrix); every reader that hands out a state tensor copies them
+    _inplace_leaves: Tuple[str, ...] = ()
+
+    #: a subclass that takes ``nan_strategy`` itself (the aggregators); the
+    #: base refuses the kwarg for every other metric
+    __handles_nan_strategy__: bool = False
+
     def __init__(self, device: Optional[Union[str, torch.device]] = None, **kwargs: Any) -> None:
-        unported = sorted(UNPORTED_BASE_KWARGS & kwargs.keys())
+        refused = UNPORTED_BASE_KWARGS - ({"nan_strategy"} if type(self).__handles_nan_strategy__ else set())
+        unported = sorted(refused & kwargs.keys())
         if unported:
             raise ValueError(f"Metric arguments {unported} are not supported by the PyTorch port yet")
         self.compute_with_cache: bool = kwargs.pop("compute_with_cache", True)
@@ -163,18 +183,28 @@ class Metric:
     def update_state(self, state: State, *args: Any, **kwargs: Any) -> State:
         """A new state dict with this batch folded in.
 
-        The input state's tensors are left as they are, except the ``confmat``
-        leaf of ``MulticlassConfusionMatrix`` and its subclasses, which one
-        kernel launch adds into in place (as the reference torchmetrics
-        does): clone such a state first to keep it.
+        The input state's tensors are left as they are, except the leaves
+        named in ``_inplace_leaves`` (the ``confmat`` leaf of
+        ``MulticlassConfusionMatrix`` and its subclasses), which one kernel
+        launch adds into in place (as the reference torchmetrics does): clone
+        such a state first to keep it. ``compute``, ``forward``,
+        ``state_dict`` and the sync hand out copies of those leaves.
         """
         new = dict(self._update(state, *args, **kwargs))
         new[_N] = state[_N] + 1
         return new
 
     def compute_state(self, state: State) -> Any:
-        """Pure compute on a state."""
-        return self._compute(state)
+        """Pure compute on a state.
+
+        A result that shares memory with a leaf the update writes in place
+        is a copy, so a later update does not change it.
+        """
+        value = self._compute(state)
+        if not self._inplace_leaves:
+            return value
+        live = {state[name].untyped_storage().data_ptr() for name in self._inplace_leaves if name in state}
+        return _copy_shared(value, live)
 
     def merge_states(self, a: State, b: State) -> State:
         """Combine two states under the per-leaf reduction table (pure)."""
@@ -301,6 +331,8 @@ class Metric:
         for name, persistent in self._persistent.items():
             if persistent:
                 value = self._state[name]
+                if name in self._inplace_leaves:  # the next update would change it
+                    value = value.clone()
                 destination[prefix + name] = list(value) if isinstance(value, tuple) else value
         return destination
 
@@ -376,6 +408,9 @@ class Metric:
             for name in self._defaults
             if prefix + name in state_dict
         }
+        for name in self._inplace_leaves:  # the updates must not write into the caller's tensor
+            if name in staged:
+                staged[name] = staged[name].clone()
         self._state.update(staged)
         self._computed = None
 

@@ -1,10 +1,31 @@
+"""Functional classification metrics of the port.
+
+As in the JAX package, a function named like its module (``auroc``,
+``average_precision``, ``roc``, ``confusion_matrix``, ...) takes the
+module's place as a package attribute; import such a module with
+``importlib.import_module``. The ``precision_recall_curve`` dispatcher is
+the exception: it stays in its module, and the package attribute is the
+module.
+"""
+
 from torchmetrics_tpu_torch.functional.classification.accuracy import (
     accuracy,
     binary_accuracy,
     multiclass_accuracy,
     multilabel_accuracy,
 )
-from torchmetrics_tpu_torch.functional.classification.average_precision import multiclass_average_precision
+from torchmetrics_tpu_torch.functional.classification.auroc import (
+    auroc,
+    binary_auroc,
+    multiclass_auroc,
+    multilabel_auroc,
+)
+from torchmetrics_tpu_torch.functional.classification.average_precision import (
+    average_precision,
+    binary_average_precision,
+    multiclass_average_precision,
+    multilabel_average_precision,
+)
 from torchmetrics_tpu_torch.functional.classification.cohen_kappa import (
     binary_cohen_kappa,
     cohen_kappa,
@@ -60,6 +81,17 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall import (
     precision,
     recall,
 )
+from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
+    binary_precision_recall_curve,
+    multiclass_precision_recall_curve,
+    multilabel_precision_recall_curve,
+)
+from torchmetrics_tpu_torch.functional.classification.roc import (
+    binary_roc,
+    multiclass_roc,
+    multilabel_roc,
+    roc,
+)
 from torchmetrics_tpu_torch.functional.classification.specificity import (
     binary_specificity,
     multiclass_specificity,
@@ -75,7 +107,11 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
 
 __all__ = [
     "accuracy",
+    "auroc",
+    "average_precision",
     "binary_accuracy",
+    "binary_auroc",
+    "binary_average_precision",
     "binary_cohen_kappa",
     "binary_confusion_matrix",
     "binary_f1_score",
@@ -85,7 +121,9 @@ __all__ = [
     "binary_matthews_corrcoef",
     "binary_negative_predictive_value",
     "binary_precision",
+    "binary_precision_recall_curve",
     "binary_recall",
+    "binary_roc",
     "binary_specificity",
     "binary_stat_scores",
     "cohen_kappa",
@@ -96,6 +134,7 @@ __all__ = [
     "jaccard_index",
     "matthews_corrcoef",
     "multiclass_accuracy",
+    "multiclass_auroc",
     "multiclass_average_precision",
     "multiclass_cohen_kappa",
     "multiclass_confusion_matrix",
@@ -106,10 +145,14 @@ __all__ = [
     "multiclass_matthews_corrcoef",
     "multiclass_negative_predictive_value",
     "multiclass_precision",
+    "multiclass_precision_recall_curve",
     "multiclass_recall",
+    "multiclass_roc",
     "multiclass_specificity",
     "multiclass_stat_scores",
     "multilabel_accuracy",
+    "multilabel_auroc",
+    "multilabel_average_precision",
     "multilabel_confusion_matrix",
     "multilabel_f1_score",
     "multilabel_fbeta_score",
@@ -118,12 +161,15 @@ __all__ = [
     "multilabel_matthews_corrcoef",
     "multilabel_negative_predictive_value",
     "multilabel_precision",
+    "multilabel_precision_recall_curve",
     "multilabel_recall",
+    "multilabel_roc",
     "multilabel_specificity",
     "multilabel_stat_scores",
     "negative_predictive_value",
     "precision",
     "recall",
+    "roc",
     "specificity",
     "stat_scores",
 ]

@@ -1,4 +1,4 @@
-"""Precision-recall curve pieces for the multiclass tower, exact and binned.
+"""Precision-recall curve pieces for the three tasks, exact and binned.
 
 Counterpart of ``torchmetrics_tpu/functional/classification/precision_recall_curve.py``.
 Two layouts, as in the JAX package:
@@ -7,30 +7,47 @@ Two layouts, as in the JAX package:
   (stable, descending), takes the cumulative true and false positives and
   collapses each tie group onto its last point with a static shape (the
   JAX package's reversed min-scan, here ``flip`` + ``cummin``). It works on
-  the last dimension, so all classes' curves come out of one batched sort.
-* ``thresholds`` an int or a list, binned: the ``(T, C, 2, 2)`` one-vs-rest
-  confusion counts.
+  the last dimension, so the curves of many classes or labels come out of
+  one batched sort (:func:`_exact_column_curves`).
+* ``thresholds`` an int or a list, binned: the ``(T, 2, 2)`` (binary) or
+  ``(T, C|L, 2, 2)`` one-vs-rest or per-label confusion counts.
 
-The metric's update is :func:`_binned_confmat_multiclass_accumulate`, old
-int32 state + one formatted batch -> new state. For a CUDA tensor it is one
-call of the CUDA kernel (``csrc/binned_confmat.cu``), which bins each score
-once among the sorted thresholds and suffix-sums the bins; for a CPU tensor
-it is the plain PyTorch version, :func:`_binned_confmat_multiclass_accumulate_plain`.
-:func:`_binned_confmat_multiclass` gives one batch's float32 counts, as the
-JAX function does.
+The metrics' binned updates fold one formatted batch into the old int32
+state. For a CUDA tensor each is one call of a CUDA kernel of
+``csrc/binned_confmat.cu``, which bins each score once among the sorted
+thresholds and suffix-sums the bins: ``binned_confmat_multiclass``
+(:func:`_binned_confmat_multiclass_accumulate`) and
+``binned_confmat_multilabel`` (:func:`_binned_confmat_multilabel_accumulate`;
+the binary update, :func:`_binned_curve_accumulate`, is its case of one
+label). For a CPU tensor each is its plain PyTorch version, the JAX
+package's contraction form. :func:`_binned_confmat_multiclass`,
+:func:`_binned_confmat_multilabel` and :func:`_binned_curve_update` give one
+batch's float32 counts, as the JAX functions do.
+
+Example::
+
+    >>> import torch
+    >>> from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
+    ...     binary_precision_recall_curve)
+    >>> precision, recall, thresholds = binary_precision_recall_curve(
+    ...     torch.tensor([0.1, 0.6, 0.35, 0.8]), torch.tensor([0, 1, 0, 1]))
+    >>> precision
+    tensor([0.5000, 0.6667, 1.0000, 1.0000, 1.0000])
+    >>> recall
+    tensor([1.0000, 1.0000, 1.0000, 0.5000, 0.0000])
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.kernels.binned_confmat import binned_confmat_multiclass
+from torchmetrics_tpu_torch.kernels.binned_confmat import binned_confmat_multiclass, binned_confmat_multilabel
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide, normalize_logits_if_needed
-from torchmetrics_tpu_torch.utilities.data import one_hot
+from torchmetrics_tpu_torch.utilities.data import input_device, one_hot, to_tensor
 
 
 def _linspace_grid(num: int) -> np.ndarray:
@@ -64,6 +81,37 @@ def _validate_thresholds(thresholds) -> None:
         )
     if isinstance(thresholds, int) and thresholds < 2:
         raise ValueError(f"If argument `thresholds` is an integer, expected it to be larger than 1, but got {thresholds}")
+
+
+def _binary_prc_format(preds: Tensor, target: Tensor, ignore_index: Optional[int]) -> Tuple[Tensor, Tensor, Tensor]:
+    """``(probs (N,) float32, target (N,) int32, weights (N,) float32)``, flattened
+    and sigmoid-normalized if any score of the batch lies outside [0, 1]."""
+    preds = preds.reshape(-1)
+    target = target.reshape(-1)
+    weights = torch.ones(target.shape, dtype=torch.float32, device=target.device)
+    if ignore_index is not None:
+        ignored = target == ignore_index
+        weights = torch.where(ignored, 0.0, weights)
+        target = torch.where(ignored, 0, target)
+    preds = normalize_logits_if_needed(preds.to(torch.float32), "sigmoid")
+    return preds, target.to(torch.int32), weights
+
+
+def _multilabel_prc_format(
+    preds: Tensor, target: Tensor, num_labels: int, ignore_index: Optional[int]
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """``(probs (N, L) float32, target (N, L) int32, weights (N, L) float32)``,
+    sigmoid-normalized if any score of the batch lies outside [0, 1]; an
+    element whose target is ``ignore_index`` gets weight 0 and target 0."""
+    preds = preds.reshape(-1, num_labels)
+    target = target.reshape(-1, num_labels)
+    weights = torch.ones(target.shape, dtype=torch.float32, device=target.device)
+    if ignore_index is not None:
+        ignored = target == ignore_index
+        weights = torch.where(ignored, 0.0, weights)
+        target = torch.where(ignored, 0, target)
+    preds = normalize_logits_if_needed(preds.to(torch.float32), "sigmoid")
+    return preds, target.to(torch.int32), weights
 
 
 def _multiclass_prc_format(
@@ -138,28 +186,68 @@ def _binary_precision_recall_curve_compute_binned(confmat: Tensor, thresholds: T
 
 
 def _binned_curve_update(preds: Tensor, target: Tensor, weights: Tensor, thresholds: Tensor) -> Tensor:
-    """``(T, 2, 2)`` float32 binary threshold-confusion state: ``[[tn, fp], [fn, tp]]``."""
-    pred_t = (preds[:, None] >= thresholds[None, :]).to(torch.float32)  # (N, T)
-    tw = target.to(torch.float32) * weights
-    return _stack_confmat((pred_t.T @ tw)[:, None], (pred_t.T @ weights)[:, None], tw.sum()[None], weights.sum())[:, 0]
+    """``(T, 2, 2)`` float32 binary threshold-confusion counts of one batch: ``[[tn, fp], [fn, tp]]``.
+
+    The JAX function's contract: the multilabel counts at one label.
+    """
+    return _binned_confmat_multilabel(preds[:, None], target[:, None], weights[:, None], thresholds)[:, 0]
 
 
-#: elements of a (classes, rows) block that the exact multiclass curves sort at once
+def _binned_curve_accumulate(
+    confmat: Tensor,
+    p: Tensor,
+    target: Tensor,
+    w: Tensor,
+    thresholds: Tensor,
+    sorted_thresholds: Optional[Tuple[Tensor, Tensor]] = None,
+) -> Tensor:
+    """New ``(T, 2, 2)`` int32 binary state: ``confmat`` + one formatted batch's counts.
+
+    The multilabel update at one label: the state is viewed as
+    ``(T, 1, 2, 2)`` and the ``(N,)`` batch as ``(N, 1)``, so on a CUDA
+    tensor it is one call of the ``binned_confmat_multilabel`` kernel.
+    """
+    new = _binned_confmat_multilabel_accumulate(
+        confmat.view(-1, 1, 2, 2), p[:, None], target[:, None], w[:, None], thresholds, sorted_thresholds
+    )
+    return new.view(-1, 2, 2)
+
+
+#: elements of a (columns, rows) block that the exact curves sort at once
 EXACT_BLOCK = 2**25
 
 
-def _multiclass_exact_curves(p: Tensor, target: Tensor, w: Tensor, num_classes: int):
-    """Exact one-vs-rest curves of all classes: yields ``(classes, (precision,
-    recall, thresholds))`` for blocks of classes, each a ``(c, N + 1)``,
-    ``(c, N + 1)``, ``(c, N)`` batch sorted in one ``torch.sort``. The JAX
-    package loops over the classes; the values are the same."""
-    n = p.shape[0]
+def _exact_column_curves(p: Tensor, target: Tensor, w: Tensor, fn=None) -> Iterator[Tuple[int, int, tuple]]:
+    """Exact curves of every column of ``p (N, K)``: yields ``(lo, hi, fn(...))``
+    for blocks of columns, each block sorted in one ``torch.sort``.
+
+    ``target`` is ``(N,)`` class ids (one-vs-rest: column ``k``'s positives
+    are the rows of class ``k``, all weighted by ``w (N,)``) or ``(N, K)``
+    per-column labels with ``(N, K)`` weights. ``fn`` takes the block's
+    ``(preds, target, weights)`` as ``(columns, N)`` rows, default
+    :func:`_binary_precision_recall_curve_compute_exact`. The JAX package
+    loops over the columns; every row of a block is the curve it gives.
+    """
+    fn = fn or _binary_precision_recall_curve_compute_exact
+    n, k = p.shape
     step = max(1, EXACT_BLOCK // max(n, 1))
-    classes = torch.arange(num_classes, device=p.device)
-    for lo in range(0, num_classes, step):
-        cls = classes[lo : lo + step]
-        onehot = (target[None, :] == cls[:, None]).to(torch.int32)  # (c, N)
-        yield cls, _binary_precision_recall_curve_compute_exact(p[:, lo : lo + step].T, onehot, w)
+    for lo in range(0, k, step):
+        hi = min(lo + step, k)
+        if target.ndim == 1:
+            cols = torch.arange(lo, hi, device=p.device)
+            t, wc = (target[None, :] == cols[:, None]).to(torch.int32), w
+        else:
+            t, wc = target[:, lo:hi].T, w[:, lo:hi].T
+        yield lo, hi, fn(p[:, lo:hi].T, t, wc)
+
+
+def _column_curve_lists(p: Tensor, target: Tensor, w: Tensor, fn=None) -> Tuple[List[Tensor], ...]:
+    """The exact curve of every column as per-column lists, as the JAX functions return them."""
+    out: Tuple[List[Tensor], ...] = ([], [], [])
+    for _, _, curves in _exact_column_curves(p, target, w, fn):
+        for lst, rows in zip(out, curves):
+            lst.extend(rows)
+    return out
 
 
 def _stack_confmat(tp: Tensor, pospred: Tensor, actpos: Tensor, total: Tensor) -> Tensor:
@@ -255,3 +343,149 @@ def _binned_confmat_multiclass(
         return _binned_confmat_multiclass_plain(p, target, w, thresholds, num_classes)
     zeros = torch.zeros((thresholds.shape[0], num_classes, 2, 2), dtype=torch.int32, device=p.device)
     return _binned_confmat_multiclass_accumulate(zeros, p, target, w, thresholds, num_classes).to(p.dtype)
+
+
+def _binned_confmat_multilabel_plain(p: Tensor, target: Tensor, w: Tensor, thresholds: Tensor) -> Tensor:
+    """Plain PyTorch ``(T, L, 2, 2)`` float32 per-label counts of one batch.
+
+    A transcription of the JAX function: an ``(N, L, T)`` comparison tensor
+    contracted by two einsums with ``target * w`` and ``w``. The tests hold
+    it equal to the JAX function, exactly.
+    """
+    tw = target.to(p.dtype) * w  # (N, L)
+    cmp = (p[:, :, None] >= thresholds[None, None, :]).to(p.dtype)  # (N, L, T)
+    tp = torch.einsum("nlt,nl->tl", cmp, tw)
+    pospred = torch.einsum("nlt,nl->tl", cmp, w)
+    return _stack_confmat(tp, pospred, tw.sum(0), w.sum(0))
+
+
+def _binned_confmat_multilabel_accumulate_plain(
+    confmat: Tensor, p: Tensor, target: Tensor, w: Tensor, thresholds: Tensor
+) -> Tensor:
+    """Plain PyTorch update: ``confmat`` + this batch's counts, int32, as the
+    JAX metric adds them (float32 sums, exact below 2**24 a cell a batch)."""
+    return confmat + _binned_confmat_multilabel_plain(p, target, w, thresholds).to(torch.int32)
+
+
+def _binned_confmat_multilabel_accumulate(
+    confmat: Tensor,
+    p: Tensor,
+    target: Tensor,
+    w: Tensor,
+    thresholds: Tensor,
+    sorted_thresholds: Optional[Tuple[Tensor, Tensor]] = None,
+) -> Tensor:
+    """New ``(T, L, 2, 2)`` int32 state: ``confmat`` + one formatted batch's counts.
+
+    ``state[t, l] = [[tn, fp], [fn, tp]]`` in the order of ``thresholds``;
+    ``confmat`` is only read. On a CUDA tensor it is one call of the
+    ``binned_confmat_multilabel`` kernel, which raises if it cannot launch;
+    ``sorted_thresholds`` is ``_sort_thresholds(thresholds)``, which a
+    metric computes once (sorted here when not given). On a CPU tensor it is
+    the plain version. The two are equal (``torch.equal``) on the card, in
+    ``chip_smoke.py``.
+    """
+    if p.device.type == "cpu":
+        return _binned_confmat_multilabel_accumulate_plain(confmat, p, target, w, thresholds)
+    if sorted_thresholds is None:
+        sorted_thresholds = _sort_thresholds(thresholds)
+    return binned_confmat_multilabel(confmat, p.contiguous(), target.contiguous(), w.contiguous(), *sorted_thresholds)
+
+
+def _binned_confmat_multilabel(p: Tensor, target: Tensor, w: Tensor, thresholds: Tensor) -> Tensor:
+    """``(T, L, 2, 2)`` float32 per-label threshold confusion counts of one batch.
+
+    The JAX function's contract: the plain version on a CPU tensor, the
+    kernel's update of a zero state on a CUDA tensor.
+    """
+    if p.device.type == "cpu":
+        return _binned_confmat_multilabel_plain(p, target, w, thresholds)
+    zeros = torch.zeros((thresholds.shape[0], p.shape[1], 2, 2), dtype=torch.int32, device=p.device)
+    return _binned_confmat_multilabel_accumulate(zeros, p, target, w, thresholds).to(p.dtype)
+
+
+def _binned_curves(confmat: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """``(precision, recall)`` ``(K, T + 1)`` of a ``(T, K, 2, 2)`` state, with
+    the final (1, 0) point, and the thresholds, as the multiclass and
+    multilabel curves return them."""
+    precision, recall, thresholds = _binary_precision_recall_curve_compute_binned(confmat, thresholds)
+    return precision.T, recall.T, thresholds
+
+
+def binary_precision_recall_curve(
+    preds: Tensor,
+    target: Tensor,
+    thresholds: Union[int, Sequence[float], Tensor, None] = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    if validate_args:
+        _validate_thresholds(thresholds)
+    device = input_device(preds)
+    p, t, w = _binary_prc_format(to_tensor(preds, device), to_tensor(target, device), ignore_index)
+    thr = _adjust_threshold_arg(thresholds, device)
+    if thr is None:
+        return _binary_precision_recall_curve_compute_exact(p, t, w)
+    return _binary_precision_recall_curve_compute_binned(_binned_curve_update(p, t, w, thr), thr)
+
+
+def multiclass_precision_recall_curve(
+    preds: Tensor,
+    target: Tensor,
+    num_classes: int,
+    thresholds: Union[int, Sequence[float], Tensor, None] = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+):
+    """Exact: per-class lists of curves; binned: ``(C, T + 1)`` precision and recall and the thresholds."""
+    if validate_args:
+        _validate_thresholds(thresholds)
+    device = input_device(preds)
+    p, t, w = _multiclass_prc_format(to_tensor(preds, device), to_tensor(target, device), num_classes, ignore_index)
+    thr = _adjust_threshold_arg(thresholds, device)
+    if thr is None:
+        return _column_curve_lists(p, t, w)
+    return _binned_curves(_binned_confmat_multiclass(p, t, w, thr, num_classes), thr)
+
+
+def multilabel_precision_recall_curve(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    thresholds: Union[int, Sequence[float], Tensor, None] = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+):
+    """Exact: per-label lists of curves; binned: ``(L, T + 1)`` precision and recall and the thresholds."""
+    if validate_args:
+        _validate_thresholds(thresholds)
+    device = input_device(preds)
+    p, t, w = _multilabel_prc_format(to_tensor(preds, device), to_tensor(target, device), num_labels, ignore_index)
+    thr = _adjust_threshold_arg(thresholds, device)
+    if thr is None:
+        return _column_curve_lists(p, t, w)
+    return _binned_curves(_binned_confmat_multilabel(p, t, w, thr), thr)
+
+
+def precision_recall_curve(
+    preds: Tensor,
+    target: Tensor,
+    task: str,
+    thresholds: Union[int, Sequence[float], Tensor, None] = None,
+    num_classes: Optional[int] = None,
+    num_labels: Optional[int] = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+):
+    task = str(task)
+    if task == "binary":
+        return binary_precision_recall_curve(preds, target, thresholds, ignore_index, validate_args)
+    if task == "multiclass":
+        if not isinstance(num_classes, int):
+            raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)}` was passed.`")
+        return multiclass_precision_recall_curve(preds, target, num_classes, thresholds, ignore_index, validate_args)
+    if task == "multilabel":
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)}` was passed.`")
+        return multilabel_precision_recall_curve(preds, target, num_labels, thresholds, ignore_index, validate_args)
+    raise ValueError(f"Unsupported task `{task}` passed to `precision_recall_curve`.")

@@ -230,13 +230,34 @@ def plan_for_metrics(metrics: Sequence[Any], states: Sequence[Mapping[str, Any]]
     return build_sync_plan([_metric_entry(m, s) for m, s in zip(metrics, states)])
 
 
+def _own_sync(metric: Any) -> bool:
+    """True for a metric whose ``sync_states`` replaces the leaf-wise sync (Pearson's moments)."""
+    from torchmetrics_tpu_torch.core.metric import Metric
+
+    return isinstance(metric, Metric) and type(metric).sync_states is not Metric.sync_states
+
+
 def coalesced_metric_sync(
     metrics: Sequence[Any],
     states: Sequence[Mapping[str, Any]],
     compression: Optional[Any] = None,
     weight: Optional[Any] = None,
 ) -> List[State]:
-    """Sync several metrics' states with ONE cross-metric bucket plan."""
+    """Sync several metrics' states with ONE cross-metric bucket plan.
+
+    A metric that overrides ``sync_states`` (its leaves do not combine one by
+    one) is synced by its own method after the plan, in the given order, so
+    every rank issues the same collectives.
+    """
     _unported(compression=compression)
-    subs = [_metric_entry(m, s)[1] for m, s in zip(metrics, states)]
-    return apply_sync_plan(plan_for_metrics(metrics, states), subs, weight=weight)
+    leaf_wise = [i for i, m in enumerate(metrics) if not _own_sync(m)]
+    subs = [_metric_entry(metrics[i], states[i])[1] for i in leaf_wise]
+    synced = apply_sync_plan(plan_for_metrics([metrics[i] for i in leaf_wise], [states[i] for i in leaf_wise]),
+                             subs, weight=weight)
+    out: List[State] = [None] * len(metrics)  # type: ignore[list-item]
+    for i, st in zip(leaf_wise, synced):
+        out[i] = st
+    for i, m in enumerate(metrics):
+        if out[i] is None:
+            out[i] = m.sync_states(states[i], weight=weight)
+    return out

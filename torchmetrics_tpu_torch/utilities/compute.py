@@ -20,6 +20,13 @@ def _safe_divide(num: Tensor, denom: Tensor, zero_division: float = 0.0) -> Tens
     return torch.where(zero_mask, torch.full_like(safe_denom, zero_division), num / safe_denom)
 
 
+def _safe_xlogy(x: Tensor, y: Tensor) -> Tensor:
+    """``x * log(y)``, 0 where ``x == 0`` whatever ``y`` is (``jax.scipy.special.xlogy``;
+    ``torch.xlogy`` gives NaN there for a NaN ``y``)."""
+    nonzero = x != 0
+    return torch.where(nonzero, x * torch.log(torch.where(nonzero, y, torch.ones_like(y))), torch.zeros_like(x))
+
+
 def _adjust_weights_safe_divide(
     score: Tensor, average: Optional[str], multilabel: bool, tp: Tensor, fp: Tensor, fn: Tensor,
     top_k: int = 1,
