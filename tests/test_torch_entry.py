@@ -269,13 +269,29 @@ def test_port_imports_no_jax_at_run_time():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+REST_OF_CLASSIFICATION = ("calibration_error", "hinge", "exact_match", "ranking", "group_fairness", "dice",
+                          "fixed_operating_point")
+
+
 def test_isolation_covers_every_new_module():
     modules = set(_port_modules())
     for name in ("aggregation", "classification.roc", "functional.classification.auroc",
                  "functional.classification.roc", "functional.regression.correlation",
                  "functional.regression.variance", "regression.correlation", "regression.variance",
-                 "regression.distribution"):
+                 "regression.distribution", "utilities.enums", "utilities.checks", "utilities.formatting",
+                 "kernels.calibration", "kernels.ranking",
+                 *(f"{pkg}.{m}" for m in REST_OF_CLASSIFICATION for pkg in ("classification", "functional.classification"))):
         assert f"torchmetrics_tpu_torch.{name}" in modules
+
+
+@pytest.mark.parametrize("source", ["calibration", "ranking"])
+def test_kernel_sources_are_plain_cuda_with_a_c_interface(source):
+    """The kernels build with nvcc alone and bind through ctypes: no PyTorch, JAX or Python headers."""
+    text = (PACKAGE / "csrc" / f"{source}.cu").read_text()
+    includes = [line.split()[1] for line in text.splitlines() if line.startswith("#include")]
+    assert includes and all(inc.startswith("<cuda") or inc in ("<climits>", "<cstdint>") for inc in includes), includes
+    assert f'extern "C" int {source}_' in text
+    assert "torchmetrics_tpu/functional/classification/" in text  # names the JAX site it replaces
 
 
 def _imported_roots(path):

@@ -1,5 +1,6 @@
 """Classification metrics of the port: the stat-scores and confusion-matrix families and
-the curve family (precision-recall curve, ROC, AUROC, average precision) for the three tasks."""
+the curve family (precision-recall curve, ROC, AUROC, average precision) for the three tasks, calibration
+error, hinge loss, exact match, multilabel ranking, group fairness, Dice and the fixed operating points."""
 
 from torchmetrics_tpu_torch.classification.accuracy import (
     Accuracy,
@@ -14,6 +15,11 @@ from torchmetrics_tpu_torch.classification.average_precision import (
     MulticlassAveragePrecision,
     MultilabelAveragePrecision,
 )
+from torchmetrics_tpu_torch.classification.calibration_error import (
+    BinaryCalibrationError,
+    CalibrationError,
+    MulticlassCalibrationError,
+)
 from torchmetrics_tpu_torch.classification.cohen_kappa import BinaryCohenKappa, CohenKappa, MulticlassCohenKappa
 from torchmetrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
@@ -21,6 +27,8 @@ from torchmetrics_tpu_torch.classification.confusion_matrix import (
     MulticlassConfusionMatrix,
     MultilabelConfusionMatrix,
 )
+from torchmetrics_tpu_torch.classification.dice import Dice
+from torchmetrics_tpu_torch.classification.exact_match import ExactMatch, MulticlassExactMatch, MultilabelExactMatch
 from torchmetrics_tpu_torch.classification.f_beta import (
     BinaryF1Score,
     BinaryFBetaScore,
@@ -31,12 +39,32 @@ from torchmetrics_tpu_torch.classification.f_beta import (
     MultilabelF1Score,
     MultilabelFBetaScore,
 )
+from torchmetrics_tpu_torch.classification.fixed_operating_point import (
+    BinaryPrecisionAtFixedRecall,
+    BinaryRecallAtFixedPrecision,
+    BinarySensitivityAtSpecificity,
+    BinarySpecificityAtSensitivity,
+    MulticlassPrecisionAtFixedRecall,
+    MulticlassRecallAtFixedPrecision,
+    MulticlassSensitivityAtSpecificity,
+    MulticlassSpecificityAtSensitivity,
+    MultilabelPrecisionAtFixedRecall,
+    MultilabelRecallAtFixedPrecision,
+    MultilabelSensitivityAtSpecificity,
+    MultilabelSpecificityAtSensitivity,
+    PrecisionAtFixedRecall,
+    RecallAtFixedPrecision,
+    SensitivityAtSpecificity,
+    SpecificityAtSensitivity,
+)
+from torchmetrics_tpu_torch.classification.group_fairness import BinaryFairness, BinaryGroupStatRates
 from torchmetrics_tpu_torch.classification.hamming import (
     BinaryHammingDistance,
     HammingDistance,
     MulticlassHammingDistance,
     MultilabelHammingDistance,
 )
+from torchmetrics_tpu_torch.classification.hinge import BinaryHingeLoss, HingeLoss, MulticlassHingeLoss
 from torchmetrics_tpu_torch.classification.jaccard import (
     BinaryJaccardIndex,
     JaccardIndex,
@@ -71,6 +99,11 @@ from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     MultilabelPrecisionRecallCurve,
     PrecisionRecallCurve,
 )
+from torchmetrics_tpu_torch.classification.ranking import (
+    MultilabelCoverageError,
+    MultilabelRankingAveragePrecision,
+    MultilabelRankingLoss,
+)
 from torchmetrics_tpu_torch.classification.roc import ROC, BinaryROC, MulticlassROC, MultilabelROC
 from torchmetrics_tpu_torch.classification.specificity import (
     BinarySpecificity,
@@ -92,48 +125,69 @@ __all__ = [
     "BinaryAccuracy",
     "BinaryAUROC",
     "BinaryAveragePrecision",
+    "BinaryCalibrationError",
     "BinaryCohenKappa",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
+    "BinaryFairness",
     "BinaryFBetaScore",
+    "BinaryGroupStatRates",
     "BinaryHammingDistance",
+    "BinaryHingeLoss",
     "BinaryJaccardIndex",
     "BinaryMatthewsCorrCoef",
     "BinaryNegativePredictiveValue",
     "BinaryPrecision",
+    "BinaryPrecisionAtFixedRecall",
     "BinaryPrecisionRecallCurve",
     "BinaryRecall",
+    "BinaryRecallAtFixedPrecision",
     "BinaryROC",
+    "BinarySensitivityAtSpecificity",
     "BinarySpecificity",
+    "BinarySpecificityAtSensitivity",
     "BinaryStatScores",
+    "CalibrationError",
     "CohenKappa",
     "ConfusionMatrix",
+    "Dice",
+    "ExactMatch",
     "F1Score",
     "FBetaScore",
     "HammingDistance",
+    "HingeLoss",
     "JaccardIndex",
     "MatthewsCorrCoef",
     "MulticlassAccuracy",
     "MulticlassAUROC",
     "MulticlassAveragePrecision",
+    "MulticlassCalibrationError",
     "MulticlassCohenKappa",
     "MulticlassConfusionMatrix",
+    "MulticlassExactMatch",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
     "MulticlassHammingDistance",
+    "MulticlassHingeLoss",
     "MulticlassJaccardIndex",
     "MulticlassMatthewsCorrCoef",
     "MulticlassNegativePredictiveValue",
     "MulticlassPrecision",
+    "MulticlassPrecisionAtFixedRecall",
     "MulticlassPrecisionRecallCurve",
     "MulticlassRecall",
+    "MulticlassRecallAtFixedPrecision",
     "MulticlassROC",
+    "MulticlassSensitivityAtSpecificity",
     "MulticlassSpecificity",
+    "MulticlassSpecificityAtSensitivity",
     "MulticlassStatScores",
     "MultilabelAccuracy",
     "MultilabelAUROC",
     "MultilabelAveragePrecision",
     "MultilabelConfusionMatrix",
+    "MultilabelCoverageError",
+    "MultilabelExactMatch",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
     "MultilabelHammingDistance",
@@ -141,16 +195,26 @@ __all__ = [
     "MultilabelMatthewsCorrCoef",
     "MultilabelNegativePredictiveValue",
     "MultilabelPrecision",
+    "MultilabelPrecisionAtFixedRecall",
     "MultilabelPrecisionRecallCurve",
+    "MultilabelRankingAveragePrecision",
+    "MultilabelRankingLoss",
     "MultilabelRecall",
+    "MultilabelRecallAtFixedPrecision",
     "MultilabelROC",
+    "MultilabelSensitivityAtSpecificity",
     "MultilabelSpecificity",
+    "MultilabelSpecificityAtSensitivity",
     "MultilabelStatScores",
     "NegativePredictiveValue",
     "Precision",
+    "PrecisionAtFixedRecall",
     "PrecisionRecallCurve",
     "Recall",
+    "RecallAtFixedPrecision",
     "ROC",
+    "SensitivityAtSpecificity",
     "Specificity",
+    "SpecificityAtSensitivity",
     "StatScores",
 ]

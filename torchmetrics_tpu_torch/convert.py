@@ -7,8 +7,11 @@ arrays); :func:`state_from_jax` checks it against the port metric's spec and
 places it on the metric's device. A synced JAX state loads the same way.
 Every state kind of the port carries over: int32 counters and binned curve
 states, float32 sums, the cat lists of the exact curves, ``CatMetric`` and
-the rank correlations, Pearson's moments, and the aggregators' values and
-ring buffers (with their ``_n`` counter, which picks the next slot).
+the rank correlations, Pearson's moments, the aggregators' values and
+ring buffers (with their ``_n`` counter, which picks the next slot), the
+calibration bins (``conf_sum`` float32, ``acc_sum`` and ``count`` int32),
+the fairness counters (float32 per group), the hinge and ranking sums and
+the exact-match sums or samplewise cat list.
 :func:`collection_states_from_jax` does it for every member state of a
 ``MetricCollection`` (``{leader name: state}``).
 """
