@@ -51,9 +51,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    at C = 2, 3, 31, 33, 1001 and 2000, ``n_bins`` = 1, 15, 100 and the limit
    1023, with NaN, tie, +-inf, one-hot and bin-edge rows, ignored rows,
    float16 and bfloat16 scores and an empty batch: integer states equal (but
-   for rows whose normalized confidence lies within 1e-5 of a bin edge,
-   counted and printed), ``conf_sum`` within 1e-5 relative (and 1e-6
-   absolute, for bins that hold almost nothing), and two launches
+   that a row whose normalized confidence lies within 1e-5 of a bin edge,
+   counted and printed, may move one count between the edge's two bins),
+   ``conf_sum`` within 1e-5 relative (and 1e-6 absolute, for bins that hold
+   almost nothing; plus such a row's confidence in those two bins), and two launches
    identical bit for bit; ``ranking_pairs``, the per-sample coverage, LRAP and
    ranking loss, against its plain version for each measure at MS-COCO's batch
    (256 x 80), (32, 1000) and (64, 4096) (the timed rows, beside the plain
@@ -551,29 +552,49 @@ def _ce_case(n, c, gen, logits=False, dtype=torch.float32, edits=()):
     return scores.to(dtype).contiguous(), target
 
 
-def _ce_edge_rows(conf: torch.Tensor, n_bins: int, preds: torch.Tensor) -> int:
-    """Rows whose plain confidence lies within EDGE_TOL of a bin edge (k / n_bins), where the
-    batch is normalized; raw confidences are binned by the same float32 arithmetic: none."""
+def _ce_edge_slack(preds: torch.Tensor, target: torch.Tensor, num_classes, n_bins: int, ignore_index=None):
+    """What the rows on a bin edge may move, a bin: ``(edge rows, rows a bin, confidence a bin)``.
+
+    A counted row whose plain confidence lies within EDGE_TOL of an edge k / n_bins may land in
+    bin k - 1 or k (the kernel's ``expf`` and sum order against PyTorch's), so it adds one row
+    and its confidence to the slack of both bins. Where the batch is not normalized both bin the
+    same float32 confidence: no slack."""
+    ce = importlib.import_module("torchmetrics_tpu_torch.functional.classification.calibration_error")
+    if num_classes is None:
+        conf, _, weights = ce._binary_ce_confidences(preds, target, ignore_index)
+    else:
+        conf, _, weights = ce._multiclass_ce_confidences(preds, target, num_classes, ignore_index)
+    rows = torch.zeros((n_bins + 1,), dtype=torch.float64)
+    confs = torch.zeros_like(rows)
     if not bool(((preds < 0) | (preds > 1)).any()):
-        return 0
-    scaled = conf.double() * n_bins
-    return int(((scaled - scaled.round()).abs() < EDGE_TOL * n_bins).sum())
+        return 0, rows, confs
+    scaled = conf.double().cpu() * n_bins
+    edge = scaled.round()
+    near = ((scaled - edge).abs() < EDGE_TOL * n_bins) & (weights.cpu() > 0)
+    edge, near_conf = edge[near].long(), conf.double().cpu()[near]
+    for b in (edge - 1, edge):
+        inside = (b >= 0) & (b <= n_bins)
+        rows.index_add_(0, b[inside], torch.ones_like(near_conf[inside]))
+        confs.index_add_(0, b[inside], near_conf[inside])
+    return int(near.sum()), rows, confs
 
 
-def _ce_compare(label, got, want, edge_rows) -> float:
-    """Integer states equal (or apart by at most the rows on a bin edge); conf_sum within 1e-5 relative
-    (plus the confidences of those rows); NaN where the plain version has NaN. Returns the max abs error."""
-    (gc, ga, gn), (wc, wa, wn) = got, want
+def _ce_state_check(label, got, want, slack) -> float:
+    """The kernel's ``(conf_sum, acc_sum, count)`` against the plain version's: each integer bin
+    equal but for its slack rows (``_ce_edge_slack``), with equal totals; each ``conf_sum`` bin
+    within 1e-5 relative plus its slack confidence, NaN where the plain version has NaN.
+    Returns the max abs error of ``conf_sum``."""
+    (gc, ga, gn), (wc, wa, wn) = [[x.cpu() for x in t] for t in (got, want)]
+    _, rows, confs = slack
     for name, g, w in (("acc_sum", ga, wa), ("count", gn, wn)):
-        if edge_rows == 0:
-            check(torch.equal(g, w), f"calibration_bins {name} differs from plain ({label})")
-        else:
-            moved = int((g - w).abs().sum())
-            check(moved <= 2 * edge_rows, f"calibration_bins {name} differs by {moved} with {edge_rows} edge rows ({label})")
+        off = (g.long() - w.long()).abs()
+        check(bool((off <= rows).all()) and int(g.long().sum()) == int(w.long().sum()),
+              f"calibration_bins {name} differs from plain by {off.tolist()} where the edge rows allow "
+              f"{rows.long().tolist()} ({label})")
     check(torch.equal(gc.isnan(), wc.isnan()), f"calibration_bins conf_sum NaN placement differs ({label})")
     finite = ~wc.isnan()
-    err = (gc[finite] - wc[finite]).abs()
-    allowed = 1e-5 * wc[finite].abs() + 1.0 * edge_rows + 1e-6
+    err = (gc[finite].double() - wc[finite].double()).abs()
+    allowed = 1e-5 * wc[finite].double().abs() + confs[finite] + 1e-6
     check(bool((err <= allowed).all()), f"calibration_bins conf_sum differs ({label}): max abs err {float(err.max())}")
     return float(err.max()) if err.numel() else 0.0
 
@@ -639,13 +660,10 @@ def phase_calibration_kernel(flush: torch.Tensor) -> list:
         again = kce.calibration_bins(*state, preds, target, c, ignore_index)
         want = ce._calibration_accumulate_plain(state, preds, target, c, ignore_index)
         torch.cuda.synchronize()
-        if c is None:
-            conf = ce._binary_ce_confidences(preds, target, ignore_index)[0]
-        else:
-            conf = ce._multiclass_ce_confidences(preds, target, c, ignore_index)[0]
-        edge_rows = _ce_edge_rows(conf, n_bins, preds)
+        slack = _ce_edge_slack(preds, target, c, n_bins, ignore_index)
+        edge_rows = slack[0]
         label = f"{what}: preds {tuple(preds.shape)} {str(preds.dtype)[6:]}, n_bins {n_bins}, ignore_index {ignore_index}"
-        err = _ce_compare(label, got, want, edge_rows)
+        err = _ce_state_check(label, got, want, slack)
         check(all(torch.equal(g.view(torch.int32), a.view(torch.int32)) for g, a in zip(got, again)),
               f"calibration_bins is not deterministic bit for bit ({label})")
         added = int((want[2] - state[2]).sum())
@@ -689,8 +707,9 @@ def phase_calibration_kernel(flush: torch.Tensor) -> list:
               f"{nbytes} bytes, {nops} ops), {edge_rows} rows within {EDGE_TOL} of a bin edge, conf_sum max abs err "
               f"{err:.3g}, bit-identical over repeated launches, library_ms: none")
         rows.append(row)
-    print(f"[kernel] calibration_bins: integer states equal to the plain version (but for the edge rows counted), "
-          f"conf_sum within 1e-5 relative and bit-identical over repeated launches on all {len(cases)} cases: "
+    print(f"[kernel] calibration_bins: integer states equal to the plain version (but for the rows counted within "
+          f"{EDGE_TOL} of a bin edge, each only in its two bins), conf_sum within 1e-5 relative (plus those rows' "
+          f"confidences in their bins) and bit-identical over repeated launches on all {len(cases)} cases: "
           + "; ".join(f"{r['what']} ({r['edge_rows']} edge rows)" for r in rows if "ms" not in r))
     return rows
 
@@ -770,9 +789,12 @@ def phase_ranking_kernel(flush: torch.Tensor) -> list:
                 rows.append({"case": label, "what": f"{measure}, {what}", "max_abs_err": err,
                              "plan": geometry._asdict() if geometry else None})
                 continue
-            pairs_ops = {"lrap": 3 * n * labels * labels, "loss": 2 * n * labels * labels, "coverage": 2 * n * labels}
+            # least work: read the scores and targets once and write a value a row; LRAP and the loss
+            # need each label's count of valid, relevant or irrelevant labels scored at or above it,
+            # which a sort of the row (L ceil(log2 L) compares) and a scan give; coverage a min and a count
+            sort_ops = n * labels * max(1, math.ceil(math.log2(labels)))
+            nops = {"lrap": sort_ops, "loss": sort_ops, "coverage": 2 * n * labels}[measure]
             nbytes = n * labels * (4 + target.element_size()) + 4 * n
-            nops = pairs_ops[measure]
             bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_OPS_PER_S * 1e3
             kernel = lambda p_, t_: krk.ranking_pairs(p_, t_, measure, ignore_index)  # noqa: E731
             kernel_ms = time_ms(lambda: kernel(preds, target), flush)
@@ -1943,26 +1965,23 @@ def _cpu(x):
     return x.cpu() if isinstance(x, torch.Tensor) else x
 
 
-def _assert_same(tag: str, got, want, rtol: float = FLOAT_RTOL, atol: float = FLOAT_ATOL, slack: float = 0) -> int:
+def _assert_same(tag: str, got, want, rtol: float = FLOAT_RTOL, atol: float = FLOAT_ATOL) -> int:
     """``got`` (the card) against ``want`` (the CPU path): integer tensors equal, float ones
-    within ``rtol`` / ``atol`` (NaNs in place); returns the tensors compared. ``slack`` is
-    what rows on a bin edge may move: integer tensors may differ by that much in all, float
-    ones by that much more a value."""
+    within ``rtol`` / ``atol`` (NaNs in place); returns the tensors compared."""
     if isinstance(want, dict):
         check(set(got) == set(want), f"{tag}: keys {sorted(got)} vs {sorted(want)}")
-        return sum(_assert_same(f"{tag}.{k}", got[k], want[k], rtol, atol, slack) for k in want)
+        return sum(_assert_same(f"{tag}.{k}", got[k], want[k], rtol, atol) for k in want)
     if isinstance(want, (tuple, list)):
         check(len(got) == len(want), f"{tag}: {len(got)} items vs {len(want)}")
-        return sum(_assert_same(f"{tag}[{i}]", g, w, rtol, atol, slack) for i, (g, w) in enumerate(zip(got, want)))
+        return sum(_assert_same(f"{tag}[{i}]", g, w, rtol, atol) for i, (g, w) in enumerate(zip(got, want)))
     got = got.cpu()
     check(got.dtype == want.dtype and got.shape == want.shape,
           f"{tag}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
     if not want.dtype.is_floating_point:
-        moved = int((got.long() - want.long()).abs().sum())
-        check(moved <= slack, f"{tag} differs between the card and the CPU by {moved} (slack {slack})")
+        check(torch.equal(got, want), f"{tag} differs between the card and the CPU")
     else:
         try:
-            torch.testing.assert_close(got, want, rtol=rtol, atol=atol + slack, equal_nan=True)
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol, equal_nan=True)
         except AssertionError as err:
             check(False, f"{tag}: card and CPU differ: {err}")
     return 1
@@ -1975,12 +1994,14 @@ def _value_summary(value):
 
 
 def _curve_leg(leg, make, batches, kernels, rtol: float = FLOAT_RTOL, atol: float = FLOAT_ATOL,
-               int_slack=None) -> dict:
+               state_checks=None) -> dict:
     """Drive ``batches()`` (``(args, kwargs)`` of card tensors) through ``make("cuda", groups)``,
     the compute groups formed on the first batch by a probe collection, so that every batch
     runs one update a group; the launches of ``kernels`` are counted from 0 over this run
     only. The first batches run again on the CPU path: the states and the values after them
-    must match (``int_slack``: ``{member name prefix: slack}``, see ``_assert_same``)."""
+    must match. ``state_checks`` (``{member name prefix: check(tag, card state, CPU state)}``)
+    holds those members' states instead, and their values against the CPU path's compute of
+    the card's state."""
     batch_iter = batches()
     first = next(batch_iter)
     probe = make("cuda", True)
@@ -2014,11 +2035,16 @@ def _curve_leg(leg, make, batches, kernels, rtol: float = FLOAT_RTOL, atol: floa
     cpu_values = {name: m.compute() for name, m in cpu_col.items(keep_base=True)}
     compared = 0
     for name in early:
-        slack = next((v for k, v in (int_slack or {}).items() if name.startswith(k)), 0)
-        compared += _assert_same(f"[{leg}] {name} state after {CPU_RERUN_BATCHES} batches", early[name],
-                                 cpu_states[name], rtol, atol, slack)
-        compared += _assert_same(f"[{leg}] {name} value after {CPU_RERUN_BATCHES} batches",
-                                 col[name].compute_state(early[name]), cpu_values[name], rtol, atol, slack)
+        tag = f"[{leg}] {name} after {CPU_RERUN_BATCHES} batches"
+        state_check = next((v for k, v in (state_checks or {}).items() if name.startswith(k)), None)
+        if state_check is None:
+            compared += _assert_same(f"{tag}: state", early[name], cpu_states[name], rtol, atol)
+            want = cpu_values[name]
+        else:
+            state_check(f"{tag}: state", early[name], cpu_states[name])
+            compared += len(early[name])
+            want = cpu_col[name].compute_state({k: _cpu(v) for k, v in early[name].items()})
+        compared += _assert_same(f"{tag}: value", col[name].compute_state(early[name]), want, rtol, atol)
     return {
         "batches": i + 1, "groups": groups, "launches": launches, "leg_s": leg_s,
         "update_ms_median": statistics.median(times), "compute_ms": compute_ms,
@@ -2250,7 +2276,7 @@ def _rest_imagenet(device, compute_groups):
         "hinge_ova": tc.MulticlassHingeLoss(multiclass_mode="one-vs-all", **kw),
         "exact": tc.MulticlassExactMatch(**kw),
         "dice": tc.Dice(**kw),
-        "recall_at_p50": tc.MulticlassRecallAtFixedPrecision(min_precision=0.5, thresholds=20, **kw),
+        "recall_at_p50": tc.MulticlassRecallAtFixedPrecision(min_value=0.5, thresholds=20, **kw),
     }, compute_groups=compute_groups)
 
 
@@ -2262,8 +2288,8 @@ def _rest_coco(device, compute_groups):
     return MetricCollection({
         "coverage": tc.MultilabelCoverageError(**kw), "lrap": tc.MultilabelRankingAveragePrecision(**kw),
         "ranking_loss": tc.MultilabelRankingLoss(**kw), "exact": tc.MultilabelExactMatch(**kw),
-        "recall_at_p50": tc.MultilabelRecallAtFixedPrecision(min_precision=0.5, thresholds=ML_THRESHOLDS, **kw),
-        "precision_at_r50": tc.MultilabelPrecisionAtFixedRecall(min_recall=0.5, thresholds=ML_THRESHOLDS, **kw),
+        "recall_at_p50": tc.MultilabelRecallAtFixedPrecision(min_value=0.5, thresholds=ML_THRESHOLDS, **kw),
+        "precision_at_r50": tc.MultilabelPrecisionAtFixedRecall(min_value=0.5, thresholds=ML_THRESHOLDS, **kw),
     }, compute_groups=compute_groups)
 
 
@@ -2274,8 +2300,8 @@ def _rest_binary(device, compute_groups):
     return MetricCollection({
         "ece": tc.BinaryCalibrationError(n_bins=CE_BINS, device=device),
         "hinge": tc.BinaryHingeLoss(device=device), "hinge_sq": tc.BinaryHingeLoss(squared=True, device=device),
-        "sens_at_spec90": tc.BinarySensitivityAtSpecificity(min_specificity=0.9, device=device),
-        "spec_at_sens90": tc.BinarySpecificityAtSensitivity(min_sensitivity=0.9, thresholds=BIN_THRESHOLDS,
+        "sens_at_spec90": tc.BinarySensitivityAtSpecificity(min_value=0.9, device=device),
+        "spec_at_sens90": tc.BinarySpecificityAtSensitivity(min_value=0.9, thresholds=BIN_THRESHOLDS,
                                                             device=device),
     }, compute_groups=compute_groups)
 
@@ -2312,7 +2338,6 @@ def phase_rest() -> dict:
     from torchmetrics_tpu_torch.kernels.calibration import calibration_bins
     from torchmetrics_tpu_torch.kernels.ranking import ranking_pairs
 
-    ce = importlib.import_module("torchmetrics_tpu_torch.functional.classification.calibration_error")
     kernels = (calibration_bins, ranking_pairs, binned_confmat_multiclass, binned_confmat_multilabel)
     n_batches = -(-N_SAMPLES // BATCH)
     record = {}
@@ -2320,11 +2345,13 @@ def phase_rest() -> dict:
     for form in ("probabilities", "logits"):
         scores = probs if form == "probabilities" else torch.log(probs)
         batches = lambda: (((scores[s:s + BATCH], target[s:s + BATCH]), {}) for s in range(0, N_SAMPLES, BATCH))  # noqa: E731
-        first = scores[:CPU_RERUN_BATCHES * BATCH].cpu()
-        edge_rows = _ce_edge_rows(ce._multiclass_ce_confidences(first, target[:len(first)].cpu(), N_CLASSES, None)[0],
-                                  CE_BINS, first)
-        slack = {"ece_": 2 * edge_rows}
-        leg = _curve_leg(f"imagenet {form}", _rest_imagenet, batches, kernels, REST_RTOL, REST_ATOL, slack)
+        rows = CPU_RERUN_BATCHES * BATCH
+        slack = _ce_edge_slack(scores[:rows], target[:rows], N_CLASSES, CE_BINS)
+        edge_rows = slack[0]
+        ece_state = lambda tag, g, w: _ce_state_check(  # noqa: E731
+            tag, [g[k] for k in ("conf_sum", "acc_sum", "count")], [w[k] for k in ("conf_sum", "acc_sum", "count")], slack)
+        leg = _curve_leg(f"imagenet {form}", _rest_imagenet, batches, kernels, REST_RTOL, REST_ATOL,
+                         {"ece_": ece_state} if edge_rows else None)
         ce_groups = sum(1 for g in leg["groups"] if any(m.startswith("ece_") for m in g))
         want = {"calibration_bins": n_batches * ce_groups, "ranking_pairs": 0,
                 "binned_confmat_multiclass": n_batches, "binned_confmat_multilabel": 0}

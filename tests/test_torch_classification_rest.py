@@ -400,14 +400,16 @@ def test_fixed_point_classes(name, min_arg, fn, task, thresholds):
     tm = getattr(tc, cls)(min_value=0.4, thresholds=thresholds, **kw, **CPU)
     batches = [_task_batch(task, 50 + s) for s in range(2)]
     _drive(jm, tm, batches)
-    # the constraint under its own name, and the task wrapper, over the same batches
-    named = getattr(tc, cls)(**{min_arg: 0.4}, thresholds=thresholds, **kw, **CPU)
+    # the constraint under its own name goes through the task wrapper; the task class takes
+    # `min_value` only, in both packages
+    for make, extra in ((getattr(jc, cls), {}), (getattr(tc, cls), CPU)):
+        with pytest.raises(TypeError, match="min_value"):
+            make(**{min_arg: 0.4}, thresholds=thresholds, **kw, **extra)
     wrapped = getattr(tc, name)(task=task, **{min_arg: 0.4}, thresholds=thresholds, **kw, **CPU)
     assert type(wrapped).__name__ == cls
-    for m in (named, wrapped):
-        for p, t in batches:
-            m.update(torch.from_numpy(p), torch.from_numpy(t))
-        _close(m.compute(), jm.compute())
+    for p, t in batches:
+        wrapped.update(torch.from_numpy(p), torch.from_numpy(t))
+    _close(wrapped.compute(), jm.compute())
 
 
 @pytest.mark.parametrize("task", ["binary", "multiclass", "multilabel"])
@@ -438,8 +440,8 @@ def test_fixed_point_collection_shares_the_curve_state():
     kw = {"num_labels": L, "thresholds": 11}
     jcoll = jcol.MetricCollection({"r": jc.MultilabelRecallAtFixedPrecision(min_value=0.5, **kw),
                                    "p": jc.MultilabelPrecisionAtFixedRecall(min_value=0.5, **kw)})
-    tcoll = tcol.MetricCollection({"r": tc.MultilabelRecallAtFixedPrecision(min_precision=0.5, **kw, **CPU),
-                                   "p": tc.MultilabelPrecisionAtFixedRecall(min_recall=0.5, **kw, **CPU)})
+    tcoll = tcol.MetricCollection({"r": tc.MultilabelRecallAtFixedPrecision(min_value=0.5, **kw, **CPU),
+                                   "p": tc.MultilabelPrecisionAtFixedRecall(min_value=0.5, **kw, **CPU)})
     for seed in range(3):
         p, t = _binary(80 + seed, shape=(N, L))
         jcoll.update(jnp.asarray(p), jnp.asarray(t))

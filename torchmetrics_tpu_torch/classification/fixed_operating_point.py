@@ -44,14 +44,6 @@ def _make_fixed_point_classes(curve_bases, objective_idx: int, constraint_idx: i
     """
     binary_base, multiclass_base, multilabel_base = curve_bases
 
-    def _min_value(min_value, kwargs):
-        """``min_value``, or the constraint under its own name (``min_recall=...``), as a keyword."""
-        if min_arg in kwargs:
-            if min_value is not None:
-                raise ValueError(f"Pass the constraint once: `min_value` or `{min_arg}`")
-            min_value = kwargs.pop(min_arg)
-        return min_value
-
     def _extract(curve, idx):
         return _complement(curve[idx]) if roc_based and idx == 0 else curve[idx]
 
@@ -62,9 +54,8 @@ def _make_fixed_point_classes(curve_bases, objective_idx: int, constraint_idx: i
         return _per_class(obj, con, curve[2], self.min_value, n, zero_sentinel=not roc_based)
 
     class _Binary(binary_base):  # type: ignore[misc, valid-type]
-        def __init__(self, min_value: Optional[float] = None, thresholds=None, ignore_index=None,
+        def __init__(self, min_value: float, thresholds=None, ignore_index=None,
                      validate_args: bool = True, **kwargs: Any) -> None:
-            min_value = _min_value(min_value, kwargs)
             super().__init__(thresholds=thresholds, ignore_index=ignore_index, validate_args=validate_args, **kwargs)
             if validate_args:
                 _validate_min(min_arg, min_value)
@@ -74,9 +65,8 @@ def _make_fixed_point_classes(curve_bases, objective_idx: int, constraint_idx: i
             return _point(self, super()._compute(state), None)
 
     class _Multiclass(multiclass_base):  # type: ignore[misc, valid-type]
-        def __init__(self, num_classes: int, min_value: Optional[float] = None, thresholds=None,
+        def __init__(self, num_classes: int, min_value: float, thresholds=None,
                      ignore_index=None, validate_args: bool = True, **kwargs: Any) -> None:
-            min_value = _min_value(min_value, kwargs)
             super().__init__(num_classes=num_classes, thresholds=thresholds,
                              ignore_index=ignore_index, validate_args=validate_args, **kwargs)
             if validate_args:
@@ -87,9 +77,8 @@ def _make_fixed_point_classes(curve_bases, objective_idx: int, constraint_idx: i
             return _point(self, super()._compute(state), self.num_classes)
 
     class _Multilabel(multilabel_base):  # type: ignore[misc, valid-type]
-        def __init__(self, num_labels: int, min_value: Optional[float] = None, thresholds=None,
+        def __init__(self, num_labels: int, min_value: float, thresholds=None,
                      ignore_index=None, validate_args: bool = True, **kwargs: Any) -> None:
-            min_value = _min_value(min_value, kwargs)
             super().__init__(num_labels=num_labels, thresholds=thresholds,
                              ignore_index=ignore_index, validate_args=validate_args, **kwargs)
             if validate_args:

@@ -5,7 +5,9 @@ with a plain C interface, loaded with ``ctypes``. Libraries go into the
 package's ``_build/`` directory, keyed by a hash of the source and the
 flags, so a changed source is rebuilt and an unchanged one is built once.
 Nothing is built at import: the first launch builds what it needs, and
-:func:`build` compiles several sources at once, one ``nvcc`` each.
+:func:`build` compiles several sources at once, one ``nvcc`` each. The
+launchers share :func:`cdiv`, :func:`sm_count`, :func:`zero_tickets` and
+:func:`launch_on`.
 """
 
 from __future__ import annotations
@@ -16,7 +18,10 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence, Tuple
+
+import torch
+from torch import Tensor
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / "csrc"
@@ -30,6 +35,8 @@ NVCC_FLAGS = (
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # under CUDA's default install prefix
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_sm_count: Dict[int, int] = {}
+_tickets: Dict[Tuple[int, int], Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -88,3 +95,40 @@ def load_library(name: str) -> ctypes.CDLL:
             build([name])
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_count:
+        _sm_count[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_count[index]
+
+
+def zero_tickets(device: torch.device, stream: int, n: int) -> Tensor:
+    """At least ``n`` int32 tickets of the stream, zero when a launch starts.
+
+    A kernel that merges its blocks' partials counts arriving blocks on a
+    ticket and its last block sets the ticket back to zero; launches on one
+    stream run in order, so every kernel of the port shares the stream's
+    tickets.
+    """
+    key = (device.index if device.index is not None else torch.cuda.current_device(), stream)
+    if key not in _tickets or _tickets[key].shape[0] < n:
+        _tickets[key] = torch.zeros((n,), dtype=torch.int32, device=device)
+    return _tickets[key]
+
+
+def launch_on(kernel: str, device: torch.device, fn: Callable[..., int], args: tuple) -> None:
+    """Call the library's launcher ``fn(*args)`` with ``device`` current; a CUDA error raises ``RuntimeError``."""
+    if device.index in (None, torch.cuda.current_device()):
+        err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: launch failed with CUDA error {err}")

@@ -23,7 +23,7 @@ from typing import Dict, NamedTuple
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.kernels._build import load_library
+from torchmetrics_tpu_torch.kernels._build import cdiv, launch_on, load_library, sm_count
 
 SOURCE = "binned_confmat"
 THREADS = 256  # kThreads in the source
@@ -35,7 +35,6 @@ MAX_ROWS = 2**31 - 1  # int32 counts and row indices
 _BLOCKS_PER_SM = 2
 _EPI_BLOCKS_PER_SM = 4  # epilogue blocks are 8 warps; its tail costs one load a segment above
 
-_sm_count: Dict[int, int] = {}
 _launch: Dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -68,23 +67,19 @@ def plan(n_rows: int, n_classes: int, n_thr: int, sm_count: int, one_wave: bool 
         slot_words = HIST_BUDGET // (4 * tile_c)  # int32 words of one class's bins
         if n_bins | 1 <= slot_words:  # the source pads a class's bins to an odd count
             break
-    ranges = _cdiv(n_bins, slot_words - 1)
-    per_range = _cdiv(n_bins, ranges)  # balanced ranges
-    class_tiles = _cdiv(n_classes, tile_c)
-    chunks = max(1, _cdiv(_BLOCKS_PER_SM * sm_count, class_tiles * ranges))
+    ranges = cdiv(n_bins, slot_words - 1)
+    per_range = cdiv(n_bins, ranges)  # balanced ranges
+    class_tiles = cdiv(n_classes, tile_c)
+    chunks = max(1, cdiv(_BLOCKS_PER_SM * sm_count, class_tiles * ranges))
     rows = max(n_rows, 1)
-    rows_per_block = _cdiv(rows, chunks) if one_wave else max(1, rows // chunks)
-    epi_tiles = _cdiv(n_classes, 32)
-    segments = max(1, _cdiv(_EPI_BLOCKS_PER_SM * sm_count, epi_tiles))
+    rows_per_block = cdiv(rows, chunks) if one_wave else max(1, rows // chunks)
+    epi_tiles = cdiv(n_classes, 32)
+    segments = max(1, cdiv(_EPI_BLOCKS_PER_SM * sm_count, epi_tiles))
     bins_per_warp = max(1, n_bins // (EPI_WARPS * segments))  # rounded down: at least `segments` segments
     return Plan(
-        tile_c, per_range, rows_per_block, (class_tiles, _cdiv(rows, rows_per_block), ranges),
-        bins_per_warp, (epi_tiles, _cdiv(n_bins, EPI_WARPS * bins_per_warp)),
+        tile_c, per_range, rows_per_block, (class_tiles, cdiv(rows, rows_per_block), ranges),
+        bins_per_warp, (epi_tiles, cdiv(n_bins, EPI_WARPS * bins_per_warp)),
     )
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def _launch_fn(name: str) -> ctypes._CFuncPtr:
@@ -94,13 +89,6 @@ def _launch_fn(name: str) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _launch[name] = fn
     return _launch[name]
-
-
-def _sms(device: torch.device) -> int:
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _sm_count:
-        _sm_count[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _sm_count[index]
 
 
 def _check(kernel: str, name: str, x: Tensor, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:
@@ -147,7 +135,7 @@ def _update(
     if confmat.data_ptr() % 16:
         raise ValueError(f"{kernel}: `confmat` must be 16-byte aligned")
 
-    geometry = plan(n_rows, n_cols, n_thr, _sms(device), one_wave=bool(row_shape))
+    geometry = plan(n_rows, n_cols, n_thr, sm_count(device), one_wave=bool(row_shape))
     new = torch.empty_like(confmat)
     # the two (T+1, C) histograms, their (S, C) epilogue segment sums, actpos (C,) and
     # total; the launcher zeroes them on the stream before the histogram kernel
@@ -161,13 +149,7 @@ def _update(
         geometry.bins_per_range, geometry.rows_per_block, geometry.bins_per_warp,
         torch.cuda.current_stream(device).cuda_stream,
     )
-    if device.index in (None, torch.cuda.current_device()):
-        err = _launch_fn(kernel)(*args)
-    else:
-        with torch.cuda.device(device):
-            err = _launch_fn(kernel)(*args)
-    if err != 0:
-        raise RuntimeError(f"{kernel}: launch failed with CUDA error {err}")
+    launch_on(kernel, device, _launch_fn(kernel), args)
     return new
 
 

@@ -28,12 +28,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.kernels._build import load_library
+from torchmetrics_tpu_torch.kernels._build import cdiv, launch_on, load_library, sm_count, zero_tickets
 
 SOURCE = "calibration"
 MAX_BINS = 1023  # two histograms of (n_bins + 1) x 16 bytes in a block's shared memory: 32 KB
@@ -47,8 +47,6 @@ PRED_KINDS = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 TARGET_KINDS = {torch.int32: 0, torch.int64: 1}
 MODES = {"rows": 0, "long_rows": 1, "short_rows": 2, "binary": 3}
 
-_sm_count: Dict[int, int] = {}
-_tickets: Dict[Tuple[int, int], Tensor] = {}
 _launch: Optional[ctypes._CFuncPtr] = None
 
 
@@ -66,15 +64,11 @@ def plan(n_rows: int, n_scores: Optional[int], n_bins: int, sm_count: int) -> Pl
     shared = nb * 2 * 8 + (4 * nb + 2) * 4
     cap = BLOCKS_PER_SM * sm_count
     if n_scores is None:
-        return Plan("binary", max(1, min(_cdiv(n_rows, THREADS), cap)), THREADS, shared)
+        return Plan("binary", max(1, min(cdiv(n_rows, THREADS), cap)), THREADS, shared)
     if n_scores < ROW_MIN_SCORES:
-        return Plan("short_rows", max(1, min(_cdiv(n_rows, THREADS), cap)), THREADS, shared)
+        return Plan("short_rows", max(1, min(cdiv(n_rows, THREADS), cap)), THREADS, shared)
     mode = "rows" if n_scores <= CACHED_SCORES else "long_rows"
-    return Plan(mode, max(1, min(_cdiv(n_rows, THREADS // 32), cap)), THREADS, shared)
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+    return Plan(mode, max(1, min(cdiv(n_rows, THREADS // 32), cap)), THREADS, shared)
 
 
 def _launch_fn() -> ctypes._CFuncPtr:
@@ -91,20 +85,6 @@ def _launch_fn() -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
-
-
-def _sms(device: torch.device) -> int:
-    if device.index not in _sm_count:
-        _sm_count[device.index] = torch.cuda.get_device_properties(device.index).multi_processor_count
-    return _sm_count[device.index]
-
-
-def _ticket(device: torch.device, stream: int) -> Tensor:
-    """The stream's zero ticket: launches on one stream run in order, and each last block resets it."""
-    key = (device.index, stream)
-    if key not in _tickets:
-        _tickets[key] = torch.zeros((1,), dtype=torch.int32, device=device)
-    return _tickets[key]
 
 
 def calibration_bins(
@@ -176,7 +156,7 @@ def calibration_bins(
     if n_rows == 0:
         return conf_sum.clone(), acc_sum.clone(), count.clone()
 
-    geometry = plan(n_rows, num_classes, n_bins, _sms(device))
+    geometry = plan(n_rows, num_classes, n_bins, sm_count(device))
     new_conf, new_acc, new_count = torch.empty_like(conf_sum), torch.empty_like(acc_sum), torch.empty_like(count)
     conf_part = torch.empty((geometry.blocks, 2, nb), dtype=torch.int64, device=device)
     int_part = torch.empty((geometry.blocks, 4 * nb + 3), dtype=torch.int32, device=device)
@@ -186,16 +166,10 @@ def calibration_bins(
         n_rows, num_classes or 1, n_bins, int(ignore_index is not None), int(ignore_index or 0),
         conf_sum.data_ptr(), acc_sum.data_ptr(), count.data_ptr(),
         new_conf.data_ptr(), new_acc.data_ptr(), new_count.data_ptr(),
-        conf_part.data_ptr(), int_part.data_ptr(), _ticket(device, stream).data_ptr(),
+        conf_part.data_ptr(), int_part.data_ptr(), zero_tickets(device, stream, 1).data_ptr(),
         MODES[geometry.mode], geometry.blocks, stream,
     )
-    if device.index == torch.cuda.current_device():
-        err = _launch_fn()(*args)
-    else:
-        with torch.cuda.device(device):
-            err = _launch_fn()(*args)
-    if err != 0:
-        raise RuntimeError(f"calibration_bins: launch failed with CUDA error {err}")
+    launch_on("calibration_bins", device, _launch_fn(), args)
     calibration_bins.launches += 1
     return new_conf, new_acc, new_count
 

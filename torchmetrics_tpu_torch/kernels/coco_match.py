@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.kernels._build import load_library
+from torchmetrics_tpu_torch.kernels._build import launch_on, load_library
 
 SOURCE = "coco_match"
 MAX_GTS = 256  # ground truths of one item: 8 a lane of a warp
@@ -151,10 +151,7 @@ def coco_match(
         plan.lanes, plan.gts_per_lane, plan.scans_per_block, int(plan.staged), plan.shared_bytes,
         torch.cuda.current_stream(device).cuda_stream,
     )
-    with torch.cuda.device(device):
-        err = _launch_fn()(*args)
-    if err != 0:
-        raise RuntimeError(f"coco_match: launch failed with CUDA error {err}")
+    launch_on("coco_match", device, _launch_fn(), args)
     coco_match.launches += 1
     coco_match.shapes[(n_items, n_dets, n_gts, n_areas, n_thr)] += 1
     return matched.view(torch.bool), det_ignored.view(torch.bool)

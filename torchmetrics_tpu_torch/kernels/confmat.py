@@ -25,12 +25,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.kernels._build import load_library
+from torchmetrics_tpu_torch.kernels._build import cdiv, launch_on, load_library, sm_count
 
 SOURCE = "confmat"
 MAX_INT32 = 2**31 - 1  # the kernel's cells, elements and flat indices are int32
@@ -44,7 +44,6 @@ PRED_KINDS = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.int32
 TARGET_KINDS = {torch.int32: 0, torch.int64: 1}
 MODES = {"rows": 0, "elements": 1, "labels": 2}
 
-_sm_count: Dict[int, int] = {}
 _launch: Optional[ctypes._CFuncPtr] = None
 
 
@@ -61,14 +60,10 @@ def plan(n_elements: int, n_scores: int, inner: int, n_classes: int, labels: boo
     elements of ``n_scores`` scores each (``labels``: integer predictions)."""
     shared = n_classes * n_classes <= SHARED_CELLS
     if not labels and inner == 1 and n_scores >= ROW_MIN_SCORES:
-        blocks = min(_cdiv(n_elements, ROW_THREADS // 32), ROW_BLOCKS_PER_SM * sm_count)
+        blocks = min(cdiv(n_elements, ROW_THREADS // 32), ROW_BLOCKS_PER_SM * sm_count)
         return Plan("rows", shared, max(blocks, 1), ROW_THREADS)
-    blocks = min(_cdiv(n_elements, ELEMENT_THREADS), ELEMENT_BLOCKS_PER_SM * sm_count)
+    blocks = min(cdiv(n_elements, ELEMENT_THREADS), ELEMENT_BLOCKS_PER_SM * sm_count)
     return Plan("labels" if labels else "elements", shared, max(blocks, 1), ELEMENT_THREADS)
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def _launch_fn() -> ctypes._CFuncPtr:
@@ -84,13 +79,6 @@ def _launch_fn() -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
-
-
-def _sms(device: torch.device) -> int:
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _sm_count:
-        _sm_count[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _sm_count[index]
 
 
 def _layout(state: Tensor, preds: Tensor, target: Tensor) -> tuple:
@@ -195,20 +183,14 @@ def confmat_multiclass(state: Tensor, preds: Tensor, target: Tensor, ignore_inde
         return state
 
     labels = not preds.is_floating_point()
-    geometry = plan(n_elements, n_scores, inner, n_classes, labels, _sms(device))
+    geometry = plan(n_elements, n_scores, inner, n_classes, labels, sm_count(device))
     args = (
         preds.data_ptr(), PRED_KINDS[preds.dtype], target.data_ptr(), TARGET_KINDS[target.dtype], state.data_ptr(),
         n_rows, n_scores, inner, n_classes, int(ignore_index is not None), int(ignore_index or 0),
         MODES[geometry.mode], int(geometry.shared), geometry.blocks, geometry.threads,
         torch.cuda.current_stream(device).cuda_stream,
     )
-    if device.index in (None, torch.cuda.current_device()):
-        err = _launch_fn()(*args)
-    else:
-        with torch.cuda.device(device):
-            err = _launch_fn()(*args)
-    if err != 0:
-        raise RuntimeError(f"confmat_multiclass: launch failed with CUDA error {err}")
+    launch_on("confmat_multiclass", device, _launch_fn(), args)
     confmat_multiclass.launches += 1
     return state
 

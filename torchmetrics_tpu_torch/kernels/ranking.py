@@ -18,12 +18,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.kernels._build import load_library
+from torchmetrics_tpu_torch.kernels._build import cdiv, launch_on, load_library, sm_count, zero_tickets
 
 SOURCE = "ranking"
 MEASURES = {"coverage": 0, "lrap": 1, "loss": 2}
@@ -35,8 +35,6 @@ MIN_CHUNK = 128  # labels i a block owns at least when a row is split over block
 BLOCKS_PER_SM = 2
 TARGET_KINDS = {torch.int32: 0, torch.int64: 1}
 
-_sm_count: Dict[int, int] = {}
-_tickets: Dict[Tuple[int, int], Tensor] = {}
 _launch: Optional[ctypes._CFuncPtr] = None
 
 
@@ -53,18 +51,14 @@ def plan(n_rows: int, n_labels: int, measure: str, sm_count: int) -> Plan:
     shared = n_labels * 16 + 32 * 4
     if measure == "coverage":  # O(L) a row: one block
         return Plan(1, n_labels, min(MAX_THREADS, _round32(n_labels)), shared)
-    splits = max(1, min(_cdiv(BLOCKS_PER_SM * sm_count, n_rows), _cdiv(n_labels, MIN_CHUNK)))
-    chunk = _cdiv(n_labels, splits)
-    splits = _cdiv(n_labels, chunk)
-    return Plan(splits, chunk, min(MAX_THREADS, _round32(_cdiv(chunk, OWN))), shared)
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+    splits = max(1, min(cdiv(BLOCKS_PER_SM * sm_count, n_rows), cdiv(n_labels, MIN_CHUNK)))
+    chunk = cdiv(n_labels, splits)
+    splits = cdiv(n_labels, chunk)
+    return Plan(splits, chunk, min(MAX_THREADS, _round32(cdiv(chunk, OWN))), shared)
 
 
 def _round32(n: int) -> int:
-    return max(32, 32 * _cdiv(n, 32))
+    return max(32, 32 * cdiv(n, 32))
 
 
 def _launch_fn() -> ctypes._CFuncPtr:
@@ -76,20 +70,6 @@ def _launch_fn() -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
-
-
-def _sms(device: torch.device) -> int:
-    if device.index not in _sm_count:
-        _sm_count[device.index] = torch.cuda.get_device_properties(device.index).multi_processor_count
-    return _sm_count[device.index]
-
-
-def _tickets_for(device: torch.device, stream: int, n_rows: int) -> Tensor:
-    """The stream's zero per-row tickets (at least ``n_rows``): each row's last block resets its own."""
-    key = (device.index, stream)
-    if key not in _tickets or _tickets[key].shape[0] < n_rows:
-        _tickets[key] = torch.zeros((n_rows,), dtype=torch.int32, device=device)
-    return _tickets[key]
 
 
 def ranking_pairs(preds: Tensor, target: Tensor, measure: str, ignore_index: Optional[int] = None) -> Tensor:
@@ -139,23 +119,17 @@ def ranking_pairs(preds: Tensor, target: Tensor, measure: str, ignore_index: Opt
     if n_rows == 0:
         return out
 
-    geometry = plan(n_rows, n_labels, measure, _sms(device))
+    geometry = plan(n_rows, n_labels, measure, sm_count(device))
     partial = torch.empty((n_rows, geometry.splits) if geometry.splits > 1 else (1,), dtype=torch.float32,
                           device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     args = (
         preds.data_ptr(), target.data_ptr(), TARGET_KINDS[target.dtype], n_rows, n_labels,
         int(ignore_index is not None), int(ignore_index or 0), MEASURES[measure], out.data_ptr(),
-        partial.data_ptr(), _tickets_for(device, stream, n_rows).data_ptr(), geometry.splits, geometry.chunk,
+        partial.data_ptr(), zero_tickets(device, stream, n_rows).data_ptr(), geometry.splits, geometry.chunk,
         geometry.threads, stream,
     )
-    if device.index == torch.cuda.current_device():
-        err = _launch_fn()(*args)
-    else:
-        with torch.cuda.device(device):
-            err = _launch_fn()(*args)
-    if err != 0:
-        raise RuntimeError(f"ranking_pairs: launch failed with CUDA error {err}")
+    launch_on("ranking_pairs", device, _launch_fn(), args)
     ranking_pairs.launches += 1
     return out
 
