@@ -41,10 +41,13 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    ``binned_confmat_multilabel``, the per-label binned update, is held equal
    (``torch.equal``) to its plain version at phase 8's COCO batch (256 x 80,
    T=100) and binary batch (1,024 x 1, T=200), with ignored elements, NaN and
-   +-inf scores, unsorted, duplicate, NaN and +-inf thresholds, split bin
-   ranges (T=4000), all-zero weights, L % 4 != 0 and L=1000; the two phase 8
-   shapes are timed beside ``bucketize`` + two ``bincount`` + ``flip``/``cumsum``
-   (several PyTorch calls, a yardstick); ``calibration_bins``, the fused
+   +-inf scores, unsorted, duplicate, NaN and +-inf thresholds, T=4000 and the
+   most thresholds (16,384), all-zero weights, L=81, L=1000 and two batches
+   whose row chunks the last block merges (50,000 x 80; the whole 50,000-row
+   binary set), each merged one launched twice; the two phase 8
+   shapes are profiled (exactly one kernel a call, no memset) and timed
+   beside ``bucketize`` + two ``bincount`` + ``flip``/``cumsum`` (several
+   PyTorch calls, a yardstick); ``calibration_bins``, the fused
    calibration-error update, against its plain version at ImageNet-1k's batch
    as probabilities and as logits and at the binary batch (the three timed
    rows, beside ``softmax`` + ``max`` + ``bucketize`` + three ``bincount``),
@@ -58,9 +61,11 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    identical bit for bit; ``ranking_pairs``, the per-sample coverage, LRAP and
    ranking loss, against its plain version for each measure at MS-COCO's batch
    (256 x 80), (32, 1000) and (64, 4096) (the timed rows, beside the plain
-   form), at L = 1, 31, 33 and the limit 12,288, with NaN, +-inf, tied,
-   no-relevant and all-relevant rows and ignored labels: coverage and loss
-   equal, LRAP within 1e-6 relative;
+   form and, for LRAP and the loss, ``torch.sort`` + ``gather`` + ``cumsum``,
+   a yardstick), at L = 1, 31, 33, 4097 and the limit 16,384, with NaN,
+   +-inf, tied, no-relevant and all-relevant rows, a 900-way tie in rows of
+   1,000 and ignored labels: coverage and loss equal, LRAP within 1e-6
+   relative, NaN placement equal, two launches equal bit for bit;
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
@@ -420,12 +425,26 @@ BIN_THRESHOLDS = 200  # phase 8 (iii): BinaryAUROC(thresholds=200)
 MAX_STREAM_COPIES = 200
 
 
+def _device_ops(fn) -> list:
+    """``(name, device us)`` of each device operation (kernel, memset, copy) of one call
+    of ``fn``, in launch order, by ``torch.profiler``; ``fn`` runs once before, unprofiled."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [(e.name, e.time_range.elapsed_us()) for e in sorted(events, key=lambda e: e.time_range.start)]
+
+
 def phase_multilabel_kernel(flush: torch.Tensor) -> list:
-    """``binned_confmat_multilabel`` against its plain version on the card, timed at the
-    two shapes phase 8 gives it: the COCO batch (256, 80) at T=100 (the first row) and
-    the binary batch at one label, (1024, 1) at T=200."""
+    """``binned_confmat_multilabel`` against its plain version on the card, timed and
+    profiled (one kernel a call, no memset) at the two shapes phase 8 gives it: the COCO
+    batch (256, 80) at T=100 (the first row) and the binary batch at one label, (1024, 1)
+    at T=200."""
     prc = importlib.import_module("torchmetrics_tpu_torch.functional.classification.precision_recall_curve")
-    from torchmetrics_tpu_torch.kernels import binned_confmat as kbc
+    from torchmetrics_tpu_torch.kernels import binned_multilabel as kbm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     nan, inf = float("nan"), float("inf")
@@ -441,10 +460,14 @@ def phase_multilabel_kernel(flush: torch.Tensor) -> list:
         ("one label, NaN and +-inf scores", BATCH, 1, BIN_THRESHOLDS, 0.0, ("nonfinite_scores",)),
         ("unsorted and duplicate thresholds", COCO_ML_BATCH, ML_LABELS, unsorted_dups, 0.0, ()),
         ("duplicate, NaN and +-inf thresholds", COCO_ML_BATCH, ML_LABELS, edge_list, 0.0, ()),
-        ("grid of 4000, bin ranges split", COCO_ML_BATCH, ML_LABELS, 4000, 0.0, ()),
+        ("grid of 4000", COCO_ML_BATCH, ML_LABELS, 4000, 0.0, ()),
+        ("the most thresholds, one label a block", 64, 3, kbm.MAX_THRESHOLDS, 0.1, ()),
         ("all-zero weights", COCO_ML_BATCH, ML_LABELS, ML_THRESHOLDS, 0.0, ("zero_weights",)),
-        ("L % 4 != 0, scalar loads", COCO_ML_BATCH, ML_LABELS + 1, ML_THRESHOLDS, 0.1, ()),
-        ("L=1000", BATCH, 1000, 20, 0.05, ()),
+        ("L=81", COCO_ML_BATCH, ML_LABELS + 1, ML_THRESHOLDS, 0.1, ()),
+        ("L=1000, 7 labels a block, a short last group", BATCH, 1000, 20, 0.05, ()),
+        ("8 labels a block, row chunks merged by the last block", N_SAMPLES, ML_LABELS, ML_THRESHOLDS, 0.05,
+         ("nonfinite_scores",)),
+        ("the whole binary set, row chunks merged", N_SAMPLES, 1, BIN_THRESHOLDS, 0.0, ()),
     ]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
@@ -452,10 +475,10 @@ def phase_multilabel_kernel(flush: torch.Tensor) -> list:
         p, t, w, thr, state = _multilabel_inputs(n, labels, thresholds, zero_share, edits, gen)
         n_thr = thr.shape[0]
         sorted_thr, order = prc._sort_thresholds(thr)
-        geometry = kbc.plan(n, labels, n_thr, sms, one_wave=True)  # as the launcher plans it
+        geometry = kbm.plan(n, labels, n_thr, sms)  # as the launcher plans it
         label = f"{what} N={n} L={labels} T={n_thr}"
         before = state.clone()
-        got = kbc.binned_confmat_multilabel(state, p, t, w, sorted_thr, order)
+        got = kbm.binned_confmat_multilabel(state, p, t, w, sorted_thr, order)
         want = prc._binned_confmat_multilabel_accumulate_plain(state, p, t, w, thr)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -464,8 +487,10 @@ def phase_multilabel_kernel(flush: torch.Tensor) -> list:
         added = int((want - state)[..., 1, :].sum())
         check(added > 0 or "zero_weights" in edits, f"no positive counted ({label})")
         check(added == 0 or "zero_weights" not in edits, f"zero weights counted ({label})")
-        if "split" in what:
-            check(geometry.grid[2] > 1, f"bins were not split ({label}: {geometry})")
+        check((geometry.chunks > 1) == ("merged" in what), f"row chunks ({label}: {geometry})")
+        if "merged" in what:  # a second launch: the tickets were set back to zero
+            check(torch.equal(kbm.binned_confmat_multilabel(state, p, t, w, sorted_thr, order), want),
+                  f"the merged update differs in a second launch ({label})")
         if labels == 1 and what.endswith("(b)"):  # the binary per-batch counts take the kernel on the card too
             check(torch.equal(prc._binned_curve_update(p[:, 0], t[:, 0], w[:, 0], thr),
                               prc._binned_confmat_multilabel_plain(p, t, w, thr)[:, 0]), "binary per-batch counts differ")
@@ -481,12 +506,15 @@ def phase_multilabel_kernel(flush: torch.Tensor) -> list:
         nbytes = 3 * n * labels * 4 + 2 * n_thr * 4 + 2 * n_thr * labels * 16
         nops = n * labels * math.ceil(math.log2(n_thr + 1)) + 2 * labels * (n_thr + 1)
         bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_OPS_PER_S * 1e3
-        fused = lambda s, p_, t_, w_: kbc.binned_confmat_multilabel(s, p_, t_, w_, sorted_thr, order)  # noqa: E731
+        fused = lambda s, p_, t_, w_: kbm.binned_confmat_multilabel(s, p_, t_, w_, sorted_thr, order)  # noqa: E731
+        ops = _device_ops(lambda: fused(state, p, t, w))
+        check(len(ops) == 1 and "binned_multilabel_kernel" in ops[0][0],
+              f"a multilabel update is not exactly one kernel ({label}): {ops}")
         kernel_ms = time_ms(lambda: fused(state, p, t, w), flush)
         plain_ms = time_ms(lambda: prc._binned_confmat_multilabel_accumulate_plain(state, p, t, w, thr), flush)
         bincount_ms = time_ms(lambda: _bucketize_bincount(p, t, w, sorted_thr), flush)
-        # at most MAX_STREAM_COPIES copies: a call is three device operations, and more calls than the
-        # launch queue holds would block the host behind the spin (the one-label batch's copies stay in L2)
+        # at most MAX_STREAM_COPIES copies: more calls than the launch queue holds would block the
+        # host behind the spin (the one-label batch's copies stay in L2)
         copies = min(copies_for(nbytes), MAX_STREAM_COPIES)
         sets = [(state, p, t, w)] + [tuple(x.clone() for x in (state, p, t, w)) for _ in range(copies - 1)]
         stream_ms = time_stream_ms(fused, sets, calls=len(sets) * max(1, 96 // len(sets)))
@@ -494,14 +522,15 @@ def phase_multilabel_kernel(flush: torch.Tensor) -> list:
         check(torch.equal(fused(state, p, t, w), want), f"multilabel update differs after the timed launches ({label})")
         row = {
             "case": label, "what": what, "n": n, "l": labels, "t": n_thr, "max_abs_err": err,
-            "plan": geometry._asdict(), "ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms,
-            "bucketize_bincount_ms": bincount_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "plan": geometry._asdict(), "device_ops": ops, "ms": kernel_ms, "stream_ms": stream_ms,
+            "plain_ms": plain_ms, "bucketize_bincount_ms": bincount_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes, "ops": nops,
             "library_ms": None,
         }
         print(
             f"[kernel] binned_confmat_multilabel {label}: exact, {kernel_ms:.4f} ms after an L2 flush "
-            f"({stream_ms:.4f} ms a call back to back; tile {geometry.tile_c}, grid {geometry.grid}), "
+            f"({stream_ms:.4f} ms a call back to back; one device operation, {ops[0][0]} {ops[0][1]:.3f} us "
+            f"in the profile; {geometry.labels} labels a block, grid ({geometry.groups}, {geometry.chunks})), "
             f"plain {plain_ms:.4f} ms, bucketize + 2 bincount + flip/cumsum (several calls, a yardstick) "
             f"{bincount_ms:.4f} ms, bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {nbytes} bytes, "
             f"{nops} ops), library_ms: none"
@@ -735,14 +764,25 @@ def _ranking_case(n, labels, gen, edits=(), target_dtype=torch.int32):
         scores[5::9, 0] = float("inf")
         scores[6::9, 0] = float("-inf")
         target[6::9, 0] = 1
+    if "tie900" in edits:  # 900 of the row's labels tie, relevant ones among them
+        scores[:, :900] = 0.42
     if "ignored" in edits:
         target[torch.rand((n, labels), generator=gen, device=dev) < 0.1] = -1
     return scores.contiguous(), target.contiguous()
 
 
+def _sort_gather_cumsum(preds, target):
+    """Each row's targets in descending score order, scanned: ``torch.sort`` + ``gather`` +
+    ``cumsum``, several PyTorch calls. A yardstick for the sort-and-scan kernel, not the
+    port's: the ranks still need the ends of the runs of equal scores."""
+    order = torch.sort(preds, dim=1, descending=True).indices
+    return torch.gather(target, 1, order).cumsum(1)
+
+
 def phase_ranking_kernel(flush: torch.Tensor) -> list:
     """``ranking_pairs`` against its plain version on the card for each measure, and its times
-    at MS-COCO's batch (the first three rows) and at (32, 1000) and (64, 4096)."""
+    at MS-COCO's batch (the first three rows) and at (32, 1000) and (64, 4096), LRAP and the
+    loss beside the ``_sort_gather_cumsum`` yardstick."""
     from torchmetrics_tpu_torch.kernels import ranking as krk
 
     rk = importlib.import_module("torchmetrics_tpu_torch.functional.classification.ranking")
@@ -755,6 +795,8 @@ def phase_ranking_kernel(flush: torch.Tensor) -> list:
         ("L=1", 256, 1, (), None, False),
         ("L=31", 256, 31, ("edge_rows",), None, False),
         ("L=33", 256, 33, ("edge_rows",), None, False),
+        ("L=4097, one past a power of two", 16, 4097, ("edge_rows",), None, False),
+        ("(32, 1000), a 900-way tie in each row", 32, 1000, ("tie900",), None, False),
         (f"L={limit} (the limit)", 4, limit, (), None, False),
         ("COCO batch, NaN, +-inf, tie, none and all relevant rows", COCO_ML_BATCH, COCO_RANK_LABELS, ("edge_rows",),
          None, False),
@@ -800,20 +842,23 @@ def phase_ranking_kernel(flush: torch.Tensor) -> list:
             kernel_ms = time_ms(lambda: kernel(preds, target), flush)
             plain = lambda: rk._ranking_per_sample_plain(preds, target, measure, ignore_index)  # noqa: E731
             plain_ms = time_ms(plain, flush, reps=5 if labels > 1000 else 30, warmup=1)
+            yard_ms = None if measure == "coverage" else time_ms(lambda: _sort_gather_cumsum(preds, target), flush)
             copies = min(copies_for(nbytes), MAX_STREAM_COPIES)
             sets = [(preds, target)] + [(preds.clone(), target.clone()) for _ in range(copies - 1)]
             stream_ms = time_stream_ms(kernel, sets, calls=len(sets) * max(1, 96 // len(sets)))
             del sets
             row = {
                 "case": label, "what": f"{measure}, {what}", "max_abs_err": err, "plan": geometry._asdict(),
-                "ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms,
+                "ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms, "sort_gather_cumsum_ms": yard_ms,
                 "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "bytes": nbytes, "ops": nops, "library_ms": None,
             }
+            yard = "" if yard_ms is None else (f", sort + gather + cumsum (several calls, a yardstick, not the port's) "
+                                               f"{yard_ms:.4f} ms")
             print(f"[kernel] ranking_pairs {label}: {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a call "
-                  f"back to back; plan {tuple(geometry)}), plain (the JAX form, (N, L, L) temporaries; the yardstick) "
-                  f"{plain_ms:.4f} ms, bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: {nbytes} bytes, "
-                  f"{nops} ops), max abs err {err:.3g}, library_ms: none")
+                  f"back to back; plan {tuple(geometry)}), plain (the JAX form, (N, L, L) temporaries) "
+                  f"{plain_ms:.4f} ms{yard}, bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: {nbytes} "
+                  f"bytes, {nops} ops), max abs err {err:.3g}, library_ms: none")
             rows.append(row)
     print(f"[kernel] ranking_pairs: coverage and loss equal to the plain version, LRAP within 1e-6 relative, "
           f"deterministic, on all {len(shapes) * 3} cases: " + "; ".join(r["what"] for r in rows if "ms" not in r))
@@ -955,16 +1000,8 @@ def phase_main_path(kernels) -> dict:
 
 
 def _profiled_update_ops(metric, state, args):
-    """``(name, device us)`` of each device operation (kernel, memset, copy)
-    of one ``update_state``, in launch order, by ``torch.profiler``."""
-    metric.update_state(state, *args)
-    torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        metric.update_state(state, *args)
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return [(e.name, e.time_range.elapsed_us()) for e in sorted(events, key=lambda e: e.time_range.start)]
+    """``(name, device us)`` of each device operation of one ``update_state``, in launch order."""
+    return _device_ops(lambda: metric.update_state(state, *args))
 
 
 def _pipelined_pass(metrics, data):
@@ -2152,7 +2189,8 @@ def phase_curves() -> dict:
     ImageNet-1k set; (ii) the COCO-shaped multilabel curves, binned and exact; (iii) the
     binary curves over the selective-prediction rows; (iv) dense depth regression with
     the loss aggregators; then every other new class over a 10,000-row set."""
-    from torchmetrics_tpu_torch.kernels.binned_confmat import binned_confmat_multiclass, binned_confmat_multilabel
+    from torchmetrics_tpu_torch.kernels.binned_confmat import binned_confmat_multiclass
+    from torchmetrics_tpu_torch.kernels.binned_multilabel import binned_confmat_multilabel
 
     kernels = (binned_confmat_multiclass, binned_confmat_multilabel)
     n_batches = -(-N_SAMPLES // BATCH)
@@ -2334,7 +2372,8 @@ def phase_rest() -> dict:
     fixed operating points; (iii) the binary rows through calibration, hinge and two fixed
     operating points; (iv) group fairness over CelebA's test-split shape; (v) Dice's void
     error on a Cityscapes batch."""
-    from torchmetrics_tpu_torch.kernels.binned_confmat import binned_confmat_multiclass, binned_confmat_multilabel
+    from torchmetrics_tpu_torch.kernels.binned_confmat import binned_confmat_multiclass
+    from torchmetrics_tpu_torch.kernels.binned_multilabel import binned_confmat_multilabel
     from torchmetrics_tpu_torch.kernels.calibration import calibration_bins
     from torchmetrics_tpu_torch.kernels.ranking import ranking_pairs
 
@@ -2467,7 +2506,7 @@ def main() -> int:
         "binned_confmat_multiclass": "torchmetrics_tpu_torch/csrc/binned_confmat.cu",
         "coco_match": "torchmetrics_tpu_torch/csrc/coco_match.cu",
         "confmat_multiclass": "torchmetrics_tpu_torch/csrc/confmat.cu",
-        "binned_confmat_multilabel": "torchmetrics_tpu_torch/csrc/binned_confmat.cu",
+        "binned_confmat_multilabel": "torchmetrics_tpu_torch/csrc/binned_multilabel.cu",
         "calibration_bins": "torchmetrics_tpu_torch/csrc/calibration.cu",
         "ranking_pairs": "torchmetrics_tpu_torch/csrc/ranking.cu",
     }
@@ -2527,8 +2566,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in kernel_rows[name]),
             "ms": first_row["ms"], "stream_ms": first_row["stream_ms"], "plain_ms": first_row["plain_ms"],
             "bound_ms": first_row["bound_ms"], "bound_by": first_row["bound_by"], "library_ms": None,
-            **{k: first_row[k] for k in ("two_call_ms", "bucketize_bincount_ms", "softmax_bucketize_bincount_ms")
-               if k in first_row},
+            **{k: first_row[k] for k in ("two_call_ms", "bucketize_bincount_ms", "softmax_bucketize_bincount_ms",
+                                         "sort_gather_cumsum_ms") if k in first_row},
         })
     if args.json:
         with open(args.json, "w") as f:

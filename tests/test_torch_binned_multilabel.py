@@ -18,8 +18,8 @@ import torch
 
 import torchmetrics_tpu.classification as jc
 import torchmetrics_tpu_torch.classification as tc
-from torchmetrics_tpu_torch.kernels import binned_confmat as kbc
-from torchmetrics_tpu_torch.kernels.binned_confmat import binned_confmat_multilabel
+from torchmetrics_tpu_torch.kernels import binned_multilabel as kbm
+from torchmetrics_tpu_torch.kernels.binned_multilabel import binned_confmat_multilabel
 
 jprc = importlib.import_module("torchmetrics_tpu.functional.classification.precision_recall_curve")
 tprc = importlib.import_module("torchmetrics_tpu_torch.functional.classification.precision_recall_curve")
@@ -117,25 +117,38 @@ def test_metric_binned_state_equals_jax(task):
     np.testing.assert_array_equal(ts["confmat"].numpy(), np.asarray(js["confmat"]))
 
 
-PLAN_CASES = [  # (rows, labels, thresholds, tile, ranges): the main paths' shapes and a split
-    (256, 80, 100, 128, 1),  # the COCO batch
-    (1024, 1, 200, 64, 1),  # the binary batch at one label: 200 thresholds' bins fit 64 columns
-    (1020, 1, 200, 64, 1),
-    (256, 80, 16384, 32, 22),  # the most thresholds: bins split into ranges
+PLAN_CASES = [  # (rows, labels, thresholds, labels a group, row chunks)
+    (256, 80, 100, 1, 1),  # the COCO batch: 80 blocks of one label and 256 rows
+    (56, 80, 100, 1, 1),  # the last COCO batch (40,504 % 256)
+    (1024, 1, 200, 1, 1),  # the binary batch at one label: one block
+    (848, 1, 200, 1, 1),  # the last binary batch (50,000 % 1,024)
+    (1024, 1000, 20, 7, 1),  # more labels than SMs: 143 groups of 7, the last of 6
+    (200_000, 80, 100, 8, 53),  # a large batch: a sector of each row, row chunks merged by the group's last block
+    (50_000, 1, 200, 1, 4),
+    (256, 80, 4000, 1, 1),
+    (100_000, 80, 4000, 2, 13),  # 4,001 bins: two labels' histograms fit the budget
+    (256, 80, kbm.MAX_THRESHOLDS, 1, 1),  # the most thresholds: one label's 16,385 bins in one block
 ]
 
 
-@pytest.mark.parametrize(("rows", "labels", "n_thr", "tile", "ranges"), PLAN_CASES)
-def test_plan(rows, labels, n_thr, tile, ranges):
-    geometry = kbc.plan(rows, labels, n_thr, 132, one_wave=True)
-    assert geometry.tile_c == tile and geometry.grid[2] == ranges
-    assert geometry.grid[0] * geometry.tile_c >= labels
-    assert geometry.grid[1] * geometry.rows_per_block >= rows
-    # one wave: at most two blocks an SM (the one-label batch: 256 blocks of 4 rows, not 342 of 3)
-    assert geometry.grid[0] * geometry.grid[1] * geometry.grid[2] <= 2 * 132
-    assert geometry.grid[1] <= kbc.plan(rows, labels, n_thr, 132).grid[1]
-    assert geometry.bins_per_range * ranges >= n_thr + 1
-    assert geometry.epilogue_grid[1] * kbc.EPI_WARPS * geometry.bins_per_warp >= n_thr + 1
+@pytest.mark.parametrize(("rows", "labels", "n_thr", "group", "chunks"), PLAN_CASES)
+def test_plan(rows, labels, n_thr, group, chunks):
+    geometry = kbm.plan(rows, labels, n_thr, 132)
+    assert geometry.labels == group and geometry.chunks == chunks
+    assert geometry.groups * group >= labels > (geometry.groups - 1) * group
+    assert chunks * geometry.rows_per_chunk >= rows > (chunks - 1) * geometry.rows_per_chunk
+    if chunks == 1:  # every batch of the curve paths: one block a group, no merge, no scratch
+        assert rows * group <= kbm.ONE_CHUNK_ELEMENTS
+    else:  # at most BLOCKS_PER_SM blocks an SM over the grid
+        assert geometry.groups * chunks <= kbm.BLOCKS_PER_SM * 132 + geometry.groups
+    assert group <= geometry.label_lanes <= 32 and geometry.label_lanes & (geometry.label_lanes - 1) == 0
+    # every bin of a group's labels and every threshold sit in the block's shared memory, with
+    # the kernel's static 2 KB, within the card's 227 KB; the epilogue's segments cover the bins
+    bins = n_thr + 1
+    assert geometry.shared_bytes == (2 * group * (bins | 1) + bins) * 4
+    assert geometry.shared_bytes + 2048 <= 227 * 1024
+    segments = kbm.THREADS // geometry.label_lanes
+    assert segments * -(-bins // segments) >= bins
 
 
 def _good_inputs(n=8, labels=L, t=5):
@@ -168,7 +181,7 @@ BAD_INPUTS = {
     "weights_strided": (lambda: {**_good_inputs(), "weights": torch.ones((L, 8)).T}, "contiguous"),
     "confmat_other_labels": (lambda: {**_good_inputs(), "confmat": torch.zeros((5, L + 1, 2, 2), dtype=torch.int32)},
                              "shape"),
-    "too_many_thresholds": (lambda: _meta(sorted_thresholds=((kbc.MAX_THRESHOLDS + 1,), torch.float32)),
+    "too_many_thresholds": (lambda: _meta(sorted_thresholds=((kbm.MAX_THRESHOLDS + 1,), torch.float32)),
                             "thresholds"),
     "rows_2_to_the_31": (lambda: _meta(probs=((2**31, L), torch.float32)), "2\\*\\*31"),
 }
@@ -179,7 +192,7 @@ def test_launcher_refuses_before_any_build(name, monkeypatch):
     def no_build(*_):
         raise AssertionError("the launcher reached the build")
 
-    monkeypatch.setattr(kbc, "load_library", no_build)
+    monkeypatch.setattr(kbm, "load_library", no_build)
     make, match = BAD_INPUTS[name]
     launches = binned_confmat_multilabel.launches
     with pytest.raises(ValueError, match=match):

@@ -279,12 +279,12 @@ def test_isolation_covers_every_new_module():
                  "functional.classification.roc", "functional.regression.correlation",
                  "functional.regression.variance", "regression.correlation", "regression.variance",
                  "regression.distribution", "utilities.enums", "utilities.checks", "utilities.formatting",
-                 "kernels.calibration", "kernels.ranking",
+                 "kernels.calibration", "kernels.ranking", "kernels.binned_multilabel",
                  *(f"{pkg}.{m}" for m in REST_OF_CLASSIFICATION for pkg in ("classification", "functional.classification"))):
         assert f"torchmetrics_tpu_torch.{name}" in modules
 
 
-@pytest.mark.parametrize("source", ["calibration", "ranking"])
+@pytest.mark.parametrize("source", ["calibration", "ranking", "binned_multilabel"])
 def test_kernel_sources_are_plain_cuda_with_a_c_interface(source):
     """The kernels build with nvcc alone and bind through ctypes: no PyTorch, JAX or Python headers."""
     text = (PACKAGE / "csrc" / f"{source}.cu").read_text()

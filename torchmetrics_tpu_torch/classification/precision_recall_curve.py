@@ -7,9 +7,10 @@ float32, ``(N,)`` each for the binary task, ``(N, C)``, ``(N,)``, ``(N,)``
 for the multiclass one and ``(N, L)`` each for the multilabel one. With
 ``thresholds`` given (an int or a list) it is the binned int32 confusion
 tensor, ``(T, 2, 2)``, ``(T, C, 2, 2)`` or ``(T, L, 2, 2)``, ``sum``-reduced,
-which one launch of a ``csrc/binned_confmat.cu`` kernel updates on the card:
-``binned_confmat_multiclass`` for the multiclass task,
-``binned_confmat_multilabel`` for the other two. The sketch layout
+which one call of a hand CUDA kernel updates on the card:
+``binned_confmat_multiclass`` (``csrc/binned_confmat.cu``) for the
+multiclass task, ``binned_confmat_multilabel`` (``csrc/binned_multilabel.cu``)
+for the other two. The sketch layout
 (``approx="sketch"``) waits for a later slice.
 
 Example::

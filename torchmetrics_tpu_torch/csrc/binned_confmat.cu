@@ -62,22 +62,8 @@
 // Device work of one update, all on the caller's stream: a memset of the
 // scratch, the histogram kernel and the epilogue kernel.
 //
-// The second entry, binned_confmat_multilabel_launch, is the same design for
-// per-label targets: it replaces `_binned_confmat_multilabel`
-// (precision_recall_curve.py:152-164) and, at one label, the binary
-// `_binned_curve_update` (:108-125), each followed by the int32 add at
-// classification/precision_recall_curve.py:130. For every threshold t and
-// label l, over the rows n of an (N, L) batch with per-element target and weight:
-//
-//   pospred[t, l] = sum_n w[n, l] * [p[n, l] >= thr[t]]
-//   tp[t, l]      = sum_n w[n, l] * target[n, l] * [p[n, l] >= thr[t]]
-//   actpos[l]     = sum_n w[n, l] * target[n, l],   total[l] = sum_n w[n, l]
-//
-// A template parameter (kMultilabel) makes the three changes: htp takes every
-// element with a non-zero target (its weight times the target), not just the
-// row's true class; the weight is read per element; and total is per label.
-// actpos and total come from the segment sums (every weighted element lands
-// in some bin, bin 0 too), so the histogram kernel adds nothing for them.
+// The per-label update (multilabel and binary curves) is a design of its own,
+// one kernel a call: csrc/binned_multilabel.cu.
 
 #include <cuda_runtime.h>
 
@@ -106,16 +92,14 @@ __device__ __forceinline__ int column_of(int c0, int lane, int lanes, int j) {
   return c0 + (kVec ? 4 * lane + j : lane + lanes * j);
 }
 
-template <bool kMultilabel>
-struct Rows {  // the values of kRowsUnroll rows x 4 columns held by one thread
-  static constexpr int kPer = kMultilabel ? 4 : 1;  // a weight and a target a row, or an element
+struct Rows {  // the values of kRowsUnroll rows x 4 columns held by one thread, and each row's weight and target
   float v[kRowsUnroll][4];
-  int wt[kRowsUnroll][kPer];
-  int tg[kRowsUnroll][kPer];
+  int wt[kRowsUnroll];
+  int tg[kRowsUnroll];
 };
 
-template <bool kVec, bool kMultilabel>
-__device__ __forceinline__ void load_rows(Rows<kMultilabel>& r, const float* __restrict__ probs,
+template <bool kVec>
+__device__ __forceinline__ void load_rows(Rows& r, const float* __restrict__ probs,
                                           const int* __restrict__ target, const float* __restrict__ weights,
                                           long long base, long long row_end, int rows_per_pass, int n_classes, int c0,
                                           int lane, int lanes) {
@@ -123,19 +107,8 @@ __device__ __forceinline__ void load_rows(Rows<kMultilabel>& r, const float* __r
   for (int u = 0; u < kRowsUnroll; ++u) {
     const long long n = base + u * rows_per_pass;
     const bool row_ok = n < row_end;
-    if constexpr (kMultilabel) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = column_of<kVec>(c0, lane, lanes, j);
-        const size_t at = static_cast<size_t>(row_ok ? n : 0) * n_classes + col;
-        const bool ok = row_ok && col < n_classes;
-        r.wt[u][j] = ok ? static_cast<int>(__ldg(weights + at)) : 0;
-        r.tg[u][j] = ok ? __ldg(target + at) : 0;
-      }
-    } else {
-      r.wt[u][0] = row_ok ? static_cast<int>(weights[n]) : 0;
-      r.tg[u][0] = row_ok ? target[n] : -1;
-    }
+    r.wt[u] = row_ok ? static_cast<int>(weights[n]) : 0;
+    r.tg[u] = row_ok ? target[n] : -1;
     const float* row = probs + static_cast<size_t>(row_ok ? n : 0) * n_classes + c0;
     if (kVec) {
       const float4 x = row_ok && c0 + 4 * lane < n_classes ? __ldg(reinterpret_cast<const float4*>(row) + lane)
@@ -159,14 +132,13 @@ __device__ __forceinline__ void load_rows(Rows<kMultilabel>& r, const float* __r
 // Adds each kept score's weight to hpos[k][c] and to its segment's sum
 // seg_pos[k / seg_bins][c]; blocks of range 0 also add the true-class score to
 // htp[k][c] and seg_tp, the row to actpos[c] and, in class tile 0, the row's
-// weight to *total. Multilabel: blocks of range 0 add weight * target of every
-// element with a non-zero target to htp[k][l] and seg_tp, and nothing else.
+// weight to *total.
 //
 // k = #{j : sorted_thr[j] <= p} by binary lifting over the sorted thresholds
 // in shared memory, a NaN after the last: ceil(log2(T+1)) steps.
 //
 // Launched in stream order, after the memset that zeroes the scratch.
-template <bool kVec, bool kMultilabel>
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 binned_hist_kernel(const float* __restrict__ probs, const int* __restrict__ target,
                    const float* __restrict__ weights, const float* __restrict__ sorted_thr,
@@ -196,8 +168,8 @@ binned_hist_kernel(const float* __restrict__ probs, const int* __restrict__ targ
   let_next_kernel_start();
   // the first rows' loads go out before the block fills its shared memory, so their latency overlaps it
   long long base = row_begin + threadIdx.x / lanes;
-  Rows<kMultilabel> r;
-  load_rows<kVec, kMultilabel>(r, probs, target, weights, base, row_end, rows_per_pass, n_classes, c0, lane, lanes);
+  Rows r;
+  load_rows<kVec>(r, probs, target, weights, base, row_end, rows_per_pass, n_classes, c0, lane, lanes);
   for (int i = threadIdx.x; i <= n_thr; i += kThreads) {
     s_thr[i] = i < n_thr ? sorted_thr[i] : __int_as_float(0x7fc00000);  // NaN: never <= a score
   }
@@ -221,24 +193,16 @@ binned_hist_kernel(const float* __restrict__ probs, const int* __restrict__ targ
     }
 #pragma unroll
     for (int u = 0; u < kRowsUnroll; ++u) {
-      if constexpr (!kMultilabel) {
-        if (r.wt[u][0] == 0) continue;  // ignored rows (and rows past the end) count nowhere
-        if (counts_rows) my_total += r.wt[u][0];
-      }
+      if (r.wt[u] == 0) continue;  // ignored rows (and rows past the end) count nowhere
+      if (counts_rows) my_total += r.wt[u];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = column_of<kVec>(c0, lane, lanes, j);
-        const int wt = r.wt[u][kMultilabel ? j : 0];
-        if (col >= n_classes || (kMultilabel && wt == 0)) continue;  // ignored elements count nowhere
+        const int wt = r.wt[u];
+        if (col >= n_classes) continue;
         const int kk = k[u][j];
         if (kk >= bin_lo && kk < bin_hi) atomicAdd(&s_hist[(j * lanes + lane) * nb_pad + kk - bin_lo], wt);
-        if constexpr (kMultilabel) {
-          const int tw = wt * r.tg[u][j];
-          if (first_range && tw != 0) {
-            atomicAdd(&htp[static_cast<size_t>(kk) * n_classes + col], tw);
-            atomicAdd(&seg_tp[static_cast<size_t>(kk / seg_bins) * n_classes + col], tw);
-          }
-        } else if (first_range && col == r.tg[u][0]) {
+        if (first_range && col == r.tg[u]) {
           // a target outside [0, C) matches no column: the row is a negative for every class
           atomicAdd(&htp[static_cast<size_t>(kk) * n_classes + col], wt);
           atomicAdd(&seg_tp[static_cast<size_t>(kk / seg_bins) * n_classes + col], wt);
@@ -248,8 +212,7 @@ binned_hist_kernel(const float* __restrict__ probs, const int* __restrict__ targ
     }
     base += stride;
     if (base < row_end) {
-      load_rows<kVec, kMultilabel>(r, probs, target, weights, base, row_end, rows_per_pass, n_classes, c0, lane,
-                                   lanes);
+      load_rows<kVec>(r, probs, target, weights, base, row_end, rows_per_pass, n_classes, c0, lane, lanes);
     }
   }
   if (counts_rows && my_total != 0) atomicAdd(&s_total, my_total);
@@ -290,9 +253,7 @@ __device__ __forceinline__ int wrap_add(int a, int b) {  // int32 wraparound, as
 // kernel), each warp the bins of the warps above it, and then walks its own
 // bins downward, writing old + counts at the threshold's original index.
 // Bin 0 (scores below every threshold) is read by no one: total and actpos
-// come from the histogram kernel. Multilabel: the warps also sum every
-// segment, which gives the label's total (seg_pos) and actpos (seg_tp).
-template <bool kMultilabel>
+// come from the histogram kernel.
 __global__ void __launch_bounds__(32 * kEpiWarps)
 binned_epilogue_kernel(const int* __restrict__ hpos, const int* __restrict__ htp, const int* __restrict__ seg_pos,
                        const int* __restrict__ seg_tp, const int* __restrict__ actpos, const int* __restrict__ total,
@@ -300,7 +261,6 @@ binned_epilogue_kernel(const int* __restrict__ hpos, const int* __restrict__ htp
                        int n_classes, int n_thr, int bins_per_warp) {
   __shared__ int s_pos[2][kEpiWarps][32];  // [0]: a warp's share of the segments above, [1]: its own bins
   __shared__ int s_tp[2][kEpiWarps][32];
-  __shared__ int s_all[2][kMultilabel ? kEpiWarps : 1][32];  // multilabel: a warp's share of every segment
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int c = blockIdx.x * 32 + lane;
@@ -348,27 +308,14 @@ binned_epilogue_kernel(const int* __restrict__ hpos, const int* __restrict__ htp
   let_next_kernel_start();
   wait_for_previous_kernel();
 
-  int n_total = 0, n_actpos = 0, tail_pos = 0, tail_tp = 0, own_pos = 0, own_tp = 0, all_pos = 0, all_tp = 0;
+  int n_total = 0, n_actpos = 0, tail_pos = 0, tail_tp = 0, own_pos = 0, own_tp = 0;
   if (live) {
     load_counts(cur, k_top);
-    if constexpr (kMultilabel) {
-      for (int sg = warp; sg < n_segs; sg += kEpiWarps) {
-        const int sp = seg_pos[static_cast<size_t>(sg) * n_classes + c];
-        const int st = seg_tp[static_cast<size_t>(sg) * n_classes + c];
-        all_pos += sp;
-        all_tp += st;
-        if (sg > static_cast<int>(blockIdx.y)) {
-          tail_pos += sp;
-          tail_tp += st;
-        }
-      }
-    } else {
-      n_total = *total;
-      n_actpos = actpos[c];
-      for (int sg = static_cast<int>(blockIdx.y) + 1 + warp; sg < n_segs; sg += kEpiWarps) {
-        tail_pos += seg_pos[static_cast<size_t>(sg) * n_classes + c];
-        tail_tp += seg_tp[static_cast<size_t>(sg) * n_classes + c];
-      }
+    n_total = *total;
+    n_actpos = actpos[c];
+    for (int sg = static_cast<int>(blockIdx.y) + 1 + warp; sg < n_segs; sg += kEpiWarps) {
+      tail_pos += seg_pos[static_cast<size_t>(sg) * n_classes + c];
+      tail_tp += seg_tp[static_cast<size_t>(sg) * n_classes + c];
     }
     if (k_hi - k_stop <= kEpiGroup) {
 #pragma unroll
@@ -390,19 +337,8 @@ binned_epilogue_kernel(const int* __restrict__ hpos, const int* __restrict__ htp
   s_tp[0][warp][lane] = tail_tp;
   s_pos[1][warp][lane] = own_pos;
   s_tp[1][warp][lane] = own_tp;
-  if constexpr (kMultilabel) {
-    s_all[0][warp][lane] = all_pos;
-    s_all[1][warp][lane] = all_tp;
-  }
   __syncthreads();
   if (!live) return;
-  if constexpr (kMultilabel) {
-#pragma unroll
-    for (int w = 0; w < kEpiWarps; ++w) {
-      n_total += s_all[0][w][lane];
-      n_actpos += s_all[1][w][lane];
-    }
-  }
 
   int above_pos = 0, above_tp = 0;
 #pragma unroll
@@ -453,19 +389,19 @@ cudaError_t launch_overlapped(void (*kernel)(Params...), dim3 grid, dim3 block, 
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <bool kVec, bool kMultilabel>
+template <bool kVec>
 cudaError_t launch_hist(dim3 grid, size_t smem, cudaStream_t stream, const float* probs, const int* target,
                         const float* weights, const float* sorted_thr, int* hpos, int* htp, int* seg_pos,
                         int* seg_tp, int* actpos, int* total, int n_rows, int n_classes, int n_thr, int tile_c,
                         int bins_per_range, int rows_per_block, int seg_bins) {
   if (smem > 48 * 1024) {  // above 48 KB only after opting in; a refused launch never runs
-    const cudaError_t err = cudaFuncSetAttribute(binned_hist_kernel<kVec, kMultilabel>,
+    const cudaError_t err = cudaFuncSetAttribute(binned_hist_kernel<kVec>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   // in stream order: the memset before it has finished when it starts
-  binned_hist_kernel<kVec, kMultilabel><<<grid, kThreads, smem, stream>>>(
+  binned_hist_kernel<kVec><<<grid, kThreads, smem, stream>>>(
       probs, target, weights, sorted_thr, hpos, htp, seg_pos, seg_tp, actpos, total, n_rows, n_classes, n_thr, tile_c,
       bins_per_range, rows_per_block, seg_bins);
   return cudaGetLastError();
@@ -480,9 +416,7 @@ cudaError_t launch_hist(dim3 grid, size_t smem, cudaStream_t stream, const float
 // bins_per_warp come from the launcher's plan. Three device operations: a
 // memset of the scratch and the histogram kernel, in stream order, and the
 // epilogue, which may start while the histogram kernel runs. Returns the
-// first CUDA error (0 on success), checked after each. Multilabel: C is the
-// label count and target and weights are (N, C).
-template <bool kMultilabel>
+// first CUDA error (0 on success), checked after each.
 int launch_update(const void* probs, const void* target, const void* weights, const void* sorted_thr,
                   const void* order, const void* old_state, void* new_state, void* scratch, int n_rows, int n_classes,
                   int n_thr, int tile_c, int bins_per_range, int rows_per_block, int bins_per_warp, void* stream_ptr) {
@@ -505,13 +439,13 @@ int launch_update(const void* probs, const void* target, const void* weights, co
   const dim3 grid((n_classes + tile_c - 1) / tile_c, chunks, ranges);
   const size_t smem = (static_cast<size_t>(tile_c) * (bins_per_range | 1) + n_thr + 1) * sizeof(int);
   const bool vec = n_classes % 4 == 0 && reinterpret_cast<uintptr_t>(probs) % 16 == 0;
-  const auto launch = vec ? &launch_hist<true, kMultilabel> : &launch_hist<false, kMultilabel>;
+  const auto launch = vec ? &launch_hist<true> : &launch_hist<false>;
   err = launch(grid, smem, stream, static_cast<const float*>(probs), static_cast<const int*>(target),
                static_cast<const float*>(weights), static_cast<const float*>(sorted_thr), hpos, htp, seg_pos, seg_tp,
                actpos, total, n_rows, n_classes, n_thr, tile_c, bins_per_range, rows_per_block, seg_bins);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = launch_overlapped(binned_epilogue_kernel<kMultilabel>, dim3((n_classes + 31) / 32, segments),
+  err = launch_overlapped(binned_epilogue_kernel, dim3((n_classes + 31) / 32, segments),
                           dim3(32 * kEpiWarps), 0, stream, hpos, htp, seg_pos, seg_tp, actpos, total,
                           static_cast<const int*>(order), static_cast<const int4*>(old_state),
                           static_cast<int4*>(new_state), n_classes, n_thr, bins_per_warp);
@@ -526,16 +460,6 @@ extern "C" int binned_confmat_multiclass_launch(const void* probs, const void* t
                                                 void* new_state, void* scratch, int n_rows, int n_classes, int n_thr,
                                                 int tile_c, int bins_per_range, int rows_per_block, int bins_per_warp,
                                                 void* stream_ptr) {
-  return launch_update<false>(probs, target, weights, sorted_thr, order, old_state, new_state, scratch, n_rows,
-                              n_classes, n_thr, tile_c, bins_per_range, rows_per_block, bins_per_warp, stream_ptr);
-}
-
-// The multilabel update: probs, target and weights (N, L), L passed as n_classes.
-extern "C" int binned_confmat_multilabel_launch(const void* probs, const void* target, const void* weights,
-                                                const void* sorted_thr, const void* order, const void* old_state,
-                                                void* new_state, void* scratch, int n_rows, int n_labels, int n_thr,
-                                                int tile_c, int bins_per_range, int rows_per_block, int bins_per_warp,
-                                                void* stream_ptr) {
-  return launch_update<true>(probs, target, weights, sorted_thr, order, old_state, new_state, scratch, n_rows,
-                             n_labels, n_thr, tile_c, bins_per_range, rows_per_block, bins_per_warp, stream_ptr);
+  return launch_update(probs, target, weights, sorted_thr, order, old_state, new_state, scratch, n_rows, n_classes,
+                       n_thr, tile_c, bins_per_range, rows_per_block, bins_per_warp, stream_ptr);
 }

@@ -13,11 +13,12 @@ Two layouts, as in the JAX package:
   ``(T, C|L, 2, 2)`` one-vs-rest or per-label confusion counts.
 
 The metrics' binned updates fold one formatted batch into the old int32
-state. For a CUDA tensor each is one call of a CUDA kernel of
-``csrc/binned_confmat.cu``, which bins each score once among the sorted
-thresholds and suffix-sums the bins: ``binned_confmat_multiclass``
-(:func:`_binned_confmat_multiclass_accumulate`) and
-``binned_confmat_multilabel`` (:func:`_binned_confmat_multilabel_accumulate`;
+state. For a CUDA tensor each is one call of a CUDA kernel that bins
+each score once among the sorted thresholds and suffix-sums the bins:
+``binned_confmat_multiclass`` (``csrc/binned_confmat.cu``,
+:func:`_binned_confmat_multiclass_accumulate`) and
+``binned_confmat_multilabel`` (``csrc/binned_multilabel.cu``,
+:func:`_binned_confmat_multilabel_accumulate`;
 the binary update, :func:`_binned_curve_accumulate`, is its case of one
 label). For a CPU tensor each is its plain PyTorch version, the JAX
 package's contraction form. :func:`_binned_confmat_multiclass`,
@@ -45,7 +46,8 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.kernels.binned_confmat import binned_confmat_multiclass, binned_confmat_multilabel
+from torchmetrics_tpu_torch.kernels.binned_confmat import binned_confmat_multiclass
+from torchmetrics_tpu_torch.kernels.binned_multilabel import binned_confmat_multilabel
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide, normalize_logits_if_needed
 from torchmetrics_tpu_torch.utilities.data import input_device, one_hot, to_tensor
 

@@ -3,10 +3,10 @@
 Coverage error, label ranking average precision and ranking loss: a value a
 sample, then their mean, as in the JAX functions. On a CUDA tensor the
 per-sample values are one launch of the ``ranking_pairs`` kernel
-(``csrc/ranking.cu``), which counts a row's label pairs in shared memory
-instead of building the JAX functions' ``(N, L, L)`` float32 comparison
-tensors; on the CPU they are the plain version below, those formulas
-transliterated.
+(``csrc/ranking.cu``), which for LRAP and the loss sorts each row's labels
+by score and scans them once, instead of building the JAX functions'
+``(N, L, L)`` float32 comparison tensors; on the CPU they are the plain
+version below, those formulas transliterated.
 
 Example::
 

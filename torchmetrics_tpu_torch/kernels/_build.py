@@ -6,8 +6,8 @@ package's ``_build/`` directory, keyed by a hash of the source and the
 flags, so a changed source is rebuilt and an unchanged one is built once.
 Nothing is built at import: the first launch builds what it needs, and
 :func:`build` compiles several sources at once, one ``nvcc`` each. The
-launchers share :func:`cdiv`, :func:`sm_count`, :func:`zero_tickets` and
-:func:`launch_on`.
+launchers share :func:`cdiv`, :func:`sm_count`, :func:`check_tensor`,
+:func:`zero_tickets` and :func:`launch_on`.
 """
 
 from __future__ import annotations
@@ -107,6 +107,18 @@ def sm_count(device: torch.device) -> int:
     if index not in _sm_count:
         _sm_count[index] = torch.cuda.get_device_properties(index).multi_processor_count
     return _sm_count[index]
+
+
+def check_tensor(kernel: str, name: str, x: Tensor, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:
+    """Raise ``ValueError`` unless ``x`` has the dtype, shape and device a launcher expects and is contiguous."""
+    if x.dtype != dtype:
+        raise ValueError(f"{kernel}: `{name}` has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{kernel}: `{name}` has shape {tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{kernel}: `{name}` must be contiguous")
+    if x.device != device:
+        raise ValueError(f"{kernel}: `{name}` is on {x.device}, expected {device}")
 
 
 def zero_tickets(device: torch.device, stream: int, n: int) -> Tensor:

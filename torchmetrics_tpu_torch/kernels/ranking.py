@@ -3,10 +3,11 @@
 :func:`ranking_pairs` gives the per-sample coverage error, label ranking
 average precision or ranking loss of an ``(N, L)`` batch, float32 ``(N,)``,
 in one launch and without the ``(N, L, L)`` comparison tensors of the JAX
-functions: a block keeps a row in shared memory and counts its pairs there.
-The callers take ``.mean()`` as the JAX functions do. It counts its launches
-in ``ranking_pairs.launches`` and takes CUDA tensors only. Its plain
-version, the JAX formulas transliterated (per sample), is
+functions: for LRAP and the loss a warp or a block sorts each row's labels
+by score and scans them once; coverage takes a min and a count. The callers
+take ``.mean()`` as the JAX functions do. It counts its launches in
+``ranking_pairs.launches`` and takes CUDA tensors only. Its plain version,
+the JAX formulas transliterated (per sample), is
 ``functional.classification.ranking._ranking_per_sample_plain``, which the
 dispatch ``_ranking_per_sample`` takes for CPU tensors.
 
@@ -23,15 +24,17 @@ from typing import NamedTuple, Optional
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.kernels._build import cdiv, launch_on, load_library, sm_count, zero_tickets
+from torchmetrics_tpu_torch.kernels._build import cdiv, launch_on, load_library, sm_count
 
 SOURCE = "ranking"
 MEASURES = {"coverage": 0, "lrap": 1, "loss": 2}
-MAX_LABELS = 12_288  # a row of (score, rel, irr, valid) float4s in a block's shared memory: 192 KB
-MAX_ROWS = 2**31 - 1  # one block a row along grid.x
-MAX_THREADS = 512
-OWN = 4  # labels i a thread compares with each j at once (csrc/ranking.cu kOwn)
-MIN_CHUNK = 128  # labels i a block owns at least when a row is split over blocks
+MAX_LABELS = 16_384  # the sort's width at its largest: 16 words a thread in a block of 1,024
+MAX_ROWS = 2**31 - 1  # a row a warp or a block along grid.x
+MAX_THREADS = 1024
+COVERAGE_THREADS = 512
+WARP_WIDTH = 256  # rows up to this many labels sort in one warp, 8 words a lane at most
+SMALL_BLOCK_WIDTH = 2048  # up to this width a block's threads sort 4 words each, above it 8 (16 at the largest)
+MAX_WARP_ROWS = 8  # rows of a block of warps
 BLOCKS_PER_SM = 2
 TARGET_KINDS = {torch.int32: 0, torch.int64: 1}
 
@@ -39,26 +42,36 @@ _launch: Optional[ctypes._CFuncPtr] = None
 
 
 class Plan(NamedTuple):
-    splits: int  # blocks a row (grid.y), each owning `chunk` labels i
-    chunk: int
-    threads: int
-    shared_bytes: int
+    width: int  # the sort's width: a power of two >= L (0 for coverage)
+    items: int  # words a thread sorts (0 for coverage)
+    group: int  # threads a row
+    threads: int  # threads a block
+    blocks: int
+    shared_bytes: int  # dynamic: the padded sort buffer of a block's row, or coverage's row of scores
 
 
 @functools.lru_cache(maxsize=256)
 def plan(n_rows: int, n_labels: int, measure: str, sm_count: int) -> Plan:
-    """The launch geometry for ``n_rows`` rows of ``n_labels`` labels."""
-    shared = n_labels * 16 + 32 * 4
-    if measure == "coverage":  # O(L) a row: one block
-        return Plan(1, n_labels, min(MAX_THREADS, _round32(n_labels)), shared)
-    splits = max(1, min(cdiv(BLOCKS_PER_SM * sm_count, n_rows), cdiv(n_labels, MIN_CHUNK)))
-    chunk = cdiv(n_labels, splits)
-    splits = cdiv(n_labels, chunk)
-    return Plan(splits, chunk, min(MAX_THREADS, _round32(cdiv(chunk, OWN))), shared)
+    """The launch geometry for ``n_rows`` rows of ``n_labels`` labels.
 
-
-def _round32(n: int) -> int:
-    return max(32, 32 * cdiv(n, 32))
+    Coverage: a block a row, its scores in shared memory. LRAP and the loss: a warp a row up to
+    ``WARP_WIDTH`` labels (several rows a block, as many as keep
+    ``BLOCKS_PER_SM`` blocks an SM), else a block a row of ``width / items``
+    threads with the sort buffer in shared memory, a word of padding every 16:
+    4 words a thread up to ``SMALL_BLOCK_WIDTH`` (more threads for the few
+    rows such batches have), 8 above, 16 at 16,384 (1,024 threads).
+    """
+    rows = max(n_rows, 1)
+    if measure == "coverage":  # the row's scores and 32 floats of scratch in shared memory
+        threads = min(COVERAGE_THREADS, 32 * cdiv(n_labels, 32))
+        return Plan(0, 0, threads, threads, rows, (n_labels + 32) * 4)
+    width = max(32, 1 << (n_labels - 1).bit_length())
+    if width <= WARP_WIDTH:
+        per_block = max(1, min(MAX_WARP_ROWS, rows // (BLOCKS_PER_SM * sm_count)))
+        return Plan(width, width // 32, 32, 32 * per_block, cdiv(rows, per_block), 0)
+    items = 4 if width <= SMALL_BLOCK_WIDTH else max(8, width // MAX_THREADS)
+    group = width // items
+    return Plan(width, items, group, group, rows, (width + width // 16) * 8)
 
 
 def _launch_fn() -> ctypes._CFuncPtr:
@@ -66,7 +79,7 @@ def _launch_fn() -> ctypes._CFuncPtr:
     if _launch is None:
         fn = load_library(SOURCE).ranking_pairs_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, ctypes.c_longlong, i, p, p, p, i, i, i, p]
+        fn.argtypes = [p, p, i, i, i, i, ctypes.c_longlong, i, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
@@ -119,15 +132,11 @@ def ranking_pairs(preds: Tensor, target: Tensor, measure: str, ignore_index: Opt
     if n_rows == 0:
         return out
 
-    geometry = plan(n_rows, n_labels, measure, sm_count(device))
-    partial = torch.empty((n_rows, geometry.splits) if geometry.splits > 1 else (1,), dtype=torch.float32,
-                          device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
+    g = plan(n_rows, n_labels, measure, sm_count(device))
     args = (
         preds.data_ptr(), target.data_ptr(), TARGET_KINDS[target.dtype], n_rows, n_labels,
         int(ignore_index is not None), int(ignore_index or 0), MEASURES[measure], out.data_ptr(),
-        partial.data_ptr(), zero_tickets(device, stream, n_rows).data_ptr(), geometry.splits, geometry.chunk,
-        geometry.threads, stream,
+        g.width, g.items, g.group, g.threads, g.blocks, g.shared_bytes, torch.cuda.current_stream(device).cuda_stream,
     )
     launch_on("ranking_pairs", device, _launch_fn(), args)
     ranking_pairs.launches += 1
