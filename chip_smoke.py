@@ -14,7 +14,8 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    +-inf thresholds, non-finite scores, C % 4 != 0, out-of-range targets
    and ignored rows), from a random non-zero int32 state; the new states
    must be exactly equal. Times are CUDA-event medians of one call with the
-   L2 cache flushed before each (``time_ms``, the kernel record's ``ms`` and
+   L2 cache flushed before each and a spin kernel holding the card while the
+   host enqueues the call (``time_ms``, the kernel record's ``ms`` and
    ``plain_ms``); the kernel is also timed per call of a run of calls back to
    back over copies of the inputs that overflow the L2 cache
    (``time_stream_ms``, the record's ``stream_ms``), and beside it one
@@ -53,7 +54,11 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    rows, beside ``softmax`` + ``max`` + ``bucketize`` + three ``bincount``),
    at C = 2, 3, 31, 33, 1001 and 2000, ``n_bins`` = 1, 15, 100 and the limit
    1023, with NaN, tie, +-inf, one-hot and bin-edge rows, ignored rows,
-   float16 and bfloat16 scores and an empty batch: integer states equal (but
+   float16 and bfloat16 scores, an empty batch, near-tie logit rows (an
+   exponential of 1 or 1 - 2^-24 below the raw argmax) on every row path,
+   batches that take one block and just above, and 65,536 x 1,000 logits (the
+   largest merge, also at 1023 bins); the timed rows are profiled (exactly
+   one kernel a call): integer states equal (but
    that a row whose normalized confidence lies within 1e-5 of a bin edge,
    counted and printed, may move one count between the edge's two bins),
    ``conf_sum`` within 1e-5 relative (and 1e-6 absolute, for bins that hold
@@ -187,25 +192,42 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+L2_BYTES = 50 * 2**20
+HOST_US_PER_CALL = 200  # the spin before a timed call or run allows this much host time a call
+CLOCK_HZ = 1.98e9  # the H100's boost clock: the spin's cycles; at a lower clock the spin lasts longer
+
+
 def time_ms(fn, flush: torch.Tensor, reps: int = 30, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms, by CUDA events, L2 flushed before each rep."""
+    """Median device time of ``fn`` in ms, by CUDA events, the L2 cache flushed before each rep.
+
+    After the flush a spin kernel holds the card while the host enqueues ``fn``, so the events
+    time the device's work alone and not the host's enqueue; a rep whose enqueue outlasted the
+    spin runs again with a spin twice as long. A ``fn`` that waits for the device itself (a host
+    read, as ``bincount`` makes) outlasts any spin: it is timed without one, its host time in.
+    """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    events = []
-    for _ in range(reps):
+    times, host_us = [], HOST_US_PER_CALL
+    while len(times) < reps:
         flush.zero_()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        spin_start, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t0 = time.perf_counter()
+        spin_start.record()
+        if host_us:
+            torch.cuda._sleep(int(host_us * 1e-6 * CLOCK_HZ))
         start.record()
         fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
         end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
-L2_BYTES = 50 * 2**20
-HOST_US_PER_CALL = 200  # the spin before a timed run allows this much host time a call
+        torch.cuda.synchronize()
+        if not host_us or host_ms < spin_start.elapsed_time(start):
+            times.append(start.elapsed_time(end))
+        elif host_us < 64 * HOST_US_PER_CALL:
+            host_us *= 2
+        else:
+            host_us = 0  # fn waits for the device: no spin covers its enqueue
+    return statistics.median(times)
 
 
 def copies_for(set_bytes: int) -> int:
@@ -229,8 +251,7 @@ def time_stream_ms(fn, arg_sets, calls: int, runs: int = 3) -> float:
     while len(per_call) < runs:
         spin_start, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
         spin_start.record()
-        # cycles at the H100's 1.98 GHz boost clock: at a lower clock the spin lasts longer
-        torch.cuda._sleep(int(calls * host_us * 1e-6 * 1.98e9))
+        torch.cuda._sleep(int(calls * host_us * 1e-6 * CLOCK_HZ))
         start.record()
         t0 = time.perf_counter()
         for i in range(calls):
@@ -570,6 +591,17 @@ def _ce_case(n, c, gen, logits=False, dtype=torch.float32, edits=()):
             scores[6::11] = -inf
         scores[7::11, 0] = 1.0 / 3.0  # on k / n_bins edges when the row stays raw
         scores[8::11, 0] = 0.5
+    if n and c is not None and "near_tie" in edits:
+        # logit rows whose e = expf(x - max) is 1 or 1 - 2^-24 below the raw argmax, the rest -100
+        # (e ~ 0, absorbed in any order), so every order of the sum gives the same float32 sum:
+        # x = -1e-8 ties the max at 3 (e = 1: the probability argmax is 0); x = -6e-8 lies below
+        # the maxima at 1, 2 and 3 (e = 1 - 2^-24, divided: (1 - 2^-24) / 4 < 1 / 4, the argmax
+        # is 1); no confidence lies on a bin edge
+        for rows in (slice(0, None, 4), slice(1, None, 4)):
+            scores[rows] = -100.0
+            target[rows] = 0
+        scores[0::4, 0], scores[0::4, 3] = -1e-8, 0.0
+        scores[1::4, 0], scores[1::4, 1:4] = -6e-8, 0.0
     if n and c is None and "edge_rows" in edits:
         scores[0::13] = float("nan")
         scores[1::13] = 1.0
@@ -676,7 +708,22 @@ def phase_calibration_kernel(flush: torch.Tensor) -> list:
         ("bfloat16 probabilities", BATCH, N_CLASSES, CE_BINS, {"dtype": torch.bfloat16}, None),
         ("bfloat16 logits, C=33", BATCH, 33, CE_BINS, {"logits": True, "dtype": torch.bfloat16}, None),
         ("empty batch", 0, N_CLASSES, CE_BINS, {}, None),
+        ("near-tie logit rows, four warps a row", BATCH, N_CLASSES, CE_BINS, {"logits": True, "edits": ("near_tie",)}, None),
+        ("near-tie logit rows, C=33, scalar loads", BATCH, 33, CE_BINS, {"logits": True, "edits": ("near_tie",)}, None),
+        ("near-tie logit rows, a thread a row", BATCH, 7, CE_BINS, {"logits": True, "edits": ("near_tie",)}, None),
+        ("near-tie logit rows, C=2000", 256, 2000, CE_BINS, {"logits": True, "edits": ("near_tie",)}, None),
+        ("near-tie logit rows, a warp a row", 16 * BATCH, N_CLASSES, CE_BINS, {"logits": True, "edits": ("near_tie",)}, None),
+        ("two rows: one block", 2, N_CLASSES, CE_BINS, {"logits": True}, None),
+        ("three rows: two blocks", 3, N_CLASSES, CE_BINS, {"logits": True}, None),
+        ("binary, 1,025 scores: two blocks", BATCH + 1, None, CE_BINS, {"logits": True}, None),
+        ("256 short rows: one block", 256, 3, CE_BINS, {"logits": True}, None),
+        ("257 short rows: two blocks", 257, 3, CE_BINS, {"logits": True}, None),
+        ("65,536 x 1,000 logits: the largest merge", 65_536, N_CLASSES, CE_BINS, {"logits": True}, None),
+        (f"65,536 x 1,000 logits, n_bins={limit}", 65_536, N_CLASSES, limit, {"logits": True}, None),
     ]
+    blocks_wanted = {"binary batch (c)": 1, "two rows: one block": 1, "three rows: two blocks": 2,
+                     "binary, 1,025 scores: two blocks": 2, "256 short rows: one block": 1,
+                     "257 short rows: two blocks": 2}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for what, n, c, n_bins, kwargs, ignore_index in cases:
@@ -698,17 +745,21 @@ def phase_calibration_kernel(flush: torch.Tensor) -> list:
         added = int((want[2] - state[2]).sum())
         check(added > 0 or n == 0, f"no row counted ({label})")
         geometry = kce.plan(n, c, n_bins, sms) if n else None
+        check(geometry is None or blocks_wanted.get(what, geometry.blocks) == geometry.blocks,
+              f"calibration_bins plan {geometry} ({label})")
         if not what.endswith(("(a)", "(b)", "(c)")):
             rows.append({"case": label, "what": what, "max_abs_err": err, "edge_rows": edge_rows,
                          "plan": geometry._asdict() if geometry else None})
             continue
         # least work: read the scores and the targets once, read and write the 3 (n_bins + 1) state
-        # values; for the softmax a compare, a subtract, an exp and an add a score, and a divide and
-        # a compare for the argmax of the probabilities (the sigmoid's four a binary score)
+        # values; for the softmax a compare, a subtract, an exp and an add a score, and a compare for
+        # the argmax of the probabilities (their maximum is 1 / sum; the sigmoid's four a binary score)
         nbytes = preds.numel() * preds.element_size() + n * target.element_size() + 2 * 12 * nb
-        nops = preds.numel() * (6 if c else 4)
+        nops = preds.numel() * (5 if c else 4)
         bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_OPS_PER_S * 1e3
         kernel = lambda p_, t_: kce.calibration_bins(*state, p_, t_, c, ignore_index)  # noqa: E731
+        ops = _device_ops(lambda: kernel(preds, target))
+        check(len(ops) == 1 and "calib_" in ops[0][0], f"a calibration_bins call is not exactly one kernel ({label}): {ops}")
         kernel_ms = time_ms(lambda: kernel(preds, target), flush)
         plain_ms = time_ms(lambda: ce._calibration_accumulate_plain(state, preds, target, c, ignore_index), flush)
         edges = torch.linspace(0, 1, n_bins + 1, device="cuda")
@@ -726,12 +777,13 @@ def phase_calibration_kernel(flush: torch.Tensor) -> list:
               f"calibration_bins differs after the timed launches ({label})")
         row = {
             "case": label, "what": what, "max_abs_err": err, "edge_rows": edge_rows, "plan": geometry._asdict(),
-            "ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms, "softmax_bucketize_bincount_ms": yard_ms,
+            "device_ops": ops, "ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms, "softmax_bucketize_bincount_ms": yard_ms,
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "ops": nops, "library_ms": None,
         }
         print(f"[kernel] calibration_bins {label}: {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a call "
-              f"back to back; plan {tuple(geometry)}), plain {plain_ms:.4f} ms, softmax + max + bucketize + 3 bincount "
+              f"back to back; one device operation, {ops[0][0]} {ops[0][1]:.3f} us in the profile; plan "
+              f"{tuple(geometry)}), plain {plain_ms:.4f} ms, softmax + max + bucketize + 3 bincount "
               f"(several calls, a yardstick) {yard_ms:.4f} ms, bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: "
               f"{nbytes} bytes, {nops} ops), {edge_rows} rows within {EDGE_TOL} of a bin edge, conf_sum max abs err "
               f"{err:.3g}, bit-identical over repeated launches, library_ms: none")

@@ -335,12 +335,236 @@ def test_plain_update_against_float64_numpy(shape):
 
 # ----------------------------------------------------------------- launcher
 def test_plan_geometry():
-    assert kce.plan(1024, 1000, 15, 132) == kce.Plan("rows", 128, 256, 16 * 16 + 66 * 4)
-    assert kce.plan(1024, None, 15, 132) == kce.Plan("binary", 4, 256, 16 * 16 + 66 * 4)
-    assert kce.plan(10**6, 3, 15, 132).mode == "short_rows" and kce.plan(10**6, 3, 15, 132).blocks == 264
-    assert kce.plan(64, 2000, 15, 132).mode == "long_rows"
+    shared15 = 16 * 16 + 68 * 4  # two histograms of 16 bins: uint64 sums, then acc, count, nan, outside, ticket
+    # the ImageNet-1k batch and its last batch: four warps a row, every row's warps in one wave
+    assert kce.plan(1024, 1000, 15, 132) == kce.Plan("rows", 4, 512, 256, shared15)
+    assert kce.plan(848, 1000, 15, 132) == kce.Plan("rows", 4, 424, 256, shared15)
+    # fewer warps a row as the rows outgrow the wave: 4 x 132 blocks of 8 warps
+    assert [kce.plan(n, 1000, 15, 132).warps_per_row for n in (1056, 1057, 2112, 2113, 50_000)] == [4, 2, 2, 1, 1]
+    assert kce.plan(50_000, 1000, 15, 132).blocks == kce.BLOCKS_PER_SM * 132
+    # one block when the batch fits one round of a block: it writes the state itself
+    assert kce.ONE_BLOCK_ROUNDS == 1
+    assert kce.plan(1024, None, 15, 132) == kce.Plan("binary", 1, 1, 256, shared15)  # the binary batch
+    assert kce.plan(848, None, 15, 132).blocks == 1 and kce.plan(1025, None, 15, 132).blocks == 2
+    assert kce.plan(2, 1000, 15, 132).blocks == 1 and kce.plan(3, 1000, 15, 132).blocks == 2
+    assert kce.plan(256, 3, 15, 132).blocks == 1 and kce.plan(257, 3, 15, 132).blocks == 2
+    assert kce.plan(10**6, 3, 15, 132) == kce.Plan("short_rows", 1, 528, 256, shared15)
+    assert kce.plan(64, 2000, 15, 132).mode == "long_rows" and kce.plan(64, 2000, 15, 132).blocks == 8
     assert kce.plan(1024, 1024, 15, 132).mode == "rows" and kce.plan(1024, 31, 15, 132).mode == "short_rows"
-    assert kce.plan(1, 32, kce.MAX_BINS, 132).shared_bytes <= 48 * 1024  # the stated limit fits without opting in
+    # the stream's accumulator is laid out as a block's histograms; at the most bins both fit 48 KB
+    # without opting in, with the row passes' static exchange arrays
+    assert kce.SCRATCH_BYTES == kce.plan(1, 32, kce.MAX_BINS, 132).shared_bytes == 2 * 1024 * 8 + (4 * 1024 + 4) * 4
+    assert kce.SCRATCH_BYTES + 4 * 8 * 4 <= 48 * 1024
+
+
+# ------------------------------------------- a numpy model of the kernel's algorithm
+F32 = np.float32
+TIE_FLOOR = F32(1 - 2**-22)  # the kernel's register path divides only the e = exp(x - max) at or above it
+NEAR_ONE = F32(1 - 2**-24)
+
+
+def _exp32(x):
+    """float32 exp, correctly rounded but for double rounding (numpy's float32 exp is not)."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        return np.exp(x.astype(np.float64)).astype(F32)
+
+
+def _first_argmax(x):
+    """jnp.argmax of each row: the first NaN, else the first maximum; the max with NaN propagated."""
+    nan = np.isnan(x)
+    finite = np.where(nan, -np.inf, x)
+    arg = np.where(nan.any(1), nan.argmax(1), finite.argmax(1))
+    best = np.where(nan.any(1), np.nan, finite.max(1)).astype(F32)
+    return best, arg
+
+
+def _lane_layout(c, warps, vec_width):
+    """Each score's (lane place among the row's 32 W lanes, register slot), as the kernel lays a row out."""
+    k = np.arange(c)
+    lanes = 32 * warps
+    if vec_width:
+        return (k // vec_width) % lanes, (k // vec_width) // lanes * vec_width + k % vec_width
+    return k % lanes, k // lanes
+
+
+def _row_sums(e, warps, vec_width):
+    """The kernel's float32 sum of each row: a lane's slots in order, a butterfly in each warp,
+    then the warps in order (a thread a row below 32 scores: in order)."""
+    rows, c = e.shape
+    if c < 32:
+        total = np.zeros(rows, F32)
+        for k in range(c):
+            total = total + e[:, k]
+        return total
+    place, slot = _lane_layout(c, warps, vec_width)
+    grid = np.zeros((rows, 32 * warps, slot.max() + 1), F32)
+    grid[:, place, slot] = e
+    lane = np.zeros((rows, 32 * warps), F32)
+    for u in range(grid.shape[2]):
+        lane = lane + grid[:, :, u]
+    lane = lane.reshape(rows, warps, 32)
+    for offset in (16, 8, 4, 2, 1):
+        lane = lane + lane[:, :, np.arange(32) ^ offset]
+    total = lane[:, 0, 0]
+    for p in range(1, warps):
+        total = total + lane[:, p, 0]
+    return total
+
+
+def _probability_argmax(e, total):
+    """The kernel's argmax of e / total: pbest = 1 / total, the lowest k whose e passes the filter
+    and whose e / total rounds to pbest. A NaN total (a NaN, +inf or all -inf row) gives NaN and
+    index 0."""
+    with np.errstate(invalid="ignore", divide="ignore"):
+        pbest = F32(1) / total
+        cand = (e >= TIE_FLOOR) & ((e == 1) | (e / total[:, None] == pbest[:, None]))
+    return pbest, np.where(np.isnan(total), 0, cand.argmax(1))
+
+
+def _kernel_model(preds, target, c, ignore_index, n_bins, warps=1):
+    """The state a zero state takes after one batch, by the kernel's algorithm: both variants of
+    each row binned, the whole-batch predicate choosing one, confidences summed in 32.32 fixed
+    point. ``preds`` are the scores widened to float32 (numpy), ``c`` None for binary scores."""
+    x = preds.reshape(-1) if c is None else preds.reshape(-1, c)
+    t = target.reshape(-1).astype(np.int64).astype(np.int32).astype(np.int64)  # an int64 label's low 32 bits
+    w = np.ones(t.shape, bool) if ignore_index is None else t != ignore_index
+    t = np.where(w, t, 0)
+    outside = bool(((x < 0) | (x > 1)).any())
+    if c is None:
+        with np.errstate(over="ignore"):
+            sig = F32(1) / (F32(1) + _exp32(-x))
+        variants = [(x, t), (sig, t)]
+    else:
+        best, arg = _first_argmax(x)
+        with np.errstate(invalid="ignore"):
+            e = _exp32(x - best[:, None])
+        vec_width = 4 if c % 4 == 0 and 32 <= c <= 1024 else 0
+        if c > 1024:  # a warp a row, read lane by lane
+            warps, vec_width = 1, 0
+        pbest, parg = _probability_argmax(e, _row_sums(e, warps, vec_width))
+        variants = [(best, arg == t), (pbest, parg == t)]
+    conf, acc = variants[int(outside)]
+    with np.errstate(invalid="ignore"):
+        bins = np.floor(conf * F32(n_bins))
+    bins = np.where(np.isnan(bins), 0, np.clip(bins, 0, n_bins)).astype(np.int64)
+    fixed = np.rint(np.clip(np.nan_to_num(conf.astype(np.float64)), 0, 1) * 2.0**32).astype(np.uint64)
+    counted = w & ~np.isnan(conf)
+    conf_fixed = np.bincount(bins[counted], weights=None, minlength=n_bins + 1).astype(np.uint64) * 0
+    np.add.at(conf_fixed, bins[counted], fixed[counted])
+    conf_sum = (conf_fixed.astype(np.float64) / 2.0**32).astype(F32)
+    if np.isnan(conf).any():
+        conf_sum[0] = np.nan
+    acc_sum = np.bincount(bins[w], weights=acc[w].astype(np.float64), minlength=n_bins + 1).astype(np.int32)
+    count = np.bincount(bins[w], minlength=n_bins + 1).astype(np.int32)
+    return conf_sum, acc_sum, count
+
+
+def _near_tie_logits(seed, n, c):
+    """Logit rows (max 0) where e = exp(x - max) is exactly 1 or 1 - 2^-24 below the raw argmax,
+    the other scores -100 (e ~ 0, absorbed in any order), so every sum order gives the same
+    float32 sum: rows of kind 0 tie an e of 1 at index 0 (x = -2^-27) with the max at 3; kind 1
+    tie 1 - 2^-24 at 0 (x = -2^-24; sum 6.25, where (1 - 2^-24) / 6.25 rounds to 1 / 6.25) with
+    five maxima from 1 and an e of 0.25; kind 2 leave 1 - 2^-24 at 0 below 1 / 3 (sum 3); the
+    rest are random logits. The target is 0 on every constructed row."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(scale=2.0, size=(n, c)).astype(F32)
+    target = rng.integers(0, c, n).astype(np.int64)
+    for kind, rows in enumerate((slice(0, None, 4), slice(1, None, 4), slice(2, None, 4))):
+        x[rows] = -100.0
+        target[rows] = 0
+    x[0::4, 0], x[0::4, 3] = -(2.0**-27), 0.0
+    x[1::4, 0], x[1::4, 1:6], x[1::4, 6] = -(2.0**-24), 0.0, F32(np.log(0.25))
+    x[2::4, 0], x[2::4, 1:3] = -(2.0**-24), 0.0
+    return x, target
+
+
+def _model_case(case):
+    """(preds as given to JAX, preds widened to float32, target, C, ignore_index, n_bins)."""
+    kind, c = case
+    rng = np.random.default_rng(hash(case) % 2**32)
+    ignore_index = None
+    if kind.startswith("binary"):
+        p, t = _binary(50, n=200, logits="logits" in kind, edits=("nan", "ignore") if "edits" in kind else ())
+        ignore_index = 255 if "edits" in kind else None
+        return p, p, t, None, ignore_index, 15
+    if kind == "near-tie logits":
+        p, t = _near_tie_logits(51, 96, c)
+    else:
+        p, t = _multiclass(52, n=96, c=c, logits="logits" in kind, edits=("ties", "nan") if "edits" in kind else ())
+    if kind == "nan and inf logits":
+        p[3::10, c // 3] = np.inf
+        p[5::10] = -np.inf
+    if kind == "ignore_index":
+        t[rng.uniform(size=t.shape) < 0.2] = -1
+        ignore_index = -1
+    if kind in ("float16 logits", "bfloat16 probs"):
+        half = torch.from_numpy(p).to(torch.float16 if kind.startswith("float16") else torch.bfloat16)
+        return half, half.float().numpy(), t, c, ignore_index, 15
+    return p, p, t, c, ignore_index, 15
+
+
+MODEL_CASES = [("probs", 40), ("logits", 40), ("near-tie logits", 40), ("near-tie logits", 33), ("near-tie logits", 7),
+               ("near-tie logits", 1100), ("nan and inf logits", 40), ("edits logits", 36), ("edits", 40),
+               ("ignore_index", 40), ("float16 logits", 40), ("bfloat16 probs", 40), ("logits", 3),
+               ("binary", None), ("binary logits", None), ("binary logits edits", None)]
+
+
+MODEL_PARAMS = [(case, w) for case in MODEL_CASES for w in ((1, 2, 4) if case[1] and 32 <= case[1] <= 1024 else (1,))]
+
+
+@pytest.mark.parametrize("case,warps", MODEL_PARAMS, ids=[f"{c[0]}-C{c[1]}-W{w}" for c, w in MODEL_PARAMS])
+def test_kernel_model_against_jax(case, warps):
+    """The kernel's algorithm (the filtered argmax at 1 / sum, fixed-point sums, the whole-batch pick), in
+    numpy, with W warps a row, equals the JAX update: integer states equal, conf_sum within 1e-5
+    relative; the torch plain version too."""
+    given, wide, target, c, ignore_index, n_bins = _model_case(case)
+    jpreds = jnp.asarray(wide).astype(jnp.float16 if str(getattr(given, "dtype", "")) == "torch.float16" else
+                                      jnp.bfloat16 if str(getattr(given, "dtype", "")) == "torch.bfloat16" else jnp.float32)
+    conf_fn = (jce._binary_ce_confidences if c is None else
+               lambda p, t, i: jce._multiclass_ce_confidences(p, t, c, i))
+    want = jce._bin_update(*conf_fn(jpreds, jnp.asarray(target), ignore_index), n_bins)
+    got = _kernel_model(wide, target, c, ignore_index, n_bins, warps)
+    _close(got[0], want[0])
+    _equal(got[1], np.asarray(want[1]).astype(np.int32))
+    _equal(got[2], np.asarray(want[2]).astype(np.int32))
+    plain = tce._calibration_accumulate_plain(tce._zero_bins(n_bins, torch.device("cpu")), torch.as_tensor(given),
+                                              torch.from_numpy(target), c, ignore_index)
+    _close(plain[0], got[0])
+    _equal(plain[2], got[2])
+    if case[0] != "near-tie logits":
+        # torch's CPU softmax multiplies by 1 / sum, so the plain version's (1 - 2^-24) / 6.25 rows
+        # fall below 1 / 6.25 where JAX's and the kernel's divide ties them
+        _equal(plain[1], got[1])
+    else:  # the constructed rows: the probability argmax left the raw one
+        best, arg = _first_argmax(wide.reshape(-1, c))
+        e = _exp32(wide.reshape(-1, c) - best[:, None])
+        _, parg = _probability_argmax(e, _row_sums(e, warps, 4 if c % 4 == 0 and 32 <= c <= 1024 else 0))
+        assert (arg[0::4] == 3).all() and (parg[0::4] == 0).all()  # e = 1 below the max
+        assert (arg[1::4] == 1).all() and (parg[1::4] == 0).all()  # 1 - 2^-24 ties 1 / 6.25
+        assert (arg[2::4] == 1).all() and (parg[2::4] == 1).all()  # 1 - 2^-24 below 1 / 3
+
+
+def test_argmax_of_probabilities_is_lowest_index_at_one_over_sum():
+    """The largest e is 1, so the largest probability is 1 / sum and the argmax is the lowest index
+    whose e / sum rounds to it: an e of 1 - 2^-24 ties it for about a third of the sums, and no
+    smaller e ever does, so the filter (divide only e >= 1 - 2^-22) keeps exactly the ties."""
+    rng = np.random.default_rng(60)
+    total = np.concatenate([rng.uniform(1, 1024, 100_000), np.arange(1, 1025), np.arange(1, 64, 0.25)]).astype(F32)
+    ladder = [F32(1.0), NEAR_ONE, F32(1 - 2**-23), F32(1 - 3 * 2**-24), TIE_FLOOR, np.nextafter(TIE_FLOOR, F32(0))]
+    e = np.concatenate([np.array(ladder, F32), rng.uniform(0, 1, 58).astype(F32)])
+    quotient_ties = e[None, :] / total[:, None] == (F32(1) / total)[:, None]
+    filtered = (e[None, :] >= TIE_FLOOR) & ((e[None, :] == 1) | quotient_ties)
+    np.testing.assert_array_equal(filtered, quotient_ties)
+    assert quotient_ties[:, 0].all() and 0.2 < quotient_ties[:, 1].mean() < 0.45
+    assert not quotient_ties[:, 2:].any()
+    # the argmax of whole rows: the model against e / sum divided in full, lowest index first
+    e_rows = rng.choice(np.array(ladder[:4] + [F32(0.5), F32(0.25)], F32), size=(4096, 12))
+    e_rows[:, 7] = 1.0
+    total = _row_sums(e_rows, 1, 0)
+    with np.errstate(invalid="ignore"):
+        divided = e_rows / total[:, None]
+    _, parg = _probability_argmax(e_rows, total)
+    np.testing.assert_array_equal(parg, divided.argmax(1))
 
 
 def test_launcher_refuses_what_it_does_not_take():

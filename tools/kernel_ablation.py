@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where ``ranking_pairs``' sort spends its time, and which label-group width suits
-``binned_confmat_multilabel``, on one GPU.
+"""Where the port's redesigned kernels spend their time, on one GPU: ``ranking_pairs``' sort,
+``binned_confmat_multilabel``'s label-group width, and ``calibration_bins``' design choices.
 
-    python3 tools/kernel_ablation.py [--json PATH]
+    python3 tools/kernel_ablation.py [--sections ranking,multilabel,calibration]
+                                     [--parent CHECKOUT] [--json PATH]
 
 Ranking: ``csrc/ranking.cu`` is copied, ``#if`` switches are put around the
 sort and around each kind of its stages (in registers, by warp shuffles,
@@ -12,8 +13,30 @@ flags, all at once. Each variant is timed by its C entry, LRAP, at (64, 4096),
 where the width allows; a variant without some stages sorts wrongly and is
 timed only. Multilabel: the launcher's plan is given 8, 4, 2 and 1 labels a
 block at the COCO batch and its last batch (56, 80), in two turns, forward
-then backward. Times are ``chip_smoke.time_ms``'s: CUDA events around one
-call after a 256 MB L2 flush, medians of 30. Needs a CUDA device.
+then backward.
+
+Calibration: ``csrc/calibration.cu`` is copied and built with ``-D``
+switches into variants: an empty launch, the row pass alone (no merge), the
+merge tail alone (each block adds one row to each histogram), the ticket
+alone, two fences about a relaxed ticket atomic (by every thread, or by
+thread 0 alone after the barrier, as a cooperative-groups grid sync does) in
+place of the shipped acq_rel ticket atomic, 4 and 16 copies of the accumulator (block b into copy b % N), blocks of
+1,024 threads, a merge through thread-block clusters of 8 (the leader sums
+its cluster's shared histograms through distributed shared memory; only
+leaders reach the accumulator), merged-lane adds (``__match_any_sync`` on
+the bin, the peers' words summed by ``__reduce_add_sync``) in place of one
+atomic a lane on the binary path, 64-bit shared atomics in place of the two
+32-bit halves, and in the argmax of the probabilities a divide a score, or
+the shipped filter (only the exponentials at or above 1 - 2^-22 divided) put
+in a helper function. The shipped build is timed at 1, 2 and 4 warps a row and with one
+block against the launcher's grid at growing batches (the one-block
+threshold). ``--parent`` names a checkout of the commit before the
+redesign, whose kernel (one partial histogram a block, merged by the last
+block) is built and timed beside it at the main path's three shapes.
+
+Times are ``chip_smoke.time_ms``'s: CUDA events around one call after a
+256 MB L2 flush, a spin kernel holding the card while the host enqueues the
+call; medians of 30. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,6 +46,7 @@ import ctypes
 import importlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -35,6 +59,7 @@ sys.path.insert(0, REPO)
 import chip_smoke as cs  # noqa: E402
 from torchmetrics_tpu_torch.kernels import _build  # noqa: E402
 from torchmetrics_tpu_torch.kernels import binned_multilabel as kbm  # noqa: E402
+from torchmetrics_tpu_torch.kernels import calibration as kce  # noqa: E402
 from torchmetrics_tpu_torch.kernels import ranking as krk  # noqa: E402
 
 SWITCHES = {  # a stage kind's switch: the source text it guards, and the guarded text
@@ -152,8 +177,319 @@ def _multilabel(flush: torch.Tensor, gen: torch.Generator) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------- calibration_bins
+# The merged-lane adds, measured against one atomic a lane and left out: the lanes of one bin sum their words over
+# the peers (__match_any_sync, __reduce_add_sync) and their first lane adds them.
+MERGED_ADDS = """__device__ __forceinline__ void add_rows_merged(const Hist& h, int variant, int nb, int n_bins, bool live,
+                                                float conf, int acc, bool w) {
+  const bool is_nan = conf != conf, counted = live && w;
+  const int bin = live ? bin_of(conf, n_bins) : -1;
+  const unsigned peers = __match_any_sync(kFull, bin);
+  const unsigned long long fixed = counted && !is_nan ? fixed_of(conf) : 0ull;
+  const unsigned lo = __reduce_add_sync(peers, static_cast<unsigned>(fixed & 0xffffull));
+  const unsigned hi = __reduce_add_sync(peers, static_cast<unsigned>(fixed >> 16));
+  const unsigned count = __reduce_add_sync(peers, counted ? 1u : 0u);
+  const unsigned accs = __reduce_add_sync(peers, counted ? static_cast<unsigned>(acc) : 0u);
+  const unsigned nans = __reduce_add_sync(peers, live && is_nan ? 1u : 0u);
+  if (bin < 0 || static_cast<int>(threadIdx.x & 31) != __ffs(peers) - 1) return;
+  const unsigned long long sum = (static_cast<unsigned long long>(hi) << 16) + lo;
+  if (sum) add_fixed(h.conf + variant * nb + bin, sum);
+  if (count) atomicAdd(h.count + variant * nb + bin, static_cast<int>(count));
+  if (accs) atomicAdd(h.acc + variant * nb + bin, static_cast<int>(accs));
+  if (nans) atomicAdd(h.nan + variant, static_cast<int>(nans));
+}
+
+"""
+CE_SWITCHES = {  # the source text each switch is placed at, and what replaces it
+    "include": ("#include <cuda_runtime.h>\n",
+                "#include <cuda_runtime.h>\n#include <cooperative_groups.h>\n"
+                "#if CLUSTER\n#define CLUSTER_DIMS __cluster_dims__(8, 1, 1)\n#else\n#define CLUSTER_DIMS\n#endif\n"),
+    "threads": ("constexpr int kThreads = 256;", "constexpr int kThreads = THREADS;"),
+    "empty rows": ("__global__ void __launch_bounds__(kThreads) calib_rows_kernel(Args a) {\n",
+                   "__global__ void CLUSTER_DIMS __launch_bounds__(kThreads) calib_rows_kernel(Args a) {\n"
+                   "  if (EMPTY) return;\n"),
+    "empty binary": ("calib_binary_kernel(Args a) {\n", "calib_binary_kernel(Args a) {\n  if (EMPTY) return;\n"),
+    "row pass": ("r0 < a.n_rows;", "ROWS && r0 < a.n_rows;"),
+    "tail": ("  finish(a, h, outside);\n}\n\n// A warp a row of more than",
+             "  if (!ROWS && FAKE_ROWS && threadIdx.x == 0) {\n"
+             "    add_row(h, 0, a.nb, a.n_bins, 0.5f, 1, true);\n"
+             "    add_row(h, 1, a.nb, a.n_bins, 0.5f, 1, true);\n"
+             "  }\n"
+             "  if (TAIL) finish(a, h, outside);\n}\n\n// A warp a row of more than"),
+    "copies": ("  const Hist g = hist_at(a.sum_conf, a.sum_int, nb);\n",
+               "  const int copy = blockIdx.x % COPIES;  // block b adds into copy b % COPIES; the flag and ticket in copy 0\n"
+               "  const Hist g = hist_at(a.sum_conf + copy * 2 * nb, a.sum_int + copy * int_words(nb), nb);\n"
+               "  const Hist g0 = hist_at(a.sum_conf, a.sum_int, nb);\n"),
+    "cluster merge": ("  for (int i = threadIdx.x; i < 2 * nb; i += blockDim.x) {\n    if (h.conf[i]) atomicAdd(g.conf + i",
+                      "#if CLUSTER\n"
+                      "  namespace cg = cooperative_groups;\n"
+                      "  cg::cluster_group cluster = cg::this_cluster();\n"
+                      "  if (threadIdx.x == 0) *h.outside = any_out;\n"
+                      "  cluster.sync();\n"
+                      "  if (cluster.block_rank() == 0) {\n"
+                      "    for (unsigned r = 1; r < cluster.num_blocks(); ++r) {\n"
+                      "      const unsigned long long* rc = cluster.map_shared_rank(h.conf, r);\n"
+                      "      const int* ri = cluster.map_shared_rank(h.acc, r);\n"
+                      "      for (int i = threadIdx.x; i < 2 * nb; i += blockDim.x) h.conf[i] += rc[i];\n"
+                      "      for (int i = threadIdx.x; i < 4 * nb + 3; i += blockDim.x) h.acc[i] += ri[i];\n"
+                      "    }\n"
+                      "  }\n"
+                      "  cluster.sync();  // no block leaves while its leader reads its shared memory\n"
+                      "  if (cluster.block_rank() != 0) return;\n"
+                      "#endif\n"
+                      "  for (int i = threadIdx.x; i < 2 * nb; i += blockDim.x) {\n    if (h.conf[i]) atomicAdd(g.conf + i"),
+    "flag": ("if (threadIdx.x == 0 && any_out) atomicAdd(g.outside, 1);",
+             "if (threadIdx.x == 0 && (CLUSTER ? *h.outside : any_out)) atomicAdd(g0.outside, 1);"),
+    "ticket": ("last = ticket_acq_rel(g.ticket) == static_cast<int>(gridDim.x) - 1;",
+               "{\n    if (FENCE == 1) __threadfence();  // the block's adds, ordered before by the barrier\n"
+               "    last = (FENCE == 2 ? ticket_acq_rel(g0.ticket) : atomicAdd(g0.ticket, 1)) ==\n"
+               "           static_cast<int>(gridDim.x) / (CLUSTER ? 8 : 1) - 1;\n"
+               "    if (FENCE == 1) __threadfence();\n  }"),
+    "release fence": ("  __syncthreads();\n  int last = 0;\n", "  if (FENCE == 0) __threadfence();\n  __syncthreads();\n  int last = 0;\n"),
+    "acquire fence": ("  if (!__syncthreads_or(last)) return;\n",
+                      "  if (!__syncthreads_or(last)) return;\n  if (FENCE == 0) __threadfence();\n"),
+    "read copies": (
+        "  const int v = __ldcg(g.outside) > 0 ? 1 : 0;\n"
+        "  for (int bin = threadIdx.x; bin < nb; bin += blockDim.x) {\n"
+        "    write_bin(a, bin, __ldcg(g.conf + v * nb + bin), __ldcg(g.acc + v * nb + bin), __ldcg(g.count + v * nb + bin),\n"
+        "              bin == 0 ? __ldcg(g.nan + v) : 0);\n"
+        "  }\n",
+        "  const int v = __ldcg(g0.outside) > 0 ? 1 : 0;\n"
+        "  for (int bin = threadIdx.x; bin < nb; bin += blockDim.x) {\n"
+        "    unsigned long long conf = 0;\n"
+        "    int acc = 0, count = 0, nan = 0;\n"
+        "#pragma unroll\n"
+        "    for (int c = 0; c < COPIES; ++c) {\n"
+        "      const Hist gc = hist_at(a.sum_conf + c * 2 * nb, a.sum_int + c * int_words(nb), nb);\n"
+        "      conf += __ldcg(gc.conf + v * nb + bin);\n"
+        "      acc += __ldcg(gc.acc + v * nb + bin);\n"
+        "      count += __ldcg(gc.count + v * nb + bin);\n"
+        "      if (bin == 0) nan += __ldcg(gc.nan + v);\n"
+        "    }\n"
+        "    write_bin(a, bin, conf, acc, count, nan);\n"
+        "  }\n"),
+    "zero copies": ("  for (int i = threadIdx.x; i < 2 * nb; i += blockDim.x) g.conf[i] = 0ull;\n"
+                    "  for (int i = threadIdx.x; i < int_words(nb); i += blockDim.x) g.acc[i] = 0;\n",
+                    "  for (int i = threadIdx.x; i < COPIES * 2 * nb; i += blockDim.x) a.sum_conf[i] = 0ull;\n"
+                    "  for (int i = threadIdx.x; i < COPIES * int_words(nb); i += blockDim.x) a.sum_int[i] = 0;\n"),
+    "divides": ("        if (k >= 0 && cand == INT_MAX && x[u] >= kTieFloor && (x[u] == 1.0f || x[u] / sum == pbest)) cand = k;\n",
+                "#if DIVIDES == 1  // every probability divided\n"
+                "        if (k >= 0) {\n          const float q = x[u] / sum;\n"
+                "          if (q == pbest && cand == INT_MAX) cand = k;\n        }\n"
+                "#elif DIVIDES == 2  // the shipped test in a helper\n"
+                "        if (k >= 0 && cand == INT_MAX && ties_max_probability(x[u], sum, pbest)) cand = k;\n"
+                "#else\n"
+                "        if (k >= 0 && cand == INT_MAX && x[u] >= kTieFloor && (x[u] == 1.0f || x[u] / sum == pbest)) cand = k;\n"
+                "#endif\n"),
+    "filter helper": ("// JAX's clip(floor(conf * n_bins).astype(int32), 0, n_bins)",
+                      "__device__ __forceinline__ bool ties_max_probability(float e, float sum, float pbest) {\n"
+                      "  return e >= 1.0f - 1.0f / 4194304.0f && (e == 1.0f || e / sum == pbest);\n}\n\n"
+                      "// JAX's clip(floor(conf * n_bins).astype(int32), 0, n_bins)"),
+    "64-bit shared atomics": ("  unsigned* word = reinterpret_cast<unsigned*>(p);  // little-endian: the low word first\n",
+                              "  if (ATOMIC64) {\n    atomicAdd(p, v);\n    return;\n  }\n"
+                              "  unsigned* word = reinterpret_cast<unsigned*>(p);  // little-endian: the low word first\n"),
+    "merged adds": ("template <typename U>\n__device__ __forceinline__ void target_of", MERGED_ADDS +
+                    "template <typename U>\n__device__ __forceinline__ void target_of"),
+    "merged binary": ("      if (live[j]) {\n        if (pick != 1) add_row(h, 0, a.nb, a.n_bins, x[j], t[j], w[j]);\n",
+                      "      if (MERGED) {\n        add_rows_merged(h, 0, a.nb, a.n_bins, live[j], x[j], t[j], w[j]);\n"
+                      "        add_rows_merged(h, 1, a.nb, a.n_bins, live[j], sigmoid(x[j]), t[j], w[j]);\n"
+                      "      } else if (live[j]) {\n        if (pick != 1) add_row(h, 0, a.nb, a.n_bins, x[j], t[j], w[j]);\n"),
+}
+CE_DEFAULTS = {"THREADS": 256, "COPIES": 1, "FENCE": 2, "EMPTY": 0, "ROWS": 1, "FAKE_ROWS": 1, "TAIL": 1, "CLUSTER": 0,
+               "MERGED": 0, "DIVIDES": 0, "ATOMIC64": 0}
+CE_VARIANTS = {"shipped": {}, "empty launch": {"EMPTY": 1}, "row pass alone": {"TAIL": 0},
+               "merge tail alone": {"ROWS": 0}, "ticket alone": {"ROWS": 0, "FAKE_ROWS": 0},
+               "fences by every thread": {"FENCE": 0}, "thread 0 fences": {"FENCE": 1},
+               "ticket alone, fences by every thread": {"ROWS": 0, "FAKE_ROWS": 0, "FENCE": 0},
+               "ticket alone, thread 0 fences": {"ROWS": 0, "FAKE_ROWS": 0, "FENCE": 1},
+               "1,024 threads a block": {"THREADS": 1024}, "4 accumulator copies": {"COPIES": 4},
+               "16 accumulator copies": {"COPIES": 16}, "cluster merge": {"CLUSTER": 1},
+               "merged-lane adds": {"MERGED": 1}, "every score divided": {"DIVIDES": 1},
+               "the divide filter in a helper": {"DIVIDES": 2},
+               "64-bit shared atomics": {"ATOMIC64": 1}}
+CE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+               ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 8
+PARENT_COMMIT = "fd83d3f"  # the kernel before the redesign: a partial histogram pair a block, merged by the last
+
+
+def _nvcc_all(jobs: dict) -> dict:
+    """Build ``{name: (source, defines)}`` into libraries at once; ``{name: ctypes.CDLL}``."""
+    flags = [f for f in _build.NVCC_FLAGS if f != "-Xptxas=-v"]
+    running = {}
+    for name, (path, defines) in jobs.items():
+        lib = os.path.join(os.path.dirname(path), f"lib{len(running)}.so")
+        cmd = [_build._nvcc(), *flags, *defines, "-o", lib, path]
+        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    libs = {}
+    for name, (proc, lib) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel_ablation: nvcc failed for {name}:\n{log}")
+        libs[name] = ctypes.CDLL(lib)
+    return libs
+
+
+def _calibration_libraries(workdir: str, parent) -> dict:
+    src = open(os.path.join(_build.CSRC_DIR, "calibration.cu")).read()
+    for old, new in CE_SWITCHES.values():
+        if src.count(old) != 1:
+            raise RuntimeError(f"kernel_ablation: the calibration source changed, cannot place a switch at {old!r}")
+        src = src.replace(old, new)
+    path = os.path.join(workdir, "calibration_ablation.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    jobs = {name: (path, [f"-D{k}={v}" for k, v in {**CE_DEFAULTS, **over}.items()])
+            for name, over in CE_VARIANTS.items()}
+    if parent:
+        old = os.path.join(workdir, "parent", "calibration.cu")
+        os.makedirs(os.path.dirname(old))
+        shutil.copy(os.path.join(parent, "torchmetrics_tpu_torch", "csrc", "calibration.cu"), old)
+        jobs[f"parent ({PARENT_COMMIT})"] = (old, [])
+    libs = _nvcc_all(jobs)
+    entries = {}
+    for name, lib in libs.items():
+        fn = lib.calibration_bins_launch
+        if name.startswith("parent"):  # ... conf_part, int_part, ticket, mode, blocks, stream
+            fn.argtypes = CE_ARGTYPES + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        else:  # ... accumulator (conf, int words), mode, warps a row, blocks, stream
+            fn.argtypes = CE_ARGTYPES + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        entries[name] = fn
+    return entries
+
+
+def _ce_call(fn, parent: bool, state, preds, target, c, mode: str, warps: int, blocks: int, copies: int = 1):
+    """One launch of a variant's C entry; returns a callable that launches again and the new state."""
+    nb = state[0].shape[0]
+    new = [torch.empty_like(x) for x in state]
+    n = preds.numel() if c is None else preds.numel() // c
+    head = (preds.data_ptr(), kce.PRED_KINDS[preds.dtype], target.data_ptr(), kce.TARGET_KINDS[target.dtype],
+            n, c or 1, nb - 1, 0, 0, *(x.data_ptr() for x in state), *(x.data_ptr() for x in new))
+    if parent:
+        conf_part = torch.empty((blocks, 2, nb), dtype=torch.int64, device="cuda")
+        int_part = torch.empty((blocks, 4 * nb + 3), dtype=torch.int32, device="cuda")
+        ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+        tail = (conf_part.data_ptr(), int_part.data_ptr(), ticket.data_ptr(), kce.MODES[mode], blocks)
+        keep = (conf_part, int_part, ticket)
+    else:
+        scratch = torch.zeros(copies * kce.SCRATCH_BYTES // 8 + 1, dtype=torch.int64, device="cuda")
+        tail = (scratch.data_ptr(), scratch.data_ptr() + copies * 2 * nb * 8, kce.MODES[mode], warps, blocks)
+        keep = (scratch,)
+
+    def call(keep=keep):
+        err = fn(*head, *tail, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"kernel_ablation: calibration launch failed with CUDA error {err}")
+
+    call()
+    return call, new
+
+
+def _calibration(flush: torch.Tensor, gen: torch.Generator, parent) -> dict:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+
+    def shipped_plan(n, c, warps=None, blocks=None, threads=kce.THREADS):
+        """The launcher's plan, or W warps a row, a given grid, or blocks of ``threads`` threads."""
+        g = kce.plan(n, c, cs.CE_BINS, sms)
+        if warps is not None or threads != kce.THREADS:
+            w = g.warps_per_row if warps is None else warps
+            g = g._replace(warps_per_row=w, threads=threads,
+                           blocks=min(-(-n // (threads // 32 // w)), kce.BLOCKS_PER_SM * sms * kce.THREADS // threads))
+        return g if blocks is None else g._replace(blocks=blocks)
+
+    def parent_plan(n, c):
+        per_block = kce.THREADS if c is None else kce.WARPS
+        return kce.Plan("binary" if c is None else "rows", 1, max(1, min(-(-n // per_block), 2 * sms)), kce.THREADS, 0)
+
+    def cluster_plan(n, c):
+        g = shipped_plan(n, c)
+        return g._replace(blocks=-(-g.blocks // 8) * 8)
+
+    state_gen = lambda nb: (100.0 * torch.rand((nb,), generator=gen, device="cuda"),  # noqa: E731
+                            torch.randint(0, 2**20, (nb,), generator=gen, device="cuda", dtype=torch.int32),
+                            torch.randint(0, 2**20, (nb,), generator=gen, device="cuda", dtype=torch.int32))
+    shapes = {  # name: (rows, classes, logits)
+        "(a) ImageNet batch, probabilities": (cs.BATCH, cs.N_CLASSES, False),
+        "(b) ImageNet batch, logits": (cs.BATCH, cs.N_CLASSES, True),
+        "last ImageNet batch, logits": (cs.N_SAMPLES % cs.BATCH, cs.N_CLASSES, True),
+        "(c) binary batch": (cs.BATCH, None, False),
+    }
+    rows_shapes = [name for name in shapes if "binary" not in name]
+    big = (65_536, cs.N_CLASSES, True)
+    # (what, shape name or (rows, classes, logits), variant, plan)
+    runs = []
+    for name in shapes:  # the split of a call; the binary batch is one block, with no merge tail
+        variants = ("shipped", "empty launch")
+        if "binary" not in name:
+            variants += ("row pass alone", "merge tail alone", "ticket alone", "4 accumulator copies",
+                         "16 accumulator copies", "fences by every thread", "thread 0 fences",
+                         "ticket alone, fences by every thread", "ticket alone, thread 0 fences")
+        runs += [(name, name, variant, shipped_plan) for variant in variants]
+        if parent:
+            runs.append((name, name, f"parent ({PARENT_COMMIT})", parent_plan))
+    for name in rows_shapes:
+        for blocks in (128, 256):  # two or four rounds a block at four warps a row: fewer blocks on the ticket
+            runs.append((f"{name}, {blocks} blocks", name, "shipped", lambda n, c, b=blocks: shipped_plan(n, c, blocks=b)))
+        for w in (1, 2, 4):
+            runs.append((f"{name}, {w} warps a row", name, "shipped", lambda n, c, w=w: shipped_plan(n, c, w)))
+            runs.append((f"{name}, {w} warps a row", name, "1,024 threads a block",
+                         lambda n, c, w=w: shipped_plan(n, c, w, threads=1024)))
+    for what, shape in ((rows_shapes[0], rows_shapes[0]), ("65,536 x 1,000 logits", big)):
+        runs.append((f"{what}, accumulator", shape, "shipped", shipped_plan))
+        runs.append((f"{what}, accumulator", shape, "16 accumulator copies", shipped_plan))
+        runs.append((f"{what}, cluster merge", shape, "cluster merge", cluster_plan))
+    # the one-block threshold: one block against a grid of a round a block (binary: a score a thread)
+    for what, (n, c, logits), grid in [(f"binary {n}", (n, None, False), n // kce.THREADS) for n in (1024, 2048, 4096)] + \
+            [(f"{n} rows x 1,000", (n, cs.N_CLASSES, True), -(-n // 2)) for n in (2, 4, 8, 16)] + \
+            [(f"{n} short rows (C=3)", (n, 3, True), -(-n // kce.THREADS)) for n in (256, 512, 1024)]:
+        for blocks in (1, grid):
+            runs.append((f"{what}, {blocks} block(s)", (n, c, logits), "shipped",
+                         lambda n_, c_, b=blocks: shipped_plan(n_, c_, blocks=b)))
+    for n in (cs.BATCH, cs.N_SAMPLES):
+        runs += [(f"binary {n}", (n, None, False), variant, shipped_plan)
+                 for variant in ("shipped", "merged-lane adds", "64-bit shared atomics")]
+    for name in rows_shapes[:2]:
+        runs += [(name, name, "64-bit shared atomics", shipped_plan)]
+        for w in (1, 4):  # the argmax of the probabilities: every score divided against the filtered few
+            runs += [(f"{name}, {w} warps a row", name, variant, lambda n, c, w=w: shipped_plan(n, c, w))
+                     for variant in ("shipped", "every score divided", "the divide filter in a helper")]
+    for shape in (big, (cs.N_SAMPLES, cs.N_CLASSES, True)):  # a warp a row, many rows a warp
+        runs += [(f"{shape[0]:,} x 1,000 logits", shape, variant, shipped_plan)
+                 for variant in ("shipped", "every score divided", "the divide filter in a helper")]
+
+    with tempfile.TemporaryDirectory() as workdir:
+        entries = _calibration_libraries(workdir, parent)
+        inputs = {}
+        for turn in (runs, runs[::-1]):  # forward, then backward
+            for what, shape, variant, plan_of in turn:
+                n, c, logits = shapes[shape] if isinstance(shape, str) else shape
+                if (n, c, logits) not in inputs:
+                    preds, target = cs._ce_case(n, c, gen, logits=logits)
+                    st = state_gen(cs.CE_BINS + 1)
+                    inputs[(n, c, logits)] = (preds, target, st, kce.calibration_bins(*st, preds, target, c))
+                preds, target, st, want = inputs[(n, c, logits)]
+                g = plan_of(n, c)
+                switches = {**CE_DEFAULTS, **CE_VARIANTS.get(variant, {})}
+                call, got = _ce_call(entries[variant], variant.startswith("parent"), st, preds, target, c, g.mode,
+                                     g.warps_per_row, g.blocks, switches["COPIES"])
+                torch.cuda.synchronize()
+                if switches["ROWS"] and switches["TAIL"] and not switches["EMPTY"]:  # a whole update: check it
+                    cs.check(int(got[2].sum()) == int(want[2].sum()) and
+                             torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-6),
+                             f"calibration variant {variant} differs ({what}, plan {tuple(g)})")
+                key = f"{what}: {variant}, plan {tuple(g)[:3]}"
+                rows.setdefault(key, []).append(cs.time_ms(call, flush))
+        for key, times in rows.items():
+            print(f"[calibration] {key}: {' / '.join(f'{x:.4f}' for x in times)} ms after an L2 flush "
+                  f"(forward / backward)", flush=True)
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--sections", default="ranking,multilabel,calibration", help="comma-separated sections to run")
+    parser.add_argument("--parent", help="a checkout of the commit before the calibration redesign, timed beside it")
     parser.add_argument("--json", help="also write the times to this file")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -162,7 +498,14 @@ def main() -> int:
     device = cs.phase_device()
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 13)
-    record = {"device": device, "ranking": _ranking(flush, gen), "multilabel": _multilabel(flush, gen)}
+    sections = args.sections.split(",")
+    record = {"device": device}
+    if "ranking" in sections:
+        record["ranking"] = _ranking(flush, gen)
+    if "multilabel" in sections:
+        record["multilabel"] = _multilabel(flush, gen)
+    if "calibration" in sections:
+        record["calibration"] = _calibration(flush, gen, args.parent)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(record, f, indent=1)

@@ -7,7 +7,7 @@ flags, so a changed source is rebuilt and an unchanged one is built once.
 Nothing is built at import: the first launch builds what it needs, and
 :func:`build` compiles several sources at once, one ``nvcc`` each. The
 launchers share :func:`cdiv`, :func:`sm_count`, :func:`check_tensor`,
-:func:`zero_tickets` and :func:`launch_on`.
+:func:`zero_scratch`, :func:`zero_tickets` and :func:`launch_on`.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # under CUDA's default install prefix
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _sm_count: Dict[int, int] = {}
-_tickets: Dict[Tuple[int, int], Tensor] = {}
+_scratch: Dict[Tuple[int, int, str], Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -121,18 +121,24 @@ def check_tensor(kernel: str, name: str, x: Tensor, dtype: torch.dtype, shape: t
         raise ValueError(f"{kernel}: `{name}` is on {x.device}, expected {device}")
 
 
-def zero_tickets(device: torch.device, stream: int, n: int) -> Tensor:
-    """At least ``n`` int32 tickets of the stream, zero when a launch starts.
+def zero_scratch(device: torch.device, stream: int, name: str, n_bytes: int) -> Tensor:
+    """At least ``n_bytes`` (8-byte aligned) of the stream's scratch ``name``, zero when a launch starts.
 
-    A kernel that merges its blocks' partials counts arriving blocks on a
-    ticket and its last block sets the ticket back to zero; launches on one
-    stream run in order, so every kernel of the port shares the stream's
-    tickets.
+    A kernel that merges its blocks through such scratch (tickets, sums) sets
+    what it used back to zero in its last block; launches on one stream run in
+    order, so the scratch is zeroed once, here, and never again by the host.
     """
-    key = (device.index if device.index is not None else torch.cuda.current_device(), stream)
-    if key not in _tickets or _tickets[key].shape[0] < n:
-        _tickets[key] = torch.zeros((n,), dtype=torch.int32, device=device)
-    return _tickets[key]
+    key = (device.index if device.index is not None else torch.cuda.current_device(), stream, name)
+    n_words = cdiv(n_bytes, 8)
+    if key not in _scratch or _scratch[key].shape[0] < n_words:
+        _scratch[key] = torch.zeros((n_words,), dtype=torch.int64, device=device)
+    return _scratch[key]
+
+
+def zero_tickets(device: torch.device, stream: int, n: int) -> Tensor:
+    """At least ``n`` int32 tickets of the stream, zero when a launch starts (``zero_scratch``):
+    a kernel counts its arriving blocks on one and its last block sets it back to zero."""
+    return zero_scratch(device, stream, "tickets", 4 * n).view(torch.int32)
 
 
 def launch_on(kernel: str, device: torch.device, fn: Callable[..., int], args: tuple) -> None:

@@ -20,8 +20,16 @@ batch's confidences are summed in 32.32 fixed point (deterministic, exact to
 2**-33 a row, rounded once to float32), and the counts are int32 (JAX sums
 float32 0/1 weights a batch, exact below 2**24 a bin).
 
-:func:`plan` is the launch geometry, kept in Python so that the CPU tests
-reach it.
+Plan and scratch. :func:`plan` is the launch geometry, kept in Python so
+that the CPU tests reach it: W warps a row (W = 4, 2 or 1, the most that
+keep every row's warps in one wave of ``BLOCKS_PER_SM`` blocks an SM; the
+argmax of the probabilities divides only where ``e`` can tie ``1 / sum``),
+and one block when the batch fits ``ONE_BLOCK_ROUNDS`` rounds of a block
+(a round: 8 / W rows, 256 short rows or 1,024 binary scores), which writes
+the state from its shared memory. A grid of several blocks adds its
+histograms into the stream's accumulator (``SCRATCH_BYTES``, from
+``_build.zero_scratch``, zeroed once), and its last block writes the state
+and zeroes the accumulator again.
 """
 
 from __future__ import annotations
@@ -33,26 +41,37 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.kernels._build import cdiv, launch_on, load_library, sm_count, zero_tickets
+from torchmetrics_tpu_torch.kernels._build import cdiv, launch_on, load_library, sm_count, zero_scratch
 
 SOURCE = "calibration"
-MAX_BINS = 1023  # two histograms of (n_bins + 1) x 16 bytes in a block's shared memory: 32 KB
+MAX_BINS = 1023  # two histograms of (n_bins + 1) x 16 bytes and 4 words in a block's shared memory: 32,784 bytes
 MAX_ROWS = 2**31 - 1  # the counts are int32
 THREADS = 256
-CACHED_SCORES = 1024  # a warp keeps a row of up to 32 scores a lane in registers
-ROW_MIN_SCORES = 32  # a warp a row from this many scores a row; a thread a row below
-BLOCKS_PER_SM = 2
-
+WARPS = THREADS // 32
+CACHED_SCORES = 1024  # W warps keep a row of up to 32 / W scores a lane in registers
+ROW_MIN_SCORES = 32  # warps a row from this many scores a row; a thread a row below
+BINARY_ITEMS = 4  # binary scores a thread loads before it bins any
+BLOCKS_PER_SM = 4  # the grid's cap an SM: W > 1 only where every row's warps fit that one wave
+ONE_BLOCK_ROUNDS = 1  # a batch of at most this many rounds of one block takes one block
 PRED_KINDS = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 TARGET_KINDS = {torch.int32: 0, torch.int64: 1}
 MODES = {"rows": 0, "long_rows": 1, "short_rows": 2, "binary": 3}
+
+
+def _shared_bytes(nb: int) -> int:
+    """Two histograms: 2 x nb uint64 confidence sums, then acc, count, nan, outside and ticket words."""
+    return 2 * nb * 8 + (4 * nb + 4) * 4
+
+
+SCRATCH_BYTES = _shared_bytes(MAX_BINS + 1)  # the stream's accumulator, laid out as a block's histograms
 
 _launch: Optional[ctypes._CFuncPtr] = None
 
 
 class Plan(NamedTuple):
-    mode: str  # "rows" (a warp a row in registers), "long_rows", "short_rows" (a thread a row), "binary"
-    blocks: int
+    mode: str  # "rows" (W warps a row in registers), "long_rows", "short_rows" (a thread a row), "binary"
+    warps_per_row: int  # W, in "rows" mode; else 1
+    blocks: int  # 1: the block writes the state itself, no accumulator
     threads: int
     shared_bytes: int  # the block's two histograms
 
@@ -60,15 +79,21 @@ class Plan(NamedTuple):
 @functools.lru_cache(maxsize=256)
 def plan(n_rows: int, n_scores: Optional[int], n_bins: int, sm_count: int) -> Plan:
     """The launch geometry for ``n_rows`` rows of ``n_scores`` scores (``None``: binary scores)."""
-    nb = n_bins + 1
-    shared = nb * 2 * 8 + (4 * nb + 2) * 4
-    cap = BLOCKS_PER_SM * sm_count
+    shared = _shared_bytes(n_bins + 1)
+    warps = 1
     if n_scores is None:
-        return Plan("binary", max(1, min(cdiv(n_rows, THREADS), cap)), THREADS, shared)
-    if n_scores < ROW_MIN_SCORES:
-        return Plan("short_rows", max(1, min(cdiv(n_rows, THREADS), cap)), THREADS, shared)
-    mode = "rows" if n_scores <= CACHED_SCORES else "long_rows"
-    return Plan(mode, max(1, min(cdiv(n_rows, THREADS // 32), cap)), THREADS, shared)
+        mode, per_round = "binary", THREADS * BINARY_ITEMS
+    elif n_scores < ROW_MIN_SCORES:
+        mode, per_round = "short_rows", THREADS
+    elif n_scores > CACHED_SCORES:
+        mode, per_round = "long_rows", WARPS
+    else:
+        mode = "rows"
+        warps = next(w for w in (4, 2, 1) if w == 1 or n_rows * w <= BLOCKS_PER_SM * sm_count * WARPS)
+        per_round = WARPS // warps
+    rounds = cdiv(n_rows, per_round)
+    blocks = 1 if rounds <= ONE_BLOCK_ROUNDS else min(rounds, BLOCKS_PER_SM * sm_count)
+    return Plan(mode, warps, blocks, THREADS, shared)
 
 
 def _launch_fn() -> ctypes._CFuncPtr:
@@ -80,7 +105,7 @@ def _launch_fn() -> ctypes._CFuncPtr:
             p, i, p, i,  # preds, kind, target, kind
             ll, i, i, i, ll,  # rows, scores, n_bins, has_ignore, ignore_index
             p, p, p, p, p, p,  # old conf, acc, count; new conf, acc, count
-            p, p, p, i, i, p,  # conf_part, int_part, ticket, mode, blocks, stream
+            p, p, i, i, i, p,  # accumulator (conf, int words), mode, warps a row, blocks, stream
         ]
         fn.restype = ctypes.c_int
         _launch = fn
@@ -158,16 +183,15 @@ def calibration_bins(
 
     geometry = plan(n_rows, num_classes, n_bins, sm_count(device))
     new_conf, new_acc, new_count = torch.empty_like(conf_sum), torch.empty_like(acc_sum), torch.empty_like(count)
-    conf_part = torch.empty((geometry.blocks, 2, nb), dtype=torch.int64, device=device)
-    int_part = torch.empty((geometry.blocks, 4 * nb + 3), dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
+    scratch = zero_scratch(device, stream, SOURCE, SCRATCH_BYTES)
     args = (
         preds.data_ptr(), PRED_KINDS[preds.dtype], target.data_ptr(), TARGET_KINDS[target.dtype],
         n_rows, num_classes or 1, n_bins, int(ignore_index is not None), int(ignore_index or 0),
         conf_sum.data_ptr(), acc_sum.data_ptr(), count.data_ptr(),
         new_conf.data_ptr(), new_acc.data_ptr(), new_count.data_ptr(),
-        conf_part.data_ptr(), int_part.data_ptr(), zero_tickets(device, stream, 1).data_ptr(),
-        MODES[geometry.mode], geometry.blocks, stream,
+        scratch.data_ptr(), scratch.data_ptr() + 2 * nb * 8,  # the accumulator's sums, then its integer words
+        MODES[geometry.mode], geometry.warps_per_row, geometry.blocks, stream,
     )
     launch_on("calibration_bins", device, _launch_fn(), args)
     calibration_bins.launches += 1
