@@ -54,10 +54,15 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    rows, beside ``softmax`` + ``max`` + ``bucketize`` + three ``bincount``),
    at C = 2, 3, 31, 33, 1001 and 2000, ``n_bins`` = 1, 15, 100 and the limit
    1023, with NaN, tie, +-inf, one-hot and bin-edge rows, ignored rows,
-   float16 and bfloat16 scores, an empty batch, near-tie logit rows (an
-   exponential of 1 or 1 - 2^-24 below the raw argmax) on every row path,
-   batches that take one block and just above, and 65,536 x 1,000 logits (the
-   largest merge, also at 1023 bins); the timed rows are profiled (exactly
+   float16 and bfloat16 scores, an empty batch, near-tie logit rows on every
+   row path (an exponential of 1 below the raw argmax, and a sweep of x over
+   every step of ``expf(x)`` near 1, found by a scan of every float32 x the
+   divide filter admits, in rows built so that an exponential of 1 - 2^-24
+   would tie ``1 / sum``: these against a reference that divides
+   ``exp(x - max) / sum``), at 848 and 1,024 rows (four warps a row), 2,048
+   (two, float32 and float16) and 16,384 and 65,536 (one), batches that
+   take one block and just above, and 65,536 x 1,000 logits (the largest
+   merge, also at 1023 bins); the timed rows are profiled (exactly
    one kernel a call): integer states equal (but
    that a row whose normalized confidence lies within 1e-5 of a bin edge,
    counted and printed, may move one count between the edge's two bins),
@@ -163,6 +168,7 @@ from __future__ import annotations
 import argparse
 import collections
 import datetime
+import functools
 import importlib
 import json
 import math
@@ -592,16 +598,21 @@ def _ce_case(n, c, gen, logits=False, dtype=torch.float32, edits=()):
         scores[7::11, 0] = 1.0 / 3.0  # on k / n_bins edges when the row stays raw
         scores[8::11, 0] = 0.5
     if n and c is not None and "near_tie" in edits:
-        # logit rows whose e = expf(x - max) is 1 or 1 - 2^-24 below the raw argmax, the rest -100
-        # (e ~ 0, absorbed in any order), so every order of the sum gives the same float32 sum:
-        # x = -1e-8 ties the max at 3 (e = 1: the probability argmax is 0); x = -6e-8 lies below
-        # the maxima at 1, 2 and 3 (e = 1 - 2^-24, divided: (1 - 2^-24) / 4 < 1 / 4, the argmax
-        # is 1); no confidence lies on a bin edge
-        for rows in (slice(0, None, 4), slice(1, None, 4)):
+        # logit rows (max 0) with an e = expf(x - max) at or just below 1 at index 0 below the raw
+        # argmax, the other scores -100 (e ~ 0, absorbed in any order), so every order of the sum
+        # gives the same float32 sum; the target is 0. Kind 0: x = -1e-8 (e = 1) beside the max at 3.
+        # Kinds 1 and 2 take x0 from the sweep in turn, beside the maxima at 1..3 (sum 4: an e of
+        # 1 - 2^-24 gives (1 - 2^-24) / 4 < 1 / 4) or at 1..5 and an e of 0.25 at 6 (sum 6.25:
+        # (1 - 2^-24) / 6.25 rounds to 1 / 6.25, a tie). No confidence lies on a bin edge.
+        sweep = _near_tie_sweep()
+        for rows in (slice(0, None, 4), slice(1, None, 4), slice(2, None, 4)):
             scores[rows] = -100.0
             target[rows] = 0
         scores[0::4, 0], scores[0::4, 3] = -1e-8, 0.0
-        scores[1::4, 0], scores[1::4, 1:4] = -6e-8, 0.0
+        for kind, maxima in ((1, slice(1, 4)), (2, slice(1, 6))):
+            picks = torch.arange(kind, n, 4, device=dev) // 4 % sweep.numel()
+            scores[kind::4, 0], scores[kind::4, maxima] = sweep[picks], 0.0
+        scores[2::4, 6] = math.log(0.25)
     if n and c is None and "edge_rows" in edits:
         scores[0::13] = float("nan")
         scores[1::13] = 1.0
@@ -611,6 +622,72 @@ def _ce_case(n, c, gen, logits=False, dtype=torch.float32, edits=()):
     if "ignored" in edits:
         target[torch.rand(target.shape, generator=gen, device=dev) < 0.1] = -1
     return scores.to(dtype).contiguous(), target
+
+
+NEAR_ONE = 1.0 - 2.0**-24  # the one exponential below 1 that can tie 1 / sum (a sum of 6.25, say)
+TIE_FLOOR = 1.0 - 2.0**-22  # the kernel divides only the exponentials at or above it
+
+
+def _bits(x: float) -> int:
+    return int(np.array(x, dtype=np.float32).view(np.int32))
+
+
+@functools.lru_cache(maxsize=1)
+def _exp_near_one() -> dict:
+    """``torch.exp`` (CUDA's ``expf``, as the kernel's) of every float32 x in [-2^-21, 0], which
+    holds every x whose exponential reaches the kernel's divide filter: for each value 1 - k 2^-24
+    at or above the filter, how many x give it and the range of their bit patterns, and the first
+    x that give 1 - 2^-24, if any do."""
+    top = _bits(2.0**-21)
+    found = {k: [0, None, None] for k in range(5)}
+    near_one = []
+    step = 2**26
+    for lo in range(0, top + 1, step):
+        bits = torch.arange(lo, min(lo + step, top + 1), dtype=torch.int32, device="cuda")
+        e = torch.exp(-bits.view(torch.float32))
+        check(not bool((e > 1).any()), "expf of a negative x exceeds 1")
+        for k, entry in found.items():
+            hit = e == 1.0 - k * 2.0**-24
+            n = int(hit.sum())
+            if n:
+                entry[0] += n
+                low, high = int(torch.where(hit, bits, top + 1).min()), int(torch.where(hit, bits, -1).max())
+                entry[1] = low if entry[1] is None else min(entry[1], low)
+                entry[2] = high if entry[2] is None else max(entry[2], high)
+        if len(near_one) < 64:
+            near_one += (-bits[e == NEAR_ONE][:64].view(torch.float32)).tolist()
+    return {"values": {f"1 - {k} * 2^-24": tuple(v) for k, v in found.items()}, "x_at_1_minus_2^-24": near_one[:64]}
+
+
+@functools.lru_cache(maxsize=1)
+def _near_tie_sweep() -> torch.Tensor:
+    """The x0 of the near-tie rows: -k 2^-28 for k < 64 (from 0 past the filter), the 8 float32 x
+    on each side of every step between the values of ``expf`` near 1 (``_exp_near_one``), and
+    every x found to give 1 - 2^-24."""
+    scan = _exp_near_one()
+    steps = [high for count, _, high in scan["values"].values() if count]
+    edges = [b for high in steps for b in range(high - 7, high + 9)]
+    x = [-k * 2.0**-28 for k in range(64)]
+    x += (-np.array(edges, dtype=np.int32).view(np.float32)).tolist()
+    x += scan["x_at_1_minus_2^-24"]
+    return torch.tensor(x, dtype=torch.float32, device="cuda")
+
+
+def _ce_divided(state, preds: torch.Tensor, target: torch.Tensor, num_classes: int, n_bins: int):
+    """The update as JAX writes the softmax, ``exp(x - max) / sum`` divided, with the first index of
+    the largest probability: the reference of the near-tie rows (no NaN, no ignored row)."""
+    x = preds.float().reshape(-1, num_classes)
+    if bool(((x < 0) | (x > 1)).any()):
+        e = torch.exp(x - x.amax(1, keepdim=True))
+        x = e / e.sum(1, keepdim=True)
+    conf = x.amax(1)
+    pred = torch.where(x == conf[:, None], torch.arange(num_classes, device=x.device), num_classes).amin(1)
+    bins = torch.clamp(torch.floor(conf * n_bins), 0, n_bins).long()
+    nb = n_bins + 1
+    batch_conf = torch.zeros((nb,), dtype=torch.float64, device=x.device).index_add_(0, bins, conf.double())
+    acc = torch.bincount(bins, weights=(pred == target.reshape(-1)).double(), minlength=nb)
+    return (state[0] + batch_conf.float(), state[1] + acc.round().int(),
+            state[2] + torch.bincount(bins, minlength=nb).int())
 
 
 def _ce_edge_slack(preds: torch.Tensor, target: torch.Tensor, num_classes, n_bins: int, ignore_index=None):
@@ -712,7 +789,12 @@ def phase_calibration_kernel(flush: torch.Tensor) -> list:
         ("near-tie logit rows, C=33, scalar loads", BATCH, 33, CE_BINS, {"logits": True, "edits": ("near_tie",)}, None),
         ("near-tie logit rows, a thread a row", BATCH, 7, CE_BINS, {"logits": True, "edits": ("near_tie",)}, None),
         ("near-tie logit rows, C=2000", 256, 2000, CE_BINS, {"logits": True, "edits": ("near_tie",)}, None),
+        ("near-tie logit rows, two warps a row", 2 * BATCH, N_CLASSES, CE_BINS, {"logits": True, "edits": ("near_tie",)}, None),
         ("near-tie logit rows, a warp a row", 16 * BATCH, N_CLASSES, CE_BINS, {"logits": True, "edits": ("near_tie",)}, None),
+        ("2,048 x 1,000 logits: two warps a row", 2 * BATCH, N_CLASSES, CE_BINS, {"logits": True}, None),
+        ("2,048 x 1,000 float16 logits: two warps a row", 2 * BATCH, N_CLASSES, CE_BINS,
+         {"logits": True, "dtype": torch.float16}, None),
+        ("16,384 x 1,000 logits: a warp a row", 16 * BATCH, N_CLASSES, CE_BINS, {"logits": True}, None),
         ("two rows: one block", 2, N_CLASSES, CE_BINS, {"logits": True}, None),
         ("three rows: two blocks", 3, N_CLASSES, CE_BINS, {"logits": True}, None),
         ("binary, 1,025 scores: two blocks", BATCH + 1, None, CE_BINS, {"logits": True}, None),
@@ -724,6 +806,15 @@ def phase_calibration_kernel(flush: torch.Tensor) -> list:
     blocks_wanted = {"binary batch (c)": 1, "two rows: one block": 1, "three rows: two blocks": 2,
                      "binary, 1,025 scores: two blocks": 2, "256 short rows: one block": 1,
                      "257 short rows: two blocks": 2}
+    warps_wanted = {"ImageNet-1k batch, probabilities (a)": 4, "ImageNet-1k batch, logits (b)": 4,
+                    "last ImageNet batch, logits": 4, "near-tie logit rows, four warps a row": 4,
+                    "near-tie logit rows, two warps a row": 2, "2,048 x 1,000 logits: two warps a row": 2,
+                    "2,048 x 1,000 float16 logits: two warps a row": 2, "near-tie logit rows, a warp a row": 1,
+                    "16,384 x 1,000 logits: a warp a row": 1, "65,536 x 1,000 logits: the largest merge": 1}
+    scan = _exp_near_one()
+    print(f"[kernel] calibration_bins near-tie rows: expf of every float32 x in [-2^-21, 0] on the card, the "
+          f"values at or above the divide filter (x count, bit range): {scan['values']}; x giving 1 - 2^-24: "
+          f"{len(scan['x_at_1_minus_2^-24'])}; sweep of {_near_tie_sweep().numel()} x0")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for what, n, c, n_bins, kwargs, ignore_index in cases:
@@ -735,6 +826,16 @@ def phase_calibration_kernel(flush: torch.Tensor) -> list:
         got = kce.calibration_bins(*state, preds, target, c, ignore_index)
         again = kce.calibration_bins(*state, preds, target, c, ignore_index)
         want = ce._calibration_accumulate_plain(state, preds, target, c, ignore_index)
+        near_tie = "near_tie" in kwargs.get("edits", ())
+        extra = {}
+        if near_tie:  # held against a divide; whether the plain version agrees is recorded
+            plain, want = want, _ce_divided(state, preds, target, c, n_bins)
+            e0 = torch.exp(preds[1::4, 0].float())
+            extra = {"plain_equal": all(torch.equal(a, b) for a, b in zip(plain[1:], want[1:])),  # the counts
+                     "x0_at_1": int((e0 == 1).sum()), "x0_at_1_minus_2^-24": int((e0 == NEAR_ONE).sum()),
+                     "x0_below_1_at_or_above_filter": int(((e0 < 1) & (e0 >= TIE_FLOOR)).sum())}
+            e = preds[2::4].float().exp()
+            check(bool((e.sum(1) == 6.25)[e[:, 0] >= TIE_FLOOR].all()), f"near-tie rows of sum 6.25 ({what})")
         torch.cuda.synchronize()
         slack = _ce_edge_slack(preds, target, c, n_bins, ignore_index)
         edge_rows = slack[0]
@@ -747,9 +848,11 @@ def phase_calibration_kernel(flush: torch.Tensor) -> list:
         geometry = kce.plan(n, c, n_bins, sms) if n else None
         check(geometry is None or blocks_wanted.get(what, geometry.blocks) == geometry.blocks,
               f"calibration_bins plan {geometry} ({label})")
+        check(geometry is None or warps_wanted.get(what, geometry.warps_per_row) == geometry.warps_per_row,
+              f"calibration_bins plan {geometry}: not the warps a row wanted ({label})")
         if not what.endswith(("(a)", "(b)", "(c)")):
             rows.append({"case": label, "what": what, "max_abs_err": err, "edge_rows": edge_rows,
-                         "plan": geometry._asdict() if geometry else None})
+                         "plan": geometry._asdict() if geometry else None, **extra})
             continue
         # least work: read the scores and the targets once, read and write the 3 (n_bins + 1) state
         # values; for the softmax a compare, a subtract, an exp and an add a score, and a compare for
@@ -791,7 +894,11 @@ def phase_calibration_kernel(flush: torch.Tensor) -> list:
     print(f"[kernel] calibration_bins: integer states equal to the plain version (but for the rows counted within "
           f"{EDGE_TOL} of a bin edge, each only in its two bins), conf_sum within 1e-5 relative (plus those rows' "
           f"confidences in their bins) and bit-identical over repeated launches on all {len(cases)} cases: "
-          + "; ".join(f"{r['what']} ({r['edge_rows']} edge rows)" for r in rows if "ms" not in r))
+          + "; ".join(f"{r['what']} ({r['edge_rows']} edge rows"
+                      + (f"; x0 of rows of kind 1: {r['x0_at_1']} at 1, {r['x0_at_1_minus_2^-24']} at 1 - 2^-24, "
+                         f"{r['x0_below_1_at_or_above_filter']} below 1 at or above the filter; the plain version's "
+                         f"counts {'agree' if r['plain_equal'] else 'differ'}" if "plain_equal" in r else "") + ")"
+                      for r in rows if "ms" not in r))
     return rows
 
 

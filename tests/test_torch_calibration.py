@@ -339,11 +339,14 @@ def test_plan_geometry():
     # the ImageNet-1k batch and its last batch: four warps a row, every row's warps in one wave
     assert kce.plan(1024, 1000, 15, 132) == kce.Plan("rows", 4, 512, 256, shared15)
     assert kce.plan(848, 1000, 15, 132) == kce.Plan("rows", 4, 424, 256, shared15)
-    # fewer warps a row as the rows outgrow the wave: 4 x 132 blocks of 8 warps
-    assert [kce.plan(n, 1000, 15, 132).warps_per_row for n in (1056, 1057, 2112, 2113, 50_000)] == [4, 2, 2, 1, 1]
+    # fewer warps a row as the rows outgrow the wave of 4 x 132 blocks of 8 warps (4,224 warps): four
+    # while every row's four fit it, two while the rows would fit it at one warp each, then one
+    assert [kce.plan(n, 1000, 15, 132).warps_per_row
+            for n in (1056, 1057, 2048, 4224, 4225, 16_384, 50_000)] == [4, 2, 2, 2, 1, 1, 1]
     assert kce.plan(50_000, 1000, 15, 132).blocks == kce.BLOCKS_PER_SM * 132
+    assert kce.plan(2048, 1000, 15, 132) == kce.Plan("rows", 2, 512, 256, shared15)
+    assert kce.plan(4224, 1000, 15, 132).blocks == kce.plan(16_384, 1000, 15, 132).blocks == 528
     # one block when the batch fits one round of a block: it writes the state itself
-    assert kce.ONE_BLOCK_ROUNDS == 1
     assert kce.plan(1024, None, 15, 132) == kce.Plan("binary", 1, 1, 256, shared15)  # the binary batch
     assert kce.plan(848, None, 15, 132).blocks == 1 and kce.plan(1025, None, 15, 132).blocks == 2
     assert kce.plan(2, 1000, 15, 132).blocks == 1 and kce.plan(3, 1000, 15, 132).blocks == 2
@@ -421,10 +424,17 @@ def _probability_argmax(e, total):
     return pbest, np.where(np.isnan(total), 0, cand.argmax(1))
 
 
-def _kernel_model(preds, target, c, ignore_index, n_bins, warps=1):
+def _vec_width(c, itemsize):
+    """Scores a 16-byte load, as the kernel reads a row of C scores of ``itemsize`` bytes: 16 / itemsize
+    where the row is a whole number of 16-byte loads and stays in registers; 0 (scalar loads) else."""
+    return 16 // itemsize if c * itemsize % 16 == 0 and 32 <= c <= 1024 else 0
+
+
+def _kernel_model(preds, target, c, ignore_index, n_bins, warps=1, itemsize=4):
     """The state a zero state takes after one batch, by the kernel's algorithm: both variants of
     each row binned, the whole-batch predicate choosing one, confidences summed in 32.32 fixed
-    point. ``preds`` are the scores widened to float32 (numpy), ``c`` None for binary scores."""
+    point. ``preds`` are the scores widened to float32 (numpy), ``itemsize`` the bytes of a score as
+    the kernel reads it, ``c`` None for binary scores."""
     x = preds.reshape(-1) if c is None else preds.reshape(-1, c)
     t = target.reshape(-1).astype(np.int64).astype(np.int32).astype(np.int64)  # an int64 label's low 32 bits
     w = np.ones(t.shape, bool) if ignore_index is None else t != ignore_index
@@ -438,9 +448,9 @@ def _kernel_model(preds, target, c, ignore_index, n_bins, warps=1):
         best, arg = _first_argmax(x)
         with np.errstate(invalid="ignore"):
             e = _exp32(x - best[:, None])
-        vec_width = 4 if c % 4 == 0 and 32 <= c <= 1024 else 0
+        vec_width = _vec_width(c, itemsize)
         if c > 1024:  # a warp a row, read lane by lane
-            warps, vec_width = 1, 0
+            warps = 1
         pbest, parg = _probability_argmax(e, _row_sums(e, warps, vec_width))
         variants = [(best, arg == t), (pbest, parg == t)]
     conf, acc = variants[int(outside)]
@@ -523,7 +533,7 @@ def test_kernel_model_against_jax(case, warps):
     conf_fn = (jce._binary_ce_confidences if c is None else
                lambda p, t, i: jce._multiclass_ce_confidences(p, t, c, i))
     want = jce._bin_update(*conf_fn(jpreds, jnp.asarray(target), ignore_index), n_bins)
-    got = _kernel_model(wide, target, c, ignore_index, n_bins, warps)
+    got = _kernel_model(wide, target, c, ignore_index, n_bins, warps, getattr(given, "itemsize", 4))
     _close(got[0], want[0])
     _equal(got[1], np.asarray(want[1]).astype(np.int32))
     _equal(got[2], np.asarray(want[2]).astype(np.int32))
@@ -538,10 +548,30 @@ def test_kernel_model_against_jax(case, warps):
     else:  # the constructed rows: the probability argmax left the raw one
         best, arg = _first_argmax(wide.reshape(-1, c))
         e = _exp32(wide.reshape(-1, c) - best[:, None])
-        _, parg = _probability_argmax(e, _row_sums(e, warps, 4 if c % 4 == 0 and 32 <= c <= 1024 else 0))
+        _, parg = _probability_argmax(e, _row_sums(e, warps, _vec_width(c, 4)))
         assert (arg[0::4] == 3).all() and (parg[0::4] == 0).all()  # e = 1 below the max
         assert (arg[1::4] == 1).all() and (parg[1::4] == 0).all()  # 1 - 2^-24 ties 1 / 6.25
         assert (arg[2::4] == 1).all() and (parg[2::4] == 1).all()  # 1 - 2^-24 below 1 / 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("warps", [1, 2, 4])
+def test_half_rows_take_eight_scores_a_load(dtype, warps):
+    """A row of 2-byte scores is read 8 to a 16-byte load, not 4: the two layouts sum some rows
+    differently in float32, and the model with the kernel's layout equals the JAX update."""
+    assert _vec_width(96, 2) == 8 and _vec_width(96, 4) == 4 and _vec_width(36, 2) == 0 and _vec_width(20, 2) == 0
+    rng = np.random.default_rng(61)
+    given = torch.from_numpy(rng.normal(scale=2.0, size=(256, 96)).astype(F32)).to(dtype)
+    wide = given.float().numpy()
+    target = rng.integers(0, 96, 256).astype(np.int64)
+    e = _exp32(wide - wide.max(1, keepdims=True))
+    assert (_row_sums(e, warps, 8) != _row_sums(e, warps, 4)).any()
+    jpreds = jnp.asarray(wide).astype(jnp.float16 if dtype == torch.float16 else jnp.bfloat16)
+    want = jce._bin_update(*jce._multiclass_ce_confidences(jpreds, jnp.asarray(target), 96, None), 15)
+    got = _kernel_model(wide, target, 96, None, 15, warps, given.itemsize)
+    _close(got[0], want[0])
+    _equal(got[1], np.asarray(want[1]).astype(np.int32))
+    _equal(got[2], np.asarray(want[2]).astype(np.int32))
 
 
 def test_argmax_of_probabilities_is_lowest_index_at_one_over_sum():

@@ -2,7 +2,7 @@
 """Where the port's redesigned kernels spend their time, on one GPU: ``ranking_pairs``' sort,
 ``binned_confmat_multilabel``'s label-group width, and ``calibration_bins``' design choices.
 
-    python3 tools/kernel_ablation.py [--sections ranking,multilabel,calibration]
+    python3 tools/kernel_ablation.py [--sections ranking,multilabel,calibration,calibration-widths]
                                      [--parent CHECKOUT] [--json PATH]
 
 Ranking: ``csrc/ranking.cu`` is copied, ``#if`` switches are put around the
@@ -30,7 +30,10 @@ atomic a lane on the binary path, 64-bit shared atomics in place of the two
 the shipped filter (only the exponentials at or above 1 - 2^-22 divided) put
 in a helper function. The shipped build is timed at 1, 2 and 4 warps a row and with one
 block against the launcher's grid at growing batches (the one-block
-threshold). ``--parent`` names a checkout of the commit before the
+threshold). Calibration widths: the shipped source with every width
+instantiated, timed at 1, 2 and 4 warps a row from 848 to 65,536 rows of
+1,000 logits (each under phase 3's state check against the plain version),
+which sets the plan's width thresholds. ``--parent`` names a checkout of the commit before the
 redesign, whose kernel (one partial histogram a block, merged by the last
 block) is built and timed beside it at the main path's three shapes.
 
@@ -486,9 +489,67 @@ def _calibration(flush: torch.Tensor, gen: torch.Generator, parent) -> dict:
     return rows
 
 
+WIDTH_ROWS = (848, 1024, 1056, 1057, 1536, 2048, 2112, 3072, 4096, 4224, 4225, 6144, 8192, 16_384, 65_536)
+
+
+def _widths_library(workdir: str):
+    """The shipped source with every width (1, 2 and 4 warps a row) instantiated in its launch switch."""
+    src = open(os.path.join(_build.CSRC_DIR, "calibration.cu")).read()
+    anchor = "    case 9: calib_rows_long_kernel"
+    if src.count(anchor) != 1:
+        raise RuntimeError("kernel_ablation: the calibration source changed, cannot place the widths")
+    for w in (1, 2, 4):
+        line = f"    case {w}: calib_rows_kernel<T, U, {w}><<<blocks, kThreads, smem, stream>>>(a); break;\n"
+        if line not in src:
+            src = src.replace(anchor, line + anchor)
+    path = os.path.join(workdir, "calibration_widths.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    fn = _nvcc_all({"widths": (path, [])})["widths"].calibration_bins_launch
+    fn.argtypes = CE_ARGTYPES + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _calibration_widths(flush: torch.Tensor, gen: torch.Generator) -> dict:
+    """1, 2 and 4 warps a row at growing batches of 1,000 logits (float32, and float16 at 2,048
+    rows), each with the launcher's grid for that width; every update held against the plain
+    version as phase 3 holds it. Two turns, forward then backward."""
+    ce = importlib.import_module("torchmetrics_tpu_torch.functional.classification.calibration_error")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(n, torch.float32) for n in WIDTH_ROWS] + [(2048, torch.float16)]
+    rows = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        fn = _widths_library(workdir)
+        inputs = {}
+        for shape in shapes:
+            n, dtype = shape
+            preds, target = cs._ce_case(n, cs.N_CLASSES, gen, logits=True, dtype=dtype)
+            st = tuple(x.clone() for x in ce._zero_bins(cs.CE_BINS, torch.device("cuda")))
+            want = ce._calibration_accumulate_plain(st, preds, target, cs.N_CLASSES, None)
+            slack = cs._ce_edge_slack(preds, target, cs.N_CLASSES, cs.CE_BINS)
+            inputs[shape] = (preds, target, st, want, slack)
+        runs = [(shape, w) for shape in shapes for w in (1, 2, 4)]
+        for turn in (runs, runs[::-1]):
+            for (n, dtype), w in turn:
+                preds, target, st, want, slack = inputs[(n, dtype)]
+                g = kce.plan(n, cs.N_CLASSES, cs.CE_BINS, sms)
+                g = g._replace(warps_per_row=w, blocks=min(-(-n // (kce.WARPS // w)), kce.BLOCKS_PER_SM * sms))
+                call, got = _ce_call(fn, False, st, preds, target, cs.N_CLASSES, g.mode, w, g.blocks)
+                torch.cuda.synchronize()
+                cs._ce_state_check(f"{n} x 1,000 {dtype}, {w} warps a row", got, want, slack)
+                key = f"{n:,} x 1,000 {str(dtype)[6:]} logits, {w} warps a row, {g.blocks} blocks"
+                rows.setdefault(key, []).append(cs.time_ms(call, flush))
+    for key, times in rows.items():
+        print(f"[calibration widths] {key}: {' / '.join(f'{x:.4f}' for x in times)} ms after an L2 flush "
+              f"(forward / backward)", flush=True)
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--sections", default="ranking,multilabel,calibration", help="comma-separated sections to run")
+    parser.add_argument("--sections", default="ranking,multilabel,calibration,calibration-widths",
+                        help="comma-separated sections to run")
     parser.add_argument("--parent", help="a checkout of the commit before the calibration redesign, timed beside it")
     parser.add_argument("--json", help="also write the times to this file")
     args = parser.parse_args()
@@ -506,6 +567,8 @@ def main() -> int:
         record["multilabel"] = _multilabel(flush, gen)
     if "calibration" in sections:
         record["calibration"] = _calibration(flush, gen, args.parent)
+    if "calibration-widths" in sections:
+        record["calibration-widths"] = _calibration_widths(flush, gen)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(record, f, indent=1)

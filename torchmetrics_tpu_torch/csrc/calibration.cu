@@ -52,16 +52,20 @@
 //   divide is monotone, so their argmax is the lowest k with
 //   e_k / sum == 1 / sum (one index reduction, no (value, index) shuffles).
 //   For e_k < 1 - 2^-22 the exact quotients differ by more than an ulp, so
-//   the register path divides only the few e_k at or above it (in practice
-//   1 and 1 - 2^-24): the argmax of the divided row, bit for bit. The test
+//   the register path divides only the few e_k at or above it: the argmax
+//   of the divided row, bit for bit. Of those, only 1 - 2^-24 can tie 1 / sum
+//   (a sum of 6.25, say), and CUDA 12.8's expf returns no such value: it steps
+//   from 1 to 1 - 2^-23 (chip_smoke.py scans every float32 x in the filter's
+//   range and holds rows built on that step against a divided reference).
+//   The divide stays so that the result never rests on one libm. The test
 //   stays written out in the loop's condition: put in a helper function, it
 //   compiled no faster than a divide a score. The long-row and thread-a-row
 //   paths divide every score;
-// - W warps a row (W = 1, 2 or 4; the launcher picks it from the rows and
-//   the SMs): up to 1,024 scores a row stay in registers, 32 / W a lane, read
-//   in 16-byte loads where the row is 16-byte aligned; the W parts meet in
-//   shared memory (max and argmax, sum, candidate index: three barriers a
-//   round). Longer rows take a warp and are read again from L2 in each pass.
+// - W warps a row (W = 4, 2 or 1, the launcher's pick by the rows against
+//   the SMs, each where it measured fastest): up to 1,024 scores a row stay
+//   in registers, 32 / W a lane, read in 16-byte loads where the row is
+//   16-byte aligned; the W parts meet in shared memory (max and argmax,
+//   sum, candidate index: three barriers a round). Longer rows take a warp and are read again from L2 in each pass.
 //   Rows of fewer than 32 scores take a thread a row; binary scores a thread
 //   each, 4 loaded before any is binned;
 // - histograms in shared memory (2 x (n_bins + 1) x (8 + 4 + 4) bytes:

@@ -21,12 +21,14 @@ batch's confidences are summed in 32.32 fixed point (deterministic, exact to
 float32 0/1 weights a batch, exact below 2**24 a bin).
 
 Plan and scratch. :func:`plan` is the launch geometry, kept in Python so
-that the CPU tests reach it: W warps a row (W = 4, 2 or 1, the most that
-keep every row's warps in one wave of ``BLOCKS_PER_SM`` blocks an SM; the
-argmax of the probabilities divides only where ``e`` can tie ``1 / sum``),
-and one block when the batch fits ``ONE_BLOCK_ROUNDS`` rounds of a block
-(a round: 8 / W rows, 256 short rows or 1,024 binary scores), which writes
-the state from its shared memory. A grid of several blocks adds its
+that the CPU tests reach it: W warps a row, each width where it measured
+fastest (``tools/kernel_ablation.py --sections calibration-widths``): 4
+while every row's four warps fit one wave of ``BLOCKS_PER_SM`` blocks an
+SM, 2 while the rows would fit that wave at one warp each, 1 beyond (the
+argmax of the probabilities divides only where ``e`` can tie ``1 / sum``);
+and one block when the batch fits one round of a block (a round: 8 / W
+rows, 256 short rows or 1,024 binary scores), which writes the state from
+its shared memory. A grid of several blocks adds its
 histograms into the stream's accumulator (``SCRATCH_BYTES``, from
 ``_build.zero_scratch``, zeroed once), and its last block writes the state
 and zeroes the accumulator again.
@@ -51,8 +53,7 @@ WARPS = THREADS // 32
 CACHED_SCORES = 1024  # W warps keep a row of up to 32 / W scores a lane in registers
 ROW_MIN_SCORES = 32  # warps a row from this many scores a row; a thread a row below
 BINARY_ITEMS = 4  # binary scores a thread loads before it bins any
-BLOCKS_PER_SM = 4  # the grid's cap an SM: W > 1 only where every row's warps fit that one wave
-ONE_BLOCK_ROUNDS = 1  # a batch of at most this many rounds of one block takes one block
+BLOCKS_PER_SM = 4  # the grid's cap an SM; its warps are one wave, which sets the warps a row
 PRED_KINDS = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 TARGET_KINDS = {torch.int32: 0, torch.int64: 1}
 MODES = {"rows": 0, "long_rows": 1, "short_rows": 2, "binary": 3}
@@ -89,10 +90,11 @@ def plan(n_rows: int, n_scores: Optional[int], n_bins: int, sm_count: int) -> Pl
         mode, per_round = "long_rows", WARPS
     else:
         mode = "rows"
-        warps = next(w for w in (4, 2, 1) if w == 1 or n_rows * w <= BLOCKS_PER_SM * sm_count * WARPS)
+        wave = BLOCKS_PER_SM * sm_count * WARPS
+        warps = 4 if 4 * n_rows <= wave else 2 if n_rows <= wave else 1
         per_round = WARPS // warps
     rounds = cdiv(n_rows, per_round)
-    blocks = 1 if rounds <= ONE_BLOCK_ROUNDS else min(rounds, BLOCKS_PER_SM * sm_count)
+    blocks = 1 if rounds == 1 else min(rounds, BLOCKS_PER_SM * sm_count)
     return Plan(mode, warps, blocks, THREADS, shared)
 
 
