@@ -20,6 +20,7 @@ float16 and bfloat16 scores, ``ignore_index`` None, -1 and 255, and the
 import importlib
 import pickle
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ import torchmetrics_tpu_torch.classification as tc
 import torchmetrics_tpu_torch.collections as tcol
 from torchmetrics_tpu_torch.convert import state_from_jax
 from torchmetrics_tpu_torch.kernels import calibration as kce
+from torchmetrics_tpu_torch.utilities.compute import normalize_logits_if_needed
 
 jce = importlib.import_module("torchmetrics_tpu.functional.classification.calibration_error")
 tce = importlib.import_module("torchmetrics_tpu_torch.functional.classification.calibration_error")
@@ -540,18 +542,20 @@ def test_kernel_model_against_jax(case, warps):
     plain = tce._calibration_accumulate_plain(tce._zero_bins(n_bins, torch.device("cpu")), torch.as_tensor(given),
                                               torch.from_numpy(target), c, ignore_index)
     _close(plain[0], got[0])
+    _equal(plain[1], got[1])  # the plain version's softmax divides, as JAX's does: the near-tie rows agree
     _equal(plain[2], got[2])
-    if case[0] != "near-tie logits":
-        # torch's CPU softmax multiplies by 1 / sum, so the plain version's (1 - 2^-24) / 6.25 rows
-        # fall below 1 / 6.25 where JAX's and the kernel's divide ties them
-        _equal(plain[1], got[1])
-    else:  # the constructed rows: the probability argmax left the raw one
+    if case[0] == "near-tie logits":  # the constructed rows: the probability argmax left the raw one
         best, arg = _first_argmax(wide.reshape(-1, c))
         e = _exp32(wide.reshape(-1, c) - best[:, None])
         _, parg = _probability_argmax(e, _row_sums(e, warps, _vec_width(c, 4)))
         assert (arg[0::4] == 3).all() and (parg[0::4] == 0).all()  # e = 1 below the max
         assert (arg[1::4] == 1).all() and (parg[1::4] == 0).all()  # 1 - 2^-24 ties 1 / 6.25
         assert (arg[2::4] == 1).all() and (parg[2::4] == 1).all()  # 1 - 2^-24 below 1 / 3
+        # the plain version's probabilities take JAX's argmax on every row, the near ties too
+        jprobs = np.asarray(jax.nn.softmax(jnp.asarray(wide), axis=1))
+        pprobs = normalize_logits_if_needed(torch.from_numpy(wide), "softmax").numpy()
+        np.testing.assert_array_equal(pprobs.argmax(1), jprobs.argmax(1))
+        assert (pprobs.argmax(1)[1::4] == parg[1::4]).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])

@@ -84,5 +84,17 @@ def normalize_logits_if_needed(tensor: Tensor, normalization: Optional[str]) -> 
     if normalization == "sigmoid":
         return torch.where(outside, torch.sigmoid(tensor), tensor)
     if normalization == "softmax":
-        return torch.where(outside, torch.softmax(tensor, dim=1), tensor)
+        return torch.where(outside, _softmax(tensor, dim=1), tensor)
     raise ValueError(f"Unknown normalization: {normalization}")
+
+
+def _softmax(x: Tensor, dim: int) -> Tensor:
+    """``jax.nn.softmax``: ``exp(x - max) / sum``, divided.
+
+    ``torch.softmax`` on the CPU multiplies by ``1 / sum`` instead, which
+    rounds some near-tie probabilities below ``1 / sum`` where JAX ties them
+    (an exponential of ``1 - 2^-24`` over a sum of 6.25). A NaN in a row, a
+    row of ``-inf`` or a ``+inf`` makes the row NaN, as in JAX.
+    """
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return e / e.sum(dim=dim, keepdim=True)
