@@ -76,6 +76,29 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    +-inf, tied, no-relevant and all-relevant rows, a 900-way tie in rows of
    1,000 and ignored labels: coverage and loss equal, LRAP within 1e-6
    relative, NaN placement equal, two launches equal bit for bit;
+   ``retrieval_groups``, the per-query rank-and-reduce, against its plain
+   version for every measure (precision with and without ``adaptive_k``,
+   recall, hit rate, fall-out, AP, reciprocal rank, R-precision, NDCG on
+   binary and graded targets, AUROC) at ``top_k`` None, 1, 10, 1,000 and past
+   the longest query, and its ranked layout against the plain two stable
+   sorts, at MS MARCO's shape (6,980 queries x 1,000 candidates, the timed
+   rows beside the query-id sort of the torch glue, the plain version and
+   ``torch.sort`` + ``cumsum`` + ``index_add_``, a yardstick), queries of 1,
+   31, 33, 256, 257 and 16,384 documents, one of 100,000 (the long path,
+   timed), long and short queries in one launch, a 900-way tie in queries of
+   1,000, NaN, +-inf and +-0.0 scores, queries with no and with every
+   document relevant, ids negative and not contiguous, rows shuffled: counts
+   and the layout equal, AP, NDCG and AUROC within 1e-6 relative plus the
+   float32 summation bound of the plain version's terms, two launches equal
+   bit for bit; ``ssim_window``, the fused SSIM window, against its plain
+   version in float64 at DIV2K's batch (4, 3, 1356, 2040) (timed beside
+   cuDNN's depthwise convolution of the stacked maps plus the elementwise
+   SSIM, a yardstick), its contrast sensitivity, the smallest input, odd
+   sizes and sizes off the tile, uniform windows, sigma 0.5 and 4.3 (31
+   taps), data ranges None, a float and a tuple (clamped in the kernel), the
+   full map and the five MS-SSIM scales of the DIV2K batch: per-image SSIM
+   and CS within 1e-5 relative, the map within 1e-5 absolute, two launches
+   equal bit for bit;
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
@@ -154,7 +177,24 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    CelebA test split's shape (19,962 seeded rows, two groups); (v)
    ``Dice(num_classes=19)`` on a Cityscapes-shaped batch with void 255
    raises the JAX package's ``ValueError``. Every leg reruns its first 4
-   batches on the CPU path (integers equal, floats within 1e-5 relative).
+   batches on the CPU path (integers equal, floats within 1e-5 relative);
+10. retrieval and the image signal metrics, one card, no sync: (i) MS MARCO
+   passage ranking's dev (small) shape, 6,980 queries x 1,000 seeded
+   candidates (at least one and about 1.07 relevant a query), in updates of
+   100 queries, through a ``MetricCollection`` of MRR@10, MAP, NDCG@10,
+   recall@1000, precision@10, hit rate, R-precision, fall-out, AUROC and the
+   precision-recall curve at ``max_k=100`` (exactly 10 ``retrieval_groups``
+   launches: one a scalar measure, one ranked layout); (ii) TREC DL 2019
+   passage's shape, 43 queries x 1,000 with graded relevance 0-3, through
+   NDCG@10 and MAP on the binarized (>= 2) relevance; (iii) DIV2K
+   validation's shape, 100 seeded 3 x 1356 x 2040 images with a noisy copy as
+   ``preds`` in batches of 4, through PSNR, SSIM, MS-SSIM and VIF (exactly 25
+   + 125 ``ssim_window`` launches), total variation, and PSNR-B on the luma;
+   (iv) Kodak's shape, 24 images of 3 x 512 x 768, through UQI, SAM, ERGAS,
+   RASE, RMSE-SW, SCC and D-lambda; (v) D-s and QNR over a small seeded
+   4-band pan-sharpening set. The retrieval legs rerun their first 4
+   updates on the CPU path, the image legs their first batch (floats within
+   1e-5 relative).
 
 Phases 5 and 6 run each rank as a process of its own (this script with
 ``--worker``); every kernel must have launched on the paths that run it.
@@ -1022,6 +1062,298 @@ def phase_ranking_kernel(flush: torch.Tensor) -> list:
     print(f"[kernel] ranking_pairs: coverage and loss equal to the plain version, LRAP within 1e-6 relative, "
           f"deterministic, on all {len(shapes) * 3} cases: " + "; ".join(r["what"] for r in rows if "ms" not in r))
     return rows
+
+
+MSMARCO_QUERIES, MSMARCO_CANDIDATES = 6_980, 1_000  # MS MARCO passage ranking, dev (small): 1,000 candidates a query
+MSMARCO_RELEVANT = 1.07  # relevant passages a query in its qrels
+RET_MEASURES = ("reciprocal_rank", "average_precision", "ndcg", "auroc", "precision", "recall", "hit_rate",
+                "fall_out", "r_precision")
+RET_COUNTED = {"precision", "recall", "hit_rate", "fall_out", "reciprocal_rank", "r_precision"}  # equal bit for bit
+
+
+def _retrieval_case(sizes, gen, rel_share, edits=(), graded=False):
+    """Rows of queries of ``sizes`` documents on the card: ids negative and not contiguous, rows shuffled,
+    scores on a 0.05 grid (ties, +-0.0), ``rel_share`` of the targets relevant (graded 0-3 for NDCG)."""
+    dev = torch.device("cuda")
+    counts = torch.tensor(sizes, device=dev)
+    ids = torch.repeat_interleave(-7 * torch.arange(len(sizes), device=dev) - 3, counts).to(torch.int32)
+    n = ids.shape[0]
+    within = torch.arange(n, device=dev) - torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    scores = torch.round(torch.randn((n,), generator=gen, device=dev) * 20) / 20
+    if graded:
+        target = torch.randint(0, 4, (n,), generator=gen, device=dev).to(torch.float32)
+    else:
+        target = (torch.rand((n,), generator=gen, device=dev) < rel_share).to(torch.float32)
+    if "nonfinite" in edits:
+        u = torch.rand((n,), generator=gen, device=dev)
+        scores[u < 0.02] = float("nan")
+        scores[(u >= 0.02) & (u < 0.03)] = float("inf")
+        scores[(u >= 0.03) & (u < 0.04)] = float("-inf")
+        scores[(u >= 0.04) & (u < 0.06)] = -0.0
+    if "none_all" in edits:  # a query with no relevant document and one with every document relevant
+        q = torch.repeat_interleave(torch.arange(len(sizes), device=dev), counts)
+        target[q == 0] = 0.0
+        target[q == 1] = 1.0
+    if "tie900" in edits:
+        scores[within < 900] = 0.42
+    perm = torch.randperm(n, generator=gen, device=dev)
+    return scores[perm].contiguous(), target[perm].contiguous(), ids[perm].contiguous()
+
+
+def _retrieval_terms(rg, top_k):
+    """Each query's count of non-zero float32 terms in the plain version's sums (AP, NDCG, AUROC)."""
+    from torchmetrics_tpu_torch.functional.retrieval import kernels as rk
+
+    return rk._seg_sum((rg.target != 0) & rk._topk_mask(rg, top_k), rg)
+
+
+def _sort_cumsum_segment(p, t, gid, n_groups):
+    """A stable ``torch.sort`` of ``-score`` + ``gather`` + ``cumsum`` + ``index_add_``, several PyTorch
+    calls over the whole batch: a yardstick for the kernel's per-query sort and scan, not the port's."""
+    order = torch.sort(-p, stable=True).indices
+    c = t[order].cumsum(0)
+    return torch.zeros((n_groups,), dtype=torch.float32, device=p.device).index_add_(0, gid[order], c)
+
+
+def phase_retrieval_kernel(flush: torch.Tensor) -> list:
+    """``retrieval_groups`` against its plain version on the card, every measure, and its times at
+    MS MARCO's shape (the first rows) and on one query of 100,000 documents (the long path)."""
+    from torchmetrics_tpu_torch.functional.retrieval import kernels as rk
+    from torchmetrics_tpu_torch.kernels import retrieval as krt
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    msmarco = [MSMARCO_CANDIDATES] * MSMARCO_QUERIES
+    cases = [  # (what, sizes, relevant share, edits, top_ks, timed measures)
+        ("MS MARCO shape", msmarco, MSMARCO_RELEVANT / MSMARCO_CANDIDATES, (), (None, 10, 1000),
+         ("reciprocal_rank", "average_precision", "ndcg", "auroc", "ranked")),
+        ("queries of 1, 31, 33, 256, 257 and 16,384 documents", [1, 31, 33, 256, 257, 16_384] * 2, 0.3,
+         ("nonfinite", "none_all"), (None, 1, 10, 1000, 20_000), ()),
+        ("one query of 100,000 documents (the long path)", [100_000], 0.3, ("nonfinite",), (None, 10, 1000),
+         ("average_precision", "auroc")),
+        ("long and short queries in one launch", [100_000, 3, 16_385, 700], 0.3, ("nonfinite", "none_all"),
+         (None, 10), ()),
+        ("a 900-way tie in queries of 1,000", [1_000] * 40, 0.3, ("tie900", "none_all"), (None, 10, 1000), ()),
+        ("NaN, +-inf, +-0.0 scores, small queries", [5, 1, 40, 2, 64, 17] * 30, 0.4, ("nonfinite", "none_all"),
+         (None, 1, 10, 70), ()),
+    ]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, checked = [], 0
+    for what, sizes, share, edits, top_ks, timed in cases:
+        for graded in (False, True):
+            p, t, i = _retrieval_case(sizes, gen, share, edits, graded)
+            ps, ts, offsets, longest = rk.query_layout(p, t, i)
+            n_groups = offsets.shape[0] - 1
+            geometry = krt.plan(longest)
+            plain_rg = rk._rank_groups_plain(p, t, i)
+            # the ranked layout against the plain two stable sorts
+            rg = rk.rank_groups(p, t, i)
+            for field in ("preds", "target", "gid", "rank", "wcum", "n_rel", "sizes"):
+                g_, w_ = getattr(rg, field), getattr(plain_rg, field)
+                check(g_.dtype == w_.dtype and torch.equal(g_.view(torch.int32), w_.view(torch.int32)),
+                      f"retrieval_groups ranked layout differs from plain ({what}, {field})")
+            measures = ("ndcg",) if graded else RET_MEASURES
+            for measure in measures:
+                for top_k in top_ks:
+                    for adaptive in ((False, True) if measure == "precision" and top_k else (False,)):
+                        label = (f"{measure}@{top_k}{' adaptive' if adaptive else ''}, {what}"
+                                 f"{', graded' if graded else ''}: {n_groups} queries, {p.shape[0]} rows")
+                        got, n_rel = krt.retrieval_groups(ps, ts, offsets, measure, top_k, adaptive, longest=longest)
+                        want, want_rel, want_sizes = rk._retrieval_scores_plain(p, t, i, measure, top_k, adaptive)
+                        again = krt.retrieval_groups(ps, ts, offsets, measure, top_k, adaptive, longest=longest)[0]
+                        check(torch.equal(n_rel, want_rel), f"retrieval_groups n_rel differs ({label})")
+                        check(torch.equal(torch.diff(offsets).float(), want_sizes), f"sizes differ ({label})")
+                        check(torch.equal(again.view(torch.int32), got.view(torch.int32)),
+                              f"retrieval_groups is not deterministic ({label})")
+                        err = float((got - want).abs().max())
+                        if measure in RET_COUNTED:
+                            check(torch.equal(got, want), f"retrieval_groups differs from plain ({label}): {err}")
+                        else:  # 1e-6 relative plus the float32 summation bound of the plain version's n terms
+                            tol = 1e-6 * want.abs() + (_retrieval_terms(plain_rg, top_k) + 4) * 2.0**-24
+                            check(bool(((got - want).abs() <= tol).all()),
+                                  f"retrieval_groups differs from plain ({label}): max abs err {err}")
+                        checked += 1
+                        rows.append({"case": label, "what": f"{measure}@{top_k}, {what}", "max_abs_err": err,
+                                     "plan": geometry._asdict()})
+            for measure in (() if graded else timed):
+                top_k = 10 if measure in ("reciprocal_rank", "ndcg") else None
+                label = f"{measure}@{top_k}, {what}: {n_groups} queries, {p.shape[0]} rows"
+                kernel = lambda a, b, c: krt.retrieval_groups(a, b, c, measure, top_k, False, longest=longest)  # noqa: E731
+                kernel_ms = time_ms(lambda: kernel(ps, ts, offsets), flush)
+                if measure == "ranked":
+                    plain = lambda: rk._rank_groups_plain(p, t, i)  # noqa: E731
+                else:
+                    plain = lambda: rk._retrieval_scores_plain(p, t, i, measure, top_k, False)  # noqa: E731
+                plain_ms = time_ms(plain, flush, reps=5, warmup=1)
+                glue_ms = time_ms(lambda: rk.query_layout(p, t, i), flush, reps=5, warmup=1)
+                yard_ms = time_ms(lambda: _sort_cumsum_segment(ps, ts, plain_rg.gid.long(), n_groups), flush)
+                nbytes = ps.shape[0] * 8 + offsets.numel() * 8 + (ps.shape[0] * 8 if measure == "ranked" else 8 * n_groups)
+                counts = torch.diff(offsets).double()
+                nops = int((counts * torch.ceil(torch.log2(torch.clamp(counts, min=2)))).sum()) * (2 if measure == "ndcg" else 1)
+                bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_OPS_PER_S * 1e3
+                copies = min(copies_for(nbytes), MAX_STREAM_COPIES)
+                sets = [(ps, ts, offsets)] + [(ps.clone(), ts.clone(), offsets.clone()) for _ in range(copies - 1)]
+                stream_ms = time_stream_ms(kernel, sets, calls=len(sets) * max(1, 24 // len(sets)))
+                del sets
+                row = {
+                    "case": label, "what": f"{measure}@{top_k}, {what}", "max_abs_err": 0.0, "plan": geometry._asdict(),
+                    "ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms, "query_layout_ms": glue_ms,
+                    "sort_cumsum_segment_ms": yard_ms, "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes, "ops": nops,
+                    "library_ms": None,
+                }
+                errs = [r["max_abs_err"] for r in rows if r["what"].startswith(f"{measure}@{top_k}, {what}")]
+                row["max_abs_err"] = max(errs) if errs else 0.0
+                print(f"[kernel] retrieval_groups {label}: {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a "
+                      f"call back to back; plan {tuple(geometry)}), the query-id sort and offsets (torch glue) "
+                      f"{glue_ms:.4f} ms, plain {plain_ms:.4f} ms, sort + cumsum + index_add_ (several calls, a "
+                      f"yardstick) {yard_ms:.4f} ms, bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: "
+                      f"{nbytes} bytes, {nops} ops), library_ms: none")
+                rows.insert(sum(1 for r in rows if "ms" in r), row)
+            del p, t, i, ps, ts, offsets, plain_rg, rg
+    print(f"[kernel] retrieval_groups: counts and the ranked layout equal to the plain version, AP, NDCG and AUROC "
+          f"within 1e-6 relative plus (terms + 4) 2^-24, deterministic, on {checked} cases over {len(cases)} "
+          f"batches ({sms} SMs)")
+    return rows
+
+
+DIV2K_SHAPE = (4, 3, 1356, 2040)  # DIV2K validation's 2K images (one size for all, cut from 1356-2040 x 2040), batch of 4
+SSIM_RTOL, SSIM_MAP_ATOL = 1e-5, 1e-5  # per-image SSIM and CS relative, the full map absolute
+
+
+def _image_pair(shape, gen, noise=0.05, low=0.0, high=1.0):
+    """A seeded smooth image (a 4x-upsampled random field) and a noisy copy as ``preds``, on the card."""
+    b, c, h, w = shape
+    coarse = torch.rand((b, c, -(-h // 4), -(-w // 4)), generator=gen, device="cuda")
+    target = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+    target = low + (high - low) * target
+    preds = target + noise * (high - low) * torch.randn(shape, generator=gen, device="cuda")
+    return preds.contiguous(), target.contiguous()
+
+
+def _conv_ssim_yardstick(preds, target, kernel, c1, c2):
+    """cuDNN's depthwise ``F.conv2d(groups=5 C)`` of the five stacked maps, then the elementwise SSIM and the
+    per-image mean: several PyTorch calls, a yardstick for the kernel, not the port's."""
+    b, c = preds.shape[:2]
+    stacked = torch.cat((preds, target, preds * preds, target * target, preds * target), dim=1)
+    out = torch.nn.functional.conv2d(stacked, kernel.repeat(5, 1, 1, 1), groups=5 * c)
+    mu_p, mu_t, e_pp, e_tt, e_pt = out.chunk(5, dim=1)
+    upper = 2 * (e_pt - mu_p * mu_t) + c2
+    lower = (e_pp - mu_p**2).clamp(min=0) + (e_tt - mu_t**2).clamp(min=0) + c2
+    return (((2 * mu_p * mu_t + c1) * upper) / ((mu_p**2 + mu_t**2 + c1) * lower)).reshape(b, -1).mean(-1)
+
+
+def phase_ssim_kernel(flush: torch.Tensor) -> list:
+    """``ssim_window`` against its plain version on the card, and its time at DIV2K's batch (the first row)
+    beside cuDNN's depthwise convolution of the stacked maps plus the elementwise SSIM."""
+    from torchmetrics_tpu_torch.functional.image import helper as ih
+    from torchmetrics_tpu_torch.functional.image import ssim as fs
+    from torchmetrics_tpu_torch.kernels import ssim as kss
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    cases = [  # (what, shape, kwargs of _ssim_update, noise, timed)
+        ("DIV2K batch", DIV2K_SHAPE, {"data_range": 1.0}, 0.05, True),
+        ("DIV2K batch, contrast sensitivity (an MS-SSIM scale)", DIV2K_SHAPE,
+         {"data_range": 1.0, "return_contrast_sensitivity": True}, 0.05, False),
+        ("the smallest input", (1, 1, 11, 11), {}, 0.1, False),
+        ("odd sizes", (2, 3, 67, 45), {}, 0.1, False),
+        ("sizes off the tile", (3, 2, 33, 97), {"data_range": 1.0}, 0.1, False),
+        ("uniform window of 7", (2, 3, 100, 70), {"gaussian_kernel": False, "kernel_size": 7}, 0.1, False),
+        ("uniform 3 x 9", (2, 1, 50, 61), {"gaussian_kernel": False, "kernel_size": (3, 9)}, 0.1, False),
+        ("sigma 0.5", (2, 3, 64, 64), {"sigma": 0.5}, 0.1, False),
+        ("sigma 4.3 (31 taps)", (2, 3, 96, 131), {"sigma": 4.3}, 0.1, False),
+        ("data range None", (2, 3, 128, 96), {"data_range": None}, 0.1, False),
+        ("data range (0.1, 0.9), clamped in the kernel", (2, 3, 128, 96), {"data_range": (0.1, 0.9)}, 0.3, False),
+        ("full image", (2, 3, 75, 83), {"return_full_image": True}, 0.1, False),
+        ("full image, sigma 4.3", (1, 2, 40, 64), {"return_full_image": True, "sigma": 4.3}, 0.1, False),
+        ("contrast sensitivity, uniform", (2, 3, 64, 64),
+         {"return_contrast_sensitivity": True, "gaussian_kernel": False}, 0.1, False),
+    ]
+    rows = []
+    for what, shape, kwargs, noise, timed in cases:
+        preds, target = _image_pair(shape, gen, noise)
+        before = kss.ssim_window.launches
+        got = fs._ssim_update(preds, target, **kwargs)
+        check(kss.ssim_window.launches == before + 1, f"ssim_window did not launch once ({what})")
+        again = fs._ssim_update(preds, target, **kwargs)
+        # the plain version in float64 on the same inputs (the port's own path for float64 images): the
+        # float32 cancellation of sum p^2 - mu^2 in cuDNN's sums then stays out of the comparison
+        want = fs._ssim_update(preds.double(), target.double(), **kwargs)
+        want32 = fs._ssim_update_plain(preds, target, kwargs.get("gaussian_kernel", True),
+                                       *_ssim_window_args(fs, preds, kwargs))
+        got_t, want_t, again_t, want32_t = (x if isinstance(x, tuple) else (x,) for x in (got, want, again, want32))
+        label = f"{what} {tuple(shape)}"
+        errs = {}
+        for k, (g, w, a, w32) in enumerate(zip(got_t, want_t, again_t, want32_t)):
+            check(torch.equal(g.view(torch.int32), a.view(torch.int32)), f"ssim_window is not deterministic ({label})")
+            w = w.float()
+            name = ("ssim", "cs" if kwargs.get("return_contrast_sensitivity") else "map")[k]
+            err = float((g - w).abs().max())
+            if name == "map":
+                check(err <= SSIM_MAP_ATOL, f"ssim_window's map differs from plain ({label}): max abs err {err}")
+            else:
+                check(torch.equal(g.isnan(), w.isnan()) and bool(((g - w).abs() <= SSIM_RTOL * w.abs()).all()),
+                      f"ssim_window's {name} differs from plain ({label}): max abs err {err}")
+            errs[name] = err
+            errs[f"{name}_vs_float32_plain"] = float((g - w32).abs().max())
+        row = {"case": label, "what": what, "max_abs_err": max(v for k, v in errs.items() if "float32" not in k),
+               "errors": errs}
+        if timed:
+            plan = kss.plan(*shape, 11, 11, False)
+            rng = torch.tensor(1.0, device="cuda")
+            c1, c2 = (0.01 * rng) ** 2, (0.03 * rng) ** 2
+            kernel = ih._gaussian_kernel_2d(shape[1], [11, 11], [1.5, 1.5], torch.float32, "cuda").contiguous()
+            call = lambda p_, t_: fs._ssim_update(p_, t_, **kwargs)  # noqa: E731
+            kernel_ms = time_ms(lambda: call(preds, target), flush, reps=20)
+            plain_ms = time_ms(lambda: fs._ssim_update_plain(preds, target, True, *_ssim_window_args(fs, preds, kwargs)),
+                               flush, reps=5, warmup=1)
+            with ih._full_precision(kernel):
+                yard_ms = time_ms(lambda: _conv_ssim_yardstick(preds, target, kernel, c1, c2), flush, reps=10)
+            n_px = preds.numel()
+            nbytes = 2 * 4 * n_px + 4 * shape[0]
+            halo = (32 + 10) / 32
+            nops = int(n_px * (7 * 11 * halo + 5 * 11 + 20))
+            bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_OPS_PER_S * 1e3
+            sets = [(preds, target), (preds.clone(), target.clone())]
+            stream_ms = time_stream_ms(call, sets, calls=8)
+            del sets
+            row.update({"plan": plan._asdict(), "ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms,
+                        "conv_ssim_yardstick_ms": yard_ms, "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes, "ops": nops,
+                        "library_ms": None})
+            print(f"[kernel] ssim_window {label}: {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a call "
+                  f"back to back; {plan.blocks} blocks, {plan.shared_bytes} B shared), plain (float32, F.conv2d) "
+                  f"{plain_ms:.4f} ms, cuDNN depthwise conv of the stacked maps + the elementwise SSIM (several "
+                  f"calls, a yardstick) {yard_ms:.4f} ms, bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: "
+                  f"{nbytes} bytes, {nops} ops), errors {errs}, library_ms: none")
+            rows.insert(0, row)
+        else:
+            rows.append(row)
+        del preds, target, got, want, again, want32
+    # MS-SSIM over the DIV2K batch: five launches, each scale against the float64 plain version
+    preds, target = _image_pair(DIV2K_SHAPE, gen, 0.05)
+    before = kss.ssim_window.launches
+    got = fs._multiscale_ssim_update(preds, target, data_range=1.0, normalize="relu")
+    check(kss.ssim_window.launches == before + 5, "MS-SSIM did not launch ssim_window once a scale")
+    want = fs._multiscale_ssim_update(preds.double(), target.double(), data_range=1.0, normalize="relu").float()
+    err = float((got - want).abs().max())
+    check(bool(((got - want).abs() <= SSIM_RTOL * want.abs()).all()), f"MS-SSIM differs from plain: {err}")
+    rows.append({"case": f"MS-SSIM, five scales of the DIV2K batch {DIV2K_SHAPE}", "what": "MS-SSIM",
+                 "max_abs_err": err})
+    print(f"[kernel] ssim_window: per-image SSIM and CS within {SSIM_RTOL} relative and the map within "
+          f"{SSIM_MAP_ATOL} absolute of the plain version in float64, deterministic, on {len(rows)} cases: "
+          + "; ".join(f"{r['what']} ({r['max_abs_err']:.3g}; float32 plain "
+                      f"{max([v for k, v in r.get('errors', {}).items() if 'float32' in k] or [0.0]):.3g})"
+                      for r in rows))
+    return rows
+
+
+def _ssim_window_args(fs, preds, kwargs):
+    """``_ssim_update_plain``'s arguments after ``gaussian_kernel`` for ``_ssim_update``'s ``kwargs``."""
+    gaussian = kwargs.get("gaussian_kernel", True)
+    kernel_size, sigma = fs._window(preds, gaussian, kwargs.get("sigma", 1.5), kwargs.get("kernel_size", 11))
+    win = [int(3.5 * s + 0.5) * 2 + 1 for s in sigma] if gaussian else list(kernel_size)
+    return (sigma, kernel_size, win, kwargs.get("data_range"), 0.01, 0.03, kwargs.get("return_full_image", False),
+            kwargs.get("return_contrast_sensitivity", False))
 
 
 def _main_path_data(gen: torch.Generator):
@@ -2190,14 +2522,14 @@ def _value_summary(value):
 
 
 def _curve_leg(leg, make, batches, kernels, rtol: float = FLOAT_RTOL, atol: float = FLOAT_ATOL,
-               state_checks=None) -> dict:
+               state_checks=None, cpu_batches: int = CPU_RERUN_BATCHES) -> dict:
     """Drive ``batches()`` (``(args, kwargs)`` of card tensors) through ``make("cuda", groups)``,
     the compute groups formed on the first batch by a probe collection, so that every batch
     runs one update a group; the launches of ``kernels`` are counted from 0 over this run
     only. The first batches run again on the CPU path: the states and the values after them
     must match. ``state_checks`` (``{member name prefix: check(tag, card state, CPU state)}``)
     holds those members' states instead, and their values against the CPU path's compute of
-    the card's state."""
+    the card's state. ``cpu_batches`` is how many batches run again on the CPU."""
     batch_iter = batches()
     first = next(batch_iter)
     probe = make("cuda", True)
@@ -2215,7 +2547,7 @@ def _curve_leg(leg, make, batches, kernels, rtol: float = FLOAT_RTOL, atol: floa
         col.update(*args, **kwargs)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        if i + 1 == CPU_RERUN_BATCHES:
+        if i + 1 == cpu_batches:
             early = _snapshot(col)
     t0 = time.perf_counter()
     values = col.compute()
@@ -2224,14 +2556,15 @@ def _curve_leg(leg, make, batches, kernels, rtol: float = FLOAT_RTOL, atol: floa
     leg_s = time.perf_counter() - t_leg
     launches = {k.__name__: k.launches for k in kernels}
 
+    t_cpu = time.perf_counter()
     cpu_col = make("cpu", groups)
-    for args, kwargs in (b for _, b in zip(range(CPU_RERUN_BATCHES), batches())):
+    for args, kwargs in (b for _, b in zip(range(cpu_batches), batches())):
         cpu_col.update(*map(_cpu, args), **{k: _cpu(v) for k, v in kwargs.items()})
     cpu_states = _snapshot(cpu_col)
     cpu_values = {name: m.compute() for name, m in cpu_col.items(keep_base=True)}
     compared = 0
     for name in early:
-        tag = f"[{leg}] {name} after {CPU_RERUN_BATCHES} batches"
+        tag = f"[{leg}] {name} after {cpu_batches} batches"
         state_check = next((v for k, v in (state_checks or {}).items() if name.startswith(k)), None)
         if state_check is None:
             compared += _assert_same(f"{tag}: state", early[name], cpu_states[name], rtol, atol)
@@ -2245,6 +2578,7 @@ def _curve_leg(leg, make, batches, kernels, rtol: float = FLOAT_RTOL, atol: floa
         "batches": i + 1, "groups": groups, "launches": launches, "leg_s": leg_s,
         "update_ms_median": statistics.median(times), "compute_ms": compute_ms,
         "values": {k: _value_summary(v) for k, v in values.items()}, "tensors": values, "cpu_compared": compared,
+        "cpu_rerun_s": time.perf_counter() - t_cpu,
     }
 
 
@@ -2644,6 +2978,217 @@ def phase_rest() -> dict:
     return record
 
 
+MSMARCO_UPDATE_QUERIES = 100  # phase 10 (i): updates of 100 queries
+TREC_QUERIES, TREC_UPDATE_QUERIES = 43, 8  # TREC DL 2019 passage: 43 judged queries, 1,000 candidates each
+DIV2K_IMAGES, DIV2K_BATCH = 100, 4  # DIV2K validation: 100 2K images
+KODAK_IMAGES, KODAK_SHAPE, KODAK_BATCH = 24, (3, 512, 768), 4  # the Kodak set: 24 images of 768 x 512
+PANSHARP_IMAGES, PANSHARP_BANDS, PANSHARP_PAN, PANSHARP_MS = 8, 4, 256, 64  # (v): a small 4-band set, ratio 4
+IMAGE_CPU_BATCHES = 1  # the image legs rerun their first batch on the CPU path
+SIGNAL_RTOL, SIGNAL_ATOL = 1e-5, 1e-6  # the card against the CPU path
+
+
+def _msmarco_batches(gen_seed: int, queries: int, per_update: int, candidates: int, relevant: float, graded=False):
+    """Seeded retrieval runs: ``queries`` x ``candidates`` scores, relevance (binary, at least one and about
+    ``relevant`` a query, or graded 0-3) with the relevant documents scored higher, in updates of
+    ``per_update`` queries."""
+    def batches():
+        gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+        for q0 in range(0, queries, per_update):
+            nq = min(per_update, queries - q0)
+            ids = torch.arange(q0, q0 + nq, device="cuda", dtype=torch.int32).repeat_interleave(candidates)
+            n = ids.shape[0]
+            if graded:
+                u = torch.rand((n,), generator=gen, device="cuda")
+                target = (u < 0.05).int() + (u < 0.02).int() + (u < 0.008).int()
+            else:  # one relevant document a query, and about relevant - 1 more
+                target = (torch.rand((n,), generator=gen, device="cuda") < (relevant - 1) / candidates).int()
+                first = torch.randint(0, candidates, (nq,), generator=gen, device="cuda")
+                target[torch.arange(nq, device="cuda") * candidates + first] = 1
+            scores = torch.randn((n,), generator=gen, device="cuda") + 1.5 * target
+            yield (scores, target, ids), {}
+    return batches
+
+
+def _retrieval_msmarco(device, compute_groups):
+    from torchmetrics_tpu_torch import retrieval as tr
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    kw = {"device": device}
+    return MetricCollection({
+        "mrr@10": tr.RetrievalMRR(top_k=10, **kw), "map": tr.RetrievalMAP(**kw),
+        "ndcg@10": tr.RetrievalNormalizedDCG(top_k=10, **kw), "recall@1000": tr.RetrievalRecall(top_k=1000, **kw),
+        "precision@10": tr.RetrievalPrecision(top_k=10, **kw), "hit_rate": tr.RetrievalHitRate(**kw),
+        "r_precision": tr.RetrievalRPrecision(**kw), "fall_out": tr.RetrievalFallOut(**kw),
+        "auroc": tr.RetrievalAUROC(**kw), "pr_curve": tr.RetrievalPrecisionRecallCurve(max_k=100, **kw),
+    }, compute_groups=compute_groups)
+
+
+def _retrieval_trec_ndcg(device, compute_groups):
+    from torchmetrics_tpu_torch import retrieval as tr
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({"ndcg@10": tr.RetrievalNormalizedDCG(top_k=10, device=device)},
+                            compute_groups=compute_groups)
+
+
+def _retrieval_trec_map(device, compute_groups):
+    from torchmetrics_tpu_torch import retrieval as tr
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({"map": tr.RetrievalMAP(device=device)}, compute_groups=compute_groups)
+
+
+def _image_batches(gen_seed: int, n_images: int, batch: int, shape, noise: float, luma=False, single=False):
+    """Seeded image batches made on the card, a batch at a time: a smooth field and a noisy copy as
+    ``preds`` (``_image_pair``), as luma (BT.601) for PSNR-B, or ``preds`` alone for total variation."""
+    def batches():
+        gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+        for i0 in range(0, n_images, batch):
+            preds, target = _image_pair((min(batch, n_images - i0), *shape), gen, noise)
+            if luma:
+                weights = torch.tensor([0.299, 0.587, 0.114], device="cuda").view(1, 3, 1, 1)
+                preds, target = (x.mul(weights).sum(1, keepdim=True).contiguous() for x in (preds, target))
+            yield ((preds,) if single else (preds, target)), {}
+    return batches
+
+
+def _signal_div2k(device, compute_groups):
+    from torchmetrics_tpu_torch import image as ti
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    kw = {"device": device}
+    return MetricCollection({
+        "psnr": ti.PeakSignalNoiseRatio(data_range=1.0, **kw), "ssim": ti.StructuralSimilarityIndexMeasure(**kw),
+        "ms_ssim": ti.MultiScaleStructuralSimilarityIndexMeasure(**kw), "vif": ti.VisualInformationFidelity(**kw),
+    }, compute_groups=compute_groups)
+
+
+def _signal_tv(device, compute_groups):
+    from torchmetrics_tpu_torch import image as ti
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({"tv": ti.TotalVariation(device=device)}, compute_groups=compute_groups)
+
+
+def _signal_psnrb(device, compute_groups):
+    from torchmetrics_tpu_torch import image as ti
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({"psnrb": ti.PeakSignalNoiseRatioWithBlockedEffect(device=device)},
+                            compute_groups=compute_groups)
+
+
+def _signal_kodak(device, compute_groups):
+    from torchmetrics_tpu_torch import image as ti
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    kw = {"device": device}
+    return MetricCollection({
+        "uqi": ti.UniversalImageQualityIndex(**kw), "sam": ti.SpectralAngleMapper(**kw),
+        "ergas": ti.ErrorRelativeGlobalDimensionlessSynthesis(**kw), "rase": ti.RelativeAverageSpectralError(**kw),
+        "rmse_sw": ti.RootMeanSquaredErrorUsingSlidingWindow(**kw), "scc": ti.SpatialCorrelationCoefficient(**kw),
+        "d_lambda": ti.SpectralDistortionIndex(**kw),
+    }, compute_groups=compute_groups)
+
+
+def _signal_pansharp(device, compute_groups):
+    from torchmetrics_tpu_torch import image as ti
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({"d_s": ti.SpatialDistortionIndex(device=device),
+                             "qnr": ti.QualityWithNoReference(device=device)}, compute_groups=compute_groups)
+
+
+def _pansharp_batches():
+    """A small seeded pan-sharpening set: 4-band fused images at 256 x 256 with their 64 x 64 multispectral
+    source and 256 x 256 panchromatic band, two a batch."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    for _ in range(0, PANSHARP_IMAGES, 2):
+        fused, pan = _image_pair((2, PANSHARP_BANDS, PANSHARP_PAN, PANSHARP_PAN), gen, 0.03)
+        ms = torch.nn.functional.avg_pool2d(fused, PANSHARP_PAN // PANSHARP_MS) + 0.01 * torch.randn(
+            (2, PANSHARP_BANDS, PANSHARP_MS, PANSHARP_MS), generator=gen, device="cuda")
+        yield (fused,), {"target": {"ms": ms.contiguous(), "pan": pan}}
+
+
+def phase_signal() -> dict:
+    """Phase 10 on one card, no sync: (i) MS MARCO passage ranking's dev (small) shape through ten retrieval
+    metrics; (ii) TREC DL 2019 passage's shape through NDCG@10 (graded) and MAP (binarized); (iii) DIV2K
+    validation's shape through PSNR, SSIM, MS-SSIM, VIF, total variation and PSNR-B on the luma; (iv) Kodak's
+    shape through the cat-state spectral metrics; (v) D-s and QNR over a small pan-sharpening set."""
+    from torchmetrics_tpu_torch.kernels.retrieval import retrieval_groups
+    from torchmetrics_tpu_torch.kernels.ssim import ssim_window
+
+    kernels = (retrieval_groups, ssim_window)
+    record = {}
+    msmarco = _msmarco_batches(SEED + 20, MSMARCO_QUERIES, MSMARCO_UPDATE_QUERIES, MSMARCO_CANDIDATES,
+                               MSMARCO_RELEVANT)
+    leg = _curve_leg("msmarco", _retrieval_msmarco, msmarco, kernels, SIGNAL_RTOL, SIGNAL_ATOL)
+    check(leg["launches"] == {"retrieval_groups": 10, "ssim_window": 0},
+          f"[signal msmarco] launches {leg['launches']}: one a scalar measure and one ranked layout expected")
+    t = leg["tensors"]
+    for k in ("mrr@10", "map", "ndcg@10", "recall@1000", "precision@10", "hit_rate", "r_precision", "auroc"):
+        check(t[k].shape == () and 0.0 < float(t[k]) <= 1.0, f"[signal msmarco] {k} = {t[k]}")
+    check(float(t["recall@1000"]) > 0.99 and float(t["hit_rate"]) > 0.99, "[signal msmarco] every query retrieved")
+    check(t["pr_curve"][0].shape == (100,) and 0.0 <= float(t["fall_out"]) <= 1.0,
+          f"[signal msmarco] curve, fall-out: {leg['values']}")
+    record["msmarco"] = leg
+
+    trec = _msmarco_batches(SEED + 21, TREC_QUERIES, TREC_UPDATE_QUERIES, MSMARCO_CANDIDATES, 1.0, graded=True)
+    leg = _curve_leg("trec ndcg", _retrieval_trec_ndcg, trec, kernels, SIGNAL_RTOL, SIGNAL_ATOL)
+    check(leg["launches"]["retrieval_groups"] == 1, f"[signal trec] NDCG launches {leg['launches']}")
+    record["trec ndcg"] = leg
+    binarized = lambda: (((p, (t_ >= 2).int(), i), kw) for (p, t_, i), kw in trec())  # noqa: E731
+    leg = _curve_leg("trec map", _retrieval_trec_map, binarized, kernels, SIGNAL_RTOL, SIGNAL_ATOL)
+    check(leg["launches"]["retrieval_groups"] == 1, f"[signal trec] MAP launches {leg['launches']}")
+    record["trec map"] = leg
+    for name in ("trec ndcg", "trec map"):
+        value = next(iter(record[name]["tensors"].values()))
+        check(0.0 < float(value) <= 1.0, f"[signal {name}] {value}")
+
+    div2k = _image_batches(SEED + 22, DIV2K_IMAGES, DIV2K_BATCH, DIV2K_SHAPE[1:], 0.05)
+    n_batches = -(-DIV2K_IMAGES // DIV2K_BATCH)
+    leg = _curve_leg("div2k", _signal_div2k, div2k, kernels, SIGNAL_RTOL, SIGNAL_ATOL, cpu_batches=IMAGE_CPU_BATCHES)
+    check(leg["launches"] == {"retrieval_groups": 0, "ssim_window": 6 * n_batches},
+          f"[signal div2k] launches {leg['launches']}: one a batch for SSIM and five for MS-SSIM expected")
+    t = leg["tensors"]
+    check(20.0 < float(t["psnr"]) < 40.0 and 0.0 < float(t["ssim"]) <= float(t["ms_ssim"]) <= 1.0
+          and 0.0 < float(t["vif"]) <= 1.0, f"[signal div2k] values {leg['values']}")
+    record["div2k"] = leg
+    for name, make, batches in (
+        ("div2k tv", _signal_tv, _image_batches(SEED + 22, DIV2K_IMAGES, DIV2K_BATCH, DIV2K_SHAPE[1:], 0.05,
+                                                single=True)),
+        ("div2k psnrb luma", _signal_psnrb, _image_batches(SEED + 22, DIV2K_IMAGES, DIV2K_BATCH, DIV2K_SHAPE[1:],
+                                                           0.05, luma=True)),
+    ):
+        leg = _curve_leg(name, make, batches, kernels, SIGNAL_RTOL, SIGNAL_ATOL, cpu_batches=IMAGE_CPU_BATCHES)
+        check(leg["launches"] == {"retrieval_groups": 0, "ssim_window": 0}, f"[signal {name}] {leg['launches']}")
+        value = next(iter(leg["tensors"].values()))
+        check(bool(torch.isfinite(value)) and float(value) > 0.0, f"[signal {name}] {value}")
+        record[name] = leg
+
+    kodak = _image_batches(SEED + 23, KODAK_IMAGES, KODAK_BATCH, KODAK_SHAPE, 0.05)
+    leg = _curve_leg("kodak", _signal_kodak, kodak, kernels, SIGNAL_RTOL, SIGNAL_ATOL, cpu_batches=IMAGE_CPU_BATCHES)
+    check(all(bool(torch.isfinite(v)) for v in leg["tensors"].values()), f"[signal kodak] values {leg['values']}")
+    check(0.0 < float(leg["tensors"]["uqi"]) <= 1.0 and 0.0 <= float(leg["tensors"]["d_lambda"]) < 1.0,
+          f"[signal kodak] values {leg['values']}")
+    record["kodak"] = leg
+
+    leg = _curve_leg("pansharp", _signal_pansharp, _pansharp_batches, kernels, SIGNAL_RTOL, SIGNAL_ATOL,
+                     cpu_batches=IMAGE_CPU_BATCHES)
+    check(all(bool(torch.isfinite(v)) for v in leg["tensors"].values()), f"[signal pansharp] values {leg['values']}")
+    record["pansharp"] = leg
+
+    for name, leg in record.items():
+        print(f"[signal] {name}: {leg['batches']} batches in {leg['leg_s']:.3f} s (the CPU rerun "
+              f"{leg['cpu_rerun_s']:.1f} s); compute groups {leg['groups']}; "
+              f"collection update median {leg['update_ms_median']:.4f} ms (host clock, a synchronize after each), "
+              f"compute {leg['compute_ms']:.4f} ms; launches {leg['launches']}; the first batches match the CPU "
+              f"path ({leg['cpu_compared']} tensors: integers equal, floats within rtol {SIGNAL_RTOL}, atol "
+              f"{SIGNAL_ATOL}); values {leg['values']}")
+        del leg["tensors"]
+    return record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--json", help="also write the full record to this file")
@@ -2668,6 +3213,8 @@ def main() -> int:
         "binned_confmat_multilabel": "torchmetrics_tpu_torch/csrc/binned_multilabel.cu",
         "calibration_bins": "torchmetrics_tpu_torch/csrc/calibration.cu",
         "ranking_pairs": "torchmetrics_tpu_torch/csrc/ranking.cu",
+        "retrieval_groups": "torchmetrics_tpu_torch/csrc/retrieval.cu",
+        "ssim_window": "torchmetrics_tpu_torch/csrc/ssim.cu",
     }
     replaces = {
         "binned_confmat_multiclass": "torchmetrics_tpu/functional/classification/precision_recall_curve.py:128",
@@ -2676,24 +3223,39 @@ def main() -> int:
         "binned_confmat_multilabel": "torchmetrics_tpu/functional/classification/precision_recall_curve.py:152",
         "calibration_bins": "torchmetrics_tpu/functional/classification/calibration_error.py:96",
         "ranking_pairs": "torchmetrics_tpu/functional/classification/ranking.py:44",
+        "retrieval_groups": "torchmetrics_tpu/functional/retrieval/kernels.py:57",
+        "ssim_window": "torchmetrics_tpu/functional/image/ssim.py:111",
     }
+
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[time] {name}: {seconds[name]:.1f} s")
+        return out
 
     device = phase_device()
     build_s = phase_build()
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB, past the 50 MB L2
-    kernel_rows = phase_kernels(flush)
-    kernel_rows["coco_match"], chunk_shapes = phase_matcher(flush)
-    kernel_rows["confmat_multiclass"] = phase_confmat(flush)
-    kernel_rows["binned_confmat_multilabel"] = phase_multilabel_kernel(flush)
-    kernel_rows["calibration_bins"] = phase_calibration_kernel(flush)
-    kernel_rows["ranking_pairs"] = phase_ranking_kernel(flush)
+    kernel_rows = timed("phase 3 binned_confmat_multiclass", phase_kernels, flush)
+    kernel_rows["coco_match"], chunk_shapes = timed("phase 3 coco_match", phase_matcher, flush)
+    kernel_rows["confmat_multiclass"] = timed("phase 3 confmat_multiclass", phase_confmat, flush)
+    kernel_rows["binned_confmat_multilabel"] = timed("phase 3 binned_confmat_multilabel", phase_multilabel_kernel,
+                                                     flush)
+    kernel_rows["calibration_bins"] = timed("phase 3 calibration_bins", phase_calibration_kernel, flush)
+    kernel_rows["ranking_pairs"] = timed("phase 3 ranking_pairs", phase_ranking_kernel, flush)
+    kernel_rows["retrieval_groups"] = timed("phase 3 retrieval_groups", phase_retrieval_kernel, flush)
+    kernel_rows["ssim_window"] = timed("phase 3 ssim_window", phase_ssim_kernel, flush)
     del flush
-    main = phase_main_path(kernels)
-    sync = phase_sync()
-    ragged = phase_ragged(chunk_shapes)
-    tower = phase_tower()
-    curves = phase_curves()
-    rest = phase_rest()
+    main = timed("phase 4", phase_main_path, kernels)
+    sync = timed("phase 5", phase_sync)
+    ragged = timed("phase 6", phase_ragged, chunk_shapes)
+    tower = timed("phase 7", phase_tower)
+    curves = timed("phase 8", phase_curves)
+    rest = timed("phase 9", phase_rest)
+    signal = timed("phase 10", phase_signal)
 
     # launches of each kernel on the paths that run it: the eval step (phase 4),
     # every rank of the sync worlds (phase 5) and of the ragged worlds (phase 6)
@@ -2706,6 +3268,9 @@ def main() -> int:
         "calibration_bins": {f"rest {leg}": rest[leg]["launches"]["calibration_bins"]
                              for leg in ("imagenet probabilities", "imagenet logits", "binary")},
         "ranking_pairs": {"rest coco": rest["coco"]["launches"]["ranking_pairs"]},
+        "retrieval_groups": {f"signal {leg}": signal[leg]["launches"]["retrieval_groups"]
+                             for leg in ("msmarco", "trec ndcg", "trec map")},
+        "ssim_window": {"signal div2k": signal["div2k"]["launches"]["ssim_window"]},
     }
     for leg in ("imagenet probabilities", "imagenet logits"):
         by_path["binned_confmat_multiclass"][f"rest {leg}"] = rest[leg]["launches"]["binned_confmat_multiclass"]
@@ -2726,12 +3291,14 @@ def main() -> int:
             "ms": first_row["ms"], "stream_ms": first_row["stream_ms"], "plain_ms": first_row["plain_ms"],
             "bound_ms": first_row["bound_ms"], "bound_by": first_row["bound_by"], "library_ms": None,
             **{k: first_row[k] for k in ("two_call_ms", "bucketize_bincount_ms", "softmax_bucketize_bincount_ms",
-                                         "sort_gather_cumsum_ms") if k in first_row},
+                                         "sort_gather_cumsum_ms", "query_layout_ms", "sort_cumsum_segment_ms",
+                                         "conv_ssim_yardstick_ms") if k in first_row},
         })
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({"device": device, "build_s": build_s, "kernels": kernel_rows, "main_path": main,
-                       "sync": sync, "ragged": ragged, "tower": tower, "curves": curves, "rest": rest}, f, indent=1)
+            json.dump({"device": device, "build_s": build_s, "seconds": seconds, "kernels": kernel_rows, "main_path": main,
+                       "sync": sync, "ragged": ragged, "tower": tower, "curves": curves, "rest": rest,
+                       "signal": signal}, f, indent=1)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}}))
     return 0

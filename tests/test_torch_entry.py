@@ -273,6 +273,14 @@ REST_OF_CLASSIFICATION = ("calibration_error", "hinge", "exact_match", "ranking"
                           "fixed_operating_point")
 
 
+SIGNAL_SLICE = ("retrieval", "retrieval.base", "retrieval.metrics", "functional.retrieval",
+                "functional.retrieval.kernels", "kernels.retrieval", "image", "image.psnr", "image.ssim",
+                "image.spectral", "functional.image", "functional.image.helper", "functional.image.psnr",
+                "functional.image.ssim", "functional.image.spectral", "functional.image.tv", "kernels.ssim")
+KERNEL_SITES = {"calibration": "classification", "ranking": "classification", "binned_multilabel": "classification",
+                "retrieval": "retrieval", "ssim": "image"}
+
+
 def test_isolation_covers_every_new_module():
     modules = set(_port_modules())
     for name in ("aggregation", "classification.roc", "functional.classification.auroc",
@@ -280,18 +288,19 @@ def test_isolation_covers_every_new_module():
                  "functional.regression.variance", "regression.correlation", "regression.variance",
                  "regression.distribution", "utilities.enums", "utilities.checks", "utilities.formatting",
                  "kernels.calibration", "kernels.ranking", "kernels.binned_multilabel",
-                 *(f"{pkg}.{m}" for m in REST_OF_CLASSIFICATION for pkg in ("classification", "functional.classification"))):
+                 *(f"{pkg}.{m}" for m in REST_OF_CLASSIFICATION for pkg in ("classification", "functional.classification")),
+                 *SIGNAL_SLICE):
         assert f"torchmetrics_tpu_torch.{name}" in modules
 
 
-@pytest.mark.parametrize("source", ["calibration", "ranking", "binned_multilabel"])
+@pytest.mark.parametrize("source", ["calibration", "ranking", "binned_multilabel", "retrieval", "ssim"])
 def test_kernel_sources_are_plain_cuda_with_a_c_interface(source):
     """The kernels build with nvcc alone and bind through ctypes: no PyTorch, JAX or Python headers."""
     text = (PACKAGE / "csrc" / f"{source}.cu").read_text()
     includes = [line.split()[1] for line in text.splitlines() if line.startswith("#include")]
     assert includes and all(inc.startswith("<cuda") or inc in ("<climits>", "<cstdint>") for inc in includes), includes
     assert f'extern "C" int {source}_' in text
-    assert "torchmetrics_tpu/functional/classification/" in text  # names the JAX site it replaces
+    assert f"torchmetrics_tpu/functional/{KERNEL_SITES[source]}/" in text  # names the JAX site it replaces
 
 
 def _imported_roots(path):

@@ -10,8 +10,14 @@ states, float32 sums, the cat lists of the exact curves, ``CatMetric`` and
 the rank correlations, Pearson's moments, the aggregators' values and
 ring buffers (with their ``_n`` counter, which picks the next slot), the
 calibration bins (``conf_sum`` float32, ``acc_sum`` and ``count`` int32),
-the fairness counters (float32 per group), the hinge and ranking sums and
-the exact-match sums or samplewise cat list.
+the fairness counters (float32 per group), the hinge and ranking sums,
+the exact-match sums or samplewise cat list, retrieval's three cat lists
+(indexes, preds, target), PSNR's float32 sums with its int32 pixel count
+and target extremes (or its cat lists with ``dim``), PSNR-B's sums, SSIM's
+and MS-SSIM's sums or cat lists (with the full maps or contrast
+sensitivities), the spectral metrics' cat lists (D-s and QNR with ``ms``,
+``pan`` and ``pan_lr``), VIF's sums and total variation's sums or score
+list.
 :func:`collection_states_from_jax` does it for every member state of a
 ``MetricCollection`` (``{leader name: state}``).
 """

@@ -21,6 +21,7 @@ from torchmetrics_tpu_torch.parallel.sync import (
     distributed_available,
     gather_all_arrays,
     host_sync_state,
+    reduce,
     sharded_update,
     sync_state,
 )
@@ -35,6 +36,7 @@ __all__ = [
     "distributed_available",
     "gather_all_arrays",
     "host_sync_state",
+    "reduce",
     "sharded_update",
     "sync_ragged_states",
     "sync_state",

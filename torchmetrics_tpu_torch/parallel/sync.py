@@ -88,3 +88,14 @@ def sharded_update(
     if sync_policy is not None or verify_consistency:
         raise NotImplementedError("sharded_update(sync_policy=..., verify_consistency=True) is not ported yet")
     return metric.sync_states(metric.update_state(metric.init_state(), *inputs, **kwargs))
+
+
+def reduce(x: Tensor, reduction: str = "elementwise_mean") -> Tensor:
+    """Reduce a tensor: ``elementwise_mean``, ``sum`` or ``none``."""
+    if reduction == "elementwise_mean":
+        return x.mean()
+    if reduction == "sum":
+        return x.sum()
+    if reduction in ("none", None):
+        return x
+    raise ValueError("Reduction parameter unknown.")
