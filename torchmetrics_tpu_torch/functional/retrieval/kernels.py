@@ -254,11 +254,11 @@ def grouped_precision_recall_curve(rg: RankedGroups, max_k: int,
     relevance scattered into a dense (G, K) grid, cumulated along k."""
     device = rg.target.device
     g = max(rg.num_groups, 1)
+    # only the ranks in the grid: the JAX package adds the others' zeros into cell (0, 0), which on
+    # the card serializes millions of atomic adds on one address; every (group, rank) is one cell
     in_grid = rg.rank < max_k
-    rows = torch.where(in_grid, rg.gid, 0).long()
-    cols = torch.where(in_grid, rg.rank, 0).long()
     grid = torch.zeros((g, max_k), dtype=torch.float32, device=device)
-    grid.index_put_((rows, cols), rg.target * in_grid, accumulate=True)
+    grid[rg.gid[in_grid].long(), rg.rank[in_grid].long()] = rg.target[in_grid]
     rel_cum = torch.cumsum(grid, 1)
     topk = torch.arange(1, max_k + 1, dtype=torch.float32, device=device)
     denom = torch.minimum(topk[None, :], rg.sizes[:, None]) if adaptive_k else topk[None, :]
