@@ -1,0 +1,114 @@
+"""The port's package namespaces hold every name the JAX package exports from the same path, once ported.
+
+For each JAX namespace (the top level, ``functional``, ``core`` and every
+domain package beside them), each exported name whose defining module has a
+port counterpart, and whose object that counterpart holds, must be
+importable from the port's namespace of the same path. The one exception is
+``functional.classification.precision_recall_curve``: there the port keeps
+the module as the package attribute (its dispatcher lives inside it).
+"""
+
+import importlib
+import pkgutil
+import types
+
+import pytest
+
+import torchmetrics_tpu  # noqa: F401  (the JAX package: imported first, on the CPU by conftest)
+
+ALLOWED = {("torchmetrics_tpu.functional.classification", "precision_recall_curve")}
+NAMESPACES = [
+    "torchmetrics_tpu",
+    "torchmetrics_tpu.classification",
+    "torchmetrics_tpu.core",
+    "torchmetrics_tpu.detection",
+    "torchmetrics_tpu.functional",
+    "torchmetrics_tpu.functional.classification",
+    "torchmetrics_tpu.functional.detection",
+    "torchmetrics_tpu.functional.image",
+    "torchmetrics_tpu.functional.regression",
+    "torchmetrics_tpu.functional.retrieval",
+    "torchmetrics_tpu.functional.text",
+    "torchmetrics_tpu.image",
+    "torchmetrics_tpu.parallel",
+    "torchmetrics_tpu.regression",
+    "torchmetrics_tpu.retrieval",
+    "torchmetrics_tpu.text",
+    "torchmetrics_tpu.utilities",
+]
+
+
+def _port(name: str):
+    """The port's module of a JAX module path, or None where it is not ported."""
+    try:
+        return importlib.import_module("torchmetrics_tpu_torch" + name[len("torchmetrics_tpu"):])
+    except ImportError:
+        return None
+
+
+def _exported(module) -> list:
+    names = getattr(module, "__all__", None)
+    return list(names) if names is not None else [n for n in vars(module) if not n.startswith("_")]
+
+
+def _ported_names(path: str) -> list:
+    """The names ``path`` exports whose defining module, and the object in it, are ported."""
+    module, out = importlib.import_module(path), []
+    for name in _exported(module):
+        obj = getattr(module, name, None)
+        if obj is None:
+            continue
+        home = obj.__name__ if isinstance(obj, types.ModuleType) else getattr(obj, "__module__", None)
+        if not isinstance(home, str) or not home.startswith("torchmetrics_tpu."):
+            continue
+        port_home = _port(home)
+        if port_home is None:
+            continue
+        if not isinstance(obj, types.ModuleType) and not hasattr(port_home, getattr(obj, "__name__", name)):
+            continue
+        out.append(name)
+    return out
+
+
+def test_every_ported_domain_package_is_walked():
+    """The list above covers every subpackage of the JAX package and of its ``functional`` that the port has."""
+    found = set()
+    for base in ("torchmetrics_tpu", "torchmetrics_tpu.functional"):
+        for info in pkgutil.iter_modules(importlib.import_module(base).__path__):
+            path = f"{base}.{info.name}"
+            if info.ispkg and _port(path) is not None:
+                found.add(path)
+    assert found <= set(NAMESPACES), sorted(found - set(NAMESPACES))
+
+
+@pytest.mark.parametrize("path", NAMESPACES)
+def test_port_namespace_holds_every_ported_export(path):
+    port = _port(path)
+    assert port is not None, f"{path} has no port counterpart"
+    names = _ported_names(path)
+    missing = [n for n in names if (path, n) not in ALLOWED and not hasattr(port, n)]
+    assert not missing, f"{port.__name__} lacks {missing}"
+    for name in names:  # what the port's namespace binds under a ported name is the ported object
+        if (path, name) in ALLOWED:
+            continue
+        want = getattr(importlib.import_module(path), name)
+        got = getattr(port, name)
+        if isinstance(want, types.ModuleType):
+            assert isinstance(got, types.ModuleType), (path, name)
+        else:
+            assert getattr(got, "__name__", None) == getattr(want, "__name__", None), (path, name)
+
+
+def test_functional_exports_named_in_the_acceptance():
+    import torchmetrics_tpu_torch as tm
+    import torchmetrics_tpu_torch.core as core
+    import torchmetrics_tpu_torch.functional as F
+    import torchmetrics_tpu_torch.functional.classification as FC
+
+    for name in ("accuracy", "binary_auroc", "mean_squared_error", "retrieval_precision",
+                 "structural_similarity_index_measure", "rouge_score", "precision_recall_curve"):
+        assert callable(getattr(F, name)), name
+    assert isinstance(FC.precision_recall_curve, types.ModuleType)  # the module, kept
+    assert {tm.MeanAveragePrecision.__name__, tm.ROUGEScore.__name__, tm.Reduce.__name__} == {
+        "MeanAveragePrecision", "ROUGEScore", "Reduce"}
+    assert (core.Metric, core.CompositionalMetric, core.Reduce) == (tm.Metric, tm.CompositionalMetric, tm.Reduce)

@@ -284,6 +284,26 @@ def test_auroc_class_max_fpr(top_k):
     _close(tm.compute(), jm.compute(), rtol=1e-5)
 
 
+@pytest.mark.parametrize("action", ["neg", "pos", "skip", "error"])
+def test_auroc_class_max_fpr_with_every_row_ignored(action):
+    """Every row dropped by ``ignore_index``: no query to score. JAX's ``neg`` and ``pos`` give the mean
+    of nothing (NaN); its ``skip`` and ``error`` raise, and the port raises the same exception types."""
+    kwargs = {"max_fpr": 0.5, "ignore_index": -1, "empty_target_action": action}
+    jm, tm = jr.RetrievalAUROC(**kwargs), tr.RetrievalAUROC(**kwargs, **CPU)
+    p, t, i = np.asarray([0.3, 0.6], F32), np.asarray([-1, -1]), np.asarray([0, 0], np.int32)
+    jm.update(*_j(p, t, i))
+    tm.update(*_t(p, t, i))
+    try:
+        want = jm.compute()
+    except (IndexError, ValueError) as err:
+        with pytest.raises(type(err)):
+            tm.compute()
+        return
+    got = tm.compute()
+    assert np.isnan(np.asarray(want)) and _np(got).dtype == np.float32
+    _close(got, want)
+
+
 def test_class_errors_as_jax():
     cases = [
         ("RetrievalMAP", {"empty_target_action": "maybe"}), ("RetrievalMAP", {"ignore_index": 1.5}),

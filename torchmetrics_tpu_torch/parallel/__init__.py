@@ -22,6 +22,7 @@ from torchmetrics_tpu_torch.parallel.sync import (
     gather_all_arrays,
     host_sync_state,
     reduce,
+    reduce as reduce_op,
     sharded_update,
     sync_state,
 )
@@ -37,6 +38,7 @@ __all__ = [
     "gather_all_arrays",
     "host_sync_state",
     "reduce",
+    "reduce_op",
     "sharded_update",
     "sync_ragged_states",
     "sync_state",

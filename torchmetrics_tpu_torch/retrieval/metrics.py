@@ -132,7 +132,10 @@ class RetrievalAUROC(_TopKRetrieval):
                 vals.append(torch.zeros((), device=preds.device))
             else:
                 vals.append(binary_auroc(pg, tg.to(torch.int32), max_fpr=self.max_fpr))
-        return torch.stack(vals).to(torch.float32), rg.n_rel == 0
+        # no group (every row ignored): no score, as the JAX class's `jnp.asarray([])`, beside its mask of
+        # one empty group; `neg` and `pos` then give the mean of nothing, NaN
+        scores = torch.stack(vals).to(torch.float32) if vals else torch.zeros((0,), device=preds.device)
+        return scores, rg.n_rel == 0
 
 
 class RetrievalPrecisionRecallCurve(RetrievalMetric):
