@@ -228,6 +228,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
+PEAK_FP64_OPS_PER_S = 34e12  # outside the tensor cores
 
 N_SAMPLES, N_CLASSES, BATCH = 50_000, 1_000, 1_024  # ILSVRC2012 validation set
 SEED = 0
@@ -1126,10 +1127,18 @@ def phase_retrieval_kernel(flush: torch.Tensor) -> list:
     cases = [  # (what, sizes, relevant share, edits, top_ks, timed measures)
         ("MS MARCO shape", msmarco, MSMARCO_RELEVANT / MSMARCO_CANDIDATES, (), (None, 10, 1000),
          ("reciprocal_rank", "average_precision", "ndcg", "auroc", "ranked")),
+        # the sort path: 300 relevant documents a query, past the counting path's threshold
+        ("MS MARCO shape at a 0.3 relevant share", msmarco, 0.3, (), (None, 10), ("average_precision",)),
         ("queries of 1, 31, 33, 256, 257 and 16,384 documents", [1, 31, 33, 256, 257, 16_384] * 2, 0.3,
          ("nonfinite", "none_all"), (None, 1, 10, 1000, 20_000), ()),
         ("one query of 100,000 documents (the long path)", [100_000], 0.3, ("nonfinite",), (None, 10, 1000),
          ("average_precision", "auroc")),
+        # the counting path past 16,384 documents: about 107 relevant
+        ("one sparse query of 100,000 documents", [100_000], MSMARCO_RELEVANT / MSMARCO_CANDIDATES,
+         ("nonfinite",), (None, 10, 1000), ("average_precision", "auroc")),
+        # both sides of the counting threshold in one launch, AUROC's top k below n on both
+        ("queries of 1,000 around the counting threshold", [1_000] * 60, krt.COUNT_SHORT / 1_000,
+         ("nonfinite", "none_all"), (None, 5, 10, 999), ()),
         ("long and short queries in one launch", [100_000, 3, 16_385, 700], 0.3, ("nonfinite", "none_all"),
          (None, 10), ()),
         ("a 900-way tie in queries of 1,000", [1_000] * 40, 0.3, ("tie900", "none_all"), (None, 10, 1000), ()),
@@ -1185,6 +1194,12 @@ def phase_retrieval_kernel(flush: torch.Tensor) -> list:
                     plain = lambda: rk._retrieval_scores_plain(p, t, i, measure, top_k, False)  # noqa: E731
                 plain_ms = time_ms(plain, flush, reps=5, warmup=1)
                 glue_ms = time_ms(lambda: rk.query_layout(p, t, i), flush, reps=5, warmup=1)
+                # phase 10 (i)'s order: the rows of each query in one run, the queries in order of id
+                in_runs = torch.repeat_interleave(torch.arange(n_groups, device=ps.device, dtype=torch.int32),
+                                                  torch.diff(offsets))
+                check(all(torch.equal(x_, y_) for x_, y_ in zip(rk.query_layout(ps, ts, in_runs)[:3], (ps, ts, offsets))),
+                      f"query_layout of rows in order differs ({what})")
+                glue_runs_ms = time_ms(lambda: rk.query_layout(ps, ts, in_runs), flush, reps=10, warmup=2)
                 yard_ms = time_ms(lambda: _sort_cumsum_segment(ps, ts, plain_rg.gid.long(), n_groups), flush)
                 nbytes = ps.shape[0] * 8 + offsets.numel() * 8 + (ps.shape[0] * 8 if measure == "ranked" else 8 * n_groups)
                 counts = torch.diff(offsets).double()
@@ -1197,6 +1212,7 @@ def phase_retrieval_kernel(flush: torch.Tensor) -> list:
                 row = {
                     "case": label, "what": f"{measure}@{top_k}, {what}", "max_abs_err": 0.0, "plan": geometry._asdict(),
                     "ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms, "query_layout_ms": glue_ms,
+                    "query_layout_in_runs_ms": glue_runs_ms,
                     "sort_cumsum_segment_ms": yard_ms, "bound_ms": max(bytes_ms, ops_ms),
                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes, "ops": nops,
                     "library_ms": None,
@@ -1204,8 +1220,8 @@ def phase_retrieval_kernel(flush: torch.Tensor) -> list:
                 errs = [r["max_abs_err"] for r in rows if r["what"].startswith(f"{measure}@{top_k}, {what}")]
                 row["max_abs_err"] = max(errs) if errs else 0.0
                 print(f"[kernel] retrieval_groups {label}: {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a "
-                      f"call back to back; plan {tuple(geometry)}), the query-id sort and offsets (torch glue) "
-                      f"{glue_ms:.4f} ms, plain {plain_ms:.4f} ms, sort + cumsum + index_add_ (several calls, a "
+                      f"call back to back; plan {tuple(geometry)}), the query-id layout (torch glue) "
+                      f"{glue_ms:.4f} ms shuffled, {glue_runs_ms:.4f} ms in runs, plain {plain_ms:.4f} ms, sort + cumsum + index_add_ (several calls, a "
                       f"yardstick) {yard_ms:.4f} ms, bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: "
                       f"{nbytes} bytes, {nops} ops), library_ms: none")
                 rows.insert(sum(1 for r in rows if "ms" in r), row)
@@ -1228,6 +1244,25 @@ def _image_pair(shape, gen, noise=0.05, low=0.0, high=1.0):
     target = low + (high - low) * target
     preds = target + noise * (high - low) * torch.randn(shape, generator=gen, device="cuda")
     return preds.contiguous(), target.contiguous()
+
+
+def _adversarial_pair(kind, shape, gen):
+    """Images where float32 window sums lose digits, on the card: values in [100, 101] with light noise,
+    [0, 255] with faint noise, a steep ramp across a tile, a step edge next to a flat region."""
+    if kind == "offset":
+        return _image_pair(shape, gen, noise=0.02, low=100.0, high=101.0)
+    if kind == "0-255":
+        return _image_pair(shape, gen, noise=0.002, low=0.0, high=255.0)
+    h, w = shape[-2:]
+    yy, xx = torch.meshgrid(torch.arange(h, device="cuda"), torch.arange(w, device="cuda"), indexing="ij")
+    if kind == "ramp":
+        target = (((7.3 * xx + 2.1 * yy) % 200) / 200 * 255).expand(shape)
+    else:  # "step"
+        target = torch.where(xx >= w // 2, 200.0, 0.0)
+        target = torch.where(yy < h // 3, 37.0, target).expand(shape)
+    noise = 0.3 if kind == "ramp" else 0.05
+    preds = target + noise * torch.randn(shape, generator=gen, device="cuda")
+    return preds.float().contiguous(), target.float().contiguous()
 
 
 def _conv_ssim_yardstick(preds, target, kernel, c1, c2):
@@ -1267,10 +1302,13 @@ def phase_ssim_kernel(flush: torch.Tensor) -> list:
         ("full image, sigma 4.3", (1, 2, 40, 64), {"return_full_image": True, "sigma": 4.3}, 0.1, False),
         ("contrast sensitivity, uniform", (2, 3, 64, 64),
          {"return_contrast_sensitivity": True, "gaussian_kernel": False}, 0.1, False),
+        # float32 window sums lose digits on these: the full map, c1 and c2 from max - min
+        *((f"adversarial: {kind}, full image", (2, 3, 150, 211), {"return_full_image": True, "data_range": None},
+           kind, False) for kind in ("offset", "0-255", "ramp", "step")),
     ]
     rows = []
     for what, shape, kwargs, noise, timed in cases:
-        preds, target = _image_pair(shape, gen, noise)
+        preds, target = _adversarial_pair(noise, shape, gen) if isinstance(noise, str) else _image_pair(shape, gen, noise)
         before = kss.ssim_window.launches
         got = fs._ssim_update(preds, target, **kwargs)
         check(kss.ssim_window.launches == before + 1, f"ssim_window did not launch once ({what})")
@@ -1313,18 +1351,25 @@ def phase_ssim_kernel(flush: torch.Tensor) -> list:
             halo = (32 + 10) / 32
             nops = int(n_px * (7 * 11 * halo + 5 * 11 + 20))
             bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_OPS_PER_S * 1e3
+            # the design's own bound: its float32 row pass (9 operations a tap with the shift, over the
+            # halo's rows) at the fp32 rate plus its double column pass (5 fused multiply-adds a tap, 8
+            # operations to rebase each of kh + 7 rows for 8 outputs) and map (20) at the fp64 rate
+            rows_halo = (kss.TILE_H + 10) / kss.TILE_H
+            fp32_ops, fp64_ops = n_px * 11 * 9 * rows_halo, n_px * 2 * (5 * 11 + 8 * 18 / 8 + 20)
+            mixed_ms = (fp32_ops / PEAK_FP32_OPS_PER_S + fp64_ops / PEAK_FP64_OPS_PER_S) * 1e3
             sets = [(preds, target), (preds.clone(), target.clone())]
             stream_ms = time_stream_ms(call, sets, calls=8)
             del sets
             row.update({"plan": plan._asdict(), "ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms,
-                        "conv_ssim_yardstick_ms": yard_ms, "bound_ms": max(bytes_ms, ops_ms),
+                        "conv_ssim_yardstick_ms": yard_ms, "bound_ms": max(bytes_ms, ops_ms), "mixed_bound_ms": mixed_ms,
                         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes, "ops": nops,
                         "library_ms": None})
             print(f"[kernel] ssim_window {label}: {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a call "
                   f"back to back; {plan.blocks} blocks, {plan.shared_bytes} B shared), plain (float32, F.conv2d) "
                   f"{plain_ms:.4f} ms, cuDNN depthwise conv of the stacked maps + the elementwise SSIM (several "
                   f"calls, a yardstick) {yard_ms:.4f} ms, bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: "
-                  f"{nbytes} bytes, {nops} ops), errors {errs}, library_ms: none")
+                  f"{nbytes} bytes, {nops} ops; this design's float32 row pass plus double column pass "
+                  f"{mixed_ms * 1e3:.3f} us), errors {errs}, library_ms: none")
             rows.insert(0, row)
         else:
             rows.append(row)
@@ -1337,8 +1382,19 @@ def phase_ssim_kernel(flush: torch.Tensor) -> list:
     want = fs._multiscale_ssim_update(preds.double(), target.double(), data_range=1.0, normalize="relu").float()
     err = float((got - want).abs().max())
     check(bool(((got - want).abs() <= SSIM_RTOL * want.abs()).all()), f"MS-SSIM differs from plain: {err}")
+    # the five scales' launches alone, on the pooled inputs, against one full-size call
+    scales = [(preds, target)]
+    for _ in range(4):
+        scales.append(tuple(torch.nn.functional.avg_pool2d(x, 2) for x in scales[-1]))
+    five = lambda: [fs._ssim_update(p_, t_, data_range=1.0, return_contrast_sensitivity=True)  # noqa: E731
+                    for p_, t_ in scales]
+    five_ms = time_ms(five, flush, reps=20)
+    one_ms = time_ms(lambda: fs._ssim_update(preds, target, data_range=1.0, return_contrast_sensitivity=True),
+                     flush, reps=20)
     rows.append({"case": f"MS-SSIM, five scales of the DIV2K batch {DIV2K_SHAPE}", "what": "MS-SSIM",
-                 "max_abs_err": err})
+                 "max_abs_err": err, "five_scales_ms": five_ms, "one_scale_ms": one_ms})
+    print(f"[kernel] ssim_window, MS-SSIM's five scales of the DIV2K batch: {five_ms:.4f} ms after an L2 flush, "
+          f"{five_ms / one_ms:.3f}x one full-size call ({one_ms:.4f} ms)")
     print(f"[kernel] ssim_window: per-image SSIM and CS within {SSIM_RTOL} relative and the map within "
           f"{SSIM_MAP_ATOL} absolute of the plain version in float64, deterministic, on {len(rows)} cases: "
           + "; ".join(f"{r['what']} ({r['max_abs_err']:.3g}; float32 plain "

@@ -13,7 +13,9 @@ order than XLA's convolution, and the local variances (sum w x^2 - mu^2)
 cancel some of those sums' digits. A full SSIM map is compared within 2e-4
 absolute: there that cancellation is not averaged away (on these images
 JAX's float32 map lies 2.0e-5 and the port's CPU map 8.6e-5 from a float64
-evaluation, the kernel's model, whose sums are double, 1e-5).
+evaluation). The kernel's model (float32 row sums about each window's centre
+pixel, double column sums) is held against a float64 evaluation within 1e-5
+on the map, on these images and four adversarial ones.
 """
 
 import importlib
@@ -440,16 +442,22 @@ def test_pickle_and_clone():
 
 # ----------------------------------------------------------------- the kernel: plan, launcher, model
 def test_plan():
-    g = kss.plan(4, 3, 1356, 2040, 11, 11, False)  # DIV2K's batch: tiles over the interior only
+    g = kss.plan(4, 3, 1356, 2040, 11, 11, False)  # DIV2K's batch: tiles of 32 x 64 over the interior only
     assert (g.row0, g.col0, g.rows, g.cols) == (5, 5, 1346, 2030)
-    assert g.blocks == (64, 43, 12)
-    assert g.shared_bytes == 8 * (22 + 5 * 42 * 32) + 4 * 2 * 42 * 42
+    assert g.blocks == (64, 22, 12)
+    # column taps (double), row taps (float32, even count), two input planes of 74 rows of stride 43, the
+    # five float32 row moments in rows of 33: 74,432 bytes, three blocks of 256 threads an SM by shared memory
+    assert g.shared_bytes == 8 * 11 + 4 * 12 + 4 * 2 * 74 * 43 + 4 * 5 * 74 * 33 == 74_432
+    assert 3 * (g.shared_bytes + 1024) <= 228 * 1024
     full = kss.plan(4, 3, 1356, 2040, 11, 11, True)
-    assert (full.row0, full.col0, full.rows, full.cols) == (0, 0, 1356, 2040) and full.blocks == (64, 43, 12)
+    assert (full.row0, full.col0, full.rows, full.cols) == (0, 0, 1356, 2040) and full.blocks == (64, 22, 12)
     assert kss.plan(1, 1, 11, 11, 11, 11, False).blocks == (1, 1, 1)
+    assert kss.plan(2, 3, 130, 40, 7, 7, False).blocks == (2, 2, 6)
     widest = kss.plan(1, 1, 63, 63, kss.MAX_TAPS, kss.MAX_TAPS, True)
-    assert widest.shared_bytes <= 227 * 1024
+    assert widest.shared_bytes == 8 * 63 + 4 * 64 + 4 * 2 * 126 * 95 + 4 * 5 * 126 * 33 <= 227 * 1024
     assert kss.plan(1, 1, 20, 20, 1, 11, False).rows == 20  # a pad of 0 keeps no interior: the mean is NaN
+    for kh, kw in ((3, 9), (9, 3), (31, 31)):  # the input stride is odd: row-pass reads free of bank conflicts
+        assert ((kss.TILE_W + kw - 1) | 1) % 2 == 1 and kss.plan(1, 1, 64, 64, kh, kw, True).shared_bytes <= 227 * 1024
 
 
 def test_launcher_refuses_what_it_does_not_take():
@@ -466,44 +474,59 @@ def test_launcher_refuses_what_it_does_not_take():
             kss.ssim_window(**args)
 
 
+def _fma32(a, b, c):
+    """float32 fused multiply-add: the product is exact in double, one rounding to float32 (two, rarely)."""
+    return (a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)).astype(F32)
+
+
+def _reflect(i, n):
+    i = np.where(i < 0, -i, i)
+    i = np.where(i >= n, 2 * (n - 1) - i, i)
+    return np.clip(i, 0, n - 1)
+
+
 def _kernel_model(p, t, taps_h, taps_w, c1, c2, full=False):
-    """numpy model of the kernel: 32 x 32 tiles of outputs over the unpadded interior (or every position
-    for the map, the border read through the reflected index), a row pass of kw taps then a column pass
-    of kh taps, taps and sums in double, the map from them rounded to float32, the per-image means of ssim
-    and cs summed in double."""
+    """numpy model of the kernel: ``kss.plan``'s tiles of TILE_W x TILE_H outputs over the unpadded interior
+    (or every position for the map, the border read through the reflected index); a row pass of kw float32
+    taps in float32 over x - s, s each row window's centre pixel, its five moments summed tap after tap; a
+    column pass in double over each row window's moments rebased about 0 (A + s W, B + s (2 A + s W),
+    W the float32 taps' sum) with the column taps divided by W; the map's differences in double, its two
+    quotients' terms rounded to float32; the per-image means of ssim and cs summed in double."""
     b_n, c_n, h, w = p.shape
+    th_, tw_ = kss.TILE_H, kss.TILE_W
     kh, kw = len(taps_h), len(taps_w)
     ph, pw = (kh - 1) // 2, (kw - 1) // 2
     r0, c0 = (0, 0) if full else (ph, pw)
     sums = np.zeros((b_n, 2))
     the_map = np.zeros(p.shape, F32)
-    wh, ww, c1, c2 = (np.asarray(x, np.float64) for x in (taps_h, taps_w, c1, c2))
-
-    def reflect(i, n):
-        i = np.where(i < 0, -i, i)
-        i = np.where(i >= n, 2 * (n - 1) - i, i)
-        return np.clip(i, 0, n - 1)
-
+    ww = np.asarray(taps_w, np.float64).astype(F32)
+    w_sum = ww.astype(np.float64).sum()
+    wh = np.asarray(taps_h, np.float64) / w_sum
+    c1, c2 = float(c1), float(c2)
     for b in range(b_n):
         for c in range(c_n):
-            for oy in range(r0, h - r0, 32):
-                for ox in range(c0, w - c0, 32):
-                    ys = reflect(np.arange(oy - ph, oy + 32 + ph), h)
-                    xs = reflect(np.arange(ox - pw, ox + 32 + pw), w)
-                    x = p[b, c][np.ix_(ys, xs)].astype(np.float64)
-                    z = t[b, c][np.ix_(ys, xs)].astype(np.float64)
-                    rows = [np.zeros((32 + 2 * ph, 32)) for _ in range(5)]
+            for oy in range(r0, h - r0, th_):
+                for ox in range(c0, w - c0, tw_):
+                    ys = _reflect(np.arange(oy - ph, oy + th_ + ph), h)
+                    xs = _reflect(np.arange(ox - pw, ox + tw_ + pw), w)
+                    x, z = p[b, c][np.ix_(ys, xs)], t[b, c][np.ix_(ys, xs)]
+                    sx, sz = x[:, pw:pw + tw_], z[:, pw:pw + tw_]
+                    m = [np.zeros((x.shape[0], tw_), F32) for _ in range(5)]
                     for k in range(kw):
-                        xk, zk = x[:, k:k + 32], z[:, k:k + 32]
-                        for m, v in zip(rows, (ww[k] * xk, ww[k] * zk, ww[k] * xk * xk, ww[k] * zk * zk,
-                                               ww[k] * xk * zk)):
-                            m += v
-                    mu_p, mu_t, e_pp, e_tt, e_pt = (sum(wh[k] * r[k:k + 32] for k in range(kh)) for r in rows)
+                        dx, dz = (x[:, k:k + tw_] - sx).astype(F32), (z[:, k:k + tw_] - sz).astype(F32)
+                        wx, wz = (ww[k] * dx).astype(F32), (ww[k] * dz).astype(F32)
+                        m[0], m[1] = (m[0] + wx).astype(F32), (m[1] + wz).astype(F32)
+                        m[2], m[3], m[4] = _fma32(wx, dx, m[2]), _fma32(wz, dz, m[3]), _fma32(wx, dz, m[4])
+                    ap, at, bpp, btt, bpt = (v.astype(np.float64) for v in m)
+                    s, u = sx.astype(np.float64), sz.astype(np.float64)
+                    r1p, r1t = ap + s * w_sum, at + u * w_sum
+                    rows = (r1p, r1t, bpp + s * (ap + r1p), btt + u * (at + r1t), bpt + s * at + u * r1p)
+                    mu_p, mu_t, e_pp, e_tt, e_pt = (sum(wh[k] * r[k:k + th_] for k in range(kh)) for r in rows)
                     upper = 2 * (e_pt - mu_p * mu_t) + c2
                     lower = np.maximum(e_pp - mu_p**2, 0) + np.maximum(e_tt - mu_t**2, 0) + c2
-                    ssim = (((2 * mu_p * mu_t + c1) * upper) / ((mu_p**2 + mu_t**2 + c1) * lower)).astype(F32)
-                    cs = (upper / lower).astype(F32)
-                    yy, xx = np.meshgrid(np.arange(oy, oy + 32), np.arange(ox, ox + 32), indexing="ij")
+                    ssim = ((2 * mu_p * mu_t + c1) * upper).astype(F32) / ((mu_p**2 + mu_t**2 + c1) * lower).astype(F32)
+                    cs = upper.astype(F32) / lower.astype(F32)
+                    yy, xx = np.meshgrid(np.arange(oy, oy + th_), np.arange(ox, ox + tw_), indexing="ij")
                     inside = (yy < h - r0) & (xx < w - c0)
                     the_map[b, c, yy[inside], xx[inside]] = ssim[inside]
                     valid = inside & (yy >= ph) & (yy < h - ph) & (xx >= pw) & (xx < w - pw)
@@ -512,11 +535,78 @@ def _kernel_model(p, t, taps_h, taps_w, c1, c2, full=False):
     return (sums[:, 0] / count).astype(F32), (sums[:, 1] / count).astype(F32), the_map
 
 
+def _float64_ssim(p, t, taps_h, taps_w, c1, c2):
+    """A float64 evaluation: reflect padding, the separable window, the map at every position and the
+    per-image means of ssim and cs over the interior."""
+    b_n, _, h, w = p.shape
+    kh, kw = len(taps_h), len(taps_w)
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    wh, ww = np.asarray(taps_h, np.float64), np.asarray(taps_w, np.float64)
+
+    def window(a):
+        a = np.pad(a, ((0, 0), (0, 0), (ph, ph), (pw, pw)), mode="reflect")
+        r = sum(ww[k] * a[..., :, k:k + w] for k in range(kw))
+        return sum(wh[k] * r[..., k:k + h, :] for k in range(kh))
+
+    x, z = p.astype(np.float64), t.astype(np.float64)
+    mu_p, mu_t, e_pp, e_tt, e_pt = (window(v) for v in (x, z, x * x, z * z, x * z))
+    upper = 2 * (e_pt - mu_p * mu_t) + c2
+    lower = np.maximum(e_pp - mu_p**2, 0) + np.maximum(e_tt - mu_t**2, 0) + c2
+    ssim = ((2 * mu_p * mu_t + c1) * upper) / ((mu_p**2 + mu_t**2 + c1) * lower)
+    inner = (slice(None), slice(None), slice(ph, h - ph), slice(pw, w - pw))
+    return ssim[inner].reshape(b_n, -1).mean(-1), (upper / lower)[inner].reshape(b_n, -1).mean(-1), ssim
+
+
+def _adversarial(kind, shape=(2, 3, 80, 96), seed=85):
+    """Images where float32 window sums lose digits: values in [100, 101] with light noise, [0, 255] with
+    faint noise, a steep ramp across a tile, a step edge next to a flat region."""
+    rng = np.random.default_rng(seed)
+    h, w = shape[-2:]
+    if kind == "offset":
+        return _pair(seed, shape, noise=0.02, low=100.0, high=101.0)
+    if kind == "0-255":
+        return _pair(seed, shape, noise=0.002, low=0.0, high=255.0)
+    if kind == "ramp":
+        yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        t = np.broadcast_to(((7.3 * xx + 2.1 * yy) % 200) / 200 * 255, shape)
+    else:  # "step"
+        t = np.zeros(shape)
+        t[..., :, w // 2:] = 200.0
+        t[..., : h // 3, :] = 37.0
+    noise = 0.3 if kind == "ramp" else 0.05
+    return (t + noise * rng.normal(size=shape)).astype(F32), t.astype(F32)
+
+
+@pytest.mark.parametrize("window", ["gaussian 11", "gaussian 5 (sigma 0.5)", "uniform 7", "gaussian 31 (sigma 4.3)"])
+@pytest.mark.parametrize("image", ["smooth", "odd sizes", "offset", "0-255", "ramp", "step"])
+def test_kernel_model_against_float64(image, window):
+    """The kernel's numerics (float32 row pass about each window's centre pixel, double column pass and
+    differences) against a float64 evaluation: the full map within 1e-5 absolute and the per-image SSIM
+    and CS within 1e-5 relative, on the test images and four adversarial ones (c1, c2 from max - min)."""
+    p, t = {"smooth": lambda: _pair(80), "odd sizes": lambda: _pair(81, (2, 3, 37, 75))}.get(
+        image, lambda: _adversarial(image))()
+    if window == "uniform 7":
+        taps = np.full(7, 1 / 7)
+    else:
+        win, sigma = {"gaussian 11": (11, 1.5), "gaussian 5 (sigma 0.5)": (5, 0.5),
+                      "gaussian 31 (sigma 4.3)": (31, 4.3)}[window]
+        taps = thelper._gaussian(win, sigma, torch.float64).numpy()
+    span = float(max(p.max(), t.max()) - min(p.min(), t.min()))
+    c1, c2 = F32((0.01 * span) ** 2), F32((0.03 * span) ** 2)
+    want_ssim, want_cs, want_map = _float64_ssim(p, t, taps, taps, float(c1), float(c2))
+    _, _, got_map = _kernel_model(p, t, taps, taps, c1, c2, full=True)
+    got_ssim, got_cs, _ = _kernel_model(p, t, taps, taps, c1, c2)
+    np.testing.assert_allclose(got_map, want_map, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got_ssim, want_ssim, rtol=1e-5)
+    np.testing.assert_allclose(got_cs, want_cs, rtol=1e-5)
+
+
 @pytest.mark.parametrize("case", ["gaussian", "uniform", "sigma 0.5", "odd sizes", "full map"])
 def test_kernel_model_against_jax(case):
-    """The kernel's algorithm (the separable window over the unpadded interior, double sums) equals
-    JAX's pad, 2-D convolution and crop: per-image SSIM and CS within 1e-5 relative, the map within
-    5e-5 absolute (JAX's float32 map lies 2e-5 from a float64 evaluation of these inputs)."""
+    """The kernel's algorithm (the separable window over the unpadded interior, float32 row sums about each
+    window's centre, double column sums) equals JAX's pad, 2-D convolution and crop: per-image SSIM and CS
+    within 1e-5 relative, the map within 5e-5 absolute (JAX's float32 map lies 2e-5 from a float64
+    evaluation of these inputs)."""
     shape = (2, 3, 37, 75) if case == "odd sizes" else (2, 3, 48, 64)
     p, t = _pair(80, shape)
     sigma = 0.5 if case == "sigma 0.5" else 1.5

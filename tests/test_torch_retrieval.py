@@ -186,6 +186,30 @@ def test_rank_groups_against_jax(edits):
             _close(g, w)
 
 
+@pytest.mark.parametrize("order", ["runs in order", "runs out of order", "an id in two runs", "rows shuffled"])
+def test_query_layout_is_the_stable_sort_of_the_ids(order):
+    """The glue's layout equals a stable sort of the query ids, whichever way the rows come: in runs of
+    one id (sorted by run, and not copied when the runs are in order) or shuffled (sorted by row)."""
+    rng = np.random.default_rng(64)
+    sizes = rng.integers(1, 9, 12)
+    ids = rng.choice(np.arange(-40, 40, 3), 12, replace=False)
+    if order == "runs in order":
+        ids = np.sort(ids)
+    if order == "an id in two runs":
+        ids[5] = ids[2]
+    rows = np.repeat(ids, sizes).astype(np.int32)
+    if order == "rows shuffled":
+        rows = rng.permutation(rows)
+    p, t = rng.uniform(size=rows.shape).astype(F32), rng.integers(0, 2, rows.shape).astype(F32)
+    got_p, got_t, offsets, longest = tk.query_layout(*_t(p, t, rows))
+    perm = np.argsort(rows, kind="stable")
+    _, counts = np.unique(rows[perm], return_counts=True)
+    np.testing.assert_array_equal(_np(got_p), p[perm])
+    np.testing.assert_array_equal(_np(got_t), t[perm])
+    np.testing.assert_array_equal(_np(offsets), np.concatenate([[0], np.cumsum(counts)]))
+    assert longest == counts.max()
+
+
 def test_empty_input_gives_one_group_of_zeros():
     z = np.zeros((0,), F32)
     for measure in ("precision", "auroc", "ndcg"):
@@ -348,13 +372,18 @@ def test_pickle_and_clone():
 
 # ----------------------------------------------------------------- the kernel: plan, launcher, model
 def test_plan():
-    assert krt.plan(1) == krt.Plan(32, 32, False, 0)
-    assert krt.plan(256) == krt.Plan(32, 256, False, 0)
-    assert krt.plan(257) == krt.Plan(128, 512, False, (512 + 32) * 8)
-    assert krt.plan(1000) == krt.Plan(256, 1024, False, (1024 + 64) * 8)  # MS MARCO's 1,000 candidates
+    sort_bytes = lambda width, threads: 8 * width + 2 * 4 * 256 * (threads // 32)  # noqa: E731
+    count_bytes = (8 + 4 + 12) * krt.MAX_POSITIVES
+    assert krt.plan(1) == krt.Plan(32, 32, False, count_bytes)
+    assert krt.plan(256) == krt.Plan(32, 256, False, count_bytes)
+    assert krt.plan(257) == krt.Plan(128, 512, False, sort_bytes(512, 128))
+    assert krt.plan(1000) == krt.Plan(256, 1024, False, sort_bytes(1024, 256))  # MS MARCO's 1,000 candidates
+    assert sort_bytes(1024, 256) == 24_576
     assert krt.plan(2048).threads == 512 and krt.plan(2049).threads == 512  # 4, then 8 words a thread
-    assert krt.plan(16_384) == krt.Plan(1024, 16_384, False, (16_384 + 1024) * 8)
-    assert krt.plan(16_385) == krt.Plan(1024, 16_384, True, (16_384 + 1024) * 8)  # the long path
+    assert krt.plan(16_384) == krt.Plan(1024, 16_384, False, sort_bytes(16_384, 1024))
+    assert krt.plan(16_385) == krt.Plan(1024, 16_384, True, sort_bytes(16_384, 1024))  # the long path
+    long_bytes = 8 * krt.LONG_TILE + 2 * 4 * 256 * 32 + 4 * 4 * 256 + 4 * 256
+    assert long_bytes <= krt.plan(100_000).shared_bytes
     for longest in (1, 31, 33, 256, 257, 1000, 4097, 16_384, 100_000):
         g = krt.plan(longest)
         assert 32 <= g.threads <= 1024 and g.threads % 32 == 0
@@ -362,7 +391,9 @@ def test_plan():
             width = max(g.threads, 1 << (n - 1).bit_length())
             items = width // g.threads
             assert items in (1, 2, 4, 8, 16) or (g.long and width > krt.SHARED_WIDTH)
-        assert g.shared_bytes + 4096 <= 227 * 1024
+            if items <= 16:  # the sort path's keys, positions and histogram fit the plan's shared memory
+                assert sort_bytes(width, g.threads) <= g.shared_bytes
+        assert count_bytes <= g.shared_bytes and g.shared_bytes + 4096 <= 227 * 1024
 
 
 def test_launcher_refuses_what_it_does_not_take():
@@ -381,80 +412,186 @@ def _order_key(s):
     return np.where(b & 0x80000000, (~b) & 0xFFFFFFFF, b | 0x80000000)
 
 
-def _kernel_model(p, t, n_groups_offsets, measure, top_k, adaptive):
-    """numpy model of the kernel: each query's words (key of the score above the complement of the
-    position) sorted descending, the targets read back by position, one scan in double with JAX's
-    float32 terms and quotients."""
-    offsets = n_groups_offsets
-    out, rel_out = [], []
+def _key(s):
+    """The kernel's 32-bit key of each score: order-preserving, -0.0 as +0.0, NaN 0."""
+    return np.where(np.isnan(s), np.uint64(0), _order_key(s)).astype(np.uint64)
+
+
+def _words(s):
+    """Each document's word: its key above the complement of its position (unique, descending = lexsort)."""
+    return (_key(s) << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - np.arange(s.shape[0], dtype=np.uint64))
+
+
+def _radix_order(s):
+    """The sort path's order: a stable LSD radix sort of the complemented keys, 4 passes of 8 bits,
+    positions carried as the values (each pass a stable partition by its digit)."""
+    dk = (~_key(s)) & np.uint64(0xFFFFFFFF)
+    order = np.arange(s.shape[0])
+    for shift in (0, 8, 16, 24):
+        digit = (dk[order] >> np.uint64(shift)) & np.uint64(0xFF)
+        order = order[np.argsort(digit, kind="stable")]
+    return order
+
+
+def _counted(s, x, measure, top_k, n_rel):
+    """The counting path: each positive's rank the count of greater words, the measure from the ranks
+    (and, for AUROC, the counts of greater and equal keys), sums over the positives in position order."""
+    n, w, k = s.shape[0], _words(s), _key(s)
+    k_eff = n if top_k is None else min(top_k, n)
+    pos = np.flatnonzero(x > 0)
+    wp, kp, xp = w[pos], k[pos], x[pos]
+    rank = np.array([(w > v).sum() for v in wp], dtype=np.int64)
+    in_k = rank < k_eff
+    if measure in ("precision", "recall", "hit_rate", "fall_out"):
+        a0 = float(np.sum(xp[in_k], dtype=np.float64))
+        return a0, k_eff - a0, 0.0, None
+    if measure == "average_precision":
+        above = np.array([(wp > v).sum() for v in wp], dtype=np.int64)
+        terms = (xp * ((above + 1).astype(F32) / (rank + 1).astype(F32))).astype(F32)
+        return float(np.sum(terms[in_k], dtype=np.float64)), float(np.sum(xp[in_k], dtype=np.float64)), 0.0, None
+    if measure == "reciprocal_rank":
+        return 0.0, 0.0, 0.0, int(rank[in_k].min()) if in_k.any() else None
+    if measure == "r_precision":
+        return float(np.sum(xp[rank.astype(F32) < F32(n_rel)], dtype=np.float64)), 0.0, 0.0, None
+    if measure == "ndcg":
+        disc = lambda r: (F32(1) / np.log2(r.astype(F32) + F32(2))).astype(F32)  # noqa: E731
+        tw = (_key(xp) << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - pos.astype(np.uint64))
+        ideal = np.array([(tw > v).sum() for v in tw], dtype=np.int64)
+        gain = np.maximum(xp, F32(0))
+        dcg = np.sum((gain * disc(rank))[in_k], dtype=np.float64)
+        idcg = np.sum((gain * disc(ideal))[ideal < k_eff], dtype=np.float64)
+        return float(dcg), float(idcg), 0.0, None
+    # auroc: the negatives above each positive's run, and half those of its run inside the top k
+    credit = 0.0
+    for j in np.flatnonzero(in_k):
+        greater = int((wp > wp[j]).sum())
+        if kp[j] == 0:
+            credit += rank[j] - greater
+            continue
+        above, equal = int((k > kp[j]).sum()), int((k == kp[j]).sum())
+        pos_above = int((kp > kp[j]).sum())
+        tied_after_pos = int(((kp == kp[j]) & (wp < wp[j]) & (rank < k_eff)).sum())
+        tied_before = (rank[j] - above) - (greater - pos_above)
+        tied_after = min(equal - 1 - (rank[j] - above), k_eff - 1 - rank[j]) - tied_after_pos
+        credit += (above - pos_above) + 0.5 * (tied_before + tied_after)
+    a1 = float(np.sum(xp[in_k], dtype=np.float64))
+    return credit, a1, k_eff - a1, None
+
+
+def _scanned(s, x, measure, top_k, n_rel):
+    """The sort path: the radix order, the targets read back by position, one scan in double."""
+    n = s.shape[0]
+    order = _radix_order(s)
+    keys, tt = _key(s)[order], x[order]
+    r = np.arange(n)
+    in_k = r < (top_k if top_k is not None else n + 1)
+    if measure == "average_precision":
+        prefix = np.cumsum(tt, dtype=np.float64).astype(F32)
+        terms = (tt * (prefix / (r + 1).astype(F32))).astype(F32)
+        return float(np.sum(terms[in_k], dtype=np.float64)), float(np.sum(tt[in_k], dtype=np.float64)), 0.0, None
+    if measure == "auroc":
+        pm, nm = np.where(in_k, tt, 0).astype(np.float64), np.where(in_k, 1 - tt, 0).astype(np.float64)
+        starts = np.ones(n, bool)
+        starts[1:] = (keys[1:] == 0) | (keys[1:] != keys[:-1])
+        ends = np.ones(n, bool)
+        ends[:-1] = starts[1:]
+        pn, run = np.cumsum(nm), np.cumsum(starts) - 1
+        rp, rn = np.bincount(run, pm), np.bincount(run, nm)
+        return float(np.sum(rp[run[ends]] * (pn[ends] - 0.5 * rn[run[ends]]))), pm.sum(), nm.sum(), None
+    if measure == "ndcg":
+        disc = (F32(1) / np.log2(r.astype(F32) + F32(2))).astype(F32)
+        ideal = x[_radix_order(x)]
+        return (float(np.sum((np.maximum(tt, 0) * disc)[in_k], dtype=np.float64)),
+                float(np.sum((np.maximum(ideal, 0) * disc)[in_k], dtype=np.float64)), 0.0, None)
+    if measure == "reciprocal_rank":
+        hits = r[in_k & (tt > 0)]
+        return 0.0, 0.0, 0.0, int(hits[0]) if hits.size else None
+    if measure == "r_precision":
+        return float(np.sum(tt[r.astype(F32) < F32(n_rel)], dtype=np.float64)), 0.0, 0.0, None
+    return float(np.sum(tt[in_k], dtype=np.float64)), float(np.sum(1 - tt[in_k], dtype=np.float64)), 0.0, None
+
+
+def _kernel_model(p, t, offsets, measure, top_k, adaptive, count_limit=krt.COUNT_SHORT):
+    """numpy model of the kernel: each query read once (its target sum, positives and whether every target
+    is 0 or 1); a query with at most ``count_limit`` positives (binary targets, or any for NDCG) takes the
+    counting path, the rest the radix sort path; the value from the sums with JAX's float32 quotients.
+    Returns the scores, the n_rel and each query's path."""
+    out, rel_out, paths = [], [], []
     for g in range(len(offsets) - 1):
         s, x = p[offsets[g]:offsets[g + 1]], t[offsets[g]:offsets[g + 1]].astype(F32)
         n = s.shape[0]
-        key = np.where(np.isnan(s), np.uint64(0), _order_key(s))
-        words = (key << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - np.arange(n, dtype=np.uint64))
-        ranked = np.sort(words)[::-1]
-        doc = (np.uint64(0xFFFFFFFF) - (ranked & np.uint64(0xFFFFFFFF))).astype(np.int64)
-        keys, tt = ranked >> np.uint64(32), x[doc]
-        r = np.arange(n)
-        in_k = r < (top_k if top_k is not None else n + 1)
         n_rel = float(np.sum(x, dtype=np.float64))
+        binary = bool(np.all((x == 0) | (x == 1)))
+        n_pos = int((x > 0).sum())
+        counting = (measure == "ndcg" or binary) and n_pos <= min(count_limit, krt.MAX_POSITIVES)
+        a0, a1, a2, first = (_counted if counting else _scanned)(s, x, measure, top_k, n_rel)
         rel, size = F32(n_rel), F32(n)
-        if measure == "average_precision":
-            prefix = np.cumsum(tt, dtype=np.float64).astype(F32)
-            terms = (tt * (prefix / (r + 1).astype(F32))).astype(F32)
-            a0, a1 = np.sum(terms[in_k], dtype=np.float64), np.sum(tt[in_k], dtype=np.float64)
-            value = F32(a0) / F32(a1) if F32(a1) != 0 else F32(0)
-        elif measure == "auroc":
-            pm, nm = np.where(in_k, tt, 0).astype(np.float64), np.where(in_k, 1 - tt, 0).astype(np.float64)
-            starts = np.ones(n, bool)
-            starts[1:] = (keys[1:] == 0) | (keys[1:] != keys[:-1])
-            ends = np.ones(n, bool)
-            ends[:-1] = starts[1:]
-            pn, run = np.cumsum(nm), np.cumsum(starts) - 1
-            rp, rn = np.bincount(run, pm), np.bincount(run, nm)
-            s_sum = float(np.sum(rp[run[ends]] * (pn[ends] - 0.5 * rn[run[ends]])))
-            a1, a2 = pm.sum(), nm.sum()
-            den = F32(a1) * F32(a2)
-            value = F32(a1 * a2 - s_sum) / den if den != 0 else F32(0)
-        elif measure == "ndcg":
-            disc = (F32(1) / np.log2(r.astype(F32) + F32(2))).astype(F32)
-            dcg = np.sum((np.maximum(tt, 0) * disc)[in_k], dtype=np.float64)
-            ideal = np.sort(x)[::-1]
-            idcg = np.sum((np.maximum(ideal, 0) * disc)[in_k], dtype=np.float64)
-            value = F32(dcg) / F32(idcg) if F32(idcg) != 0 else F32(0)
+        div = lambda num, den: F32(num) / F32(den) if F32(den) != 0 else F32(0)  # noqa: E731
+        if measure == "precision":
+            value = div(a0, size if top_k is None else (min(F32(top_k), size) if adaptive else F32(top_k)))
+        elif measure in ("recall", "r_precision"):
+            value = div(a0, rel)
+        elif measure == "hit_rate":
+            value = F32(F32(a0) > 0)
+        elif measure == "fall_out":
+            value = div(a1, size - rel)
+        elif measure in ("average_precision", "ndcg"):
+            value = div(a0, a1)
         elif measure == "reciprocal_rank":
-            hits = r[in_k & (tt > 0)]
-            value = F32(1) / (F32(hits[0]) + F32(1)) if hits.size else F32(0)
-        else:
-            a0 = F32(np.sum(tt[in_k], dtype=np.float64))
-            if measure == "precision":
-                k_eff = size if top_k is None else (min(F32(top_k), size) if adaptive else F32(top_k))
-                value = a0 / k_eff
-            elif measure == "fall_out":
-                den = size - rel
-                value = F32(np.sum(1 - tt[in_k], dtype=np.float64)) / den if den != 0 else F32(0)
-            elif measure == "r_precision":
-                value = F32(np.sum(tt[r.astype(F32) < rel], dtype=np.float64)) / rel if rel != 0 else F32(0)
-            elif measure == "hit_rate":
-                value = F32(a0 > 0)
-            else:
-                value = a0 / rel if rel != 0 else F32(0)
+            value = F32(1) / (F32(first) + F32(1)) if first is not None else F32(0)
+        else:  # auroc
+            value = div(F32(a1 * a2 - a0), F32(a1) * F32(a2))
         out.append(F32(value))
         rel_out.append(rel)
-    return np.asarray(out, F32), np.asarray(rel_out, F32)
+        paths.append("counting" if counting else "sort")
+    return np.asarray(out, F32), np.asarray(rel_out, F32), paths
+
+
+def _layout(p, t, i):
+    order = np.argsort(i, kind="stable")
+    _, counts = np.unique(i[order], return_counts=True)
+    return p[order], t[order], np.concatenate([[0], np.cumsum(counts)])
+
+
+MODEL_MEASURES = ["precision", "recall", "hit_rate", "fall_out", "average_precision", "reciprocal_rank",
+                  "r_precision", "ndcg", "auroc"]
 
 
 @pytest.mark.parametrize("top_k,adaptive", [(None, False), (3, False), (3, True)])
-@pytest.mark.parametrize("measure", ["precision", "recall", "hit_rate", "fall_out", "average_precision",
-                                     "reciprocal_rank", "r_precision", "ndcg", "auroc"])
+@pytest.mark.parametrize("measure", MODEL_MEASURES)
 def test_kernel_model_against_jax(measure, top_k, adaptive):
-    """The kernel's algorithm (a per-query sort of unique 64-bit words, one scan) equals the JAX
-    grouped measure on ties, NaN, +-inf and +-0.0 scores, with the query ids' stable sort as glue."""
+    """The kernel's algorithm (counting or radix sort, the launcher's threshold) equals the JAX grouped
+    measure on ties, NaN, +-inf and +-0.0 scores, with the query ids' stable sort as glue."""
     p, t, i = _data(60, n_queries=8, docs=(1, 40), edits=("edges",), graded=measure == "ndcg")
-    order = np.argsort(i, kind="stable")
-    _, counts = np.unique(i[order], return_counts=True)
-    offsets = np.concatenate([[0], np.cumsum(counts)])
-    got = _kernel_model(p[order], t[order], offsets, measure, top_k, adaptive)
+    got = _kernel_model(*_layout(p, t, i), measure, top_k, adaptive)
     want = _jax_scores(p, t, i, measure, top_k, adaptive)
     _close(got[0], want[0])
     np.testing.assert_array_equal(got[1], np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("top_k", [None, 2, 17, 60])
+@pytest.mark.parametrize("measure", MODEL_MEASURES)
+@pytest.mark.parametrize("side", ["every query counted", "every query sorted", "at the threshold"])
+def test_kernel_model_paths_against_jax(side, measure, top_k):
+    """Both paths and the threshold between them, against JAX: queries of 1 to 80 documents with 0 to
+    all of them relevant (ties, NaN, +-inf, +-0.0; graded targets for NDCG), each taken by counting, by
+    the radix sort, or by the launcher's rule with a threshold of 6 positives that splits the batch."""
+    rng = np.random.default_rng(61)
+    p, t, i = _data(62, n_queries=14, docs=(1, 80), edits=("edges",), graded=measure == "ndcg")
+    share = rng.uniform(0.0, 0.3, 200)[np.abs(i) % 200]  # each query its own share of relevant documents
+    if measure != "ndcg":
+        t = np.where(rng.uniform(size=t.shape) < share, 1, 0)
+    limit = {"every query counted": krt.MAX_POSITIVES, "every query sorted": -1, "at the threshold": 6}[side]
+    got_s, got_rel, paths = _kernel_model(*_layout(p, t, i), measure, top_k, False, count_limit=limit)
+    want = _jax_scores(p, t, i, measure, top_k, False)
+    _close(got_s, want[0])
+    np.testing.assert_array_equal(got_rel, np.asarray(want[1]))
+    if side == "at the threshold":
+        assert {"counting", "sort"} <= set(paths), paths
+
+
+@pytest.mark.parametrize("edits", [(), ("edges",)])
+def test_radix_order_is_the_stable_descending_order(edits):
+    """Four stable 8-bit passes over the complemented keys give the words' descending order: jnp.lexsort's."""
+    p, _, _ = _data(63, n_queries=1, docs=(300, 300), edits=edits)
+    np.testing.assert_array_equal(_radix_order(p), np.argsort(_words(p))[::-1])

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where the port's redesigned kernels spend their time, on one GPU: ``ranking_pairs``' sort,
-``binned_confmat_multilabel``'s label-group width, and ``calibration_bins``' design choices.
+``binned_confmat_multilabel``'s label-group width, ``calibration_bins``' design choices,
+``retrieval_groups``' counting threshold and ``ssim_window``'s tile and blocking.
 
-    python3 tools/kernel_ablation.py [--sections ranking,multilabel,calibration,calibration-widths]
+    python3 tools/kernel_ablation.py [--sections ranking,multilabel,calibration,calibration-widths,retrieval,
+                                                  retrieval-occupancy,ssim]
                                      [--parent CHECKOUT] [--json PATH]
 
 Ranking: ``csrc/ranking.cu`` is copied, ``#if`` switches are put around the
@@ -37,6 +39,22 @@ which sets the plan's width thresholds. ``--parent`` names a checkout of the com
 redesign, whose kernel (one partial histogram a block, merged by the last
 block) is built and timed beside it at the main path's three shapes.
 
+Retrieval: the shipped ``retrieval_groups`` with its counting thresholds
+set so that every query counts, or every query sorts, over batches of about
+4 M rows of queries of 256 to 16,384 documents (and one query of 100,000, the
+long path), each query with exactly ``n_pos`` relevant documents from 0 to
+256: AP and AUROC@10 (held equal between the two paths within the phase 3
+tolerance), which sets ``COUNT_SHORT`` and ``COUNT_LONG``. Retrieval
+occupancy: the source built with its registers sized for 1,024 and 2,048
+threads an SM (``RETRIEVAL_THREADS_AN_SM``), at MS MARCO's shape. SSIM:
+``csrc/ssim.cu`` built with its column-pass rows a thread
+(``SSIM_COL_ROWS``: 8 or 4, tiles of 32 x 64 or 32 x 32), row-pass outputs a
+thread (``SSIM_ROW_OUTS``: 8 or 4) and blocks an SM in its launch bounds
+(``SSIM_MIN_BLOCKS``), with the tile loaded by plain loads and stores in
+place of asynchronous copies, and with a pass left out (the column pass, or the row
+pass: a variant that computes wrong values, timed only), at DIV2K's batch and
+its four smaller MS-SSIM scales, each held against the shipped build.
+
 Times are ``chip_smoke.time_ms``'s: CUDA events around one call after a
 256 MB L2 flush, a spin kernel holding the card while the host enqueues the
 call; medians of 30. Needs a CUDA device.
@@ -64,6 +82,8 @@ from torchmetrics_tpu_torch.kernels import _build  # noqa: E402
 from torchmetrics_tpu_torch.kernels import binned_multilabel as kbm  # noqa: E402
 from torchmetrics_tpu_torch.kernels import calibration as kce  # noqa: E402
 from torchmetrics_tpu_torch.kernels import ranking as krk  # noqa: E402
+from torchmetrics_tpu_torch.kernels import retrieval as krt  # noqa: E402
+from torchmetrics_tpu_torch.kernels import ssim as kss  # noqa: E402
 
 SWITCHES = {  # a stage kind's switch: the source text it guards, and the guarded text
     "SORT": ("  bitonic_sort<E>(v, s_sort, a.width, group, t, lane);",
@@ -546,9 +566,215 @@ def _calibration_widths(flush: torch.Tensor, gen: torch.Generator) -> dict:
     return rows
 
 
+RET_WIDTHS = (256, 1024, 4096, 16_384, 100_000)
+RET_POSITIVES = (0, 1, 2, 4, 8, 16, 32, 64, 128, 256)
+RET_ROWS = 4_000_000  # rows a batch: queries of one width
+
+
+def _retrieval_batch(n: int, n_pos: int, gen: torch.Generator):
+    """``RET_ROWS // n`` queries (at least one) of ``n`` documents in order, each with ``n_pos`` relevant ones."""
+    queries = max(1, RET_ROWS // n)
+    scores = torch.randn((queries, n), generator=gen, device="cuda")
+    target = torch.zeros((queries, n), device="cuda")
+    if n_pos:
+        picks = torch.rand((queries, n), generator=gen, device="cuda").argsort(dim=1)[:, :n_pos]
+        target.scatter_(1, picks, 1.0)
+    offsets = torch.arange(queries + 1, device="cuda", dtype=torch.int64) * n
+    return scores.reshape(-1).contiguous(), target.reshape(-1).contiguous(), offsets
+
+
+def _retrieval(flush: torch.Tensor, gen: torch.Generator) -> dict:
+    """Counting against sorting at each width and count of relevant documents a query, two turns."""
+    rows = {}
+    limits = {"counting": (krt.MAX_POSITIVES, krt.MAX_POSITIVES), "radix sort": (-1, -1)}
+    shipped = (krt.COUNT_SHORT, krt.COUNT_LONG)
+    try:
+        for n in RET_WIDTHS:
+            for n_pos in RET_POSITIVES:
+                if n_pos > n:
+                    continue
+                preds, target, offsets = _retrieval_batch(n, n_pos, gen)
+                for measure, top_k in (("average_precision", None), ("auroc", 10)):
+                    got = {}
+                    for turn in (0, 1):
+                        for path in (limits if turn == 0 else list(limits)[::-1]):
+                            krt.COUNT_SHORT, krt.COUNT_LONG = limits[path]
+                            call = lambda m=measure, k=top_k: krt.retrieval_groups(  # noqa: E731
+                                preds, target, offsets, m, k, longest=n)
+                            got[path] = call()[0]
+                            key = f"{n:,} documents, {n_pos} relevant, {measure}@{top_k}, {path}"
+                            rows.setdefault(key, []).append(cs.time_ms(call, flush))
+                    err = float((got["counting"] - got["radix sort"]).abs().max())
+                    cs.check(err <= 1e-6, f"kernel_ablation: the two paths differ by {err} ({n}, {n_pos}, {measure})")
+                del preds, target, offsets
+    finally:
+        krt.COUNT_SHORT, krt.COUNT_LONG = shipped
+    for key, times in rows.items():
+        print(f"[retrieval] {key}: {' / '.join(f'{x:.4f}' for x in times)} ms after an L2 flush "
+              f"(two turns)", flush=True)
+    return rows
+
+
+RET_OCCUPANCY = (1024, 2048)  # RETRIEVAL_THREADS_AN_SM: the threads an SM its registers are sized for
+
+
+def _retrieval_occupancy(flush: torch.Tensor, gen: torch.Generator) -> dict:
+    """The shipped source built for 1,024 and 2,048 threads an SM (64 and 32 registers a thread),
+    timed on MS MARCO's shape: the counting path (about 1.07 relevant a query) under AP and AUROC, the
+    ranked layout, and the sort path (a 0.3 share) under AP."""
+    with tempfile.TemporaryDirectory() as workdir:
+        path = os.path.join(workdir, "retrieval_occupancy.cu")
+        shutil.copy(os.path.join(_build.CSRC_DIR, "retrieval.cu"), path)
+        libs = _nvcc_all({t: (path, [f"-DRETRIEVAL_THREADS_AN_SM={t}"]) for t in RET_OCCUPANCY})
+        rows = {}
+        cases = []
+        for share, measures in ((cs.MSMARCO_RELEVANT / cs.MSMARCO_CANDIDATES, ("average_precision", "auroc", "ranked")),
+                                (0.3, ("average_precision",))):
+            p, t, i = cs._retrieval_case([cs.MSMARCO_CANDIDATES] * cs.MSMARCO_QUERIES, gen, share)
+            from torchmetrics_tpu_torch.functional.retrieval import kernels as rk
+
+            ps, ts, offsets, longest = rk.query_layout(p, t, i)
+            cases += [(share, m, ps, ts, offsets, longest) for m in measures]
+        for turn in (RET_OCCUPANCY, RET_OCCUPANCY[::-1]):
+            for threads_an_sm in turn:
+                fn = libs[threads_an_sm].retrieval_groups_launch
+                p_, i_ = ctypes.c_void_p, ctypes.c_int
+                fn.argtypes = [p_, p_, p_, i_, i_, i_, i_, ctypes.c_float, i_, p_, p_, p_, p_, i_, i_, i_, i_, p_]
+                fn.restype = ctypes.c_int
+                for share, measure, ps, ts, offsets, longest in cases:
+                    g = krt.plan(longest)
+                    n, groups = ps.shape[0], offsets.shape[0] - 1
+                    ranked = measure == "ranked"
+                    out = torch.empty((n if ranked else groups,), device="cuda")
+                    second = torch.empty((n if ranked else groups,), dtype=torch.int32 if ranked else torch.float32,
+                                         device="cuda")
+                    want = krt.retrieval_groups(ps, ts, offsets, measure, longest=longest)
+
+                    def call(fn=fn, ps=ps, ts=ts, offsets=offsets, groups=groups, measure=measure, out=out,
+                             second=second, ranked=ranked, g=g):
+                        err = fn(ps.data_ptr(), ts.data_ptr(), offsets.data_ptr(), groups, krt.MEASURES[measure],
+                                 0, 0, 0.0, 0, out.data_ptr(), 0 if ranked else second.data_ptr(),
+                                 second.data_ptr() if ranked else 0, 0, g.threads, g.shared_bytes, krt.COUNT_SHORT,
+                                 krt.COUNT_LONG, torch.cuda.current_stream().cuda_stream)
+                        if err:
+                            raise RuntimeError(f"kernel_ablation: retrieval launch failed with CUDA error {err}")
+
+                    call()
+                    torch.cuda.synchronize()
+                    got = (second, out) if ranked else (out, second)
+                    cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                             f"kernel_ablation: the {threads_an_sm}-thread build differs ({measure}, {share})")
+                    key = f"MS MARCO shape, {share:.5f} relevant, {measure}, registers for {threads_an_sm} threads an SM"
+                    rows.setdefault(key, []).append(cs.time_ms(call, flush))
+    for key, times in rows.items():
+        print(f"[retrieval occupancy] {key}: {' / '.join(f'{x:.4f}' for x in times)} ms after an L2 flush "
+              f"(two turns)", flush=True)
+    return rows
+
+
+SSIM_VARIANTS = {  # name: (defines, the launcher's tile rows); "shipped" first: the reference of the others
+    "shipped (8 column rows, 8 row outputs a thread, 2 blocks an SM)": ({}, 64),
+    "4 column rows a thread (32 x 32 tiles)": ({"SSIM_COL_ROWS": 4}, 32),
+    "4 column rows, 3 blocks an SM": ({"SSIM_COL_ROWS": 4, "SSIM_MIN_BLOCKS": 3}, 32),
+    "4 column rows, 4 row outputs, 3 blocks an SM": ({"SSIM_COL_ROWS": 4, "SSIM_ROW_OUTS": 4, "SSIM_MIN_BLOCKS": 3}, 32),
+    "8 column rows, 4 row outputs": ({"SSIM_ROW_OUTS": 4}, 64),
+    "the tile by loads and stores, no cp.async": ({"SSIM_SYNC_LOAD": 1}, 64),
+    "no column pass (wrong values)": ({"SSIM_SKIP_COLUMNS": 1}, 64),
+    "no row pass (wrong values)": ({"SSIM_SKIP_ROWS": 1}, 64),
+}
+SSIM_SWITCHES = {  # the source text each ablation-only switch is placed at, and what replaces it
+    "SSIM_SYNC_LOAD": ("      copy_async(s_p + y * in_s + x, prow + gx);\n      copy_async(s_t + y * in_s + x, trow + gx);",
+                       "      if (SSIM_SYNC_LOAD) {\n        s_p[y * in_s + x] = prow[gx];\n        s_t[y * in_s + x] = trow[gx];\n"
+                       "      } else {\n        copy_async(s_p + y * in_s + x, prow + gx);\n"
+                       "        copy_async(s_t + y * in_s + x, trow + gx);\n      }"),
+    "SSIM_SKIP_ROWS": ("  for (int task = t; task < in_h * kSegments; task += kThreads) {",
+                       "  for (int task = SSIM_SKIP_ROWS ? in_h * kSegments : t; task < in_h * kSegments; task += kThreads) {"),
+    "SSIM_SKIP_COLUMNS": ("  for (int r = 0; r < kh + kColRows - 1; ++r) {",
+                          "  for (int r = 0; r < (SSIM_SKIP_COLUMNS ? 0 : kh + kColRows - 1); ++r) {"),
+}
+
+
+def _ssim_libraries(workdir: str) -> dict:
+    src = open(os.path.join(_build.CSRC_DIR, "ssim.cu")).read()
+    for old, new in SSIM_SWITCHES.values():
+        if src.count(old) != 1:
+            raise RuntimeError(f"kernel_ablation: the ssim source changed, cannot place a switch at {old!r}")
+        src = src.replace(old, new)
+    path = os.path.join(workdir, "ssim_ablation.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    off = {switch: 0 for switch in SSIM_SWITCHES}
+    jobs = {name: (path, [f"-D{k}={v}" for k, v in {**off, **defines}.items()])
+            for name, (defines, _) in SSIM_VARIANTS.items()}
+    libs = _nvcc_all(jobs)
+    entries = {}
+    for name, lib in libs.items():
+        fn = lib.ssim_window_launch
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, p, p, f, f, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, f, ctypes.c_double, i, p]
+        fn.restype = ctypes.c_int
+        entries[name] = fn
+    return entries
+
+
+def _ssim(flush: torch.Tensor, gen: torch.Generator) -> dict:
+    """Each variant at DIV2K's batch and at MS-SSIM's four smaller scales, two turns."""
+    fs = importlib.import_module("torchmetrics_tpu_torch.functional.image.ssim")
+    rows = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        entries = _ssim_libraries(workdir)
+        preds, target = cs._image_pair(cs.DIV2K_SHAPE, gen, 0.05)
+        scales = [(preds, target)]
+        for _ in range(4):
+            scales.append(tuple(torch.nn.functional.avg_pool2d(x, 2) for x in scales[-1]))
+        taps = fs._window_taps(True, 11, 1.5, torch.device("cuda"))
+        names = list(SSIM_VARIANTS)
+        for turn in (names, names[::-1]):
+            for name in turn:
+                defines, tile_h = SSIM_VARIANTS[name]
+                for level, (p_, t_) in enumerate(scales):
+                    b, c, h, w = p_.shape
+                    g = kss.plan(b, c, h, w, 11, 11, False)
+                    blocks = (g.blocks[0], -(-g.rows // tile_h), g.blocks[2])
+                    out = torch.empty((b,), device="cuda")
+                    partials = torch.empty((b * c * blocks[0] * blocks[1] * 2,), dtype=torch.float64, device="cuda")
+                    ticket = torch.zeros((1,), dtype=torch.int32, device="cuda")
+                    count = float(c * (h - 10) * (w - 10))
+                    fn = entries[name]
+
+                    def call(fn=fn, p_=p_, t_=t_, out=out, partials=partials, ticket=ticket, g=g, b=b, c=c, h=h,
+                             w=w, count=count):
+                        err = fn(p_.data_ptr(), t_.data_ptr(), taps.data_ptr(), taps.data_ptr(), 0, 1e-4, 9e-4,
+                                 out.data_ptr(), 0, 0, partials.data_ptr(), ticket.data_ptr(), b, c, h, w, 11, 11,
+                                 g.row0, g.col0, g.rows, g.cols, 0, 0.0, 0.0, count,
+                                 _ssim_shared(tile_h), torch.cuda.current_stream().cuda_stream)
+                        if err:
+                            raise RuntimeError(f"kernel_ablation: ssim launch failed with CUDA error {err}")
+                        return out
+
+                    got = call().clone()
+                    torch.cuda.synchronize()
+                    if "wrong" not in name:
+                        want = fs._ssim_update(p_, t_, data_range=1.0)
+                        cs.check(bool(((got - want).abs() <= 1e-5 * want.abs()).all()),
+                                 f"kernel_ablation: ssim variant {name} differs at scale {level}")
+                    key = f"scale {level} {tuple(p_.shape)}, {name}"
+                    rows.setdefault(key, []).append(cs.time_ms(call, flush, reps=20))
+    for key, times in rows.items():
+        print(f"[ssim] {key}: {' / '.join(f'{x:.4f}' for x in times)} ms after an L2 flush (two turns)", flush=True)
+    return rows
+
+
+def _ssim_shared(tile_h: int, kh: int = 11, kw: int = 11) -> int:
+    """``csrc/ssim.cu``'s ``shared_bytes_for`` at tiles of ``tile_h`` output rows."""
+    in_h, in_stride = tile_h + kh - 1, (kss.TILE_W + kw - 1) | 1
+    return 8 * kh + 4 * ((kw + 1) & ~1) + 4 * 2 * in_h * in_stride + 4 * 5 * in_h * kss.ROW_STRIDE
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--sections", default="ranking,multilabel,calibration,calibration-widths",
+    parser.add_argument("--sections",
+                        default="ranking,multilabel,calibration,calibration-widths,retrieval,retrieval-occupancy,ssim",
                         help="comma-separated sections to run")
     parser.add_argument("--parent", help="a checkout of the commit before the calibration redesign, timed beside it")
     parser.add_argument("--json", help="also write the times to this file")
@@ -569,6 +795,12 @@ def main() -> int:
         record["calibration"] = _calibration(flush, gen, args.parent)
     if "calibration-widths" in sections:
         record["calibration-widths"] = _calibration_widths(flush, gen)
+    if "retrieval" in sections:
+        record["retrieval"] = _retrieval(flush, gen)
+    if "retrieval-occupancy" in sections:
+        record["retrieval-occupancy"] = _retrieval_occupancy(flush, gen)
+    if "ssim" in sections:
+        record["ssim"] = _ssim(flush, gen)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(record, f, indent=1)

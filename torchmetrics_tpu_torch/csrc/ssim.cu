@@ -27,26 +27,45 @@
 // Bound on the card: both inputs read once (8 bytes a pixel), a mean an image
 // written (and 4 bytes a pixel for the full map); about 7 operations a tap of
 // the row pass and 5 of the column pass a pixel, with 20 for the map: fp32
-// arithmetic binds at an 11-tap window (this kernel runs them in fp64).
+// arithmetic binds at an 11-tap window (5.84 G operations at DIV2K's batch,
+// 87 us at 67 TFLOP/s). This design runs the row pass in fp32 (9 operations a
+// tap with its shift, 33.2 M x 11 x 9 x 74 / 64 = 3.80 G at DIV2K's batch, 57 us
+// at 67 TFLOP/s) and the column pass and the map in fp64 (5 fused
+// multiply-adds a tap, 8 operations a row of the column pass to rebase it and
+// about 20 for the map, each counted twice: 2 x 33.2 M x (55 + 8 x 18 / 8 +
+// 20) = 6.17 G, 181 us at the data sheet's 34 TFLOP/s fp64 outside the tensor
+// cores); its own bound is the sum, 238 us (chip_smoke.py's mixed_bound_ms).
 //
 // What the design does about it:
 // - the window applied separably: a row pass (kw taps) over the tile and its
 //   halo of ph rows, into shared memory, then a column pass (kh taps): 7 kw +
-//   5 kh operations a pixel instead of the 2-D window's 5 kh kw; a thread
-//   takes 4 consecutive outputs of a column, so each row of the row pass is
-//   read from shared memory once for the 4 (kh + 3 reads, not 4 kh);
-// - one block of 32 x 8 threads a 32 x 32 tile of outputs of one (image,
-//   channel) plane; the input tile and its halo (float32), clamped to the
-//   data range when one is given as a tuple, in shared memory (a double
-//   tile, converted once, cost a block an SM and ran 1.46 ms against 1.18
-//   at DIV2K's batch);
-// - the window's taps and sums in double (the row pass's in shared memory
-//   too), the differences in double and only the map's quotients in float32: sum w p^2 - mu^2 cancels
-//   most of a float32 sum's digits where the local variance is small
-//   beside c2 (float32 sums, cuDNN's or XLA's, put the map 2e-5 to 9e-5
-//   from a float64 evaluation on smooth images with light noise), and the
-//   double sums keep the map within 1e-5 of it; fp64 runs at half fp32's
-//   rate on the card, the price of those digits;
+//   5 kh operations a pixel instead of the 2-D window's 5 kh kw;
+// - the row pass in float32 about a shift: each row window's moments are
+//   taken of x - s with s its own centre pixel, so the float32 sums see only
+//   the window's spread (float32 sums about no shift put the map 2e-5 to 9e-5
+//   from a float64 evaluation, and about the tile's mean 7e-5 on a step next
+//   to a flat region); the column pass rebases each row window's moments in
+//   double (sum w x = A + s W, sum w x^2 = B + s (2 A + s W), with W the
+//   float32 row taps' sum) and sums them with the column taps divided by W, so
+//   the window's weights sum to 1 in double and E[x^2] - mu^2 cancels in
+//   double (a numpy model of this arithmetic lies within 5.3e-7 of a float64
+//   evaluation on every image of tests/test_torch_image.py);
+// - register blocking: a row-pass thread slides the window over 4 outputs of
+//   its row (each input read once a thread; 8 ran 0.76 against 0.72 ms at
+//   DIV2K's batch), a column-pass thread sums 8 consecutive output rows of
+//   its column (each row of the row pass read once for the 8, kh + 7 reads; 4
+//   a thread, tiles of 32 x 32, ran 0.87-0.98 ms); at 11 taps both passes are
+//   unrolled in full;
+// - one block of 256 threads a tile of 32 x 64 outputs of one (image,
+//   channel) plane: the input tile and its halo (float32, the row stride odd)
+//   and the five row moments (float32, a row of 33) in shared memory,
+//   74,432 bytes at 11 taps, every shared access free of bank conflicts;
+// - the tile loaded by rows, a warp a row, with no divide, by asynchronous
+//   copies (cp.async), every copy of a thread in flight at once (loads and
+//   stores, a row at a time, ran 1.03 against 0.76 ms at DIV2K's batch);
+//   only tiles whose window crosses the border (those of the full map at the
+//   edges, and the last of each row and column) reflect the index; the inputs
+//   are clamped to the data range when one is given as a tuple;
 // - c1 and c2 read from the device where the data range is None (max - min
 //   of the data: the host never waits for it), else passed by value (a copy
 //   to the device would wait for the stream);
@@ -60,14 +79,27 @@
 
 #include <cstdint>
 
+#ifndef SSIM_COL_ROWS
+#define SSIM_COL_ROWS 8  // consecutive output rows a column-pass thread
+#endif
+#ifndef SSIM_ROW_OUTS
+#define SSIM_ROW_OUTS 4  // consecutive outputs a row-pass thread
+#endif
+#ifndef SSIM_MIN_BLOCKS
+#define SSIM_MIN_BLOCKS 2  // blocks an SM the registers are sized for (128 a thread at 2)
+#endif
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTileW = 32;   // output columns a block: a warp's lanes
-constexpr int kTileH = 32;   // output rows a block
-constexpr int kRowsAThread = 8;  // thread rows: a block is kTileW x kRowsAThread threads
-constexpr int kThreads = kTileW * kRowsAThread;
-constexpr int kOutRows = kTileH / kRowsAThread;  // consecutive output rows a thread
+constexpr int kTileW = 32;                 // output columns a block: a warp's lanes
+constexpr int kWarps = 8;
+constexpr int kThreads = kTileW * kWarps;  // 256
+constexpr int kColRows = SSIM_COL_ROWS;
+constexpr int kTileH = kWarps * kColRows;  // output rows a block
+constexpr int kRowOuts = SSIM_ROW_OUTS;
+constexpr int kSegments = kTileW / kRowOuts;  // row-pass threads a row
+constexpr int kRowStride = kTileW + 1;        // the row moments' row: conflict-free row-pass stores
 
 struct Args {
   const float* preds;   // (B, C, H, W)
@@ -100,10 +132,15 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-__device__ __forceinline__ float load(const Args& a, const float* plane, int y, int x) {
-  float v = plane[static_cast<long long>(reflect(y, a.height)) * a.width + reflect(x, a.width)];
-  if (a.has_clamp && v == v) v = fminf(fmaxf(v, a.lo), a.hi);  // jnp.clip keeps NaN
-  return v;
+__device__ __forceinline__ float clamp_to(const Args& a, float v) {
+  return v == v ? fminf(fmaxf(v, a.lo), a.hi) : v;  // jnp.clip keeps NaN
+}
+
+// An asynchronous 4-byte copy from global to shared memory: every copy of a thread is in flight at
+// once, and the thread waits for its own with cp.async.wait_all.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(to), "l"(src) : "memory");
 }
 
 // atomicAdd(p, 1) at device scope with acquire-release order: the partials a barrier ordered
@@ -137,16 +174,65 @@ __device__ void block_sum2(double& x, double& y) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads) ssim_window_kernel(Args a) {
-  extern __shared__ double smem[];
-  const int in_h = kTileH + 2 * a.ph, in_w = kTileW + 2 * a.pw;
-  double* s_taps_h = smem;
-  double* s_taps_w = s_taps_h + a.kh;
-  double* s_row = s_taps_w + a.kw;                                   // 5 x in_h x kTileW
-  float* s_p = reinterpret_cast<float*>(s_row + 5 * in_h * kTileW);  // in_h x in_w
-  float* s_t = s_p + in_h * in_w;                                    // in_h x in_w
+// The row pass of one row: kRowOuts consecutive outputs, each the kw-tap window of x - s and its
+// products, s the window's centre pixel, in float32; the window slides in registers.
+template <int K>
+__device__ __forceinline__ void row_pass(const float* rp, const float* rt, const float* taps, int kw_dyn, int pw,
+                                         float* out, int plane) {
+  const int kw = K ? K : kw_dyn;
+  float sp[kRowOuts], st[kRowOuts], xp[kRowOuts], xt[kRowOuts], m[kRowOuts][5];
+#pragma unroll
+  for (int r = 0; r < kRowOuts; ++r) {
+    sp[r] = rp[r + pw];
+    st[r] = rt[r + pw];
+    xp[r] = rp[r];
+    xt[r] = rt[r];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) m[r][k] = 0.0f;
+  }
+#pragma unroll(K ? K : 1)
+  for (int b = 0; b < kw; ++b) {
+    const float w = taps[b];
+#pragma unroll
+    for (int r = 0; r < kRowOuts; ++r) {
+      const float dp = xp[r] - sp[r], dt = xt[r] - st[r];
+      const float wp = w * dp, wt = w * dt;
+      m[r][0] += wp;
+      m[r][1] += wt;
+      m[r][2] = fmaf(wp, dp, m[r][2]);
+      m[r][3] = fmaf(wt, dt, m[r][3]);
+      m[r][4] = fmaf(wp, dt, m[r][4]);
+    }
+    if (b + 1 < kw) {
+#pragma unroll
+      for (int r = 0; r + 1 < kRowOuts; ++r) {
+        xp[r] = xp[r + 1];
+        xt[r] = xt[r + 1];
+      }
+      xp[kRowOuts - 1] = rp[b + kRowOuts];
+      xt[kRowOuts - 1] = rt[b + kRowOuts];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRowOuts; ++r) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) out[k * plane + r] = m[r][k];
+  }
+}
 
-  const int t = threadIdx.x, tx = t % kTileW, ty = t / kTileW;
+template <int K>
+__global__ void __launch_bounds__(kThreads, SSIM_MIN_BLOCKS) ssim_window_kernel(Args a) {
+  extern __shared__ double smem[];
+  const int kh = K ? K : a.kh, kw = K ? K : a.kw, ph = (kh - 1) / 2, pw = (kw - 1) / 2;
+  const int in_h = kTileH + 2 * ph, in_w = kTileW + 2 * pw, in_s = in_w | 1;  // odd stride: no bank conflicts
+  const int plane = in_h * kRowStride;
+  double* s_taps_h = smem;                                   // kh: the column taps over W
+  float* s_taps_w = reinterpret_cast<float*>(s_taps_h + kh);  // kw, float32
+  float* s_p = s_taps_w + ((kw + 1) & ~1);                    // in_h x in_s
+  float* s_t = s_p + in_h * in_s;                            // in_h x in_s
+  float* s_row = s_t + in_h * in_s;                          // 5 x in_h x kRowStride
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int plane_index = blockIdx.z;      // image * channels + channel
   const int image = plane_index / a.channels;
   const long long plane_size = static_cast<long long>(a.height) * a.width;
@@ -154,52 +240,64 @@ __global__ void __launch_bounds__(kThreads) ssim_window_kernel(Args a) {
   const float* t_plane = a.target + plane_index * plane_size;
   const int oy = a.row0 + blockIdx.y * kTileH, ox = a.col0 + blockIdx.x * kTileW;
 
-  for (int i = t; i < a.kh; i += kThreads) s_taps_h[i] = a.taps_h[i];
-  for (int i = t; i < a.kw; i += kThreads) s_taps_w[i] = a.taps_w[i];
-  for (int i = t; i < in_h * in_w; i += kThreads) {
-    const int y = i / in_w, x = i % in_w;
-    s_p[i] = load(a, p_plane, oy - a.ph + y, ox - a.pw + x);
-    s_t[i] = load(a, t_plane, oy - a.ph + y, ox - a.pw + x);
-  }
-  __syncthreads();
-
-  // row pass: the kw-tap window along W of every input row of the tile and its halo, in double
-  const int plane_rows = in_h * kTileW;
-  for (int y = ty; y < in_h; y += kRowsAThread) {
-    const float* rp = s_p + y * in_w + tx;
-    const float* rt = s_t + y * in_w + tx;
-    double m_p = 0.0, m_t = 0.0, m_pp = 0.0, m_tt = 0.0, m_pt = 0.0;
-    for (int b = 0; b < a.kw; ++b) {
-      const double w = s_taps_w[b], x = rp[b], z = rt[b];
-      const double wx = w * x, wz = w * z;
-      m_p += wx;
-      m_t += wz;
-      m_pp = fma(wx, x, m_pp);
-      m_tt = fma(wz, z, m_tt);
-      m_pt = fma(wx, z, m_pt);
+  for (int i = t; i < kw; i += kThreads) s_taps_w[i] = static_cast<float>(a.taps_w[i]);
+  // the tile by rows, a warp a row; only a window that crosses the border reflects its index
+  const int y_first = oy - ph, x_first = ox - pw;
+  const bool inside = y_first >= 0 && x_first >= 0 && y_first + in_h <= a.height && x_first + in_w <= a.width;
+  for (int y = warp; y < in_h; y += kWarps) {
+    const int gy = inside ? y_first + y : reflect(y_first + y, a.height);
+    const float* prow = p_plane + static_cast<long long>(gy) * a.width;
+    const float* trow = t_plane + static_cast<long long>(gy) * a.width;
+    for (int x = lane; x < in_w; x += 32) {
+      const int gx = inside ? x_first + x : reflect(x_first + x, a.width);
+      copy_async(s_p + y * in_s + x, prow + gx);
+      copy_async(s_t + y * in_s + x, trow + gx);
     }
-    const int o = y * kTileW + tx;
-    s_row[o] = m_p;
-    s_row[plane_rows + o] = m_t;
-    s_row[2 * plane_rows + o] = m_pp;
-    s_row[3 * plane_rows + o] = m_tt;
-    s_row[4 * plane_rows + o] = m_pt;
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  if (a.has_clamp) {  // each thread its own copies
+    for (int y = warp; y < in_h; y += kWarps) {
+      for (int x = lane; x < in_w; x += 32) {
+        s_p[y * in_s + x] = clamp_to(a, s_p[y * in_s + x]);
+        s_t[y * in_s + x] = clamp_to(a, s_t[y * in_s + x]);
+      }
+    }
+  }
+  __syncthreads();
+  // the float32 row taps' sum, in double: the column taps are divided by it
+  double w_sum = 0.0;
+  for (int b = 0; b < kw; ++b) w_sum += s_taps_w[b];
+  for (int i = t; i < kh; i += kThreads) s_taps_h[i] = a.taps_h[i] / w_sum;
+
+  // row pass: kRowOuts outputs of one row of the tile and its halo a task
+  for (int task = t; task < in_h * kSegments; task += kThreads) {
+    const int y = task / kSegments, c = (task % kSegments) * kRowOuts;
+    row_pass<K>(s_p + y * in_s + c, s_t + y * in_s + c, s_taps_w, kw, pw, s_row + y * kRowStride + c, plane);
   }
   __syncthreads();
 
-  // column pass and the map: kOutRows consecutive outputs a thread, each row of the row pass
-  // read once for all of them
+  // column pass and the map: kColRows consecutive outputs a thread, each row of the row pass read
+  // once for all of them and rebased in double to moments about 0
   const double c1 = a.consts ? a.consts[0] : a.c1, c2 = a.consts ? a.consts[1] : a.c2;
-  const int y0 = ty * kOutRows, gx = ox + tx;
-  double m[kOutRows][5] = {};
-  for (int r = 0; r < a.kh + kOutRows - 1; ++r) {
-    const int o = (y0 + r) * kTileW + tx;
-    const double v[5] = {s_row[o], s_row[plane_rows + o], s_row[2 * plane_rows + o], s_row[3 * plane_rows + o],
-                         s_row[4 * plane_rows + o]};
+  const int y0 = warp * kColRows, gx = ox + lane;
+  double m[kColRows][5];
 #pragma unroll
-    for (int j = 0; j < kOutRows; ++j) {
+  for (int j = 0; j < kColRows; ++j) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) m[j][k] = 0.0;
+  }
+#pragma unroll(K ? K + kColRows - 1 : 1)
+  for (int r = 0; r < kh + kColRows - 1; ++r) {
+    const int y = y0 + r, o = y * kRowStride + lane;
+    const double ap = s_row[o], at = s_row[plane + o], bpp = s_row[2 * plane + o], btt = s_row[3 * plane + o],
+                 bpt = s_row[4 * plane + o];
+    const double sp = s_p[y * in_s + lane + pw], st = s_t[y * in_s + lane + pw];
+    const double r1p = fma(sp, w_sum, ap), r1t = fma(st, w_sum, at);
+    const double v[5] = {r1p, r1t, fma(sp, ap + r1p, bpp), fma(st, at + r1t, btt), fma(sp, at, fma(st, r1p, bpt))};
+#pragma unroll
+    for (int j = 0; j < kColRows; ++j) {
       const int tap = r - j;
-      if (tap >= 0 && tap < a.kh) {
+      if (tap >= 0 && tap < kh) {
         const double w = s_taps_h[tap];
 #pragma unroll
         for (int k = 0; k < 5; ++k) m[j][k] = fma(w, v[k], m[j][k]);
@@ -208,7 +306,7 @@ __global__ void __launch_bounds__(kThreads) ssim_window_kernel(Args a) {
   }
   double acc_ssim = 0.0, acc_cs = 0.0;
 #pragma unroll
-  for (int j = 0; j < kOutRows; ++j) {
+  for (int j = 0; j < kColRows; ++j) {
     const int gy = oy + y0 + j;
     if (gy >= a.row0 + a.rows || gx >= a.col0 + a.cols) continue;
     const double mu_p = m[j][0], mu_t = m[j][1], e_pp = m[j][2], e_tt = m[j][3], e_pt = m[j][4];
@@ -219,7 +317,7 @@ __global__ void __launch_bounds__(kThreads) ssim_window_kernel(Args a) {
     // instructions where a double one is a subroutine
     const float ssim = static_cast<float>((2.0 * mu_pt + c1) * upper) / static_cast<float>((mu_p_sq + mu_t_sq + c1) * lower);
     if (a.full) a.full[plane_index * plane_size + static_cast<long long>(gy) * a.width + gx] = ssim;
-    if (gy >= a.ph && gy < a.height - a.ph && gx >= a.pw && gx < a.width - a.pw && a.ph > 0 && a.pw > 0) {
+    if (gy >= ph && gy < a.height - ph && gx >= pw && gx < a.width - pw && ph > 0 && pw > 0) {
       acc_ssim += ssim;
       acc_cs += static_cast<float>(upper) / static_cast<float>(lower);
     }
@@ -256,6 +354,24 @@ __global__ void __launch_bounds__(kThreads) ssim_window_kernel(Args a) {
   if (t == 0) *a.ticket = 0;  // for the next launch on this stream
 }
 
+// Dynamic shared memory of a block: the column taps (double), the row taps (float32, to an
+// even count), the input tile and its halo (two planes), the five row moments.
+int shared_bytes_for(int kh, int kw) {
+  const int in_h = kTileH + kh - 1, in_s = (kTileW + kw - 1) | 1;
+  return 8 * kh + 4 * ((kw + 1) & ~1) + 4 * 2 * in_h * in_s + 4 * 5 * in_h * kRowStride;
+}
+
+template <int K>
+int launch(const Args& a, dim3 grid, int shared_bytes, cudaStream_t stream) {
+  if (shared_bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(ssim_window_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  ssim_window_kernel<K><<<grid, kThreads, shared_bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // preds, target (B, C, H, W) float32 contiguous; taps_h (kh,), taps_w (kw,) float64;
@@ -263,8 +379,8 @@ __global__ void __launch_bounds__(kThreads) ssim_window_kernel(Args a) {
 // c2 by value; out_ssim (B,), out_cs (B,) or null, full (B, C, H, W) or
 // null; partials (B x blocks an image x 2) doubles; ticket one int, zero. The grid
 // covers rows [row0, row0 + rows) x cols [col0, col0 + cols) of every plane in tiles of
-// 32 x 32: (cdiv(cols, 32), cdiv(rows, 32), B * C) blocks of 256 threads and
-// `shared_bytes` of dynamic shared memory.
+// 32 x (8 x SSIM_COL_ROWS): (cdiv(cols, 32), cdiv(rows, tile rows), B * C) blocks of 256
+// threads and `shared_bytes` of dynamic shared memory, which must equal shared_bytes_for.
 extern "C" int ssim_window_launch(const void* preds, const void* target, const void* taps_h, const void* taps_w,
                                   const void* consts, float c1, float c2, void* out_ssim, void* out_cs, void* full,
                                   void* partials,
@@ -299,14 +415,11 @@ extern "C" int ssim_window_launch(const void* preds, const void* target, const v
   a.lo = lo;
   a.hi = hi;
   a.count = count;
-  if (rows <= 0 || cols <= 0 || batch <= 0 || channels <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || cols <= 0 || batch <= 0 || channels <= 0 || shared_bytes != shared_bytes_for(kh, kw)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const dim3 grid((cols + kTileW - 1) / kTileW, (rows + kTileH - 1) / kTileH, batch * channels);
   if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (shared_bytes > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(ssim_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  ssim_window_kernel<<<grid, kThreads, shared_bytes, static_cast<cudaStream_t>(stream_ptr)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  return kh == 11 && kw == 11 ? launch<11>(a, grid, shared_bytes, stream) : launch<0>(a, grid, shared_bytes, stream);
 }

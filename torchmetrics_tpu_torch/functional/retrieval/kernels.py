@@ -70,14 +70,38 @@ def query_layout(preds: Tensor, target: Tensor, indexes: Tensor) -> Tuple[Tensor
     """The rows in order of query id, stable: ``(preds, target, offsets, longest)``.
 
     ``offsets`` (G + 1,) int64 bound each query's run of rows, ``longest`` is
-    the most rows of a query (one host read). The outer key of the JAX
-    package's ``lexsort``.
+    the most rows of a query. The outer key of the JAX package's ``lexsort``.
+    Rows that come in runs of one id (updates of whole queries) are put in
+    order by sorting the runs, not the rows, and are not copied when the runs
+    are in order of id already; rows in more runs than half their count are
+    sorted (a stable ``torch.sort`` of the ids). Two host reads either way.
     """
-    order = torch.sort(indexes, stable=True).indices
-    _, counts = torch.unique_consecutive(indexes[order], return_counts=True)
-    offsets = torch.zeros((counts.shape[0] + 1,), dtype=torch.int64, device=preds.device)
-    torch.cumsum(counts, 0, out=offsets[1:])
-    return preds[order].contiguous(), target[order].contiguous(), offsets, int(counts.max())
+    n = indexes.shape[0]
+    ids, lengths = torch.unique_consecutive(indexes, return_counts=True)  # the runs; a host read
+    if 2 * ids.shape[0] > n:
+        order = torch.sort(indexes, stable=True).indices
+        _, counts = torch.unique_consecutive(indexes[order], return_counts=True)
+        offsets = torch.zeros((counts.shape[0] + 1,), dtype=torch.int64, device=preds.device)
+        torch.cumsum(counts, 0, out=offsets[1:])
+        return preds[order].contiguous(), target[order].contiguous(), offsets, int(counts.max())
+    in_order, longest = torch.stack([(ids[1:] > ids[:-1]).all(), lengths.max()]).tolist()  # a host read
+    if in_order:  # every query one run, the runs in order of id: the rows are in order already
+        offsets = torch.zeros((ids.shape[0] + 1,), dtype=torch.int64, device=preds.device)
+        torch.cumsum(lengths, 0, out=offsets[1:])
+        return preds.contiguous(), target.contiguous(), offsets, longest
+    starts = torch.cumsum(lengths, 0) - lengths
+    ids, perm = torch.sort(ids, stable=True)  # the runs by id; runs of one id keep their order
+    first = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
+    torch.ne(ids[1:], ids[:-1], out=first[1:])
+    group = torch.cumsum(first, 0) - 1
+    counts = torch.zeros(ids.shape, dtype=torch.int64, device=ids.device).index_add_(0, group, lengths[perm])
+    n_groups, longest = torch.stack([group[-1] + 1, counts.max()]).tolist()  # a host read
+    offsets = torch.zeros((n_groups + 1,), dtype=torch.int64, device=preds.device)
+    torch.cumsum(counts[:n_groups], 0, out=offsets[1:])
+    run_lengths = lengths[perm]
+    shift = starts[perm] - (torch.cumsum(run_lengths, 0) - run_lengths)  # each run's rows: from its start
+    rows = torch.repeat_interleave(shift, run_lengths, output_size=n) + torch.arange(n, device=starts.device)
+    return preds[rows].contiguous(), target[rows].contiguous(), offsets, longest
 
 
 def rank_groups(preds: Tensor, target: Tensor, indexes: Tensor, num_groups: Optional[int] = None) -> RankedGroups:
@@ -93,9 +117,7 @@ def rank_groups(preds: Tensor, target: Tensor, indexes: Tensor, num_groups: Opti
         return _rank_groups_plain(preds, target, indexes, num_groups)
     p, t, offsets, longest = query_layout(preds, target, indexes)
     ranked, t = retrieval_groups(p, t, offsets, "ranked", longest=longest)
-    new = torch.zeros(p.shape, dtype=torch.bool, device=p.device)
-    new[offsets[:-1]] = True
-    return _ranked_groups(p[ranked.long()], t, new, num_groups)
+    return _ranked_groups(p[ranked.long()], t, None, num_groups, offsets)
 
 
 def _rank_groups_plain(preds: Tensor, target: Tensor, indexes: Tensor,
@@ -112,13 +134,23 @@ def _rank_groups_plain(preds: Tensor, target: Tensor, indexes: Tensor,
     return _ranked_groups(preds[order], target[order], new, num_groups)
 
 
-def _ranked_groups(p: Tensor, t: Tensor, new: Tensor, num_groups: Optional[int]) -> RankedGroups:
-    """The ranks, within-group cumsum and group sums of a ranked layout whose groups start where ``new``."""
+def _ranked_groups(p: Tensor, t: Tensor, new: Optional[Tensor], num_groups: Optional[int],
+                   offsets: Optional[Tensor] = None) -> RankedGroups:
+    """The ranks, within-group cumsum and group sums of a ranked layout whose groups start where ``new``,
+    or at ``offsets`` (the query runs of ``query_layout``: each row's group and start by a gather, no scan)."""
     pos = torch.arange(p.shape[0], dtype=torch.int32, device=p.device)
-    gid = (torch.cumsum(new, 0) - 1).to(torch.int32)
-    if num_groups is None:
-        num_groups = int(gid[-1]) + 1
-    start = torch.cummax(torch.where(new, pos, 0), 0).values
+    if offsets is None:
+        gid = (torch.cumsum(new, 0) - 1).to(torch.int32)
+        if num_groups is None:
+            num_groups = int(gid[-1]) + 1
+        start = torch.cummax(torch.where(new, pos, 0), 0).values
+    else:
+        groups = offsets.shape[0] - 1
+        gid = torch.repeat_interleave(torch.arange(groups, dtype=torch.int32, device=p.device), torch.diff(offsets),
+                                      output_size=p.shape[0])
+        if num_groups is None:
+            num_groups = groups
+        start = offsets[:-1].to(torch.int32)[gid.long()]
     rank = pos - start
     c = torch.cumsum(t, 0)
     wcum = c - (c - t)[start.long()]

@@ -5,7 +5,9 @@ order of query id (``functional.retrieval.kernels.query_layout``: a stable
 sort of the ids and the offsets of each query's run) and, in one launch, puts
 each query's documents in order of score (stable, NaN last, ``-0.0`` tied
 with ``+0.0``) and reduces them to one float32 value a query, or writes the
-ranked layout. It counts its launches in ``retrieval_groups.launches`` and
+ranked layout: a query with few relevant documents by counting the words
+above each of them, the rest by a stable radix sort. It counts its launches
+in ``retrieval_groups.launches`` and
 takes CUDA tensors only. Its plain version is
 ``functional.retrieval.kernels._retrieval_scores_plain`` (the JAX
 formulas transliterated), which the dispatch ``retrieval_scores`` takes for
@@ -31,8 +33,16 @@ SOURCE = "retrieval"
 MEASURES = {"precision": 0, "recall": 1, "hit_rate": 2, "fall_out": 3, "average_precision": 4,
             "reciprocal_rank": 5, "r_precision": 6, "ndcg": 7, "auroc": 8, "ranked": 9}
 MAX_THREADS = 1024
-MAX_ITEMS = 16  # words a thread sorts in registers
-SHARED_WIDTH = MAX_ITEMS * MAX_THREADS  # the longest query sorted in registers and shared memory: 16,384
+MAX_ITEMS = 16  # words a thread of the short path
+SHARED_WIDTH = MAX_ITEMS * MAX_THREADS  # the longest query sorted in shared memory: 16,384
+LONG_TILE = 8 * MAX_THREADS  # the long path's tile: 8 keys a thread
+DIGITS = 256  # 8 bits a radix pass
+MAX_POSITIVES = 256  # the counting path's list of positives in shared memory
+# a query with at most this many positive targets takes the counting path (n x n_pos compares), the rest
+# the radix sort: the crossovers of tools/kernel_ablation.py's retrieval section (AUROC's ~55 positives at
+# 256 documents to ~145 at 16,384, AP's ~80 to ~215; past 16,384 documents AUROC's ~230, AP's past 256)
+COUNT_SHORT = 64
+COUNT_LONG = 192
 WARP_WIDTH = 256  # up to this width a query's block is one warp, 8 words a lane at most
 SMALL_BLOCK_WIDTH = 2048  # up to this width 4 words a thread, above it 8 (16 at the largest)
 MAX_ROWS = 2**30  # ranks and rows are int32 in the kernel; the long path's scratch is 2 words a row
@@ -44,7 +54,7 @@ class Plan(NamedTuple):
     threads: int  # threads a block: one block a query
     width: int  # the widest query's register sort: a power of two, at most SHARED_WIDTH
     long: bool  # some query is longer than SHARED_WIDTH: its words sort through a global scratch
-    shared_bytes: int  # dynamic: the padded sort buffer of the widest register sort (0 for one warp)
+    shared_bytes: int  # dynamic: the widest sort's keys, values and digit histogram of its warps (or more)
 
 
 def _next_pow2(n: int) -> int:
@@ -58,8 +68,15 @@ def plan(longest: int) -> Plan:
     A warp a query up to ``WARP_WIDTH`` (8 words a lane at most), else a block
     of ``width / items`` threads: 4 words a thread up to ``SMALL_BLOCK_WIDTH``,
     8 above, 16 at ``SHARED_WIDTH``; past it 1,024 threads and the long path.
-    Every query of the launch runs in a block of that many threads, sorting
+    Every query of the launch runs in a block of that many threads, with
     ``max(threads, next_pow2(n)) / threads`` words a thread.
+
+    Dynamic shared memory: the sort path's keys and positions (4 bytes each
+    a word of the width) and its two histograms of 256 digits a warp (a
+    pass's and the next's); at least the counting path's list (a word, a
+    target and three counts a positive); with the long path, its tile of
+    8,192 keys and positions, two histograms of 32 warps, the four digits'
+    histograms over the query and the digits' starts.
     """
     width = max(32, _next_pow2(longest))
     if width > SHARED_WIDTH:
@@ -71,7 +88,9 @@ def plan(longest: int) -> Plan:
         else:
             items = 4 if width <= SMALL_BLOCK_WIDTH else max(8, width // MAX_THREADS)
             threads = width // items
-    shared = 0 if threads == 32 else (width + width // 16) * 8
+    shared = max(8 * width + 2 * 4 * DIGITS * (threads // 32), (8 + 4 + 12) * MAX_POSITIVES)
+    if long:
+        shared = max(shared, 8 * LONG_TILE + 2 * 4 * DIGITS * (MAX_THREADS // 32) + 4 * 4 * DIGITS + 4 * DIGITS)
     return Plan(threads, width, long, shared)
 
 
@@ -80,7 +99,7 @@ def _launch_fn() -> ctypes._CFuncPtr:
     if _launch is None:
         fn = load_library(SOURCE).retrieval_groups_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, ctypes.c_float, i, p, p, p, p, i, i, p]
+        fn.argtypes = [p, p, p, i, i, i, i, ctypes.c_float, i, p, p, p, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
@@ -146,7 +165,7 @@ def retrieval_groups(preds: Tensor, target: Tensor, offsets: Tensor, measure: st
         preds.data_ptr(), target.data_ptr(), offsets.data_ptr(), n_groups, MEASURES[measure], int(top_k is not None),
         min(top_k or 0, 2**31 - 1), float(np.float32(top_k or 0)), int(adaptive_k),
         out.data_ptr(), 0 if ranked else second.data_ptr(), second.data_ptr() if ranked else 0,
-        0 if scratch is None else scratch.data_ptr(), g.threads, g.shared_bytes,
+        0 if scratch is None else scratch.data_ptr(), g.threads, g.shared_bytes, COUNT_SHORT, COUNT_LONG,
         torch.cuda.current_stream(device).cuda_stream,
     )
     launch_on("retrieval_groups", device, _launch_fn(), args)

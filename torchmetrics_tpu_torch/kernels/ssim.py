@@ -2,8 +2,9 @@
 
 :func:`ssim_window` gives the per-image SSIM of a ``(B, C, H, W)`` float32
 batch, and optionally the contrast-sensitivity mean or the full SSIM map, in
-one launch: the window applied separably through shared-memory tiles, its
-taps and sums in double, the inputs read unpadded once. It counts its launches in
+one launch: the window applied separably through shared-memory tiles, the
+row pass in float32 about each row window's centre pixel, the column pass and
+the map in double, the inputs read unpadded once. It counts its launches in
 ``ssim_window.launches`` and takes CUDA tensors only. Its plain version is
 ``functional.image.ssim._ssim_update_plain`` (the JAX formulas on
 ``F.conv2d``), which the dispatch ``_ssim_update`` takes for CPU tensors,
@@ -25,8 +26,9 @@ from torch import Tensor
 from torchmetrics_tpu_torch.kernels._build import cdiv, launch_on, load_library, zero_tickets
 
 SOURCE = "ssim"
-TILE_H, TILE_W, THREADS = 32, 32, 256  # outputs a block, threads a block (32 x 8)
-MAX_TAPS = 63  # the window's widest side: its taps and row pass (double), tile and halo in 192 KB of shared memory
+TILE_H, TILE_W, THREADS = 64, 32, 256  # outputs a block (8 warps of 8 rows of 32), threads a block
+ROW_STRIDE = TILE_W + 1  # a row of the row moments in shared memory
+MAX_TAPS = 63  # the window's widest side: its tile, halo and row moments in 176 KB of shared memory
 MAX_PLANES = 65_535  # B * C along grid.z
 
 _launch: Optional[ctypes._CFuncPtr] = None
@@ -37,19 +39,25 @@ class Plan(NamedTuple):
     col0: int
     rows: int  # output rows the grid covers
     cols: int
-    blocks: Tuple[int, int, int]  # (cdiv(cols, 32), cdiv(rows, 32), B * C)
-    shared_bytes: int  # the taps and the row pass (five moments) in double, the input tile and its halo (two planes)
+    blocks: Tuple[int, int, int]  # (cdiv(cols, 32), cdiv(rows, 64), B * C)
+    shared_bytes: int  # the taps, the input tile and its halo (two planes), the five row moments (float32)
 
 
 @functools.lru_cache(maxsize=256)
 def plan(batch: int, channels: int, height: int, width: int, kh: int, kw: int, full: bool) -> Plan:
-    """The launch geometry: tiles of 32 x 32 outputs over the interior ``[ph, H - ph) x [pw, W - pw)``
-    (every position, when the full map is wanted), one (image, channel) plane a ``blockIdx.z``."""
+    """The launch geometry: tiles of 32 x 64 outputs over the interior ``[ph, H - ph) x [pw, W - pw)``
+    (every position, when the full map is wanted), one (image, channel) plane a ``blockIdx.z``.
+
+    Shared memory (``csrc/ssim.cu``'s ``shared_bytes_for``): the column taps in
+    double, the row taps in float32 (to an even count), the input tile and its
+    halo as two float32 planes of ``TILE_H + kh - 1`` rows of an odd stride,
+    and the five float32 row moments, rows of ``ROW_STRIDE``.
+    """
     ph, pw = (kh - 1) // 2, (kw - 1) // 2
     row0, col0 = (0, 0) if full or ph == 0 or pw == 0 else (ph, pw)
     rows, cols = height - 2 * row0, width - 2 * col0
-    in_h, in_w = TILE_H + 2 * ph, TILE_W + 2 * pw
-    shared = 8 * (kh + kw + 5 * in_h * TILE_W) + 4 * 2 * in_h * in_w
+    in_h, in_stride = TILE_H + 2 * ph, (TILE_W + 2 * pw) | 1
+    shared = 8 * kh + 4 * ((kw + 1) & ~1) + 4 * 2 * in_h * in_stride + 4 * 5 * in_h * ROW_STRIDE
     return Plan(row0, col0, rows, cols, (cdiv(cols, TILE_W), cdiv(rows, TILE_H), batch * channels), shared)
 
 
