@@ -491,7 +491,8 @@ def _kernel_model(p, t, taps_h, taps_w, c1, c2, full=False):
     taps in float32 over x - s, s each row window's centre pixel, its five moments summed tap after tap; a
     column pass in double over each row window's moments rebased about 0 (A + s W, B + s (2 A + s W),
     W the float32 taps' sum) with the column taps divided by W; the map's differences in double, its two
-    quotients' terms rounded to float32; the per-image means of ssim and cs summed in double."""
+    quotients' terms rounded to float32; the per-image means of ssim and cs: each thread's 8 rows of a
+    column summed in float32, those sums in double."""
     b_n, c_n, h, w = p.shape
     th_, tw_ = kss.TILE_H, kss.TILE_W
     kh, kw = len(taps_h), len(taps_w)
@@ -530,7 +531,12 @@ def _kernel_model(p, t, taps_h, taps_w, c1, c2, full=False):
                     inside = (yy < h - r0) & (xx < w - c0)
                     the_map[b, c, yy[inside], xx[inside]] = ssim[inside]
                     valid = inside & (yy >= ph) & (yy < h - ph) & (xx >= pw) & (xx < w - pw)
-                    sums[b] += (ssim[valid].astype(np.float64).sum(), cs[valid].astype(np.float64).sum())
+                    for k, v in enumerate((ssim, cs)):  # a thread's 8 rows of a column in float32, then double
+                        strips = np.where(valid, v, F32(0)).reshape(th_ // 8, 8, tw_)
+                        acc = np.zeros((th_ // 8, tw_), F32)
+                        for j in range(8):
+                            acc = (acc + strips[:, j]).astype(F32)
+                        sums[b, k] += acc.astype(np.float64).sum()
     count = c_n * (h - 2 * ph) * (w - 2 * pw)
     return (sums[:, 0] / count).astype(F32), (sums[:, 1] / count).astype(F32), the_map
 

@@ -376,10 +376,10 @@ def test_plan():
     count_bytes = (8 + 4 + 12) * krt.MAX_POSITIVES
     assert krt.plan(1) == krt.Plan(32, 32, False, count_bytes)
     assert krt.plan(256) == krt.Plan(32, 256, False, count_bytes)
-    assert krt.plan(257) == krt.Plan(128, 512, False, sort_bytes(512, 128))
-    assert krt.plan(1000) == krt.Plan(256, 1024, False, sort_bytes(1024, 256))  # MS MARCO's 1,000 candidates
-    assert sort_bytes(1024, 256) == 24_576
-    assert krt.plan(2048).threads == 512 and krt.plan(2049).threads == 512  # 4, then 8 words a thread
+    assert krt.plan(257) == krt.Plan(64, 512, False, sort_bytes(512, 64))
+    assert krt.plan(1000) == krt.Plan(128, 1024, False, sort_bytes(1024, 128))  # MS MARCO's 1,000 candidates
+    assert sort_bytes(1024, 128) == 16_384
+    assert krt.plan(2048).threads == 256 and krt.plan(2049).threads == 512  # 8 words a thread
     assert krt.plan(16_384) == krt.Plan(1024, 16_384, False, sort_bytes(16_384, 1024))
     assert krt.plan(16_385) == krt.Plan(1024, 16_384, True, sort_bytes(16_384, 1024))  # the long path
     long_bytes = 8 * krt.LONG_TILE + 2 * 4 * 256 * 32 + 4 * 4 * 256 + 4 * 256

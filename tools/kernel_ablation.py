@@ -4,7 +4,7 @@
 ``retrieval_groups``' counting threshold and ``ssim_window``'s tile and blocking.
 
     python3 tools/kernel_ablation.py [--sections ranking,multilabel,calibration,calibration-widths,retrieval,
-                                                  retrieval-occupancy,ssim]
+                                                  retrieval-occupancy,retrieval-builds,ssim]
                                      [--parent CHECKOUT] [--json PATH]
 
 Ranking: ``csrc/ranking.cu`` is copied, ``#if`` switches are put around the
@@ -46,12 +46,15 @@ long path), each query with exactly ``n_pos`` relevant documents from 0 to
 256: AP and AUROC@10 (held equal between the two paths within the phase 3
 tolerance), which sets ``COUNT_SHORT`` and ``COUNT_LONG``. Retrieval
 occupancy: the source built with its registers sized for 1,024 and 2,048
-threads an SM (``RETRIEVAL_THREADS_AN_SM``), at MS MARCO's shape. SSIM:
+threads an SM (``RETRIEVAL_THREADS_AN_SM``), at 4 and 8 documents a thread,
+at MS MARCO's shape. Retrieval builds: the source without its 16-word short
+path, its long path or both, and with eight ballots in place of the digit
+match, each build's ptxas report printed, timed at MS MARCO's shape. SSIM:
 ``csrc/ssim.cu`` built with its column-pass rows a thread
 (``SSIM_COL_ROWS``: 8 or 4, tiles of 32 x 64 or 32 x 32), row-pass outputs a
-thread (``SSIM_ROW_OUTS``: 8 or 4) and blocks an SM in its launch bounds
-(``SSIM_MIN_BLOCKS``), with the tile loaded by plain loads and stores in
-place of asynchronous copies, and with a pass left out (the column pass, or the row
+thread (``SSIM_ROW_OUTS``: 4 or 8) and blocks an SM in its launch bounds
+(``SSIM_MIN_BLOCKS``), with the tile loaded by plain loads and stores in place
+of asynchronous copies, and with a pass left out (the column pass, or the row
 pass: a variant that computes wrong values, timed only), at DIV2K's batch and
 its four smaller MS-SSIM scales, each held against the shipped build.
 
@@ -619,9 +622,10 @@ RET_OCCUPANCY = (1024, 2048)  # RETRIEVAL_THREADS_AN_SM: the threads an SM its r
 
 
 def _retrieval_occupancy(flush: torch.Tensor, gen: torch.Generator) -> dict:
-    """The shipped source built for 1,024 and 2,048 threads an SM (64 and 32 registers a thread),
-    timed on MS MARCO's shape: the counting path (about 1.07 relevant a query) under AP and AUROC, the
-    ranked layout, and the sort path (a 0.3 share) under AP."""
+    """The shipped source built for 1,024 and 2,048 threads an SM (64 and 32 registers a thread), each at
+    4 and 8 documents a thread (blocks of 256 and 128 threads a query), timed on MS MARCO's shape: the
+    counting path (about 1.07 relevant a query) under AP and AUROC, the ranked layout, and the sort path
+    (a 0.3 share) under AP."""
     with tempfile.TemporaryDirectory() as workdir:
         path = os.path.join(workdir, "retrieval_occupancy.cu")
         shutil.copy(os.path.join(_build.CSRC_DIR, "retrieval.cu"), path)
@@ -635,14 +639,16 @@ def _retrieval_occupancy(flush: torch.Tensor, gen: torch.Generator) -> dict:
 
             ps, ts, offsets, longest = rk.query_layout(p, t, i)
             cases += [(share, m, ps, ts, offsets, longest) for m in measures]
-        for turn in (RET_OCCUPANCY, RET_OCCUPANCY[::-1]):
-            for threads_an_sm in turn:
+        runs = [(t_sm, items) for t_sm in RET_OCCUPANCY for items in (4, 8)]
+        for turn in (runs, runs[::-1]):
+            for threads_an_sm, items in turn:
                 fn = libs[threads_an_sm].retrieval_groups_launch
                 p_, i_ = ctypes.c_void_p, ctypes.c_int
                 fn.argtypes = [p_, p_, p_, i_, i_, i_, i_, ctypes.c_float, i_, p_, p_, p_, p_, i_, i_, i_, i_, p_]
                 fn.restype = ctypes.c_int
                 for share, measure, ps, ts, offsets, longest in cases:
                     g = krt.plan(longest)
+                    g = g._replace(threads=g.width // items)  # 1,000 documents: 256 or 128 threads a query
                     n, groups = ps.shape[0], offsets.shape[0] - 1
                     ranked = measure == "ranked"
                     out = torch.empty((n if ranked else groups,), device="cuda")
@@ -664,7 +670,8 @@ def _retrieval_occupancy(flush: torch.Tensor, gen: torch.Generator) -> dict:
                     got = (second, out) if ranked else (out, second)
                     cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
                              f"kernel_ablation: the {threads_an_sm}-thread build differs ({measure}, {share})")
-                    key = f"MS MARCO shape, {share:.5f} relevant, {measure}, registers for {threads_an_sm} threads an SM"
+                    key = (f"MS MARCO shape, {share:.5f} relevant, {measure}, registers for {threads_an_sm} threads an SM, "
+                           f"{items} documents a thread")
                     rows.setdefault(key, []).append(cs.time_ms(call, flush))
     for key, times in rows.items():
         print(f"[retrieval occupancy] {key}: {' / '.join(f'{x:.4f}' for x in times)} ms after an L2 flush "
@@ -672,12 +679,102 @@ def _retrieval_occupancy(flush: torch.Tensor, gen: torch.Generator) -> dict:
     return rows
 
 
+RET_BUILDS = {  # name: the source text replaced in csrc/retrieval.cu (none for the shipped build)
+    "shipped": [],
+    "no 16-word instantiation": [("constexpr int kMaxItems = 16;", "constexpr int kMaxItems = 8;"),
+                                 ("    default: short_query<16>(a, g, start, n, smem); break;", "    default: break;")],
+    "no long path": [("    long_query(a, g, start, n, smem);\n    return;", "    return;")],
+    "eight ballots for the digit match": [
+        ("    const unsigned peers = __match_any_sync(kFull, d);\n    unsigned* slot = hist + d * warps + warp;",
+         "    unsigned peers = kFull;\n#pragma unroll\n    for (int b = 0; b < 8; ++b) {\n"
+         "      const unsigned bit = __ballot_sync(kFull, (d >> b) & 1u);\n      peers &= ((d >> b) & 1u) ? bit : ~bit;\n"
+         "    }\n    unsigned* slot = hist + d * warps + warp;")],
+    "neither": [("constexpr int kMaxItems = 16;", "constexpr int kMaxItems = 8;"),
+                ("    default: short_query<16>(a, g, start, n, smem); break;", "    default: break;"),
+                ("    long_query(a, g, start, n, smem);\n    return;", "    return;")],
+}
+
+
+def _retrieval_builds(flush: torch.Tensor, gen: torch.Generator) -> dict:
+    """The shipped source and builds without its 16-word short path, its long path, or both (wrong for
+    the queries those paths take; MS MARCO's take neither), each build's ptxas report printed: how much
+    of the register pressure, and of MS MARCO's time, the paths it does not run cost."""
+    from torchmetrics_tpu_torch.functional.retrieval import kernels as rk
+
+    src = open(os.path.join(_build.CSRC_DIR, "retrieval.cu")).read()
+    rows = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        flags = list(_build.NVCC_FLAGS)
+        running = {}
+        for name, edits in RET_BUILDS.items():
+            text = src
+            for old, new in edits:
+                if text.count(old) != 1:
+                    raise RuntimeError(f"kernel_ablation: the retrieval source changed, cannot place {old!r}")
+                text = text.replace(old, new)
+            path, lib = os.path.join(workdir, f"r{len(running)}.cu"), os.path.join(workdir, f"libr{len(running)}.so")
+            with open(path, "w") as f:
+                f.write(text)
+            cmd = [_build._nvcc(), *flags, "-o", lib, path]
+            running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+        fns = {}
+        for name, (proc, lib) in running.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"kernel_ablation: nvcc failed for {name}:\n{log}")
+            print(f"[retrieval builds] {name}: " + " ".join(l.strip() for l in log.splitlines() if "spill" in l or "registers" in l),
+                  flush=True)
+            fn = ctypes.CDLL(lib).retrieval_groups_launch
+            p_, i_ = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [p_, p_, p_, i_, i_, i_, i_, ctypes.c_float, i_, p_, p_, p_, p_, i_, i_, i_, i_, p_]
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+        cases = []
+        for share, measures in ((cs.MSMARCO_RELEVANT / cs.MSMARCO_CANDIDATES, ("average_precision", "ranked")),
+                                (0.3, ("average_precision",))):
+            p, t, i = cs._retrieval_case([cs.MSMARCO_CANDIDATES] * cs.MSMARCO_QUERIES, gen, share)
+            ps, ts, offsets, longest = rk.query_layout(p, t, i)
+            cases += [(share, m, ps, ts, offsets, longest) for m in measures]
+        names = list(RET_BUILDS)
+        for turn in (names, names[::-1]):
+            for name in turn:
+                for share, measure, ps, ts, offsets, longest in cases:
+                    g = krt.plan(longest)
+                    n, groups = ps.shape[0], offsets.shape[0] - 1
+                    ranked = measure == "ranked"
+                    out = torch.empty((n if ranked else groups,), device="cuda")
+                    second = torch.empty((n if ranked else groups,), dtype=torch.int32 if ranked else torch.float32,
+                                         device="cuda")
+                    want = krt.retrieval_groups(ps, ts, offsets, measure, longest=longest)
+
+                    def call(fn=fns[name], ps=ps, ts=ts, offsets=offsets, groups=groups, measure=measure, out=out,
+                             second=second, ranked=ranked, g=g):
+                        err = fn(ps.data_ptr(), ts.data_ptr(), offsets.data_ptr(), groups, krt.MEASURES[measure],
+                                 0, 0, 0.0, 0, out.data_ptr(), 0 if ranked else second.data_ptr(),
+                                 second.data_ptr() if ranked else 0, 0, g.threads, g.shared_bytes, krt.COUNT_SHORT,
+                                 krt.COUNT_LONG, torch.cuda.current_stream().cuda_stream)
+                        if err:
+                            raise RuntimeError(f"kernel_ablation: retrieval launch failed with CUDA error {err}")
+
+                    call()
+                    torch.cuda.synchronize()
+                    got = (second, out) if ranked else (out, second)
+                    cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                             f"kernel_ablation: the build {name} differs ({measure}, {share})")
+                    key = f"MS MARCO shape, {share:.5f} relevant, {measure}, {name}"
+                    rows.setdefault(key, []).append(cs.time_ms(call, flush))
+    for key, times in rows.items():
+        print(f"[retrieval builds] {key}: {' / '.join(f'{x:.4f}' for x in times)} ms after an L2 flush "
+              f"(two turns)", flush=True)
+    return rows
+
+
 SSIM_VARIANTS = {  # name: (defines, the launcher's tile rows); "shipped" first: the reference of the others
-    "shipped (8 column rows, 8 row outputs a thread, 2 blocks an SM)": ({}, 64),
+    "shipped (8 column rows, 4 row outputs a thread, 2 blocks an SM)": ({}, 64),
+    "8 row outputs a thread": ({"SSIM_ROW_OUTS": 8}, 64),
     "4 column rows a thread (32 x 32 tiles)": ({"SSIM_COL_ROWS": 4}, 32),
     "4 column rows, 3 blocks an SM": ({"SSIM_COL_ROWS": 4, "SSIM_MIN_BLOCKS": 3}, 32),
-    "4 column rows, 4 row outputs, 3 blocks an SM": ({"SSIM_COL_ROWS": 4, "SSIM_ROW_OUTS": 4, "SSIM_MIN_BLOCKS": 3}, 32),
-    "8 column rows, 4 row outputs": ({"SSIM_ROW_OUTS": 4}, 64),
+    "4 column rows, 8 row outputs, 3 blocks an SM": ({"SSIM_COL_ROWS": 4, "SSIM_ROW_OUTS": 8, "SSIM_MIN_BLOCKS": 3}, 32),
     "the tile by loads and stores, no cp.async": ({"SSIM_SYNC_LOAD": 1}, 64),
     "no column pass (wrong values)": ({"SSIM_SKIP_COLUMNS": 1}, 64),
     "no row pass (wrong values)": ({"SSIM_SKIP_ROWS": 1}, 64),
@@ -743,7 +840,7 @@ def _ssim(flush: torch.Tensor, gen: torch.Generator) -> dict:
                     fn = entries[name]
 
                     def call(fn=fn, p_=p_, t_=t_, out=out, partials=partials, ticket=ticket, g=g, b=b, c=c, h=h,
-                             w=w, count=count):
+                             w=w, count=count, tile_h=tile_h):
                         err = fn(p_.data_ptr(), t_.data_ptr(), taps.data_ptr(), taps.data_ptr(), 0, 1e-4, 9e-4,
                                  out.data_ptr(), 0, 0, partials.data_ptr(), ticket.data_ptr(), b, c, h, w, 11, 11,
                                  g.row0, g.col0, g.rows, g.cols, 0, 0.0, 0.0, count,
@@ -774,7 +871,8 @@ def _ssim_shared(tile_h: int, kh: int = 11, kw: int = 11) -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--sections",
-                        default="ranking,multilabel,calibration,calibration-widths,retrieval,retrieval-occupancy,ssim",
+                        default="ranking,multilabel,calibration,calibration-widths,retrieval,retrieval-occupancy,"
+                                "retrieval-builds,ssim",
                         help="comma-separated sections to run")
     parser.add_argument("--parent", help="a checkout of the commit before the calibration redesign, timed beside it")
     parser.add_argument("--json", help="also write the times to this file")
@@ -797,6 +895,8 @@ def main() -> int:
         record["calibration-widths"] = _calibration_widths(flush, gen)
     if "retrieval" in sections:
         record["retrieval"] = _retrieval(flush, gen)
+    if "retrieval-builds" in sections:
+        record["retrieval-builds"] = _retrieval_builds(flush, gen)
     if "retrieval-occupancy" in sections:
         record["retrieval-occupancy"] = _retrieval_occupancy(flush, gen)
     if "ssim" in sections:

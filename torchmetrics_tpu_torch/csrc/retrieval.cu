@@ -31,7 +31,7 @@
 // each); a dense one, and the ranked layout, need its order.
 //
 // What the design does about it:
-// - one block a query, of `threads` (uniform in a launch: a quarter of the
+// - one block a query, of `threads` (uniform in a launch: an eighth of the
 //   longest query's padded width, at least a warp, at most 1,024);
 // - each document's word: an order-preserving key of its score above the
 //   complement of its position, -0.0 folded into +0.0 and NaN given key 0,
@@ -61,8 +61,8 @@
 // - which path: the launcher's thresholds (at most 64 positives counted in a
 //   short query, 192 in a long one) are tools/kernel_ablation.py's
 //   crossovers; the registers are sized for 1,024 threads an SM (64 a
-//   thread): sized for 2,048 the counting path ran 0.061 against 0.077 ms at
-//   MS MARCO's shape, the sort path 0.44 against 0.33 ms;
+//   thread): sized for 2,048 the counting path ran 0.062 against 0.077 ms at
+//   MS MARCO's shape, the sort path 0.44 against 0.27 ms;
 // - the targets are read back by position after the sort; the per-query
 //   sums are exact in double (counts, the wcum prefix, the AUROC pair count)
 //   and the float32 terms (AP's quotients, NDCG's discounted gains) are

@@ -62,7 +62,12 @@
 //   74,432 bytes at 11 taps, every shared access free of bank conflicts;
 // - the tile loaded by rows, a warp a row, with no divide, by asynchronous
 //   copies (cp.async), every copy of a thread in flight at once (loads and
-//   stores, a row at a time, ran 1.03 against 0.76 ms at DIV2K's batch);
+//   stores, a row at a time, ran 1.03 against 0.76 ms at DIV2K's batch; a
+//   block walking over tiles with the next tile's copies in flight ran no
+//   faster, 0.705 against 0.701 ms with one buffer);
+// - a thread's outputs summed in float32 before the block's double sum, and
+//   the contrast sensitivity's quotient taken only where it is asked for
+//   (0.693 ms at DIV2K's batch with them, 0.721 before them, two calls);
 //   only tiles whose window crosses the border (those of the full map at the
 //   edges, and the last of each row and column) reflect the index; the inputs
 //   are clamped to the data range when one is given as a tuple;
@@ -304,7 +309,9 @@ __global__ void __launch_bounds__(kThreads, SSIM_MIN_BLOCKS) ssim_window_kernel(
       }
     }
   }
-  double acc_ssim = 0.0, acc_cs = 0.0;
+  // the thread's few outputs summed in float32, then in double over the block
+  const bool need_cs = a.out_cs != nullptr;
+  float acc_ssim = 0.0f, acc_cs = 0.0f;
 #pragma unroll
   for (int j = 0; j < kColRows; ++j) {
     const int gy = oy + y0 + j;
@@ -319,18 +326,19 @@ __global__ void __launch_bounds__(kThreads, SSIM_MIN_BLOCKS) ssim_window_kernel(
     if (a.full) a.full[plane_index * plane_size + static_cast<long long>(gy) * a.width + gx] = ssim;
     if (gy >= ph && gy < a.height - ph && gx >= pw && gx < a.width - pw && ph > 0 && pw > 0) {
       acc_ssim += ssim;
-      acc_cs += static_cast<float>(upper) / static_cast<float>(lower);
+      if (need_cs) acc_cs += static_cast<float>(upper) / static_cast<float>(lower);
     }
   }
 
   // the block's sums into its image's partials; the last block adds them up
-  block_sum2(acc_ssim, acc_cs);
+  double sum_ssim = acc_ssim, sum_cs = acc_cs;
+  block_sum2(sum_ssim, sum_cs);
   const int blocks_an_image = a.channels * gridDim.x * gridDim.y;
   const int in_image = ((plane_index % a.channels) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
   if (t == 0) {
     double* part = a.partials + 2 * (static_cast<long long>(image) * blocks_an_image + in_image);
-    part[0] = acc_ssim;
-    part[1] = acc_cs;
+    part[0] = sum_ssim;
+    part[1] = sum_cs;
   }
   __syncthreads();
   int last = 0;

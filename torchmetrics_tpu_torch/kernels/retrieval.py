@@ -40,11 +40,12 @@ DIGITS = 256  # 8 bits a radix pass
 MAX_POSITIVES = 256  # the counting path's list of positives in shared memory
 # a query with at most this many positive targets takes the counting path (n x n_pos compares), the rest
 # the radix sort: the crossovers of tools/kernel_ablation.py's retrieval section (AUROC's ~55 positives at
-# 256 documents to ~145 at 16,384, AP's ~80 to ~215; past 16,384 documents AUROC's ~230, AP's past 256)
+# 256 documents to ~145 at 16,384, AP's ~75 to ~215; past 16,384 documents AUROC's ~220, AP's past 256)
 COUNT_SHORT = 64
 COUNT_LONG = 192
 WARP_WIDTH = 256  # up to this width a query's block is one warp, 8 words a lane at most
-SMALL_BLOCK_WIDTH = 2048  # up to this width 4 words a thread, above it 8 (16 at the largest)
+ITEMS = 8  # words a thread above WARP_WIDTH (16 at SHARED_WIDTH): at MS MARCO's 1,000 documents, 8 ran the
+# counting path 0.063 against 0.077 ms and the sort path 0.24 against 0.27, the ranked layout 0.31 against 0.25
 MAX_ROWS = 2**30  # ranks and rows are int32 in the kernel; the long path's scratch is 2 words a row
 
 _launch: Optional[ctypes._CFuncPtr] = None
@@ -66,8 +67,8 @@ def plan(longest: int) -> Plan:
     """The launch geometry for a batch whose longest query has ``longest`` documents.
 
     A warp a query up to ``WARP_WIDTH`` (8 words a lane at most), else a block
-    of ``width / items`` threads: 4 words a thread up to ``SMALL_BLOCK_WIDTH``,
-    8 above, 16 at ``SHARED_WIDTH``; past it 1,024 threads and the long path.
+    of ``width / ITEMS`` threads (16 words a thread at ``SHARED_WIDTH``); past
+    it 1,024 threads and the long path.
     Every query of the launch runs in a block of that many threads, with
     ``max(threads, next_pow2(n)) / threads`` words a thread.
 
@@ -86,8 +87,7 @@ def plan(longest: int) -> Plan:
         if width <= WARP_WIDTH:
             threads = 32
         else:
-            items = 4 if width <= SMALL_BLOCK_WIDTH else max(8, width // MAX_THREADS)
-            threads = width // items
+            threads = width // max(ITEMS, width // MAX_THREADS)
     shared = max(8 * width + 2 * 4 * DIGITS * (threads // 32), (8 + 4 + 12) * MAX_POSITIVES)
     if long:
         shared = max(shared, 8 * LONG_TILE + 2 * 4 * DIGITS * (MAX_THREADS // 32) + 4 * 4 * DIGITS + 4 * DIGITS)
