@@ -1,0 +1,68 @@
+"""The port's CUDA sources against what the Python side assumes of them.
+
+The launchers keep some of a kernel's constants in Python (the plan, the
+thresholds the CPU models of the tests use), and ``tools/kernel_ablation.py``
+builds variants of a source by replacing its text. Neither can be checked by
+a build here (no ``nvcc``), so these tests read the sources: each constant
+the Python side mirrors has the kernel's value, and each text an ablation
+replaces stands exactly once in its source.
+"""
+
+import importlib.util
+import re
+from pathlib import Path
+
+import pytest
+
+from torchmetrics_tpu_torch.kernels import retrieval as krt
+from torchmetrics_tpu_torch.kernels import ssim as kss
+
+REPO = Path(__file__).resolve().parent.parent
+CSRC = REPO / "torchmetrics_tpu_torch" / "csrc"
+
+
+def _source(name: str) -> str:
+    return (CSRC / f"{name}.cu").read_text()
+
+
+def _constant(source: str, name: str) -> int:
+    found = re.findall(rf"constexpr int {name} = (\d+);", source)
+    assert len(found) == 1, f"{name}: {found}"
+    return int(found[0])
+
+
+def _ablation():
+    spec = importlib.util.spec_from_file_location("kernel_ablation", REPO / "tools" / "kernel_ablation.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize(("python", "kernel"), [("COUNT_SHORT", "kCountShort"), ("COUNT_LONG", "kCountLong"),
+                                                ("MAX_POSITIVES", "kMaxPositives"), ("MAX_THREADS", "kMaxThreads"),
+                                                ("MAX_ITEMS", "kMaxItems"), ("DIGITS", "kDigits")])
+def test_retrieval_constants_are_the_kernels(python, kernel):
+    assert getattr(krt, python) == _constant(_source("retrieval"), kernel)
+
+
+def test_ssim_tile_is_the_kernels():
+    src = _source("ssim")
+    assert kss.TILE_W == _constant(src, "kTileW")
+    assert kss.TILE_H == _constant(src, "kWarps") * _constant(src, "kColRows")
+    assert kss.THREADS == _constant(src, "kTileW") * _constant(src, "kWarps")
+
+
+_ABLATION = _ablation()
+_BUILDS = [("retrieval", table, name, edits)
+           for table in ("RET_PATHS", "RET_BUILDS", "RET_FAULT_BUILDS")
+           for name, (edits, _) in getattr(_ABLATION, table).items()]
+_BUILDS += [("ssim", "SSIM_VARIANTS", name, edits) for name, (edits, _) in _ABLATION.SSIM_VARIANTS.items()]
+
+
+@pytest.mark.parametrize(("source", "table", "name", "edits"), _BUILDS,
+                         ids=[f"{table}:{name}" for _, table, name, _ in _BUILDS])
+def test_ablation_edits_apply_once(source, table, name, edits):
+    text = _source(source)
+    for old, new in edits:
+        assert text.count(old) == 1, f"{table} {name!r}: {old!r}"
+        text = text.replace(old, new)

@@ -188,8 +188,8 @@ def test_rank_groups_against_jax(edits):
 
 @pytest.mark.parametrize("order", ["runs in order", "runs out of order", "an id in two runs", "rows shuffled"])
 def test_query_layout_is_the_stable_sort_of_the_ids(order):
-    """The glue's layout equals a stable sort of the query ids, whichever way the rows come: in runs of
-    one id (sorted by run, and not copied when the runs are in order) or shuffled (sorted by row)."""
+    """The glue's layout equals a stable sort of the query ids, whichever way the rows come: ids that
+    never decrease (not copied) or in any other order (sorted by row)."""
     rng = np.random.default_rng(64)
     sizes = rng.integers(1, 9, 12)
     ids = rng.choice(np.arange(-40, 40, 3), 12, replace=False)
@@ -201,7 +201,9 @@ def test_query_layout_is_the_stable_sort_of_the_ids(order):
     if order == "rows shuffled":
         rows = rng.permutation(rows)
     p, t = rng.uniform(size=rows.shape).astype(F32), rng.integers(0, 2, rows.shape).astype(F32)
-    got_p, got_t, offsets, longest = tk.query_layout(*_t(p, t, rows))
+    inputs = _t(p, t, rows)
+    got_p, got_t, offsets, longest = tk.query_layout(*inputs)
+    assert (got_p.data_ptr() == inputs[0].data_ptr()) == (order == "runs in order")
     perm = np.argsort(rows, kind="stable")
     _, counts = np.unique(rows[perm], return_counts=True)
     np.testing.assert_array_equal(_np(got_p), p[perm])
@@ -560,7 +562,7 @@ MODEL_MEASURES = ["precision", "recall", "hit_rate", "fall_out", "average_precis
 @pytest.mark.parametrize("top_k,adaptive", [(None, False), (3, False), (3, True)])
 @pytest.mark.parametrize("measure", MODEL_MEASURES)
 def test_kernel_model_against_jax(measure, top_k, adaptive):
-    """The kernel's algorithm (counting or radix sort, the launcher's threshold) equals the JAX grouped
+    """The kernel's algorithm (counting or radix sort, the kernel's threshold) equals the JAX grouped
     measure on ties, NaN, +-inf and +-0.0 scores, with the query ids' stable sort as glue."""
     p, t, i = _data(60, n_queries=8, docs=(1, 40), edits=("edges",), graded=measure == "ndcg")
     got = _kernel_model(*_layout(p, t, i), measure, top_k, adaptive)

@@ -4,8 +4,9 @@
 ``retrieval_groups``' counting threshold and ``ssim_window``'s tile and blocking.
 
     python3 tools/kernel_ablation.py [--sections ranking,multilabel,calibration,calibration-widths,retrieval,
-                                                  retrieval-occupancy,retrieval-builds,ssim]
-                                     [--parent CHECKOUT] [--json PATH]
+                                                  retrieval-occupancy,retrieval-builds,retrieval-fault,ssim]
+                                     [--parent CHECKOUT] [--fault-builds NAMES] [--fault-trials N]
+                                     [--json PATH]
 
 Ranking: ``csrc/ranking.cu`` is copied, ``#if`` switches are put around the
 sort and around each kind of its stages (in registers, by warp shuffles,
@@ -39,22 +40,32 @@ which sets the plan's width thresholds. ``--parent`` names a checkout of the com
 redesign, whose kernel (one partial histogram a block, merged by the last
 block) is built and timed beside it at the main path's three shapes.
 
-Retrieval: the shipped ``retrieval_groups`` with its counting thresholds
-set so that every query counts, or every query sorts, over batches of about
-4 M rows of queries of 256 to 16,384 documents (and one query of 100,000, the
-long path), each query with exactly ``n_pos`` relevant documents from 0 to
-256: AP and AUROC@10 (held equal between the two paths within the phase 3
-tolerance), which sets ``COUNT_SHORT`` and ``COUNT_LONG``. Retrieval
+The retrieval and SSIM sections build variants of ``csrc/retrieval.cu`` and
+``csrc/ssim.cu`` by replacing source text (a constant's value, a line), all at
+once. Retrieval: the source with its counting thresholds (``kCountShort``,
+``kCountLong``) set so that every query counts, or every query sorts, over
+batches of about 4 M rows of queries of 256 to 16,384 documents (and one query
+of 100,000, the long path), each query with exactly ``n_pos`` relevant
+documents from 0 to 256: AP and AUROC@10 (held equal between the two paths
+within the phase 3 tolerance), which sets the thresholds. Retrieval
 occupancy: the source built with its registers sized for 1,024 and 2,048
-threads an SM (``RETRIEVAL_THREADS_AN_SM``), at 4 and 8 documents a thread,
-at MS MARCO's shape. Retrieval builds: the source without its 16-word short
-path, its long path or both, and with eight ballots in place of the digit
-match, each build's ptxas report printed, timed at MS MARCO's shape. SSIM:
-``csrc/ssim.cu`` built with its column-pass rows a thread
-(``SSIM_COL_ROWS``: 8 or 4, tiles of 32 x 64 or 32 x 32), row-pass outputs a
-thread (``SSIM_ROW_OUTS``: 4 or 8) and blocks an SM in its launch bounds
-(``SSIM_MIN_BLOCKS``), with the tile loaded by plain loads and stores in place
-of asynchronous copies, and with a pass left out (the column pass, or the row
+threads an SM (``kThreadsAnSm``), at 4 and 8 documents a thread, at MS
+MARCO's shape. Retrieval builds: the source without its 16-word short path,
+its long path or both, and with eight ballots in place of the digit match,
+each build's ptxas report printed, timed at MS MARCO's shape. Retrieval
+fault: phase 3's small queries with non-finite scores (1 to 64 documents)
+over 20 seeds, every measure, through the shipped build and builds with the
+counting path's warp sums by ``__reduce_add_sync`` (its earlier form, whose
+AUROC is wrong at 33 to 64 documents), alone and with one change each: ptxas
+at ``-O1`` or ``-O2``, the dynamic shared memory filled with a NaN pattern at
+entry (a read of a word the kernel did not write then shows), registers for
+blocks of 256 (no spills), volatile reads of the counts, the ranked layout's
+writes left out or changed, a function kept out of line: the queries of each
+measure that differ from the plain version. SSIM: the source built with its column-pass rows a
+thread (``kColRows``: 8 or 4, tiles of 32 x 64 or 32 x 32), row-pass outputs
+a thread (``kRowOuts``: 4 or 8) and blocks an SM in its launch bounds
+(``kMinBlocks``), with the tile loaded by plain loads and stores in place of
+asynchronous copies, and with a pass left out (the column pass, or the row
 pass: a variant that computes wrong values, timed only), at DIV2K's batch and
 its four smaller MS-SSIM scales, each held against the shipped build.
 
@@ -569,9 +580,87 @@ def _calibration_widths(flush: torch.Tensor, gen: torch.Generator) -> dict:
     return rows
 
 
+def _edited_builds(source: str, builds: dict, workdir: str) -> dict:
+    """Build ``{name: (edits, extra nvcc flags)}`` copies of ``csrc/<source>.cu`` at once, each edit
+    ``(old, new)`` placed where ``old`` stands once in the source; ``{name: (ctypes.CDLL, ptxas report)}``."""
+    src = open(os.path.join(_build.CSRC_DIR, f"{source}.cu")).read()
+    running = {}
+    for name, (edits, extra) in builds.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"kernel_ablation: the {source} source changed, cannot place {old!r}")
+            text = text.replace(old, new)
+        path = os.path.join(workdir, f"{source}{len(running)}.cu")
+        lib = os.path.join(workdir, f"lib{source}{len(running)}.so")
+        with open(path, "w") as f:
+            f.write(text)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *extra, "-o", lib, path]
+        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    built = {}
+    for name, (proc, lib) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel_ablation: nvcc failed for {name}:\n{log}")
+        report = " ".join(l.strip() for l in log.splitlines() if "spill" in l or "registers" in l)
+        built[name] = (ctypes.CDLL(lib), report)
+    return built
+
+
+def _retrieval_entry(lib: ctypes.CDLL):
+    fn = lib.retrieval_groups_launch
+    fn.argtypes = krt.ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _retrieval_call(fn, ps, ts, offsets, measure: str, top_k, longest: int, items=None):
+    """A call of a build's ``retrieval_groups_launch`` as the launcher makes it (``items``: documents a thread
+    in place of the plan's); it returns what the launcher returns."""
+    g = krt.plan(longest)
+    if items:
+        g = g._replace(threads=g.width // items)
+    n, groups = ps.shape[0], offsets.shape[0] - 1
+    ranked = measure == "ranked"
+    out = torch.empty((n if ranked else groups,), device="cuda")
+    second = torch.empty((n if ranked else groups,), dtype=torch.int32 if ranked else torch.float32, device="cuda")
+    scratch = torch.empty((2 * n,), dtype=torch.int64, device="cuda") if g.long else None
+
+    def call():
+        err = fn(ps.data_ptr(), ts.data_ptr(), offsets.data_ptr(), groups, krt.MEASURES[measure],
+                 int(top_k is not None), min(top_k or 0, 2**31 - 1), float(top_k or 0), 0, out.data_ptr(),
+                 0 if ranked else second.data_ptr(), second.data_ptr() if ranked else 0,
+                 0 if scratch is None else scratch.data_ptr(), g.threads, g.shared_bytes,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"kernel_ablation: retrieval launch failed with CUDA error {err}")
+        return (second, out) if ranked else (out, second)
+
+    return call
+
+
+def _msmarco_cases(gen: torch.Generator, measures_at: dict) -> list:
+    """MS MARCO's shape laid out by query id, at each relevant share of ``measures_at``:
+    ``[(share, measure, ps, ts, offsets, longest)]``."""
+    from torchmetrics_tpu_torch.functional.retrieval import kernels as rk
+
+    cases = []
+    for share, measures in measures_at.items():
+        p, t, i = cs._retrieval_case([cs.MSMARCO_CANDIDATES] * cs.MSMARCO_QUERIES, gen, share)
+        ps, ts, offsets, longest = rk.query_layout(p, t, i)
+        cases += [(share, m, ps, ts, offsets, longest) for m in measures]
+    return cases
+
+
 RET_WIDTHS = (256, 1024, 4096, 16_384, 100_000)
 RET_POSITIVES = (0, 1, 2, 4, 8, 16, 32, 64, 128, 256)
 RET_ROWS = 4_000_000  # rows a batch: queries of one width
+RET_PATHS = {  # the source with its counting thresholds set so that every query counts, or every query sorts
+    "counting": ([("constexpr int kCountShort = 64;", "constexpr int kCountShort = kMaxPositives;"),
+                  ("constexpr int kCountLong = 192;", "constexpr int kCountLong = kMaxPositives;")], []),
+    "radix sort": ([("constexpr int kCountShort = 64;", "constexpr int kCountShort = -1;"),
+                    ("constexpr int kCountLong = 192;", "constexpr int kCountLong = -1;")], []),
+}
 
 
 def _retrieval_batch(n: int, n_pos: int, gen: torch.Generator):
@@ -589,9 +678,8 @@ def _retrieval_batch(n: int, n_pos: int, gen: torch.Generator):
 def _retrieval(flush: torch.Tensor, gen: torch.Generator) -> dict:
     """Counting against sorting at each width and count of relevant documents a query, two turns."""
     rows = {}
-    limits = {"counting": (krt.MAX_POSITIVES, krt.MAX_POSITIVES), "radix sort": (-1, -1)}
-    shipped = (krt.COUNT_SHORT, krt.COUNT_LONG)
-    try:
+    with tempfile.TemporaryDirectory() as workdir:
+        fns = {name: _retrieval_entry(lib) for name, (lib, _) in _edited_builds("retrieval", RET_PATHS, workdir).items()}
         for n in RET_WIDTHS:
             for n_pos in RET_POSITIVES:
                 if n_pos > n:
@@ -600,25 +688,21 @@ def _retrieval(flush: torch.Tensor, gen: torch.Generator) -> dict:
                 for measure, top_k in (("average_precision", None), ("auroc", 10)):
                     got = {}
                     for turn in (0, 1):
-                        for path in (limits if turn == 0 else list(limits)[::-1]):
-                            krt.COUNT_SHORT, krt.COUNT_LONG = limits[path]
-                            call = lambda m=measure, k=top_k: krt.retrieval_groups(  # noqa: E731
-                                preds, target, offsets, m, k, longest=n)
-                            got[path] = call()[0]
+                        for path in (fns if turn == 0 else list(fns)[::-1]):
+                            call = _retrieval_call(fns[path], preds, target, offsets, measure, top_k, n)
+                            got[path] = call()[0].clone()
                             key = f"{n:,} documents, {n_pos} relevant, {measure}@{top_k}, {path}"
                             rows.setdefault(key, []).append(cs.time_ms(call, flush))
                     err = float((got["counting"] - got["radix sort"]).abs().max())
                     cs.check(err <= 1e-6, f"kernel_ablation: the two paths differ by {err} ({n}, {n_pos}, {measure})")
                 del preds, target, offsets
-    finally:
-        krt.COUNT_SHORT, krt.COUNT_LONG = shipped
     for key, times in rows.items():
         print(f"[retrieval] {key}: {' / '.join(f'{x:.4f}' for x in times)} ms after an L2 flush "
               f"(two turns)", flush=True)
     return rows
 
 
-RET_OCCUPANCY = (1024, 2048)  # RETRIEVAL_THREADS_AN_SM: the threads an SM its registers are sized for
+RET_OCCUPANCY = (1024, 2048)  # kThreadsAnSm: the threads an SM its registers are sized for
 
 
 def _retrieval_occupancy(flush: torch.Tensor, gen: torch.Generator) -> dict:
@@ -626,48 +710,21 @@ def _retrieval_occupancy(flush: torch.Tensor, gen: torch.Generator) -> dict:
     4 and 8 documents a thread (blocks of 256 and 128 threads a query), timed on MS MARCO's shape: the
     counting path (about 1.07 relevant a query) under AP and AUROC, the ranked layout, and the sort path
     (a 0.3 share) under AP."""
+    builds = {t: ([("constexpr int kThreadsAnSm = 1024;", f"constexpr int kThreadsAnSm = {t};")], [])
+              for t in RET_OCCUPANCY}
+    rows = {}
     with tempfile.TemporaryDirectory() as workdir:
-        path = os.path.join(workdir, "retrieval_occupancy.cu")
-        shutil.copy(os.path.join(_build.CSRC_DIR, "retrieval.cu"), path)
-        libs = _nvcc_all({t: (path, [f"-DRETRIEVAL_THREADS_AN_SM={t}"]) for t in RET_OCCUPANCY})
-        rows = {}
-        cases = []
-        for share, measures in ((cs.MSMARCO_RELEVANT / cs.MSMARCO_CANDIDATES, ("average_precision", "auroc", "ranked")),
-                                (0.3, ("average_precision",))):
-            p, t, i = cs._retrieval_case([cs.MSMARCO_CANDIDATES] * cs.MSMARCO_QUERIES, gen, share)
-            from torchmetrics_tpu_torch.functional.retrieval import kernels as rk
-
-            ps, ts, offsets, longest = rk.query_layout(p, t, i)
-            cases += [(share, m, ps, ts, offsets, longest) for m in measures]
+        fns = {t: _retrieval_entry(lib) for t, (lib, _) in _edited_builds("retrieval", builds, workdir).items()}
+        cases = _msmarco_cases(gen, {cs.MSMARCO_RELEVANT / cs.MSMARCO_CANDIDATES: ("average_precision", "auroc",
+                                                                                 "ranked"),
+                                     0.3: ("average_precision",)})
         runs = [(t_sm, items) for t_sm in RET_OCCUPANCY for items in (4, 8)]
         for turn in (runs, runs[::-1]):
             for threads_an_sm, items in turn:
-                fn = libs[threads_an_sm].retrieval_groups_launch
-                p_, i_ = ctypes.c_void_p, ctypes.c_int
-                fn.argtypes = [p_, p_, p_, i_, i_, i_, i_, ctypes.c_float, i_, p_, p_, p_, p_, i_, i_, i_, i_, p_]
-                fn.restype = ctypes.c_int
                 for share, measure, ps, ts, offsets, longest in cases:
-                    g = krt.plan(longest)
-                    g = g._replace(threads=g.width // items)  # 1,000 documents: 256 or 128 threads a query
-                    n, groups = ps.shape[0], offsets.shape[0] - 1
-                    ranked = measure == "ranked"
-                    out = torch.empty((n if ranked else groups,), device="cuda")
-                    second = torch.empty((n if ranked else groups,), dtype=torch.int32 if ranked else torch.float32,
-                                         device="cuda")
+                    call = _retrieval_call(fns[threads_an_sm], ps, ts, offsets, measure, None, longest, items)
+                    got = call()
                     want = krt.retrieval_groups(ps, ts, offsets, measure, longest=longest)
-
-                    def call(fn=fn, ps=ps, ts=ts, offsets=offsets, groups=groups, measure=measure, out=out,
-                             second=second, ranked=ranked, g=g):
-                        err = fn(ps.data_ptr(), ts.data_ptr(), offsets.data_ptr(), groups, krt.MEASURES[measure],
-                                 0, 0, 0.0, 0, out.data_ptr(), 0 if ranked else second.data_ptr(),
-                                 second.data_ptr() if ranked else 0, 0, g.threads, g.shared_bytes, krt.COUNT_SHORT,
-                                 krt.COUNT_LONG, torch.cuda.current_stream().cuda_stream)
-                        if err:
-                            raise RuntimeError(f"kernel_ablation: retrieval launch failed with CUDA error {err}")
-
-                    call()
-                    torch.cuda.synchronize()
-                    got = (second, out) if ranked else (out, second)
                     cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
                              f"kernel_ablation: the {threads_an_sm}-thread build differs ({measure}, {share})")
                     key = (f"MS MARCO shape, {share:.5f} relevant, {measure}, registers for {threads_an_sm} threads an SM, "
@@ -679,19 +736,19 @@ def _retrieval_occupancy(flush: torch.Tensor, gen: torch.Generator) -> dict:
     return rows
 
 
-RET_BUILDS = {  # name: the source text replaced in csrc/retrieval.cu (none for the shipped build)
-    "shipped": [],
-    "no 16-word instantiation": [("constexpr int kMaxItems = 16;", "constexpr int kMaxItems = 8;"),
-                                 ("    default: short_query<16>(a, g, start, n, smem); break;", "    default: break;")],
-    "no long path": [("    long_query(a, g, start, n, smem);\n    return;", "    return;")],
-    "eight ballots for the digit match": [
+_NO_LONG_PATH = ("    long_query(a, g, start, n, smem);\n    return;", "    return;")
+_NO_16_WORDS = [("constexpr int kMaxItems = 16;", "constexpr int kMaxItems = 8;"),
+                ("    default: short_query<16>(a, g, start, n, smem); break;", "    default: break;")]
+RET_BUILDS = {  # name: (the source text replaced in csrc/retrieval.cu, extra nvcc flags)
+    "shipped": ([], []),
+    "no 16-word instantiation": (_NO_16_WORDS, []),
+    "no long path": ([_NO_LONG_PATH], []),
+    "eight ballots for the digit match": ([
         ("    const unsigned peers = __match_any_sync(kFull, d);\n    unsigned* slot = hist + d * warps + warp;",
          "    unsigned peers = kFull;\n#pragma unroll\n    for (int b = 0; b < 8; ++b) {\n"
          "      const unsigned bit = __ballot_sync(kFull, (d >> b) & 1u);\n      peers &= ((d >> b) & 1u) ? bit : ~bit;\n"
-         "    }\n    unsigned* slot = hist + d * warps + warp;")],
-    "neither": [("constexpr int kMaxItems = 16;", "constexpr int kMaxItems = 8;"),
-                ("    default: short_query<16>(a, g, start, n, smem); break;", "    default: break;"),
-                ("    long_query(a, g, start, n, smem);\n    return;", "    return;")],
+         "    }\n    unsigned* slot = hist + d * warps + warp;")], []),
+    "neither": (_NO_16_WORDS + [_NO_LONG_PATH], []),
 }
 
 
@@ -699,66 +756,21 @@ def _retrieval_builds(flush: torch.Tensor, gen: torch.Generator) -> dict:
     """The shipped source and builds without its 16-word short path, its long path, or both (wrong for
     the queries those paths take; MS MARCO's take neither), each build's ptxas report printed: how much
     of the register pressure, and of MS MARCO's time, the paths it does not run cost."""
-    from torchmetrics_tpu_torch.functional.retrieval import kernels as rk
-
-    src = open(os.path.join(_build.CSRC_DIR, "retrieval.cu")).read()
     rows = {}
     with tempfile.TemporaryDirectory() as workdir:
-        flags = list(_build.NVCC_FLAGS)
-        running = {}
-        for name, edits in RET_BUILDS.items():
-            text = src
-            for old, new in edits:
-                if text.count(old) != 1:
-                    raise RuntimeError(f"kernel_ablation: the retrieval source changed, cannot place {old!r}")
-                text = text.replace(old, new)
-            path, lib = os.path.join(workdir, f"r{len(running)}.cu"), os.path.join(workdir, f"libr{len(running)}.so")
-            with open(path, "w") as f:
-                f.write(text)
-            cmd = [_build._nvcc(), *flags, "-o", lib, path]
-            running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
         fns = {}
-        for name, (proc, lib) in running.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"kernel_ablation: nvcc failed for {name}:\n{log}")
-            print(f"[retrieval builds] {name}: " + " ".join(l.strip() for l in log.splitlines() if "spill" in l or "registers" in l),
-                  flush=True)
-            fn = ctypes.CDLL(lib).retrieval_groups_launch
-            p_, i_ = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [p_, p_, p_, i_, i_, i_, i_, ctypes.c_float, i_, p_, p_, p_, p_, i_, i_, i_, i_, p_]
-            fn.restype = ctypes.c_int
-            fns[name] = fn
-        cases = []
-        for share, measures in ((cs.MSMARCO_RELEVANT / cs.MSMARCO_CANDIDATES, ("average_precision", "ranked")),
-                                (0.3, ("average_precision",))):
-            p, t, i = cs._retrieval_case([cs.MSMARCO_CANDIDATES] * cs.MSMARCO_QUERIES, gen, share)
-            ps, ts, offsets, longest = rk.query_layout(p, t, i)
-            cases += [(share, m, ps, ts, offsets, longest) for m in measures]
+        for name, (lib, report) in _edited_builds("retrieval", RET_BUILDS, workdir).items():
+            print(f"[retrieval builds] {name}: {report}", flush=True)
+            fns[name] = _retrieval_entry(lib)
+        cases = _msmarco_cases(gen, {cs.MSMARCO_RELEVANT / cs.MSMARCO_CANDIDATES: ("average_precision", "ranked"),
+                                     0.3: ("average_precision",)})
         names = list(RET_BUILDS)
         for turn in (names, names[::-1]):
             for name in turn:
                 for share, measure, ps, ts, offsets, longest in cases:
-                    g = krt.plan(longest)
-                    n, groups = ps.shape[0], offsets.shape[0] - 1
-                    ranked = measure == "ranked"
-                    out = torch.empty((n if ranked else groups,), device="cuda")
-                    second = torch.empty((n if ranked else groups,), dtype=torch.int32 if ranked else torch.float32,
-                                         device="cuda")
+                    call = _retrieval_call(fns[name], ps, ts, offsets, measure, None, longest)
+                    got = call()
                     want = krt.retrieval_groups(ps, ts, offsets, measure, longest=longest)
-
-                    def call(fn=fns[name], ps=ps, ts=ts, offsets=offsets, groups=groups, measure=measure, out=out,
-                             second=second, ranked=ranked, g=g):
-                        err = fn(ps.data_ptr(), ts.data_ptr(), offsets.data_ptr(), groups, krt.MEASURES[measure],
-                                 0, 0, 0.0, 0, out.data_ptr(), 0 if ranked else second.data_ptr(),
-                                 second.data_ptr() if ranked else 0, 0, g.threads, g.shared_bytes, krt.COUNT_SHORT,
-                                 krt.COUNT_LONG, torch.cuda.current_stream().cuda_stream)
-                        if err:
-                            raise RuntimeError(f"kernel_ablation: retrieval launch failed with CUDA error {err}")
-
-                    call()
-                    torch.cuda.synchronize()
-                    got = (second, out) if ranked else (out, second)
                     cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
                              f"kernel_ablation: the build {name} differs ({measure}, {share})")
                     key = f"MS MARCO shape, {share:.5f} relevant, {measure}, {name}"
@@ -769,43 +781,105 @@ def _retrieval_builds(flush: torch.Tensor, gen: torch.Generator) -> dict:
     return rows
 
 
-SSIM_VARIANTS = {  # name: (defines, the launcher's tile rows); "shipped" first: the reference of the others
-    "shipped (8 column rows, 4 row outputs a thread, 2 blocks an SM)": ({}, 64),
-    "8 row outputs a thread": ({"SSIM_ROW_OUTS": 8}, 64),
-    "4 column rows a thread (32 x 32 tiles)": ({"SSIM_COL_ROWS": 4}, 32),
-    "4 column rows, 3 blocks an SM": ({"SSIM_COL_ROWS": 4, "SSIM_MIN_BLOCKS": 3}, 32),
-    "4 column rows, 8 row outputs, 3 blocks an SM": ({"SSIM_COL_ROWS": 4, "SSIM_ROW_OUTS": 8, "SSIM_MIN_BLOCKS": 3}, 32),
-    "the tile by loads and stores, no cp.async": ({"SSIM_SYNC_LOAD": 1}, 64),
-    "no column pass (wrong values)": ({"SSIM_SKIP_COLUMNS": 1}, 64),
-    "no row pass (wrong values)": ({"SSIM_SKIP_ROWS": 1}, 64),
+_POISON = ("  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_words);\n",
+           "  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_words);\n"
+           "  {\n    unsigned bytes;\n    asm(\"mov.u32 %0, %%dynamic_smem_size;\" : \"=r\"(bytes));\n"
+           "    for (unsigned i = threadIdx.x; i < bytes / 4; i += blockDim.x) reinterpret_cast<unsigned*>(smem)[i] = "
+           "0x7fc00bad;\n    __syncthreads();\n  }\n")
+_NO_SHORT_RANKED = ("    if (a.measure == kRanked) {\n      write_ranked(a, start, n, [&](int r) { return "
+                    "static_cast<int>(s_val[r]); });\n      return;\n    }\n", "")
+_NO_LONG_RANKED = ("    if (a.measure == kRanked) {\n      write_ranked(a, start, n, [&](int r) { return cur < 0 ? r : "
+                   "static_cast<int>(buf[cur][1][r]); });\n      return;\n    }\n", "")
+_REDUX_SUMS = ("    greater = warp_sum(greater);\n    if (keys) {\n      above = warp_sum(above);\n"
+               "      equal = warp_sum(equal);",
+               "    greater = __reduce_add_sync(kFull, greater);\n    if (keys) {\n"
+               "      above = __reduce_add_sync(kFull, above);\n      equal = __reduce_add_sync(kFull, equal);")
+_OUT_OF_LINE = {name: (f"__device__ void {name}(", f"__device__ __noinline__ void {name}(")
+                for name in ("long_query", "count_against", "finish_counted")}
+_BLOCKS_OF_256 = ("__launch_bounds__(kMaxThreads, kThreadsAnSm / kMaxThreads)", "__launch_bounds__(256, 1)")
+_VOLATILE_COUNTS = ("            const int above = pos.count[3 * j + 1], equal = pos.count[3 * j + 2];",
+                    "            const volatile int* c = pos.count + 3 * j;\n            const int above = c[1], equal = c[2];")
+_LONG_ROWS_BY_POINTER = ("      write_ranked(a, start, n, [&](int r) { return cur < 0 ? r : static_cast<int>(buf[cur][1][r]); });",
+                         "      const unsigned* rows = cur < 0 ? nullptr : buf[cur][1];\n"
+                         "      write_ranked(a, start, n, [&](int r) { return rows ? static_cast<int>(rows[r]) : r; });")
+RET_FAULT_BUILDS = {  # name: (the source text replaced in csrc/retrieval.cu, extra nvcc flags)
+    "shipped": ([], []),  # the package's own build: shuffles for the counting path's warp sums
+    "reduce_add sums": ([_REDUX_SUMS], []),
+    "reduce_add sums + ptxas -O1": ([_REDUX_SUMS], ["-Xptxas", "-O1"]),
+    "reduce_add sums + ptxas -O2": ([_REDUX_SUMS], ["-Xptxas", "-O2"]),
+    "reduce_add sums + dynamic shared memory poisoned at entry": ([_REDUX_SUMS, _POISON], []),
+    # registers for blocks of at most 256 threads (255 a thread, almost no spills): right for queries of up to 4,096
+    "reduce_add sums + registers for blocks of 256": ([_REDUX_SUMS, _BLOCKS_OF_256], []),
+    "reduce_add sums + volatile reads of the counts": ([_REDUX_SUMS, _VOLATILE_COUNTS], []),
+    "reduce_add sums + no ranked-layout write in the long path": ([_REDUX_SUMS, _NO_LONG_RANKED], []),
+    "reduce_add sums + no ranked-layout writes": ([_REDUX_SUMS, _NO_SHORT_RANKED, _NO_LONG_RANKED], []),
+    "reduce_add sums + the long path's rows by a pointer": ([_REDUX_SUMS, _LONG_ROWS_BY_POINTER], []),
+    "reduce_add sums + long_query out of line": ([_REDUX_SUMS, _OUT_OF_LINE["long_query"]], []),
+    "reduce_add sums + count_against out of line": ([_REDUX_SUMS, _OUT_OF_LINE["count_against"]], []),
+    "reduce_add sums + finish_counted out of line": ([_REDUX_SUMS, _OUT_OF_LINE["finish_counted"]], []),
 }
-SSIM_SWITCHES = {  # the source text each ablation-only switch is placed at, and what replaces it
-    "SSIM_SYNC_LOAD": ("      copy_async(s_p + y * in_s + x, prow + gx);\n      copy_async(s_t + y * in_s + x, trow + gx);",
-                       "      if (SSIM_SYNC_LOAD) {\n        s_p[y * in_s + x] = prow[gx];\n        s_t[y * in_s + x] = trow[gx];\n"
-                       "      } else {\n        copy_async(s_p + y * in_s + x, prow + gx);\n"
-                       "        copy_async(s_t + y * in_s + x, trow + gx);\n      }"),
-    "SSIM_SKIP_ROWS": ("  for (int task = t; task < in_h * kSegments; task += kThreads) {",
-                       "  for (int task = SSIM_SKIP_ROWS ? in_h * kSegments : t; task < in_h * kSegments; task += kThreads) {"),
-    "SSIM_SKIP_COLUMNS": ("  for (int r = 0; r < kh + kColRows - 1; ++r) {",
-                          "  for (int r = 0; r < (SSIM_SKIP_COLUMNS ? 0 : kh + kColRows - 1); ++r) {"),
+RET_FAULT_TRIALS = 20
+
+
+def _retrieval_fault(builds, trials: int) -> dict:
+    """Phase 3's small queries (1 to 64 documents, NaN, +-inf and +-0.0 scores, a 0.4 relevant share) through
+    each build of ``RET_FAULT_BUILDS`` named in ``builds``, ``trials`` seeds, against the plain version at
+    phase 3's tolerance: the queries whose value differs, for each build and measure (every measure but
+    the ranked layout, which some builds leave out)."""
+    from torchmetrics_tpu_torch.functional.retrieval import kernels as rk
+
+    version = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True).stdout.strip().splitlines()
+    print(f"[retrieval fault] nvcc: {version[-1] if version else 'unknown'}", flush=True)
+    bad = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        chosen = {name: RET_FAULT_BUILDS[name] for name in builds if name != "shipped"}
+        fns = {"shipped": krt._launch_fn()} if "shipped" in builds else {}  # the package's own build
+        for name, (lib, report) in _edited_builds("retrieval", chosen, workdir).items():
+            print(f"[retrieval fault] {name}: {report}", flush=True)
+            fns[name] = _retrieval_entry(lib)
+        for trial in range(trials):
+            gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1000 + trial)
+            p, t, i = cs._retrieval_case([5, 1, 40, 2, 64, 17] * 30, gen, 0.4, ("nonfinite", "none_all"))
+            ps, ts, offsets, longest = rk.query_layout(p, t, i)
+            plain_rg = rk._rank_groups_plain(p, t, i)
+            for measure in cs.RET_MEASURES:
+                for top_k in (None, 10):
+                    want = rk._retrieval_scores_plain(p, t, i, measure, top_k, False)[0]
+                    tol = 1e-6 * want.abs() + (cs._retrieval_terms(plain_rg, top_k) + 4) * 2.0**-24
+                    for name, fn in fns.items():
+                        got = _retrieval_call(fn, ps, ts, offsets, measure, top_k, longest)()[0]
+                        key = f"{name}, {measure}@{top_k}"
+                        bad[key] = bad.get(key, 0) + int(((got - want).abs() > tol).sum())
+    for key, count in bad.items():
+        print(f"[retrieval fault] {key}: {count} queries of {trials * 180} differ from plain", flush=True)
+    return bad
+
+
+SSIM_VARIANTS = {  # name: (the source text replaced in csrc/ssim.cu, the tile's output rows); "shipped" first
+    "shipped (8 column rows, 4 row outputs a thread, 2 blocks an SM)": ([], 64),
+    "8 row outputs a thread": ([("constexpr int kRowOuts = 4;", "constexpr int kRowOuts = 8;")], 64),
+    "4 column rows a thread (32 x 32 tiles)": ([("constexpr int kColRows = 8;", "constexpr int kColRows = 4;")], 32),
+    "4 column rows, 3 blocks an SM": ([("constexpr int kColRows = 8;", "constexpr int kColRows = 4;"),
+                                       ("constexpr int kMinBlocks = 2;", "constexpr int kMinBlocks = 3;")], 32),
+    "4 column rows, 8 row outputs, 3 blocks an SM": ([("constexpr int kColRows = 8;", "constexpr int kColRows = 4;"),
+                                                      ("constexpr int kRowOuts = 4;", "constexpr int kRowOuts = 8;"),
+                                                      ("constexpr int kMinBlocks = 2;", "constexpr int kMinBlocks = 3;")],
+                                                     32),
+    "the tile by loads and stores, no cp.async": ([
+        ("      copy_async(s_p + y * in_s + x, prow + gx);\n      copy_async(s_t + y * in_s + x, trow + gx);",
+         "      s_p[y * in_s + x] = prow[gx];\n      s_t[y * in_s + x] = trow[gx];")], 64),
+    "no column pass (wrong values)": ([("  for (int r = 0; r < kh + kColRows - 1; ++r) {",
+                                       "  for (int r = 0; r < 0; ++r) {")], 64),
+    "no row pass (wrong values)": ([("  for (int task = t; task < in_h * kSegments; task += kThreads) {",
+                                    "  for (int task = in_h * kSegments; task < in_h * kSegments; task += kThreads) {")],
+                                   64),
 }
 
 
 def _ssim_libraries(workdir: str) -> dict:
-    src = open(os.path.join(_build.CSRC_DIR, "ssim.cu")).read()
-    for old, new in SSIM_SWITCHES.values():
-        if src.count(old) != 1:
-            raise RuntimeError(f"kernel_ablation: the ssim source changed, cannot place a switch at {old!r}")
-        src = src.replace(old, new)
-    path = os.path.join(workdir, "ssim_ablation.cu")
-    with open(path, "w") as f:
-        f.write(src)
-    off = {switch: 0 for switch in SSIM_SWITCHES}
-    jobs = {name: (path, [f"-D{k}={v}" for k, v in {**off, **defines}.items()])
-            for name, (defines, _) in SSIM_VARIANTS.items()}
-    libs = _nvcc_all(jobs)
+    builds = {name: (edits, []) for name, (edits, _) in SSIM_VARIANTS.items()}
     entries = {}
-    for name, lib in libs.items():
+    for name, (lib, _) in _edited_builds("ssim", builds, workdir).items():
         fn = lib.ssim_window_launch
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, p, p, p, p, f, f, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, f, ctypes.c_double, i, p]
@@ -828,7 +902,7 @@ def _ssim(flush: torch.Tensor, gen: torch.Generator) -> dict:
         names = list(SSIM_VARIANTS)
         for turn in (names, names[::-1]):
             for name in turn:
-                defines, tile_h = SSIM_VARIANTS[name]
+                _, tile_h = SSIM_VARIANTS[name]
                 for level, (p_, t_) in enumerate(scales):
                     b, c, h, w = p_.shape
                     g = kss.plan(b, c, h, w, 11, 11, False)
@@ -875,6 +949,9 @@ def main() -> int:
                                 "retrieval-builds,ssim",
                         help="comma-separated sections to run")
     parser.add_argument("--parent", help="a checkout of the commit before the calibration redesign, timed beside it")
+    parser.add_argument("--fault-builds", default=",".join(RET_FAULT_BUILDS),
+                        help="retrieval-fault: comma-separated builds of RET_FAULT_BUILDS to run")
+    parser.add_argument("--fault-trials", type=int, default=RET_FAULT_TRIALS, help="retrieval-fault: seeds to run")
     parser.add_argument("--json", help="also write the times to this file")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -899,6 +976,8 @@ def main() -> int:
         record["retrieval-builds"] = _retrieval_builds(flush, gen)
     if "retrieval-occupancy" in sections:
         record["retrieval-occupancy"] = _retrieval_occupancy(flush, gen)
+    if "retrieval-fault" in sections:
+        record["retrieval-fault"] = _retrieval_fault(args.fault_builds.split(","), args.fault_trials)
     if "ssim" in sections:
         record["ssim"] = _ssim(flush, gen)
     if args.json:

@@ -53,13 +53,15 @@
 //   carried as the value, 4 passes of 8 bits in shared memory (a warp's
 //   equal digits found by a match, the digit-major histogram of warps
 //   scanned by the block, one scatter; two histograms, the next zeroed
-//   during the scan of this one), then the scan of the ranked words;
+//   during the scan of this one), then the scan of the ranked words (the
+//   ranked layout is written from the sorted order instead, consecutive ranks
+//   a warp, so that its writes coalesce);
 //   past 16,384 documents (the long path) the same passes a tile of 8,192 at
 //   a time through a global scratch of 16 bytes a row, the four digits'
 //   histograms counted in one sweep first and a pass whose digit is the same
 //   for every document skipped;
-// - which path: the launcher's thresholds (at most 64 positives counted in a
-//   short query, 192 in a long one) are tools/kernel_ablation.py's
+// - which path: kCountShort and kCountLong (at most 64 positives counted in
+//   a short query, 192 in a long one) are tools/kernel_ablation.py's
 //   crossovers; the registers are sized for 1,024 threads an SM (64 a
 //   thread): sized for 2,048 the counting path ran 0.062 against 0.077 ms at
 //   MS MARCO's shape, the sort path 0.44 against 0.27 ms;
@@ -76,10 +78,6 @@
 #include <climits>
 #include <cstdint>
 
-#ifndef RETRIEVAL_THREADS_AN_SM
-#define RETRIEVAL_THREADS_AN_SM 1024  // threads an SM the registers are sized for
-#endif
-
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -89,6 +87,11 @@ constexpr int kLongItems = 8;      // keys a thread a tile of the long path
 constexpr int kLongTile = kLongItems * kMaxThreads;  // 8,192
 constexpr int kDigits = 256;       // 8 bits a radix pass, 4 passes
 constexpr int kMaxPositives = 256;  // the counting path's list of positives in shared memory
+// a query of the short path with at most kCountShort positives takes the counting path, one past
+// 16 x threads documents with at most kCountLong (tools/kernel_ablation.py's crossovers)
+constexpr int kCountShort = 64;
+constexpr int kCountLong = 192;
+constexpr int kThreadsAnSm = 1024;  // threads an SM the registers are sized for: 64 a thread
 
 enum Measure {
   kPrecision = 0,
@@ -116,8 +119,6 @@ struct Args {
   int k_mask;      // min(top_k, INT_MAX)
   float k_value;   // float32(top_k)
   int adaptive;    // precision's adaptive_k
-  int count_short;  // a query of the short path with at most this many positives takes the counting path
-  int count_long;   // the same past 16 x threads documents
 };
 
 // Order-preserving key of a non-NaN score: larger score, larger key; -0.0 as +0.0.
@@ -334,10 +335,6 @@ __device__ void scan_chunk(const Args& a, const unsigned long long (&v)[E], long
         if (r + 1 >= n || starts_run(true, key, next)) acc.a0 += run.rp * (run.pn - 0.5 * run.rn);
         break;
       }
-      case kRanked:
-        a.out[start + r] = x;
-        a.ranked[start + r] = static_cast<int>(start) + doc_of(v[e]);
-        break;
       default:
         break;
     }
@@ -376,7 +373,7 @@ __device__ void write_value(const Args& a, int g, int n, double n_rel, double a0
 __device__ void finish(const Args& a, int g, int n, double n_rel, Acc acc) {
   const double a0 = block_sum(acc.a0), a1 = block_sum(acc.a1), a2 = block_sum(acc.a2);
   const int first = a.measure == kReciprocalRank ? block_min(acc.first) : INT_MAX;
-  if (threadIdx.x == 0 && a.measure != kRanked) write_value(a, g, n, n_rel, a0, a1, a2, first);
+  if (threadIdx.x == 0) write_value(a, g, n, n_rel, a0, a1, a2, first);
 }
 
 // ---------------------------------------------------------------- what a query's read gives
@@ -448,6 +445,10 @@ __device__ void gather_positives(const unsigned long long (&v)[E], const float (
 }
 
 // Each positive's counts over this thread's E items, summed a warp, then added into the block's.
+// The warp sums are shuffles: with __reduce_add_sync here, CUDA 12.9's ptxas at -O2 and -O3 built a
+// kernel whose AUROC was wrong on queries of 33-64 documents whenever the long path wrote the ranked
+// layout, and right at -O1; the fault is not diagnosed (tools/kernel_ablation.py's retrieval-fault
+// section rebuilds it).
 template <int E>
 __device__ void count_against(const unsigned long long (&v)[E], const bool (&valid)[E], int n_pos, bool keys,
                               const Positives& pos) {
@@ -464,10 +465,10 @@ __device__ void count_against(const unsigned long long (&v)[E], const bool (&val
         equal += valid[e] && key_of(v[e]) == k;
       }
     }
-    greater = __reduce_add_sync(kFull, greater);
+    greater = warp_sum(greater);
     if (keys) {
-      above = __reduce_add_sync(kFull, above);
-      equal = __reduce_add_sync(kFull, equal);
+      above = warp_sum(above);
+      equal = warp_sum(equal);
     }
     if (lane == 0) {
       atomicAdd(pos.count + 3 * p, static_cast<int>(greater));
@@ -561,7 +562,7 @@ __device__ void finish_counted(const Args& a, int g, int n, const Stats& st, con
 
 __device__ __forceinline__ bool counts(const Args& a, const Stats& st, bool long_query) {
   return a.measure != kRanked && (a.measure == kNdcg || !st.nonbinary) && st.n_pos <= kMaxPositives &&
-         st.n_pos <= (long_query ? a.count_long : a.count_short);
+         st.n_pos <= (long_query ? kCountLong : kCountShort);
 }
 
 // ---------------------------------------------------------------- the radix sort
@@ -662,6 +663,17 @@ __device__ void sort_tile(unsigned (&dk)[E], unsigned (&val)[E], unsigned* s_key
   }
 }
 
+// The ranked layout of a sorted query, rank r's row given by doc_at(r): consecutive ranks a warp,
+// so that the writes coalesce.
+template <typename DocAt>
+__device__ __forceinline__ void write_ranked(const Args& a, long long start, int n, DocAt doc_at) {
+  for (int r = threadIdx.x; r < n; r += blockDim.x) {
+    const int doc = doc_at(r);
+    a.out[start + r] = a.target[start + doc];
+    a.ranked[start + r] = static_cast<int>(start) + doc;
+  }
+}
+
 // ---------------------------------------------------------------- the short path
 // A query of up to E x threads documents: one read into registers, then the counting path or a
 // sort in shared memory and one scan.
@@ -710,6 +722,10 @@ __device__ void short_query(const Args& a, int g, long long start, int n, unsign
       val[e] = i;
     }
     sort_tile<E>(dk, val, s_key, s_val, s_hist);
+    if (a.measure == kRanked) {
+      write_ranked(a, start, n, [&](int r) { return static_cast<int>(s_val[r]); });
+      return;
+    }
     unsigned long long w[E];
     blocked_words<E>(s_key, s_val, 0, n, w);
     Seg carry = {0, 0.0, 0.0, 0.0, 0.0};
@@ -887,6 +903,10 @@ __device__ void long_query(const Args& a, int g, long long start, int n, unsigne
       }
       cur = next;
     }
+    if (a.measure == kRanked) {
+      write_ranked(a, start, n, [&](int r) { return cur < 0 ? r : static_cast<int>(buf[cur][1][r]); });
+      return;
+    }
     // the scan, a chunk of kLongItems x threads words at a time
     Seg carry = {0, 0.0, 0.0, 0.0, 0.0};
     auto key_at = [&](int r) -> unsigned { return cur < 0 ? key_for(src[start + r]) : ~buf[cur][0][r]; };
@@ -908,9 +928,9 @@ __device__ void long_query(const Args& a, int g, long long start, int n, unsigne
 
 __device__ __forceinline__ int next_pow2(int n) { return n <= 1 ? 1 : 1 << (32 - __clz(n - 1)); }
 
-// One block a query, the registers sized for RETRIEVAL_THREADS_AN_SM threads an SM (64 a thread at
-// 1,024; bounded by blocks of 256 alone they took 255 and left one block an SM).
-__global__ void __launch_bounds__(kMaxThreads, RETRIEVAL_THREADS_AN_SM / kMaxThreads) retrieval_kernel(Args a) {
+// One block a query, the registers sized for kThreadsAnSm threads an SM (bounded by blocks of 256
+// alone they took 255 and left one block an SM).
+__global__ void __launch_bounds__(kMaxThreads, kThreadsAnSm / kMaxThreads) retrieval_kernel(Args a) {
   extern __shared__ unsigned long long smem_words[];  // 8-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_words);
   const int g = blockIdx.x;
@@ -939,14 +959,13 @@ constexpr size_t kStaticShared = 4096;  // the block sums' and the scan's static
 // order of query id; offsets (G + 1,) int64. Scalar measures write out (G,) and n_rel
 // (G,); the ranked layout writes out (n,) (the target at each rank) and ranked (n,)
 // int32 (the row at each rank). scratch: 4 n 32-bit words when a query is longer than
-// 16 x threads, else unused. count_short, count_long: the most positives of a query the
-// counting path takes (short and long queries). One block of `threads` a query,
+// 16 x threads, else unused. One block of `threads` a query,
 // `shared_bytes` of dynamic shared memory (the widest sort's keys, values and histogram of
 // warps, or the long path's tile; at least the counting path's list).
 extern "C" int retrieval_groups_launch(const void* preds, const void* target, const void* offsets, int n_groups,
                                        int measure, int has_k, int k_mask, float k_value, int adaptive, void* out,
                                        void* n_rel, void* ranked, void* scratch, int threads, int shared_bytes,
-                                       int count_short, int count_long, void* stream_ptr) {
+                                       void* stream_ptr) {
   Args a;
   a.preds = static_cast<const float*>(preds);
   a.target = static_cast<const float*>(target);
@@ -960,8 +979,6 @@ extern "C" int retrieval_groups_launch(const void* preds, const void* target, co
   a.k_mask = k_mask;
   a.k_value = k_value;
   a.adaptive = adaptive;
-  a.count_short = count_short;
-  a.count_long = count_long;
   if (measure < kPrecision || measure > kRanked || threads < 32 || threads > kMaxThreads || threads % 32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

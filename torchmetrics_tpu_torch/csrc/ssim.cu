@@ -84,25 +84,16 @@
 
 #include <cstdint>
 
-#ifndef SSIM_COL_ROWS
-#define SSIM_COL_ROWS 8  // consecutive output rows a column-pass thread
-#endif
-#ifndef SSIM_ROW_OUTS
-#define SSIM_ROW_OUTS 4  // consecutive outputs a row-pass thread
-#endif
-#ifndef SSIM_MIN_BLOCKS
-#define SSIM_MIN_BLOCKS 2  // blocks an SM the registers are sized for (128 a thread at 2)
-#endif
-
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTileW = 32;                 // output columns a block: a warp's lanes
 constexpr int kWarps = 8;
 constexpr int kThreads = kTileW * kWarps;  // 256
-constexpr int kColRows = SSIM_COL_ROWS;
-constexpr int kTileH = kWarps * kColRows;  // output rows a block
-constexpr int kRowOuts = SSIM_ROW_OUTS;
+constexpr int kColRows = 8;                // consecutive output rows a column-pass thread
+constexpr int kTileH = kWarps * kColRows;  // output rows a block: kernels/ssim.py's TILE_H
+constexpr int kRowOuts = 4;                // consecutive outputs a row-pass thread
+constexpr int kMinBlocks = 2;              // blocks an SM the registers are sized for: 128 a thread
 constexpr int kSegments = kTileW / kRowOuts;  // row-pass threads a row
 constexpr int kRowStride = kTileW + 1;        // the row moments' row: conflict-free row-pass stores
 
@@ -226,7 +217,7 @@ __device__ __forceinline__ void row_pass(const float* rp, const float* rt, const
 }
 
 template <int K>
-__global__ void __launch_bounds__(kThreads, SSIM_MIN_BLOCKS) ssim_window_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks) ssim_window_kernel(Args a) {
   extern __shared__ double smem[];
   const int kh = K ? K : a.kh, kw = K ? K : a.kw, ph = (kh - 1) / 2, pw = (kw - 1) / 2;
   const int in_h = kTileH + 2 * ph, in_w = kTileW + 2 * pw, in_s = in_w | 1;  // odd stride: no bank conflicts
@@ -387,7 +378,7 @@ int launch(const Args& a, dim3 grid, int shared_bytes, cudaStream_t stream) {
 // c2 by value; out_ssim (B,), out_cs (B,) or null, full (B, C, H, W) or
 // null; partials (B x blocks an image x 2) doubles; ticket one int, zero. The grid
 // covers rows [row0, row0 + rows) x cols [col0, col0 + cols) of every plane in tiles of
-// 32 x (8 x SSIM_COL_ROWS): (cdiv(cols, 32), cdiv(rows, tile rows), B * C) blocks of 256
+// 32 x 64: (cdiv(cols, 32), cdiv(rows, 64), B * C) blocks of 256
 // threads and `shared_bytes` of dynamic shared memory, which must equal shared_bytes_for.
 extern "C" int ssim_window_launch(const void* preds, const void* target, const void* taps_h, const void* taps_w,
                                   const void* consts, float c1, float c2, void* out_ssim, void* out_cs, void* full,

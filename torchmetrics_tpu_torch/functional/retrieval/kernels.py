@@ -71,37 +71,20 @@ def query_layout(preds: Tensor, target: Tensor, indexes: Tensor) -> Tuple[Tensor
 
     ``offsets`` (G + 1,) int64 bound each query's run of rows, ``longest`` is
     the most rows of a query. The outer key of the JAX package's ``lexsort``.
-    Rows that come in runs of one id (updates of whole queries) are put in
-    order by sorting the runs, not the rows, and are not copied when the runs
-    are in order of id already; rows in more runs than half their count are
-    sorted (a stable ``torch.sort`` of the ids). Two host reads either way.
+    Rows whose ids never decrease (updates of whole queries in order of id)
+    are in order already and are not copied; the rest are sorted (a stable
+    ``torch.sort`` of the ids). Three host reads either way: the order test,
+    the count of queries and the longest.
     """
-    n = indexes.shape[0]
-    ids, lengths = torch.unique_consecutive(indexes, return_counts=True)  # the runs; a host read
-    if 2 * ids.shape[0] > n:
+    if bool((indexes[1:] >= indexes[:-1]).all()):  # a host read
+        preds, target = preds.contiguous(), target.contiguous()
+    else:
         order = torch.sort(indexes, stable=True).indices
-        _, counts = torch.unique_consecutive(indexes[order], return_counts=True)
-        offsets = torch.zeros((counts.shape[0] + 1,), dtype=torch.int64, device=preds.device)
-        torch.cumsum(counts, 0, out=offsets[1:])
-        return preds[order].contiguous(), target[order].contiguous(), offsets, int(counts.max())
-    in_order, longest = torch.stack([(ids[1:] > ids[:-1]).all(), lengths.max()]).tolist()  # a host read
-    if in_order:  # every query one run, the runs in order of id: the rows are in order already
-        offsets = torch.zeros((ids.shape[0] + 1,), dtype=torch.int64, device=preds.device)
-        torch.cumsum(lengths, 0, out=offsets[1:])
-        return preds.contiguous(), target.contiguous(), offsets, longest
-    starts = torch.cumsum(lengths, 0) - lengths
-    ids, perm = torch.sort(ids, stable=True)  # the runs by id; runs of one id keep their order
-    first = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
-    torch.ne(ids[1:], ids[:-1], out=first[1:])
-    group = torch.cumsum(first, 0) - 1
-    counts = torch.zeros(ids.shape, dtype=torch.int64, device=ids.device).index_add_(0, group, lengths[perm])
-    n_groups, longest = torch.stack([group[-1] + 1, counts.max()]).tolist()  # a host read
-    offsets = torch.zeros((n_groups + 1,), dtype=torch.int64, device=preds.device)
-    torch.cumsum(counts[:n_groups], 0, out=offsets[1:])
-    run_lengths = lengths[perm]
-    shift = starts[perm] - (torch.cumsum(run_lengths, 0) - run_lengths)  # each run's rows: from its start
-    rows = torch.repeat_interleave(shift, run_lengths, output_size=n) + torch.arange(n, device=starts.device)
-    return preds[rows].contiguous(), target[rows].contiguous(), offsets, longest
+        preds, target, indexes = preds[order].contiguous(), target[order].contiguous(), indexes[order]
+    _, counts = torch.unique_consecutive(indexes, return_counts=True)  # a host read
+    offsets = torch.zeros((counts.shape[0] + 1,), dtype=torch.int64, device=preds.device)
+    torch.cumsum(counts, 0, out=offsets[1:])
+    return preds, target, offsets, int(counts.max())  # a host read
 
 
 def rank_groups(preds: Tensor, target: Tensor, indexes: Tensor, num_groups: Optional[int] = None) -> RankedGroups:

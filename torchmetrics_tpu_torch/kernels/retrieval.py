@@ -38,9 +38,10 @@ SHARED_WIDTH = MAX_ITEMS * MAX_THREADS  # the longest query sorted in shared mem
 LONG_TILE = 8 * MAX_THREADS  # the long path's tile: 8 keys a thread
 DIGITS = 256  # 8 bits a radix pass
 MAX_POSITIVES = 256  # the counting path's list of positives in shared memory
-# a query with at most this many positive targets takes the counting path (n x n_pos compares), the rest
-# the radix sort: the crossovers of tools/kernel_ablation.py's retrieval section (AUROC's ~55 positives at
-# 256 documents to ~145 at 16,384, AP's ~75 to ~215; past 16,384 documents AUROC's ~220, AP's past 256)
+# the kernel's kCountShort and kCountLong, for the tests: a query with at most this many positive targets
+# takes the counting path (n x n_pos compares), the rest the radix sort; the crossovers of
+# tools/kernel_ablation.py's retrieval section (AUROC's ~55 positives at 256 documents to ~145 at 16,384,
+# AP's ~75 to ~215; past 16,384 documents AUROC's ~220, AP's past 256)
 COUNT_SHORT = 64
 COUNT_LONG = 192
 WARP_WIDTH = 256  # up to this width a query's block is one warp, 8 words a lane at most
@@ -49,6 +50,8 @@ ITEMS = 8  # words a thread above WARP_WIDTH (16 at SHARED_WIDTH): at MS MARCO's
 MAX_ROWS = 2**30  # ranks and rows are int32 in the kernel; the long path's scratch is 2 words a row
 
 _launch: Optional[ctypes._CFuncPtr] = None
+_p, _i = ctypes.c_void_p, ctypes.c_int
+ARGTYPES = [_p, _p, _p, _i, _i, _i, _i, ctypes.c_float, _i, _p, _p, _p, _p, _i, _i, _p]  # retrieval_groups_launch
 
 
 class Plan(NamedTuple):
@@ -98,8 +101,7 @@ def _launch_fn() -> ctypes._CFuncPtr:
     global _launch
     if _launch is None:
         fn = load_library(SOURCE).retrieval_groups_launch
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, ctypes.c_float, i, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
@@ -165,7 +167,7 @@ def retrieval_groups(preds: Tensor, target: Tensor, offsets: Tensor, measure: st
         preds.data_ptr(), target.data_ptr(), offsets.data_ptr(), n_groups, MEASURES[measure], int(top_k is not None),
         min(top_k or 0, 2**31 - 1), float(np.float32(top_k or 0)), int(adaptive_k),
         out.data_ptr(), 0 if ranked else second.data_ptr(), second.data_ptr() if ranked else 0,
-        0 if scratch is None else scratch.data_ptr(), g.threads, g.shared_bytes, COUNT_SHORT, COUNT_LONG,
+        0 if scratch is None else scratch.data_ptr(), g.threads, g.shared_bytes,
         torch.cuda.current_stream(device).cuda_stream,
     )
     launch_on("retrieval_groups", device, _launch_fn(), args)
