@@ -55,13 +55,13 @@ its long path or both, and with eight ballots in place of the digit match,
 each build's ptxas report printed, timed at MS MARCO's shape. Retrieval
 fault: phase 3's small queries with non-finite scores (1 to 64 documents)
 over 20 seeds, every measure, through the shipped build and builds with the
-counting path's warp sums by ``__reduce_add_sync`` (its earlier form, whose
-AUROC is wrong at 33 to 64 documents), alone and with one change each: ptxas
-at ``-O1`` or ``-O2``, the dynamic shared memory filled with a NaN pattern at
-entry (a read of a word the kernel did not write then shows), registers for
-blocks of 256 (no spills), volatile reads of the counts, the ranked layout's
-writes left out or changed, a function kept out of line: the queries of each
-measure that differ from the plain version. SSIM: the source built with its column-pass rows a
+counting path's warp sums by ``__reduce_add_sync`` (an earlier form, whose
+AUROC was wrong at 33 to 64 documents while one kernel also wrote the ranked
+layout), alone and with one change each: ptxas at ``-O1`` or ``-O2``, the
+dynamic shared memory filled with a NaN pattern at entry (a read of a word
+the kernel did not write then shows), registers for blocks of 256 (no
+spills), ``count_against`` kept out of line: the queries of each measure
+that differ from the plain version. SSIM: the source built with its column-pass rows a
 thread (``kColRows``: 8 or 4, tiles of 32 x 64 or 32 x 32), row-pass outputs
 a thread (``kRowOuts``: 4 or 8) and blocks an SM in its launch bounds
 (``kMinBlocks``), with the tile loaded by plain loads and stores in place of
@@ -736,9 +736,9 @@ def _retrieval_occupancy(flush: torch.Tensor, gen: torch.Generator) -> dict:
     return rows
 
 
-_NO_LONG_PATH = ("    long_query(a, g, start, n, smem);\n    return;", "    return;")
+_NO_LONG_PATH = ("    long_query<Layout>(a, g, start, n, smem);\n    return;", "    return;")
 _NO_16_WORDS = [("constexpr int kMaxItems = 16;", "constexpr int kMaxItems = 8;"),
-                ("    default: short_query<16>(a, g, start, n, smem); break;", "    default: break;")]
+                ("    default: short_path<16, Layout>(a, g, start, n, smem); break;", "    default: break;")]
 RET_BUILDS = {  # name: (the source text replaced in csrc/retrieval.cu, extra nvcc flags)
     "shipped": ([], []),
     "no 16-word instantiation": (_NO_16_WORDS, []),
@@ -786,22 +786,12 @@ _POISON = ("  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_words)
            "  {\n    unsigned bytes;\n    asm(\"mov.u32 %0, %%dynamic_smem_size;\" : \"=r\"(bytes));\n"
            "    for (unsigned i = threadIdx.x; i < bytes / 4; i += blockDim.x) reinterpret_cast<unsigned*>(smem)[i] = "
            "0x7fc00bad;\n    __syncthreads();\n  }\n")
-_NO_SHORT_RANKED = ("    if (a.measure == kRanked) {\n      write_ranked(a, start, n, [&](int r) { return "
-                    "static_cast<int>(s_val[r]); });\n      return;\n    }\n", "")
-_NO_LONG_RANKED = ("    if (a.measure == kRanked) {\n      write_ranked(a, start, n, [&](int r) { return cur < 0 ? r : "
-                   "static_cast<int>(buf[cur][1][r]); });\n      return;\n    }\n", "")
 _REDUX_SUMS = ("    greater = warp_sum(greater);\n    if (keys) {\n      above = warp_sum(above);\n"
                "      equal = warp_sum(equal);",
                "    greater = __reduce_add_sync(kFull, greater);\n    if (keys) {\n"
                "      above = __reduce_add_sync(kFull, above);\n      equal = __reduce_add_sync(kFull, equal);")
-_OUT_OF_LINE = {name: (f"__device__ void {name}(", f"__device__ __noinline__ void {name}(")
-                for name in ("long_query", "count_against", "finish_counted")}
 _BLOCKS_OF_256 = ("__launch_bounds__(kMaxThreads, kThreadsAnSm / kMaxThreads)", "__launch_bounds__(256, 1)")
-_VOLATILE_COUNTS = ("            const int above = pos.count[3 * j + 1], equal = pos.count[3 * j + 2];",
-                    "            const volatile int* c = pos.count + 3 * j;\n            const int above = c[1], equal = c[2];")
-_LONG_ROWS_BY_POINTER = ("      write_ranked(a, start, n, [&](int r) { return cur < 0 ? r : static_cast<int>(buf[cur][1][r]); });",
-                         "      const unsigned* rows = cur < 0 ? nullptr : buf[cur][1];\n"
-                         "      write_ranked(a, start, n, [&](int r) { return rows ? static_cast<int>(rows[r]) : r; });")
+_COUNT_OUT_OF_LINE = ("__device__ void count_against(", "__device__ __noinline__ void count_against(")
 RET_FAULT_BUILDS = {  # name: (the source text replaced in csrc/retrieval.cu, extra nvcc flags)
     "shipped": ([], []),  # the package's own build: shuffles for the counting path's warp sums
     "reduce_add sums": ([_REDUX_SUMS], []),
@@ -810,13 +800,7 @@ RET_FAULT_BUILDS = {  # name: (the source text replaced in csrc/retrieval.cu, ex
     "reduce_add sums + dynamic shared memory poisoned at entry": ([_REDUX_SUMS, _POISON], []),
     # registers for blocks of at most 256 threads (255 a thread, almost no spills): right for queries of up to 4,096
     "reduce_add sums + registers for blocks of 256": ([_REDUX_SUMS, _BLOCKS_OF_256], []),
-    "reduce_add sums + volatile reads of the counts": ([_REDUX_SUMS, _VOLATILE_COUNTS], []),
-    "reduce_add sums + no ranked-layout write in the long path": ([_REDUX_SUMS, _NO_LONG_RANKED], []),
-    "reduce_add sums + no ranked-layout writes": ([_REDUX_SUMS, _NO_SHORT_RANKED, _NO_LONG_RANKED], []),
-    "reduce_add sums + the long path's rows by a pointer": ([_REDUX_SUMS, _LONG_ROWS_BY_POINTER], []),
-    "reduce_add sums + long_query out of line": ([_REDUX_SUMS, _OUT_OF_LINE["long_query"]], []),
-    "reduce_add sums + count_against out of line": ([_REDUX_SUMS, _OUT_OF_LINE["count_against"]], []),
-    "reduce_add sums + finish_counted out of line": ([_REDUX_SUMS, _OUT_OF_LINE["finish_counted"]], []),
+    "reduce_add sums + count_against out of line": ([_REDUX_SUMS, _COUNT_OUT_OF_LINE], []),
 }
 RET_FAULT_TRIALS = 20
 

@@ -53,18 +53,21 @@
 //   carried as the value, 4 passes of 8 bits in shared memory (a warp's
 //   equal digits found by a match, the digit-major histogram of warps
 //   scanned by the block, one scatter; two histograms, the next zeroed
-//   during the scan of this one), then the scan of the ranked words (the
-//   ranked layout is written from the sorted order instead, consecutive ranks
-//   a warp, so that its writes coalesce);
+//   during the scan of this one), then the scan of the ranked words;
+// - the ranked layout: a kernel of its own (the template's Layout), which
+//   reads the scores alone, sorts them as above and writes each rank's row
+//   and target from the sorted order, consecutive ranks a warp, so that the
+//   writes coalesce; the measures' kernel then holds no code of it;
 //   past 16,384 documents (the long path) the same passes a tile of 8,192 at
 //   a time through a global scratch of 16 bytes a row, the four digits'
 //   histograms counted in one sweep first and a pass whose digit is the same
 //   for every document skipped;
 // - which path: kCountShort and kCountLong (at most 64 positives counted in
-//   a short query, 192 in a long one) are tools/kernel_ablation.py's
-//   crossovers; the registers are sized for 1,024 threads an SM (64 a
-//   thread): sized for 2,048 the counting path ran 0.062 against 0.077 ms at
-//   MS MARCO's shape, the sort path 0.44 against 0.27 ms;
+//   a short query, 192 in a long one) lie between tools/kernel_ablation.py's
+//   crossovers of AUROC (38 positives at 256 documents to 125 at 16,384, 165
+//   at 100,000) and AP (63 to 195, 230); the registers are sized for 1,024
+//   threads an SM (64 a thread): sized for 2,048 the counting path ran 0.062
+//   against 0.077 ms at MS MARCO's shape, the sort path 0.44 against 0.27 ms;
 // - the targets are read back by position after the sort; the per-query
 //   sums are exact in double (counts, the wcum prefix, the AUROC pair count)
 //   and the float32 terms (AP's quotients, NDCG's discounted gains) are
@@ -561,7 +564,7 @@ __device__ void finish_counted(const Args& a, int g, int n, const Stats& st, con
 }
 
 __device__ __forceinline__ bool counts(const Args& a, const Stats& st, bool long_query) {
-  return a.measure != kRanked && (a.measure == kNdcg || !st.nonbinary) && st.n_pos <= kMaxPositives &&
+  return (a.measure == kNdcg || !st.nonbinary) && st.n_pos <= kMaxPositives &&
          st.n_pos <= (long_query ? kCountLong : kCountShort);
 }
 
@@ -722,16 +725,30 @@ __device__ void short_query(const Args& a, int g, long long start, int n, unsign
       val[e] = i;
     }
     sort_tile<E>(dk, val, s_key, s_val, s_hist);
-    if (a.measure == kRanked) {
-      write_ranked(a, start, n, [&](int r) { return static_cast<int>(s_val[r]); });
-      return;
-    }
     unsigned long long w[E];
     blocked_words<E>(s_key, s_val, 0, n, w);
     Seg carry = {0, 0.0, 0.0, 0.0, 0.0};
     scan_chunk<E>(a, w, start, n, 0, 0u, 0u, n_rel_f, pass == 1, carry, acc);
   }
   finish(a, g, n, st.n_rel, acc);
+}
+
+// The ranked layout of a query of up to E x threads documents: its keys sorted in shared memory, then
+// each rank's row and target written.
+template <int E>
+__device__ void short_layout(const Args& a, long long start, int n, unsigned char* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, width = E * blockDim.x;
+  unsigned dk[E], val[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = warp * 32 * E + e * 32 + lane;
+    dk[e] = ~(i < n ? key_for(a.preds[start + i]) : 0u);
+    val[e] = i;
+  }
+  unsigned* s_key = reinterpret_cast<unsigned*>(smem);
+  unsigned* s_val = s_key + width;
+  sort_tile<E>(dk, val, s_key, s_val, s_val + width);
+  write_ranked(a, start, n, [&](int r) { return static_cast<int>(s_val[r]); });
 }
 
 // ---------------------------------------------------------------- the long path
@@ -771,6 +788,8 @@ __device__ __forceinline__ void load_chunk(const Args& a, long long start, int n
   }
 }
 
+// Layout: the ranked layout (the sort, then each rank's row and target), no sums.
+template <bool Layout>
 __device__ void long_query(const Args& a, int g, long long start, int n, unsigned char* smem) {
   constexpr int E = kLongItems;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5, threads = blockDim.x;
@@ -780,7 +799,7 @@ __device__ void long_query(const Args& a, int g, long long start, int n, unsigne
   double rel = 0.0;
   int pos = 0;
   bool nonbinary = false;
-  for (int base = 0; base < n; base += kLongTile) {
+  for (int base = 0; !Layout && base < n; base += kLongTile) {
     load_chunk<E>(a, start, n, base, v, x, valid);
 #pragma unroll
     for (int e = 0; e < E; ++e) {
@@ -789,8 +808,8 @@ __device__ void long_query(const Args& a, int g, long long start, int n, unsigne
       nonbinary |= x[e] != 0.0f && x[e] != 1.0f;
     }
   }
-  const Stats st = block_stats(rel, pos, nonbinary);
-  if (counts(a, st, true)) {
+  const Stats st = Layout ? Stats{0.0, 0, 0, 0} : block_stats(rel, pos, nonbinary);
+  if (!Layout && counts(a, st, true)) {
     const Positives p = positives_in(smem);
     int carry = 0;
     for (int base = 0; base < n; base += kLongTile) {
@@ -817,7 +836,7 @@ __device__ void long_query(const Args& a, int g, long long start, int n, unsigne
                          {a.scratch + 4 * start + 2 * n, a.scratch + 4 * start + 3 * n}};
   const float n_rel_f = static_cast<float>(st.n_rel);
   Acc acc;
-  for (int order = 0; order < (a.measure == kNdcg ? 2 : 1); ++order) {
+  for (int order = 0; order < (!Layout && a.measure == kNdcg ? 2 : 1); ++order) {
     const float* src = order == 0 ? a.preds : a.target;  // order 1: the ideal order, by target
     // the four digits' histograms, in one sweep
     for (int i = t; i < 4 * kDigits; i += threads) s.count[i] = 0u;
@@ -903,7 +922,7 @@ __device__ void long_query(const Args& a, int g, long long start, int n, unsigne
       }
       cur = next;
     }
-    if (a.measure == kRanked) {
+    if (Layout) {
       write_ranked(a, start, n, [&](int r) { return cur < 0 ? r : static_cast<int>(buf[cur][1][r]); });
       return;
     }
@@ -928,8 +947,19 @@ __device__ void long_query(const Args& a, int g, long long start, int n, unsigne
 
 __device__ __forceinline__ int next_pow2(int n) { return n <= 1 ? 1 : 1 << (32 - __clz(n - 1)); }
 
+template <int E, bool Layout>
+__device__ __forceinline__ void short_path(const Args& a, int g, long long start, int n, unsigned char* smem) {
+  if constexpr (Layout) {
+    short_layout<E>(a, start, n, smem);
+  } else {
+    short_query<E>(a, g, start, n, smem);
+  }
+}
+
 // One block a query, the registers sized for kThreadsAnSm threads an SM (bounded by blocks of 256
-// alone they took 255 and left one block an SM).
+// alone they took 255 and left one block an SM). Layout: the ranked layout's kernel, apart from the
+// measures' so that neither's registers are allocated with the other's code.
+template <bool Layout>
 __global__ void __launch_bounds__(kMaxThreads, kThreadsAnSm / kMaxThreads) retrieval_kernel(Args a) {
   extern __shared__ unsigned long long smem_words[];  // 8-byte aligned
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_words);
@@ -938,15 +968,15 @@ __global__ void __launch_bounds__(kMaxThreads, kThreadsAnSm / kMaxThreads) retri
   const int n = static_cast<int>(a.offsets[g + 1] - start);
   const int threads = blockDim.x;
   if (n > kMaxItems * threads) {
-    long_query(a, g, start, n, smem);
+    long_query<Layout>(a, g, start, n, smem);
     return;
   }
   switch (max(threads, next_pow2(n)) / threads) {
-    case 1: short_query<1>(a, g, start, n, smem); break;
-    case 2: short_query<2>(a, g, start, n, smem); break;
-    case 4: short_query<4>(a, g, start, n, smem); break;
-    case 8: short_query<8>(a, g, start, n, smem); break;
-    default: short_query<16>(a, g, start, n, smem); break;
+    case 1: short_path<1, Layout>(a, g, start, n, smem); break;
+    case 2: short_path<2, Layout>(a, g, start, n, smem); break;
+    case 4: short_path<4, Layout>(a, g, start, n, smem); break;
+    case 8: short_path<8, Layout>(a, g, start, n, smem); break;
+    default: short_path<16, Layout>(a, g, start, n, smem); break;
   }
 }
 
@@ -982,11 +1012,11 @@ extern "C" int retrieval_groups_launch(const void* preds, const void* target, co
   if (measure < kPrecision || measure > kRanked || threads < 32 || threads > kMaxThreads || threads % 32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  void (*kernel)(Args) = measure == kRanked ? retrieval_kernel<true> : retrieval_kernel<false>;
   if (static_cast<size_t>(shared_bytes) + kStaticShared > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(retrieval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  retrieval_kernel<<<n_groups, threads, shared_bytes, static_cast<cudaStream_t>(stream_ptr)>>>(a);
+  kernel<<<n_groups, threads, shared_bytes, static_cast<cudaStream_t>(stream_ptr)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

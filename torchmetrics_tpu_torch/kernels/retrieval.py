@@ -39,14 +39,14 @@ LONG_TILE = 8 * MAX_THREADS  # the long path's tile: 8 keys a thread
 DIGITS = 256  # 8 bits a radix pass
 MAX_POSITIVES = 256  # the counting path's list of positives in shared memory
 # the kernel's kCountShort and kCountLong, for the tests: a query with at most this many positive targets
-# takes the counting path (n x n_pos compares), the rest the radix sort; the crossovers of
-# tools/kernel_ablation.py's retrieval section (AUROC's ~55 positives at 256 documents to ~145 at 16,384,
-# AP's ~75 to ~215; past 16,384 documents AUROC's ~220, AP's past 256)
+# takes the counting path (n x n_pos compares), the rest the radix sort; between the crossovers of
+# tools/kernel_ablation.py's retrieval section (AUROC's ~38 positives at 256 documents to ~125 at 16,384,
+# AP's ~63 to ~195; at 100,000 documents AUROC's ~165, AP's ~230)
 COUNT_SHORT = 64
 COUNT_LONG = 192
 WARP_WIDTH = 256  # up to this width a query's block is one warp, 8 words a lane at most
 ITEMS = 8  # words a thread above WARP_WIDTH (16 at SHARED_WIDTH): at MS MARCO's 1,000 documents, 8 ran the
-# counting path 0.063 against 0.077 ms and the sort path 0.24 against 0.27, the ranked layout 0.31 against 0.25
+# counting path 0.063 against 0.077 ms and the sort path 0.24 against 0.27
 MAX_ROWS = 2**30  # ranks and rows are int32 in the kernel; the long path's scratch is 2 words a row
 
 _launch: Optional[ctypes._CFuncPtr] = None
