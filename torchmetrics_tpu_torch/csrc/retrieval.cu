@@ -449,9 +449,9 @@ __device__ void gather_positives(const unsigned long long (&v)[E], const float (
 
 // Each positive's counts over this thread's E items, summed a warp, then added into the block's.
 // The warp sums are shuffles: with __reduce_add_sync here, CUDA 12.9's ptxas at -O2 and -O3 built a
-// kernel whose AUROC was wrong on queries of 33-64 documents whenever the long path wrote the ranked
-// layout, and right at -O1; the fault is not diagnosed (tools/kernel_ablation.py's retrieval-fault
-// section rebuilds it).
+// kernel whose AUROC was wrong on queries of 33-64 documents while the same kernel also wrote the ranked
+// layout from the long path, and right at -O1. The fault is not diagnosed (PERF.md section 6);
+// tools/kernel_ablation.py's retrieval-fault section checks the __reduce_add_sync form of this code.
 template <int E>
 __device__ void count_against(const unsigned long long (&v)[E], const bool (&valid)[E], int n_pos, bool keys,
                               const Positives& pos) {
