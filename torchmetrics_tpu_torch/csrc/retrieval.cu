@@ -54,14 +54,14 @@
 //   equal digits found by a match, the digit-major histogram of warps
 //   scanned by the block, one scatter; two histograms, the next zeroed
 //   during the scan of this one), then the scan of the ranked words;
-// - the ranked layout: a kernel of its own (the template's Layout), which
-//   reads the scores alone, sorts them as above and writes each rank's row
-//   and target from the sorted order, consecutive ranks a warp, so that the
-//   writes coalesce; the measures' kernel then holds no code of it;
 //   past 16,384 documents (the long path) the same passes a tile of 8,192 at
 //   a time through a global scratch of 16 bytes a row, the four digits'
 //   histograms counted in one sweep first and a pass whose digit is the same
 //   for every document skipped;
+// - the ranked layout: a kernel of its own (the template's Layout), which
+//   reads the scores alone, sorts them as above and writes each rank's row
+//   and target from the sorted order, consecutive ranks a warp, so that the
+//   writes coalesce; the measures' kernel then holds no code of it;
 // - which path: kCountShort and kCountLong (at most 64 positives counted in
 //   a short query, 192 in a long one) lie between tools/kernel_ablation.py's
 //   crossovers of AUROC (38 positives at 256 documents to 125 at 16,384, 165
@@ -91,7 +91,7 @@ constexpr int kLongTile = kLongItems * kMaxThreads;  // 8,192
 constexpr int kDigits = 256;       // 8 bits a radix pass, 4 passes
 constexpr int kMaxPositives = 256;  // the counting path's list of positives in shared memory
 // a query of the short path with at most kCountShort positives takes the counting path, one past
-// 16 x threads documents with at most kCountLong (tools/kernel_ablation.py's crossovers)
+// 16 x threads documents with at most kCountLong (see "which path" above)
 constexpr int kCountShort = 64;
 constexpr int kCountLong = 192;
 constexpr int kThreadsAnSm = 1024;  // threads an SM the registers are sized for: 64 a thread
