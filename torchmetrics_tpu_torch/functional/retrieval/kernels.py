@@ -72,19 +72,21 @@ def query_layout(preds: Tensor, target: Tensor, indexes: Tensor) -> Tuple[Tensor
     ``offsets`` (G + 1,) int64 bound each query's run of rows, ``longest`` is
     the most rows of a query. The outer key of the JAX package's ``lexsort``.
     Rows whose ids never decrease (updates of whole queries in order of id)
-    are in order already and are not copied; the rest are sorted (a stable
-    ``torch.sort`` of the ids). Three host reads either way: the order test,
-    the count of queries and the longest.
+    are in order already and are not copied: two host reads, the runs of ids
+    and then their order with the longest. The rest are sorted (a stable
+    ``torch.sort`` of the ids): two host reads more, the sorted runs and the
+    longest.
     """
-    if bool((indexes[1:] >= indexes[:-1]).all()):  # a host read
-        preds, target = preds.contiguous(), target.contiguous()
-    else:
+    ids, counts = torch.unique_consecutive(indexes, return_counts=True)  # a host read
+    in_order, longest = torch.stack([(ids[1:] > ids[:-1]).all(), counts.max()]).tolist()  # a host read
+    if not in_order:
         order = torch.sort(indexes, stable=True).indices
-        preds, target, indexes = preds[order].contiguous(), target[order].contiguous(), indexes[order]
-    _, counts = torch.unique_consecutive(indexes, return_counts=True)  # a host read
+        preds, target = preds[order], target[order]
+        _, counts = torch.unique_consecutive(indexes[order], return_counts=True)  # a host read
+        longest = int(counts.max())  # a host read
     offsets = torch.zeros((counts.shape[0] + 1,), dtype=torch.int64, device=preds.device)
     torch.cumsum(counts, 0, out=offsets[1:])
-    return preds, target, offsets, int(counts.max())  # a host read
+    return preds.contiguous(), target.contiguous(), offsets, longest
 
 
 def rank_groups(preds: Tensor, target: Tensor, indexes: Tensor, num_groups: Optional[int] = None) -> RankedGroups:
