@@ -98,7 +98,24 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    taps), data ranges None, a float and a tuple (clamped in the kernel), the
    full map and the five MS-SSIM scales of the DIV2K batch: per-image SSIM
    and CS within 1e-5 relative, the map within 1e-5 absolute, two launches
-   equal bit for bit;
+   equal bit for bit; ``segmentation_counts``, the per-image class counts of
+   two label maps, equal (``torch.equal``) to its plain version (JAX's
+   one-hots) at the Cityscapes batch (2 x 1024 x 2048, C = 19, ~5 % void
+   255) and the ADE20K-shaped batch (16 x 512 x 512, C = 150) in int64 (the
+   timed rows, beside three ``bincount`` calls, a yardstick), uint8 and
+   int32, on labels -1, -C, -C-1, -1000, C and C+3, at C = 1, 2, 1000 and
+   4,097 (past the shared-memory histogram), on 3-D volumes, one-pixel
+   images, odd sizes, mixed dtypes and an empty batch, two launches equal;
+   ``pairwise_lp``, the tiled L_p distance matrix, within 1e-6 relative plus
+   the float32 summation bound of the plain version's d terms at 1,024 x
+   1,024 x 512 (p = 1, int 2, int 3 and 1.5 timed beside ``torch.cdist``;
+   float 2.0 and 0.5), at N, M and d of 1, 31, 33 and 4,097 for p = 1, int
+   2, 2.0, int 3, 4 and 5, 0.5 and 1.5, with NaN, +-inf and -0.0 in the rows, the
+   square-root root and ``x is y`` with ``zero_diagonal``, two launches
+   equal bit for bit; ``confmat_multiclass`` also at the contingency tables
+   of phase 11: (c) nominal's 1,024 labels at C = 42 with dropped rows,
+   saturated +-inf and labels that wrap or drop, (d) clustering's 50,000
+   labels at C = 1,000;
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
@@ -194,7 +211,33 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    RASE, RMSE-SW, SCC and D-lambda; (v) D-s and QNR over a small seeded
    4-band pan-sharpening set. The retrieval legs rerun their first 4
    updates on the CPU path, the image legs their first batch (floats within
-   1e-5 relative).
+   1e-5 relative);
+11. segmentation, clustering, nominal and pairwise, one card, no sync: (i)
+   24 seeded Cityscapes-shaped label maps (1024 x 2048, 19 classes, ~5 %
+   void 255, counted as class 18 as JAX counts it) in batches of 2 through
+   ``MeanIoU`` and ``GeneralizedDiceScore`` on index maps, each also per
+   class (four groups: exactly 48 ``segmentation_counts`` launches); (ii) 64
+   ADE20K-shaped maps (512 x 512, 150 classes) in batches of 16 through
+   ``MeanIoU(per_class=True)`` and ``GeneralizedDiceScore(include_background=
+   False, weight_type="square")`` (8 launches); (iii) ImageNet val's size:
+   50,000 labels of 1,000 classes against 1,000 cluster ids through the
+   nine extrinsic clustering metrics (one group; 10 ``confmat_multiclass``
+   launches at compute), and 50,000 x 2,048 embeddings through
+   Calinski-Harabasz, Davies-Bouldin and Dunn (2 ``pairwise_lp`` launches),
+   each rerun on a 5,000-row subset on the CPU path (AMI also held against a
+   float64 evaluation over all rows), and the contingency table of 50,000
+   predicted ids (every row its own cluster) against the CPU path; (iv) the UCI Adult
+   set's size, 48,842 rows of nine categorical columns at its
+   cardinalities: Cramer's V, Tschuprow's T, Pearson's coefficient and
+   Theil's U over occupation x education under both NaN strategies in
+   batches of 1,024 (two groups: one launch a group and batch), the Cramer's
+   V and Theil's U matrices over the nine columns (36 and 72 launches), and
+   ``FleissKappa(mode="probs")`` over 10,000 x 5 x 10 ratings; (v)
+   Market-1501's evaluation shape, 3,368 query x 19,732 gallery features of
+   width 2,048: Manhattan, Minkowski at p = 3 and 1.5 (one ``pairwise_lp``
+   launch each, held whole against the plain version on the card and timed
+   beside ``torch.cdist``), Euclidean and cosine, the first 64 x 512 block
+   of each against the CPU path.
 
 Phases 5 and 6 run each rank as a process of its own (this script with
 ``--worker``); every kernel must have launched on the paths that run it.
@@ -1773,6 +1816,28 @@ def _confmat_case(n, c, spatial, gen, dtype=torch.float32, target_dtype=torch.in
     return scores.contiguous(), target
 
 
+def _nominal_kernel_labels(gen: torch.Generator):
+    """The labels phase 11 (iv)'s contingency sends the kernel at a batch of 1,024 rows, C = 42: the dropped
+    rows at target C (flat cell C * C), saturated +-inf (INT32_MAX, INT32_MIN), and labels -1, -43 and 43,
+    which wrap or drop as JAX's ``.at[...].add`` does."""
+    dev, c = torch.device("cuda"), max(ADULT_CARDINALITIES)
+    preds = torch.randint(0, c, (ADULT_BATCH,), generator=gen, device=dev, dtype=torch.int32)
+    target = torch.randint(0, c, (ADULT_BATCH,), generator=gen, device=dev, dtype=torch.int32)
+    target[::50] = c
+    preds[7::101], target[9::103] = 2**31 - 1, -(2**31)
+    preds[11::97], target[13::89], target[17::83] = -1, -c - 1, c + 1
+    return preds, target, c
+
+
+def _clustering_kernel_labels(gen: torch.Generator):
+    """Phase 11 (iii)'s contingency: 50,000 dense cluster ids against 50,000 class ids, C = 1,000."""
+    dev = torch.device("cuda")
+    target = torch.randint(0, CLUSTER_CLASSES, (CLUSTER_ROWS,), generator=gen, device=dev, dtype=torch.int32)
+    preds = torch.where(torch.rand((CLUSTER_ROWS,), generator=gen, device=dev) < 0.5, target,
+                        torch.randint(0, CLUSTER_CLASSES, (CLUSTER_ROWS,), generator=gen, device=dev, dtype=torch.int32))
+    return preds, target, CLUSTER_CLASSES
+
+
 def phase_confmat(flush: torch.Tensor) -> list:
     """``confmat_multiclass`` against its plain version on the card, and its times at
     the main path's shapes: ImageNet-1k's batch (the first row) and a Cityscapes batch."""
@@ -1802,12 +1867,14 @@ def phase_confmat(flush: torch.Tensor) -> list:
         ("C=19 spatial, float16 scores", (4, 19, (32, 32), {"dtype": torch.float16, "edits": ("edge_rows",)}), None),
         ("C=19 spatial, bfloat16 scores", (4, 19, (32, 32), {"dtype": torch.bfloat16}), None),
         ("empty batch", (0, 19, (), {}), None),
+        ("nominal contingency (c)", _nominal_kernel_labels(gen), None),
+        ("clustering contingency (d)", _clustering_kernel_labels(gen), None),
     ]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for what, spec, ignore_index in cases:
-        preds, target = spec if isinstance(spec[0], torch.Tensor) else _confmat_case(*spec[:3], gen, **spec[3])
-        c = N_CLASSES if what.startswith("ImageNet") else (19 if what.startswith("City") else spec[1])
+        preds, target, *given = spec if isinstance(spec[0], torch.Tensor) else _confmat_case(*spec[:3], gen, **spec[3])
+        c = given[0] if given else (N_CLASSES if what.startswith("ImageNet") else (19 if what.startswith("City") else spec[1]))
         state = torch.randint(-(2**20), 2**20, (c, c), generator=gen, device="cuda", dtype=torch.int32)
         got = kcm.confmat_multiclass(state.clone(), preds, target, ignore_index)
         want = kcm._confmat_multiclass_plain(state.clone(), preds, target, ignore_index)
@@ -1818,7 +1885,7 @@ def phase_confmat(flush: torch.Tensor) -> list:
         check(torch.equal(got, want), f"confmat_multiclass and plain differ ({label}): max abs err {err}")
         added = int((want - state).sum())
         check(added > 0 or preds.numel() == 0, f"no pair counted ({label})")
-        if not (what.endswith("(a)") or what.endswith("(b)")):
+        if what[-3:] not in ("(a)", "(b)", "(c)", "(d)"):
             rows.append({"case": label, "what": what, "max_abs_err": err, "added": added})
             continue
         # least work: read the scores and the targets once, read and write the state cells
@@ -1828,15 +1895,19 @@ def phase_confmat(flush: torch.Tensor) -> list:
         nops = preds.numel()
         bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_FP32_OPS_PER_S * 1e3
         n, k, inner = kcm._layout(state, preds, target)
-        plan = kcm.plan(n * inner, k, inner, c, False, sms)
+        plan = kcm.plan(n * inner, k, inner, c, not preds.is_floating_point(), sms)
         timed = state.clone()  # the timed launches add into it, far below 2**31
         kernel_ms = time_ms(lambda: kcm.confmat_multiclass(timed, preds, target, ignore_index), flush)
         plain_ms = time_ms(lambda: kcm._confmat_multiclass_plain(timed, preds, target, ignore_index), flush,
                            reps=10, warmup=1)
-        two_call_ms = time_ms(lambda: torch.bincount(target.view(-1) * c + preds.argmax(1).view(-1), minlength=c * c),
-                              flush, reps=10, warmup=1)
+        if preds.is_floating_point():
+            two_call_ms = time_ms(lambda: torch.bincount(target.view(-1) * c + preds.argmax(1).view(-1),
+                                                         minlength=c * c), flush, reps=10, warmup=1)
+        else:  # labels: the flat index clamped into a spare cell (three calls)
+            two_call_ms = time_ms(lambda: torch.bincount((target.view(-1).long() * c + preds.view(-1)).clamp(0, c * c),
+                                                         minlength=c * c + 1), flush, reps=10, warmup=1)
         sets = [(timed, preds, target)] + [(timed, preds.clone(), target.clone())
-                                           for _ in range(copies_for(nbytes) - 1)]
+                                           for _ in range(min(copies_for(nbytes), MAX_STREAM_COPIES) - 1)]
         stream_ms = time_stream_ms(lambda s_, p_, t_: kcm.confmat_multiclass(s_, p_, t_, ignore_index), sets,
                                    calls=len(sets) * max(1, 48 // len(sets)))
         del sets
@@ -2578,7 +2649,7 @@ def _value_summary(value):
 
 
 def _curve_leg(leg, make, batches, kernels, rtol: float = FLOAT_RTOL, atol: float = FLOAT_ATOL,
-               state_checks=None, cpu_batches: int = CPU_RERUN_BATCHES) -> dict:
+               state_checks=None, cpu_batches: int = CPU_RERUN_BATCHES, value_checks=None) -> dict:
     """Drive ``batches()`` (``(args, kwargs)`` of card tensors) through ``make("cuda", groups)``,
     the compute groups formed on the first batch by a probe collection, so that every batch
     runs one update a group; the launches of ``kernels`` are counted from 0 over this run
@@ -2629,7 +2700,12 @@ def _curve_leg(leg, make, batches, kernels, rtol: float = FLOAT_RTOL, atol: floa
             state_check(f"{tag}: state", early[name], cpu_states[name])
             compared += len(early[name])
             want = cpu_col[name].compute_state({k: _cpu(v) for k, v in early[name].items()})
-        compared += _assert_same(f"{tag}: value", col[name].compute_state(early[name]), want, rtol, atol)
+        got = col[name].compute_state(early[name])
+        if name in (value_checks or {}):
+            value_checks[name](f"{tag}: value", got, want, early[name])
+            compared += 1
+        else:
+            compared += _assert_same(f"{tag}: value", got, want, rtol, atol)
     return {
         "batches": i + 1, "groups": groups, "launches": launches, "leg_s": leg_s,
         "update_ms_median": statistics.median(times), "compute_ms": compute_ms,
@@ -3245,6 +3321,539 @@ def phase_signal() -> dict:
     return record
 
 
+# ------------------------------------------- segmentation_counts and pairwise_lp (phase 3), phase 11
+CITYSCAPES_IMAGES, CITYSCAPES_HW, CITYSCAPES_BATCH, CITYSCAPES_CLASSES = 24, (1024, 2048), 2, 19
+ADE_IMAGES, ADE_HW, ADE_BATCH, ADE_CLASSES = 64, (512, 512), 16, 150  # ADE20K SceneParsing's 150 classes
+CLUSTER_ROWS, CLUSTER_CLASSES, CLUSTER_WIDTH, CLUSTER_BATCH = 50_000, 1_000, 2_048, 5_000  # ImageNet val, ResNet-50
+ADULT_ROWS, ADULT_BATCH = 48_842, 1_024  # the UCI Adult census set: train + test
+ADULT_CARDINALITIES = (9, 16, 7, 15, 6, 5, 2, 42, 2)  # workclass .. native-country, income
+ADULT_OCCUPATION, ADULT_EDUCATION, ADULT_NAN_COLUMNS = 3, 1, (0, 3)  # NaN every 500th value in these two
+FLEISS_SHAPE, FLEISS_BATCH = (10_000, 5, 10), 1_000  # subjects, categories, raters
+MARKET_QUERY, MARKET_GALLERY, MARKET_WIDTH = 3_368, 19_732, 2_048  # Market-1501's evaluation, ResNet-50 features
+FP32_INSTR_PER_S = PEAK_FP32_OPS_PER_S / 2  # 132 SMs x 128 lanes x 1.98 GHz: one FMA counts as two operations
+PAIRWISE_INSTR = {1: 2, 2: 2, 3: 4}  # fp32 instructions a pair: the difference, then |d| (1), d * d (2), x * (x * x)
+SFU_OPS_PER_S = FP32_INSTR_PER_S / 8  # powf: lg2 and ex2 on the special-function units, an eighth of the fp32 rate
+SEG_CPU_BATCHES = 1  # the segmentation legs rerun their first batch on the CPU path (JAX's one-hots there)
+
+
+def _label_maps(shape, c, gen, dtype=torch.int64, void=0.05, agree=0.75):
+    """Seeded index maps on the card: a uniform target, ``void`` of it 255; the prediction equal to the
+    target on ``agree`` of the pixels, else uniform (as phase 7 (ii)'s argmax makes it)."""
+    dev = torch.device("cuda")
+    target = torch.randint(0, c, shape, generator=gen, device=dev)
+    preds = torch.where(torch.rand(shape, generator=gen, device=dev) < agree, target,
+                        torch.randint(0, c, shape, generator=gen, device=dev))
+    target[torch.rand(shape, generator=gen, device=dev) < void] = SEG_IGNORE
+    return preds.to(dtype).contiguous(), target.to(dtype).contiguous()
+
+
+def _bincount_counts(preds, target, c):
+    """Three ``bincount(n * C + label)`` calls (several PyTorch calls, a yardstick): in-range labels only."""
+    n = preds.shape[0]
+    base = torch.arange(n, device=preds.device).view(n, *([1] * (preds.ndim - 1))) * c
+    p, t = (preds.long() + base).view(-1), (target.long().clamp(0, c - 1) + base).view(-1)
+    inter = torch.bincount(torch.where(p == t, p, n * c), minlength=n * c + 1)[:-1]
+    return inter, torch.bincount(p, minlength=n * c), torch.bincount(t, minlength=n * c)
+
+
+def phase_segmentation_kernel(flush: torch.Tensor) -> list:
+    """``segmentation_counts`` against its plain version (JAX's one-hots) on the card: equal. Timed at the
+    Cityscapes batch (the first row) and the ADE20K-shaped batch, beside three ``bincount`` calls."""
+    from torchmetrics_tpu_torch.kernels import segmentation as kseg
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    city, ade = (CITYSCAPES_BATCH, *CITYSCAPES_HW), (ADE_BATCH, *ADE_HW)
+    dev = torch.device("cuda")
+    cases = [  # (what, shape, C, dtype, edits, timed)
+        ("Cityscapes batch (a)", city, 19, torch.int64, (), True),
+        ("ADE20K-shaped batch (b)", ade, 150, torch.int64, (), True),
+        *((f"Cityscapes batch, {str(dt)[6:]}", city, 19, dt, (), False) for dt in (torch.uint8, torch.int32)),
+        *((f"ADE20K-shaped batch, {str(dt)[6:]}", ade, 150, dt, (), False) for dt in (torch.uint8, torch.int32)),
+        ("labels -1, -C, -C-1, -1000, C, C+3", (4, 96, 80), 19, torch.int64, ("odd",), False),
+        ("labels past C, int32", (4, 96, 80), 19, torch.int32, ("odd",), False),
+        *((f"C={c}", (3, 64, 72), c, torch.int64, ("odd",), False) for c in (1, 2, 1000)),
+        (f"C={kseg.SHARED_CLASSES + 1}: global atomics", (2, 128, 96), kseg.SHARED_CLASSES + 1, torch.int32, ("odd",),
+         False),
+        ("3-D volumes", (2, 8, 64, 64), 5, torch.int64, ("odd",), False),
+        ("one-pixel images", (7, 1, 1), 3, torch.int64, ("odd",), False),
+        ("odd sizes: scalar loads", (3, 37, 41), 7, torch.int32, ("odd",), False),
+        ("uint8 and int64 maps", (2, 61, 33), 19, (torch.uint8, torch.int64), (), False),
+        ("empty batch", (0, 16, 16), 19, torch.int64, (), False),
+    ]
+    rows = []
+    for what, shape, c, dtype, edits, timed in cases:
+        p_dt, t_dt = dtype if isinstance(dtype, tuple) else (dtype, dtype)
+        preds, target = _label_maps(shape, c, gen, torch.int64, void=0.05 if c > 18 else 0.0)
+        if "odd" in edits and preds.numel():
+            for i, value in enumerate([-1, -c, -c - 1, -1000, c, c + 3]):
+                target.view(-1)[i::97] = value
+                preds.view(-1)[i + 11::89] = value
+        if p_dt == torch.uint8:
+            preds = preds.clamp(0, 255)
+        preds, target = preds.to(p_dt).contiguous(), target.to(t_dt).contiguous()
+        before = kseg.segmentation_counts.launches
+        got = kseg.segmentation_counts(preds, target, c)
+        again = kseg.segmentation_counts(preds, target, c)
+        want = kseg._segmentation_counts_plain(preds, target, c)
+        torch.cuda.synchronize()
+        label = f"{what}: {tuple(shape)} {str(p_dt)[6:]}/{str(t_dt)[6:]}, C={c}"
+        check(kseg.segmentation_counts.launches == before + (2 if preds.numel() else 0), f"launches ({label})")
+        check(torch.equal(got, want), f"segmentation_counts and plain differ ({label}): max abs err "
+                                      f"{int((got - want).abs().max()) if got.numel() else 0}")
+        check(torch.equal(got, again), f"segmentation_counts is not deterministic ({label})")
+        row = {"case": label, "what": what, "max_abs_err": 0.0}
+        if timed:
+            nbytes = preds.numel() * preds.element_size() + target.numel() * target.element_size() + got.numel() * 4
+            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            plan = kseg.plan(shape[0], preds[0].numel(), c, torch.cuda.get_device_properties(0).multi_processor_count)
+            kernel_ms = time_ms(lambda: kseg.segmentation_counts(preds, target, c), flush)
+            plain_ms = time_ms(lambda: kseg._segmentation_counts_plain(preds, target, c), flush, reps=5, warmup=1)
+            yard_ms = time_ms(lambda: _bincount_counts(preds, target, c), flush, reps=10, warmup=1)
+            sets = [(preds, target)] + [(preds.clone(), target.clone()) for _ in range(copies_for(nbytes) - 1)]
+            stream_ms = time_stream_ms(lambda p_, t_: kseg.segmentation_counts(p_, t_, c), sets,
+                                       calls=len(sets) * max(1, 24 // len(sets)))
+            del sets
+            row.update({"plan": plan._asdict(), "ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms,
+                        "bincount_yardstick_ms": yard_ms, "bound_ms": bytes_ms, "bound_by": "bytes", "bytes": nbytes,
+                        "library_ms": None})
+            print(f"[kernel] segmentation_counts {label}: exact, {kernel_ms:.4f} ms after an L2 flush "
+                  f"({stream_ms:.4f} ms a call back to back; plan {tuple(plan)}), plain (one-hots) {plain_ms:.4f} ms, "
+                  f"three bincount calls (a yardstick) {yard_ms:.4f} ms, bound {bytes_ms * 1e3:.2f} us (bytes: "
+                  f"{nbytes}), library_ms: none")
+        rows.append(row)
+        del preds, target, got, again, want
+    print(f"[kernel] segmentation_counts: equal to plain and deterministic on all {len(cases)} cases: "
+          + "; ".join(r["what"] for r in rows))
+    return rows
+
+
+def _lp_bound_ms(n, m, d, p):
+    """The least time of an (n, m) L_p matrix over d columns: fp32 instructions a pair (integer p) or powf's two
+    special-function operations (float p), against the bytes of x, y and the output."""
+    pairs = n * m * d
+    ops_ms = (pairs * 2 / SFU_OPS_PER_S if isinstance(p, float) else
+              pairs * PAIRWISE_INSTR.get(p, 4) / FP32_INSTR_PER_S) * 1e3
+    bytes_ms = ((n + m) * d + n * m) * 4 / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def _lp_check(label, got, want, x, y, p, root, terms=None):
+    """``got`` within 1e-6 relative of ``want`` plus the float32 summation bound of the plain version's d
+    terms (``d 2**-24 sum |term|``, taken through the root); NaN and +-inf in the same places. ``terms``, the
+    float64 ``sum |term|`` of each pair, is taken here from ``x`` and ``y`` unless the caller gives it."""
+    if terms is None:
+        terms = torch.zeros_like(want, dtype=torch.float64)
+        for xb, rows in zip(x.split(256), torch.arange(x.shape[0], device=x.device).split(256)):
+            terms[rows] = (xb.double()[:, None, :] - y.double()[None, :, :]).abs().pow(float(p)).sum(-1)
+    d = x.shape[1]
+    bound = d * 2.0**-24 * terms
+    if root == "pow":
+        bound = bound / p * terms.clamp_min(1e-30).pow(1.0 / p - 1.0)
+    elif root == "sqrt":
+        bound = bound / 2.0 / terms.clamp_min(1e-30).sqrt()
+    g, w = got.double(), want.double()
+    finite = torch.isfinite(w)
+    check(torch.equal(g.isnan(), w.isnan()) and torch.equal(g[w.isinf()], w[w.isinf()]),
+          f"pairwise_lp's non-finite values differ from plain ({label})")
+    err = (g - w).abs()
+    check(bool((err[finite] <= 1e-6 * w[finite].abs() + bound[finite] + 1e-30).all()),
+          f"pairwise_lp differs from plain ({label}): max abs err {float(err[finite].max())}")
+    return float(err[finite].max()) if finite.any() else 0.0
+
+
+def phase_pairwise_kernel(flush: torch.Tensor) -> list:
+    """``pairwise_lp`` against its plain version (JAX's broadcast) on the card. Timed at 1,024 x 1,024 x 512
+    (the first row: p = 1; then int 2, int 3, 1.5) beside ``torch.cdist``; Market-1501's shape is phase 11."""
+    from torchmetrics_tpu_torch.functional import pairwise as fpw
+    from torchmetrics_tpu_torch.kernels import pairwise as kpw
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    dev = torch.device("cuda")
+    cases = [((1024, 1024, 512), p, "pow" if p != 1 else None, True) for p in (1, 2, 3, 1.5)]
+    cases += [((1024, 1024, 512), p, "pow", False) for p in (2.0, 0.5)]
+    for n, m, d in ((1, 1, 1), (31, 33, 33), (33, 31, 4097), (4097, 31, 1), (1, 4097, 31), (33, 33, 31)):
+        cases += [((n, m, d), p, "pow", False) for p in (1, 2, 2.0, 3, 4, 5, 0.5, 1.5)]
+    cases += [((100, 80, 2048), 2, "sqrt", False), ((64, 64, 64), 1, None, False)]
+    rows = []
+    for (n, m, d), p, root, timed in cases:
+        x = torch.randn((n, d), generator=gen, device=dev)
+        y = torch.randn((m, d), generator=gen, device=dev)
+        if not timed and n > 8 and m > 8:  # rows of NaN and +-inf, a signed zero
+            x[3, d // 2], x[5, 0], y[7, d - 1], x[6, 0] = float("nan"), float("inf"), float("-inf"), -0.0
+        before = kpw.pairwise_lp.launches
+        got = kpw.pairwise_lp(x, y, p, root)
+        again = kpw.pairwise_lp(x, y, p, root)
+        want = kpw._pairwise_lp_plain(x, y, p, root)
+        torch.cuda.synchronize()
+        label = f"({n}, {m}, {d}), p={p!r}, root {root}"
+        check(kpw.pairwise_lp.launches == before + 2, f"pairwise_lp did not launch twice ({label})")
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)), f"pairwise_lp is not deterministic ({label})")
+        row = {"case": label, "max_abs_err": _lp_check(label, got, want, x, y, p, root)}
+        if timed:
+            bound_ms, bound_by = _lp_bound_ms(n, m, d, p)
+            kernel_ms = time_ms(lambda: kpw.pairwise_lp(x, y, p, root), flush, reps=10)
+            plain_ms = time_ms(lambda: kpw._pairwise_lp_plain(x, y, p, root), flush, reps=3, warmup=1)
+            kw = {"compute_mode": "donot_use_mm_for_euclid_dist"} if p == 2 else {}
+            cdist_ms = time_ms(lambda: torch.cdist(x, y, float(p), **kw), flush, reps=5, warmup=1)
+            stream_ms = time_stream_ms(lambda x_, y_: kpw.pairwise_lp(x_, y_, p, root), [(x, y), (x.clone(), y.clone())],
+                                       calls=8)
+            row.update({"ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": cdist_ms, "pairs": n * m * d})
+            print(f"[kernel] pairwise_lp {label}: {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a call "
+                  f"back to back), plain {plain_ms:.4f} ms, torch.cdist {cdist_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}), max abs err {row['max_abs_err']:.3g}")
+        rows.append(row)
+    # x is y through the public function: zero_diagonal multiplies by 1 - eye, a non-finite diagonal gives NaN
+    x = torch.randn((70, 40), generator=gen, device=dev)
+    x[4, 3] = float("inf")
+    got = fpw.pairwise_manhattan_distance(x)
+    want = kpw._pairwise_lp_plain(x, x, 1, None) * (1.0 - torch.eye(70, device=dev))
+    check(torch.equal(got.isnan(), want.isnan()) and bool(got[4, 4].isnan()), "zero_diagonal on x is y")
+    rows.append({"case": "x is y, zero_diagonal, an inf row", "max_abs_err": _lp_check("x is y", got, want, x, x, 1, None)})
+    print(f"[kernel] pairwise_lp: within 1e-6 relative plus the float32 summation bound of the plain version's d "
+          f"terms, NaN and +-inf in place, deterministic, on {len(rows)} cases")
+    return rows
+
+
+def _cityscapes_batches():
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    for _ in range(0, CITYSCAPES_IMAGES, CITYSCAPES_BATCH):
+        yield _label_maps((CITYSCAPES_BATCH, *CITYSCAPES_HW), CITYSCAPES_CLASSES, gen), {}
+
+
+def _ade_batches():
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    for _ in range(0, ADE_IMAGES, ADE_BATCH):
+        yield _label_maps((ADE_BATCH, *ADE_HW), ADE_CLASSES, gen, void=0.0), {}
+
+
+def _seg_cityscapes(device, compute_groups):
+    from torchmetrics_tpu_torch import segmentation as ts
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    kw = {"num_classes": CITYSCAPES_CLASSES, "input_format": "index", "device": device}
+    return MetricCollection({
+        "miou": ts.MeanIoU(**kw), "dice": ts.GeneralizedDiceScore(**kw),
+        "miou_per_class": ts.MeanIoU(per_class=True, **kw), "dice_per_class": ts.GeneralizedDiceScore(per_class=True, **kw),
+    }, compute_groups=compute_groups)
+
+
+def _seg_ade(device, compute_groups):
+    from torchmetrics_tpu_torch import segmentation as ts
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    kw = {"num_classes": ADE_CLASSES, "input_format": "index", "device": device}
+    return MetricCollection({
+        "miou_per_class": ts.MeanIoU(per_class=True, **kw),
+        "dice_no_background": ts.GeneralizedDiceScore(include_background=False, weight_type="square", **kw),
+    }, compute_groups=compute_groups)
+
+
+def _cluster_labels():
+    """ImageNet val's size: 50,000 seeded labels of 1,000 classes against 1,000 cluster ids, half agreeing."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    target = torch.randint(0, CLUSTER_CLASSES, (CLUSTER_ROWS,), generator=gen, device="cuda")
+    preds = torch.where(torch.rand((CLUSTER_ROWS,), generator=gen, device="cuda") < 0.5, target,
+                        torch.randint(0, CLUSTER_CLASSES, (CLUSTER_ROWS,), generator=gen, device="cuda"))
+    for i0 in range(0, CLUSTER_ROWS, CLUSTER_BATCH):
+        yield (preds[i0:i0 + CLUSTER_BATCH], target[i0:i0 + CLUSTER_BATCH]), {}
+
+
+def _cluster_data():
+    """50,000 seeded float32 embeddings of ResNet-50's pooled width (2,048) about 1,000 class centres."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 35)
+    centres = 2.0 * torch.randn((CLUSTER_CLASSES, CLUSTER_WIDTH), generator=gen, device="cuda")
+    for _ in range(0, CLUSTER_ROWS, CLUSTER_BATCH):
+        labels = torch.randint(0, CLUSTER_CLASSES, (CLUSTER_BATCH,), generator=gen, device="cuda")
+        data = centres[labels] + torch.randn((CLUSTER_BATCH, CLUSTER_WIDTH), generator=gen, device="cuda")
+        yield (data, labels), {}
+
+
+def _clustering_labels_collection(device, compute_groups):
+    from torchmetrics_tpu_torch import clustering as tcl
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    kw = {"device": device}
+    return MetricCollection({
+        "mi": tcl.MutualInfoScore(**kw), "ami": tcl.AdjustedMutualInfoScore(**kw),
+        "nmi": tcl.NormalizedMutualInfoScore(**kw), "rand": tcl.RandScore(**kw), "ari": tcl.AdjustedRandScore(**kw),
+        "fmi": tcl.FowlkesMallowsIndex(**kw), "homogeneity": tcl.HomogeneityScore(**kw),
+        "completeness": tcl.CompletenessScore(**kw), "v_measure": tcl.VMeasureScore(**kw),
+    }, compute_groups=compute_groups)
+
+
+def _clustering_data_collection(device, compute_groups):
+    from torchmetrics_tpu_torch import clustering as tcl
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    kw = {"device": device}
+    return MetricCollection({"ch": tcl.CalinskiHarabaszScore(**kw), "db": tcl.DaviesBouldinScore(**kw),
+                             "dunn": tcl.DunnIndex(**kw)}, compute_groups=compute_groups)
+
+
+def _adult_columns():
+    """The UCI Adult set's shape: 48,842 rows of nine seeded categorical columns at its cardinalities (float32
+    codes), every 500th value NaN in workclass and occupation, as the set misses values there."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 36)
+    cols = [torch.randint(0, c, (ADULT_ROWS,), generator=gen, device="cuda").float() for c in ADULT_CARDINALITIES]
+    cols[ADULT_EDUCATION] = torch.where(torch.rand((ADULT_ROWS,), generator=gen, device="cuda") < 0.3,
+                                        cols[ADULT_OCCUPATION], cols[ADULT_EDUCATION])  # some association
+    for j in ADULT_NAN_COLUMNS:
+        cols[j][::500] = float("nan")
+    return torch.stack(cols, 1).contiguous()
+
+
+def _adult_batches(matrix):
+    def batches():
+        for i0 in range(0, ADULT_ROWS, ADULT_BATCH):
+            rows = matrix[i0:i0 + ADULT_BATCH]
+            yield (rows[:, ADULT_OCCUPATION].contiguous(), rows[:, ADULT_EDUCATION].contiguous()), {}
+    return batches
+
+
+def _nominal_collection(device, compute_groups):
+    from torchmetrics_tpu_torch import nominal as tn
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    c = max(ADULT_CARDINALITIES)
+    members = {}
+    for strategy in ("replace", "drop"):
+        kw = {"num_classes": c, "nan_strategy": strategy, "device": device}
+        members.update({f"cramers_v_{strategy}": tn.CramersV(**kw), f"tschuprows_t_{strategy}": tn.TschuprowsT(**kw),
+                        f"pearson_{strategy}": tn.PearsonsContingencyCoefficient(**kw),
+                        f"theils_u_{strategy}": tn.TheilsU(**kw)})
+    return MetricCollection(members, compute_groups=compute_groups)
+
+
+def _fleiss_batches():
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 37)
+    for _ in range(0, FLEISS_SHAPE[0], FLEISS_BATCH):
+        yield (torch.rand((FLEISS_BATCH, *FLEISS_SHAPE[1:]), generator=gen, device="cuda"),), {}
+
+
+def _fleiss_collection(device, compute_groups):
+    from torchmetrics_tpu_torch import nominal as tn
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({"fleiss": tn.FleissKappa(mode="probs", device=device)}, compute_groups=compute_groups)
+
+
+AMI_BOUND_FULL = 0.005  # |float32 AMI - float64| at 50,000 labels of 1,000 clusters
+
+
+def _ami_float64(preds: torch.Tensor, target: torch.Tensor) -> float:
+    """The adjusted mutual information (arithmetic mean) in float64: the contingency of the dense ids, MI, both
+    entropies and E[MI]'s hypergeometric sum over every possible cell count, ``lgamma`` in float64."""
+    _, p = torch.unique(preds, return_inverse=True)
+    _, t = torch.unique(target, return_inverse=True)
+    kt, kp = int(t.max()) + 1, int(p.max()) + 1
+    c = torch.bincount(t * kp + p, minlength=kt * kp).view(kt, kp).double()
+    n, a, b = c.sum(), c.sum(1), c.sum(0)
+    nz = c > 0
+    mi = (c[nz] / n * torch.log(n * c[nz] / torch.outer(a, b)[nz])).sum()
+    entropy = lambda x: -(x[x > 0] / n * torch.log(x[x > 0] / n)).sum()  # noqa: E731
+    ai, bj = a[:, None, None], b[None, :, None]
+    start = torch.clamp_min(ai + bj - n, 1.0)
+    k = start + torch.arange(int((torch.minimum(ai, bj) - start).max()) + 1, device=c.device, dtype=torch.float64)
+    valid = k <= torch.minimum(ai, bj)
+    k = torch.where(valid, k, torch.ones_like(k))
+    lg = torch.lgamma
+    log_p = (lg(ai + 1) + lg(bj + 1) + lg(n - ai + 1) + lg(n - bj + 1) - lg(n + 1) - lg(k + 1) - lg(ai - k + 1)
+             - lg(bj - k + 1) - lg(n - ai - bj + k + 1))
+    terms = k / n * (torch.log(n) + torch.log(k) - torch.log(ai) - torch.log(bj)) * torch.exp(log_p)
+    emi = torch.where(valid, terms, torch.zeros_like(terms)).sum()
+    return float((mi - emi) / ((entropy(a) + entropy(b)) / 2 - emi))
+
+
+def _ami_check(record: dict):
+    """AMI's value check on the subset: the card against the CPU path within the leg's float tolerance (both take
+    JAX's float32 E[MI] form with each ``lgamma`` in float64, rounded once), and the float64 evaluation recorded
+    beside them; the float32 form's own drift from float64 is held over all rows with ``AMI_BOUND_FULL``."""
+    def check_ami(tag, got, want, state):
+        record.update({"float64": _ami_float64(torch.cat(state["preds"]), torch.cat(state["target"])),
+                       "card": float(got), "cpu": float(want)})
+        _assert_same(tag, got, want)
+    return check_ami
+
+
+def _host_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_contingency() -> dict:
+    """Phase 11 on one card, no sync: (i) Cityscapes val's shape and (ii) ADE20K SceneParsing's through the
+    segmentation metrics; (iii) clustering at ImageNet val's size; (iv) nominal association at the UCI Adult set's
+    size and Fleiss' kappa; (v) the pairwise matrices at Market-1501's shape."""
+    from torchmetrics_tpu_torch.functional import nominal as fn_nominal
+    from torchmetrics_tpu_torch.functional import pairwise as fpw
+    from torchmetrics_tpu_torch.functional.clustering.utils import calculate_contingency_matrix
+    from torchmetrics_tpu_torch.functional.segmentation.mean_iou import _index_counts
+    from torchmetrics_tpu_torch.kernels.confmat import confmat_multiclass
+    from torchmetrics_tpu_torch.kernels.pairwise import pairwise_lp
+    from torchmetrics_tpu_torch.kernels.segmentation import segmentation_counts
+
+    kernels = (segmentation_counts, confmat_multiclass, pairwise_lp)
+    record = {}
+
+    # (i) Cityscapes: four metrics, four groups (their states differ), one launch a group and batch
+    leg = _curve_leg("contingency cityscapes", _seg_cityscapes, _cityscapes_batches, kernels,
+                     cpu_batches=SEG_CPU_BATCHES)
+    n_batches = CITYSCAPES_IMAGES // CITYSCAPES_BATCH
+    check(len(leg["groups"]) == 4 and leg["launches"] == {"segmentation_counts": 4 * n_batches,
+                                                          "confmat_multiclass": 0, "pairwise_lp": 0},
+          f"[contingency cityscapes] groups {leg['groups']}, launches {leg['launches']}")
+    (preds, target), _ = next(_cityscapes_batches())
+    counts = _index_counts(preds, target, CITYSCAPES_CLASSES)
+    void = int((target == SEG_IGNORE).sum())
+    check(int(counts[:, 2, CITYSCAPES_CLASSES - 1].sum()) == void + int((target == CITYSCAPES_CLASSES - 1).sum()),
+          "[contingency cityscapes] void 255 is not counted as class 18")
+    leg["void_share"] = void / target.numel()
+    t = leg["tensors"]
+    check(all(0.0 < float(v) < 1.0 for v in (t["miou"], t["dice"])) and t["miou_per_class"].shape == (19,),
+          f"[contingency cityscapes] values {leg['values']}")
+    record["cityscapes"] = leg
+
+    # (ii) ADE20K-shaped: two metrics, two groups
+    leg = _curve_leg("contingency ade20k", _seg_ade, _ade_batches, kernels, cpu_batches=SEG_CPU_BATCHES)
+    n_batches = ADE_IMAGES // ADE_BATCH
+    check(leg["launches"]["segmentation_counts"] == 2 * n_batches and len(leg["groups"]) == 2,
+          f"[contingency ade20k] groups {leg['groups']}, launches {leg['launches']}")
+    check(leg["tensors"]["miou_per_class"].shape == (ADE_CLASSES,) and 0.0 < float(leg["tensors"]["dice_no_background"]) < 1.0,
+          f"[contingency ade20k] values {leg['values']}")
+    record["ade20k"] = leg
+
+    # (iii) clustering: nine extrinsic metrics in one group, one contingency a compute (two for the V-measure)
+    ami_subset = {}
+    leg = _curve_leg("contingency clustering labels", _clustering_labels_collection, _cluster_labels, kernels,
+                     cpu_batches=1, value_checks={"ami": _ami_check(ami_subset)})
+    check(len(leg["groups"]) == 1 and leg["launches"] == {"segmentation_counts": 0, "confmat_multiclass": 10,
+                                                          "pairwise_lp": 0},
+          f"[contingency clustering labels] groups {leg['groups']}, launches {leg['launches']}")
+    t = leg["tensors"]
+    check(all(0.0 < float(t[k]) < 1.0 for k in ("ami", "nmi", "ari", "homogeneity", "v_measure")),
+          f"[contingency clustering labels] values {leg['values']}")
+    labels = [torch.cat(x) for x in zip(*(args for args, _ in _cluster_labels()))]
+    ami_full = {"float64": _ami_float64(*labels), "card": float(t["ami"])}
+    check(abs(ami_full["card"] - ami_full["float64"]) <= AMI_BOUND_FULL,
+          f"[contingency clustering labels] AMI over all rows {ami_full}: more than {AMI_BOUND_FULL} apart")
+    leg["ami_against_float64"] = {"subset": ami_subset, "all rows": ami_full}
+    # every row its own cluster: 50,000 ids against the 1,000 classes, past the 46,340 ids whose square table
+    # an int32 cell index holds; one launch counts the 1,000 x 50,000 table in a state of side 7,072
+    own = torch.randperm(CLUSTER_ROWS, generator=torch.Generator(device="cuda").manual_seed(SEED + 39),
+                         device="cuda")
+    before = confmat_multiclass.launches
+    table = calculate_contingency_matrix(own, labels[1])
+    torch.cuda.synchronize()
+    check(confmat_multiclass.launches - before == 1 and table.shape == (CLUSTER_CLASSES, CLUSTER_ROWS)
+          and torch.equal(table.cpu(), calculate_contingency_matrix(own.cpu(), labels[1].cpu())),
+          "[contingency clustering labels] the table of 50,000 predicted ids differs from the CPU path")
+    leg["own_clusters"] = {"table": list(table.shape), "launches": confmat_multiclass.launches - before}
+    del table
+    record["clustering labels"] = leg
+    leg = _curve_leg("contingency clustering data", _clustering_data_collection, _cluster_data, kernels,
+                     cpu_batches=1)
+    check(len(leg["groups"]) == 1 and leg["launches"] == {"segmentation_counts": 0, "confmat_multiclass": 0,
+                                                          "pairwise_lp": 2},
+          f"[contingency clustering data] groups {leg['groups']}, launches {leg['launches']}")
+    check(all(bool(torch.isfinite(v)) and float(v) > 0.0 for v in leg["tensors"].values()),
+          f"[contingency clustering data] values {leg['values']}")
+    record["clustering data"] = leg
+
+    # (iv) nominal: occupation x education under both NaN strategies, one group (one launch) a strategy and batch
+    matrix = _adult_columns()
+    leg = _curve_leg("contingency nominal", _nominal_collection, _adult_batches(matrix), kernels)
+    n_batches = -(-ADULT_ROWS // ADULT_BATCH)
+    check(len(leg["groups"]) == 2 and leg["launches"]["confmat_multiclass"] == 2 * n_batches,
+          f"[contingency nominal] groups {leg['groups']}, launches {leg['launches']}")
+    check(all(0.0 <= float(v) <= 1.0 for v in leg["tensors"].values()), f"[contingency nominal] values {leg['values']}")
+    record["nominal"] = leg
+    confmat_multiclass.launches = 0
+    matrices = {}
+    for name, count in (("cramers_v_matrix", 36), ("theils_u_matrix", 72)):
+        before = confmat_multiclass.launches
+        value, ms = _host_ms(lambda: getattr(fn_nominal, name)(matrix))
+        check(confmat_multiclass.launches - before == count, f"[contingency nominal] {name}: "
+                                                             f"{confmat_multiclass.launches - before} launches")
+        cpu = getattr(fn_nominal, name)(matrix.cpu())
+        _assert_same(f"[contingency nominal] {name}", value, cpu)
+        matrices[name] = {"ms": ms, "launches": count, "values": value.diagonal().tolist()[:1] + [float(value.min())]}
+    record["nominal matrices"] = {"launches": {"confmat_multiclass": confmat_multiclass.launches}, **matrices}
+    leg = _curve_leg("contingency fleiss", _fleiss_collection, _fleiss_batches, kernels)
+    check(bool(torch.isfinite(leg["tensors"]["fleiss"])), f"[contingency fleiss] {leg['values']}")
+    record["fleiss"] = leg
+
+    # (v) Market-1501: one pairwise_lp launch a Manhattan or Minkowski call, held whole against the plain
+    # version on the card and timed beside torch.cdist
+    from torchmetrics_tpu_torch.kernels.pairwise import _pairwise_lp_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 38)
+    query = torch.rand((MARKET_QUERY, MARKET_WIDTH), generator=gen, device="cuda")
+    gallery = torch.rand((MARKET_GALLERY, MARKET_WIDTH), generator=gen, device="cuda")
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    calls = {"manhattan": (fpw.pairwise_manhattan_distance, {}, 1, None),
+             "minkowski_3": (fpw.pairwise_minkowski_distance, {"exponent": 3}, 3, "pow"),
+             "minkowski_1.5": (fpw.pairwise_minkowski_distance, {"exponent": 1.5}, 1.5, "pow"),
+             "euclidean": (fpw.pairwise_euclidean_distance, {}, None, None),
+             "cosine": (fpw.pairwise_cosine_similarity, {}, None, None)}
+    market, path_launches = {}, 0
+    cpu_q, cpu_g = query[:64].cpu(), gallery[:512].cpu()
+    for name, (fn, kwargs, p, root) in calls.items():
+        before = pairwise_lp.launches
+        out = fn(query, gallery, **kwargs)
+        torch.cuda.synchronize()
+        path_launches += pairwise_lp.launches - before
+        check(pairwise_lp.launches - before == (1 if p is not None else 0), f"[contingency market] {name} launches")
+        check(out.shape == (MARKET_QUERY, MARKET_GALLERY) and bool(torch.isfinite(out).all()),
+              f"[contingency market] {name}")
+        _assert_same(f"[contingency market] {name}, the first 64 x 512 against the CPU path", out[:64, :512],
+                     fn(cpu_q, cpu_g, **kwargs))
+        entry = {"mean": float(out.mean())}
+        if p is not None:  # every term |x - y|^p is >= 0: the sum of their magnitudes is the plain pre-root sum
+            want = _pairwise_lp_plain(query, gallery, p, root)
+            sums = want.double().pow(float(p)) if root == "pow" else want.double()
+            entry["max_abs_err"] = _lp_check(f"Market-1501 {name}", out, want, query, gallery, p, root, sums)
+            del want, sums
+        entry["ms"] = time_ms(lambda: fn(query, gallery, **kwargs), flush, reps=3, warmup=1)
+        if p is not None:
+            kw = {"compute_mode": "donot_use_mm_for_euclid_dist"} if p == 2 else {}
+            entry["cdist_ms"] = time_ms(lambda: torch.cdist(query, gallery, float(p), **kw), flush, reps=3, warmup=1)
+            entry["bound_ms"], entry["bound_by"] = _lp_bound_ms(MARKET_QUERY, MARKET_GALLERY, MARKET_WIDTH, p)
+        market[name] = entry
+        del out
+    del flush
+    record["market"] = {"launches": {"pairwise_lp": path_launches}, "calls": market}
+    check(path_launches == 3, f"[contingency market] {path_launches} pairwise_lp launches")
+
+    for name, leg in record.items():
+        if "batches" in leg:
+            print(f"[contingency] {name}: {leg['batches']} batches in {leg['leg_s']:.3f} s (the CPU rerun "
+                  f"{leg['cpu_rerun_s']:.1f} s); compute groups {leg['groups']}; collection update median "
+                  f"{leg['update_ms_median']:.4f} ms (host clock, a synchronize after each), compute "
+                  f"{leg['compute_ms']:.4f} ms; launches {leg['launches']}; the first batches match the CPU path "
+                  f"({leg['cpu_compared']} tensors); values {leg['values']}"
+                  + (f"; void 255 share {leg['void_share']:.4f}, counted as class 18" if "void_share" in leg else "")
+                  + (f"; AMI against float64 (bound over all rows {AMI_BOUND_FULL}): "
+                     f"{leg['ami_against_float64']}" if "ami_against_float64" in leg else "")
+                  + (f"; every row its own cluster: a {leg['own_clusters']['table']} table in "
+                     f"{leg['own_clusters']['launches']} launch, equal to the CPU path" if "own_clusters" in leg else ""))
+            del leg["tensors"]
+    for name, entry in matrices.items():
+        print(f"[contingency] nominal {name} over 9 Adult-shaped columns: {entry['ms']:.1f} ms (host clock), "
+              f"{entry['launches']} confmat_multiclass launches, equal to the CPU path within {FLOAT_RTOL}")
+    for name, entry in market.items():
+        extra = (f", torch.cdist {entry['cdist_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})"
+                 if "cdist_ms" in entry else "")
+        print(f"[contingency] market {name} ({MARKET_QUERY} x {MARKET_GALLERY} x {MARKET_WIDTH}): "
+              f"{entry['ms']:.4f} ms after an L2 flush{extra}; the first 64 x 512 match the CPU path"
+              + (f"; all of it the plain version on the card (max abs err {entry['max_abs_err']:.3g})"
+                 if "max_abs_err" in entry else ""))
+    return record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--json", help="also write the full record to this file")
@@ -3271,6 +3880,8 @@ def main() -> int:
         "ranking_pairs": "torchmetrics_tpu_torch/csrc/ranking.cu",
         "retrieval_groups": "torchmetrics_tpu_torch/csrc/retrieval.cu",
         "ssim_window": "torchmetrics_tpu_torch/csrc/ssim.cu",
+        "segmentation_counts": "torchmetrics_tpu_torch/csrc/segmentation.cu",
+        "pairwise_lp": "torchmetrics_tpu_torch/csrc/pairwise.cu",
     }
     replaces = {
         "binned_confmat_multiclass": "torchmetrics_tpu/functional/classification/precision_recall_curve.py:128",
@@ -3281,6 +3892,8 @@ def main() -> int:
         "ranking_pairs": "torchmetrics_tpu/functional/classification/ranking.py:44",
         "retrieval_groups": "torchmetrics_tpu/functional/retrieval/kernels.py:57",
         "ssim_window": "torchmetrics_tpu/functional/image/ssim.py:111",
+        "segmentation_counts": "torchmetrics_tpu/functional/segmentation/mean_iou.py:43",
+        "pairwise_lp": "torchmetrics_tpu/functional/pairwise/pairwise.py:118",
     }
 
     seconds = {}
@@ -3304,6 +3917,8 @@ def main() -> int:
     kernel_rows["ranking_pairs"] = timed("phase 3 ranking_pairs", phase_ranking_kernel, flush)
     kernel_rows["retrieval_groups"] = timed("phase 3 retrieval_groups", phase_retrieval_kernel, flush)
     kernel_rows["ssim_window"] = timed("phase 3 ssim_window", phase_ssim_kernel, flush)
+    kernel_rows["segmentation_counts"] = timed("phase 3 segmentation_counts", phase_segmentation_kernel, flush)
+    kernel_rows["pairwise_lp"] = timed("phase 3 pairwise_lp", phase_pairwise_kernel, flush)
     del flush
     main = timed("phase 4", phase_main_path, kernels)
     sync = timed("phase 5", phase_sync)
@@ -3312,6 +3927,9 @@ def main() -> int:
     curves = timed("phase 8", phase_curves)
     rest = timed("phase 9", phase_rest)
     signal = timed("phase 10", phase_signal)
+    contingency = timed("phase 11", phase_contingency)
+    kernel_rows["pairwise_lp"] += [{"case": f"Market-1501 {name} (phase 11)", "max_abs_err": entry["max_abs_err"]}
+                                   for name, entry in contingency["market"]["calls"].items() if "max_abs_err" in entry]
 
     # launches of each kernel on the paths that run it: the eval step (phase 4),
     # every rank of the sync worlds (phase 5) and of the ragged worlds (phase 6)
@@ -3327,7 +3945,13 @@ def main() -> int:
         "retrieval_groups": {f"signal {leg}": signal[leg]["launches"]["retrieval_groups"]
                              for leg in ("msmarco", "trec ndcg", "trec map")},
         "ssim_window": {"signal div2k": signal["div2k"]["launches"]["ssim_window"]},
+        "segmentation_counts": {f"contingency {leg}": contingency[leg]["launches"]["segmentation_counts"]
+                                for leg in ("cityscapes", "ade20k")},
+        "pairwise_lp": {f"contingency {leg}": contingency[leg]["launches"]["pairwise_lp"]
+                        for leg in ("clustering data", "market")},
     }
+    for leg in ("clustering labels", "nominal", "nominal matrices"):
+        by_path["confmat_multiclass"][f"contingency {leg}"] = contingency[leg]["launches"]["confmat_multiclass"]
     for leg in ("imagenet probabilities", "imagenet logits"):
         by_path["binned_confmat_multiclass"][f"rest {leg}"] = rest[leg]["launches"]["binned_confmat_multiclass"]
     for leg in ("coco", "binary"):
@@ -3338,23 +3962,25 @@ def main() -> int:
                 by_path[kernel][f"{name} {label}"] = count
     line = {"kernels": []}
     for name in sources:
-        first_row = kernel_rows[name][0]  # the main path's shape
+        first_row = kernel_rows[name][0]  # the main path's shape; pairwise_lp's is 1,024^2 x 512 (phase 11 times
+        # Market-1501's, where the plain version runs only a block of rows at a time)
         check(all(n > 0 for n in by_path[name].values()) and by_path[name], f"{name} did not launch: {by_path[name]}")
         line["kernels"].append({
             "name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
             "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
             "max_abs_err": max(r["max_abs_err"] for r in kernel_rows[name]),
             "ms": first_row["ms"], "stream_ms": first_row["stream_ms"], "plain_ms": first_row["plain_ms"],
-            "bound_ms": first_row["bound_ms"], "bound_by": first_row["bound_by"], "library_ms": None,
+            "bound_ms": first_row["bound_ms"], "bound_by": first_row["bound_by"],
+            "library_ms": first_row.get("library_ms"),
             **{k: first_row[k] for k in ("two_call_ms", "bucketize_bincount_ms", "softmax_bucketize_bincount_ms",
                                          "sort_gather_cumsum_ms", "query_layout_ms", "sort_cumsum_segment_ms",
-                                         "conv_ssim_yardstick_ms") if k in first_row},
+                                         "conv_ssim_yardstick_ms", "bincount_yardstick_ms") if k in first_row},
         })
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"device": device, "build_s": build_s, "seconds": seconds, "kernels": kernel_rows, "main_path": main,
                        "sync": sync, "ragged": ragged, "tower": tower, "curves": curves, "rest": rest,
-                       "signal": signal}, f, indent=1)
+                       "signal": signal, "contingency": contingency}, f, indent=1)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}}))
     return 0

@@ -14,7 +14,9 @@ from pathlib import Path
 
 import pytest
 
+from torchmetrics_tpu_torch.kernels import pairwise as kpw
 from torchmetrics_tpu_torch.kernels import retrieval as krt
+from torchmetrics_tpu_torch.kernels import segmentation as kseg
 from torchmetrics_tpu_torch.kernels import ssim as kss
 
 REPO = Path(__file__).resolve().parent.parent
@@ -50,6 +52,21 @@ def test_ssim_tile_is_the_kernels():
     assert kss.TILE_W == _constant(src, "kTileW")
     assert kss.TILE_H == _constant(src, "kWarps") * _constant(src, "kColRows")
     assert kss.THREADS == _constant(src, "kTileW") * _constant(src, "kWarps")
+
+
+@pytest.mark.parametrize(("module", "python", "kernel"), [
+    (kseg, "SHARED_CLASSES", "kSharedClasses"), (kseg, "THREADS", "kThreads"),
+    (kpw, "TILE", "kTile"), (kpw, "CHUNK", "kChunk"), (kpw, "THREADS", "kThreads"),
+], ids=lambda v: v if isinstance(v, str) else v.SOURCE)
+def test_segmentation_and_pairwise_constants_are_the_kernels(module, python, kernel):
+    assert getattr(module, python) == _constant(_source(module.SOURCE), kernel)
+
+
+def test_segmentation_shared_histogram_fits_the_default_shared_memory():
+    assert 3 * kseg.SHARED_CLASSES * 4 <= 48 * 1024
+    assert kseg.CHUNK_ALIGN % 16 == 0 and kseg.MIN_CHUNK % kseg.CHUNK_ALIGN == 0
+    assert "if (n_images < 1 || n_images > 65535" in _source("segmentation") and kseg.MAX_IMAGES == 65_535
+    assert kpw.THREADS == (kpw.TILE // 4) ** 2  # a 4 x 4 register tile a thread
 
 
 _ABLATION = _ablation()

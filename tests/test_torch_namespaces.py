@@ -20,19 +20,26 @@ ALLOWED = {("torchmetrics_tpu.functional.classification", "precision_recall_curv
 NAMESPACES = [
     "torchmetrics_tpu",
     "torchmetrics_tpu.classification",
+    "torchmetrics_tpu.clustering",
     "torchmetrics_tpu.core",
     "torchmetrics_tpu.detection",
     "torchmetrics_tpu.functional",
     "torchmetrics_tpu.functional.classification",
+    "torchmetrics_tpu.functional.clustering",
     "torchmetrics_tpu.functional.detection",
     "torchmetrics_tpu.functional.image",
+    "torchmetrics_tpu.functional.nominal",
+    "torchmetrics_tpu.functional.pairwise",
     "torchmetrics_tpu.functional.regression",
     "torchmetrics_tpu.functional.retrieval",
+    "torchmetrics_tpu.functional.segmentation",
     "torchmetrics_tpu.functional.text",
     "torchmetrics_tpu.image",
+    "torchmetrics_tpu.nominal",
     "torchmetrics_tpu.parallel",
     "torchmetrics_tpu.regression",
     "torchmetrics_tpu.retrieval",
+    "torchmetrics_tpu.segmentation",
     "torchmetrics_tpu.text",
     "torchmetrics_tpu.utilities",
 ]

@@ -17,7 +17,9 @@ and target extremes (or its cat lists with ``dim``), PSNR-B's sums, SSIM's
 and MS-SSIM's sums or cat lists (with the full maps or contrast
 sensitivities), the spectral metrics' cat lists (D-s and QNR with ``ms``,
 ``pan`` and ``pan_lr``), VIF's sums and total variation's sums or score
-list.
+list, the segmentation scores' float32 sums and sample counts, nominal
+association's float32 ``(C, C)`` table, ``FleissKappa``'s int32 count list
+and the clustering metrics' cat lists of labels, or of data and labels.
 :func:`collection_states_from_jax` does it for every member state of a
 ``MetricCollection`` (``{leader name: state}``).
 """
