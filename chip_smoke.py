@@ -14,7 +14,9 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    +-inf thresholds, non-finite scores, C % 4 != 0, out-of-range targets
    and ignored rows), from a random non-zero int32 state; the new states
    must be exactly equal. Times are CUDA-event medians of one call with the
-   L2 cache flushed before each and a spin kernel holding the card while the
+   L2 cache flushed clean before each (a 256 MB write, then a 256 MB read:
+   no dirty line left; an empty kernel's time after it, the launch floor,
+   is printed first) and a spin kernel holding the card while the
    host enqueues the call (``time_ms``, the kernel record's ``ms`` and
    ``plain_ms``); the kernel is also timed per call of a run of calls back to
    back over copies of the inputs that overflow the L2 cache
@@ -111,8 +113,11 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    1,024 x 512 (p = 1, int 2, int 3 and 1.5 timed beside ``torch.cdist``;
    float 2.0 and 0.5), at N, M and d of 1, 31, 33 and 4,097 for p = 1, int
    2, 2.0, int 3, 4 and 5, 0.5 and 1.5, with NaN, +-inf and -0.0 in the rows, the
-   square-root root and ``x is y`` with ``zero_diagonal``, two launches
-   equal bit for bit; ``confmat_multiclass`` also at the contingency tables
+   square-root root and ``x is y`` with ``zero_diagonal``, on rows of
+   magnitudes from 1e-30 to 1e30 with subnormal differences and values at p
+   = 0.5, 1.5 and 5.5 and d = 1, 4,096 and 4,097, two launches
+   equal bit for bit; ``segmentation_counts``' two timed rows are also timed
+   after the flush's write alone, the earlier timer; ``confmat_multiclass`` also at the contingency tables
    of phase 11: (c) nominal's 1,024 labels at C = 42 with dropped rows,
    saturated +-inf and labels that wrap or drop, (d) clustering's 50,000
    labels at C = 1,000;
@@ -234,10 +239,11 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    V and Theil's U matrices over the nine columns (36 and 72 launches), and
    ``FleissKappa(mode="probs")`` over 10,000 x 5 x 10 ratings; (v)
    Market-1501's evaluation shape, 3,368 query x 19,732 gallery features of
-   width 2,048: Manhattan, Minkowski at p = 3 and 1.5 (one ``pairwise_lp``
-   launch each, held whole against the plain version on the card and timed
-   beside ``torch.cdist``), Euclidean and cosine, the first 64 x 512 block
-   of each against the CPU path.
+   width 2,048: Manhattan, Minkowski at its default exponent 2, at 3 and 1.5
+   (one ``pairwise_lp`` launch each, held whole against the plain version on
+   the card and timed beside ``torch.cdist``; the SM clock printed beside
+   the bounds, which take 1.98 GHz), Euclidean and cosine, the first 64 x
+   512 block of each against the CPU path.
 
 Phases 5 and 6 run each rank as a process of its own (this script with
 ``--worker``); every kernel must have launched on the paths that run it.
@@ -287,8 +293,23 @@ HOST_US_PER_CALL = 200  # the spin before a timed call or run allows this much h
 CLOCK_HZ = 1.98e9  # the H100's boost clock: the spin's cycles; at a lower clock the spin lasts longer
 
 
-def time_ms(fn, flush: torch.Tensor, reps: int = 30, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms, by CUDA events, the L2 cache flushed before each rep.
+def flush_buffer() -> torch.Tensor:
+    """The L2 flush of ``time_ms``: 2 x 256 MB, past the 50 MB L2."""
+    return torch.empty(2 * 64 * 2**20, dtype=torch.float32, device="cuda")
+
+
+def flush_l2(flush: torch.Tensor, clean: bool = True) -> None:
+    """Write the first half of ``flush``; then, if ``clean``, read the second half, so the L2 holds clean lines
+    only and a timed call that follows pays for no write-back of the flush's dirty lines."""
+    half = flush.shape[0] // 2
+    flush[:half].zero_()
+    if clean:
+        flush[half:].sum()
+
+
+def time_ms(fn, flush: torch.Tensor, reps: int = 30, warmup: int = 3, clean: bool = True) -> float:
+    """Median device time of ``fn`` in ms, by CUDA events, the L2 cache flushed before each rep (``flush_l2``;
+    ``clean=False``: the write alone, which leaves up to 50 MB of dirty lines to the timed call).
 
     After the flush a spin kernel holds the card while the host enqueues ``fn``, so the events
     time the device's work alone and not the host's enqueue; a rep whose enqueue outlasted the
@@ -300,7 +321,7 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 30, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     times, host_us = [], HOST_US_PER_CALL
     while len(times) < reps:
-        flush.zero_()
+        flush_l2(flush, clean)
         spin_start, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
         t0 = time.perf_counter()
         spin_start.record()
@@ -318,6 +339,21 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 30, warmup: int = 3) -> float:
         else:
             host_us = 0  # fn waits for the device: no spin covers its enqueue
     return statistics.median(times)
+
+
+def sm_clocks() -> str:
+    """The SM clock now and at most, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def launch_floor(flush: torch.Tensor) -> dict:
+    """An empty kernel's time after the clean flush and after the write alone: the floor of every timed row."""
+    empty = lambda: torch.cuda._sleep(0)  # noqa: E731
+    floor = {"clean": time_ms(empty, flush), "write_only": time_ms(empty, flush, clean=False)}
+    print(f"[time] an empty kernel after the clean L2 flush: {floor['clean']:.4f} ms (after the write alone "
+          f"{floor['write_only']:.4f} ms): the launch floor")
+    return floor
 
 
 def copies_for(set_bytes: int) -> int:
@@ -3407,17 +3443,20 @@ def phase_segmentation_kernel(flush: torch.Tensor) -> list:
             bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
             plan = kseg.plan(shape[0], preds[0].numel(), c, torch.cuda.get_device_properties(0).multi_processor_count)
             kernel_ms = time_ms(lambda: kseg.segmentation_counts(preds, target, c), flush)
+            dirty_ms = time_ms(lambda: kseg.segmentation_counts(preds, target, c), flush, clean=False)
             plain_ms = time_ms(lambda: kseg._segmentation_counts_plain(preds, target, c), flush, reps=5, warmup=1)
             yard_ms = time_ms(lambda: _bincount_counts(preds, target, c), flush, reps=10, warmup=1)
             sets = [(preds, target)] + [(preds.clone(), target.clone()) for _ in range(copies_for(nbytes) - 1)]
             stream_ms = time_stream_ms(lambda p_, t_: kseg.segmentation_counts(p_, t_, c), sets,
                                        calls=len(sets) * max(1, 24 // len(sets)))
             del sets
-            row.update({"plan": plan._asdict(), "ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms,
+            row.update({"plan": plan._asdict(), "ms": kernel_ms, "write_only_flush_ms": dirty_ms, "stream_ms": stream_ms,
+                        "plain_ms": plain_ms,
                         "bincount_yardstick_ms": yard_ms, "bound_ms": bytes_ms, "bound_by": "bytes", "bytes": nbytes,
                         "library_ms": None})
             print(f"[kernel] segmentation_counts {label}: exact, {kernel_ms:.4f} ms after an L2 flush "
-                  f"({stream_ms:.4f} ms a call back to back; plan {tuple(plan)}), plain (one-hots) {plain_ms:.4f} ms, "
+                  f"({dirty_ms:.4f} ms after the flush's write alone, which leaves dirty lines; {stream_ms:.4f} ms a "
+                  f"call back to back; plan {tuple(plan)}), plain (one-hots) {plain_ms:.4f} ms, "
                   f"three bincount calls (a yardstick) {yard_ms:.4f} ms, bound {bytes_ms * 1e3:.2f} us (bytes: "
                   f"{nbytes}), library_ms: none")
         rows.append(row)
@@ -3461,9 +3500,24 @@ def _lp_check(label, got, want, x, y, p, root, terms=None):
     return float(err[finite].max()) if finite.any() else 0.0
 
 
+def _wide_rows(n: int, d: int, gen: torch.Generator) -> torch.Tensor:
+    """Rows of magnitudes from 1e-30 to 1e30, log-uniform, either sign; rows 8-11 hold values near 2^-120 that
+    differ in their last bits from row 8's (subnormal differences, and zeros), row 12 subnormal values."""
+    dev = torch.device("cuda")
+    sign = torch.where(torch.rand((n, d), generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    x = sign * torch.pow(10.0, 60.0 * torch.rand((n, d), generator=gen, device=dev) - 30.0)
+    if n > 12:
+        steps = torch.randint(0, 8, (4, d), generator=gen, device=dev).float()
+        x[8:12] = 2.0**-120 * (1.0 + steps * 2.0**-23)
+        x[12] = 1e-40 * torch.rand((d,), generator=gen, device=dev)
+    return x.contiguous()
+
+
 def phase_pairwise_kernel(flush: torch.Tensor) -> list:
     """``pairwise_lp`` against its plain version (JAX's broadcast) on the card. Timed at 1,024 x 1,024 x 512
-    (the first row: p = 1; then int 2, int 3, 1.5) beside ``torch.cdist``; Market-1501's shape is phase 11."""
+    (the first row: p = 1; then int 2, int 3, 1.5) beside ``torch.cdist``; Market-1501's shape is phase 11. The
+    rows of magnitudes from 1e-30 to 1e30 (``_wide_rows``) reach every binary exponent of a float p's table, its
+    fast range and the accurate path, at d = 1 (each output one term), 4,096 (16-byte copies) and 4,097."""
     from torchmetrics_tpu_torch.functional import pairwise as fpw
     from torchmetrics_tpu_torch.kernels import pairwise as kpw
 
@@ -3474,10 +3528,17 @@ def phase_pairwise_kernel(flush: torch.Tensor) -> list:
     for n, m, d in ((1, 1, 1), (31, 33, 33), (33, 31, 4097), (4097, 31, 1), (1, 4097, 31), (33, 33, 31)):
         cases += [((n, m, d), p, "pow", False) for p in (1, 2, 2.0, 3, 4, 5, 0.5, 1.5)]
     cases += [((100, 80, 2048), 2, "sqrt", False), ((64, 64, 64), 1, None, False)]
+    # magnitudes from 1e-30 to 1e30, subnormal differences and values: every E of a float p's table
+    cases += [((n, m, d), p, "pow", "wide") for n, m, d in ((64, 48, 1), (40, 33, 4096), (40, 33, 4097))
+              for p in (0.5, 1.5, 5.5)]
     rows = []
     for (n, m, d), p, root, timed in cases:
         x = torch.randn((n, d), generator=gen, device=dev)
         y = torch.randn((m, d), generator=gen, device=dev)
+        wide = timed == "wide"
+        if wide:
+            x, y = (_wide_rows(r, d, gen) for r in (n, m))
+            timed = False
         if not timed and n > 8 and m > 8:  # rows of NaN and +-inf, a signed zero
             x[3, d // 2], x[5, 0], y[7, d - 1], x[6, 0] = float("nan"), float("inf"), float("-inf"), -0.0
         before = kpw.pairwise_lp.launches
@@ -3488,7 +3549,13 @@ def phase_pairwise_kernel(flush: torch.Tensor) -> list:
         label = f"({n}, {m}, {d}), p={p!r}, root {root}"
         check(kpw.pairwise_lp.launches == before + 2, f"pairwise_lp did not launch twice ({label})")
         check(torch.equal(got.view(torch.int32), again.view(torch.int32)), f"pairwise_lp is not deterministic ({label})")
-        row = {"case": label, "max_abs_err": _lp_check(label, got, want, x, y, p, root)}
+        err = _lp_check(label, got, want, x, y, p, root)
+        if wide:  # outputs up to 1e35: the error relative to the output, out of the record's absolute one
+            finite = torch.isfinite(want) & (want != 0)
+            rel = ((got.double() - want.double()).abs() / want.double().abs())[finite]
+            row = {"case": label, "max_rel_err": float(rel.max()) if rel.numel() else 0.0}
+        else:
+            row = {"case": label, "max_abs_err": err}
         if timed:
             bound_ms, bound_by = _lp_bound_ms(n, m, d, p)
             kernel_ms = time_ms(lambda: kpw.pairwise_lp(x, y, p, root), flush, reps=10)
@@ -3510,8 +3577,10 @@ def phase_pairwise_kernel(flush: torch.Tensor) -> list:
     want = kpw._pairwise_lp_plain(x, x, 1, None) * (1.0 - torch.eye(70, device=dev))
     check(torch.equal(got.isnan(), want.isnan()) and bool(got[4, 4].isnan()), "zero_diagonal on x is y")
     rows.append({"case": "x is y, zero_diagonal, an inf row", "max_abs_err": _lp_check("x is y", got, want, x, x, 1, None)})
+    wide_rel = max(r["max_rel_err"] for r in rows if "max_rel_err" in r)
     print(f"[kernel] pairwise_lp: within 1e-6 relative plus the float32 summation bound of the plain version's d "
-          f"terms, NaN and +-inf in place, deterministic, on {len(rows)} cases")
+          f"terms, NaN and +-inf in place, deterministic, on {len(rows)} cases (the rows of magnitudes 1e-30 to "
+          f"1e30: max relative err {wide_rel:.3g})")
     return rows
 
 
@@ -3793,8 +3862,9 @@ def phase_contingency() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 38)
     query = torch.rand((MARKET_QUERY, MARKET_WIDTH), generator=gen, device="cuda")
     gallery = torch.rand((MARKET_GALLERY, MARKET_WIDTH), generator=gen, device="cuda")
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    flush = flush_buffer()
     calls = {"manhattan": (fpw.pairwise_manhattan_distance, {}, 1, None),
+             "minkowski_2": (fpw.pairwise_minkowski_distance, {}, 2, "pow"),
              "minkowski_3": (fpw.pairwise_minkowski_distance, {"exponent": 3}, 3, "pow"),
              "minkowski_1.5": (fpw.pairwise_minkowski_distance, {"exponent": 1.5}, 1.5, "pow"),
              "euclidean": (fpw.pairwise_euclidean_distance, {}, None, None),
@@ -3826,7 +3896,8 @@ def phase_contingency() -> dict:
         del out
     del flush
     record["market"] = {"launches": {"pairwise_lp": path_launches}, "calls": market}
-    check(path_launches == 3, f"[contingency market] {path_launches} pairwise_lp launches")
+    check(path_launches == 4, f"[contingency market] {path_launches} pairwise_lp launches")
+    record["market"]["sm_clocks"] = sm_clocks()
 
     for name, leg in record.items():
         if "batches" in leg:
@@ -3844,6 +3915,8 @@ def phase_contingency() -> dict:
     for name, entry in matrices.items():
         print(f"[contingency] nominal {name} over 9 Adult-shaped columns: {entry['ms']:.1f} ms (host clock), "
               f"{entry['launches']} confmat_multiclass launches, equal to the CPU path within {FLOAT_RTOL}")
+    print(f"[contingency] market: the bounds take a 1.98 GHz SM clock; SM clock after the timed calls, now and at "
+          f"most: {record['market']['sm_clocks']}")
     for name, entry in market.items():
         extra = (f", torch.cdist {entry['cdist_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})"
                  if "cdist_ms" in entry else "")
@@ -3907,7 +3980,8 @@ def main() -> int:
 
     device = phase_device()
     build_s = phase_build()
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB, past the 50 MB L2
+    flush = flush_buffer()
+    floor = launch_floor(flush)
     kernel_rows = timed("phase 3 binned_confmat_multiclass", phase_kernels, flush)
     kernel_rows["coco_match"], chunk_shapes = timed("phase 3 coco_match", phase_matcher, flush)
     kernel_rows["confmat_multiclass"] = timed("phase 3 confmat_multiclass", phase_confmat, flush)
@@ -3968,7 +4042,7 @@ def main() -> int:
         line["kernels"].append({
             "name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
             "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
-            "max_abs_err": max(r["max_abs_err"] for r in kernel_rows[name]),
+            "max_abs_err": max(r["max_abs_err"] for r in kernel_rows[name] if "max_abs_err" in r),
             "ms": first_row["ms"], "stream_ms": first_row["stream_ms"], "plain_ms": first_row["plain_ms"],
             "bound_ms": first_row["bound_ms"], "bound_by": first_row["bound_by"],
             "library_ms": first_row.get("library_ms"),
@@ -3978,7 +4052,8 @@ def main() -> int:
         })
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({"device": device, "build_s": build_s, "seconds": seconds, "kernels": kernel_rows, "main_path": main,
+            json.dump({"device": device, "build_s": build_s, "seconds": seconds, "launch_floor": floor,
+                       "kernels": kernel_rows, "main_path": main,
                        "sync": sync, "ragged": ragged, "tower": tower, "curves": curves, "rest": rest,
                        "signal": signal, "contingency": contingency}, f, indent=1)
     print(json.dumps(line))

@@ -56,7 +56,7 @@ def test_ssim_tile_is_the_kernels():
 
 @pytest.mark.parametrize(("module", "python", "kernel"), [
     (kseg, "SHARED_CLASSES", "kSharedClasses"), (kseg, "THREADS", "kThreads"),
-    (kpw, "TILE", "kTile"), (kpw, "CHUNK", "kChunk"), (kpw, "THREADS", "kThreads"),
+    (kpw, "COL_THREADS", "kColThreads"), (kpw, "CHUNK", "kChunk"), (kpw, "THREADS", "kThreads"),
 ], ids=lambda v: v if isinstance(v, str) else v.SOURCE)
 def test_segmentation_and_pairwise_constants_are_the_kernels(module, python, kernel):
     assert getattr(module, python) == _constant(_source(module.SOURCE), kernel)
@@ -66,7 +66,15 @@ def test_segmentation_shared_histogram_fits_the_default_shared_memory():
     assert 3 * kseg.SHARED_CLASSES * 4 <= 48 * 1024
     assert kseg.CHUNK_ALIGN % 16 == 0 and kseg.MIN_CHUNK % kseg.CHUNK_ALIGN == 0
     assert "if (n_images < 1 || n_images > 65535" in _source("segmentation") and kseg.MAX_IMAGES == 65_535
-    assert kpw.THREADS == (kpw.TILE // 4) ** 2  # a 4 x 4 register tile a thread
+    src = _source("pairwise")
+    assert "constexpr int kRowThreads = kThreads / kColThreads;" in src and kpw.ROW_THREADS * kpw.COL_THREADS == kpw.THREADS
+    # a thread's register tile of rows x cols sums, the block's (16 rows) x (16 cols): the entry's three instances
+    for rows, cols in kpw.TILES:
+        assert f"if (rows == {rows} && cols == {cols}) return launch<{rows}, {cols}>(" in src
+        # two staged chunks of the block's x and y rows and a float p's table: two blocks an SM's 227 KB
+        assert 2 * 4 * (2 * (kpw.ROW_THREADS * rows + kpw.COL_THREADS * cols) * (kpw.CHUNK + 4) + 256) <= 227 * 1024
+    assert src.count("if (rows == ") == len(kpw.TILES)
+    assert "(m + kTileN - 1) / kTileN > 65535" in src and kpw.MAX_COLS == 65_535 * kpw.COL_THREADS * 8
 
 
 _ABLATION = _ablation()
@@ -74,6 +82,8 @@ _BUILDS = [("retrieval", table, name, edits)
            for table in ("RET_PATHS", "RET_BUILDS", "RET_FAULT_BUILDS")
            for name, (edits, _) in getattr(_ABLATION, table).items()]
 _BUILDS += [("ssim", "SSIM_VARIANTS", name, edits) for name, (edits, _) in _ABLATION.SSIM_VARIANTS.items()]
+_BUILDS += [("pairwise", "PAIRWISE_VARIANTS", name, edits)
+            for name, (edits, _) in _ABLATION.PAIRWISE_VARIANTS.items()]
 
 
 @pytest.mark.parametrize(("source", "table", "name", "edits"), _BUILDS,

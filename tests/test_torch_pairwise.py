@@ -11,10 +11,13 @@ the Euclidean distance also within ``sqrt(8 * 2**-24 * max(|x|^2 + |y|^2))``
 absolute: its expansion ``|x|^2 + |y|^2 - 2 x.y`` cancels near 0, where a few
 float32 roundings of the squared norms pass through the square root (1.95e-3
 on the diagonal of 21-wide rows). The kernel's model (float32 sums in order
-of ``k`` over zero-padded chunks, a fused multiply-add a term for p = 2) is
+of ``k`` over zero-padded groups of 4 columns, a fused multiply-add a term for
+p = 2 and for a float p's fast form ``ex2(p lg2(mant)) * 2^(p (E - 127))``) is
 held against JAX and the plain version within 1e-6 relative plus the float32
 summation bound of the ``d`` terms, ``d * 2**-24 * sum |term|``, taken
-through the root.
+through the root. The fast form is also held at the special-function unit's
+error bounds (lg2 +-2^-22.6 absolute, ex2 +-2 ulp) within that tolerance at
+d = 1 over |d| from 1e-30 to 1e30, where the naive ``ex2(p lg2|d|)`` fails.
 """
 
 import jax.numpy as jnp
@@ -162,13 +165,49 @@ def test_launcher_refuses_what_it_does_not_take():
     assert kpw.pairwise_lp.launches == 0
 
 
+LG2_ERR = 2.0**-22.6  # lg2.approx.f32's absolute error on [1, 2) by the PTX ISA (2^-22.577 measured on an H100)
+EX2_ULPS = 2  # ex2.approx.f32's error bound used here (1.40 ulp measured on [0, 8) on an H100)
+
+
+def _pow_table(p) -> np.ndarray:
+    """The launcher's table of a float ``p``: ``2^(p (E - 127))`` rounded once from float64 to float32 for every
+    binary exponent ``E`` whose terms ``mant^p 2^(p (E - 127))``, ``mant`` in [1, 2), lie in [2^-126, 2^127];
+    -1 elsewhere (zero and subnormal ``d`` at ``E = 0``, inf and NaN at 255): the accurate path."""
+    e = np.arange(256, dtype=np.float64)
+    pd = float(F32(p))
+    lo, hi = pd * (e - 127), pd * (e - 126)
+    fast = (e >= 1) & (e <= 254) & (lo >= -126) & (hi <= 127)
+    return np.where(fast, np.exp2(lo), -1.0).astype(F32)
+
+
+def _ulps(v: np.ndarray, n: int) -> np.ndarray:
+    for _ in range(abs(n)):
+        v = np.nextafter(v, F32(np.inf) if n > 0 else F32(0)).astype(F32)
+    return v
+
+
+def _fast_terms(diff: np.ndarray, p, lg2_shift: float = 0.0, ex2_ulps: int = 0):
+    """A float ``p``'s fast form as the kernel takes it: ``|d| = mant 2^(E - 127)`` from the bits of ``d``, then
+    ``r = ex2(float32(p lg2(mant)))`` and ``scale = table[E]``; the term is ``r * scale`` (the kernel adds it to
+    the sum in one fused multiply-add). ``lg2_shift`` moves lg2's float64 value before its float32 rounding,
+    ``ex2_ulps`` moves ex2's rounded result by whole ulps: the error bounds of the special-function unit."""
+    bits = np.ascontiguousarray(diff, F32).view(np.uint32)
+    mant = ((bits & 0x7FFFFF) | 0x3F800000).view(F32)
+    scale = _pow_table(p)[(bits >> 23) & 0xFF]
+    u = (F32(p) * (np.log2(mant.astype(np.float64)) + lg2_shift).astype(F32)).astype(F32)
+    r = _ulps(np.exp2(u.astype(np.float64)).astype(F32), ex2_ulps)
+    return r, scale
+
+
 def _kernel_model(x: np.ndarray, y: np.ndarray, p, root):
-    """The kernel's order in numpy: chunks of ``CHUNK`` columns, zero past ``d``; each output a float32
-    sum in order of ``k``: ``acc + |d|`` (p = 1), ``fma(d, d, acc)`` (int 2, rounded once from float64,
-    where the product is exact), else ``acc + integer_pow(|d|)`` or ``acc + |d| ** p``; then the root."""
+    """The kernel's order in numpy: groups of 4 columns (chunks of ``CHUNK``), zero past ``d``; each output a
+    float32 sum in order of ``k``: ``acc + |d|`` (p = 1), ``fma(d, d, acc)`` (int 2, rounded once from float64,
+    where the product is exact), ``acc + integer_pow(|d|)`` (other ints); a float ``p``: ``fma(r, scale, acc)``
+    where the table holds ``scale`` (:func:`_fast_terms`, lg2 and ex2 taken as correctly rounded), else
+    ``acc + |d| ** p`` (the accurate path; zero adds nothing); then the root."""
     n, d = x.shape
     m = y.shape[0]
-    width = -(-d // kpw.CHUNK) * kpw.CHUNK
+    width = -(-d // 4) * 4
     xp, yp = np.zeros((n, width), F32), np.zeros((m, width), F32)
     xp[:, :d], yp[:, :d] = x, y
     acc = np.zeros((n, m), F32)
@@ -182,7 +221,10 @@ def _kernel_model(x: np.ndarray, y: np.ndarray, p, root):
             elif isinstance(p, int):
                 acc = (acc + kpw._integer_pow(torch.from_numpy(np.abs(diff)), p).numpy()).astype(F32)
             else:
-                acc = (acc + np.power(np.abs(diff), F32(p))).astype(F32)
+                r, scale = _fast_terms(diff, p)
+                fused = (acc.astype(np.float64) + r.astype(np.float64) * scale.astype(np.float64)).astype(F32)
+                accurate = (acc + np.power(np.abs(diff), F32(p))).astype(F32)
+                acc = np.where(scale >= 0, fused, accurate).astype(F32)
         if root == "pow":
             return np.power(acc, F32(1.0 / p)).astype(F32), acc
         return (np.sqrt(acc).astype(F32) if root == "sqrt" else acc), acc
@@ -198,7 +240,7 @@ def _within_summation_bound(got, want, terms_abs_sum, d, p, root):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     finite = np.isfinite(want)
     assert np.array_equal(np.isnan(got), np.isnan(want)) and np.array_equal(got[~finite], want[~finite])
-    err = np.abs(got - want)[finite]
+    err = np.abs(got[finite] - want[finite])
     assert (err <= 1e-6 * np.abs(want[finite]) + bound[finite] + 1e-30).all(), float(err.max())
 
 
@@ -231,3 +273,75 @@ def test_kernel_model_non_finite_and_centroid_norm():
     got, _ = _kernel_model(means, means, 2, "sqrt")
     want = np.asarray(jnp.linalg.norm(jnp.asarray(means)[:, None, :] - jnp.asarray(means)[None, :, :], axis=-1))
     _close(got, want, (1e-6, 1e-6))
+
+
+def _d1_error_over_tolerance(terms32: np.ndarray, ad: np.ndarray, p) -> np.ndarray:
+    """Phase 3's check at d = 1, as a share of its tolerance: the root of the float32 term against the root of the
+    correctly rounded float32 ``|d|^p`` (the plain version), both roots correctly rounded; the tolerance 1e-6
+    relative plus the float32 summation bound of one term taken through the root, plus 1e-30."""
+    terms = ad.astype(np.float64) ** float(F32(p))
+    inv = float(F32(1.0 / p))
+    with np.errstate(all="ignore"):
+        want = np.power(terms.astype(F32).astype(np.float64), inv).astype(F32).astype(np.float64)
+        got = np.power(terms32.astype(np.float64), inv).astype(F32).astype(np.float64)
+        bound = 2.0**-24 * terms / p * terms ** (1.0 / p - 1.0)
+        return np.abs(got - want) / (1e-6 * want + bound + 1e-30)
+
+
+@pytest.mark.parametrize("p", [0.5, 1.5, 2.0, 2.5, 5.5])
+def test_float_exponent_form_within_phase3_tolerance(p):
+    """The fast form at its error bounds (lg2 moved by +-2^-22.6, ex2 by +-2 ulp) stays within phase 3's tolerance
+    at d = 1 for |d| from 1e-30 to 1e30, wherever the table sends a pair to it; the naive form
+    ``ex2(float32(p float32(lg2|d|)))`` under the same bounds does not (the float32 rounding of lg2|d|, up to 149
+    in size, and of its product with p)."""
+    ad = np.exp(np.linspace(np.log(1e-30), np.log(1e30), 200_001)).astype(F32)
+    fast = _pow_table(p)[(ad.view(np.uint32) >> 23) & 0xFF] >= 0
+    assert fast.mean() > 0.2
+    worst, naive_worst = 0.0, 0.0
+    with np.errstate(all="ignore"):
+        for shift in (-LG2_ERR, LG2_ERR):
+            for ulps in (-EX2_ULPS, EX2_ULPS):
+                r, scale = _fast_terms(ad, p, shift, ulps)
+                terms32 = (r.astype(np.float64) * scale.astype(np.float64)).astype(F32)
+                worst = max(worst, float(_d1_error_over_tolerance(terms32, ad, p)[fast].max()))
+                u = (F32(p) * (np.log2(ad.astype(np.float64)) + shift).astype(F32)).astype(F32)
+                naive = _ulps(np.exp2(u.astype(np.float64)).astype(F32), ulps)
+                naive_worst = max(naive_worst, float(_d1_error_over_tolerance(naive, ad, p)[fast].max()))
+    assert worst <= 1.0, worst
+    assert naive_worst > 1.0, naive_worst
+
+
+@pytest.mark.parametrize("p", [0.5, 1.5, 5.5])
+def test_kernel_model_at_wide_magnitudes_and_subnormal_differences(p):
+    """Phase 3's rows of magnitudes from 1e-30 to 1e30 with subnormal differences: the model (fast form where the
+    table has the power, the accurate path elsewhere) against the plain version and JAX within phase 3's
+    tolerance, at d = 1 and over 97 columns."""
+    rng = np.random.default_rng(50)
+    for d in (1, 97):
+        x = (rng.choice([-1.0, 1.0], (24, d)) * 10.0 ** rng.uniform(-30, 30, (24, d))).astype(F32)
+        y = (rng.choice([-1.0, 1.0], (20, d)) * 10.0 ** rng.uniform(-30, 30, (20, d))).astype(F32)
+        tiny = np.float32(2.0**-120)
+        x[:4], y[:4] = tiny * (1 + np.arange(4 * d).reshape(4, d) % 7 * 2.0**-23), tiny  # subnormal differences
+        x[4, :] = np.float32(1e-40)  # subnormal values
+        got, sums = _kernel_model(x, y, p, "pow")
+        plain = kpw._pairwise_lp_plain(torch.from_numpy(x), torch.from_numpy(y), p, "pow").numpy()
+        with np.errstate(all="ignore"):
+            terms = np.sum(np.abs(x[:, None, :].astype(np.float64) - y[None, :, :]) ** float(p), -1)
+        _within_summation_bound(got, plain, terms, d, p, "pow")
+        if d == 1:
+            want = np.asarray(jpw.pairwise_minkowski_distance(jnp.asarray(x), jnp.asarray(y), exponent=p))
+            finite = np.isfinite(want) & (np.abs(want) > 1e-37)  # XLA's CPU flushes subnormal results
+            assert np.array_equal(np.isnan(got[finite]), np.isnan(want[finite]))
+            _within_summation_bound(got[finite], want[finite], terms[finite], d, p, "pow")
+
+
+def test_tile_fills_the_card():
+    """128 x 128 tiles for an integer p where they give every SM two blocks, 64 x 64 otherwise."""
+    assert kpw.tile(3368, 19732, 1, 132) == (8, 8) and kpw.tile(3368, 19732, 3, 132) == (8, 8)
+    assert kpw.tile(3368, 19732, 1.5, 132) == (4, 4)
+    assert kpw.tile(1024, 1024, 1, 132) == (4, 4) and kpw.tile(1000, 1000, 2, 132) == (4, 4)
+    for n, m, p in ((1024, 1024, 1), (1000, 1000, 2), (3368, 19732, 3), (3368, 19732, 1.5), (50_000, 3, 1)):
+        rows, cols = kpw.tile(n, m, p, 132)
+        assert (rows, cols) in kpw.TILES
+        assert -(-n // (kpw.ROW_THREADS * rows)) * -(-m // (kpw.COL_THREADS * cols)) >= 132 or n * m < 2**21
+        assert -(-m // (kpw.COL_THREADS * cols)) <= 65_535 or m > kpw.MAX_COLS

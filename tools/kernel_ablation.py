@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the port's redesigned kernels spend their time, on one GPU: ``ranking_pairs``' sort,
 ``binned_confmat_multilabel``'s label-group width, ``calibration_bins``' design choices,
-``retrieval_groups``' counting threshold and ``ssim_window``'s tile and blocking.
+``retrieval_groups``' counting threshold, ``ssim_window``'s tile and blocking and ``pairwise_lp``'s
+tiles, staging and float form.
 
     python3 tools/kernel_ablation.py [--sections ranking,multilabel,calibration,calibration-widths,retrieval,
-                                                  retrieval-occupancy,retrieval-builds,retrieval-fault,ssim]
+                                                  retrieval-occupancy,retrieval-builds,retrieval-fault,ssim,
+                                                  pairwise]
                                      [--parent CHECKOUT] [--fault-builds NAMES] [--fault-trials N]
-                                     [--json PATH]
+                                     [--sass PATH] [--json PATH]
 
 Ranking: ``csrc/ranking.cu`` is copied, ``#if`` switches are put around the
 sort and around each kind of its stages (in registers, by warp shuffles,
@@ -69,18 +71,30 @@ asynchronous copies, and with a pass left out (the column pass, or the row
 pass: a variant that computes wrong values, timed only), at DIV2K's batch and
 its four smaller MS-SSIM scales, each held against the shipped build.
 
-Times are ``chip_smoke.time_ms``'s: CUDA events around one call after a
-256 MB L2 flush, a spin kernel holding the card while the host enqueues the
-call; medians of 30. Needs a CUDA device.
+Pairwise: ``csrc/pairwise.cu`` built with its tile forced to 8 x 8 or 4 x 4
+sums a thread, one staged chunk, chunks of 16 columns, the integer kinds'
+register caps moved, y read one column at a time, and ``powf`` for every pair
+of a float p, beside the shipped build and, with ``--parent`` (a checkout of
+``e060d72``), the kernel before the redesign, at Market-1501's shape and 1,024 x 1,024 x 512
+for p = 1, int 2, int 3 and 1.5, each under phase 3's check against the plain
+version, in two turns; each kernel's innermost sum loop from ``cuobjdump
+-sass`` by instruction (``--sass PATH`` keeps the whole listing).
+
+Times are ``chip_smoke.time_ms``'s: CUDA events around one call after an L2
+flush that leaves no dirty line, a spin kernel holding the card while the host
+enqueues the call; medians of 30 unless a section says otherwise. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import importlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -95,6 +109,7 @@ import chip_smoke as cs  # noqa: E402
 from torchmetrics_tpu_torch.kernels import _build  # noqa: E402
 from torchmetrics_tpu_torch.kernels import binned_multilabel as kbm  # noqa: E402
 from torchmetrics_tpu_torch.kernels import calibration as kce  # noqa: E402
+from torchmetrics_tpu_torch.kernels import pairwise as kpw  # noqa: E402
 from torchmetrics_tpu_torch.kernels import ranking as krk  # noqa: E402
 from torchmetrics_tpu_torch.kernels import retrieval as krt  # noqa: E402
 from torchmetrics_tpu_torch.kernels import ssim as kss  # noqa: E402
@@ -926,13 +941,156 @@ def _ssim_shared(tile_h: int, kh: int = 11, kw: int = 11) -> int:
     return 8 * kh + 4 * ((kw + 1) & ~1) + 4 * 2 * in_h * in_stride + 4 * 5 * in_h * kss.ROW_STRIDE
 
 
+# ---------------------------------------------------------------- pairwise_lp
+Y_ONE_AT_A_TIME = ("""      float4 yb = *reinterpret_cast<const float4*>(&ys[buf][tx][4 * q]);
+#pragma unroll
+      for (int j = 0; j < RC; ++j) {
+        const float4 yn = *reinterpret_cast<const float4*>(&ys[buf][tx + kColThreads * ((j + 1) % RC)][4 * q]);
+        sum_group<KIND, RM, RC, NPOW>(acc, xa, yb, j, int_p, p, s_table);
+        yb = yn;  // the next column's four, read before this column's sums
+      }""", """#pragma unroll
+      for (int j = 0; j < RC; ++j) {
+        const float4 yb = *reinterpret_cast<const float4*>(&ys[buf][tx + kColThreads * j][4 * q]);
+        sum_group<KIND, RM, RC, NPOW>(acc, xa, yb, j, int_p, p, s_table);
+      }""")  # each column's four values read just before its sums
+PAIRWISE_PARENT = "e060d72"  # the kernel before the redesign: 64 x 64 tiles, 4 x 4 sums a thread, one stage, powf
+PAIRWISE_VARIANTS = {  # name: (the source text replaced in csrc/pairwise.cu, a thread's tile or None: the plan's)
+    "shipped": ([], None),
+    "8 x 8 sums a thread (128 x 128 tiles)": ([], (8, 8)),
+    "4 x 4 sums a thread (64 x 64 tiles, the earlier tile)": ([], (4, 4)),
+    "one staged chunk (no double buffering)": ([("constexpr int kStages = 2;", "constexpr int kStages = 1;")], None),
+    "chunks of 16 columns": ([("constexpr int kChunk = 32;", "constexpr int kChunk = 16;")], None),
+    "4 x 4 integer kinds at two blocks an SM": ([("(KIND == kIntPow && NPOW == 0) || RC == 4 ? 1",
+                                                  "(KIND == kIntPow && NPOW == 0) ? 1")], None),
+    "8 x 8 integer kinds at one block an SM": ([("constexpr int kMinBlocks = 2;", "constexpr int kMinBlocks = 1;")],
+                                               None),
+    "y read one column at a time": ([Y_ONE_AT_A_TIME], None),
+    "accurate powf for every pair": ([("    const bool fast = e >= 1", "    const bool fast = false && e >= 1")], None),
+}
+PAIRWISE_KINDS = ((1, None), (2, "pow"), (3, "pow"), (1.5, "pow"))
+
+
+def _pairwise_libraries(workdir: str, parent) -> dict:
+    builds = {name: (edits, []) for name, (edits, _) in PAIRWISE_VARIANTS.items()}
+    entries, reports = {}, {}
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name, (lib, report) in _edited_builds("pairwise", builds, workdir).items():
+        fn = lib.pairwise_lp_launch
+        fn.argtypes = [p, p, p, i, i, i, i, i, f, i, f, i, i, p]
+        fn.restype = ctypes.c_int
+        entries[name], reports[name] = fn, report
+    if parent:
+        old = os.path.join(workdir, "parent", "pairwise.cu")
+        os.makedirs(os.path.dirname(old))
+        shutil.copy(os.path.join(parent, "torchmetrics_tpu_torch", "csrc", "pairwise.cu"), old)
+        fn = _nvcc_all({"parent": (old, [])})["parent"].pairwise_lp_launch
+        fn.argtypes = [p, p, p, i, i, i, i, i, f, i, f, p]  # no rows a thread
+        fn.restype = ctypes.c_int
+        entries[f"parent ({PAIRWISE_PARENT})"] = fn
+    return entries, reports
+
+
+def _sass_loops(lib_path: str, sass_path) -> dict:
+    """The instructions of each kernel's innermost sum loop (the body between its label and its backward branch,
+    inside the chunk's barriers), by mnemonic; the whole SASS is written to ``sass_path`` when given."""
+    sass = subprocess.run([os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass", lib_path],
+                          capture_output=True, text=True, check=True).stdout
+    if sass_path:
+        with open(sass_path, "w") as f:
+            f.write(sass)
+    loops = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split()[0]
+        code = [(int(m.group(1), 16), m.group(2)) for m in
+                (re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line) for line in block.splitlines()) if m]
+        bars = [k for k, (_, ins) in enumerate(code) if ins.startswith("BAR.SYNC")]
+        if len(bars) < 2:
+            continue
+        lo, hi = bars[0], bars[1]
+        back = [(k, int(t.group(1), 16)) for k in range(lo, hi)
+                for t in [re.search(r"BRA (?:\S+, )?0x([0-9a-f]+)", code[k][1])] if t and int(t.group(1), 16) < code[k][0]]
+        if back:
+            k, target = back[-1]
+            body = [ins for addr, ins in code[lo:k + 1] if addr >= target]
+        else:
+            body = [ins for _, ins in code[lo:hi]]
+        ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0].split(".")[0] for ins in body)
+        loops[name] = dict(ops.most_common())
+    return loops
+
+
+def _pairwise(flush: torch.Tensor, gen: torch.Generator, parent, sass_path) -> dict:
+    """Every variant, the kernel before the redesign (``--parent``) and the shipped build at Market-1501's shape and at
+    1,024 x 1,024 x 512, each under phase 3's check against the plain version, in two turns."""
+    rows = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    with tempfile.TemporaryDirectory() as workdir:
+        entries, reports = _pairwise_libraries(workdir, parent)
+        for name, report in reports.items():
+            print(f"[pairwise] build {name!r}: {report}", flush=True)
+        _build.build(["pairwise"])
+        loops = _sass_loops(str(_build.library_path("pairwise")), sass_path)
+        for name, ops in loops.items():
+            print(f"[pairwise] SASS of {name}: sum loop {sum(ops.values())} instructions {ops}", flush=True)
+        shapes = {"1,024 x 1,024 x 512": (1024, 1024, 512, torch.randn),
+                  "Market-1501 (3,368 x 19,732 x 2,048)": (cs.MARKET_QUERY, cs.MARKET_GALLERY, cs.MARKET_WIDTH,
+                                                          torch.rand)}
+        for label, (n, m, d, draw) in shapes.items():
+            x = draw((n, d), generator=gen, device="cuda")
+            y = draw((m, d), generator=gen, device="cuda")
+            out = torch.empty((n, m), device="cuda")
+            reps = 3 if n * m * d > 2**32 else 10
+            for p, root in PAIRWISE_KINDS:
+                want = kpw._pairwise_lp_plain(x, y, p, root)
+                sums = want.double().pow(float(p)) if root == "pow" else want.double()  # every term is >= 0
+                inv_p = torch.tensor(1.0 / p, dtype=torch.float32).item()
+                kind, int_p = kpw.KINDS[kpw._kind(p)], int(p) if isinstance(p, int) else 0
+                runs = []
+                for name, fn in entries.items():
+                    if name.startswith("accurate") and isinstance(p, int):
+                        continue
+                    if name.startswith("parent"):
+                        args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), n, m, d, kind, int_p, float(p),
+                                kpw.ROOTS[root], inv_p)
+                    else:
+                        tile = PAIRWISE_VARIANTS[name][1] or kpw.tile(n, m, p, sms)
+                        args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), n, m, d, kind, int_p, float(p),
+                                kpw.ROOTS[root], inv_p, *tile)
+
+                    def call(fn=fn, args=args):
+                        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+                        if err:
+                            raise RuntimeError(f"kernel_ablation: pairwise launch failed with CUDA error {err}")
+                        return out
+
+                    call()
+                    torch.cuda.synchronize()
+                    cs._lp_check(f"{label}, p={p!r}, {name}", out, want, x, y, p, root, sums)
+                    runs.append((name, call))
+                for turn in (runs, runs[::-1]):
+                    for name, call in turn:
+                        key = f"{label}, p={p!r}: {name}"
+                        rows.setdefault(key, []).append(cs.time_ms(call, flush, reps=reps, warmup=1))
+                bound_ms, by = cs._lp_bound_ms(n, m, d, p)
+                for name, _ in runs:
+                    key = f"{label}, p={p!r}: {name}"
+                    print(f"[pairwise] {key}: {' / '.join(f'{t:.4f}' for t in rows[key])} ms after an L2 flush "
+                          f"(two turns), bound {bound_ms:.4f} ms ({by})", flush=True)
+                del want, sums
+            del x, y, out
+    print(f"[pairwise] SM clock, now and at most: {cs.sm_clocks()}", flush=True)
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--sections",
                         default="ranking,multilabel,calibration,calibration-widths,retrieval,retrieval-occupancy,"
-                                "retrieval-builds,ssim",
+                                "retrieval-builds,ssim,pairwise",
                         help="comma-separated sections to run")
-    parser.add_argument("--parent", help="a checkout of the commit before the calibration redesign, timed beside it")
+    parser.add_argument("--parent", help="a checkout of the commit before the redesign of the sections run "
+                                          f"(calibration: {PARENT_COMMIT}; pairwise: {PAIRWISE_PARENT}), timed beside it")
+    parser.add_argument("--sass", help="pairwise: also write the shipped build's SASS to this file")
     parser.add_argument("--fault-builds", default=",".join(RET_FAULT_BUILDS),
                         help="retrieval-fault: comma-separated builds of RET_FAULT_BUILDS to run")
     parser.add_argument("--fault-trials", type=int, default=RET_FAULT_TRIALS, help="retrieval-fault: seeds to run")
@@ -942,7 +1100,7 @@ def main() -> int:
         print("kernel_ablation: CUDA is not available", file=sys.stderr)
         return 1
     device = cs.phase_device()
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    flush = cs.flush_buffer()
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 13)
     sections = args.sections.split(",")
     record = {"device": device}
@@ -964,6 +1122,8 @@ def main() -> int:
         record["retrieval-fault"] = _retrieval_fault(args.fault_builds.split(","), args.fault_trials)
     if "ssim" in sections:
         record["ssim"] = _ssim(flush, gen)
+    if "pairwise" in sections:
+        record["pairwise"] = _pairwise(flush, gen, args.parent, args.sass)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(record, f, indent=1)

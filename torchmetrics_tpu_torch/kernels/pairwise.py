@@ -15,18 +15,20 @@ a square root (``jnp.linalg.norm``, the cluster scores' centroid distances).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.kernels._build import check_tensor, launch_on, load_library
+from torchmetrics_tpu_torch.kernels._build import cdiv, check_tensor, launch_on, load_library, sm_count
 
 SOURCE = "pairwise"
-TILE = 64  # kTile: output rows and columns a block
-CHUNK = 32  # kChunk: columns of x and y staged a step
 THREADS = 256  # kThreads
-MAX_ROWS = 65_535 * TILE  # row tiles along grid.y; column tiles along grid.x
+COL_THREADS = 16  # kColThreads: threads across a block's columns
+ROW_THREADS = THREADS // COL_THREADS  # kRowThreads
+TILES = ((8, 8), (4, 4))  # a thread's sums, rows x columns: output tiles of 128 x 128 or 64 x 64
+CHUNK = 32  # kChunk: columns of x and y staged a step
+MAX_COLS = 65_535 * COL_THREADS * 8  # column tiles along grid.y (64 x 64 tiles only below 2 blocks an SM at 128)
 MAX_INT32 = 2**31 - 1
 PLAIN_BLOCK_ELEMENTS = 2**26  # the plain version's broadcast a block of rows at a time: 256 MB of float32
 
@@ -42,10 +44,19 @@ def _launch_fn() -> ctypes._CFuncPtr:
     if _launch is None:
         fn = load_library(SOURCE).pairwise_lp_launch
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, i, i, i, i, i, f, i, f, p]
+        fn.argtypes = [p, p, p, i, i, i, i, i, f, i, f, i, i, p]
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
+
+
+def tile(n: int, m: int, p: Union[int, float], sms: int) -> Tuple[int, int]:
+    """A thread's sums, rows x columns: 8 x 8 (128 x 128 output tiles) for an integer ``p`` where those give every
+    SM two blocks, else 4 x 4 (64 x 64 tiles): a 1,024 x 1,024 matrix takes 256 blocks and not 64, and a float
+    ``p``'s batches of terms keep the registers that a wider tile would take."""
+    if isinstance(p, float) or cdiv(n, ROW_THREADS * 8) * cdiv(m, COL_THREADS * 8) < 2 * sms:
+        return 4, 4
+    return 8, 8
 
 
 def _integer_pow(x: Tensor, n: int) -> Tensor:
@@ -107,8 +118,8 @@ def pairwise_lp(x: Tensor, y: Tensor, p: Union[int, float], root: Optional[str])
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"pairwise_lp takes x (N, d) and y (M, d), got {tuple(x.shape)} and {tuple(y.shape)}")
     (n, d), m = x.shape, y.shape[0]
-    if n > MAX_ROWS or m > MAX_INT32 or d > MAX_INT32 or max(n, m) * max(d, 1) > 2**62:
-        raise ValueError(f"pairwise_lp takes at most {MAX_ROWS} rows of x, got {n}")
+    if m > MAX_COLS or n > MAX_INT32 or d > MAX_INT32 or max(n, m) * max(d, 1) > 2**62:
+        raise ValueError(f"pairwise_lp takes at most {MAX_COLS} rows of y, got {m}")
     device = x.device
     check_tensor("pairwise_lp", "x", x, torch.float32, (n, d), device)
     check_tensor("pairwise_lp", "y", y, torch.float32, (m, d), device)
@@ -119,7 +130,8 @@ def pairwise_lp(x: Tensor, y: Tensor, p: Union[int, float], root: Optional[str])
         return out
     inv_p = torch.tensor(1.0 / p, dtype=torch.float32).item()  # JAX's weakly typed 1.0 / p, in float32
     args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), n, m, d, KINDS[_kind(p)], int(p) if isinstance(p, int) else 0,
-            float(p), ROOTS[root], inv_p, torch.cuda.current_stream(device).cuda_stream)
+            float(p), ROOTS[root], inv_p, *tile(n, m, p, sm_count(device)),
+            torch.cuda.current_stream(device).cuda_stream)
     launch_on("pairwise_lp", device, _launch_fn(), args)
     pairwise_lp.launches += 1
     return out
