@@ -120,7 +120,24 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    after the flush's write alone, the earlier timer; ``confmat_multiclass`` also at the contingency tables
    of phase 11: (c) nominal's 1,024 labels at C = 42 with dropped rows,
    saturated +-inf and labels that wrap or drop, (d) clustering's 50,000
-   labels at C = 1,000;
+   labels at C = 1,000; ``snr_moments``, the SNR family's float64 moments
+   and values, against its plain version (JAX's float32 forms) within 1e-4
+   dB plus 1e-5 relative and a float64 evaluation within 1e-5 dB plus 1e-6
+   relative, at the Libri2Mix batch (16 x 2 x 32,000: SI-SNR rows and
+   PIT(SI-SNR) pairs timed beside one ``torch.bmm`` of the stacked rows; SNR,
+   SI-SDR and SA-SDR groups), one 10-minute 16 kHz clip (timed), both
+   ``zero_mean`` settings, identical inputs, inputs 80 dB apart, an all-zero
+   target, T = 1, 3, 1003 and 4097, misaligned rows, pairs of S = 2 to 6 and
+   an empty batch, two launches equal bit for bit; ``sdr_toeplitz``, SDR's
+   Levinson solve in float64, against a float64 LU within 1e-4 dB (the
+   solution's normwise backward error within 1e-6) and its plain version (JAX's float32
+   Toeplitz build and LU) within 1e-3 dB or, where the plain version itself
+   drifts further from float64, within that drift plus 1e-4 dB, at the Libri2Mix batch's 32
+   rows and PIT(SDR)'s 64 (timed beside ``torch.linalg.solve`` on the built
+   matrices in float32 and float64), white, low-passed and speech-like
+   targets, ``load_diag``, L = 1, 2, 33, 300 and the largest, 8,192, and a
+   pure tone (without ``load_diag`` recorded beside the plain and float64
+   values, not held);
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
@@ -243,7 +260,20 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    (one ``pairwise_lp`` launch each, held whole against the plain version on
    the card and timed beside ``torch.cdist``; the SM clock printed beside
    the bounds, which take 1.98 GHz), Euclidean and cosine, the first 64 x
-   512 block of each against the CPU path.
+   512 block of each against the CPU path;
+12. audio, one card, no sync: (i) Libri2Mix test's shape, 3,000 seeded
+   two-speaker 8 kHz mixtures of 4 s (32,000 samples; the set's lengths
+   vary, cut to one), estimates 5-15 dB below each source with a leak of the
+   other, the speakers swapped in every other batch, in batches of 16 through
+   ``SignalNoiseRatio``, SI-SNR, SI-SDR, SA-SDR, ``SignalDistortionRatio``
+   (``filter_length=512``) and speaker-wise PIT over SI-SNR and SDR (seven
+   groups: exactly 5 ``snr_moments`` and 2 ``sdr_toeplitz`` launches a
+   batch); (ii) VoiceBank-DEMAND test's shape, 824 seeded speech-like 16 kHz
+   clips of 3 s with silent gaps and a noisy copy at 0-15 dB, through STOI,
+   extended STOI and SRMR; (iii) ``ComplexScaleInvariantSignalNoiseRatio``
+   on the 512-point STFTs of (i)'s first 256 mixtures (one launch a batch).
+   Every leg reruns its first batch on the CPU path (floats within 1e-4
+   relative).
 
 Phases 5 and 6 run each rank as a process of its own (this script with
 ``--worker``); every kernel must have launched on the paths that run it.
@@ -3927,6 +3957,428 @@ def phase_contingency() -> dict:
     return record
 
 
+# ------------------------------------------- snr_moments and sdr_toeplitz (phase 3), phase 12
+LIBRI_MIXTURES, LIBRI_SAMPLES, LIBRI_BATCH, LIBRI_FS = 3_000, 32_000, 16, 8_000  # Libri2Mix test, 8 kHz, cut to 4 s
+VOICEBANK_CLIPS, VOICEBANK_SAMPLES, VOICEBANK_BATCH, VOICEBANK_FS = 824, 48_000, 16, 16_000  # VoiceBank-DEMAND test
+CSISNR_MIXTURES, CSISNR_NFFT, CSISNR_HOP = 256, 512, 128  # phase 12 (iii): (i)'s first 256 mixtures as STFTs
+SDR_FILTER = 512  # SignalDistortionRatio's default filter_length
+AUDIO_CPU_BATCHES = 1  # the audio legs rerun their first batch on the CPU path
+EPS32 = 2.0**-23  # JAX's finfo(float32).eps in the SNR family's ratios
+SNR_ATOL_DB, SNR_RTOL = 1e-4, 1e-5  # snr_moments against the plain version (float32 sums of up to 9.6 M terms)
+SNR64_ATOL_DB, SNR64_RTOL = 1e-5, 1e-6  # snr_moments against float64 (its output's float32 rounding)
+SDR_PLAIN_DB, SDR64_DB = 1e-3, 1e-4  # sdr_toeplitz against the plain version (float32 LU) and float64 LU
+X_BACKWARD_BOUND = 1e-6  # sdr_toeplitz's float32 solution: normwise backward error (its rounding is 6e-8)
+DEP_FP64_CYCLES = 8  # the latency taken for one dependent fp64 operation in sdr_toeplitz's chain bound
+
+
+def _speech_like(gen: torch.Generator, shape, fs: int, gaps: bool = False) -> torch.Tensor:
+    """Seeded speech-like signals on the card: white noise low-passed by ``1 / (1 + (f / 1 kHz)^2)`` under a
+    syllable-rate envelope (2-6 Hz); with ``gaps``, exact silences where a slow (0.4-0.8 Hz) wave is low."""
+    dev = torch.device("cuda")
+    n = shape[-1]
+    rows = int(np.prod(shape[:-1]))
+    freqs = torch.fft.rfftfreq(n, 1.0 / fs, device=dev)
+    white = torch.randn((rows, n), generator=gen, device=dev)
+    shaped = torch.fft.irfft(torch.fft.rfft(white) / (1.0 + (freqs / 1000.0) ** 2), n=n)
+    t = torch.arange(n, device=dev) / fs
+    rate = 2.0 + 4.0 * torch.rand((rows, 1), generator=gen, device=dev)
+    phase = 2 * math.pi * torch.rand((rows, 1), generator=gen, device=dev)
+    envelope = 0.2 + torch.sin(2 * math.pi * rate * t + phase).abs()
+    if gaps:
+        slow = 0.4 + 0.4 * torch.rand((rows, 1), generator=gen, device=dev)
+        envelope = envelope * (torch.sin(2 * math.pi * slow * t + phase) > -0.5)
+    x = shaped * envelope
+    return (x / x.pow(2).mean(dim=-1, keepdim=True).sqrt().clamp_min(1e-12)).reshape(shape).contiguous()
+
+
+def _mix_estimates(gen: torch.Generator, sources: torch.Tensor, low_db: float, high_db: float) -> torch.Tensor:
+    """Each source plus a leak of the other speakers and white noise, scaled to a seeded SNR in [low_db, high_db],
+    and a small seeded DC offset (so that the zero-mean and plain forms differ)."""
+    dev = sources.device
+    leak = sources.sum(1, keepdim=True) - sources if sources.shape[1] > 1 else torch.zeros_like(sources)
+    noise = torch.randn(sources.shape, generator=gen, device=dev)
+    distortion = 0.5 * leak + noise
+    snr_db = low_db + (high_db - low_db) * torch.rand(sources.shape[:-1] + (1,), generator=gen, device=dev)
+    scale = (sources.norm(dim=-1, keepdim=True) / distortion.norm(dim=-1, keepdim=True)) * 10 ** (-snr_db / 20)
+    dc = 0.05 * (2 * torch.rand(sources.shape[:-1] + (1,), generator=gen, device=dev) - 1)
+    return (sources + scale * distortion + dc).contiguous()
+
+
+def _snr_float64(preds, target, scale_invariant, zero_mean, group=1, pairs=False):
+    """The SNR family's direct form (the noise, then its energy) in float64 with float32's eps."""
+    if pairs:
+        b, s = target.shape[:2]
+        preds = preds[:, None].expand(b, s, s, preds.shape[-1]).reshape(-1, preds.shape[-1])
+        target = target[:, :, None].expand(b, s, s, target.shape[-1]).reshape(-1, target.shape[-1])
+        return _snr_float64(preds, target, scale_invariant, zero_mean).reshape(b, s, s)
+    p, t = preds.double(), target.double()
+    if zero_mean:
+        p, t = p - p.mean(-1, keepdim=True), t - t.mean(-1, keepdim=True)
+    p, t = p.reshape(-1, group, p.shape[-1]), t.reshape(-1, group, t.shape[-1])
+    if scale_invariant:
+        t = ((p * t).sum((-1, -2), keepdim=True) + EPS32) / ((t * t).sum((-1, -2), keepdim=True) + EPS32) * t
+    return 10 * torch.log10(((t * t).sum((-1, -2)) + EPS32) / (((t - p) ** 2).sum((-1, -2)) + EPS32))
+
+
+def _db_check(label, got, want, atol, rtol):
+    """``got`` within ``atol`` dB plus ``rtol`` relative of ``want``; returns the largest difference."""
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    worst = float(err.max()) if err.numel() else 0.0
+    check(bool((err <= atol + rtol * w.abs()).all()), f"{label}: max abs err {worst} dB")
+    return worst
+
+
+def phase_snr_kernel(flush: torch.Tensor) -> list:
+    """``snr_moments`` against its plain version (JAX's float32 forms) and a float64 evaluation on the card.
+    Timed at the Libri2Mix batch (SI-SNR rows, the first row; PIT(SI-SNR) pairs) and one 10-minute 16 kHz clip,
+    beside one ``torch.bmm`` of the stacked rows (their Gram matrices)."""
+    from torchmetrics_tpu_torch.kernels import snr_moments as ksnr
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    dev = torch.device("cuda")
+    libri = (LIBRI_BATCH, 2, LIBRI_SAMPLES)
+    cases = [  # (what, shape, mode, scale_invariant, zero_mean, edit, timed); mode: rows, group (SA-SDR), pairs
+        ("Libri2Mix batch, SI-SNR rows (a)", libri, "rows", True, True, None, True),
+        ("Libri2Mix batch, PIT(SI-SNR) pairs (b)", libri, "pairs", True, True, None, True),
+        ("Libri2Mix batch, SNR rows", libri, "rows", False, False, None, False),
+        ("Libri2Mix batch, SNR rows, zero_mean", libri, "rows", False, True, None, False),
+        ("Libri2Mix batch, SI-SDR rows", libri, "rows", True, False, None, False),
+        ("Libri2Mix batch, SA-SDR groups", libri, "group", True, False, None, False),
+        ("Libri2Mix batch, SA-SDR groups, plain SNR, zero_mean", libri, "group", False, True, None, False),
+        ("Libri2Mix batch, PIT(SNR) pairs", libri, "pairs", False, False, None, False),
+        ("one 10-minute 16 kHz clip (c)", (1, 1, 600 * 16_000), "rows", True, True, None, True),
+        *((f"identical inputs, si={si}, zero_mean={zm}", (4, 2, 8000), "rows", si, zm, "identical", False)
+          for si in (False, True) for zm in (False, True)),
+        *((f"inputs 80 dB apart, si={si}", (4, 2, 32_000), "rows", si, False, "80db", False) for si in (False, True)),
+        *((f"an all-zero target, si={si}", (2, 2, 4000), "rows", si, False, "zero", False) for si in (False, True)),
+        *((f"T={n}", (3, 2, n), "rows", True, True, None, False) for n in (1, 3, 1003, 4097)),
+        ("misaligned rows: scalar loads", (3, 2, 4000), "rows", True, False, "misaligned", False),
+        *((f"pairs, S={s}", (5, s, 6001), "pairs", si, zm, None, False) for s in range(2, ksnr.MAX_SPEAKERS + 1)
+          for si, zm in ((True, True), (False, False))),
+        ("empty batch", (0, 2, 100), "rows", True, False, None, False),
+    ]
+    rows = []
+    for what, shape, mode, si, zm, edit, timed in cases:
+        target = _speech_like(gen, shape, LIBRI_FS) if shape[0] else torch.zeros(shape, device=dev)
+        preds = _mix_estimates(gen, target, 5.0, 15.0) if shape[0] else torch.zeros(shape, device=dev)
+        if edit == "identical":
+            preds = target.clone()
+        elif edit == "80db":
+            preds = target + 1e-4 * torch.randn(shape, generator=gen, device=dev) * target.std()
+        elif edit == "zero":
+            target = torch.zeros_like(target)
+        if mode != "pairs":
+            preds, target = preds.reshape(-1, shape[-1]), target.reshape(-1, shape[-1])
+        if edit == "misaligned":  # rows one float past a 16-byte boundary
+            store = torch.empty(2 * preds.numel() + 2, device=dev)
+            preds, target = (store[1 + i * preds.numel():1 + (i + 1) * preds.numel()].view(preds.shape).copy_(x)
+                             for i, x in enumerate((preds, target)))
+        group = shape[1] if mode == "group" else 1
+        kw = {"scale_invariant": si, "zero_mean": zm, "group": group, "pairs": mode == "pairs"}
+        before = ksnr.snr_moments.launches
+        got = ksnr.snr_moments(preds, target, **kw)
+        again = ksnr.snr_moments(preds, target, **kw)
+        want = ksnr._snr_moments_plain(preds, target, **kw)
+        exact = _snr_float64(preds, target, si, zm, group, mode == "pairs")
+        torch.cuda.synchronize()
+        label = f"{what}: {tuple(preds.shape)}, {mode}, si={si}, zero_mean={zm}"
+        check(ksnr.snr_moments.launches == before + (2 if preds.shape[0] else 0), f"launches ({label})")
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)), f"snr_moments is not deterministic ({label})")
+        row = {"case": label, "what": what,
+               "max_abs_err": _db_check(f"snr_moments against plain ({label})", got, want, SNR_ATOL_DB, SNR_RTOL),
+               "max_abs_err_float64": _db_check(f"snr_moments against float64 ({label})", got, exact, SNR64_ATOL_DB,
+                                                SNR64_RTOL)}
+        if edit == "identical":  # a noise of exactly 0: JAX's (S + eps) / eps from the kernel's own sums
+            check(bool(torch.isfinite(got).all()) and bool((got > 60).all()), f"identical inputs ({label}): {got}")
+        if timed:
+            nbytes = 2 * preds.numel() * 4 + got.numel() * 4
+            bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            plan = ksnr.plan(preds.shape[0], preds.shape[-1], torch.cuda.get_device_properties(0).multi_processor_count)
+            fn = lambda p_, t_: ksnr.snr_moments(p_, t_, **kw)  # noqa: E731
+            kernel_ms = time_ms(lambda: fn(preds, target), flush)
+            plain_ms = time_ms(lambda: ksnr._snr_moments_plain(preds, target, **kw), flush, reps=10, warmup=1)
+            stacked = torch.cat([preds.view(-1, shape[1] if mode == "pairs" else 1, shape[-1]),
+                                 target.view(-1, shape[1] if mode == "pairs" else 1, shape[-1])], 1).contiguous()
+            library_ms = time_ms(lambda: torch.bmm(stacked, stacked.transpose(1, 2)), flush, reps=10, warmup=1)
+            del stacked
+            sets = [(preds, target)] + [(preds.clone(), target.clone()) for _ in range(copies_for(nbytes) - 1)]
+            stream_ms = time_stream_ms(fn, sets, calls=len(sets) * max(1, 24 // len(sets)))
+            del sets
+            row.update({"plan": plan._asdict(), "ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes, "library_ms": library_ms})
+            print(f"[kernel] snr_moments {label}: {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a call "
+                  f"back to back; plan {tuple(plan)}), plain {plain_ms:.4f} ms, torch.bmm of the stacked rows "
+                  f"(library_ms) {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us (bytes: {nbytes}); max abs err "
+                  f"{row['max_abs_err']:.3g} dB against plain, {row['max_abs_err_float64']:.3g} against float64")
+        rows.append(row)
+        del preds, target, got, again, want, exact
+    print(f"[kernel] snr_moments: within {SNR_ATOL_DB} dB + {SNR_RTOL} relative of plain and {SNR64_ATOL_DB} dB + "
+          f"{SNR64_RTOL} relative of float64, deterministic, on all {len(cases)} cases: "
+          + "; ".join(f"{r['what']} ({r['max_abs_err']:.2g}, {r['max_abs_err_float64']:.2g})" for r in rows))
+    return rows
+
+
+def _sdr_correlations(gen, kind, rows, length, filter_length, load_diag=None):
+    """SDR's float32 ``r_0`` and ``b`` on the card, made by the port's own normalization and FFTs from seeded
+    signals: speech-like (``_speech_like``), white or low-passed (8th-order Butterworth at 0.1 Nyquist) noise, or a
+    440 Hz tone, with a noisy estimate 10 dB below."""
+    from torchmetrics_tpu_torch.functional.audio.sdr import _compute_autocorr_crosscorr
+
+    dev = torch.device("cuda")
+    if kind == "speech":
+        target = _speech_like(gen, (rows, length), LIBRI_FS)
+    elif kind == "tone":
+        target = torch.sin(2 * math.pi * 440 * torch.arange(length, device=dev) / LIBRI_FS).repeat(rows, 1)
+    else:
+        target = torch.randn((rows, length), generator=gen, device=dev)
+        if kind == "lowpass":
+            import scipy.signal
+
+            b_coef, a_coef = scipy.signal.butter(8, 0.1)
+            target = torch.as_tensor(scipy.signal.lfilter(b_coef, a_coef, target.cpu().double().numpy()),
+                                     dtype=torch.float32, device=dev)
+    preds = _mix_estimates(gen, target[:, None], 10.0, 10.0)[:, 0]
+    target = target / target.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+    preds = preds / preds.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+    r_0, b = _compute_autocorr_crosscorr(target, preds, filter_length)
+    if load_diag is not None:
+        r_0 = torch.cat([r_0[:, :1] + load_diag, r_0[:, 1:]], dim=-1)
+    return r_0.contiguous(), b.contiguous()
+
+
+def _backward_error(r_0: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> float:
+    """The largest normwise backward error of the solutions ``x`` of ``toeplitz(r_0) x = b``, in float64:
+    ``|R x - b|_inf / (|R|_inf |x|_inf + |b|_inf)``. An ill-conditioned system (a low-passed target) leaves x
+    itself far from a float64 LU's, but not its residual."""
+    from torchmetrics_tpu_torch.kernels.sdr_toeplitz import _symmetric_toeplitz
+
+    worst = 0.0
+    for rows in torch.arange(r_0.shape[0], device=r_0.device).split(64 if r_0.shape[1] <= 1024 else 1):
+        matrix = _symmetric_toeplitz(r_0[rows].double())
+        xs, bs = x[rows].double(), b[rows].double()
+        residual = (matrix @ xs[..., None])[..., 0] - bs
+        scale = matrix.abs().sum(-1).amax(-1) * xs.abs().amax(-1) + bs.abs().amax(-1)
+        worst = max(worst, float((residual.abs().amax(-1) / scale).max()))
+    return worst
+
+
+def _sdr_chain_bound_ms(length: int) -> float:
+    """The Levinson chain's least latency: a step's two dot products reduce over k terms in ceil(log2 k)
+    dependent adds, then mu, alpha and the update take about 3 more, each ``DEP_FP64_CYCLES`` at the boost clock."""
+    steps = sum(math.ceil(math.log2(k)) + 3 if k > 1 else 3 for k in range(1, length))
+    return steps * DEP_FP64_CYCLES / CLOCK_HZ * 1e3
+
+
+def phase_sdr_kernel(flush: torch.Tensor) -> list:
+    """``sdr_toeplitz`` against its plain version (JAX's float32 build and LU) and a float64 LU on the card.
+    Timed at the Libri2Mix batch's 32 rows (the first row) and PIT(SDR)'s 64, L = 512, beside
+    ``torch.linalg.solve`` on the built matrices in float32 (``library_ms``) and float64."""
+    from torchmetrics_tpu_torch.kernels import sdr_toeplitz as ksdr
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    cases = [  # (what, kind, rows, samples, L, load_diag, timed)
+        ("Libri2Mix batch (a)", "speech", 2 * LIBRI_BATCH, LIBRI_SAMPLES, SDR_FILTER, None, True),
+        ("PIT(SDR)'s tile of the Libri2Mix batch (b)", "speech", 4 * LIBRI_BATCH, LIBRI_SAMPLES, SDR_FILTER, None,
+         True),
+        ("white target", "white", 8, 8000, SDR_FILTER, None, False),
+        ("low-passed target", "lowpass", 8, 8000, SDR_FILTER, None, False),
+        ("load_diag 1e-2", "lowpass", 8, 8000, SDR_FILTER, 1e-2, False),
+        ("L=1", "white", 8, 2000, 1, None, False),
+        ("L=2", "white", 4, 2000, 2, None, False),
+        ("L=300, not a power of two", "speech", 8, 4000, 300, None, False),
+        ("L=33", "speech", 8, 4000, 33, None, False),
+        (f"the largest L, {ksdr.MAX_LENGTH}", "white", 2, 2 * ksdr.MAX_LENGTH, ksdr.MAX_LENGTH, None, False),
+        ("a pure tone, no load_diag (recorded, not held)", "tone", 2, 8000, SDR_FILTER, None, False),
+        ("a pure tone, load_diag 1e-6", "tone", 2, 8000, SDR_FILTER, 1e-6, False),
+    ]
+    rows = []
+    for what, kind, n_rows, samples, length, load_diag, timed in cases:
+        r_0, b = _sdr_correlations(gen, kind, n_rows, samples, length, load_diag)
+        before = ksdr.sdr_toeplitz.launches
+        got, x = ksdr.sdr_toeplitz(r_0, b)
+        again, _ = ksdr.sdr_toeplitz(r_0, b)
+        want, _ = ksdr._sdr_toeplitz_plain(r_0, b)
+        exact, x64 = ksdr._sdr_toeplitz_plain(r_0.double(), b.double())
+        torch.cuda.synchronize()
+        label = f"{what}: {n_rows} x L={length}, {kind}, load_diag {load_diag}"
+        check(ksdr.sdr_toeplitz.launches == before + 2, f"launches ({label})")
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)), f"sdr_toeplitz is not deterministic ({label})")
+        err_plain = float((got.double() - want.double()).abs().max())
+        err64 = float((got.double() - exact).abs().max())
+        x_err = float((x.double() - x64).abs().max() / x64.abs().max().clamp_min(1e-30))
+        x_backward = _backward_error(r_0, b, x)
+        row = {"case": label, "what": what, "sdr": [float(v) for v in got[:2]], "plain": [float(v) for v in want[:2]],
+               "float64": [float(v) for v in exact[:2]]}
+        if kind == "tone" and load_diag is None:  # recorded beside the plain version's value, not held
+            row.update({"unheld_abs_err": err_plain, "unheld_abs_err_float64": err64, "unheld_x_rel_err": x_err,
+                        "unheld_x_backward_error": x_backward})
+        else:  # against plain within 1e-3 dB, or within the plain version's own distance from float64 (+ 1e-4)
+            plain_drift = (want.double() - exact).abs()
+            row.update({"max_abs_err": err_plain, "max_abs_err_float64": err64, "x_rel_err_float64": x_err,
+                        "x_backward_error": x_backward, "plain_drift_float64": float(plain_drift.max())})
+            held = bool(((got.double() - want.double()).abs() <= (plain_drift + SDR64_DB).clamp_min(SDR_PLAIN_DB)).all())
+            check(held and err64 <= SDR64_DB and x_backward <= X_BACKWARD_BOUND,
+                  f"sdr_toeplitz ({label}): {err_plain:.3g} dB from plain (plain {float(plain_drift.max()):.3g} from "
+                  f"float64), {err64:.3g} dB from float64, x's backward error {x_backward:.3g}")
+        if timed:
+            ops = 4 * length**2 * n_rows
+            ops_ms = ops / PEAK_FP64_OPS_PER_S * 1e3
+            nbytes = (3 * n_rows * length + n_rows) * 4
+            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+            chain_ms = _sdr_chain_bound_ms(length)
+            kernel_ms = time_ms(lambda: ksdr.sdr_toeplitz(r_0, b), flush)
+            plain_ms = time_ms(lambda: ksdr._sdr_toeplitz_plain(r_0, b), flush, reps=10, warmup=1)
+            matrix = ksdr._symmetric_toeplitz(r_0)
+            rhs = b[..., None].contiguous()
+            library_ms = time_ms(lambda: torch.linalg.solve(matrix, rhs), flush, reps=10, warmup=1)
+            matrix64, rhs64 = matrix.double(), rhs.double()
+            library64_ms = time_ms(lambda: torch.linalg.solve(matrix64, rhs64), flush, reps=10, warmup=1)
+            del matrix, rhs, matrix64, rhs64
+            sets = [(r_0, b)] + [(r_0.clone(), b.clone()) for _ in range(3)]
+            stream_ms = time_stream_ms(lambda r_, b_: ksdr.sdr_toeplitz(r_, b_), sets, calls=16)
+            row.update({"ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "operations": ops, "chain_bound_ms": chain_ms,
+                        "library_ms": library_ms, "library_float64_ms": library64_ms})
+            print(f"[kernel] sdr_toeplitz {label}: {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a call "
+                  f"back to back), plain (build + float32 solve + coherence) {plain_ms:.4f} ms, torch.linalg.solve "
+                  f"on the built matrices (library_ms) {library_ms:.4f} ms in float32, {library64_ms:.4f} ms in "
+                  f"float64; bound {bound_ms * 1e3:.3f} us ({bound_by}: {ops} fp64 operations), the L-step chain "
+                  f"{chain_ms:.4f} ms at {DEP_FP64_CYCLES} cycles a dependent fp64 operation and {CLOCK_HZ / 1e9} GHz")
+        rows.append(row)
+    print(f"[kernel] sdr_toeplitz: within {SDR64_DB} dB of float64 LU (x's backward error within {X_BACKWARD_BOUND}) "
+          f"and, of plain, within "
+          f"{SDR_PLAIN_DB} dB or the plain version's own distance from float64 plus {SDR64_DB}, deterministic, on "
+          f"all held cases (from plain, from float64, plain from float64): "
+          + "; ".join(f"{r['what']} ({r['max_abs_err']:.2g}, {r['max_abs_err_float64']:.2g}, "
+                      f"{r['plain_drift_float64']:.2g})" for r in rows if "max_abs_err" in r))
+    tone = next(r for r in rows if "unheld_abs_err" in r)
+    print(f"[kernel] sdr_toeplitz on the pure tone without load_diag (not held): kernel {tone['sdr']}, plain "
+          f"(float32 LU) {tone['plain']}, float64 LU {tone['float64']} dB (x {tone['unheld_x_rel_err']:.3g} from "
+          f"float64 relative, backward error {tone['unheld_x_backward_error']:.3g})")
+    return rows
+
+
+def _libri_batches(n_mixtures=None, stft: bool = False):
+    """Libri2Mix test's shape: seeded two-speaker sources at 8 kHz (``_speech_like``) and estimates 5-15 dB below
+    them (``_mix_estimates``), the speakers swapped in every other batch; with ``stft``, both as 512-point STFTs
+    (hop 128, Hann), complex ``(B, 2, 257, frames)``."""
+    n_mixtures = n_mixtures or LIBRI_MIXTURES
+
+    def batches():
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+        window = torch.hann_window(CSISNR_NFFT, device="cuda")
+        for i, i0 in enumerate(range(0, n_mixtures, LIBRI_BATCH)):
+            sources = _speech_like(gen, (min(LIBRI_BATCH, n_mixtures - i0), 2, LIBRI_SAMPLES), LIBRI_FS)
+            estimates = _mix_estimates(gen, sources, 5.0, 15.0)
+            if i % 2:
+                estimates = estimates.flip(1).contiguous()
+            if stft:
+                estimates, sources = (torch.stft(x.view(-1, LIBRI_SAMPLES), CSISNR_NFFT, CSISNR_HOP, window=window,
+                                                 return_complex=True).view(*x.shape[:2], CSISNR_NFFT // 2 + 1, -1)
+                                      for x in (estimates, sources))
+            yield (estimates, sources), {}
+    return batches
+
+
+def _voicebank_batches():
+    """VoiceBank-DEMAND test's shape: 824 seeded speech-like 16 kHz clips of 3 s with exact silences (so that
+    silent-frame removal has work) and a noisy copy at a seeded 0-15 dB, passed by keyword (SRMR takes ``preds``)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    for i0 in range(0, VOICEBANK_CLIPS, VOICEBANK_BATCH):
+        clean = _speech_like(gen, (min(VOICEBANK_BATCH, VOICEBANK_CLIPS - i0), VOICEBANK_SAMPLES), VOICEBANK_FS,
+                             gaps=True)
+        snr_db = 15.0 * torch.rand((clean.shape[0], 1), generator=gen, device="cuda")
+        noise = torch.randn(clean.shape, generator=gen, device="cuda")
+        noisy = clean + noise * clean.norm(dim=-1, keepdim=True) / noise.norm(dim=-1, keepdim=True) * 10 ** (-snr_db / 20)
+        yield (), {"preds": noisy.contiguous(), "target": clean}
+
+
+def _audio_libri(device, compute_groups):
+    from torchmetrics_tpu_torch import audio as ta
+    from torchmetrics_tpu_torch.collections import MetricCollection
+    from torchmetrics_tpu_torch.functional import audio as fa
+
+    kw = {"device": device}
+    return MetricCollection({
+        "snr": ta.SignalNoiseRatio(**kw), "si_snr": ta.ScaleInvariantSignalNoiseRatio(**kw),
+        "si_sdr": ta.ScaleInvariantSignalDistortionRatio(**kw), "sa_sdr": ta.SourceAggregatedSignalDistortionRatio(**kw),
+        "sdr": ta.SignalDistortionRatio(filter_length=SDR_FILTER, **kw),
+        "pit_si_snr": ta.PermutationInvariantTraining(fa.scale_invariant_signal_noise_ratio, **kw),
+        "pit_sdr": ta.PermutationInvariantTraining(fa.signal_distortion_ratio, **kw),
+    }, compute_groups=compute_groups)
+
+
+def _audio_voicebank(device, compute_groups):
+    from torchmetrics_tpu_torch import audio as ta
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    kw = {"fs": VOICEBANK_FS, "device": device}
+    return MetricCollection({"stoi": ta.ShortTimeObjectiveIntelligibility(**kw),
+                             "estoi": ta.ShortTimeObjectiveIntelligibility(extended=True, **kw),
+                             "srmr": ta.SpeechReverberationModulationEnergyRatio(**kw)}, compute_groups=compute_groups)
+
+
+def _audio_csisnr(device, compute_groups):
+    from torchmetrics_tpu_torch import audio as ta
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({"c_si_snr": ta.ComplexScaleInvariantSignalNoiseRatio(device=device)},
+                            compute_groups=compute_groups)
+
+
+def phase_audio() -> dict:
+    """Phase 12 on one card, no sync: (i) Libri2Mix test's shape through the SNR family, SDR and speaker-wise PIT
+    over SI-SNR and SDR; (ii) VoiceBank-DEMAND test's shape through STOI, extended STOI and SRMR; (iii) C-SI-SNR on
+    the 512-point STFTs of (i)'s first 256 mixtures."""
+    from torchmetrics_tpu_torch.kernels.sdr_toeplitz import sdr_toeplitz
+    from torchmetrics_tpu_torch.kernels.snr_moments import snr_moments
+
+    kernels = (snr_moments, sdr_toeplitz)
+    record = {}
+
+    # (i) seven metrics, seven groups: one snr_moments launch a batch each for SNR, SI-SNR, SI-SDR, SA-SDR and
+    # PIT(SI-SNR) (its pairs mode); one sdr_toeplitz launch a batch each for SDR and PIT(SDR) (its tile's rows)
+    leg = _curve_leg("audio libri2mix", _audio_libri, _libri_batches(), kernels, cpu_batches=AUDIO_CPU_BATCHES)
+    n_batches = -(-LIBRI_MIXTURES // LIBRI_BATCH)
+    check(len(leg["groups"]) == 7 and leg["launches"] == {"snr_moments": 5 * n_batches, "sdr_toeplitz": 2 * n_batches},
+          f"[audio libri2mix] groups {leg['groups']}, launches {leg['launches']}: {5 * n_batches} snr_moments and "
+          f"{2 * n_batches} sdr_toeplitz launches expected")
+    t = leg["tensors"]
+    check(all(bool(torch.isfinite(v)) for v in t.values()), f"[audio libri2mix] values {leg['values']}")
+    check(float(t["pit_si_snr"]) > float(t["si_snr"]) + 5.0 and float(t["pit_sdr"]) > float(t["sdr"]) + 5.0,
+          f"[audio libri2mix] PIT does not undo the swapped batches: {leg['values']}")
+    record["libri2mix"] = leg
+
+    # (ii) three metrics, three groups, no kernel (torch float64 ops on the card)
+    leg = _curve_leg("audio voicebank", _audio_voicebank, _voicebank_batches, kernels, cpu_batches=AUDIO_CPU_BATCHES)
+    check(len(leg["groups"]) == 3 and leg["launches"] == {"snr_moments": 0, "sdr_toeplitz": 0},
+          f"[audio voicebank] groups {leg['groups']}, launches {leg['launches']}")
+    t = leg["tensors"]
+    check(0.3 < float(t["stoi"]) < 1.0 and 0.1 < float(t["estoi"]) < 1.0 and 0.0 < float(t["srmr"]) < 100.0,
+          f"[audio voicebank] values {leg['values']}")
+    record["voicebank"] = leg
+
+    # (iii) one snr_moments launch a batch over the STFTs' F x T x 2 values of each source
+    leg = _curve_leg("audio csisnr", _audio_csisnr, _libri_batches(CSISNR_MIXTURES, stft=True), kernels,
+                     cpu_batches=AUDIO_CPU_BATCHES)
+    n_batches = CSISNR_MIXTURES // LIBRI_BATCH
+    check(leg["launches"] == {"snr_moments": n_batches, "sdr_toeplitz": 0}, f"[audio csisnr] {leg['launches']}")
+    check(bool(torch.isfinite(leg["tensors"]["c_si_snr"])), f"[audio csisnr] {leg['values']}")
+    record["csisnr"] = leg
+
+    for name, leg in record.items():
+        print(f"[audio] {name}: {leg['batches']} batches in {leg['leg_s']:.3f} s (the CPU rerun "
+              f"{leg['cpu_rerun_s']:.1f} s); compute groups {leg['groups']}; collection update median "
+              f"{leg['update_ms_median']:.4f} ms (host clock, a synchronize after each), compute "
+              f"{leg['compute_ms']:.4f} ms; launches {leg['launches']}, as the batches and metrics imply; the first "
+              f"batch matches the CPU path ({leg['cpu_compared']} tensors within rtol {FLOAT_RTOL}, atol "
+              f"{FLOAT_ATOL}); values {leg['values']}")
+        del leg["tensors"]
+    return record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--json", help="also write the full record to this file")
@@ -3955,6 +4407,8 @@ def main() -> int:
         "ssim_window": "torchmetrics_tpu_torch/csrc/ssim.cu",
         "segmentation_counts": "torchmetrics_tpu_torch/csrc/segmentation.cu",
         "pairwise_lp": "torchmetrics_tpu_torch/csrc/pairwise.cu",
+        "snr_moments": "torchmetrics_tpu_torch/csrc/snr_moments.cu",
+        "sdr_toeplitz": "torchmetrics_tpu_torch/csrc/sdr_toeplitz.cu",
     }
     replaces = {
         "binned_confmat_multiclass": "torchmetrics_tpu/functional/classification/precision_recall_curve.py:128",
@@ -3967,6 +4421,8 @@ def main() -> int:
         "ssim_window": "torchmetrics_tpu/functional/image/ssim.py:111",
         "segmentation_counts": "torchmetrics_tpu/functional/segmentation/mean_iou.py:43",
         "pairwise_lp": "torchmetrics_tpu/functional/pairwise/pairwise.py:118",
+        "snr_moments": "torchmetrics_tpu/functional/audio/snr.py:27",
+        "sdr_toeplitz": "torchmetrics_tpu/functional/audio/sdr.py:69",
     }
 
     seconds = {}
@@ -3993,6 +4449,8 @@ def main() -> int:
     kernel_rows["ssim_window"] = timed("phase 3 ssim_window", phase_ssim_kernel, flush)
     kernel_rows["segmentation_counts"] = timed("phase 3 segmentation_counts", phase_segmentation_kernel, flush)
     kernel_rows["pairwise_lp"] = timed("phase 3 pairwise_lp", phase_pairwise_kernel, flush)
+    kernel_rows["snr_moments"] = timed("phase 3 snr_moments", phase_snr_kernel, flush)
+    kernel_rows["sdr_toeplitz"] = timed("phase 3 sdr_toeplitz", phase_sdr_kernel, flush)
     del flush
     main = timed("phase 4", phase_main_path, kernels)
     sync = timed("phase 5", phase_sync)
@@ -4002,6 +4460,7 @@ def main() -> int:
     rest = timed("phase 9", phase_rest)
     signal = timed("phase 10", phase_signal)
     contingency = timed("phase 11", phase_contingency)
+    audio = timed("phase 12", phase_audio)
     kernel_rows["pairwise_lp"] += [{"case": f"Market-1501 {name} (phase 11)", "max_abs_err": entry["max_abs_err"]}
                                    for name, entry in contingency["market"]["calls"].items() if "max_abs_err" in entry]
 
@@ -4023,6 +4482,8 @@ def main() -> int:
                                 for leg in ("cityscapes", "ade20k")},
         "pairwise_lp": {f"contingency {leg}": contingency[leg]["launches"]["pairwise_lp"]
                         for leg in ("clustering data", "market")},
+        "snr_moments": {f"audio {leg}": audio[leg]["launches"]["snr_moments"] for leg in ("libri2mix", "csisnr")},
+        "sdr_toeplitz": {"audio libri2mix": audio["libri2mix"]["launches"]["sdr_toeplitz"]},
     }
     for leg in ("clustering labels", "nominal", "nominal matrices"):
         by_path["confmat_multiclass"][f"contingency {leg}"] = contingency[leg]["launches"]["confmat_multiclass"]
@@ -4048,14 +4509,15 @@ def main() -> int:
             "library_ms": first_row.get("library_ms"),
             **{k: first_row[k] for k in ("two_call_ms", "bucketize_bincount_ms", "softmax_bucketize_bincount_ms",
                                          "sort_gather_cumsum_ms", "query_layout_ms", "sort_cumsum_segment_ms",
-                                         "conv_ssim_yardstick_ms", "bincount_yardstick_ms") if k in first_row},
+                                         "conv_ssim_yardstick_ms", "bincount_yardstick_ms", "chain_bound_ms",
+                                         "library_float64_ms") if k in first_row},
         })
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"device": device, "build_s": build_s, "seconds": seconds, "launch_floor": floor,
                        "kernels": kernel_rows, "main_path": main,
                        "sync": sync, "ragged": ragged, "tower": tower, "curves": curves, "rest": rest,
-                       "signal": signal, "contingency": contingency}, f, indent=1)
+                       "signal": signal, "contingency": contingency, "audio": audio}, f, indent=1)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}}))
     return 0

@@ -278,12 +278,15 @@ SIGNAL_SLICE = ("retrieval", "retrieval.base", "retrieval.metrics", "functional.
                 "image.spectral", "functional.image", "functional.image.helper", "functional.image.psnr",
                 "functional.image.ssim", "functional.image.spectral", "functional.image.tv", "kernels.ssim")
 KERNEL_SITES = {"calibration": "classification", "ranking": "classification", "binned_multilabel": "classification",
-                "retrieval": "retrieval", "ssim": "image", "segmentation": "segmentation", "pairwise": "pairwise"}
+                "retrieval": "retrieval", "ssim": "image", "segmentation": "segmentation", "pairwise": "pairwise",
+                "snr_moments": "audio", "sdr_toeplitz": "audio"}
 CONTINGENCY_SLICE = tuple(f"{pkg}.{m}" for pkg, mods in (
     ("segmentation", ("mean_iou", "generalized_dice")), ("functional.segmentation", ("mean_iou", "generalized_dice")),
     ("clustering", ("extrinsic", "intrinsic")), ("functional.clustering", ("extrinsic", "intrinsic", "utils")),
     ("nominal", ("nominal",)), ("functional.nominal", ("contingency", "fleiss_kappa", "utils")),
     ("functional.pairwise", ("pairwise",)), ("kernels", ("segmentation", "pairwise"))) for m in mods)
+AUDIO_SLICE = ("audio", "audio.metrics", "functional.audio", "kernels.snr_moments", "kernels.sdr_toeplitz",
+               *(f"functional.audio.{m}" for m in ("snr", "sdr", "pit", "pesq", "stoi", "srmr")))
 
 
 def test_isolation_covers_every_new_module():
@@ -294,12 +297,12 @@ def test_isolation_covers_every_new_module():
                  "regression.distribution", "utilities.enums", "utilities.checks", "utilities.formatting",
                  "kernels.calibration", "kernels.ranking", "kernels.binned_multilabel",
                  *(f"{pkg}.{m}" for m in REST_OF_CLASSIFICATION for pkg in ("classification", "functional.classification")),
-                 *SIGNAL_SLICE, *CONTINGENCY_SLICE):
+                 *SIGNAL_SLICE, *CONTINGENCY_SLICE, *AUDIO_SLICE):
         assert f"torchmetrics_tpu_torch.{name}" in modules
 
 
 @pytest.mark.parametrize("source", ["calibration", "ranking", "binned_multilabel", "retrieval", "ssim", "segmentation",
-                                    "pairwise"])
+                                    "pairwise", "snr_moments", "sdr_toeplitz"])
 def test_kernel_sources_are_plain_cuda_with_a_c_interface(source):
     """The kernels build with nvcc alone and bind through ctypes: no PyTorch, JAX or Python headers."""
     text = (PACKAGE / "csrc" / f"{source}.cu").read_text()

@@ -16,6 +16,8 @@ import pytest
 
 from torchmetrics_tpu_torch.kernels import pairwise as kpw
 from torchmetrics_tpu_torch.kernels import retrieval as krt
+from torchmetrics_tpu_torch.kernels import sdr_toeplitz as ksdr
+from torchmetrics_tpu_torch.kernels import snr_moments as ksnr
 from torchmetrics_tpu_torch.kernels import segmentation as kseg
 from torchmetrics_tpu_torch.kernels import ssim as kss
 
@@ -77,6 +79,34 @@ def test_segmentation_shared_histogram_fits_the_default_shared_memory():
     assert "(m + kTileN - 1) / kTileN > 65535" in src and kpw.MAX_COLS == 65_535 * kpw.COL_THREADS * 8
 
 
+@pytest.mark.parametrize(("module", "python", "kernel"), [
+    (ksnr, "THREADS", "kThreads"), (ksnr, "MAX_SPEAKERS", "kMaxSpeakers"), (ksdr, "MAX_LENGTH", "kMaxLength"),
+], ids=lambda v: v if isinstance(v, str) else v.SOURCE)
+def test_audio_constants_are_the_kernels(module, python, kernel):
+    assert getattr(module, python) == _constant(_source(module.SOURCE), kernel)
+
+
+def test_snr_moments_source_matches_its_launcher():
+    src = _source("snr_moments")
+    eps = re.findall(r"constexpr double kEps = ([0-9.e+-]+);", src)
+    assert len(eps) == 1 and float(eps[0]) == ksnr.EPS == 2.0**-23
+    # one instance a speaker count, 1 to kMaxSpeakers, in the entry's switch
+    for s in range(1, ksnr.MAX_SPEAKERS):
+        assert f"case {s}: return launch_speakers<{s}>(" in src
+    assert "case kMaxSpeakers: return launch_speakers<kMaxSpeakers>(" in src
+    assert "chunks > 65535" in src and ksnr.MAX_CHUNKS == 65_535
+    assert "chunk % 4 == 0" in src and ksnr.VEC == 4
+    # a thread's S^2 + 4 S double sums at the largest S stay within the registers of 256 threads an SM block
+    assert 2 * (ksnr.MAX_SPEAKERS**2 + 4 * ksnr.MAX_SPEAKERS) + 8 * ksnr.MAX_SPEAKERS <= 65536 // ksnr.THREADS
+
+
+def test_sdr_toeplitz_shared_memory_fits_a_block():
+    src = _source("sdr_toeplitz")
+    assert "constexpr int kBytesPerTap = 3 * sizeof(double) + sizeof(float);" in src
+    assert ksdr.MAX_LENGTH * (3 * 8 + 4) <= 232_448  # a block's dynamic shared memory on Hopper
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src and "length > kMaxLength" in src
+
+
 _ABLATION = _ablation()
 _BUILDS = [("retrieval", table, name, edits)
            for table in ("RET_PATHS", "RET_BUILDS", "RET_FAULT_BUILDS")
@@ -84,6 +114,7 @@ _BUILDS = [("retrieval", table, name, edits)
 _BUILDS += [("ssim", "SSIM_VARIANTS", name, edits) for name, (edits, _) in _ABLATION.SSIM_VARIANTS.items()]
 _BUILDS += [("pairwise", "PAIRWISE_VARIANTS", name, edits)
             for name, (edits, _) in _ABLATION.PAIRWISE_VARIANTS.items()]
+_BUILDS += [("sdr_toeplitz", "SDR_VARIANTS", name, edits) for name, edits in _ABLATION.SDR_VARIANTS.items()]
 
 
 @pytest.mark.parametrize(("source", "table", "name", "edits"), _BUILDS,

@@ -19,11 +19,13 @@ import torchmetrics_tpu  # noqa: F401  (the JAX package: imported first, on the 
 ALLOWED = {("torchmetrics_tpu.functional.classification", "precision_recall_curve")}
 NAMESPACES = [
     "torchmetrics_tpu",
+    "torchmetrics_tpu.audio",
     "torchmetrics_tpu.classification",
     "torchmetrics_tpu.clustering",
     "torchmetrics_tpu.core",
     "torchmetrics_tpu.detection",
     "torchmetrics_tpu.functional",
+    "torchmetrics_tpu.functional.audio",
     "torchmetrics_tpu.functional.classification",
     "torchmetrics_tpu.functional.clustering",
     "torchmetrics_tpu.functional.detection",

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Where the port's redesigned kernels spend their time, on one GPU: ``ranking_pairs``' sort,
 ``binned_confmat_multilabel``'s label-group width, ``calibration_bins``' design choices,
-``retrieval_groups``' counting threshold, ``ssim_window``'s tile and blocking and ``pairwise_lp``'s
-tiles, staging and float form.
+``retrieval_groups``' counting threshold, ``ssim_window``'s tile and blocking, ``pairwise_lp``'s
+tiles, staging and float form, and ``sdr_toeplitz``'s step.
 
     python3 tools/kernel_ablation.py [--sections ranking,multilabel,calibration,calibration-widths,retrieval,
                                                   retrieval-occupancy,retrieval-builds,retrieval-fault,ssim,
-                                                  pairwise]
+                                                  pairwise,sdr]
                                      [--parent CHECKOUT] [--fault-builds NAMES] [--fault-trials N]
                                      [--sass PATH] [--json PATH]
 
@@ -80,6 +80,14 @@ for p = 1, int 2, int 3 and 1.5, each under phase 3's check against the plain
 version, in two turns; each kernel's innermost sum loop from ``cuobjdump
 -sass`` by instruction (``--sass PATH`` keeps the whole listing).
 
+SDR: ``csrc/sdr_toeplitz.cu`` built with 4 partial sums a lane in a step's
+dot products, the update pass unrolled by 2, and beta's reciprocal and the
+step's loads at the top of the step (off the chain), and that form with 1,
+2 or 8 partial sums, its update not unrolled or its reciprocal after the
+reduction, beside the shipped step (one partial sum, none of these), at the Libri2Mix batch's 32 rows and PIT(SDR)'s 64 of
+L = 512, 32 rows of L = 64 and 2 of L = 8,192, each held against a float64 LU
+as phase 3 holds it, in two turns.
+
 Times are ``chip_smoke.time_ms``'s: CUDA events around one call after an L2
 flush that leaves no dirty line, a spin kernel holding the card while the host
 enqueues the call; medians of 30 unless a section says otherwise. Needs a CUDA
@@ -112,6 +120,7 @@ from torchmetrics_tpu_torch.kernels import calibration as kce  # noqa: E402
 from torchmetrics_tpu_torch.kernels import pairwise as kpw  # noqa: E402
 from torchmetrics_tpu_torch.kernels import ranking as krk  # noqa: E402
 from torchmetrics_tpu_torch.kernels import retrieval as krt  # noqa: E402
+from torchmetrics_tpu_torch.kernels import sdr_toeplitz as ksdr  # noqa: E402
 from torchmetrics_tpu_torch.kernels import ssim as kss  # noqa: E402
 
 SWITCHES = {  # a stage kind's switch: the source text it guards, and the guarded text
@@ -1082,11 +1091,127 @@ def _pairwise(flush: torch.Tensor, gen: torch.Generator, parent, sass_path) -> d
     return rows
 
 
+_SDR_STEP_HEAD = ('    // dot1 = sum_{i=1..k} t[i] x[k - i], dot2 = sum_{i=1..k} t[i] y[k - i]\n'
+    '    double dot1 = 0.0, dot2 = 0.0;\n'
+    '    for (int m = lane; m < k; m += 32) {\n'
+    '      const double tm = t[m + 1];\n'
+    '      dot1 = fma(tm, x[k - 1 - m], dot1);\n'
+    '      dot2 = fma(tm, y[k - 1 - m], dot2);\n'
+    '    }\n'
+    '    warp_sum2(dot1, dot2);\n'
+    '    beta *= (1.0 - alpha) * (1.0 + alpha);\n'
+    '    const double inv_beta = 1.0 / beta;\n'
+    '    const double mu = (static_cast<double>(rhs[k]) * inv_diag - dot1) * inv_beta;\n'
+    '    const double next_alpha = k + 1 < length ? (-t[k + 1] - dot2) * inv_beta : 0.0;\n')
+_SDR_PARTIAL_SUMS_HEAD = ("    // off the chain: beta and its reciprocal need only the last step's alpha, t[k + 1] and b[k] only k\n"
+    '    beta *= (1.0 - alpha) * (1.0 + alpha);\n'
+    '    const double inv_beta = 1.0 / beta;\n'
+    '    const double t_next = k + 1 < length ? t[k + 1] : 0.0;\n'
+    '    const double c_k = static_cast<double>(rhs[k]) * inv_diag;\n'
+    '    // dot1 = sum_{i=1..k} t[i] x[k - i], dot2 = sum_{i=1..k} t[i] y[k - i]: kAcc partial sums a lane, so that\n'
+    '    // kAcc rounds of loads are in flight, added in a fixed order\n'
+    '    double dot1[kAcc], dot2[kAcc];\n'
+    '#pragma unroll\n'
+    '    for (int u = 0; u < kAcc; ++u) dot1[u] = dot2[u] = 0.0;\n'
+    '    int m = lane;\n'
+    '    for (; m + 32 * (kAcc - 1) < k; m += 32 * kAcc) {\n'
+    '#pragma unroll\n'
+    '      for (int u = 0; u < kAcc; ++u) {\n'
+    '        const double tm = t[m + 32 * u + 1];\n'
+    '        dot1[u] = fma(tm, x[k - 1 - m - 32 * u], dot1[u]);\n'
+    '        dot2[u] = fma(tm, y[k - 1 - m - 32 * u], dot2[u]);\n'
+    '      }\n'
+    '    }\n'
+    '    for (; m < k; m += 32) {\n'
+    '      const double tm = t[m + 1];\n'
+    '      dot1[0] = fma(tm, x[k - 1 - m], dot1[0]);\n'
+    '      dot2[0] = fma(tm, y[k - 1 - m], dot2[0]);\n'
+    '    }\n'
+    '#pragma unroll\n'
+    '    for (int u = 1; u < kAcc; ++u) {\n'
+    '      dot1[0] += dot1[u];\n'
+    '      dot2[0] += dot2[u];\n'
+    '    }\n'
+    '    warp_sum2(dot1[0], dot2[0]);\n'
+    '    const double mu = (c_k - dot1[0]) * inv_beta;\n'
+    '    const double next_alpha = k + 1 < length ? (-t_next - dot2[0]) * inv_beta : 0.0;\n')
+# call 3's step: kAcc partial sums a lane in the dot products, beta's reciprocal and the step's loads at its top
+_SDR_TAP_BYTES = ("constexpr int kBytesPerTap = 3 * sizeof(double) + sizeof(float);  // t, x, y in float64; b in float32\n")
+_SDR_PARTIAL_SUMS = [(_SDR_TAP_BYTES, _SDR_TAP_BYTES + "constexpr int kAcc = 4;\n"), (_SDR_STEP_HEAD, _SDR_PARTIAL_SUMS_HEAD)]
+_SDR_UNROLL = ("    for (int i = lane; 2 * i < k; i += 32) {", "#pragma unroll 2\n    for (int i = lane; 2 * i < k; i += 32) {")
+_SDR_HOISTED = ("    beta *= (1.0 - alpha) * (1.0 + alpha);\n    const double inv_beta = 1.0 / beta;\n"
+                "    const double t_next = k + 1 < length ? t[k + 1] : 0.0;\n"
+                "    const double c_k = static_cast<double>(rhs[k]) * inv_diag;\n")
+SDR_VARIANTS = {  # name: the source text replaced in csrc/sdr_toeplitz.cu; "shipped" first
+    "shipped": [],
+    "4 partial sums a lane, the update unrolled by 2, beta's reciprocal first": [*_SDR_PARTIAL_SUMS, _SDR_UNROLL],
+    "the same with 1 partial sum": [*_SDR_PARTIAL_SUMS, _SDR_UNROLL, ("constexpr int kAcc = 4;", "constexpr int kAcc = 1;")],
+    "the same with 2 partial sums": [*_SDR_PARTIAL_SUMS, _SDR_UNROLL, ("constexpr int kAcc = 4;", "constexpr int kAcc = 2;")],
+    "the same with 8 partial sums": [*_SDR_PARTIAL_SUMS, _SDR_UNROLL, ("constexpr int kAcc = 4;", "constexpr int kAcc = 8;")],
+    "the same, the update not unrolled": _SDR_PARTIAL_SUMS,
+    "the same, beta's reciprocal after the reduction": [
+        *_SDR_PARTIAL_SUMS, _SDR_UNROLL, (_SDR_HOISTED, ""),
+        ("    warp_sum2(dot1[0], dot2[0]);\n", "    warp_sum2(dot1[0], dot2[0]);\n" + _SDR_HOISTED)],
+}
+SDR_SHAPES = (("Libri2Mix batch, 32 x L=512", "speech", 2 * cs.LIBRI_BATCH, cs.LIBRI_SAMPLES, cs.SDR_FILTER),
+              ("PIT(SDR)'s tile, 64 x L=512", "speech", 4 * cs.LIBRI_BATCH, cs.LIBRI_SAMPLES, cs.SDR_FILTER),
+              ("32 x L=64", "speech", 32, 8000, 64),
+              ("2 x L=8192", "white", 2, 2 * 8192, 8192))
+
+
+def _sdr(flush: torch.Tensor, gen: torch.Generator) -> dict:
+    """Every variant of ``sdr_toeplitz`` at the main path's shapes, a short and the longest filter, each held
+    against a float64 LU as phase 3 holds the shipped build, in two turns."""
+    rows = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        entries = {}
+        p = ctypes.c_void_p
+        for name, (lib, report) in _edited_builds("sdr_toeplitz", {k: (v, []) for k, v in SDR_VARIANTS.items()},
+                                                  workdir).items():
+            fn = lib.sdr_toeplitz_launch
+            fn.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int, p]
+            fn.restype = ctypes.c_int
+            entries[name] = fn
+            print(f"[sdr] build {name!r}: {report}", flush=True)
+        for label, kind, n_rows, samples, length in SDR_SHAPES:
+            r_0, b = cs._sdr_correlations(gen, kind, n_rows, samples, length)
+            exact, _ = ksdr._sdr_toeplitz_plain(r_0.double(), b.double())
+            sdr = torch.empty((n_rows,), device="cuda")
+            x = torch.empty((n_rows, length), device="cuda")
+            runs = []
+            for name, fn in entries.items():
+                def call(fn=fn):
+                    err = fn(r_0.data_ptr(), b.data_ptr(), sdr.data_ptr(), x.data_ptr(), n_rows, length,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"kernel_ablation: sdr_toeplitz launch failed with CUDA error {err}")
+
+                call()
+                torch.cuda.synchronize()
+                err64 = float((sdr.double() - exact).abs().max())
+                backward = cs._backward_error(r_0, b, x)
+                cs.check(err64 <= cs.SDR64_DB and backward <= cs.X_BACKWARD_BOUND,
+                         f"[sdr] {label}, {name}: {err64:.3g} dB from float64, backward error {backward:.3g}")
+                runs.append((name, call))
+            for turn in (runs, runs[::-1]):
+                for name, call in turn:
+                    rows.setdefault(f"{label}: {name}", []).append(cs.time_ms(call, flush, reps=10, warmup=1))
+            chain_ms = cs._sdr_chain_bound_ms(length)
+            for name, _ in runs:
+                key = f"{label}: {name}"
+                print(f"[sdr] {key}: {' / '.join(f'{t:.4f}' for t in rows[key])} ms after an L2 flush (two turns), "
+                      f"{1e6 * min(rows[key]) / max(length - 1, 1):.1f} ns a step; the chain bound "
+                      f"{chain_ms:.4f} ms", flush=True)
+            del r_0, b, exact, sdr, x
+    print(f"[sdr] SM clock, now and at most: {cs.sm_clocks()}", flush=True)
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--sections",
                         default="ranking,multilabel,calibration,calibration-widths,retrieval,retrieval-occupancy,"
-                                "retrieval-builds,ssim,pairwise",
+                                "retrieval-builds,ssim,pairwise,sdr",
                         help="comma-separated sections to run")
     parser.add_argument("--parent", help="a checkout of the commit before the redesign of the sections run "
                                           f"(calibration: {PARENT_COMMIT}; pairwise: {PAIRWISE_PARENT}), timed beside it")
@@ -1124,6 +1249,8 @@ def main() -> int:
         record["ssim"] = _ssim(flush, gen)
     if "pairwise" in sections:
         record["pairwise"] = _pairwise(flush, gen, args.parent, args.sass)
+    if "sdr" in sections:
+        record["sdr"] = _sdr(flush, gen)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(record, f, indent=1)

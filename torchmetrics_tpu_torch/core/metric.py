@@ -69,6 +69,10 @@ UNPORTED_BASE_KWARGS = frozenset(
     }
 )
 
+# every ctor kwarg of the base, the refused ones too: wrappers that forward leftover kwargs elsewhere
+# (``PermutationInvariantTraining``) split on this set
+METRIC_BASE_KWARGS = frozenset({"device", "compute_with_cache"}) | UNPORTED_BASE_KWARGS
+
 
 def _copy_shared(value: Any, storages: set) -> Any:
     """``value`` with every tensor in it that lives in one of ``storages`` copied."""

@@ -1,0 +1,98 @@
+"""Launcher of the ``sdr_toeplitz`` CUDA kernel (``csrc/sdr_toeplitz.cu``) and its plain version.
+
+:func:`sdr_toeplitz` takes SDR's autocorrelation ``r_0`` and cross-correlation
+``b`` rows ``(R, L)`` and gives each row's SDR in dB ``(R,)`` and the solution
+``x`` of ``toeplitz(r_0) x = b`` ``(R, L)``, in one launch: the Levinson
+recursion with a general right-hand side in float64, one warp a system, no
+matrix. It counts its launches in ``sdr_toeplitz.launches`` and takes CUDA
+tensors only. :func:`_sdr_toeplitz_plain` is the JAX package's form in plain
+PyTorch: the ``(R, L, L)`` Toeplitz matrix, ``torch.linalg.solve`` in the
+inputs' dtype, the coherence and the log ratio. The dispatch by device, dtype
+and grad is ``functional.audio.sdr._sdr_from_correlations``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+from torch import Tensor
+
+from torchmetrics_tpu_torch.kernels._build import launch_on, load_library
+
+SOURCE = "sdr_toeplitz"
+MAX_LENGTH = 8192  # kMaxLength: 28 L bytes of shared memory a system (t, x, y in float64, b in float32)
+MAX_ROWS = 2**31 - 1  # systems along grid.x
+
+_launch: Optional[ctypes._CFuncPtr] = None
+
+
+def _launch_fn() -> ctypes._CFuncPtr:
+    global _launch
+    if _launch is None:
+        fn = load_library(SOURCE).sdr_toeplitz_launch
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+        _launch = fn
+    return _launch
+
+
+def _symmetric_toeplitz(vector: Tensor) -> Tensor:
+    """The symmetric Toeplitz matrices ``(..., L, L)`` of first rows ``(..., L)``."""
+    length = vector.shape[-1]
+    idx = torch.arange(length, device=vector.device)
+    return vector[..., (idx[:, None] - idx[None, :]).abs()]
+
+
+def _sdr_toeplitz_plain(r_0: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch :func:`sdr_toeplitz`: JAX's build, ``solve`` and coherence, in the inputs' dtype."""
+    sol = torch.linalg.solve(_symmetric_toeplitz(r_0), b[..., None])[..., 0]
+    coh = torch.einsum("...l,...l->...", b, sol)
+    return 10.0 * torch.log10(coh / (1 - coh)), sol
+
+
+def sdr_toeplitz(r_0: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
+    """Each row's SDR ``(R,)`` and the solution ``x`` ``(R, L)``, both float32, by the CUDA kernel.
+
+    ``chip_smoke.py`` holds it against :func:`_sdr_toeplitz_plain` and the
+    same in float64 on the card.
+
+    Args:
+        r_0, b: float32 ``(R, L)``, L from 1 to ``MAX_LENGTH``, contiguous, on
+            one CUDA device.
+
+    Every check raises ``ValueError`` before anything is built or launched; a
+    CUDA error of the launch raises ``RuntimeError``. An empty batch launches
+    nothing.
+    """
+    for name, v in (("r_0", r_0), ("b", b)):
+        if v.dtype != torch.float32:
+            raise ValueError(f"sdr_toeplitz takes float32 `{name}`, got {v.dtype}")
+        if not v.is_contiguous():
+            raise ValueError(f"sdr_toeplitz: `{name}` must be contiguous")
+    if r_0.shape != b.shape or r_0.ndim != 2:
+        raise ValueError(f"sdr_toeplitz takes (R, L) r_0 and b of one shape, got {tuple(r_0.shape)} and "
+                         f"{tuple(b.shape)}")
+    rows, length = r_0.shape
+    if not 1 <= length <= MAX_LENGTH or rows > MAX_ROWS:
+        raise ValueError(f"sdr_toeplitz takes L from 1 to {MAX_LENGTH} and at most {MAX_ROWS} rows, got L = "
+                         f"{length} and {rows} rows")
+    device = r_0.device
+    if b.device != device:
+        raise ValueError(f"sdr_toeplitz: `b` is on {b.device}, expected {device}")
+    if device.type != "cuda":
+        raise ValueError(f"sdr_toeplitz runs on CUDA tensors only, got them on {device}")
+    sdr = torch.empty((rows,), dtype=torch.float32, device=device)
+    x = torch.empty((rows, length), dtype=torch.float32, device=device)
+    if rows == 0:
+        return sdr, x
+    args = (r_0.data_ptr(), b.data_ptr(), sdr.data_ptr(), x.data_ptr(), rows, length,
+            torch.cuda.current_stream(device).cuda_stream)
+    launch_on("sdr_toeplitz", device, _launch_fn(), args)
+    sdr_toeplitz.launches += 1
+    return sdr, x
+
+
+sdr_toeplitz.launches = 0
