@@ -3969,6 +3969,10 @@ SNR64_ATOL_DB, SNR64_RTOL = 1e-5, 1e-6  # snr_moments against float64 (its outpu
 SDR_PLAIN_DB, SDR64_DB = 1e-3, 1e-4  # sdr_toeplitz against the plain version (float32 LU) and float64 LU
 X_BACKWARD_BOUND = 1e-6  # sdr_toeplitz's float32 solution: normwise backward error (its rounding is 6e-8)
 DEP_FP64_CYCLES = 8  # the latency taken for one dependent fp64 operation in sdr_toeplitz's chain bound
+# the least step of any O(L^2) recursion of sdr_toeplitz's kind: one block barrier, one fp64 reciprocal and one
+# fused multiply-add, in cycles, as `tools/kernel_ablation.py --sections sdr` times dependent chains of each on an
+# H100 (the barrier of one warp, the cheapest; the reciprocal by rcp.approx and two Newton steps, the faster form)
+BARRIER_CYCLES, RCP64_CYCLES, FMA64_CYCLES = 14.6, 47.6, 9.4
 
 
 def _speech_like(gen: torch.Generator, shape, fs: int, gaps: bool = False) -> torch.Tensor:
@@ -4094,7 +4098,8 @@ def phase_snr_kernel(flush: torch.Tensor) -> list:
         if timed:
             nbytes = 2 * preds.numel() * 4 + got.numel() * 4
             bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-            plan = ksnr.plan(preds.shape[0], preds.shape[-1], torch.cuda.get_device_properties(0).multi_processor_count)
+            plan = ksnr.plan(preds.shape[0], preds.shape[-1], torch.cuda.get_device_properties(0).multi_processor_count,
+                             group, preds.shape[1] if mode == "pairs" else 1)
             fn = lambda p_, t_: ksnr.snr_moments(p_, t_, **kw)  # noqa: E731
             kernel_ms = time_ms(lambda: fn(preds, target), flush)
             plain_ms = time_ms(lambda: ksnr._snr_moments_plain(preds, target, **kw), flush, reps=10, warmup=1)
@@ -4170,6 +4175,13 @@ def _sdr_chain_bound_ms(length: int) -> float:
     return steps * DEP_FP64_CYCLES / CLOCK_HZ * 1e3
 
 
+def _sdr_least_chain_ms(length: int) -> float:
+    """The least chain of any O(L^2) recursion of ``sdr_toeplitz``'s kind: L - 1 steps of one block barrier, one fp64
+    reciprocal and one fused multiply-add (``BARRIER_CYCLES``, ``RCP64_CYCLES``, ``FMA64_CYCLES``) at the boost
+    clock."""
+    return max(length - 1, 0) * (BARRIER_CYCLES + RCP64_CYCLES + FMA64_CYCLES) / CLOCK_HZ * 1e3
+
+
 def phase_sdr_kernel(flush: torch.Tensor) -> list:
     """``sdr_toeplitz`` against its plain version (JAX's float32 build and LU) and a float64 LU on the card.
     Timed at the Libri2Mix batch's 32 rows (the first row) and PIT(SDR)'s 64, L = 512, beside
@@ -4228,6 +4240,7 @@ def phase_sdr_kernel(flush: torch.Tensor) -> list:
             bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
             bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
             chain_ms = _sdr_chain_bound_ms(length)
+            least_ms = _sdr_least_chain_ms(length)
             kernel_ms = time_ms(lambda: ksdr.sdr_toeplitz(r_0, b), flush)
             plain_ms = time_ms(lambda: ksdr._sdr_toeplitz_plain(r_0, b), flush, reps=10, warmup=1)
             matrix = ksdr._symmetric_toeplitz(r_0)
@@ -4240,12 +4253,16 @@ def phase_sdr_kernel(flush: torch.Tensor) -> list:
             stream_ms = time_stream_ms(lambda r_, b_: ksdr.sdr_toeplitz(r_, b_), sets, calls=16)
             row.update({"ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "operations": ops, "chain_bound_ms": chain_ms,
-                        "library_ms": library_ms, "library_float64_ms": library64_ms})
+                        "least_chain_ms": least_ms, "chain_share": min(chain_ms, least_ms) / kernel_ms,
+                        "plan": ksdr.plan(length), "library_ms": library_ms, "library_float64_ms": library64_ms})
             print(f"[kernel] sdr_toeplitz {label}: {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a call "
                   f"back to back), plain (build + float32 solve + coherence) {plain_ms:.4f} ms, torch.linalg.solve "
                   f"on the built matrices (library_ms) {library_ms:.4f} ms in float32, {library64_ms:.4f} ms in "
                   f"float64; bound {bound_ms * 1e3:.3f} us ({bound_by}: {ops} fp64 operations), the L-step chain "
-                  f"{chain_ms:.4f} ms at {DEP_FP64_CYCLES} cycles a dependent fp64 operation and {CLOCK_HZ / 1e9} GHz")
+                  f"{chain_ms:.4f} ms at {DEP_FP64_CYCLES} cycles a dependent fp64 operation and {CLOCK_HZ / 1e9} GHz "
+                  f"(Levinson's), the least chain {least_ms:.4f} ms ({BARRIER_CYCLES} + {RCP64_CYCLES} + "
+                  f"{FMA64_CYCLES} cycles a step), share {row['chain_share']:.1%} of the smaller; block "
+                  f"{row['plan'][1]} threads x {row['plan'][0]} entries")
         rows.append(row)
     print(f"[kernel] sdr_toeplitz: within {SDR64_DB} dB of float64 LU (x's backward error within {X_BACKWARD_BOUND}) "
           f"and, of plain, within "
@@ -4510,7 +4527,7 @@ def main() -> int:
             **{k: first_row[k] for k in ("two_call_ms", "bucketize_bincount_ms", "softmax_bucketize_bincount_ms",
                                          "sort_gather_cumsum_ms", "query_layout_ms", "sort_cumsum_segment_ms",
                                          "conv_ssim_yardstick_ms", "bincount_yardstick_ms", "chain_bound_ms",
-                                         "library_float64_ms") if k in first_row},
+                                         "least_chain_ms", "library_float64_ms") if k in first_row},
         })
     if args.json:
         with open(args.json, "w") as f:

@@ -3,17 +3,19 @@
 ``snr_moments`` (``csrc/snr_moments.cu``) sums each row's (or each speaker
 pair's) moments in float64 and evaluates SNR, SI-SDR and SA-SDR from them in
 an expanded form whose noise energy is clamped at 0; ``sdr_toeplitz``
-(``csrc/sdr_toeplitz.cu``) solves SDR's Toeplitz system by the Levinson
-recursion in float64. Neither runs here (no ``nvcc``, no card), so the
-models below follow the kernels step by step: change them with the kernels.
-``chip_smoke.py`` holds the kernels themselves against the plain versions
-and a float64 evaluation on the card.
+(``csrc/sdr_toeplitz.cu``) solves SDR's Toeplitz system by a Schur-type
+(generator) recursion in float64, every vector in registers. Neither runs
+here (no ``nvcc``, no card), so the models below follow the kernels step by
+step: change them with the kernels. The Levinson recursion (Golub and Van
+Loan 4.7.3), the classical form with two dot products a step, is held beside
+the Schur-type one on the same cases. ``chip_smoke.py`` holds the kernels
+themselves against the plain versions and a float64 evaluation on the card.
 
 Tolerances: the moment model within 1e-4 dB plus 1e-5 relative of JAX's
 float32 values, and within 1e-5 dB of the float64 direct form up to 80 dB
 (float32's half ulp there is 3.8e-6 dB);
-the Levinson model's solution within 1e-9 relative of a float64 LU (SDR
-within 1e-6 dB), and its SDR within 1e-3 dB of JAX's float32 LU.
+each recursion's solution within 1e-9 relative of a float64 LU (SDR within
+1e-6 dB), and its SDR within 1e-3 dB of JAX's float32 LU.
 """
 
 import jax.numpy as jnp
@@ -163,11 +165,31 @@ def test_moments_plain_version_is_jax():
 @pytest.mark.parametrize(("units", "length"), [(1, 1), (1, 3), (32, 32000), (16, 32000), (1, 9_600_000),
                                                (2048, 8000), (5, 4097), (100_000, 10)])
 def test_moments_plan(units, length):
-    chunk, chunks = ksnr.plan(units, length, 132)
-    assert chunk % ksnr.VEC == 0 and chunk >= 1 and 1 <= chunks <= ksnr.MAX_CHUNKS
-    assert (chunks - 1) * chunk < max(length, 1) <= chunks * chunk
-    assert chunk >= min(ksnr.MIN_CHUNK, -(-length // ksnr.VEC) * ksnr.VEC)
-    assert units * chunks <= max(units, ksnr.BLOCKS_PER_SM * 132 + units)
+    """Each (group, speakers) the launcher takes: chunks that cover the row, of whole 16-byte loads; a cluster of at
+    most ``CLUSTER`` blocks that holds a group's units and all of their chunks, or one block merged by the second
+    level past a cluster; a thread's loads of a chunk in one batch unless that overfills the card or a cluster."""
+    for group, speakers in ((1, 1), (2, 1), (12, 1), (1, 2), (1, ksnr.MAX_SPEAKERS)):
+        if units % group:
+            continue
+        g = ksnr.plan(units, length, 132, group, speakers)
+        assert g.chunk % ksnr.VEC == 0 and 1 <= g.chunks <= ksnr.MAX_CHUNKS
+        assert g.chunks * g.chunk >= max(length, 1) and (g.chunks - 1) * g.chunk < max(length, 1)
+        assert g.cluster_units * g.cluster_chunks <= ksnr.CLUSTER and g.chunks % g.cluster_chunks == 0
+        assert g.cluster_units in (1, group) and units % g.cluster_units == 0
+        if g.cluster_units * g.cluster_chunks == group * g.chunks:  # one cluster a group: no second level
+            assert g.cluster_units == group
+        else:  # a block a cluster, merged by the second level
+            assert group * g.chunks > ksnr.CLUSTER and (g.cluster_units, g.cluster_chunks) == (1, 1)
+        per_block = ksnr.THREADS * ksnr.VEC * ksnr.row_loads(speakers)
+        assert g.chunk >= min(per_block, -(-length // ksnr.VEC) * ksnr.VEC) or g.chunks > 1
+        if g.chunks == -(-length // per_block) or length <= per_block:
+            assert g.chunk <= max(per_block, ksnr.VEC)  # one batch of loads a thread
+        assert units * g.chunks <= max(units, ksnr.BLOCKS_PER_SM * 132 + units) * ksnr.CLUSTER
+        assert ksnr.cluster_shape(g.chunks, group) == (g.cluster_units, g.cluster_chunks)
+    assert tuple(ksnr.plan(32, 32000, 132)) == (8000, 4, 1, 4)  # the Libri2Mix batch's rows: one cluster a row
+    assert tuple(ksnr.plan(16, 32000, 132, 1, 2)) == (4000, 8, 1, 8)  # its PIT pairs
+    assert tuple(ksnr.plan(32, 32000, 132, 2)) == (8000, 4, 2, 4)  # its SA-SDR groups: one cluster a group
+    assert tuple(ksnr.plan(1, 9_600_000, 132))[1:] == (264, 1, 1)  # a 10-minute clip: the second level
 
 
 def test_launchers_refuse_cpu_and_bad_inputs():
@@ -188,9 +210,9 @@ def test_launchers_refuse_cpu_and_bad_inputs():
         ksdr.sdr_toeplitz(x.double(), x.double())
 
 
-# ------------------------------------------------------------------ Levinson
+# ------------------------------------------------------------------ Toeplitz solves
 def _levinson_model(r0, b):
-    """The kernel's recursion (Golub and Van Loan 4.7.3 on toeplitz(r0) / r0[0]) in float64: (SDR, x)."""
+    """The Levinson recursion (Golub and Van Loan 4.7.3 on toeplitz(r0) / r0[0]) in float64: (SDR, x)."""
     r0, b = r0.astype(np.float64), b.astype(np.float64)
     length = r0.shape[0]
     inv_diag = 1.0 / r0[0]
@@ -218,6 +240,44 @@ def _levinson_model(r0, b):
         return 10.0 * np.log10(coh / (1.0 - coh)), x
 
 
+def _schur_model(r0, b):
+    """The kernel's recursion in float64, in its order: (SDR, x). On T = toeplitz(r0) / r0[0] and c = b / r0[0],
+    slot j holds (f, g, x)[j] once step k >= j and (F, G, R)[j] before; step k reads R_k[k] and F_k[k + 1] (mu and
+    gamma over beta, whose reciprocal the step before computed from beta_{k+1} = beta_k - beta_k gamma^2), updates
+    every slot by the same three multiply-adds from its left neighbour's old g or G, takes the next step's scalars
+    from slots k + 1 and k + 2, and turns slot k + 1 from generators into predictors (g_k[k] = 1)."""
+    r0, b = r0.astype(np.float64), b.astype(np.float64)
+    length = r0.shape[0]
+    inv_diag = 1.0 / r0[0]
+    a_, b_ = r0 * inv_diag, r0 * inv_diag
+    c_ = b * inv_diag
+    a_[0], b_[0], c_[0] = 1.0, 1.0, 0.0
+    r_k, f_next = b[0] * inv_diag, a_[1] if length > 1 else 0.0
+    beta = inv_beta = 1.0
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        for k in range(length):
+            more = k + 1 < length
+            mu = r_k * inv_beta
+            gamma = -f_next * inv_beta if more else 0.0
+            beta -= beta * gamma * gamma
+            next_inv_beta = 1.0 / beta
+            left = np.concatenate([[0.0], b_[:-1]])
+            old_a = a_.copy()
+            for lo, hi, sign in ((0, k + 1, 1.0), (k + 1, length, -1.0)):  # predictors, generators
+                c_[lo:hi] += sign * mu * b_[lo:hi]
+                a_[lo:hi] = old_a[lo:hi] + gamma * left[lo:hi]
+                b_[lo:hi] = left[lo:hi] + gamma * old_a[lo:hi]
+            if more:  # the next step's scalars, then slot k + 1 turns: f = gamma, g = 1, x = 0
+                r_k, f_next = c_[k + 1], a_[k + 2] if k + 2 < length else 0.0
+                a_[k + 1], b_[k + 1], c_[k + 1] = gamma, 1.0, 0.0
+            inv_beta = next_inv_beta
+        coh = np.dot(b, c_)
+        return 10.0 * np.log10(coh / (1.0 - coh)), c_
+
+
+MODELS = {"levinson": _levinson_model, "schur": _schur_model}
+
+
 def _correlations(kind, length, filter_length, seed, load_diag=None):
     """The port's float32 r_0 and b (its CPU path's FFTs), and the float32 signals they came from."""
     rng = np.random.default_rng(seed)
@@ -238,13 +298,15 @@ def _correlations(kind, length, filter_length, seed, load_diag=None):
 
 
 CASES = [("white", 8000, 512, None), ("lowpass", 8000, 512, None), ("white", 4000, 300, None), ("white", 2000, 1, None),
-         ("lowpass", 6000, 512, 1e-2), ("white", 3000, 2, None), ("white", 16384, 2048, None)]
+         ("lowpass", 6000, 512, 1e-2), ("white", 3000, 2, None), ("white", 16384, 2048, None),
+         ("lowpass", 4000, 33, None)]
 
 
+@pytest.mark.parametrize("model", list(MODELS))
 @pytest.mark.parametrize(("kind", "length", "filter_length", "load_diag"), CASES)
-def test_levinson_model_against_float64_lu(kind, length, filter_length, load_diag):
+def test_levinson_model_against_float64_lu(kind, length, filter_length, load_diag, model):
     r_0, b, _, _ = _correlations(kind, length, filter_length, 10, load_diag)
-    sdr, x = _levinson_model(r_0, b)
+    sdr, x = MODELS[model](r_0, b)
     matrix = scipy.linalg.toeplitz(r_0.astype(np.float64))
     want = np.linalg.solve(matrix, b.astype(np.float64))
     np.testing.assert_allclose(x, want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
@@ -254,11 +316,12 @@ def test_levinson_model_against_float64_lu(kind, length, filter_length, load_dia
     np.testing.assert_allclose(sdr, 10 * np.log10(coh / (1 - coh)), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("model", list(MODELS))
 @pytest.mark.parametrize(("kind", "length", "filter_length", "load_diag"), [c for c in CASES if c[2] <= 512])
-def test_levinson_model_against_jax(kind, length, filter_length, load_diag):
+def test_levinson_model_against_jax(kind, length, filter_length, load_diag, model):
     """The model on the port's correlations against JAX's float32 SDR of the same signals."""
     r_0, b, preds, target = _correlations(kind, length, filter_length, 11, load_diag)
-    sdr, _ = _levinson_model(r_0, b)
+    sdr, _ = MODELS[model](r_0, b)
     want = float(jf.signal_distortion_ratio(jnp.asarray(preds), jnp.asarray(target), filter_length=filter_length,
                                             load_diag=load_diag))
     assert abs(sdr - want) <= 1e-3, (sdr, want)
@@ -266,13 +329,14 @@ def test_levinson_model_against_jax(kind, length, filter_length, load_diag):
     assert abs(float(plain[0]) - want) <= 1e-3
 
 
+@pytest.mark.parametrize("model", list(MODELS))
 @pytest.mark.parametrize("load_diag", [None, 1e-6])
-def test_levinson_model_on_the_pure_tone(load_diag):
+def test_levinson_model_on_the_pure_tone(load_diag, model):
     """A pure tone: the Toeplitz matrix of its autocorrelation has a condition number near 5e8 (1.7e8 with
     load_diag 1e-6). The float64 recursion still agrees with a float64 LU to 1e-6 dB; JAX's float32 LU is the one
     that drifts (by about 7e-3 dB here), so it is held within 0.05 dB only."""
     r_0, b, preds, target = _correlations("tone", 8000, 512, 12, load_diag)
-    sdr, _ = _levinson_model(r_0, b)
+    sdr, _ = MODELS[model](r_0, b)
     lu = np.linalg.solve(scipy.linalg.toeplitz(r_0.astype(np.float64)), b.astype(np.float64))
     coh = np.dot(b.astype(np.float64), lu)
     assert abs(sdr - 10 * np.log10(coh / (1 - coh))) <= 1e-6

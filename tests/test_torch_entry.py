@@ -304,10 +304,12 @@ def test_isolation_covers_every_new_module():
 @pytest.mark.parametrize("source", ["calibration", "ranking", "binned_multilabel", "retrieval", "ssim", "segmentation",
                                     "pairwise", "snr_moments", "sdr_toeplitz"])
 def test_kernel_sources_are_plain_cuda_with_a_c_interface(source):
-    """The kernels build with nvcc alone and bind through ctypes: no PyTorch, JAX or Python headers."""
+    """The kernels build with nvcc alone and bind through ctypes: no PyTorch, JAX or Python headers (the CUDA
+    toolkit's own, cooperative groups' thread-block clusters among them, and two C++ ones)."""
     text = (PACKAGE / "csrc" / f"{source}.cu").read_text()
     includes = [line.split()[1] for line in text.splitlines() if line.startswith("#include")]
-    assert includes and all(inc.startswith("<cuda") or inc in ("<climits>", "<cstdint>") for inc in includes), includes
+    toolkit = ("<climits>", "<cstdint>", "<cooperative_groups.h>")
+    assert includes and all(inc.startswith("<cuda") or inc in toolkit for inc in includes), includes
     assert f'extern "C" int {source}_' in text
     assert f"torchmetrics_tpu/functional/{KERNEL_SITES[source]}/" in text  # names the JAX site it replaces
 

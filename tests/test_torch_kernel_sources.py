@@ -81,6 +81,8 @@ def test_segmentation_shared_histogram_fits_the_default_shared_memory():
 
 @pytest.mark.parametrize(("module", "python", "kernel"), [
     (ksnr, "THREADS", "kThreads"), (ksnr, "MAX_SPEAKERS", "kMaxSpeakers"), (ksdr, "MAX_LENGTH", "kMaxLength"),
+    (ksnr, "LOADS", "kLoads"), (ksnr, "CLUSTER", "kCluster"), (ksdr, "MAX_THREADS", "kMaxThreads"),
+    (ksdr, "MIN_ENTRIES", "kMinEntries"),
 ], ids=lambda v: v if isinstance(v, str) else v.SOURCE)
 def test_audio_constants_are_the_kernels(module, python, kernel):
     assert getattr(module, python) == _constant(_source(module.SOURCE), kernel)
@@ -96,15 +98,34 @@ def test_snr_moments_source_matches_its_launcher():
     assert "case kMaxSpeakers: return launch_speakers<kMaxSpeakers>(" in src
     assert "chunks > 65535" in src and ksnr.MAX_CHUNKS == 65_535
     assert "chunk % 4 == 0" in src and ksnr.VEC == 4
-    # a thread's S^2 + 4 S double sums at the largest S stay within the registers of 256 threads an SM block
-    assert 2 * (ksnr.MAX_SPEAKERS**2 + 4 * ksnr.MAX_SPEAKERS) + 8 * ksnr.MAX_SPEAKERS <= 65536 // ksnr.THREADS
+    # the plan's loads a row and cluster shape are the kernel's
+    assert "static constexpr int kRowLoads = kLoads / S > 0 ? kLoads / S : 1;" in src
+    assert all(ksnr.row_loads(s) == max(1, ksnr.LOADS // s) for s in range(1, ksnr.MAX_SPEAKERS + 1))
+    assert ("  if (static_cast<long long>(group) * chunks <= kCluster) return dim3(group, chunks, 1);\n"
+            "  return dim3(1, 1, 1);") in src
+    assert ksnr.cluster_shape(4, 2) == (2, 4) and ksnr.cluster_shape(12, 1) == (1, 1) and ksnr.CLUSTER <= 8
+    # a thread's S^2 + 4 S double sums and its batch of 16-byte loads (2 S rows) stay within 255 registers
+    for s in range(1, ksnr.MAX_SPEAKERS + 1):
+        assert 2 * (s * s + 4 * s) + 4 * 2 * s * ksnr.row_loads(s) <= 255
 
 
 def test_sdr_toeplitz_shared_memory_fits_a_block():
     src = _source("sdr_toeplitz")
-    assert "constexpr int kBytesPerTap = 3 * sizeof(double) + sizeof(float);" in src
-    assert ksdr.MAX_LENGTH * (3 * 8 + 4) <= 232_448  # a block's dynamic shared memory on Hopper
-    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src and "length > kMaxLength" in src
+    # every vector in registers, 3 doubles a slot: E slots a thread within a thread's share of the register file
+    assert "  double A[E], B[E], C[E];" in src
+    for length in (1, 512, 1024, 1025, 4096, 4097, ksdr.MAX_LENGTH):
+        entries, threads = ksdr.plan(length)
+        assert 2 * 3 * entries + 16 <= min(255, 65_536 // (1024 if entries <= 2 else 512))
+    # no dynamic shared memory: a double-buffered word a warp and the step's three scalars
+    assert "extern __shared__" not in src and "<<<static_cast<unsigned int>(rows), threads, 0, stream>>>" in src
+    assert "length > kMaxLength" in src
+    # the plan's instances and block widths are the launcher's
+    assert "constexpr int kBlockThreads = E <= 2 ? kMaxThreads : kMaxThreads / 2;" in src
+    assert "return launch_entries<2 * E>(r0, b, sdr, x, rows, length, stream);" in src
+    assert "if constexpr (E < 16) {" in src and ksdr.ENTRIES == (1, 2, 4, 8, 16)
+    for length in (1, 33, 512, 1024, 1025, 4096, 4097, ksdr.MAX_LENGTH):
+        entries, threads = ksdr.plan(length)
+        assert threads % 32 == 0 and entries * threads >= length and threads <= (1024 if entries <= 2 else 512)
 
 
 _ABLATION = _ablation()
@@ -115,6 +136,7 @@ _BUILDS += [("ssim", "SSIM_VARIANTS", name, edits) for name, (edits, _) in _ABLA
 _BUILDS += [("pairwise", "PAIRWISE_VARIANTS", name, edits)
             for name, (edits, _) in _ABLATION.PAIRWISE_VARIANTS.items()]
 _BUILDS += [("sdr_toeplitz", "SDR_VARIANTS", name, edits) for name, edits in _ABLATION.SDR_VARIANTS.items()]
+_BUILDS += [("snr_moments", "SNR_VARIANTS", name, edits) for name, (edits, _) in _ABLATION.SNR_VARIANTS.items()]
 
 
 @pytest.mark.parametrize(("source", "table", "name", "edits"), _BUILDS,

@@ -2,11 +2,11 @@
 """Where the port's redesigned kernels spend their time, on one GPU: ``ranking_pairs``' sort,
 ``binned_confmat_multilabel``'s label-group width, ``calibration_bins``' design choices,
 ``retrieval_groups``' counting threshold, ``ssim_window``'s tile and blocking, ``pairwise_lp``'s
-tiles, staging and float form, and ``sdr_toeplitz``'s step.
+tiles, staging and float form, ``sdr_toeplitz``'s step and block, and ``snr_moments``' loads and merge.
 
     python3 tools/kernel_ablation.py [--sections ranking,multilabel,calibration,calibration-widths,retrieval,
                                                   retrieval-occupancy,retrieval-builds,retrieval-fault,ssim,
-                                                  pairwise,sdr]
+                                                  pairwise,sdr,snr]
                                      [--parent CHECKOUT] [--fault-builds NAMES] [--fault-trials N]
                                      [--sass PATH] [--json PATH]
 
@@ -80,13 +80,33 @@ for p = 1, int 2, int 3 and 1.5, each under phase 3's check against the plain
 version, in two turns; each kernel's innermost sum loop from ``cuobjdump
 -sass`` by instruction (``--sass PATH`` keeps the whole listing).
 
-SDR: ``csrc/sdr_toeplitz.cu`` built with 4 partial sums a lane in a step's
-dot products, the update pass unrolled by 2, and beta's reciprocal and the
-step's loads at the top of the step (off the chain), and that form with 1,
-2 or 8 partial sums, its update not unrolled or its reciprocal after the
-reduction, beside the shipped step (one partial sum, none of these), at the Libri2Mix batch's 32 rows and PIT(SDR)'s 64 of
-L = 512, 32 rows of L = 64 and 2 of L = 8,192, each held against a float64 LU
-as phase 3 holds it, in two turns.
+SDR: ``csrc/sdr_toeplitz.cu`` built with at least 1, 2, 8 or 16 slots a thread
+(the shipped build: 4), with blocks of up to 1,024 threads at up to 4 or 8
+slots a thread (shipped: up to 2), with beta's reciprocal by ``rcp.approx`` and
+two Newton steps (alone and at 1 or 2 slots a thread) in place of the IEEE
+division, and with mu and gamma divided in the chain, beside the shipped build
+and, with ``--parent`` (a checkout of ``26973ba``), the Levinson kernel before the redesign, at
+the Libri2Mix batch's 32 rows and PIT(SDR)'s 64 of L = 512, 32 rows of L = 64
+and 2 of L = 8,192, each held against a float64 LU as phase 3 holds it, in two
+turns. Four timing-only builds (their values are wrong) record the SM cycles
+of a step in ``x[0, 0]``: the shipped step, and the step without the slot
+updates, the shift exchange or the reciprocal. Micro chains time, by
+``clock64`` in one block, dependent fp64 fused multiply-adds, IEEE
+reciprocals, ``rcp.approx`` with two Newton steps, block barriers of 32 to
+1,024 threads and the least step (a barrier, a shared read, a fused
+multiply-add, a write): the latencies of ``chip_smoke``'s least-chain bound.
+
+SNR: ``csrc/snr_moments.cu`` built with 2, 4 or 16 loads a row a thread
+(shipped: 8), clusters of 4 or 16 blocks (shipped: 8), the register batch
+replaced by a ring of 4 TMA bulk copies into shared memory (rows mode), the
+cluster merge replaced by partials, fences and a ticket for every chunk or by
+the first block's reads of its peers' shared memory between two cluster
+barriers (shipped: each block writes into the first block's shared memory,
+one barrier), and the plan at 4 or 8 blocks an SM, beside the shipped build
+and, with ``--parent``, the kernel before the redesign with its plan, at the Libri2Mix batch's
+SI-SNR rows, PIT(SI-SNR) pairs and SA-SDR groups and one 10-minute 16 kHz
+clip, each held against a float64 evaluation as phase 3 holds it and
+launched twice for determinism, in two turns.
 
 Times are ``chip_smoke.time_ms``'s: CUDA events around one call after an L2
 flush that leaves no dirty line, a spin kernel holding the card while the host
@@ -604,9 +624,10 @@ def _calibration_widths(flush: torch.Tensor, gen: torch.Generator) -> dict:
     return rows
 
 
-def _edited_builds(source: str, builds: dict, workdir: str) -> dict:
+def _edited_builds(source: str, builds: dict, workdir: str, skip_failed: bool = False) -> dict:
     """Build ``{name: (edits, extra nvcc flags)}`` copies of ``csrc/<source>.cu`` at once, each edit
-    ``(old, new)`` placed where ``old`` stands once in the source; ``{name: (ctypes.CDLL, ptxas report)}``."""
+    ``(old, new)`` placed where ``old`` stands once in the source; ``{name: (ctypes.CDLL, ptxas report)}``. With
+    ``skip_failed`` a build that fails is reported and left out, else it raises."""
     src = open(os.path.join(_build.CSRC_DIR, f"{source}.cu")).read()
     running = {}
     for name, (edits, extra) in builds.items():
@@ -624,6 +645,9 @@ def _edited_builds(source: str, builds: dict, workdir: str) -> dict:
     built = {}
     for name, (proc, lib) in running.items():
         log, _ = proc.communicate()
+        if proc.returncode != 0 and skip_failed:
+            print(f"[{source}] build {name!r} failed, left out:\n{log}", flush=True)
+            continue
         if proc.returncode != 0:
             raise RuntimeError(f"kernel_ablation: nvcc failed for {name}:\n{log}")
         report = " ".join(l.strip() for l in log.splitlines() if "spill" in l or "registers" in l)
@@ -1091,88 +1115,151 @@ def _pairwise(flush: torch.Tensor, gen: torch.Generator, parent, sass_path) -> d
     return rows
 
 
-_SDR_STEP_HEAD = ('    // dot1 = sum_{i=1..k} t[i] x[k - i], dot2 = sum_{i=1..k} t[i] y[k - i]\n'
-    '    double dot1 = 0.0, dot2 = 0.0;\n'
-    '    for (int m = lane; m < k; m += 32) {\n'
-    '      const double tm = t[m + 1];\n'
-    '      dot1 = fma(tm, x[k - 1 - m], dot1);\n'
-    '      dot2 = fma(tm, y[k - 1 - m], dot2);\n'
-    '    }\n'
-    '    warp_sum2(dot1, dot2);\n'
-    '    beta *= (1.0 - alpha) * (1.0 + alpha);\n'
-    '    const double inv_beta = 1.0 / beta;\n'
-    '    const double mu = (static_cast<double>(rhs[k]) * inv_diag - dot1) * inv_beta;\n'
-    '    const double next_alpha = k + 1 < length ? (-t[k + 1] - dot2) * inv_beta : 0.0;\n')
-_SDR_PARTIAL_SUMS_HEAD = ("    // off the chain: beta and its reciprocal need only the last step's alpha, t[k + 1] and b[k] only k\n"
-    '    beta *= (1.0 - alpha) * (1.0 + alpha);\n'
-    '    const double inv_beta = 1.0 / beta;\n'
-    '    const double t_next = k + 1 < length ? t[k + 1] : 0.0;\n'
-    '    const double c_k = static_cast<double>(rhs[k]) * inv_diag;\n'
-    '    // dot1 = sum_{i=1..k} t[i] x[k - i], dot2 = sum_{i=1..k} t[i] y[k - i]: kAcc partial sums a lane, so that\n'
-    '    // kAcc rounds of loads are in flight, added in a fixed order\n'
-    '    double dot1[kAcc], dot2[kAcc];\n'
-    '#pragma unroll\n'
-    '    for (int u = 0; u < kAcc; ++u) dot1[u] = dot2[u] = 0.0;\n'
-    '    int m = lane;\n'
-    '    for (; m + 32 * (kAcc - 1) < k; m += 32 * kAcc) {\n'
-    '#pragma unroll\n'
-    '      for (int u = 0; u < kAcc; ++u) {\n'
-    '        const double tm = t[m + 32 * u + 1];\n'
-    '        dot1[u] = fma(tm, x[k - 1 - m - 32 * u], dot1[u]);\n'
-    '        dot2[u] = fma(tm, y[k - 1 - m - 32 * u], dot2[u]);\n'
-    '      }\n'
-    '    }\n'
-    '    for (; m < k; m += 32) {\n'
-    '      const double tm = t[m + 1];\n'
-    '      dot1[0] = fma(tm, x[k - 1 - m], dot1[0]);\n'
-    '      dot2[0] = fma(tm, y[k - 1 - m], dot2[0]);\n'
-    '    }\n'
-    '#pragma unroll\n'
-    '    for (int u = 1; u < kAcc; ++u) {\n'
-    '      dot1[0] += dot1[u];\n'
-    '      dot2[0] += dot2[u];\n'
-    '    }\n'
-    '    warp_sum2(dot1[0], dot2[0]);\n'
-    '    const double mu = (c_k - dot1[0]) * inv_beta;\n'
-    '    const double next_alpha = k + 1 < length ? (-t_next - dot2[0]) * inv_beta : 0.0;\n')
-# call 3's step: kAcc partial sums a lane in the dot products, beta's reciprocal and the step's loads at its top
-_SDR_TAP_BYTES = ("constexpr int kBytesPerTap = 3 * sizeof(double) + sizeof(float);  // t, x, y in float64; b in float32\n")
-_SDR_PARTIAL_SUMS = [(_SDR_TAP_BYTES, _SDR_TAP_BYTES + "constexpr int kAcc = 4;\n"), (_SDR_STEP_HEAD, _SDR_PARTIAL_SUMS_HEAD)]
-_SDR_UNROLL = ("    for (int i = lane; 2 * i < k; i += 32) {", "#pragma unroll 2\n    for (int i = lane; 2 * i < k; i += 32) {")
-_SDR_HOISTED = ("    beta *= (1.0 - alpha) * (1.0 + alpha);\n    const double inv_beta = 1.0 / beta;\n"
-                "    const double t_next = k + 1 < length ? t[k + 1] : 0.0;\n"
-                "    const double c_k = static_cast<double>(rhs[k]) * inv_diag;\n")
+SDR_PARENT = "26973ba"  # the kernel before the redesign: Levinson, one warp a system, two dot products a step
+_SDR_ENTRIES = "constexpr int kMinEntries = 4;     // slots a thread, at least"
+_SDR_RECIPROCAL = "__device__ __forceinline__ double reciprocal(double v) { return 1.0 / v; }"
+_SDR_NEWTON = ("__device__ __forceinline__ double reciprocal(double v) {\n"
+               "  double r;\n"
+               '  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(v));\n'
+               "  double e = fma(-v, r, 1.0);\n"
+               "  r = fma(r, e, r);\n"
+               "  e = fma(-v, r, 1.0);\n"
+               "  return fma(r, e, r);\n"
+               "}")
+_SDR_WIDTH = "constexpr int kBlockThreads = E <= 2 ? kMaxThreads : kMaxThreads / 2;"
+_SDR_SCALED = ("    const double mu = now[0] * inv_beta;\n"
+               "    const double gamma = more ? now[1] * inv_beta : 0.0;\n")
+# the timing-only builds record the SM cycles of the steps in x[row, 0] (their values are wrong)
+_SDR_CYCLES = [("  double beta = 1.0, inv_beta = 1.0;\n",
+                "  double beta = 1.0, inv_beta = 1.0;\n  const long long t_loop = clock64();\n"),
+               ("    sdr[blockIdx.x] = static_cast<float>(10.0 * log10(total / (1.0 - total)));\n",
+                "    sdr[blockIdx.x] = static_cast<float>(10.0 * log10(total / (1.0 - total)));\n"
+                "    x_out[row] = static_cast<float>(static_cast<double>(clock64() - t_loop) / length);\n")]
+_SDR_LEFT = ("    double left = __shfl_up_sync(0xffffffffu, B[E - 1], 1);\n"
+             "    if (lane == 0) left = warp > 0 ? edge[k & 1][warp - 1] : 0.0;\n")
 SDR_VARIANTS = {  # name: the source text replaced in csrc/sdr_toeplitz.cu; "shipped" first
     "shipped": [],
-    "4 partial sums a lane, the update unrolled by 2, beta's reciprocal first": [*_SDR_PARTIAL_SUMS, _SDR_UNROLL],
-    "the same with 1 partial sum": [*_SDR_PARTIAL_SUMS, _SDR_UNROLL, ("constexpr int kAcc = 4;", "constexpr int kAcc = 1;")],
-    "the same with 2 partial sums": [*_SDR_PARTIAL_SUMS, _SDR_UNROLL, ("constexpr int kAcc = 4;", "constexpr int kAcc = 2;")],
-    "the same with 8 partial sums": [*_SDR_PARTIAL_SUMS, _SDR_UNROLL, ("constexpr int kAcc = 4;", "constexpr int kAcc = 8;")],
-    "the same, the update not unrolled": _SDR_PARTIAL_SUMS,
-    "the same, beta's reciprocal after the reduction": [
-        *_SDR_PARTIAL_SUMS, _SDR_UNROLL, (_SDR_HOISTED, ""),
-        ("    warp_sum2(dot1[0], dot2[0]);\n", "    warp_sum2(dot1[0], dot2[0]);\n" + _SDR_HOISTED)],
+    **{f"at least {e} slots a thread": [(_SDR_ENTRIES, _SDR_ENTRIES.replace("= 4;", f"= {e};"))]
+       for e in (1, 2, 8, 16)},
+    "beta's reciprocal by rcp.approx and two Newton steps": [(_SDR_RECIPROCAL, _SDR_NEWTON)],
+    **{f"rcp.approx and two Newton steps, at least {e} slots a thread": [
+        (_SDR_RECIPROCAL, _SDR_NEWTON), (_SDR_ENTRIES, _SDR_ENTRIES.replace("= 4;", f"= {e};"))] for e in (1, 2)},
+    "mu and gamma by IEEE division in the chain": [(_SDR_SCALED, _SDR_SCALED.replace(" * inv_beta", " / beta"))],
+    **{f"blocks of up to 1,024 threads at up to {e} slots a thread": [
+        (_SDR_WIDTH, _SDR_WIDTH.replace("E <= 2", f"E <= {e}"))] for e in (4, 8)},
+    "timing only: cycles a step": _SDR_CYCLES,
+    "timing only: cycles a step, no slot updates": [*_SDR_CYCLES, (
+        "    for (int e = E - 1; e >= 0; --e) {", "    for (int e = E - 1; e >= 0 && k < 0; --e) {")],
+    "timing only: cycles a step, no shift exchange": [*_SDR_CYCLES, (_SDR_LEFT, "    double left = 0.0;\n")],
+    "timing only: cycles a step, no reciprocal": [*_SDR_CYCLES, (_SDR_RECIPROCAL, _SDR_RECIPROCAL.replace(
+        "return 1.0 / v;", "return v;"))],
 }
 SDR_SHAPES = (("Libri2Mix batch, 32 x L=512", "speech", 2 * cs.LIBRI_BATCH, cs.LIBRI_SAMPLES, cs.SDR_FILTER),
               ("PIT(SDR)'s tile, 64 x L=512", "speech", 4 * cs.LIBRI_BATCH, cs.LIBRI_SAMPLES, cs.SDR_FILTER),
               ("32 x L=64", "speech", 32, 8000, 64),
               ("2 x L=8192", "white", 2, 2 * 8192, 8192))
+# Dependent chains timed by clock64 in one block: fp64 fused multiply-adds, IEEE reciprocals, rcp.approx with two
+# Newton steps, block barriers, and the least step of the recursion (a barrier, a broadcast read from shared memory,
+# a fused multiply-add, one thread's write of the next step's word).
+MICRO_SOURCE = r"""
+#include <cuda_runtime.h>
+__device__ __forceinline__ double newton(double v) {
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(v));
+  double e = fma(-v, r, 1.0);
+  r = fma(r, e, r);
+  e = fma(-v, r, 1.0);
+  return fma(r, e, r);
+}
+__global__ void micro(int which, int n, double a, double* out, long long* cycles) {
+  __shared__ double word[2];
+  double v = a;
+  if (threadIdx.x == 0) word[0] = word[1] = a;
+  __syncthreads();
+  const long long t0 = clock64();
+  if (which == 0) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) v = fma(v, a, 1e-3);
+  } else if (which == 1) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) v = 1.0 / v;
+  } else if (which == 2) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) v = newton(v);
+  } else if (which == 3) {
+    for (int i = 0; i < n; ++i) __syncthreads();
+  } else {
+    for (int i = 0; i < n; ++i) {
+      __syncthreads();
+      v = fma(word[i & 1], a, 1e-3);
+      if (threadIdx.x == 0) word[(i & 1) ^ 1] = v;
+    }
+  }
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) {
+    out[0] = v;
+    cycles[0] = t1 - t0;
+  }
+}
+extern "C" int micro_launch(int which, int threads, int n, double a, void* out, void* cycles) {
+  micro<<<1, threads>>>(which, n, a, static_cast<double*>(out), static_cast<long long*>(cycles));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+MICRO_KINDS = ("fp64 fma", "fp64 IEEE reciprocal", "fp64 rcp.approx + 2 Newton steps", "block barrier",
+               "least step (barrier, shared read, fma, write)")
 
 
-def _sdr(flush: torch.Tensor, gen: torch.Generator) -> dict:
-    """Every variant of ``sdr_toeplitz`` at the main path's shapes, a short and the longest filter, each held
-    against a float64 LU as phase 3 holds the shipped build, in two turns."""
+def _sdr_micro(workdir: str) -> dict:
+    """Cycles an operation of each ``MICRO_KINDS`` chain, the barriers at blocks of 32 to 1,024 threads."""
+    path = os.path.join(workdir, "micro.cu")
+    with open(path, "w") as f:
+        f.write(MICRO_SOURCE)
+    fn = _nvcc_all({"micro": (path, [])})["micro"].micro_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(1, dtype=torch.float64, device="cuda")
+    cycles = torch.empty(1, dtype=torch.int64, device="cuda")
+    record = {}
+    for which, kind in enumerate(MICRO_KINDS):
+        for threads in ((32,) if which < 3 else (32, 128, 512, 1024)):
+            per_op = []
+            for n in (1024, 4096):  # the difference of two lengths: the loop's entry and exit drop out
+                runs = []
+                for _ in range(5):
+                    err = fn(which, threads, n, 1.0000001, out.data_ptr(), cycles.data_ptr())
+                    if err:
+                        raise RuntimeError(f"kernel_ablation: micro launch failed with CUDA error {err}")
+                    torch.cuda.synchronize()
+                    runs.append(int(cycles.item()))
+                per_op.append(min(runs))
+            key = f"{kind}, {threads} threads"
+            record[key] = (per_op[1] - per_op[0]) / (4096 - 1024)
+            print(f"[sdr] micro: {key}: {record[key]:.1f} cycles an operation", flush=True)
+    return record
+
+
+def _sdr(flush: torch.Tensor, gen: torch.Generator, parent) -> dict:
+    """Every variant of ``sdr_toeplitz`` and, with ``parent``, the kernel before the redesign at the main path's
+    shapes, a short and the longest filter, each held against a float64 LU as phase 3 holds the shipped build, in
+    two turns; then the micro chains that give the least-chain bound."""
     rows = {}
+    p = ctypes.c_void_p
     with tempfile.TemporaryDirectory() as workdir:
         entries = {}
-        p = ctypes.c_void_p
         for name, (lib, report) in _edited_builds("sdr_toeplitz", {k: (v, []) for k, v in SDR_VARIANTS.items()},
                                                   workdir).items():
-            fn = lib.sdr_toeplitz_launch
+            entries[name] = lib.sdr_toeplitz_launch
+            print(f"[sdr] build {name!r}: {report}", flush=True)
+        if parent:
+            old = os.path.join(workdir, "parent", "sdr_toeplitz.cu")
+            os.makedirs(os.path.dirname(old))
+            shutil.copy(os.path.join(parent, "torchmetrics_tpu_torch", "csrc", "sdr_toeplitz.cu"), old)
+            entries[f"parent ({SDR_PARENT}): Levinson, one warp a system"] = \
+                _nvcc_all({"parent": (old, [])})["parent"].sdr_toeplitz_launch
+        for fn in entries.values():
             fn.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int, p]
             fn.restype = ctypes.c_int
-            entries[name] = fn
-            print(f"[sdr] build {name!r}: {report}", flush=True)
         for label, kind, n_rows, samples, length in SDR_SHAPES:
             r_0, b = cs._sdr_correlations(gen, kind, n_rows, samples, length)
             exact, _ = ksdr._sdr_toeplitz_plain(r_0.double(), b.double())
@@ -1188,22 +1275,246 @@ def _sdr(flush: torch.Tensor, gen: torch.Generator) -> dict:
 
                 call()
                 torch.cuda.synchronize()
-                err64 = float((sdr.double() - exact).abs().max())
-                backward = cs._backward_error(r_0, b, x)
-                cs.check(err64 <= cs.SDR64_DB and backward <= cs.X_BACKWARD_BOUND,
-                         f"[sdr] {label}, {name}: {err64:.3g} dB from float64, backward error {backward:.3g}")
+                first = sdr.clone()
+                call()
+                torch.cuda.synchronize()
+                if name.startswith("timing only"):  # wrong values; x[0, 0] holds the cycles a step
+                    rows.setdefault(f"{label}: {name}: cycles a step", []).append(float(x[0, 0]))
+                    print(f"[sdr] {label}: {name}: {float(x[0, 0]):.1f} SM cycles a step (block 0)", flush=True)
+                else:
+                    err64 = float((sdr.double() - exact).abs().max())
+                    backward = cs._backward_error(r_0, b, x)
+                    cs.check(err64 <= cs.SDR64_DB and backward <= cs.X_BACKWARD_BOUND and torch.equal(first, sdr),
+                             f"[sdr] {label}, {name}: {err64:.3g} dB from float64, backward error {backward:.3g}, "
+                             f"deterministic {torch.equal(first, sdr)}")
                 runs.append((name, call))
+            reps = 3 if length > 4096 else 10
             for turn in (runs, runs[::-1]):
                 for name, call in turn:
-                    rows.setdefault(f"{label}: {name}", []).append(cs.time_ms(call, flush, reps=10, warmup=1))
-            chain_ms = cs._sdr_chain_bound_ms(length)
+                    rows.setdefault(f"{label}: {name}", []).append(cs.time_ms(call, flush, reps=reps, warmup=1))
+            chain_ms, least_ms = cs._sdr_chain_bound_ms(length), cs._sdr_least_chain_ms(length)
             for name, _ in runs:
                 key = f"{label}: {name}"
                 print(f"[sdr] {key}: {' / '.join(f'{t:.4f}' for t in rows[key])} ms after an L2 flush (two turns), "
-                      f"{1e6 * min(rows[key]) / max(length - 1, 1):.1f} ns a step; the chain bound "
-                      f"{chain_ms:.4f} ms", flush=True)
+                      f"{1e6 * min(rows[key]) / max(length - 1, 1):.1f} ns a step; Levinson's chain bound "
+                      f"{chain_ms:.4f} ms, the least chain {least_ms:.4f} ms", flush=True)
             del r_0, b, exact, sdr, x
+        rows["micro cycles"] = _sdr_micro(workdir)
     print(f"[sdr] SM clock, now and at most: {cs.sm_clocks()}", flush=True)
+    return rows
+
+
+SNR_PARENT = SDR_PARENT  # the kernel before the redesign: partials of every chunk, fences and a ticket
+_SNR_LOADS = "constexpr int kLoads = 8;"
+_SNR_CLUSTER = "constexpr int kCluster = 8;"
+_SNR_TMA_HELPER = r"""constexpr int kStages = 4;
+constexpr int kTile = kThreads * 4;  // floats of a row a stage: one float4 a thread
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One row pair by bulk copies (TMA) into a ring of kStages tiles, each completing on its mbarrier.
+__device__ __forceinline__ void tma_rows(const float* __restrict__ preds, const float* __restrict__ target,
+                                         long long begin, long long end, double (&acc)[5]) {
+  __shared__ alignas(128) float ring[kStages][2][kTile];
+  __shared__ alignas(8) unsigned long long bars[kStages];
+  const int tiles = static_cast<int>((end - begin + kTile - 1) / kTile);
+  auto issue = [&](int i) {
+    const int s = i % kStages;
+    const long long off = begin + static_cast<long long>(i) * kTile;
+    const unsigned bytes = static_cast<unsigned>(min(static_cast<long long>(kTile), end - off) * 4);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" :: "r"(smem_addr(&bars[s])), "r"(2 * bytes)
+                 : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+                 :: "r"(smem_addr(ring[s][0])), "l"(preds + off), "r"(bytes), "r"(smem_addr(&bars[s])) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+                 :: "r"(smem_addr(ring[s][1])), "l"(target + off), "r"(bytes), "r"(smem_addr(&bars[s])) : "memory");
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_addr(&bars[s])) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < min(tiles, kStages); ++i) issue(i);
+  }
+  for (int i = 0; i < tiles; ++i) {
+    const int s = i % kStages;
+    const unsigned parity = (i / kStages) & 1;
+    unsigned done = 0;
+    while (!done) {
+      asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                   " selp.u32 %0, 1, 0, p;\n}\n" : "=r"(done) : "r"(smem_addr(&bars[s])), "r"(parity) : "memory");
+    }
+    if (begin + static_cast<long long>(i) * kTile + 4 * threadIdx.x < end) {
+      const float4 pv = reinterpret_cast<const float4*>(ring[s][0])[threadIdx.x];
+      const float4 tv = reinterpret_cast<const float4*>(ring[s][1])[threadIdx.x];
+      const float ps[4] = {pv.x, pv.y, pv.z, pv.w}, ts[4] = {tv.x, tv.y, tv.z, tv.w};
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const double p = ps[m], t = ts[m];
+        acc[0] = fma(p, t, acc[0]);
+        acc[2] += t;
+        acc[4] = fma(t, t, acc[4]);
+        acc[1] += p;
+        acc[3] = fma(p, p, acc[3]);
+      }
+    }
+    __syncthreads();  // stage s read by every thread before it is refilled
+    if (threadIdx.x == 0 && i + kStages < tiles) issue(i + kStages);
+  }
+}
+
+template <int S, bool kVec>
+__device__ __forceinline__ void accumulate("""
+_SNR_TMA = [("template <int S, bool kVec>\n__device__ __forceinline__ void accumulate(", _SNR_TMA_HELPER),
+            ("  if constexpr (kVec) {\n    // a batch:",
+             "  if constexpr (kVec && S == 1) {\n    tma_rows(preds, target, begin, end, acc);\n"
+             "  } else if constexpr (kVec) {\n    // a batch:")]
+_SNR_ALWAYS_SECOND = [("  if (static_cast<long long>(group) * chunks <= kCluster) return dim3(group, chunks, 1);\n",
+                       "")]
+_SNR_PULL = """  cluster.sync();
+  const bool first = cluster.block_rank() == 0;
+  if (first) {
+    for (int k = threadIdx.x; k < units_in * N; k += kThreads) {
+      const int ux = k / N, s = k % N;
+      double v = 0.0;
+      for (int cy = 0; cy < chunks_in; ++cy) v += cluster.map_shared_rank(block_sums, ux + cy * units_in)[s];
+      merged[k] = v;
+    }
+  }
+  cluster.sync();
+  if (!first) return;
+"""
+_SNR_PUSH = """  const int rank = static_cast<int>(cluster.block_rank());
+  if (threadIdx.x < N) cluster.map_shared_rank(gathered, 0)[rank * N + threadIdx.x] = block_sums[threadIdx.x];
+  cluster.sync();
+  const bool first = rank == 0;
+  if (!first) return;
+  for (int k = threadIdx.x; k < units_in * N; k += kThreads) {
+    const int ux = k / N, s = k % N;
+    double v = 0.0;
+    for (int cy = 0; cy < chunks_in; ++cy) v += gathered[(ux + cy * units_in) * N + s];
+    merged[k] = v;
+  }
+  __syncthreads();
+"""
+_SNR_MERGED = ("  __shared__ double merged[kCluster * N];    // the first block: the cluster's sums of each of its "
+               "units\n")
+SNR_VARIANTS = {  # name: (the source text replaced in csrc/snr_moments.cu, the plan's constants); "shipped" first
+    "shipped": ([], {}),
+    **{f"{n} loads a row a thread": ([(_SNR_LOADS, f"constexpr int kLoads = {n};")], {"LOADS": n}) for n in (2, 4, 16)},
+    **{f"clusters of {n}": ([(_SNR_CLUSTER, f"constexpr int kCluster = {n};")], {"CLUSTER": n}) for n in (4, 16)},
+    "the register batch as a TMA ring (4 stages, one rows mode tile a thread a stage)": (_SNR_TMA, {}),
+    "no cluster merge: partials, fences and a ticket for every chunk": (_SNR_ALWAYS_SECOND, {"CLUSTER": 1}),
+    "the first block reads its peers' sums after a cluster barrier, a second one keeps them": (
+        [(_SNR_PUSH, _SNR_PULL)], {}),
+    **{f"the plan at {n} blocks an SM": ([], {"BLOCKS_PER_SM": n}) for n in (4, 8)},
+    "4 loads a row a thread, the plan at 4 blocks an SM": ([(_SNR_LOADS, "constexpr int kLoads = 4;")],
+                                                           {"LOADS": 4, "BLOCKS_PER_SM": 4}),
+}
+SNR_SHAPES = (  # (label, shape, mode, scale_invariant, zero_mean)
+    ("(a) Libri2Mix batch, SI-SNR rows", (cs.LIBRI_BATCH, 2, cs.LIBRI_SAMPLES), "rows", True, True),
+    ("(b) Libri2Mix batch, PIT(SI-SNR) pairs", (cs.LIBRI_BATCH, 2, cs.LIBRI_SAMPLES), "pairs", True, True),
+    ("SA-SDR groups of the Libri2Mix batch", (cs.LIBRI_BATCH, 2, cs.LIBRI_SAMPLES), "group", True, False),
+    ("(c) one 10-minute 16 kHz clip", (1, 1, 600 * 16_000), "rows", True, True),
+)
+
+
+def _snr_plan(units, length, sms, group, speakers, overrides, parent):
+    """The shipped plan with a variant's constants, or, for the parent, its own (chunks of at least 4,096 positions,
+    8 blocks an SM, no cluster)."""
+    from torchmetrics_tpu_torch.kernels import snr_moments as ksnr
+
+    if parent:
+        chunks = max(1, min(length // 4096, -(-8 * sms // units), 65_535))
+        chunk = max(4, -(-(-(-length // chunks)) // 4) * 4)
+        return ksnr.Plan(chunk, max(1, -(-length // chunk)), 1, 1)
+    saved = {k: getattr(ksnr, k) for k in overrides}
+    try:
+        for k, v in overrides.items():
+            setattr(ksnr, k, v)
+        ksnr.plan.cache_clear()
+        return ksnr.plan(units, length, sms, group, speakers)
+    finally:
+        for k, v in saved.items():
+            setattr(ksnr, k, v)
+        ksnr.plan.cache_clear()
+
+
+def _snr(flush: torch.Tensor, gen: torch.Generator, parent) -> dict:
+    """Every variant of ``snr_moments`` and, with ``parent``, the kernel before the redesign at the main path's batch
+    shapes and the 10-minute clip, each held against a float64 evaluation as phase 3 holds the shipped build and
+    deterministic, in two turns."""
+    from torchmetrics_tpu_torch.kernels import snr_moments as ksnr
+
+    rows = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    with tempfile.TemporaryDirectory() as workdir:
+        entries = {}
+        built = _edited_builds("snr_moments", {k: (v[0], []) for k, v in SNR_VARIANTS.items()}, workdir,
+                               skip_failed=True)
+        for name, (lib, report) in built.items():
+            entries[name] = (lib.snr_moments_launch, SNR_VARIANTS[name][1], False)
+            print(f"[snr] build {name!r}: {report}", flush=True)
+        if parent:
+            old = os.path.join(workdir, "parent", "snr_moments.cu")
+            os.makedirs(os.path.dirname(old))
+            shutil.copy(os.path.join(parent, "torchmetrics_tpu_torch", "csrc", "snr_moments.cu"), old)
+            entries[f"parent ({SNR_PARENT}): partials of every chunk, fences and a ticket"] = (
+                _nvcc_all({"parent": (old, [])})["parent"].snr_moments_launch, {}, True)
+        for fn, _, _ in entries.values():
+            fn.argtypes = [p, p, p, p, p, ll, ll, ll, i, i, i, i, i, p]
+            fn.restype = ctypes.c_int
+        for label, shape, mode, si, zm in SNR_SHAPES:
+            target = cs._speech_like(gen, shape, cs.LIBRI_FS)
+            preds = cs._mix_estimates(gen, target, 5.0, 15.0)
+            if mode != "pairs":
+                preds, target = preds.reshape(-1, shape[-1]), target.reshape(-1, shape[-1])
+            group = shape[1] if mode == "group" else 1
+            speakers = shape[1] if mode == "pairs" else 1
+            units, length = preds.shape[0], preds.shape[-1]
+            exact = cs._snr_float64(preds, target, si, zm, group, mode == "pairs")
+            out = torch.empty(exact.shape, device="cuda")
+            tickets = torch.zeros(units, dtype=torch.int32, device="cuda")
+            n_sums = speakers * speakers + 4 * speakers
+            runs = []
+            for name, (fn, overrides, is_parent) in entries.items():
+                if "TMA" in name and mode == "pairs":
+                    continue
+                g = _snr_plan(units, length, sms, group, speakers, overrides, is_parent)
+                partials = torch.empty(units * g.chunks * n_sums, dtype=torch.float64, device="cuda")
+
+                def call(fn=fn, g=g, partials=partials):
+                    err = fn(preds.data_ptr(), target.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                             tickets.data_ptr(), units, length, g.chunk, g.chunks, speakers, group, int(si), int(zm),
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"kernel_ablation: snr_moments launch failed with CUDA error {err}")
+
+                call()
+                torch.cuda.synchronize()
+                first = out.clone()
+                call()
+                torch.cuda.synchronize()
+                cs._db_check(f"[snr] {label}, {name} against float64", out, exact, cs.SNR64_ATOL_DB, cs.SNR64_RTOL)
+                cs.check(torch.equal(first, out), f"[snr] {label}, {name}: not deterministic")
+                runs.append((name, call, g))
+            for turn in (runs, runs[::-1]):
+                for name, call, _ in turn:
+                    rows.setdefault(f"{label}: {name}", []).append(cs.time_ms(call, flush))
+            bound_us = (2 * preds.numel() + exact.numel()) * 4 / cs.PEAK_BYTES_PER_S * 1e6
+            for name, _, g in runs:
+                key = f"{label}: {name}"
+                print(f"[snr] {key}: {' / '.join(f'{t:.4f}' for t in rows[key])} ms after an L2 flush (two turns); "
+                      f"plan {tuple(g)}; bytes bound {bound_us:.2f} us", flush=True)
+            del preds, target, exact, out
+    print(f"[snr] SM clock, now and at most: {cs.sm_clocks()}", flush=True)
     return rows
 
 
@@ -1211,10 +1522,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--sections",
                         default="ranking,multilabel,calibration,calibration-widths,retrieval,retrieval-occupancy,"
-                                "retrieval-builds,ssim,pairwise,sdr",
+                                "retrieval-builds,ssim,pairwise,sdr,snr",
                         help="comma-separated sections to run")
     parser.add_argument("--parent", help="a checkout of the commit before the redesign of the sections run "
-                                          f"(calibration: {PARENT_COMMIT}; pairwise: {PAIRWISE_PARENT}), timed beside it")
+                                          f"(calibration: {PARENT_COMMIT}; pairwise: {PAIRWISE_PARENT}; sdr, snr: "
+                                          f"{SDR_PARENT}), timed beside it")
     parser.add_argument("--sass", help="pairwise: also write the shipped build's SASS to this file")
     parser.add_argument("--fault-builds", default=",".join(RET_FAULT_BUILDS),
                         help="retrieval-fault: comma-separated builds of RET_FAULT_BUILDS to run")
@@ -1250,7 +1562,9 @@ def main() -> int:
     if "pairwise" in sections:
         record["pairwise"] = _pairwise(flush, gen, args.parent, args.sass)
     if "sdr" in sections:
-        record["sdr"] = _sdr(flush, gen)
+        record["sdr"] = _sdr(flush, gen, args.parent)
+    if "snr" in sections:
+        record["snr"] = _snr(flush, gen, args.parent)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(record, f, indent=1)

@@ -28,29 +28,41 @@
 //
 // What the design does about it:
 // - blocks over (unit, chunk): a unit is a row (rows mode) or an item's 2 S
-//   rows (pairs mode), a chunk a run of positions, about 8 blocks an SM in all
-//   (the launcher's plan), so a single 10-minute clip fills the card;
-// - 16-byte loads (4 samples) of every row of the unit where the rows start
-//   aligned and T % 4 == 0, else scalar loads; each thread sums its positions
-//   in registers in float64, the block reduces by warp shuffles and then in a
-//   fixed warp order, and writes its chunk's partial sums;
-// - the last block of a group (a ticket counts them) sums the partials in
-//   chunk order, so the result does not depend on which block came last: two
-//   launches give the same bits; it writes the values and sets its ticket back
-//   to zero for the next launch on the stream.
+//   rows (pairs mode); the launcher's plan sizes a chunk so that a thread's
+//   16-byte loads of it (kLoads / S a row, each row aligned and T % 4 == 0;
+//   else scalar loads) are all issued before its first multiply-add, and cuts
+//   a long row into more chunks until the card is full;
+// - each thread sums in registers in float64, the block reduces by warp
+//   shuffles and then in a fixed warp order into its shared memory;
+// - a group's chunks (a row, an item, or SA-SDR's `group` rows) form one
+//   thread-block cluster where they fit one (up to kCluster blocks): each block
+//   writes its sums into the first block's shared memory (distributed shared
+//   memory), and after one cluster barrier the first block sums them in rank
+//   order and writes the value(s), with no global partials, ticket or fence;
+// - a group with more chunks than a cluster holds (a 10-minute clip) merges at
+//   a second level, a block a cluster: each block writes its chunk's sums, and
+//   the group's last block (a ticket counts them) sums them in chunk order and
+//   sets its ticket back to zero for the next launch on the stream.
+// Both merges run in a fixed order, so two launches give the same bits.
 //
 // Device work of one call, on the caller's stream: one kernel (the partials
-// are the launcher's torch.empty, the tickets its zero-on-entry scratch).
+// of the second level are the launcher's torch.empty, the tickets its
+// zero-on-entry scratch).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSpeakers = 6;
+constexpr int kLoads = 8;    // 16-byte loads of each row a thread issues at once, at one speaker (kLoads / S at S)
+constexpr int kCluster = 8;  // blocks a cluster at most (the portable size)
 constexpr double kEps = 1.1920928955078125e-07;  // float32's machine epsilon, 2^-23
 
 // A unit's sums: cross[j * S + i] = sum(p_i t_j), then sum(p_i), sum(t_j), sum(p_i^2), sum(t_j^2).
@@ -61,6 +73,7 @@ struct Layout {
   static constexpr int kT = kP + S;
   static constexpr int kPP = kT + S;
   static constexpr int kTT = kPP + S;
+  static constexpr int kRowLoads = kLoads / S > 0 ? kLoads / S : 1;
 };
 
 // Fixed-order block sum of N doubles a thread: shuffles within each warp, then warp 0's lanes in warp order.
@@ -123,26 +136,41 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ preds, cons
     }
   };
   if constexpr (kVec) {
-    for (long long q = begin / 4 + threadIdx.x; q < end / 4; q += kThreads) {
-      float4 pv[S], tv[S];
+    // a batch: kRowLoads 16-byte loads of each of the 2 S rows, all issued before the first multiply-add; a load
+    // past the chunk reads nothing and adds zeros
+    constexpr int RL = L::kRowLoads;
+    const long long q_end = end / 4;
+    for (long long q = begin / 4 + threadIdx.x; q < q_end; q += static_cast<long long>(kThreads) * RL) {
+      float4 pv[RL][S], tv[RL][S];
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
-        pv[s] = reinterpret_cast<const float4*>(preds + s * length)[q];
-        tv[s] = reinterpret_cast<const float4*>(target + s * length)[q];
+      for (int r = 0; r < RL; ++r) {
+        const long long idx = q + r * kThreads;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          if (idx < q_end) {
+            pv[r][s] = reinterpret_cast<const float4*>(preds + s * length)[idx];
+            tv[r][s] = reinterpret_cast<const float4*>(target + s * length)[idx];
+          } else {
+            pv[r][s] = tv[r][s] = make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
       }
-      float p[S], t[S];
 #pragma unroll
-      for (int s = 0; s < S; ++s) { p[s] = pv[s].x; t[s] = tv[s].x; }
-      add(p, t);
+      for (int r = 0; r < RL; ++r) {
+        float p[S], t[S];
 #pragma unroll
-      for (int s = 0; s < S; ++s) { p[s] = pv[s].y; t[s] = tv[s].y; }
-      add(p, t);
+        for (int s = 0; s < S; ++s) { p[s] = pv[r][s].x; t[s] = tv[r][s].x; }
+        add(p, t);
 #pragma unroll
-      for (int s = 0; s < S; ++s) { p[s] = pv[s].z; t[s] = tv[s].z; }
-      add(p, t);
+        for (int s = 0; s < S; ++s) { p[s] = pv[r][s].y; t[s] = tv[r][s].y; }
+        add(p, t);
 #pragma unroll
-      for (int s = 0; s < S; ++s) { p[s] = pv[s].w; t[s] = tv[s].w; }
-      add(p, t);
+        for (int s = 0; s < S; ++s) { p[s] = pv[r][s].z; t[s] = tv[r][s].z; }
+        add(p, t);
+#pragma unroll
+        for (int s = 0; s < S; ++s) { p[s] = pv[r][s].w; t[s] = tv[r][s].w; }
+        add(p, t);
+      }
     }
   } else {
     for (long long q = begin + threadIdx.x; q < end; q += kThreads) {
@@ -157,9 +185,49 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ preds, cons
   }
 }
 
-// Block (unit u, chunk c) sums positions [c * chunk, min((c + 1) * chunk, length)) of unit u's rows into
-// partials[(u * chunks + c) * kSums ...]. Units are rows (S == 1, `group` rows a value: SA-SDR's speakers)
-// or items of S speakers (pairs mode, group == 1). The last block of a group writes its value(s).
+// A unit's centred (if asked) Stt, Spt, Spp for the pair (target j, estimate i).
+template <int S>
+__device__ __forceinline__ void pair_sums(const double* sums, int j, int i, double n, bool zero_mean, double& tt,
+                                          double& pt, double& pp) {
+  using L = Layout<S>;
+  tt = sums[L::kTT + j];
+  pt = sums[j * S + i];
+  pp = sums[L::kPP + i];
+  if (zero_mean) {
+    tt -= sums[L::kT + j] * sums[L::kT + j] / n;
+    pt -= sums[L::kP + i] * sums[L::kT + j] / n;
+    pp -= sums[L::kP + i] * sums[L::kP + i] / n;
+  }
+}
+
+// The values of `units` consecutive units' sums (kSums each), which form group g: one value of the group's summed
+// moments (S == 1), or a unit's S x S pair values (pairs mode, one unit a group). Thread 0 (S == 1) or the block.
+template <int S>
+__device__ __forceinline__ void write_values(const double* sums, int units, long long g, float* out, double n,
+                                             bool scale_invariant, bool zero_mean) {
+  if constexpr (S == 1) {
+    if (threadIdx.x != 0) return;
+    double stt = 0.0, spt = 0.0, spp = 0.0;
+    for (int u = 0; u < units; ++u) {
+      double tt, pt, pp;
+      pair_sums<1>(sums + u * Layout<1>::kSums, 0, 0, n, zero_mean, tt, pt, pp);
+      stt += tt;
+      spt += pt;
+      spp += pp;
+    }
+    out[g] = static_cast<float>(ratio_db(stt, spt, spp, scale_invariant));
+  } else {  // pairs mode: out[g, j, i] = value(estimate i, target j)
+    for (int k = threadIdx.x; k < S * S; k += kThreads) {
+      double tt, pt, pp;
+      pair_sums<S>(sums, k / S, k % S, n, zero_mean, tt, pt, pp);
+      out[g * S * S + k] = static_cast<float>(ratio_db(tt, pt, pp, scale_invariant));
+    }
+  }
+}
+
+// Block (unit u, chunk c) sums positions [c * chunk, min((c + 1) * chunk, length)) of unit u's rows. Units are
+// rows (S == 1, `group` rows a value: SA-SDR's speakers) or items of S speakers (pairs mode, group == 1). A cluster
+// is (group units) x (all chunks), or one block whose sums the second level merges by `partials` and a ticket.
 template <int S, bool kVec>
 __global__ void __launch_bounds__(kThreads) snr_moments_kernel(const float* __restrict__ preds,
                                                                 const float* __restrict__ target,
@@ -169,52 +237,75 @@ __global__ void __launch_bounds__(kThreads) snr_moments_kernel(const float* __re
                                                                 int scale_invariant, int zero_mean) {
   using L = Layout<S>;
   constexpr int N = L::kSums;
-  __shared__ double smem[kWarps * N];
-  __shared__ double sums[N];
+  __shared__ double warp_part[kWarps * N];
+  __shared__ double block_sums[N];           // this block's sums, read by its cluster's first block
+  __shared__ double merged[kCluster * N];    // the first block: the cluster's sums of each of its units
+  __shared__ double gathered[kCluster * N];  // the first block: every block's sums, by cluster rank
   __shared__ bool last;
+  cg::cluster_group cluster = cg::this_cluster();
   const long long unit = blockIdx.x;
   const int c = blockIdx.y;
   const long long row0 = unit * S;
   double acc[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) acc[k] = 0.0;
-  const long long begin = c * chunk;
+  const long long begin = min(c * chunk, length);
   const long long end = min(begin + chunk, length);
   accumulate<S, kVec>(preds + row0 * length, target + row0 * length, length, begin, end, acc);
-  block_sum<N>(acc, smem, partials + (unit * chunks + c) * N);
+  block_sum<N>(acc, warp_part, block_sums);
 
-  __threadfence();  // this block's partials before its ticket
+  // each block writes its sums into the first block's shared memory at its cluster rank; after one cluster barrier
+  // the first block sums each unit's chunks in rank order, and the others are done
+  const dim3 shape = cluster.dim_blocks();  // (units, chunks) of the cluster
+  const int units_in = static_cast<int>(shape.x), chunks_in = static_cast<int>(shape.y);
+  const int rank = static_cast<int>(cluster.block_rank());
+  if (threadIdx.x < N) cluster.map_shared_rank(gathered, 0)[rank * N + threadIdx.x] = block_sums[threadIdx.x];
+  cluster.sync();
+  const bool first = rank == 0;
+  if (!first) return;
+  for (int k = threadIdx.x; k < units_in * N; k += kThreads) {
+    const int ux = k / N, s = k % N;
+    double v = 0.0;
+    for (int cy = 0; cy < chunks_in; ++cy) v += gathered[(ux + cy * units_in) * N + s];
+    merged[k] = v;
+  }
+  __syncthreads();
+  const double n = static_cast<double>(length);
+  if (units_in == group && chunks_in == chunks) {  // the cluster is the group
+    write_values<S>(merged, group, unit / group, out, n, scale_invariant != 0, zero_mean != 0);
+    return;
+  }
+
+  // second level: one unit a cluster; the group's last cluster sums the partials in (unit, cluster) order
+  const int clusters = chunks / chunks_in;
+  const int cl = c / chunks_in;
+  for (int k = threadIdx.x; k < N; k += kThreads) partials[(unit * clusters + cl) * N + k] = merged[k];
+  __threadfence();  // this cluster's partials before its ticket
   __syncthreads();
   const long long g = unit / group;
   if (threadIdx.x == 0) {
-    const unsigned int expected = static_cast<unsigned int>(group) * static_cast<unsigned int>(chunks);
+    const unsigned int expected = static_cast<unsigned int>(group) * static_cast<unsigned int>(clusters);
     last = atomicAdd(tickets + g, 1u) == expected - 1;
   }
   __syncthreads();
   if (!last) return;
-  __threadfence();  // the other blocks' partials after their tickets
-
-  // The group's sums: each unit's partials in chunk order (a fixed split over the threads), centred if asked,
-  // summed over the group's units in order. Only thread 0 reads `sums` between the barriers of block_sum.
+  __threadfence();  // the other clusters' partials after their tickets
+  // each unit's partials in cluster order (a fixed split over the threads), centred if asked, summed over the
+  // group's units in order. Only thread 0 reads `block_sums` between the barriers of block_sum.
   double stt = 0.0, spt = 0.0, spp = 0.0;
-  const double n = static_cast<double>(length);
   for (long long u = g * group; u < (g + 1) * group; ++u) {
     double part[N];
 #pragma unroll
     for (int k = 0; k < N; ++k) part[k] = 0.0;
-    const volatile double* base = partials + u * chunks * N;
-    for (int cc = threadIdx.x; cc < chunks; cc += kThreads) {
+    const volatile double* base = partials + u * clusters * N;
+    for (int cc = threadIdx.x; cc < clusters; cc += kThreads) {
 #pragma unroll
       for (int k = 0; k < N; ++k) part[k] += base[cc * N + k];
     }
-    block_sum<N>(part, smem, sums);
+    block_sum<N>(part, warp_part, block_sums);
     if (threadIdx.x == 0 && S == 1) {
-      double tt = sums[L::kTT], pt = sums[0], pp = sums[L::kPP];
-      if (zero_mean) {
-        tt -= sums[L::kT] * sums[L::kT] / n;
-        pt -= sums[L::kP] * sums[L::kT] / n;
-        pp -= sums[L::kP] * sums[L::kP] / n;
-      }
+      double tt, pt, pp;
+      pair_sums<S>(block_sums, 0, 0, n, zero_mean != 0, tt, pt, pp);
       stt += tt;
       spt += pt;
       spp += pp;
@@ -222,49 +313,60 @@ __global__ void __launch_bounds__(kThreads) snr_moments_kernel(const float* __re
   }
   if constexpr (S == 1) {
     if (threadIdx.x == 0) out[g] = static_cast<float>(ratio_db(stt, spt, spp, scale_invariant != 0));
-  } else {  // pairs mode: out[g, j, i] = value(estimate i, target j)
-    for (int k = threadIdx.x; k < S * S; k += kThreads) {
-      const int j = k / S, i = k % S;
-      double tt = sums[L::kTT + j], pt = sums[k], pp = sums[L::kPP + i];
-      if (zero_mean) {
-        tt -= sums[L::kT + j] * sums[L::kT + j] / n;
-        pt -= sums[L::kP + i] * sums[L::kT + j] / n;
-        pp -= sums[L::kP + i] * sums[L::kP + i] / n;
-      }
-      out[g * S * S + k] = static_cast<float>(ratio_db(tt, pt, pp, scale_invariant != 0));
-    }
+  } else {
+    write_values<S>(block_sums, 1, g, out, n, scale_invariant != 0, zero_mean != 0);
   }
   if (threadIdx.x == 0) tickets[g] = 0u;  // zero again for the next launch on the stream
+}
+
+// The cluster of a launch: a group's units x its chunks where they fit kCluster blocks, else one block (the
+// second level merges them).
+inline dim3 cluster_shape(int chunks, int group) {
+  if (static_cast<long long>(group) * chunks <= kCluster) return dim3(group, chunks, 1);
+  return dim3(1, 1, 1);
 }
 
 template <int S>
 cudaError_t launch_speakers(const float* preds, const float* target, float* out, double* partials,
                             unsigned int* tickets, long long units, long long length, long long chunk, int chunks,
                             int group, int scale_invariant, int zero_mean, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned int>(units), chunks);
   const bool vec = length % 4 == 0 && chunk % 4 == 0 && reinterpret_cast<uintptr_t>(preds) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(target) % 16 == 0;
-  if (vec) {
-    snr_moments_kernel<S, true><<<grid, kThreads, 0, stream>>>(preds, target, out, partials, tickets, length, chunk,
-                                                              chunks, group, scale_invariant, zero_mean);
-  } else {
-    snr_moments_kernel<S, false><<<grid, kThreads, 0, stream>>>(preds, target, out, partials, tickets, length, chunk,
-                                                               chunks, group, scale_invariant, zero_mean);
+  auto kernel = snr_moments_kernel<S, false>;
+  if (vec) kernel = snr_moments_kernel<S, true>;
+  if constexpr (kCluster > 8) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
   }
-  return cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  const dim3 shape = cluster_shape(chunks, group);
+  attr[0].val.clusterDim.x = shape.x;
+  attr[0].val.clusterDim.y = shape.y;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned int>(units), chunks, 1);
+  config.blockDim = dim3(kThreads, 1, 1);
+  config.dynamicSmemBytes = 0;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, preds, target, out, partials, tickets, length, chunk, chunks, group,
+                            scale_invariant, zero_mean);
 }
 
 }  // namespace
 
 // `preds`, `target`: (units * speakers, length) float32. `out`: (units / group) values (speakers == 1) or
-// (units, speakers, speakers) (pairs). `partials`: units * chunks * (S^2 + 4 S) doubles. `tickets`: units /
-// group zeros. Block (u, c) sums positions [c * chunk, (c + 1) * chunk) of unit u.
+// (units, speakers, speakers) (pairs). `partials`: units * (chunks / the cluster's chunks) * (S^2 + 4 S) doubles where
+// a group's chunks outnumber a cluster's blocks, else unused. `tickets`: units / group zeros. Block (u, c) sums
+// positions [c * chunk, (c + 1) * chunk) of unit u.
 extern "C" int snr_moments_launch(const void* preds, const void* target, void* out, void* partials, void* tickets,
                                   long long units, long long length, long long chunk, int chunks, int speakers,
                                   int group, int scale_invariant, int zero_mean, void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (units < 1 || units > 2147483647LL || length < 0 || chunk < 1 || chunks < 1 || chunks > 65535 || group < 1 ||
-      units % group != 0 || (speakers > 1 && group != 1) || (length > 0 && (chunks - 1) * chunk >= length)) {
+      units % group != 0 || (speakers > 1 && group != 1) || chunks * chunk < length) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* p = static_cast<const float*>(preds);

@@ -2,13 +2,16 @@
 
 :func:`sdr_toeplitz` takes SDR's autocorrelation ``r_0`` and cross-correlation
 ``b`` rows ``(R, L)`` and gives each row's SDR in dB ``(R,)`` and the solution
-``x`` of ``toeplitz(r_0) x = b`` ``(R, L)``, in one launch: the Levinson
-recursion with a general right-hand side in float64, one warp a system, no
-matrix. It counts its launches in ``sdr_toeplitz.launches`` and takes CUDA
-tensors only. :func:`_sdr_toeplitz_plain` is the JAX package's form in plain
+``x`` of ``toeplitz(r_0) x = b`` ``(R, L)``, in one launch: a Schur-type
+(generator) recursion with a general right-hand side in float64, one block a
+system with one barrier a step, no matrix. It counts its launches in
+``sdr_toeplitz.launches`` and takes CUDA tensors only. :func:`_sdr_toeplitz_plain` is the JAX package's form in plain
 PyTorch: the ``(R, L, L)`` Toeplitz matrix, ``torch.linalg.solve`` in the
 inputs' dtype, the coherence and the log ratio. The dispatch by device, dtype
 and grad is ``functional.audio.sdr._sdr_from_correlations``.
+
+:func:`plan` is the launcher's block shape, kept in Python so that the CPU
+tests reach it.
 """
 
 from __future__ import annotations
@@ -19,11 +22,14 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.kernels._build import launch_on, load_library
+from torchmetrics_tpu_torch.kernels._build import cdiv, launch_on, load_library
 
 SOURCE = "sdr_toeplitz"
-MAX_LENGTH = 8192  # kMaxLength: 28 L bytes of shared memory a system (t, x, y in float64, b in float32)
+MAX_LENGTH = 8192  # kMaxLength: 16 L bytes of shared memory a system (f and x in float64)
 MAX_ROWS = 2**31 - 1  # systems along grid.x
+MAX_THREADS = 1024  # kMaxThreads: a block's threads at up to 2 slots a thread, half that above
+MIN_ENTRIES = 4  # kMinEntries: slots a thread, at least
+ENTRIES = (1, 2, 4, 8, 16)  # the kernel's instances: slots a thread
 
 _launch: Optional[ctypes._CFuncPtr] = None
 
@@ -37,6 +43,15 @@ def _launch_fn() -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
+
+
+def plan(length: int) -> Tuple[int, int]:
+    """``(entries, threads)`` of a system's block: the smallest of ``ENTRIES`` (at least ``MIN_ENTRIES``) whose
+    block holds ``length`` entries, and its threads, a multiple of 32."""
+    for e in ENTRIES:
+        if e >= MIN_ENTRIES and (cdiv(length, e) <= (MAX_THREADS if e <= 2 else MAX_THREADS // 2) or e == ENTRIES[-1]):
+            return e, cdiv(cdiv(length, e), 32) * 32
+    raise AssertionError("unreachable")
 
 
 def _symmetric_toeplitz(vector: Tensor) -> Tensor:

@@ -37,8 +37,9 @@ SOURCE = "snr_moments"
 THREADS = 256  # kThreads
 MAX_SPEAKERS = 6  # kMaxSpeakers: S^2 + 4 S double sums a thread in registers
 VEC = 4  # samples a 16-byte load; a chunk is a whole number of them
-MIN_CHUNK = 4096  # positions a block at least
-BLOCKS_PER_SM = 8
+LOADS = 8  # kLoads: 16-byte loads of each row a thread issues at once at one speaker, LOADS // S at S speakers
+CLUSTER = 8  # kCluster: blocks a thread-block cluster at most (the portable size)
+BLOCKS_PER_SM = 2  # blocks an SM the plan fills the card with (a thread holds its loads in registers)
 MAX_CHUNKS = 65_535  # chunks along grid.y
 MAX_UNITS = 2**31 - 1  # rows or items along grid.x
 EPS = float(torch.finfo(torch.float32).eps)  # kEps: JAX's finfo(float32).eps
@@ -49,14 +50,33 @@ _launch: Optional[ctypes._CFuncPtr] = None
 class Plan(NamedTuple):
     chunk: int  # positions a block, a multiple of VEC
     chunks: int  # blocks a unit (grid.y)
+    cluster_units: int  # a cluster's blocks along the units: the group, or 1
+    cluster_chunks: int  # a cluster's blocks along the chunks
+
+
+def row_loads(speakers: int) -> int:
+    """16-byte loads of each of a unit's rows a thread issues before its first multiply-add (``kRowLoads``)."""
+    return max(1, LOADS // speakers)
+
+
+def cluster_shape(chunks: int, group: int) -> tuple:
+    """The launcher's cluster (``cluster_shape``): the group's units x its chunks where they fit ``CLUSTER``
+    blocks, else one block, merged by the second level."""
+    return (group, chunks) if group * chunks <= CLUSTER else (1, 1)
 
 
 @functools.lru_cache(maxsize=256)
-def plan(units: int, length: int, sm_count: int) -> Plan:
-    """About ``BLOCKS_PER_SM`` blocks an SM over all units, each of at least ``MIN_CHUNK`` positions."""
-    chunks = max(1, min(length // MIN_CHUNK, cdiv(BLOCKS_PER_SM * sm_count, units), MAX_CHUNKS))
+def plan(units: int, length: int, sm_count: int, group: int = 1, speakers: int = 1) -> Plan:
+    """Chunks of one batch of each thread's loads (``row_loads``), fewer where that gives more than
+    ``BLOCKS_PER_SM`` blocks an SM over all units; a group's chunks one cluster where they fit one (a group of
+    ``g`` rows whose chunks outnumber ``CLUSTER / g`` takes that many while that gives every SM a block), else a
+    block a cluster, merged by the second level."""
+    per_block = THREADS * VEC * row_loads(speakers)
+    chunks = max(1, min(cdiv(length, per_block), cdiv(BLOCKS_PER_SM * sm_count, units), MAX_CHUNKS))
+    if group * chunks > CLUSTER and group <= CLUSTER and units // group * CLUSTER >= sm_count:
+        chunks = CLUSTER // group
     chunk = max(VEC, cdiv(cdiv(length, chunks), VEC) * VEC)
-    return Plan(chunk, max(1, cdiv(length, chunk)))
+    return Plan(chunk, chunks, *cluster_shape(chunks, group))
 
 
 def _launch_fn() -> ctypes._CFuncPtr:
@@ -140,9 +160,11 @@ def snr_moments(preds: Tensor, target: Tensor, scale_invariant: bool, zero_mean:
     out = torch.empty(out_shape, dtype=torch.float32, device=device)
     if units == 0:
         return out
-    g = plan(units, length, sm_count(device))
+    g = plan(units, length, sm_count(device), group, speakers)
     n_sums = speakers * speakers + 4 * speakers
-    partials = torch.empty((units * g.chunks * n_sums,), dtype=torch.float64, device=device)
+    second_level = g.cluster_units * g.cluster_chunks < group * g.chunks
+    partials = torch.empty((units * (g.chunks // g.cluster_chunks) * n_sums if second_level else 0,),
+                           dtype=torch.float64, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     tickets = zero_tickets(device, stream, units // group)
     args = (preds.data_ptr(), target.data_ptr(), out.data_ptr(), partials.data_ptr(), tickets.data_ptr(), units,
