@@ -129,15 +129,31 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    ``zero_mean`` settings, identical inputs, inputs 80 dB apart, an all-zero
    target, T = 1, 3, 1003 and 4097, misaligned rows, pairs of S = 2 to 6 and
    an empty batch, two launches equal bit for bit; ``sdr_toeplitz``, SDR's
-   Levinson solve in float64, against a float64 LU within 1e-4 dB (the
+   Schur-type solve in float64, against a float64 LU within 1e-4 dB (the
    solution's normwise backward error within 1e-6) and its plain version (JAX's float32
    Toeplitz build and LU) within 1e-3 dB or, where the plain version itself
    drifts further from float64, within that drift plus 1e-4 dB, at the Libri2Mix batch's 32
    rows and PIT(SDR)'s 64 (timed beside ``torch.linalg.solve`` on the built
    matrices in float32 and float64), white, low-passed and speech-like
-   targets, ``load_diag``, L = 1, 2, 33, 300 and the largest, 8,192, and a
-   pure tone (without ``load_diag`` recorded beside the plain and float64
-   values, not held);
+   targets, ``load_diag``, L = 1, 2, 33, 300 and the largest, 8,192, a
+   silent target row and a 1e20 one whose norm overflows (NaN in those rows,
+   as in the plain version and float64), and a pure tone (without
+   ``load_diag`` recorded beside the plain and float64 values, not held);
+   ``perplexity_nll``, Perplexity's fused log-softmax NLL, against its plain
+   version (JAX's float32 ``log_softmax`` form), the total within 1e-5
+   relative (NaN where it is NaN) and the count equal, two launches equal bit
+   for bit, at GPT-2's vocabulary on 8 x 1,024 float32 rows and Llama-3's on
+   4 x 2,048 bfloat16 rows (the timed rows, beside ``F.cross_entropy``), V =
+   1, 2, 3, 4,096, 4,097 and 50,258, float16, ``ignore_index`` None, -100 and
+   0, ignored rows of NaN and +-inf, targets -1, -V, V and -V-1 and an empty
+   batch, and its backward against autograd of the plain version at 50,257;
+   ``bert_greedy_match``, BERTScore's greedy matching, within 1e-5 of its
+   plain version (F1 against its formula where P + R <= 0), two launches equal, at WMT16 newstest2016's 2,999 pairs of
+   1,024-wide embeddings padded to 128 tokens (timed beside ``torch.bmm`` and
+   two ``amax``, a yardstick), Tp != Tt, T = 1, all-masked rows, rows whose
+   valid similarities are all negative with and without an invalid entry on
+   their axis, zero-norm embeddings, idf weights, H = 1, 33 and 4,096, Tp = Tt
+   = 3,000 (past 48 KB of shared memory) and an empty batch;
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
@@ -273,7 +289,22 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    extended STOI and SRMR; (iii) ``ComplexScaleInvariantSignalNoiseRatio``
    on the 512-point STFTs of (i)'s first 256 mixtures (one launch a batch).
    Every leg reruns its first batch on the CPU path (floats within 1e-4
-   relative).
+   relative);
+13. text, one card, no sync: (i) WikiText-103 test's length, about 280,000
+   GPT-2 tokens, as 35 batches of 8 x 1,024 float32 logits seeded on the card,
+   ``ignore_index=-100`` on the padded tail, through ``Perplexity`` (exactly
+   35 ``perplexity_nll`` launches); (ii) WMT16 newstest2016's 2,999 seeded
+   pairs (10-128 tokens) in updates of 64 through ``BERTScore(model=...,
+   user_tokenizer=..., idf=True)`` on a random-init ``RobertaModel`` at
+   roberta-large's widths cut to its first 17 layers (one
+   ``bert_greedy_match`` launch at compute); (iii) 256 pairs through
+   ``InfoLM`` on a random-init ``BertForMaskedLM`` at
+   bert_uncased_L-2_H-128_A-2's widths saved to a temporary directory; (iv)
+   WER, CER, MER, WIL, WIP, SacreBLEU (13a), chrF++, TER, EED, SQuAD and
+   distinct bigrams over 2,000 seeded sentence pairs in updates of 100, each
+   update timed. Legs (i)-(iii) rerun their first batch on the CPU path
+   (BERTScore's encoder stays on the card for both: the CPU path is the
+   metric's), (iv) its first update (states equal).
 
 Phases 5 and 6 run each rank as a process of its own (this script with
 ``--worker``); every kernel must have launched on the paths that run it.
@@ -4126,12 +4157,13 @@ def phase_snr_kernel(flush: torch.Tensor) -> list:
 
 def _sdr_correlations(gen, kind, rows, length, filter_length, load_diag=None):
     """SDR's float32 ``r_0`` and ``b`` on the card, made by the port's own normalization and FFTs from seeded
-    signals: speech-like (``_speech_like``), white or low-passed (8th-order Butterworth at 0.1 Nyquist) noise, or a
-    440 Hz tone, with a noisy estimate 10 dB below."""
+    signals: speech-like (``_speech_like``; ``silent``: row 1 of it zero, ``overflow``: row 0 of it times 1e20),
+    white or low-passed (8th-order Butterworth at 0.1 Nyquist) noise, or a 440 Hz tone, with a noisy estimate 10 dB
+    below."""
     from torchmetrics_tpu_torch.functional.audio.sdr import _compute_autocorr_crosscorr
 
     dev = torch.device("cuda")
-    if kind == "speech":
+    if kind in ("speech", "silent", "overflow"):
         target = _speech_like(gen, (rows, length), LIBRI_FS)
     elif kind == "tone":
         target = torch.sin(2 * math.pi * 440 * torch.arange(length, device=dev) / LIBRI_FS).repeat(rows, 1)
@@ -4144,6 +4176,10 @@ def _sdr_correlations(gen, kind, rows, length, filter_length, load_diag=None):
             target = torch.as_tensor(scipy.signal.lfilter(b_coef, a_coef, target.cpu().double().numpy()),
                                      dtype=torch.float32, device=dev)
     preds = _mix_estimates(gen, target[:, None], 10.0, 10.0)[:, 0]
+    if kind == "silent":  # row 1 silent: a singular system, NaN in plain (JAX's solve) and kernel alike
+        target[1] = 0.0
+    elif kind == "overflow":  # row 0 at 1e20: its float32 norm overflows, so it normalises to silence
+        target[0] *= 1e20
     target = target / target.norm(dim=-1, keepdim=True).clamp_min(1e-6)
     preds = preds / preds.norm(dim=-1, keepdim=True).clamp_min(1e-6)
     r_0, b = _compute_autocorr_crosscorr(target, preds, filter_length)
@@ -4203,6 +4239,8 @@ def phase_sdr_kernel(flush: torch.Tensor) -> list:
         (f"the largest L, {ksdr.MAX_LENGTH}", "white", 2, 2 * ksdr.MAX_LENGTH, ksdr.MAX_LENGTH, None, False),
         ("a pure tone, no load_diag (recorded, not held)", "tone", 2, 8000, SDR_FILTER, None, False),
         ("a pure tone, load_diag 1e-6", "tone", 2, 8000, SDR_FILTER, 1e-6, False),
+        ("a silent target row (NaN)", "silent", 4, 8000, SDR_FILTER, None, False),
+        ("a 1e20 target row, its norm overflowing (NaN)", "overflow", 4, 8000, SDR_FILTER, None, False),
     ]
     rows = []
     for what, kind, n_rows, samples, length, load_diag, timed in cases:
@@ -4216,12 +4254,19 @@ def phase_sdr_kernel(flush: torch.Tensor) -> list:
         label = f"{what}: {n_rows} x L={length}, {kind}, load_diag {load_diag}"
         check(ksdr.sdr_toeplitz.launches == before + 2, f"launches ({label})")
         check(torch.equal(got.view(torch.int32), again.view(torch.int32)), f"sdr_toeplitz is not deterministic ({label})")
+        # a singular system (a silent row) is NaN in the plain version and float64 alike: the kernel's too
+        nan_rows = torch.isnan(want)
+        check(torch.equal(torch.isnan(got), nan_rows) and torch.equal(torch.isnan(exact), nan_rows)
+              and bool(nan_rows.any()) == (kind in ("silent", "overflow")),
+              f"sdr_toeplitz's NaN rows ({label}): kernel {got.tolist()}, plain {want.tolist()}")
+        keep = ~nan_rows
+        got, want, exact, x, x64, r_0, b = (v[keep] for v in (got, want, exact, x, x64, r_0, b))
         err_plain = float((got.double() - want.double()).abs().max())
         err64 = float((got.double() - exact).abs().max())
         x_err = float((x.double() - x64).abs().max() / x64.abs().max().clamp_min(1e-30))
         x_backward = _backward_error(r_0, b, x)
         row = {"case": label, "what": what, "sdr": [float(v) for v in got[:2]], "plain": [float(v) for v in want[:2]],
-               "float64": [float(v) for v in exact[:2]]}
+               "float64": [float(v) for v in exact[:2]], "nan_rows": int(nan_rows.sum())}
         if kind == "tone" and load_diag is None:  # recorded beside the plain version's value, not held
             row.update({"unheld_abs_err": err_plain, "unheld_abs_err_float64": err64, "unheld_x_rel_err": x_err,
                         "unheld_x_backward_error": x_backward})
@@ -4396,6 +4441,472 @@ def phase_audio() -> dict:
     return record
 
 
+# ------------------------------------------- perplexity_nll and bert_greedy_match (phase 3), phase 13
+GPT2_VOCAB, LLAMA3_VOCAB = 50_257, 128_256  # GPT-2's and Llama-3's tokenizers
+PPL_RTOL = 1e-5  # perplexity_nll's total against the plain version (float32 sums of up to 8,192 row NLLs)
+BERT_ATOL = 1e-5  # bert_greedy_match's P, R and F1 against the plain version
+WMT16_PAIRS, WMT16_MAX_TOKENS = 2_999, 128  # newstest2016 de-en, padded to 128 tokens
+ROBERTA_LARGE = {"vocab_size": 50_265, "hidden_size": 1_024, "num_attention_heads": 16, "intermediate_size": 4_096,
+                 "max_position_embeddings": 514, "type_vocab_size": 1, "layer_norm_eps": 1e-5, "pad_token_id": 1,
+                 "bos_token_id": 0, "eos_token_id": 2}
+ROBERTA_LAYERS = 17  # torchmetrics' default layer for roberta-large: the layers above it leave hidden_states[17]
+BERT_TINY = {"vocab_size": 30_522, "hidden_size": 128, "num_hidden_layers": 2, "num_attention_heads": 2,
+             "intermediate_size": 512}  # google/bert_uncased_L-2_H-128_A-2
+WIKITEXT103_TOKENS, PPL_BATCH, PPL_SEQ = 280_000, 8, 1_024  # WikiText-103 test in GPT-2 tokens, about
+TEXT_PAIRS, TEXT_UPDATE = 2_000, 100  # phase 13 (iv): the host metrics
+BERT_UPDATE, INFOLM_PAIRS, INFOLM_UPDATE, INFOLM_MAX_LENGTH = 64, 256, 32, 32
+
+
+def _ppl_case(gen, n_rows, vocab, dtype, ignore_index, edit):
+    """Seeded ``(N, V)`` logits (scale 3) and targets on the card, with ``ignore_index`` on about 2 % of the rows,
+    and the edit: ignored rows of NaN and +-inf, or a target of -1, -V, V or -V - 1 on row 0."""
+    dev = torch.device("cuda")
+    logits = (3.0 * torch.randn((n_rows, vocab), generator=gen, device=dev)).to(dtype)
+    target = torch.randint(0, vocab, (n_rows,), generator=gen, device=dev)
+    if ignore_index is not None and n_rows:
+        target[torch.rand((n_rows,), generator=gen, device=dev) < 0.02] = ignore_index
+    if edit == "ignored non-finite":
+        target[1:4] = ignore_index
+        logits[1], logits[2, 0], logits[3, 0] = float("nan"), float("inf"), float("-inf")
+    elif isinstance(edit, int):
+        target[0] = edit
+    return logits.contiguous(), target.contiguous()
+
+
+def phase_perplexity_kernel(flush: torch.Tensor) -> list:
+    """``perplexity_nll`` against its plain version (JAX's float32 ``log_softmax`` form) on the card: the total
+    within 1e-5 relative (NaN where it is NaN), the count exactly, two launches equal bit for bit; timed at GPT-2's
+    vocabulary on 8 x 1,024 float32 rows (the first row) and Llama-3's on 4 x 2,048 bfloat16 rows, beside
+    ``F.cross_entropy(reduction="sum")`` (``library_ms``); its backward against autograd of the plain version."""
+    from torchmetrics_tpu_torch.kernels import perplexity as kppl
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    cases = [  # (what, rows, V, dtype, ignore_index, edit, timed)
+        ("GPT-2 batch, 8 x 1,024 (a)", PPL_BATCH * PPL_SEQ, GPT2_VOCAB, f32, -100, None, True),
+        ("Llama-3 batch, 4 x 2,048 (b)", 4 * 2_048, LLAMA3_VOCAB, bf16, -100, None, True),
+        *((f"V={v}", 1_000, v, f32, -100, None, False) for v in (1, 2, 3, GPT2_VOCAB + 1)),
+        ("V=4096, a warp a row (the largest)", 2_000, 4_096, f32, None, None, False),
+        ("V=4097, a block a row (the smallest)", 2_000, 4_097, f32, None, None, False),
+        ("float16", 2_048, 32_000, f16, -100, None, False),
+        ("bfloat16, a warp a row", 3_001, 1_000, bf16, 0, None, False),
+        *((f"ignore_index {ii}", 1_024, 8_000, f32, ii, None, False) for ii in (None, -100, 0)),
+        ("ignored rows of NaN and +-inf", 1_024, 8_000, f32, -100, "ignored non-finite", False),
+        *((f"target {t}", 512, 5_000, f32, -100, t, False) for t in (-1, -5_000, 5_000, -5_001)),
+        ("an empty batch", 0, 5_000, f32, -100, None, False),
+    ]
+    rows = []
+    for what, n_rows, vocab, dtype, ignore_index, edit, timed in cases:
+        logits, target = _ppl_case(gen, n_rows, vocab, dtype, ignore_index, edit)
+        before = kppl.perplexity_nll.launches
+        got = kppl.perplexity_nll(logits, target, ignore_index)
+        again = kppl.perplexity_nll(logits, target, ignore_index)
+        want = kppl._perplexity_nll_plain(logits, target, ignore_index)
+        torch.cuda.synchronize()
+        label = f"{what}: {n_rows} x {vocab} {str(dtype)[6:]}, ignore_index {ignore_index}"
+        check(kppl.perplexity_nll.launches == before + (2 if n_rows else 0), f"launches ({label})")
+        check(all(torch.equal(g.view(torch.int32), a.view(torch.int32)) for g, a in zip(got, again)),
+              f"perplexity_nll is not deterministic ({label})")
+        total, want_total = float(got[0]), float(want[0])
+        nan = math.isnan(want_total)
+        check(math.isnan(total) == nan and float(got[1]) == float(want[1])
+              and (nan or abs(total - want_total) <= PPL_RTOL * abs(want_total) or total == want_total),
+              f"perplexity_nll ({label}): ({total}, {float(got[1])}) against plain ({want_total}, {float(want[1])})")
+        err = 0.0 if nan or total == want_total else abs(total - want_total) / max(abs(want_total), 1e-30)
+        row = {"case": label, "what": what, "total": total, "plain_total": want_total, "count": float(got[1]),
+               "max_abs_err": 0.0 if nan or total == want_total else abs(total - want_total), "rel_err": err}
+        if edit in (-1, -vocab):
+            check(not math.isnan(total), f"perplexity_nll ({label}): a target in [-V, 0) wraps once")
+        if edit in (vocab, -vocab - 1):
+            check(math.isnan(total), f"perplexity_nll ({label}): a target outside [-V, V) makes the total NaN")
+        if edit == "ignored non-finite":
+            check(math.isfinite(total), f"perplexity_nll ({label}): ignored rows add nothing")
+        if n_rows == 0:
+            check(total == 0.0 and math.copysign(1.0, total) < 0 and float(got[1]) == 0.0, f"empty batch: {got}")
+        if timed:
+            tkind = target.element_size()
+            nbytes = logits.numel() * logits.element_size() + n_rows * (tkind + 4) + 8
+            bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            fn = lambda x_, t_: kppl.perplexity_nll(x_, t_, ignore_index)  # noqa: E731
+            kernel_ms = time_ms(lambda: fn(logits, target), flush)
+            plain_ms = time_ms(lambda: kppl._perplexity_nll_plain(logits, target, ignore_index), flush, reps=10,
+                               warmup=1)
+            library_ms = time_ms(lambda: torch.nn.functional.cross_entropy(
+                logits, target, ignore_index=-100 if ignore_index is None else ignore_index, reduction="sum"),
+                flush, reps=10, warmup=1)
+            sets = [(logits, target)] + [(logits.clone(), target.clone()) for _ in range(copies_for(nbytes) - 1)]
+            stream_ms = time_stream_ms(fn, sets, calls=len(sets) * max(1, 24 // len(sets)))
+            del sets
+            row.update({"ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": "bytes", "bytes": nbytes, "library_ms": library_ms,
+                        "row_threads": kppl.plan(vocab)})
+            print(f"[kernel] perplexity_nll {label}: {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a call "
+                  f"back to back), plain (log_softmax + gather + sums) {plain_ms:.4f} ms, F.cross_entropy "
+                  f"(library_ms) {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us (bytes: {nbytes}), share "
+                  f"{bound_ms / kernel_ms:.1%}; {kppl.plan(vocab)} threads a row; total {total!r}, rel err {err:.3g}")
+        rows.append(row)
+        del logits, target, got, again, want
+
+    # the backward: the kernel forward with grad, against autograd of the plain version, at GPT-2's vocabulary
+    logits, target = _ppl_case(gen, 512, GPT2_VOCAB, f32, -100, None)
+    x = logits.clone().requires_grad_()
+    before = kppl.perplexity_nll.launches
+    kppl.perplexity_nll(x, target, -100)[0].mul(0.5).backward()
+    check(kppl.perplexity_nll.launches == before + 1, "perplexity_nll: an input that requires grad takes the kernel")
+    y = logits.clone().requires_grad_()
+    kppl._perplexity_nll_plain(y, target, -100)[0].mul(0.5).backward()
+    grad_err = float((x.grad - y.grad).abs().max())
+    check(torch.allclose(x.grad, y.grad, rtol=1e-5, atol=1e-8),
+          f"perplexity_nll's backward differs from autograd of the plain version by {grad_err}")
+    rows.append({"case": "backward, 512 x 50,257 float32, ignore_index -100", "what": "backward",
+                 "max_abs_err_grad": grad_err})
+    print(f"[kernel] perplexity_nll: the total within {PPL_RTOL} relative of plain and the count equal, "
+          f"deterministic, on all {len(cases)} cases; the backward within 1e-5 relative of autograd (max abs err "
+          f"{grad_err:.3g}): " + "; ".join(f"{r['what']} ({r.get('rel_err', 0):.2g})" for r in rows[:-1]))
+    return rows
+
+
+def _bert_case(gen, pairs, tp, tt, h, lengths=None, edit=None):
+    """Seeded ``(B, Tp, H)`` and ``(B, Tt, H)`` float32 embeddings on the card with 0/1 masks (a seeded valid
+    length a row, or ``lengths``: the range the lengths are drawn from), and the edit's weights or changes."""
+    dev = torch.device("cuda")
+    pe = torch.randn((pairs, tp, h), generator=gen, device=dev)
+    te = torch.randn((pairs, tt, h), generator=gen, device=dev)
+    lo, hi = lengths or (1, max(tp, tt))
+    lp = torch.randint(lo, min(hi, tp) + 1, (pairs, 1), generator=gen, device=dev)
+    lt = torch.randint(lo, min(hi, tt) + 1, (pairs, 1), generator=gen, device=dev)
+    pm = (torch.arange(tp, device=dev) < lp).float()
+    tm = (torch.arange(tt, device=dev) < lt).float()
+    pw = tw = None
+    if edit == "idf":
+        pw, tw = (torch.rand(m.shape, generator=gen, device=dev) * 5 for m in (pm, tm))
+    elif edit == "masked rows":
+        pm[0], tm[1] = 0.0, 0.0
+    elif edit == "negative rows":  # every valid similarity of pairs 0 and 1 negative; pair 1 has an invalid entry
+        te = te.abs()
+        pe = -pe.abs()
+        tm[0], tm[1] = 1.0, 1.0
+        tm[1, -1] = 0.0
+    elif edit == "zero norms":
+        pe[:, :2] = 0.0
+        te[:, 1] = 0.0
+    return pe.contiguous(), pm, te.contiguous(), tm, pw, tw
+
+
+def phase_bert_kernel(flush: torch.Tensor) -> list:
+    """``bert_greedy_match`` against its plain version (JAX's ``_bert_score_from_embeddings``) on the card: P, R
+    and F1 within 1e-5 absolute (where P + R <= 0, F1's 1e-12 clamp makes it up to 1e11: there it is held within
+    1e-5 relative to the formula on the kernel's own P and R), two launches equal bit for bit; timed at WMT16 newstest2016's 2,999 pairs of roberta-large's
+    1,024-wide embeddings, lengths 10-128 padded to 128 (the first row), beside ``torch.bmm`` and two ``amax``
+    (several calls, a yardstick)."""
+    from torchmetrics_tpu_torch.kernels import bert_match as kbm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    t_max = WMT16_MAX_TOKENS
+    cases = [  # (what, pairs, Tp, Tt, H, lengths, edit, timed)
+        ("WMT16 newstest2016 pairs (a)", WMT16_PAIRS, t_max, t_max, 1_024, (10, t_max), None, True),
+        ("Tp != Tt", 64, 37, 100, 768, None, None, False),
+        ("T = 1", 16, 1, 1, 1_024, None, None, False),
+        ("all-masked rows", 8, 20, 30, 64, None, "masked rows", False),
+        ("negative valid similarities, with and without an invalid entry", 4, 6, 9, 32, None, "negative rows",
+         False),
+        ("zero-norm embeddings", 4, 10, 12, 48, None, "zero norms", False),
+        ("idf weights", 64, t_max, t_max, 1_024, (10, t_max), "idf", False),
+        *((f"H = {h}", 16, 50, 70, h, None, None, False) for h in (1, 33, 4_096)),
+        ("Tp = Tt = 3,000: past 48 KB of shared memory", 2, 3_000, 3_000, 64, None, None, False),
+        ("an empty batch", 0, 10, 10, 64, None, None, False),
+    ]
+    rows = []
+    for what, pairs, tp, tt, h, lengths, edit, timed in cases:
+        pe, pm, te, tm, pw, tw = _bert_case(gen, pairs, tp, tt, h, lengths, edit)
+        before = kbm.bert_greedy_match.launches
+        got = kbm.bert_greedy_match(pe, pm, te, tm, pw, tw)
+        again = kbm.bert_greedy_match(pe, pm, te, tm, pw, tw)
+        want = kbm._bert_greedy_match_plain(pe, pm, te, tm, pw, tw)
+        torch.cuda.synchronize()
+        label = f"{what}: {pairs} pairs, Tp={tp}, Tt={tt}, H={h}"
+        check(kbm.bert_greedy_match.launches == before + (2 if pairs else 0), f"launches ({label})")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)), f"bert_greedy_match is not deterministic ({label})")
+        err = max((float((g - w).abs().max()) if w.numel() else 0.0) for g, w in zip(got[:2], want[:2]))
+        # F1 = 2 P R / max(P + R, 1e-12) reaches 1e11 where P + R <= 0 (a single negative similarity): there it
+        # amplifies P's and R's last bits, so it is held, relative, to the formula on the kernel's own P and R
+        clamped = want[0] + want[1] <= 1e-12
+        own = 2 * got[0] * got[1] / (got[0] + got[1]).clamp_min(1e-12)
+        f1_err = float(torch.where(clamped, (got[2] - own).abs() / own.abs().clamp_min(1.0), (got[2] - want[2]).abs())
+                       .max()) if pairs else 0.0
+        check(err <= BERT_ATOL and f1_err <= BERT_ATOL,
+              f"bert_greedy_match ({label}): P and R {err:.3g} from plain, F1 {f1_err:.3g}")
+        err = max(err, f1_err)
+        if edit == "negative rows":
+            check(float(got[0][0]) < 0.0 and float(got[0][1]) == 0.0 and float(want[0][1]) == 0.0,
+                  f"bert_greedy_match ({label}): precision {got[0][:2].tolist()}, plain {want[0][:2].tolist()}")
+        row = {"case": label, "what": what, "max_abs_err": err}
+        if timed:
+            lp, lt = pm.sum(1), tm.sum(1)
+            ops = float(2 * (lp * lt).sum()) * h  # the valid pairs' dot products: what this run's data needs
+            nbytes = int(float((lp + lt).sum()) * h * 4 + 4 * pairs * (tp + tt) + 12 * pairs)
+            ops_ms, bytes_ms = ops / PEAK_FP32_OPS_PER_S * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+            bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+            padded_ops = 2 * pairs * tp * tt * h
+            fn = lambda a, b_, c, d: kbm.bert_greedy_match(a, b_, c, d)  # noqa: E731
+            kernel_ms = time_ms(lambda: fn(pe, pm, te, tm), flush)
+            plain_ms = time_ms(lambda: kbm._bert_greedy_match_plain(pe, pm, te, tm), flush, reps=10, warmup=1)
+
+            def yardstick():
+                sim = torch.bmm(pe, te.transpose(1, 2))
+                return sim.amax(2), sim.amax(1)
+
+            yard_ms = time_ms(yardstick, flush, reps=10, warmup=1)
+            all_bytes = 4 * (pe.numel() + te.numel())
+            sets = [(pe, pm, te, tm)] + [(pe.clone(), pm, te.clone(), tm) for _ in range(copies_for(all_bytes) - 1)]
+            stream_ms = time_stream_ms(fn, sets, calls=len(sets) * max(1, 12 // len(sets)))
+            del sets
+            row.update({"ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "operations": ops, "bytes": nbytes, "padded_operations": padded_ops,
+                        "library_ms": None, "bmm_amax_yardstick_ms": yard_ms})
+            print(f"[kernel] bert_greedy_match {label}: {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a "
+                  f"call back to back), plain {plain_ms:.4f} ms, torch.bmm + two amax (a yardstick) {yard_ms:.4f} ms; "
+                  f"bound {bound_ms * 1e3:.2f} us ({bound_by}: {ops:.4g} float32 operations of the valid pairs, "
+                  f"{nbytes} bytes of the valid tokens; the padded shape is {padded_ops:.4g} operations), share "
+                  f"{bound_ms / kernel_ms:.1%}; max abs err {err:.3g}")
+        rows.append(row)
+        del pe, pm, te, tm, pw, tw, got, again, want
+    print(f"[kernel] bert_greedy_match: within {BERT_ATOL} of plain, deterministic, on all {len(cases)} cases: "
+          + "; ".join(f"{r['what']} ({r['max_abs_err']:.2g})" for r in rows))
+    return rows
+
+
+def _wikitext_batches():
+    """WikiText-103 test's length in GPT-2 tokens as batches of 8 x 1,024 float32 logits seeded on the card (scale
+    3), the last batch's tail past the set's end padded with ``-100``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    per_batch = PPL_BATCH * PPL_SEQ
+    for start in range(0, WIKITEXT103_TOKENS, per_batch):
+        logits = 3.0 * torch.randn((PPL_BATCH, PPL_SEQ, GPT2_VOCAB), generator=gen, device="cuda")
+        target = torch.randint(0, GPT2_VOCAB, (PPL_BATCH, PPL_SEQ), generator=gen, device="cuda")
+        target.view(-1)[max(0, WIKITEXT103_TOKENS - start):] = -100
+        yield (logits, target), {}
+
+
+def _text_perplexity(device, compute_groups):
+    from torchmetrics_tpu_torch import text as tt
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({"perplexity": tt.Perplexity(ignore_index=-100, device=device)},
+                            compute_groups=compute_groups)
+
+
+def _seeded_words(n: int, gen: np.random.Generator) -> list:
+    """``n`` distinct seeded lowercase words."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = set()
+    while len(words) < n:
+        for length in gen.integers(2, 10, n):
+            words.add("".join(gen.choice(letters, length)))
+    return sorted(words)[:n]
+
+
+def _zipf_sentences(n: int, vocab: list, lengths, gen: np.random.Generator) -> list:
+    """``n`` seeded sentences of Zipf-distributed words (so that idf has frequent and rare words)."""
+    ranks = np.minimum(gen.zipf(1.2, size=(n, lengths[1])), len(vocab)) - 1
+    sizes = gen.integers(lengths[0], lengths[1] + 1, n)
+    return [" ".join(vocab[r] for r in ranks[i, :sizes[i]]) for i in range(n)]
+
+
+class _FixedVocabTokenizer:
+    """A user tokenizer: whitespace words to the ids of a fixed vocabulary (3 on), padded with 1 to the longest
+    sentence of the call, at most ``max_length`` tokens: RoBERTa's pad id."""
+
+    def __init__(self, vocab: list, max_length: int):
+        self.ids = {w: i + 3 for i, w in enumerate(vocab)}
+        self.max_length = max_length
+
+    def __call__(self, texts):
+        rows = [[self.ids.get(w, 3) for w in t.split()][: self.max_length] for t in texts]
+        width = max((len(r) for r in rows), default=1) or 1
+        ids = np.ones((len(rows), width), np.int64)
+        mask = np.zeros((len(rows), width), np.int64)
+        for i, r in enumerate(rows):
+            ids[i, : len(r)], mask[i, : len(r)] = r, 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def _roberta_large_encoder():
+    """A random-init ``RobertaModel`` at roberta-large's published widths cut to its first 17 layers, on the card,
+    as a ``model=`` callable: ``hidden_states[17]``, the last, in chunks of 256 sequences."""
+    from transformers import RobertaConfig, RobertaModel
+
+    torch.manual_seed(SEED + 53)
+    with torch.device("cuda"):
+        encoder = RobertaModel(RobertaConfig(num_hidden_layers=ROBERTA_LAYERS, **ROBERTA_LARGE),
+                               add_pooling_layer=False).eval()
+
+    def embed(input_ids, attention_mask):
+        ids, mask = input_ids.to("cuda", torch.long), attention_mask.to("cuda", torch.long)
+        with torch.no_grad():
+            out = [encoder(input_ids=i, attention_mask=m).last_hidden_state
+                   for i, m in zip(ids.split(256), mask.split(256))]
+        return torch.cat(out).to(input_ids.device)
+
+    return embed
+
+
+def _bert_batches(pairs: int, vocab: list):
+    def batches():
+        gen = np.random.default_rng(SEED + 54)
+        preds = _zipf_sentences(pairs, vocab, (10, WMT16_MAX_TOKENS), gen)
+        target = _zipf_sentences(pairs, vocab, (10, WMT16_MAX_TOKENS), gen)
+        for i in range(0, pairs, BERT_UPDATE):
+            yield (preds[i:i + BERT_UPDATE], target[i:i + BERT_UPDATE]), {}
+    return batches
+
+
+def _tiny_mlm_checkpoint(directory: str, vocab: list) -> str:
+    """A random-init ``BertForMaskedLM`` at bert_uncased_L-2_H-128_A-2's widths and a WordPiece vocabulary of
+    its 30,522 entries (the special tokens, then seeded words), saved to ``directory``."""
+    from transformers import BertConfig, BertForMaskedLM
+
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    with open(os.path.join(directory, "vocab.txt"), "w") as f:
+        f.write("\n".join(specials + vocab[: BERT_TINY["vocab_size"] - len(specials)]) + "\n")
+    with open(os.path.join(directory, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "BertTokenizer", "do_lower_case": True, "model_max_length": 512}, f)
+    torch.manual_seed(SEED + 55)
+    BertForMaskedLM(BertConfig(**BERT_TINY)).eval().save_pretrained(directory)
+    return directory
+
+
+def _host_leg(name: str, make, batches: list) -> dict:
+    """One metric over ``batches`` on the card: each update's host time (a synchronize after it), the compute, and
+    the state after the first batch against the CPU path's (equal)."""
+    metric, times = make("cuda"), []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        metric.update(*batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            early = _copy(metric.metric_state)
+    t0 = time.perf_counter()
+    value = metric.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    cpu = make("cpu")
+    cpu.update(*[_cpu(x) for x in batches[0]])
+    compared = _assert_same(f"[text {name}] state after the first batch", early, cpu.metric_state, 0.0, 0.0)
+    compared += _assert_same(f"[text {name}] value after the first batch", metric.compute_state(early),
+                             cpu.compute(), FLOAT_RTOL, FLOAT_ATOL)
+    return {"batches": len(batches), "update_ms_median": statistics.median(times), "compute_ms": compute_ms,
+            "values": ({k: _value_summary(v) for k, v in value.items()} if isinstance(value, dict)
+                       else _value_summary(value)),
+            "tensors": value, "cpu_compared": compared}
+
+
+def _squad_batches(preds: list, target: list) -> list:
+    out = []
+    for i0 in range(0, len(preds), TEXT_UPDATE):
+        p = [{"prediction_text": s, "id": str(i)} for i, s in enumerate(preds[i0:i0 + TEXT_UPDATE], i0)]
+        t = [{"answers": {"answer_start": [0], "text": [r[0]]}, "id": str(i)}
+             for i, r in enumerate(target[i0:i0 + TEXT_UPDATE], i0)]
+        out.append((p, t))
+    return out
+
+
+def phase_text() -> dict:
+    """Phase 13 on one card, no sync: (i) WikiText-103 test's length through ``Perplexity``; (ii) WMT16
+    newstest2016's 2,999 pairs through ``BERTScore`` on a random-init roberta-large cut to 17 layers, ``idf=True``;
+    (iii) 256 pairs through ``InfoLM`` on a random-init bert_uncased_L-2_H-128_A-2 checkpoint; (iv) the host
+    metrics over 2,000 seeded sentence pairs."""
+    from torchmetrics_tpu_torch import text as tt
+    from torchmetrics_tpu_torch.collections import MetricCollection
+    from torchmetrics_tpu_torch.kernels.bert_match import bert_greedy_match
+    from torchmetrics_tpu_torch.kernels.perplexity import perplexity_nll
+
+    kernels = (perplexity_nll, bert_greedy_match)
+    record = {}
+    gen = np.random.default_rng(SEED + 56)
+
+    # (i) one perplexity_nll launch a batch
+    leg = _curve_leg("text perplexity", _text_perplexity, _wikitext_batches, kernels, cpu_batches=1)
+    n_batches = -(-WIKITEXT103_TOKENS // (PPL_BATCH * PPL_SEQ))
+    t = leg["tensors"]["perplexity"]
+    check(leg["launches"] == {"perplexity_nll": n_batches, "bert_greedy_match": 0} and math.isfinite(float(t))
+          and float(t) > 1.0, f"[text perplexity] launches {leg['launches']}, value {leg['values']}")
+    record["perplexity"] = leg
+
+    # (ii) the 2,999 pairs, one bert_greedy_match launch at compute
+    vocab = _seeded_words(ROBERTA_LARGE["vocab_size"] - 3, gen)
+    t0 = time.perf_counter()
+    encoder = _roberta_large_encoder()
+    tokenizer = _FixedVocabTokenizer(vocab, WMT16_MAX_TOKENS)
+    build_s = time.perf_counter() - t0
+
+    def bertscore(device, compute_groups):
+        return MetricCollection({"bertscore": tt.BERTScore(model=encoder, user_tokenizer=tokenizer, idf=True,
+                                                           device=device)}, compute_groups=compute_groups)
+
+    leg = _curve_leg("text bertscore", bertscore, _bert_batches(WMT16_PAIRS, vocab), kernels, cpu_batches=1)
+    f1 = leg["tensors"]["f1"]
+    check(leg["launches"] == {"perplexity_nll": 0, "bert_greedy_match": 1} and f1.shape == (WMT16_PAIRS,)
+          and bool(torch.isfinite(f1).all()) and bool(((f1 > 0) & (f1 <= 1)).all()),
+          f"[text bertscore] launches {leg['launches']}, values {leg['values']}")
+    leg["encoder_build_s"] = build_s
+    record["bertscore"] = leg
+    del encoder
+
+    # (iii) InfoLM through the checkpoint: per-position masking, no kernel
+    with tempfile.TemporaryDirectory() as directory:
+        words = _seeded_words(BERT_TINY["vocab_size"], gen)
+        path = _tiny_mlm_checkpoint(directory, words)
+        preds = _zipf_sentences(INFOLM_PAIRS, words, (5, 30), gen)
+        target = _zipf_sentences(INFOLM_PAIRS, words, (5, 30), gen)
+
+        def infolm(device, compute_groups):
+            return MetricCollection({"infolm": tt.InfoLM(model_name_or_path=path, max_length=INFOLM_MAX_LENGTH,
+                                                         idf=True, device=device)}, compute_groups=compute_groups)
+
+        def infolm_batches():
+            for i in range(0, INFOLM_PAIRS, INFOLM_UPDATE):
+                yield (preds[i:i + INFOLM_UPDATE], target[i:i + INFOLM_UPDATE]), {}
+
+        leg = _curve_leg("text infolm", infolm, infolm_batches, kernels, cpu_batches=1)
+        check(math.isfinite(float(leg["tensors"]["infolm"])), f"[text infolm] values {leg['values']}")
+        record["infolm"] = leg
+
+    # (iv) the host metrics: strings in, float32 sums on the card
+    words = _seeded_words(5_000, gen)
+    preds = _zipf_sentences(TEXT_PAIRS, words, (5, 40), gen)
+    target = [[s] for s in _zipf_sentences(TEXT_PAIRS, words, (5, 40), gen)]
+    pairs = [(preds[i:i + TEXT_UPDATE], target[i:i + TEXT_UPDATE]) for i in range(0, TEXT_PAIRS, TEXT_UPDATE)]
+    flat = [(p, [r[0] for r in t]) for p, t in pairs]
+    ids = torch.tensor(tokenizer(preds)["input_ids"])
+    host = {
+        "wer": (lambda d: tt.WordErrorRate(device=d), flat), "cer": (lambda d: tt.CharErrorRate(device=d), flat),
+        "mer": (lambda d: tt.MatchErrorRate(device=d), flat), "wil": (lambda d: tt.WordInfoLost(device=d), flat),
+        "wip": (lambda d: tt.WordInfoPreserved(device=d), flat),
+        "sacrebleu": (lambda d: tt.SacreBLEUScore(tokenize="13a", device=d), pairs),
+        "chrf++": (lambda d: tt.CHRFScore(n_word_order=2, device=d), pairs),
+        "ter": (lambda d: tt.TranslationEditRate(device=d), pairs),
+        "eed": (lambda d: tt.ExtendedEditDistance(device=d), pairs),
+        "squad": (lambda d: tt.SQuAD(device=d), _squad_batches(preds, target)),
+        "distinct": (lambda d: tt.DistinctNGrams(ngram=2, ignore_index=1, device=d),
+                     [(ids[i:i + TEXT_UPDATE].cuda(),) for i in range(0, TEXT_PAIRS, TEXT_UPDATE)]),
+    }
+    for name, (make, batches) in host.items():
+        record[f"host {name}"] = _host_leg(name, make, batches)
+
+    for name, leg in record.items():
+        extra = f", the CPU rerun {leg['cpu_rerun_s']:.1f} s" if "cpu_rerun_s" in leg else ""
+        print(f"[text] {name}: {leg['batches']} batches{extra}; update median {leg['update_ms_median']:.4f} ms (host "
+              f"clock, a synchronize after each), compute {leg['compute_ms']:.4f} ms; launches "
+              f"{leg.get('launches', {'perplexity_nll': 0, 'bert_greedy_match': 0})}; the first batch matches the "
+              f"CPU path ({leg['cpu_compared']} tensors); values {leg['values']}")
+        del leg["tensors"]
+    print(f"[text] bertscore: the random-init roberta-large (17 layers) built on the card in "
+          f"{record['bertscore']['encoder_build_s']:.1f} s")
+    return record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--json", help="also write the full record to this file")
@@ -4426,6 +4937,8 @@ def main() -> int:
         "pairwise_lp": "torchmetrics_tpu_torch/csrc/pairwise.cu",
         "snr_moments": "torchmetrics_tpu_torch/csrc/snr_moments.cu",
         "sdr_toeplitz": "torchmetrics_tpu_torch/csrc/sdr_toeplitz.cu",
+        "perplexity_nll": "torchmetrics_tpu_torch/csrc/perplexity.cu",
+        "bert_greedy_match": "torchmetrics_tpu_torch/csrc/bert_match.cu",
     }
     replaces = {
         "binned_confmat_multiclass": "torchmetrics_tpu/functional/classification/precision_recall_curve.py:128",
@@ -4440,6 +4953,8 @@ def main() -> int:
         "pairwise_lp": "torchmetrics_tpu/functional/pairwise/pairwise.py:118",
         "snr_moments": "torchmetrics_tpu/functional/audio/snr.py:27",
         "sdr_toeplitz": "torchmetrics_tpu/functional/audio/sdr.py:69",
+        "perplexity_nll": "torchmetrics_tpu/functional/text/perplexity.py:46",
+        "bert_greedy_match": "torchmetrics_tpu/functional/text/bert.py:234",
     }
 
     seconds = {}
@@ -4468,6 +4983,8 @@ def main() -> int:
     kernel_rows["pairwise_lp"] = timed("phase 3 pairwise_lp", phase_pairwise_kernel, flush)
     kernel_rows["snr_moments"] = timed("phase 3 snr_moments", phase_snr_kernel, flush)
     kernel_rows["sdr_toeplitz"] = timed("phase 3 sdr_toeplitz", phase_sdr_kernel, flush)
+    kernel_rows["perplexity_nll"] = timed("phase 3 perplexity_nll", phase_perplexity_kernel, flush)
+    kernel_rows["bert_greedy_match"] = timed("phase 3 bert_greedy_match", phase_bert_kernel, flush)
     del flush
     main = timed("phase 4", phase_main_path, kernels)
     sync = timed("phase 5", phase_sync)
@@ -4478,6 +4995,7 @@ def main() -> int:
     signal = timed("phase 10", phase_signal)
     contingency = timed("phase 11", phase_contingency)
     audio = timed("phase 12", phase_audio)
+    text = timed("phase 13", phase_text)
     kernel_rows["pairwise_lp"] += [{"case": f"Market-1501 {name} (phase 11)", "max_abs_err": entry["max_abs_err"]}
                                    for name, entry in contingency["market"]["calls"].items() if "max_abs_err" in entry]
 
@@ -4501,6 +5019,8 @@ def main() -> int:
                         for leg in ("clustering data", "market")},
         "snr_moments": {f"audio {leg}": audio[leg]["launches"]["snr_moments"] for leg in ("libri2mix", "csisnr")},
         "sdr_toeplitz": {"audio libri2mix": audio["libri2mix"]["launches"]["sdr_toeplitz"]},
+        "perplexity_nll": {"text perplexity": text["perplexity"]["launches"]["perplexity_nll"]},
+        "bert_greedy_match": {"text bertscore": text["bertscore"]["launches"]["bert_greedy_match"]},
     }
     for leg in ("clustering labels", "nominal", "nominal matrices"):
         by_path["confmat_multiclass"][f"contingency {leg}"] = contingency[leg]["launches"]["confmat_multiclass"]
@@ -4527,14 +5047,15 @@ def main() -> int:
             **{k: first_row[k] for k in ("two_call_ms", "bucketize_bincount_ms", "softmax_bucketize_bincount_ms",
                                          "sort_gather_cumsum_ms", "query_layout_ms", "sort_cumsum_segment_ms",
                                          "conv_ssim_yardstick_ms", "bincount_yardstick_ms", "chain_bound_ms",
-                                         "least_chain_ms", "library_float64_ms") if k in first_row},
+                                         "least_chain_ms", "library_float64_ms", "bmm_amax_yardstick_ms")
+               if k in first_row},
         })
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"device": device, "build_s": build_s, "seconds": seconds, "launch_floor": floor,
                        "kernels": kernel_rows, "main_path": main,
                        "sync": sync, "ragged": ragged, "tower": tower, "curves": curves, "rest": rest,
-                       "signal": signal, "contingency": contingency, "audio": audio}, f, indent=1)
+                       "signal": signal, "contingency": contingency, "audio": audio, "text": text}, f, indent=1)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}}))
     return 0

@@ -460,3 +460,74 @@ def test_srmr_arguments():
         tf.speech_reverberation_modulation_energy_ratio(torch.zeros(8000), 8000, fast=True)
     with pytest.raises(ValueError, match="fs"):
         tf.speech_reverberation_modulation_energy_ratio(torch.zeros(8000), 22050)
+
+
+# ---------------------------------------------------------------- silent targets and empty batches
+
+
+def _silent_rows(scale=None):
+    """Three seeded rows with row 1 silent; with ``scale``, row 0's target that large (its float32 norm
+    overflows at 1e20: the row normalises to zero, silent too)."""
+    preds, target = _signals(70, (3, 4000))
+    target[1] = 0.0
+    if scale is not None:
+        target[0] *= scale
+    return preds, target
+
+
+@pytest.mark.parametrize("scale", [None, 1e20], ids=["silent", "silent-and-overflowing"])
+def test_sdr_silent_target_is_nan_as_in_jax(scale):
+    """A silent target makes SDR's Toeplitz system singular: NaN in its row, as ``jnp.linalg.solve`` gives,
+    and no ``LinAlgError``."""
+    preds, target = _silent_rows(scale)
+    j, t = _both(jf.signal_distortion_ratio, tf.signal_distortion_ratio, preds, target)
+    assert np.array_equal(np.isnan(_np(t)), np.isnan(np.asarray(j))) and np.isnan(_np(t)[1])
+    _close(t, j, SDR_TOL)
+
+
+def test_sdr_class_with_a_silent_target():
+    preds, target = _silent_rows()
+    jm, tm = ja.SignalDistortionRatio(), ta.SignalDistortionRatio(**CPU)
+    jm.update(jnp.asarray(preds), jnp.asarray(target))
+    tm.update(torch.tensor(preds), torch.tensor(target))
+    for name in ("sum_value", "total"):
+        _close(tm.metric_state[name], jm.metric_state[name], SDR_TOL)
+    assert np.isnan(float(tm.compute())) and np.isnan(float(jm.compute()))
+
+
+def test_pit_sdr_with_a_silent_speaker():
+    preds, target = _pit_inputs(71, 2, 2, 2000)
+    target[0, 1] = 0.0
+    j_metric, j_perm = jf.permutation_invariant_training(jnp.asarray(preds), jnp.asarray(target),
+                                                         jf.signal_distortion_ratio, "speaker-wise")
+    t_metric, t_perm = tf.permutation_invariant_training(torch.tensor(preds), torch.tensor(target),
+                                                         tf.signal_distortion_ratio, "speaker-wise")
+    assert np.isnan(np.asarray(j_metric)[0]) and np.isnan(_np(t_metric)[0])
+    _close(t_metric, j_metric, SDR_TOL)
+    np.testing.assert_array_equal(t_perm.numpy()[1], np.asarray(j_perm)[1])
+
+
+@pytest.mark.parametrize("shape", [(0, 1000), (0, 2, 1000)])
+def test_sdr_empty_batch(shape):
+    preds = np.zeros(shape, np.float32)
+    j, t = _both(jf.signal_distortion_ratio, tf.signal_distortion_ratio, preds, preds)
+    assert t.dtype == torch.float32 and tuple(t.shape) == np.asarray(j).shape == shape[:-1]
+    jm, tm = ja.SignalDistortionRatio(), ta.SignalDistortionRatio(**CPU)
+    jm.update(jnp.asarray(preds), jnp.asarray(preds))
+    tm.update(torch.tensor(preds), torch.tensor(preds))
+    for name in ("sum_value", "total"):
+        _close(tm.metric_state[name], jm.metric_state[name], (0.0, 0.0))
+    assert np.isnan(float(tm.compute())) and np.isnan(float(jm.compute()))
+
+
+def test_stoi_empty_batch():
+    preds = np.zeros((0, 8000), np.float32)
+    j = jf.short_time_objective_intelligibility(jnp.asarray(preds), jnp.asarray(preds), fs=8000)
+    t = tf.short_time_objective_intelligibility(torch.tensor(preds), torch.tensor(preds), fs=8000)
+    assert t.dtype == torch.float32 and tuple(t.shape) == np.asarray(j).shape == (0,)
+    jm, tm = ja.ShortTimeObjectiveIntelligibility(fs=8000), ta.ShortTimeObjectiveIntelligibility(fs=8000, **CPU)
+    jm.update(jnp.asarray(preds), jnp.asarray(preds))
+    tm.update(torch.tensor(preds), torch.tensor(preds))
+    for name in ("sum_value", "total"):
+        _close(tm.metric_state[name], jm.metric_state[name], (0.0, 0.0))
+    assert np.isnan(float(tm.compute())) and np.isnan(float(jm.compute()))

@@ -356,3 +356,38 @@ def test_class_errors_and_pickle():
     tm = tc.DaviesBouldinScore(**CPU)
     tm.update(*map(torch.from_numpy, _data(40)))
     _close(pickle.loads(pickle.dumps(tm)).compute(), tm.compute(), (0.0, 0.0))
+
+
+# ---------------------------------------------------------------- identical labelings: MI equal to H bit for bit
+
+textr = importlib.import_module("torchmetrics_tpu_torch.functional.clustering.extrinsic")
+
+
+def _identical(n, permuted=False):
+    labels = np.arange(n)
+    other = np.random.default_rng(n).permutation(n) if permuted else labels
+    return labels, other
+
+
+@pytest.mark.parametrize(("n", "permuted"), [(2, False), (40, False), (200, False), (1000, False), (40, True)],
+                         ids=["2", "40", "200", "1000", "40-permuted"])
+def test_identical_labelings_mi_equals_entropy_bitwise(n, permuted):
+    """MI sums only the contingency's non-zero cells, in row-major order, as the entropies sum only the non-zero
+    counts (XLA's sums of JAX's masked terms round so): identical labelings give MI == H exactly."""
+    preds, target = _identical(n, permuted)
+    contingency = tutils.calculate_contingency_matrix(torch.tensor(preds), torch.tensor(target))
+    mi = textr._mutual_info_from_contingency(contingency)
+    assert torch.equal(mi, tutils._entropy_from_counts(contingency.sum(0)))
+    assert torch.equal(mi, tutils._entropy_from_counts(contingency.sum(1)))
+
+
+@pytest.mark.parametrize(("n", "permuted"), [(40, False), (200, False), (1000, False), (40, True)],
+                         ids=["40", "200", "1000", "40-permuted"])
+def test_ami_of_identical_labelings_is_one(n, permuted):
+    """AMI is exactly 1 where MI == H and H - E[MI] clears the float32 epsilon; JAX gives 1 at arange(n) too
+    (at the permuted relabelling its own sums give 1.0052: not held)."""
+    preds, target = _identical(n, permuted)
+    got = tfc.adjusted_mutual_info_score(torch.tensor(preds), torch.tensor(target))
+    assert float(got) == 1.0
+    if not permuted:
+        assert float(jfc.adjusted_mutual_info_score(jnp.asarray(preds), jnp.asarray(target))) == 1.0

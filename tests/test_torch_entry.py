@@ -279,7 +279,7 @@ SIGNAL_SLICE = ("retrieval", "retrieval.base", "retrieval.metrics", "functional.
                 "functional.image.ssim", "functional.image.spectral", "functional.image.tv", "kernels.ssim")
 KERNEL_SITES = {"calibration": "classification", "ranking": "classification", "binned_multilabel": "classification",
                 "retrieval": "retrieval", "ssim": "image", "segmentation": "segmentation", "pairwise": "pairwise",
-                "snr_moments": "audio", "sdr_toeplitz": "audio"}
+                "snr_moments": "audio", "sdr_toeplitz": "audio", "perplexity": "text", "bert_match": "text"}
 CONTINGENCY_SLICE = tuple(f"{pkg}.{m}" for pkg, mods in (
     ("segmentation", ("mean_iou", "generalized_dice")), ("functional.segmentation", ("mean_iou", "generalized_dice")),
     ("clustering", ("extrinsic", "intrinsic")), ("functional.clustering", ("extrinsic", "intrinsic", "utils")),
@@ -287,6 +287,10 @@ CONTINGENCY_SLICE = tuple(f"{pkg}.{m}" for pkg, mods in (
     ("functional.pairwise", ("pairwise",)), ("kernels", ("segmentation", "pairwise"))) for m in mods)
 AUDIO_SLICE = ("audio", "audio.metrics", "functional.audio", "kernels.snr_moments", "kernels.sdr_toeplitz",
                *(f"functional.audio.{m}" for m in ("snr", "sdr", "pit", "pesq", "stoi", "srmr")))
+TEXT_MODULES = ("asr", "bert", "bleu", "chrf", "eed", "infolm", "perplexity", "squad", "ter")
+TEXT_SLICE = ("text", "functional.text", "functional.text.helper", "functional.text.sacre_bleu", "text.distinct",
+              "kernels.perplexity", "kernels.bert_match", "utilities.imports",
+              *(f"{pkg}.{m}" for m in TEXT_MODULES for pkg in ("text", "functional.text")))
 
 
 def test_isolation_covers_every_new_module():
@@ -297,12 +301,12 @@ def test_isolation_covers_every_new_module():
                  "regression.distribution", "utilities.enums", "utilities.checks", "utilities.formatting",
                  "kernels.calibration", "kernels.ranking", "kernels.binned_multilabel",
                  *(f"{pkg}.{m}" for m in REST_OF_CLASSIFICATION for pkg in ("classification", "functional.classification")),
-                 *SIGNAL_SLICE, *CONTINGENCY_SLICE, *AUDIO_SLICE):
+                 *SIGNAL_SLICE, *CONTINGENCY_SLICE, *AUDIO_SLICE, *TEXT_SLICE):
         assert f"torchmetrics_tpu_torch.{name}" in modules
 
 
 @pytest.mark.parametrize("source", ["calibration", "ranking", "binned_multilabel", "retrieval", "ssim", "segmentation",
-                                    "pairwise", "snr_moments", "sdr_toeplitz"])
+                                    "pairwise", "snr_moments", "sdr_toeplitz", "perplexity", "bert_match"])
 def test_kernel_sources_are_plain_cuda_with_a_c_interface(source):
     """The kernels build with nvcc alone and bind through ctypes: no PyTorch, JAX or Python headers (the CUDA
     toolkit's own, cooperative groups' thread-block clusters among them, and two C++ ones)."""
@@ -341,3 +345,26 @@ def test_port_doctests(module):
 def test_top_level_exports():
     assert torchmetrics_tpu_torch.MulticlassAUROC is tc.MulticlassAUROC
     assert set(torchmetrics_tpu_torch.__all__) <= set(dir(torchmetrics_tpu_torch))
+
+
+@pytest.mark.parametrize("dst", ["float16", "bfloat16"])
+def test_set_dtype_parity(dst):
+    """``Metric.dtype``/``set_dtype`` as in JAX: the float leaves and defaults cast, the integer ones kept."""
+    jm = jc.MulticlassAUROC(num_classes=C, thresholds=None).set_dtype(jnp.dtype(dst))
+    tm = tc.MulticlassAUROC(num_classes=C, thresholds=None, device="cpu")
+    assert tm.dtype == torch.float32
+    assert tm.set_dtype(dst) is tm and tm.dtype == getattr(torch, dst) and str(jm.dtype) == dst
+    preds, target = _inputs("auroc", 7)
+    jm.update(jnp.asarray(preds), jnp.asarray(target))
+    tm.update(torch.tensor(preds), torch.tensor(target))
+    reg_j, reg_t = jreg.MeanSquaredError(), treg.MeanSquaredError(device="cpu")
+    reg_j.set_dtype(jnp.dtype(dst))
+    reg_t.set_dtype(getattr(torch, dst))
+    for m_t, m_j in ((tm, jm), (reg_t, reg_j)):
+        for name, want in m_j.metric_state.items():
+            got = m_t.metric_state[name]
+            for g, w in zip(got if isinstance(got, tuple) else [got], want if isinstance(want, tuple) else [want]):
+                assert str(g.dtype).split(".")[-1] == str(np.asarray(w).dtype).replace("V2", ""), name
+        for name, default in m_j._defaults.items():
+            if not isinstance(default, tuple):
+                assert str(m_t._defaults[name].dtype).split(".")[-1] == str(default.dtype), name

@@ -13,8 +13,11 @@ import re
 from pathlib import Path
 
 import pytest
+import torch
 
+from torchmetrics_tpu_torch.kernels import bert_match as kbm
 from torchmetrics_tpu_torch.kernels import pairwise as kpw
+from torchmetrics_tpu_torch.kernels import perplexity as kppl
 from torchmetrics_tpu_torch.kernels import retrieval as krt
 from torchmetrics_tpu_torch.kernels import sdr_toeplitz as ksdr
 from torchmetrics_tpu_torch.kernels import snr_moments as ksnr
@@ -126,6 +129,63 @@ def test_sdr_toeplitz_shared_memory_fits_a_block():
     for length in (1, 33, 512, 1024, 1025, 4096, 4097, ksdr.MAX_LENGTH):
         entries, threads = ksdr.plan(length)
         assert threads % 32 == 0 and entries * threads >= length and threads <= (1024 if entries <= 2 else 512)
+
+
+@pytest.mark.parametrize(("module", "python", "kernel"), [
+    (kppl, "THREADS", "kBlockThreads"), (kppl, "WARP_ROW_MAX", "kWarpRowMax"), (kppl, "UNROLL", "kUnroll"),
+    (kbm, "TILE", "kTile"), (kbm, "THREADS", "kThreads"),
+], ids=lambda v: v if isinstance(v, str) else v.SOURCE)
+def test_text_constants_are_the_kernels(module, python, kernel):
+    assert getattr(module, python) == _constant(_source(module.SOURCE), kernel)
+
+
+def test_perplexity_source_matches_its_launcher():
+    src = _source("perplexity")
+    # the launcher's dtype and target codes are the entry's switch and loads
+    assert kppl.KINDS == {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+    for kind in (0, 1, 2):
+        assert f"case {kind}: return launch<{kind}>(" in src
+    assert kppl.TARGET_KINDS == {torch.int32: 0, torch.int64: 1} and "target_kind == 0 ?" in src
+    # the plan: a block a row past kWarpRowMax, else a warp a row and kBlockThreads / 32 rows a block
+    assert "if (v > kWarpRowMax) {" in src and "perplexity_nll_kernel<Kind, kBlockThreads>" in src
+    assert "perplexity_nll_kernel<Kind, 32>" in src
+    # the last block sets its ticket back to zero (``_build.zero_tickets`` zeroes it once)
+    assert "*ticket = 0;" in src and "atomicAdd(ticket, 1)" in src
+
+
+def test_bert_match_source_matches_its_launcher():
+    src = _source("bert_match")
+    # a thread's 4 x 4 sums over a 16 x 16 grid of threads: the tile's side
+    assert _constant(src, "kMicro") * 16 == kbm.TILE and 16 * 16 == kbm.THREADS
+    # Tp + Tt floats twice in dynamic shared memory, opted in past the default 48 KB
+    assert "2 * (tp + tt)" in src and "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+    static = (2 * kbm.TILE * (_constant(src, "kChunk") + 1) + kbm.THREADS // 32) * 4
+    assert 2 * kbm.MAX_TOKENS * 4 + static <= 227 * 1024
+
+
+LIBRARY_CALLS = ("cublas", "cudnn", "cutlass", "torch", "at::", "thrust", "cub::", "matmul", "cross_entropy", "gemm",
+                 "scaled_dot_product")
+
+
+@pytest.mark.parametrize("source", ["perplexity", "bert_match"])
+def test_text_kernels_call_no_library(source):
+    """The kernels' bodies are written out: no library's product, cross entropy or attention inside."""
+    code = "\n".join(line.split("//")[0] for line in _source(source).splitlines())  # the comments name what it replaces
+    assert not [name for name in LIBRARY_CALLS if name in code.lower()]
+
+
+@pytest.mark.parametrize("module", [kppl, kbm], ids=lambda m: m.SOURCE)
+def test_text_launchers_do_not_fall_back(module):
+    """A CUDA tensor launches the kernel or raises: the launcher holds no ``try`` and never calls the plain version."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(module))
+    assert not [node for node in ast.walk(tree) if isinstance(node, ast.Try)]
+    public = next(node for node in tree.body if isinstance(node, ast.FunctionDef) and node.name == module.__name__
+                  .split(".")[-1].replace("bert_match", "bert_greedy_match").replace("perplexity", "perplexity_nll"))
+    calls = {node.func.id for node in ast.walk(public) if isinstance(node, ast.Call) and isinstance(node.func, ast.Name)}
+    assert not [c for c in calls if c.endswith("_plain")]
 
 
 _ABLATION = _ablation()

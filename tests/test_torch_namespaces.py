@@ -121,3 +121,31 @@ def test_functional_exports_named_in_the_acceptance():
     assert {tm.MeanAveragePrecision.__name__, tm.ROUGEScore.__name__, tm.Reduce.__name__} == {
         "MeanAveragePrecision", "ROUGEScore", "Reduce"}
     assert (core.Metric, core.CompositionalMetric, core.Reduce) == (tm.Metric, tm.CompositionalMetric, tm.Reduce)
+
+
+TEXT_FUNCTIONS = ("bert_score", "bleu_score", "char_error_rate", "chrf_score", "edit_distance",
+                  "extended_edit_distance", "infolm", "match_error_rate", "perplexity", "rouge_score",
+                  "sacre_bleu_score", "squad", "translation_edit_rate", "word_error_rate", "word_information_lost",
+                  "word_information_preserved")
+TEXT_CLASSES = ("BERTScore", "BLEUScore", "CharErrorRate", "CHRFScore", "DistinctNGrams", "EditDistance",
+                "ExtendedEditDistance", "InfoLM", "MatchErrorRate", "Perplexity", "ROUGEScore", "SacreBLEUScore",
+                "SQuAD", "TranslationEditRate", "WordErrorRate", "WordInfoLost", "WordInfoPreserved")
+
+
+@pytest.mark.parametrize("kind", ["functions", "classes"])
+def test_text_slice_is_exported_everywhere(kind):
+    """Every text name of the JAX package, from the domain namespace and the top level, in both packages."""
+    import torchmetrics_tpu_torch as tm
+    import torchmetrics_tpu_torch.functional as F
+    import torchmetrics_tpu_torch.functional.text as FT
+    import torchmetrics_tpu_torch.text as T
+
+    names, spaces = (TEXT_FUNCTIONS, (F, FT)) if kind == "functions" else (TEXT_CLASSES, (tm, T))
+    jax_spaces = [importlib.import_module(s.__name__.replace("torchmetrics_tpu_torch", "torchmetrics_tpu"))
+                  for s in spaces]
+    for name in names:
+        for space, jax_space in zip(spaces, jax_spaces):
+            # the top levels leave DistinctNGrams to ``text``, in both packages
+            assert (name in space.__all__) == hasattr(jax_space, name), (space.__name__, name)
+            if hasattr(jax_space, name):
+                assert getattr(space, name).__name__ == getattr(jax_space, name).__name__

@@ -18,8 +18,14 @@ and MS-SSIM's sums or cat lists (with the full maps or contrast
 sensitivities), the spectral metrics' cat lists (D-s and QNR with ``ms``,
 ``pan`` and ``pan_lr``), VIF's sums and total variation's sums or score
 list, the segmentation scores' float32 sums and sample counts, nominal
-association's float32 ``(C, C)`` table, ``FleissKappa``'s int32 count list
-and the clustering metrics' cat lists of labels, or of data and labels.
+association's float32 ``(C, C)`` table, ``FleissKappa``'s int32 count list,
+the clustering metrics' cat lists of labels, or of data and labels, and the
+text metrics' states: the error rates' float32 sums (``EditDistance``'s int32
+sums or distance list), BLEU's and SacreBLEU's numerator, denominator and
+lengths, chrF's count arrays and sentence list, EED's sentence list, TER's and
+SQuAD's sums, Perplexity's ``total_log_probs`` and ``count``, BERTScore's
+four cat lists of int32 ids and masks, InfoLM's score list and
+``DistinctNGrams``' n-gram rows and total.
 :func:`collection_states_from_jax` does it for every member state of a
 ``MetricCollection`` (``{leader name: state}``).
 """

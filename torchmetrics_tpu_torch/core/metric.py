@@ -451,6 +451,30 @@ class Metric:
         self._forward_cache = None
         return self
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The float type of the state: float32 unless :meth:`set_dtype` changed it."""
+        return self.__dict__.get("_dtype") or torch.float32
+
+    def set_dtype(self, dst_type: Any) -> "Metric":
+        """Cast the float state leaves and their defaults to ``dst_type`` (a torch dtype, or a name or numpy
+        dtype such as ``"float16"``); integer leaves and the ``_n`` counter stay."""
+        dst = dst_type if isinstance(dst_type, torch.dtype) else getattr(torch, str(np.dtype(dst_type)), None)
+        if not isinstance(dst, torch.dtype):
+            raise TypeError(f"set_dtype takes a torch dtype or the name of one, got {dst_type!r}")
+        self._dtype = dst
+
+        def cast(x: Any) -> Any:
+            if isinstance(x, tuple):
+                return tuple(cast(xi) for xi in x)
+            return x.to(dst) if isinstance(x, Tensor) and x.is_floating_point() else x
+
+        self._state = {k: cast(v) for k, v in self._state.items()}
+        self._defaults = {k: cast(v) for k, v in self._defaults.items()}
+        self._computed = None
+        self._forward_cache = None
+        return self
+
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}()"
 

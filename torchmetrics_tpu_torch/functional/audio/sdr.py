@@ -5,9 +5,10 @@ the FFT autocorrelation ``r_0`` and cross-correlation ``b`` stay
 ``torch.fft`` (cuFFT on the card), as JAX leaves them to XLA; the symmetric
 Toeplitz system ``toeplitz(r_0) x = b``, the coherence ``b . x`` and the log
 ratio are one launch of the ``sdr_toeplitz`` CUDA kernel on the card
-(``kernels/sdr_toeplitz.py``: Levinson in float64, no matrix); the CPU, and an
-input that requires grad, take its plain version, JAX's float32 build and
-``solve``. ``use_cg_iter`` is accepted and ignored, as in JAX.
+(``kernels/sdr_toeplitz.py``: a Schur-type recursion in float64, no matrix);
+the CPU, and an input that requires grad, take its plain version, JAX's
+float32 build and ``solve`` (a silent target row gives NaN there, as in
+JAX). An empty batch returns an empty result before any FFT. ``use_cg_iter`` is accepted and ignored, as in JAX.
 
 SI-SDR and SA-SDR are one launch of the ``snr_moments`` kernel
 (``functional.audio.snr._ratio_db``).
@@ -67,6 +68,8 @@ def signal_distortion_ratio(
     """SDR in float32, over the last axis."""
     preds, target = (x.to(torch.float32) for x in _as_signals(preds, target))
     _check_same_shape(preds, target)
+    if math.prod(preds.shape[:-1]) == 0:  # no rows: the FFTs refuse an empty batch
+        return torch.empty(preds.shape[:-1], dtype=torch.float32, device=preds.device)
     if zero_mean:
         preds = preds - preds.mean(dim=-1, keepdim=True)
         target = target - target.mean(dim=-1, keepdim=True)

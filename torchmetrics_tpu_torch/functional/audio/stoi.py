@@ -201,6 +201,8 @@ def short_time_objective_intelligibility(
             f"{tuple(target.shape)}."
         )
     shape = preds.shape
+    if len(shape) > 1 and math.prod(shape[:-1]) == 0:  # no signals: nothing to stack
+        return torch.empty(shape[:-1], dtype=torch.float32, device=device)
     flat_p = _resample(preds.reshape(-1, shape[-1]), fs, FS)
     flat_t = _resample(target.reshape(-1, shape[-1]), fs, FS)
     vals = [_stoi_single(t, p, extended) for p, t in zip(flat_p, flat_t)]

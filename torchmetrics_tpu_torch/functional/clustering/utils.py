@@ -91,8 +91,9 @@ def calculate_entropy(labels: Tensor) -> Tensor:
 def _entropy_from_counts(counts: Tensor) -> Tensor:
     n = counts.sum()
     p = counts / n.clamp_min(1)
-    safe = torch.where(counts > 0, p, torch.ones_like(p))
-    return -torch.where(counts > 0, p * torch.log(safe), torch.zeros_like(p)).sum()
+    nz = counts > 0
+    # over the non-zero counts alone, as ``_mutual_info_from_contingency`` sums its non-zero cells
+    return -(p * torch.log(torch.where(nz, p, torch.ones_like(p))))[nz].sum()
 
 
 def calculate_generalized_mean(x: Tensor, p: Union[int, float, str]) -> Tensor:

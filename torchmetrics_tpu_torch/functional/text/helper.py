@@ -1,9 +1,9 @@
-"""Text helpers: n-gram counting and longest common subsequences.
+"""Text helpers: edit distances, n-gram counting and longest common subsequences.
 
 Counterpart of ``torchmetrics_tpu/functional/text/helper.py``, copied: the
 functions are pure Python and numpy. Strings never reach the device;
-tokenization and the LCS tables run on the host, and only the per-sample
-scores become metric state.
+tokenization, the edit-distance and LCS tables run on the host, and only the
+per-sample statistics become metric state.
 """
 
 from __future__ import annotations
@@ -12,6 +12,48 @@ from collections import Counter
 from typing import Sequence
 
 import numpy as np
+
+
+def _edit_distance(a: Sequence, b: Sequence, substitution_cost: int = 1) -> int:
+    """Levenshtein distance between two token sequences.
+
+    Row recurrence vectorized: cur[j] = min(prev[j]+1, prev[j-1]+sub, cur[j-1]+1);
+    the cur[j-1]+1 chain is a prefix-min of (candidate - j), done with one
+    ``np.minimum.accumulate`` per row.
+    """
+    m, n = len(a), len(b)
+    if m == 0:
+        return n
+    if n == 0:
+        return m
+    b_arr = np.asarray(list(b), dtype=object)
+    ar = np.arange(n + 1, dtype=np.float64)
+    prev = ar.copy()
+    c = np.empty(n + 1, dtype=np.float64)
+    for i, ai in enumerate(a, 1):
+        c[0] = i
+        c[1:] = np.minimum(prev[1:] + 1.0, prev[:-1] + substitution_cost * (b_arr != ai))
+        prev = np.minimum.accumulate(c - ar) + ar
+    return int(prev[-1])
+
+
+def _edit_distance_matrix(a: Sequence, b: Sequence) -> np.ndarray:
+    """Full (m+1, n+1) Levenshtein DP table (needed by TER's shift search)."""
+    m, n = len(a), len(b)
+    d = np.zeros((m + 1, n + 1), dtype=np.float64)
+    d[:, 0] = np.arange(m + 1)
+    d[0, :] = np.arange(n + 1)
+    if m == 0 or n == 0:
+        return d
+    b_arr = np.asarray(list(b), dtype=object)
+    ar = np.arange(n + 1, dtype=np.float64)
+    c = np.empty(n + 1, dtype=np.float64)
+    for i, ai in enumerate(a, 1):
+        prev = d[i - 1]
+        c[0] = i
+        c[1:] = np.minimum(prev[1:] + 1.0, prev[:-1] + (b_arr != ai))
+        d[i] = np.minimum.accumulate(c - ar) + ar
+    return d
 
 
 def _count_ngram(tokens: Sequence[str], n_gram: int) -> Counter:

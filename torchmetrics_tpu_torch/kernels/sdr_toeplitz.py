@@ -7,7 +7,7 @@
 system with one barrier a step, no matrix. It counts its launches in
 ``sdr_toeplitz.launches`` and takes CUDA tensors only. :func:`_sdr_toeplitz_plain` is the JAX package's form in plain
 PyTorch: the ``(R, L, L)`` Toeplitz matrix, ``torch.linalg.solve`` in the
-inputs' dtype, the coherence and the log ratio. The dispatch by device, dtype
+inputs' dtype (``solve_ex``: a singular system gives NaN in its row), the coherence and the log ratio. The dispatch by device, dtype
 and grad is ``functional.audio.sdr._sdr_from_correlations``.
 
 :func:`plan` is the launcher's block shape, kept in Python so that the CPU
@@ -25,7 +25,7 @@ from torch import Tensor
 from torchmetrics_tpu_torch.kernels._build import cdiv, launch_on, load_library
 
 SOURCE = "sdr_toeplitz"
-MAX_LENGTH = 8192  # kMaxLength: 16 L bytes of shared memory a system (f and x in float64)
+MAX_LENGTH = 8192  # kMaxLength: up to 16 slots of (f, g, x) or (F, G, -R) in registers a thread of 512
 MAX_ROWS = 2**31 - 1  # systems along grid.x
 MAX_THREADS = 1024  # kMaxThreads: a block's threads at up to 2 slots a thread, half that above
 MIN_ENTRIES = 4  # kMinEntries: slots a thread, at least
@@ -63,7 +63,9 @@ def _symmetric_toeplitz(vector: Tensor) -> Tensor:
 
 def _sdr_toeplitz_plain(r_0: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch :func:`sdr_toeplitz`: JAX's build, ``solve`` and coherence, in the inputs' dtype."""
-    sol = torch.linalg.solve(_symmetric_toeplitz(r_0), b[..., None])[..., 0]
+    # a singular system (a silent target: r_0 all zero) gives NaN in its row, as jnp.linalg.solve does
+    sol, info = torch.linalg.solve_ex(_symmetric_toeplitz(r_0), b[..., None])
+    sol = torch.where(info[..., None] == 0, sol[..., 0], torch.nan)
     coh = torch.einsum("...l,...l->...", b, sol)
     return 10.0 * torch.log10(coh / (1 - coh)), sol
 
