@@ -60,6 +60,9 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   return total;
 }
 
+// JAX's max: a NaN on either side wins (fmaxf returns the other operand)
+__device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a != a) ? a : b; }
+
 // each row's 1 / max(||x||, 1e-12), a warp a row
 __device__ void inverse_norms(const float* __restrict__ x, int rows, int h, float* out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -149,14 +152,14 @@ __global__ void __launch_bounds__(kThreads) bert_greedy_match_kernel(
         const int i = i0 + threadIdx.x;
         if (i < tp) {
           float m = row_max[i];
-          for (int c = 0; c < kTile; ++c) m = fmaxf(m, tile[threadIdx.x * (kTile + 1) + c]);
+          for (int c = 0; c < kTile; ++c) m = nan_max(m, tile[threadIdx.x * (kTile + 1) + c]);
           row_max[i] = m;
         }
       } else if (threadIdx.x < 2 * kTile) {  // a column's over the tile's rows
         const int c = threadIdx.x - kTile, j = j0 + c;
         if (j < tt) {
           float m = col_max[j];
-          for (int r = 0; r < kTile; ++r) m = fmaxf(m, tile[r * (kTile + 1) + c]);
+          for (int r = 0; r < kTile; ++r) m = nan_max(m, tile[r * (kTile + 1) + c]);
           col_max[j] = m;
         }
       }
