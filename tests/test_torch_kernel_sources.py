@@ -133,7 +133,7 @@ def test_sdr_toeplitz_shared_memory_fits_a_block():
 
 @pytest.mark.parametrize(("module", "python", "kernel"), [
     (kppl, "THREADS", "kBlockThreads"), (kppl, "WARP_ROW_MAX", "kWarpRowMax"), (kppl, "UNROLL", "kUnroll"),
-    (kbm, "TILE", "kTile"), (kbm, "THREADS", "kThreads"),
+    (kbm, "BLOCK", "kBlock"), (kbm, "CHUNK", "kChunk"), (kbm, "STAGES", "kStages"), (kbm, "THREADS", "kThreads"),
 ], ids=lambda v: v if isinstance(v, str) else v.SOURCE)
 def test_text_constants_are_the_kernels(module, python, kernel):
     assert getattr(module, python) == _constant(_source(module.SOURCE), kernel)
@@ -155,12 +155,23 @@ def test_perplexity_source_matches_its_launcher():
 
 def test_bert_match_source_matches_its_launcher():
     src = _source("bert_match")
-    # a thread's 4 x 4 sums over a 16 x 16 grid of threads: the tile's side
-    assert _constant(src, "kMicro") * 16 == kbm.TILE and 16 * 16 == kbm.THREADS
-    # Tp + Tt floats twice in dynamic shared memory, opted in past the default 48 KB
-    assert "2 * (tp + tt)" in src and "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
-    static = (2 * kbm.TILE * (_constant(src, "kChunk") + 1) + kbm.THREADS // 32) * 4
-    assert 2 * kbm.MAX_TOKENS * 4 + static <= 227 * 1024
+    # the alignment's slack, the stages and the lo parts, then 6 bytes a token of Tp + Tt in dynamic shared memory,
+    # opted in past the default 48 KB; the pass's norms and masks and the reductions' scratch are static
+    assert "static_cast<size_t>(6) * (tp + tt)" in src and "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+    static = 4 * kbm.BLOCK * 4 + 2 * (kbm.THREADS // 32) * 4 + (kbm.THREADS // 32) * 16
+    dynamic = 32 * kbm.CHUNK + (kbm.STAGES + 2) * 2 * kbm.BLOCK * kbm.CHUNK * 4  # the swizzle atom: 8 rows
+    assert "kAlign + static_cast<size_t>((kStages + 2) * kStageFloats) * sizeof(float)" in src
+    assert dynamic + 6 * kbm.MAX_TOKENS + static <= 227 * 1024
+    # the products on the tensor cores (wgmma, TF32 operands, one instance a width N) in three passes, each
+    # operand split by cvt.rna's rounding (0x1000 added to the bits, the low 13 cleared) as the tests' model does
+    for n in (32, 64, 96, 128):
+        assert src.count(f"wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32 ") == 1
+        assert f"pass<{n}>(s, sh)" in src
+    assert src.count("+ 0x1000u) & 0xffffe000u;") == 2
+    for product in ("al, bh", "ah, bl", "ah, bh"):
+        assert src.count(f"Wgmma<N>::run(acc, {product});") == 1
+    # the maxima keep a NaN: no fmaxf among them
+    assert "nan_max(" in src and "fmaxf(m" not in src
 
 
 LIBRARY_CALLS = ("cublas", "cudnn", "cutlass", "torch", "at::", "thrust", "cub::", "matmul", "cross_entropy", "gemm",
@@ -197,6 +208,7 @@ _BUILDS += [("pairwise", "PAIRWISE_VARIANTS", name, edits)
             for name, (edits, _) in _ABLATION.PAIRWISE_VARIANTS.items()]
 _BUILDS += [("sdr_toeplitz", "SDR_VARIANTS", name, edits) for name, edits in _ABLATION.SDR_VARIANTS.items()]
 _BUILDS += [("snr_moments", "SNR_VARIANTS", name, edits) for name, (edits, _) in _ABLATION.SNR_VARIANTS.items()]
+_BUILDS += [("bert_match", "BERT_VARIANTS", name, edits) for name, (edits, _) in _ABLATION.BERT_VARIANTS.items()]
 
 
 @pytest.mark.parametrize(("source", "table", "name", "edits"), _BUILDS,

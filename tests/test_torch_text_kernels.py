@@ -10,11 +10,17 @@ card (``chip_smoke.py`` holds them against their plain versions there). Here:
   vectors in groups of ``UNROLL``, the tail; the online maximum and sum with
   its rules for NaN and +-inf; the warp's shuffle tree and the block's merge)
   against the plain version, within 1e-5 relative, NaN where it is NaN;
-- a model of ``bert_greedy_match``'s tiles (64 x 64, an invalid entry 0, an
-  entry past the edge left out, a tile without a valid pair skipped, running
-  row and column maxima) against the
-  plain version within 1e-6 absolute, and JAX's rule that a row of negative
-  valid similarities floors at 0 only where its axis has an invalid entry;
+- a float32 numpy model of ``bert_greedy_match``'s algorithm (each side's
+  tokens with a mask above 0 listed, an invalid entry outside the lists
+  flooring the other side's maxima at 0, rows zero-padded to chunks of 32,
+  sums of squares in order of k, each operand split into hi = tf32(x) and lo
+  = tf32(x - hi) with ``cvt.rna.tf32.f32`` modelled bit for bit, the products
+  lo.hi, hi.lo and hi.hi of each step of 8 added to float32 accumulators,
+  NaN-propagating maxima) against JAX within 1e-5 absolute, also on
+  embeddings shaped like a real encoder's (a shared direction and four
+  outlier dimensions at 40x) where a single TF32 pass misses 1e-5, NaN where
+  JAX is NaN; and JAX's rule that a row of negative valid similarities floors
+  at 0 only where its axis has an invalid entry;
 - the backward of ``perplexity_nll`` (``_nll_grad``) against autograd of the
   plain version and JAX's gradient;
 - every launcher check raises before anything is built, and a CPU tensor never
@@ -247,33 +253,72 @@ def _pairs(seed, b, tp, tt, h, masked=0.25):
     return pe, pm, te, tm
 
 
-def _tile_model(pe, pm, te, tm, pw=None, tw=None):
-    """The kernel's fold: 64 x 64 tiles of cosine similarities (0 where invalid, left out past the edges) into
-    running row and column maxima, then the weighted means."""
-    b, tp, _ = pe.shape
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: round to the nearest TF32 (10 mantissa bits), ties away from zero: add 0x1000 to the
+    float's bits, then clear the low 13."""
+    bits = np.asarray(x, F32).view(np.uint32).astype(np.uint64)
+    return ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(F32)
+
+
+def _bert_model(pe, pm, te, tm, pw=None, tw=None, passes=3):
+    """The kernel's algorithm in float32. Its passes over blocks of ``kbm.BLOCK`` listed rows a side compute each
+    entry as one pass does, so the model takes every listed row at once; ``passes=1`` keeps hi.hi alone (a single
+    TF32 product)."""
+    b, tp, h = pe.shape
     tt_ = te.shape[1]
-    inv_p = 1.0 / np.maximum(np.linalg.norm(pe, axis=-1), 1e-12)
-    inv_t = 1.0 / np.maximum(np.linalg.norm(te, axis=-1), 1e-12)
+    width = h + (-h) % kbm.CHUNK  # H zero-filled to whole chunks
     out = np.zeros((3, b), F32)
-    for k in range(b):
-        row_max, col_max = np.full(tp, -np.inf), np.full(tt_, -np.inf)
-        for i0 in range(0, tp, kbm.TILE):
-            for j0 in range(0, tt_, kbm.TILE):
-                tile = np.full((kbm.TILE, kbm.TILE), -np.inf)
-                i1, j1 = min(i0 + kbm.TILE, tp), min(j0 + kbm.TILE, tt_)
-                valid = pm[k, i0:i1, None] * tm[k, None, j0:j1] > 0
-                dots = np.zeros(valid.shape, F32)  # a tile with no valid pair skips its dot products
-                if valid.any():
-                    dots = pe[k, i0:i1] @ te[k, j0:j1].T * inv_p[k, i0:i1, None] * inv_t[k, None, j0:j1]
-                tile[:i1 - i0, :j1 - j0] = np.where(valid, dots, 0.0)
-                row_max[i0:i1] = np.maximum(row_max[i0:i1], tile[:i1 - i0].max(1))
-                col_max[j0:j1] = np.maximum(col_max[j0:j1], tile[:, :j1 - j0].max(0))
-        wp = pm[k] if pw is None else pw[k] * pm[k]
-        wt = tm[k] if tw is None else tw[k] * tm[k]
-        p = (np.where(pm[k] > 0, row_max, 0) * wp).sum() / max(wp.sum(), 1e-12)
-        r = (np.where(tm[k] > 0, col_max, 0) * wt).sum() / max(wt.sum(), 1e-12)
-        out[:, k] = p, r, 2 * p * r / max(p + r, 1e-12)
+    with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
+        for k in range(b):
+            ip, it = np.flatnonzero(pm[k] > 0), np.flatnonzero(tm[k] > 0)  # the lists
+            x = np.zeros((len(ip), width), F32)
+            y = np.zeros((len(it), width), F32)
+            x[:, :h], y[:, :h] = pe[k, ip], te[k, it]
+            ss_x, ss_y = np.zeros(len(ip), F32), np.zeros(len(it), F32)
+            for c in range(width):  # fmaf in order of k: the product is exact in float64, one rounding
+                ss_x = (x[:, c].astype(np.float64) ** 2 + ss_x).astype(F32)
+                ss_y = (y[:, c].astype(np.float64) ** 2 + ss_y).astype(F32)
+            x_hi, y_hi = _tf32(x), _tf32(y)
+            x_lo, y_lo = _tf32(x - x_hi), _tf32(y - y_hi)
+            terms = [(x_lo, y_hi), (x_hi, y_lo), (x_hi, y_hi)][3 - passes:]
+            acc = np.zeros((len(ip), len(it)), F32)
+            for k0 in range(0, width, 8):  # an mma a step of 8, each added to the float32 accumulator
+                for a, c in terms:
+                    acc = (acc + a[:, k0:k0 + 8].astype(np.float64) @ c[:, k0:k0 + 8].T.astype(np.float64)).astype(F32)
+            inv_x = (1 / np.maximum(np.sqrt(ss_x), F32(1e-12))).astype(F32)
+            inv_y = (1 / np.maximum(np.sqrt(ss_y), F32(1e-12))).astype(F32)
+            sim = np.where(pm[k, ip][:, None] * tm[k, it][None, :] > 0, acc * inv_x[:, None] * inv_y[None, :], F32(0))
+            # an entry outside a list is invalid, 0: it floors the other side's maxima; np.maximum keeps a NaN
+            row_max = np.full(tp, 0.0 if len(it) < tt_ else -np.inf, F32)
+            col_max = np.full(tt_, 0.0 if len(ip) < tp else -np.inf, F32)
+            if sim.size:
+                row_max[ip] = np.maximum(row_max[ip], sim.max(1))
+                col_max[it] = np.maximum(col_max[it], sim.max(0))
+            wp = pm[k] if pw is None else pw[k] * pm[k]
+            wt = tm[k] if tw is None else tw[k] * tm[k]
+            p = (np.where(pm[k] > 0, row_max, 0) * wp).sum() / max(wp.sum(), 1e-12)
+            r = (np.where(tm[k] > 0, col_max, 0) * wt).sum() / max(wt.sum(), 1e-12)
+            out[:, k] = p, r, 2 * p * r / max(p + r, 1e-12)
     return out
+
+
+def _encoder_like(seed, b, t, h, outliers=4, scale=40.0):
+    """Embeddings shaped like a trained encoder's: a direction shared by every token (mean cosine about 0.24) and
+    a few outlier dimensions ``scale`` times the others, with seeded lengths of 10 to ``t`` tokens."""
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal(h)
+    u *= 0.8 * np.sqrt(h) / np.linalg.norm(u)
+    dims = rng.choice(h, outliers, replace=False)
+
+    def side():
+        x = rng.standard_normal((b, t, h)) + u
+        x[..., dims] *= scale
+        return x.astype(F32)
+
+    pe, te = side(), side()
+    pm = (np.arange(t) < rng.integers(10, t + 1, (b, 1))).astype(F32)
+    tm = (np.arange(t) < rng.integers(10, t + 1, (b, 1))).astype(F32)
+    return pe, pm, te, tm
 
 
 def _plain(pe, pm, te, tm, pw=None, tw=None):
@@ -296,7 +341,7 @@ def test_bert_plain_and_tile_model_against_jax(b, tp, tt, h, idf):
     pw, tw = ((rng.random((b, tp)).astype(F32), rng.random((b, tt)).astype(F32)) if idf else (None, None))
     want = _jax(pe, pm, te, tm, pw, tw)
     _close(_plain(pe, pm, te, tm, pw, tw), want, (1e-5, 1e-6))
-    _close(_tile_model(pe, pm, te, tm, pw, tw), want, (0.0, 1e-5))
+    _close(_bert_model(pe, pm, te, tm, pw, tw), want, (0.0, 1e-5))
 
 
 def test_bert_negative_rows_floor_at_zero_only_beside_an_invalid_entry():
@@ -309,7 +354,7 @@ def test_bert_negative_rows_floor_at_zero_only_beside_an_invalid_entry():
     pm = np.ones((2, 1), F32)
     tm = np.ones((2, 3), F32)
     tm[1, 2] = 0.0  # pair 1: one invalid target token
-    for fn in (_jax, _plain, _tile_model):
+    for fn in (_jax, _plain, _bert_model):
         p = fn(pe, pm, te, tm)[0]
         assert p[0] < 0 and p[1] == 0.0, (fn.__name__, p)
     _close(_plain(pe, pm, te, tm), _jax(pe, pm, te, tm), (1e-5, 1e-6))
@@ -323,8 +368,60 @@ def test_bert_masked_rows_and_zero_norms():
     te[2, 4] = 0.0
     want = _jax(pe, pm, te, tm)
     _close(_plain(pe, pm, te, tm), want, (1e-5, 1e-6))
-    _close(_tile_model(pe, pm, te, tm), want, (0.0, 1e-5))
+    _close(_bert_model(pe, pm, te, tm), want, (0.0, 1e-5))
     assert want[0, 0] == 0.0 and want[1, 1] == 0.0
+
+
+def test_bert_encoder_like_embeddings_within_tolerance():
+    """Outlier dimensions make each product's rounding large beside the cosine: three TF32 passes stay within
+    float32's noise of JAX's float32 einsum, at roberta-large's H."""
+    pe, pm, te, tm = _encoder_like(40, 6, 48, 1_024)
+    want = _jax(pe, pm, te, tm)
+    _close(_plain(pe, pm, te, tm), want, (1e-5, 1e-6))
+    _close(_bert_model(pe, pm, te, tm), want, (0.0, 1e-5))
+
+
+def test_bert_single_tf32_pass_misses_tolerance():
+    """The encoder-like case catches the shortcut: one TF32 product (hi.hi alone) misses phase 3's 1e-5."""
+    pe, pm, te, tm = _encoder_like(40, 6, 48, 1_024)
+    want = _jax(pe, pm, te, tm)
+    assert np.abs(_bert_model(pe, pm, te, tm, passes=1) - want).max() > 1e-5
+    assert np.abs(_bert_model(pe, pm, te, tm) - want).max() < 1e-6
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf], ids=["nan", "+inf", "-inf"])
+@pytest.mark.parametrize("where", ["valid prediction row", "valid target row", "masked rows"])
+def test_bert_non_finite_embeddings(value, where):
+    """A NaN or +-inf in a valid row makes that pair's P, R and F1 NaN (its norm and every similarity of the row
+    are NaN, and JAX's max keeps a NaN); in a masked row it changes nothing. NaN positions must match."""
+    pe, pm, te, tm = _pairs(50, 3, 5, 6, 8, masked=0.0)
+    pm[:, 3] = 0.0
+    tm[:, 4] = 0.0
+    if where == "valid prediction row":
+        pe[1, 2, 5] = value
+    elif where == "valid target row":
+        te[1, 0, 1] = value
+    else:
+        pe[1, 3, 5] = value
+        te[1, 4, 2] = value
+    want = _jax(pe, pm, te, tm)
+    assert np.isfinite(want[:, [0, 2]]).all()
+    assert np.isnan(want[:, 1]).all() if where != "masked rows" else np.isfinite(want[:, 1]).all()
+    _close(_plain(pe, pm, te, tm), want, (1e-5, 1e-6))
+    _close(_bert_model(pe, pm, te, tm), want, (0.0, 1e-5))
+
+
+def test_bert_special_token_holes():
+    """BERTScore drops [CLS] and [SEP] from the masks: a hole at position 0 and at the last valid token of each
+    row, so the valid tokens are no prefix; the lists skip the holes, which floor the other side at 0."""
+    pe, pm, te, tm = _pairs(51, 4, 12, 10, 24, masked=0.0)
+    for m, lengths in ((pm, (12, 9, 5, 3)), (tm, (10, 10, 4, 2))):
+        for k, n in enumerate(lengths):
+            m[k, n:] = 0.0
+            m[k, [0, n - 1]] = 0.0
+    want = _jax(pe, pm, te, tm)
+    _close(_plain(pe, pm, te, tm), want, (1e-5, 1e-6))
+    _close(_bert_model(pe, pm, te, tm), want, (0.0, 1e-5))
 
 
 def test_bert_launcher_checks_and_dispatch():
@@ -340,4 +437,7 @@ def test_bert_launcher_checks_and_dispatch():
         kbm.bert_greedy_match(long, long[..., 0], long[:, :1], long[:, :1, 0])
     tbert._bert_score_from_embeddings(pe, pm, te, tm)
     assert kbm.bert_greedy_match.launches == before  # the CPU takes the plain version
-    assert 2 * kbm.MAX_TOKENS * 4 + (2 * kbm.TILE * 33 + 8) * 4 <= 227 * 1024  # a block's shared memory
+    # a block's shared memory: the aligned stages and lo parts, 6 bytes a token (a maximum and a list entry), the
+    # pass's norms and masks
+    static = 4 * kbm.BLOCK * 4 + 2 * (kbm.THREADS // 32) * 4 + (kbm.THREADS // 32) * 16
+    assert 32 * kbm.CHUNK + (kbm.STAGES + 2) * 2 * kbm.BLOCK * kbm.CHUNK * 4 + 6 * kbm.MAX_TOKENS + static <= 227 * 1024

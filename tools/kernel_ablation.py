@@ -2,11 +2,12 @@
 """Where the port's redesigned kernels spend their time, on one GPU: ``ranking_pairs``' sort,
 ``binned_confmat_multilabel``'s label-group width, ``calibration_bins``' design choices,
 ``retrieval_groups``' counting threshold, ``ssim_window``'s tile and blocking, ``pairwise_lp``'s
-tiles, staging and float form, ``sdr_toeplitz``'s step and block, and ``snr_moments``' loads and merge.
+tiles, staging and float form, ``sdr_toeplitz``'s step and block, ``snr_moments``' loads and merge, and
+``bert_greedy_match``'s redesign against the kernel before it.
 
     python3 tools/kernel_ablation.py [--sections ranking,multilabel,calibration,calibration-widths,retrieval,
                                                   retrieval-occupancy,retrieval-builds,retrieval-fault,ssim,
-                                                  pairwise,sdr,snr]
+                                                  pairwise,sdr,snr,bert]
                                      [--parent CHECKOUT] [--fault-builds NAMES] [--fault-trials N]
                                      [--sass PATH] [--json PATH]
 
@@ -107,6 +108,22 @@ and, with ``--parent``, the kernel before the redesign with its plan, at the Lib
 SI-SNR rows, PIT(SI-SNR) pairs and SA-SDR groups and one 10-minute 16 kHz
 clip, each held against a float64 evaluation as phase 3 holds it and
 launched twice for determinism, in two turns.
+
+BERT: ``csrc/bert_match.cu`` built as shipped and with one change each: the
+split by ``cvt.rna.tf32.f32`` in place of the integer add and mask (its bits
+must equal the shipped build's), the prediction rows always wgmma's rows (no choice of
+roles), copies without the 256-byte L2 fetch, three stages; and, timed only,
+one TF32 pass (hi.hi alone), the copies alone (no split, no products) and
+no copies (the split and the products of stale stages): the last two
+bracket the memory's and the arithmetic's share. With ``--parent`` (a
+checkout of ``46523d4``) the kernel before the redesign (64 x 64 tiles of
+float32 FMA sums) is built from that checkout's source. Each build's
+registers, shared memory and spills from ``-Xptxas -v`` are printed; each is
+held against the plain version within phase 3's 1e-5 and launched twice for
+determinism at WMT16 newstest2016's 2,999 pairs (128 x 128 x 1,024, lengths
+10-128, phase 3's case (a)) and at the same pairs cut to H = 16 (the fixed
+cost of a pair), and timed after a flush in two turns (parent, new, new,
+parent) and back to back.
 
 Times are ``chip_smoke.time_ms``'s: CUDA events around one call after an L2
 flush that leaves no dirty line, a spin kernel holding the card while the host
@@ -1518,15 +1535,122 @@ def _snr(flush: torch.Tensor, gen: torch.Generator, parent) -> dict:
     return rows
 
 
+BERT_PARENT = "46523d4"
+BERT_PRODUCTS = """        Wgmma<N>::run(acc, al, bh);
+        Wgmma<N>::run(acc, ah, bl);
+        Wgmma<N>::run(acc, ah, bh);"""
+BERT_COPY = 'asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\\n" ::"r"(d), "l"(src), "r"(in ? 16 : 0));'
+BERT_VARIANTS = {  # name: (edits, checked against the plain version)
+    "shipped": ([], True),
+    "the split by cvt.rna.tf32.f32": ([(
+        "  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+        "  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;",
+        '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));\n'
+        '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));')], True),
+    "the prediction rows always wgmma's rows": ([(
+        "      const bool swap = (nc + 63) / 64 * ((nr + 31) / 32) < (nr + 63) / 64 * ((nc + 31) / 32);",
+        "      const bool swap = false;")], True),
+    "no 256-byte L2 fetch": ([(BERT_COPY, BERT_COPY.replace(".L2::256B", ""))], True),
+    "three stages": ([("constexpr int kStages = 4;", "constexpr int kStages = 3;")], True),
+    "one TF32 pass (timing only)": ([(BERT_PRODUCTS, "        Wgmma<N>::run(acc, ah, bh);")], False),
+    "copies alone (timing only)": ([(BERT_PRODUCTS, ""),
+                                    ("  if (has_row) split_rows(s, 0, on_target, my_row, ss);", ""),
+                                    ("    if (has_row && c + 1 < chunks) split_rows(s, c + 1, on_target, my_row, ss);",
+                                     "")], False),
+    "no copies (timing only)": ([("  if (c < chunks) {\n    float* stage = s.stages + (c % kStages) * kStageFloats;",
+                                  "  if (false) {\n    float* stage = s.stages + (c % kStages) * kStageFloats;")], False),
+}
+BERT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int] + \
+    [ctypes.c_void_p] * 4  # the launcher's: pred, tgt, masks, weights, B, Tp, Tt, H, P, R, F1, stream
+
+
+def _bert(flush: torch.Tensor, parent) -> dict:
+    """Every variant of ``bert_greedy_match`` and, with ``parent``, the kernel before the redesign at phase 3's case
+    (a) and at H = 16 (its lengths: the fixed cost of a pair), each build's ptxas report printed, each checked
+    against the plain version (and the shipped build's bits) and launched twice for determinism; timed after a
+    flush in turns, forward then backward (parent, new, new, parent), and back to back."""
+    from torchmetrics_tpu_torch.kernels import bert_match as kbm
+
+    rows = {}
+    t_max = cs.WMT16_MAX_TOKENS
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 51)  # phase 3's seed: its case (a)
+    cases = {"(a)": cs._bert_case(gen, cs.WMT16_PAIRS, t_max, t_max, 1_024, (10, t_max))[:4]}
+    pe, pm, te, tm = cases["(a)"]
+    cases["(a) at H = 16"] = (pe[..., :16].contiguous(), pm, te[..., :16].contiguous(), tm)
+    cs._no_tf32()
+    wants = {label: torch.stack(kbm._bert_greedy_match_plain(*x)) for label, x in cases.items()}
+    with tempfile.TemporaryDirectory() as workdir:
+        builds = _edited_builds("bert_match", {k: (v[0], []) for k, v in BERT_VARIANTS.items()}, workdir)
+        entries = {name: (lib, report, BERT_VARIANTS[name][1]) for name, (lib, report) in builds.items()}
+        if parent:
+            old = os.path.join(workdir, "parent", "bert_match.cu")
+            os.makedirs(os.path.dirname(old))
+            shutil.copy(os.path.join(parent, "torchmetrics_tpu_torch", "csrc", "bert_match.cu"), old)
+            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", old[:-3] + ".so", old],
+                                  capture_output=True, text=True)
+            if proc.returncode:
+                raise RuntimeError(f"kernel_ablation: nvcc failed for the parent:\n{proc.stdout}{proc.stderr}")
+            report = " ".join(l.strip() for l in (proc.stdout + proc.stderr).splitlines()
+                              if "spill" in l or "registers" in l)
+            entries[f"parent ({BERT_PARENT})"] = (ctypes.CDLL(old[:-3] + ".so"), report, True)
+        runs = []
+        for name, (lib, report, checked) in entries.items():
+            print(f"[bert] build {name!r}: {report}", flush=True)
+            fn = lib.bert_match_launch
+            fn.argtypes = BERT_ARGTYPES
+            fn.restype = ctypes.c_int
+
+            def call(a, b, c, d, fn=fn):
+                out = torch.empty((3, a.shape[0]), device="cuda")
+                err = fn(a.data_ptr(), c.data_ptr(), b.data_ptr(), d.data_ptr(), None, None, a.shape[0], a.shape[1],
+                         c.shape[1], a.shape[2], out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"kernel_ablation: bert_match launch failed with CUDA error {err}")
+                return out
+
+            for label, args in cases.items():
+                first, again = call(*args), call(*args)
+                torch.cuda.synchronize()
+                err = float((first - wants[label]).abs().max())
+                same = torch.equal(first.view(torch.int32), again.view(torch.int32))
+                if checked:
+                    cs.check(err <= cs.BERT_ATOL and same, f"[bert] {name}, {label}: {err:.3g} from plain")
+                if name == "shipped":
+                    rows[f"shipped bits, {label}"] = first
+                elif checked and name != f"parent ({BERT_PARENT})":
+                    equal = torch.equal(first.view(torch.int32), rows[f"shipped bits, {label}"].view(torch.int32))
+                    print(f"[bert] {name}, {label}: bit for bit the shipped build's: {equal}", flush=True)
+                runs.append((name, label, call, args, err))
+        for key in [k for k in rows if k.startswith("shipped bits")]:
+            del rows[key]
+        order = sorted(runs, key=lambda r: not r[0].startswith("parent"))  # the parent first: parent, new, new, parent
+        for turn in (order, order[::-1]):
+            for name, label, call, args, _ in turn:
+                rows.setdefault(f"{name}, {label}, after a flush", []).append(cs.time_ms(lambda: call(*args), flush))
+        for name, label, call, args, _ in order:
+            a, b, c, d = args
+            sets = [args] + [(a.clone(), b, c.clone(), d) for _ in range(cs.copies_for(4 * (a.numel() + c.numel())) - 1)]
+            rows[f"{name}, {label}, back to back"] = [cs.time_stream_ms(call, sets, calls=len(sets) * max(1, 12 // len(sets)))]
+            del sets
+        for name, label, _, _, err in order:
+            flushed = rows[f"{name}, {label}, after a flush"]
+            print(f"[bert] {label}, {name}: {' / '.join(f'{t:.4f}' for t in flushed)} ms after an L2 flush (two "
+                  f"turns), {rows[f'{name}, {label}, back to back'][0]:.4f} ms back to back; max abs err {err:.3g}",
+                  flush=True)
+    print(f"[bert] SM clock, now and at most: {cs.sm_clocks()}", flush=True)
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--sections",
                         default="ranking,multilabel,calibration,calibration-widths,retrieval,retrieval-occupancy,"
-                                "retrieval-builds,ssim,pairwise,sdr,snr",
+                                "retrieval-builds,ssim,pairwise,sdr,snr,bert",
                         help="comma-separated sections to run")
     parser.add_argument("--parent", help="a checkout of the commit before the redesign of the sections run "
                                           f"(calibration: {PARENT_COMMIT}; pairwise: {PAIRWISE_PARENT}; sdr, snr: "
-                                          f"{SDR_PARENT}), timed beside it")
+                                          f"{SDR_PARENT}; bert: {BERT_PARENT}), timed beside it")
     parser.add_argument("--sass", help="pairwise: also write the shipped build's SASS to this file")
     parser.add_argument("--fault-builds", default=",".join(RET_FAULT_BUILDS),
                         help="retrieval-fault: comma-separated builds of RET_FAULT_BUILDS to run")
@@ -1565,6 +1689,8 @@ def main() -> int:
         record["sdr"] = _sdr(flush, gen, args.parent)
     if "snr" in sections:
         record["snr"] = _snr(flush, gen, args.parent)
+    if "bert" in sections:
+        record["bert"] = _bert(flush, args.parent)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(record, f, indent=1)

@@ -3,18 +3,23 @@
 :func:`bert_greedy_match` takes BERTScore's prediction and target embeddings
 ``(B, Tp, H)`` and ``(B, Tt, H)``, their masks and optional idf weights, and
 gives each pair's precision, recall and F1 ``(B,)``, in one launch: a block a
-pair, the cosine similarities in 64 x 64 tiles folded into running row and
-column maxima, never written. It counts its launches in
+pair lists each side's tokens with a mask above 0, streams their rows through
+shared memory in chunks of H once (below 129 of them a side), takes the
+cosine similarities on the tensor cores in three TF32 passes (each operand
+split into a TF32 high part and the TF32 rest) and folds them into row and
+column maxima in registers, never writing them. It counts its launches in
 ``bert_greedy_match.launches`` and takes CUDA tensors only.
 :func:`_bert_greedy_match_plain` is the JAX package's
 ``_bert_score_from_embeddings`` in plain PyTorch: the normalised rows, the
 ``(B, Tp, Tt)`` similarity, the masked maxima and the weighted means. The
 dispatch by device is ``functional.text.bert._bert_score_from_embeddings``.
 
-The rule kept is JAX's: an invalid entry (a masked token on either side)
+The rules kept are JAX's: an invalid entry (a masked token on either side)
 counts as similarity 0 in both maxima, over the whole padded axis, so a row
 whose valid similarities are all negative floors at 0 only where its axis has
-an invalid entry.
+an invalid entry; a NaN among a row's or column's entries makes its maximum
+NaN (a NaN or +-inf in a valid embedding row gives NaN in P, R and F1), one in
+a masked row changes nothing.
 """
 
 from __future__ import annotations
@@ -28,9 +33,11 @@ from torch import Tensor
 from torchmetrics_tpu_torch.kernels._build import check_tensor, launch_on, load_library
 
 SOURCE = "bert_match"
-TILE = 64  # kTile: tokens a tile side
+BLOCK = 128  # kBlock: listed tokens a side a pass
+CHUNK = 16  # kChunk: H a stage
+STAGES = 4  # kStages
 THREADS = 256  # kThreads
-MAX_TOKENS = 16_384  # Tp + Tt: their inverse norms and maxima, 8 bytes a token, in a block's shared memory
+MAX_TOKENS = 16_384  # Tp + Tt: their maxima and list entries, 6 bytes a token, beside the stages in shared memory
 MAX_PAIRS = 2**31 - 1  # pairs along grid.x
 
 _launch: Optional[ctypes._CFuncPtr] = None
