@@ -16,7 +16,8 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    must be exactly equal. Times are CUDA-event medians of one call with the
    L2 cache flushed clean before each (a 256 MB write, then a 256 MB read:
    no dirty line left; an empty kernel's time after it, the launch floor,
-   is printed first) and a spin kernel holding the card while the
+   is printed first, with its time a call back to back) and a spin kernel
+   holding the card while the
    host enqueues the call (``time_ms``, the kernel record's ``ms`` and
    ``plain_ms``); the kernel is also timed per call of a run of calls back to
    back over copies of the inputs that overflow the L2 cache
@@ -35,12 +36,17 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    to its plain version from a random non-zero int32 state at ImageNet-1k's
    batch (1,024 x 1,000 float32, the first record row) and a Cityscapes-shaped
    batch ((2, 19, 1024, 2048) float32, int64 targets, ~5 % void 255), and at
-   C = 2, 3, 19, 1000, 1001, S % 4 != 0, rows of NaN, ties, +-0.0 and -inf, targets C,
-   C+3, -3 and -(C*C+1), out-of-range integer labels, ignore_index None, 255
-   and -3, int32 and int64 targets, float16 and bfloat16 scores and an empty
-   batch; at the two main-path shapes it is timed as the others are, beside
-   ``torch.bincount(target * C + preds.argmax(1))`` (two PyTorch calls, a
-   yardstick, not the record's single-call ``library_ms``);
+   C = 2, 3, 19, 32, 77 (scalar loads), 1000, 1001, S % 4 != 0, rows of NaN,
+   ties, +-0.0 and -inf, targets C, C+3, -3 and -(C*C+1), out-of-range integer
+   labels, ignore_index None, 255 and -3, int32 and int64 targets, float16
+   and bfloat16 scores, an empty batch, and the labels' edges (N % 4 != 0,
+   int32 and int64 arrays from element 1, preds and targets off each other's
+   16-byte boundary, C = 90 and 91 at the shared histogram's limit, a batch
+   smaller than its histogram); at the two main-path shapes and the contingency
+   tables' (c), (d) it is timed as the others are, with the host's enqueue
+   time of one call, beside ``torch.bincount(target * C + preds.argmax(1))``
+   (two PyTorch calls, a yardstick, not the record's single-call
+   ``library_ms``);
    ``binned_confmat_multilabel``, the per-label binned update, is held equal
    (``torch.equal``) to its plain version at phase 8's COCO batch (256 x 80,
    T=100) and binary batch (1,024 x 1, T=200), with ignored elements, NaN and
@@ -417,12 +423,28 @@ def sm_clocks() -> str:
 
 
 def launch_floor(flush: torch.Tensor) -> dict:
-    """An empty kernel's time after the clean flush and after the write alone: the floor of every timed row."""
+    """An empty kernel's time after the clean flush, after the write alone, and a call of a run back to back
+    (``time_stream_ms``): the floors of every timed row."""
     empty = lambda: torch.cuda._sleep(0)  # noqa: E731
-    floor = {"clean": time_ms(empty, flush), "write_only": time_ms(empty, flush, clean=False)}
+    floor = {"clean": time_ms(empty, flush), "write_only": time_ms(empty, flush, clean=False),
+             "back_to_back": time_stream_ms(empty, [()] * 2, calls=96)}
     print(f"[time] an empty kernel after the clean L2 flush: {floor['clean']:.4f} ms (after the write alone "
-          f"{floor['write_only']:.4f} ms): the launch floor")
+          f"{floor['write_only']:.4f} ms; back to back {floor['back_to_back']:.4f} ms a call): the launch floor")
     return floor
+
+
+def host_enqueue_us(fn, calls: int = 200) -> float:
+    """Median host time in us to enqueue one call of ``fn``, over ``calls`` calls with no synchronize between
+    them: what a host-bound loop pays a call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
 
 
 def copies_for(set_bytes: int) -> int:
@@ -1958,6 +1980,31 @@ def _clustering_kernel_labels(gen: torch.Generator):
     return preds, target, CLUSTER_CLASSES
 
 
+def _label_edges(gen: torch.Generator) -> list:
+    """The labels' edges: N % 4 != 0, arrays starting off a 16-byte boundary (a contiguous slice from element 1;
+    int32 preds from element 1 beside aligned int32 targets), C at the shared/global switch (90, 91), a batch
+    smaller than its histogram. Labels out of range too."""
+    dev = torch.device("cuda")
+
+    def labels(n, c, dtype=torch.int32, target_dtype=torch.int32, start=0, target_start=0):
+        preds = torch.randint(-3, c + 3, (n + start,), generator=gen, device=dev, dtype=dtype)[start:]
+        target = torch.randint(-3, c + 3, (n + target_start,), generator=gen, device=dev, dtype=target_dtype)
+        return preds, target[target_start:], c
+
+    return [
+        ("labels, N % 4 = 3: 1,023 at C = 42", labels(1_023, 42), None),
+        ("labels from element 1, int32", labels(4_097, 42, start=1, target_start=1), 0),
+        ("labels from element 1, int64", labels(4_097, 42, torch.int64, torch.int64, 1, 1), None),
+        ("labels from element 1, int32 preds, int64 targets", labels(4_097, 1_000, torch.int32, torch.int64, 1, 1),
+         None),
+        ("labels, int32 preds from element 1, aligned int32 targets",
+         labels(4_097, 42, start=1), None),
+        ("labels at C = 90 (shared histogram)", labels(20_001, 90, torch.int64), None),
+        ("labels at C = 91 (the state)", labels(20_001, 91), -1),
+        ("labels, a batch smaller than its histogram: 1,000 at C = 60", labels(1_000, 60), None),
+    ]
+
+
 def phase_confmat(flush: torch.Tensor) -> list:
     """``confmat_multiclass`` against its plain version on the card, and its times at
     the main path's shapes: ImageNet-1k's batch (the first row) and a Cityscapes batch."""
@@ -1989,6 +2036,9 @@ def phase_confmat(flush: torch.Tensor) -> list:
         ("empty batch", (0, 19, (), {}), None),
         ("nominal contingency (c)", _nominal_kernel_labels(gen), None),
         ("clustering contingency (d)", _clustering_kernel_labels(gen), None),
+        ("C=32 (ROW_MIN_SCORES)", (BATCH, 32, (), {}), None),
+        ("C=77, odd: scalar loads", (BATCH, 77, (), {"edits": ("edge_rows",)}), None),
+        *_label_edges(gen),
     ]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
@@ -2031,16 +2081,18 @@ def phase_confmat(flush: torch.Tensor) -> list:
         stream_ms = time_stream_ms(lambda s_, p_, t_: kcm.confmat_multiclass(s_, p_, t_, ignore_index), sets,
                                    calls=len(sets) * max(1, 48 // len(sets)))
         del sets
+        host_us = host_enqueue_us(lambda: kcm.confmat_multiclass(timed, preds, target, ignore_index))
         after = kcm.confmat_multiclass(state.clone(), preds, target, ignore_index)
         check(torch.equal(after, want), f"confmat_multiclass differs after the timed launches ({label})")
         row = {
             "case": label, "max_abs_err": err, "added": added, "plan": plan._asdict(), "ms": kernel_ms,
-            "stream_ms": stream_ms, "plain_ms": plain_ms, "two_call_ms": two_call_ms,
+            "stream_ms": stream_ms, "host_us": host_us, "plain_ms": plain_ms, "two_call_ms": two_call_ms,
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "ops": nops, "touched_cells": touched, "library_ms": None,
         }
         print(f"[kernel] confmat_multiclass {label}: exact, {kernel_ms:.4f} ms after an L2 flush "
-              f"({stream_ms:.4f} ms a call back to back; plan {tuple(plan)}), plain {plain_ms:.4f} ms, "
+              f"({stream_ms:.4f} ms a call back to back; plan {tuple(plan)}; the host enqueues a call in "
+              f"{host_us:.1f} us), plain {plain_ms:.4f} ms, "
               f"argmax + bincount (two calls, a yardstick) {two_call_ms:.4f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
               f"({row['bound_by']}: {nbytes} bytes, {nops} compares; {touched} cells touched), library_ms: none")
         rows.append(row)

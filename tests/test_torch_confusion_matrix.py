@@ -8,6 +8,7 @@ int32. Normalized matrices, kappa, MCC and Jaccard are float32 reductions
 taken in another order than XLA's: within ``ATOL = 1e-6``.
 """
 
+import collections
 import importlib
 import pickle
 
@@ -437,6 +438,150 @@ def test_plan_modes():
     assert segmentation == kcm.Plan("elements", True, 8 * sms, 256)
     assert kcm.plan(100, 3, 1, 3, False, sms).mode == "elements"  # few classes: a thread a row
     assert kcm.plan(100, 1, 1, 91, True, sms) == kcm.Plan("labels", False, 1, 256)  # 91*91 cells > 32 KB
+    # the shared histogram only where the batch has as many elements as the histogram has cells
+    assert kcm.plan(1024, 1, 1, 42, True, sms) == kcm.Plan("labels", False, 4, 256)  # nominal's: 1,024 < 42*42
+    assert kcm.plan(50_000, 1, 1, 1000, True, sms) == kcm.Plan("labels", False, 196, 256)  # clustering's
+    assert kcm.plan(8100, 1, 1, 90, True, sms) == kcm.Plan("labels", True, 32, 256)
+    assert kcm.plan(8099, 1, 1, 90, True, sms).shared is False
+    assert kcm.plan(1024, 32, 1, 32, False, sms) == kcm.Plan("rows", True, 256, 128)  # 1,024 rows, 32*32 cells
+    assert kcm.plan(1023, 32, 1, 32, False, sms).shared is False
+    assert kcm.plan(10**9, 1, 1, 5, True, sms) == kcm.Plan("labels", True, 8 * sms, 256)
+
+
+# A numpy model of csrc/confmat.cu's split of the work, held against jnp.argmax and JAX's _weighted_pair_count.
+INT_MAX = 2**31 - 1
+
+
+def _pair_cell_model(t, p, c, ignore_index):
+    """The kernel's ``pair_cell``: int32 ``t * C + p`` wrapping, one wrap of a negative index, -1 where JAX adds
+    nothing; ``t`` counts as its low 32 bits."""
+    t32 = np.asarray(t, np.int64).astype(np.int32)
+    i = (t32.astype(np.uint32) * np.uint32(c) + np.asarray(p, np.int64).astype(np.int32).astype(np.uint32))
+    i = i.astype(np.int32).astype(np.int64)
+    i = np.where(i < 0, i + c * c, i)
+    keep = (i >= 0) & (i < c * c)
+    if ignore_index is not None:
+        keep &= t32.astype(np.int64) != ignore_index
+    return np.where(keep, i, -1)
+
+
+def _beats(a, ia, b, ib):
+    na, nb = np.isnan(a), np.isnan(b)
+    return np.where(na | nb, na & (~nb | (ia < ib)), (a > b) | ((a == b) & (ia < ib)))
+
+
+def _rows_argmax_model(scores, width):
+    """The rows kernel: 32 lanes a row, a lane's 16-byte vectors of ``width`` scores (1: scores at stride 32) taken
+    in order (the first NaN, else a strictly larger value, wins), then five butterfly shuffles under ``beats``."""
+    rows, k = scores.shape
+    best = np.full((rows, 32), -np.inf, np.float32)
+    arg = np.full((rows, 32), INT_MAX, np.int64)
+    lane = np.arange(32)
+    for j in range(0, -(-k // width), 32):  # a lane's vectors j + lane, in order
+        for q in range(width):
+            idx = (j + lane) * width + q
+            live = idx < k
+            v = scores[:, np.minimum(idx, k - 1)]
+            take = live & ~np.isnan(best) & (np.isnan(v) | (v > best) | (arg == INT_MAX))
+            best, arg = np.where(take, v, best), np.where(take, idx, arg)
+    for offset in (16, 8, 4, 2, 1):
+        ob, oa = best[:, lane ^ offset], arg[:, lane ^ offset]
+        win = _beats(ob, oa, best, arg)
+        best, arg = np.where(win, ob, best), np.where(win, oa, arg)
+    assert (arg == arg[:, :1]).all()  # every lane ends on the same winner
+    return arg[:, 0]
+
+
+def _edge_rows(rng, n, c):
+    """``chip_smoke._confmat_case``'s edge rows: NaN first, ties, +-0.0, all -inf, +inf."""
+    x = rng.normal(size=(n, c)).astype(np.float32)
+    nan, inf = np.nan, np.inf
+    x[0::9] = nan
+    x[1::9, c // 2] = nan
+    x[1::9, c - 1] = nan
+    x[2::9] = 0.25
+    x[3::9, 0], x[3::9, c - 1] = 7.0, 7.0
+    x[4::9] = -0.0
+    x[4::9, c - 1] = 0.0
+    x[5::9] = -inf
+    x[6::9, c - 1] = inf
+    x[7::9] = -inf
+    x[7::9, c // 2] = nan
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("c", [6, 32, 77, 1000, 1001])
+def test_rows_kernel_model_against_jax(c, dtype):
+    rng = np.random.default_rng(c)
+    x = _edge_rows(rng, 72, c)
+    if c == 6:
+        x[8] = _edge_scores(dtype)[4]  # -0.0 and +0.0 tied with a lower -0.0
+    scores = torch.from_numpy(x).to(getattr(torch, dtype)).float().numpy()  # widened, as the kernel compares
+    item = 4 if dtype == "float32" else 2
+    width = 16 // item if (c * item) % 16 == 0 else 1  # the kernel's 16-byte loads where a row fills them
+    got = _rows_argmax_model(scores, width)
+    want = np.asarray(jnp.argmax(jnp.asarray(scores), axis=1))
+    np.testing.assert_array_equal(got, want)
+    target = rng.integers(-3, c + 3, size=72)
+    target[::10] = -(c * c + 1)
+    counts = np.bincount(_pair_cell_model(target, got, c, 255).clip(-1) + 1, minlength=c * c + 1)[1:]
+    valid = jnp.asarray(np.where(target == 255, 0.0, 1.0), jnp.float32)
+    jt = jnp.asarray(np.where(target == 255, 0, target).astype(np.int32))
+    np.testing.assert_array_equal(counts.reshape(c, c), np.asarray(jcm._weighted_pair_count(
+        jnp.argmax(jnp.asarray(scores), axis=1).astype(jnp.int32), jt, valid, c)).astype(np.int64))
+
+
+def _add_cells_model(cells, merge):
+    """The kernel's ``add_cell`` over warps of 32 lanes: with ``merge`` the lowest lane of each cell adds the count
+    of its peers (``__match_any_sync``), else each lane adds one. Returns each cell's adds and the atomics made."""
+    counts, atomics = collections.Counter(), 0
+    for w in range(0, len(cells), 32):
+        lanes = [int(c) for c in cells[w:w + 32]]
+        if merge:
+            for cell, peers in collections.Counter(lanes).items():
+                if cell >= 0:
+                    counts[cell] += peers
+                    atomics += 1
+        else:
+            for cell in lanes:
+                if cell >= 0:
+                    counts[cell] += 1
+                    atomics += 1
+    return counts, atomics
+
+
+@pytest.mark.parametrize("merge", [False, True])
+@pytest.mark.parametrize(("pred_bytes", "target_bytes"), [(4, 4), (4, 8), (8, 4), (8, 8)])
+@pytest.mark.parametrize("n", [1, 33, 1025])
+def test_labels_kernel_model_against_jax(n, pred_bytes, target_bytes, merge):
+    """A label a thread, merged in the warp (the shared histogram) or not (the state): out-of-range labels and
+    targets, int64 labels past 2**32, ``ignore_index``; every element counted as JAX counts it."""
+    c, ignore_index = 42, -1
+    rng = np.random.default_rng(n + 3 * pred_bytes + target_bytes)
+    preds = rng.integers(-3, c + 3, size=n)
+    target = rng.integers(-3, c + 3, size=n)
+    if n > 10:
+        target[::10], preds[5::11] = -(c * c + 1), INT_MAX
+        preds[1::4], target[1::4] = 7, 9  # lanes on one cell, for the merge
+    if target_bytes == 8 and n > 10:
+        target[3::13] += 2**32  # an int64 label counts as its low 32 bits
+    counts, atomics = _add_cells_model(_pair_cell_model(target, preds, c, ignore_index), merge)
+    got = np.zeros(c * c, np.int64)
+    got[list(counts)] = list(counts.values())
+    got = got.reshape(c, c)
+    assert (atomics < got.sum()) == (merge and n > 10)  # the merge saves atomics where lanes share a cell
+    t32 = target.astype(np.int32)
+    valid = jnp.asarray(np.where(t32 == ignore_index, 0.0, 1.0), jnp.float32)
+    want = jcm._weighted_pair_count(jnp.asarray(preds.astype(np.int32)), jnp.asarray(np.where(
+        t32 == ignore_index, 0, t32)), valid, c)
+    np.testing.assert_array_equal(got, np.asarray(want).astype(np.int64))
+    # and the plain version, which the kernel is held equal to on the card
+    state = torch.zeros((c, c), dtype=torch.int32)
+    dtypes = {4: torch.int32, 8: torch.int64}
+    kcm._confmat_multiclass_plain(state, torch.from_numpy(preds).to(dtypes[pred_bytes]),
+                                  torch.from_numpy(target).to(dtypes[target_bytes]), ignore_index)
+    np.testing.assert_array_equal(state.numpy(), got)
 
 
 def test_kernel_launcher_refuses_what_it_does_not_take():

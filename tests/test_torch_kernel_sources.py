@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from torchmetrics_tpu_torch.kernels import bert_match as kbm
+from torchmetrics_tpu_torch.kernels import confmat as kcm
 from torchmetrics_tpu_torch.kernels import pairwise as kpw
 from torchmetrics_tpu_torch.kernels import perplexity as kppl
 from torchmetrics_tpu_torch.kernels import retrieval as krt
@@ -199,6 +200,49 @@ def test_text_launchers_do_not_fall_back(module):
     assert not [c for c in calls if c.endswith("_plain")]
 
 
+@pytest.mark.parametrize(("python", "kernel"), [("SHARED_CELLS", "kSharedCells"), ("ROW_THREADS", "kRowThreads"),
+                                                ("ELEMENT_THREADS", "kElementThreads")])
+def test_confmat_constants_are_the_kernels(python, kernel):
+    assert getattr(kcm, python) == _constant(_source("confmat"), kernel)
+
+
+def test_confmat_source_matches_its_launcher():
+    src = _source("confmat")
+    # the launch bounds are the plan's block widths, a (C, C) shared histogram fits the default 48 KB
+    for kernel, bound in (("rows", "kRowThreads"), ("elements", "kElementThreads"), ("quads", "kElementThreads")):
+        assert f"__launch_bounds__({bound}) confmat_{kernel}_kernel(Args a)" in src
+    assert 4 * kcm.SHARED_CELLS <= 48 * 1024 and "a.shared && a.cells > kSharedCells" in src
+    # the launcher's codes are the entry's switch
+    assert kcm.MODES == {"rows": 0, "elements": 1, "labels": 2}
+    for kind, code in kcm.PRED_KINDS.items():
+        assert f"case {code}: return launch_" in src
+    assert kcm.TARGET_KINDS == {torch.int32: 0, torch.int64: 1} and "target_kind == 0 ?" in src
+    # scores merge a warp's lanes on one cell everywhere, labels only on the shared histogram; the rows kernel's
+    # lane 0 reads the target after the argmax (read before the scores, by every lane, it was no faster:
+    # tools/kernel_ablation.py --sections confmat)
+    assert "const bool merge = !LABELS || a.shared;" in src and "add_cell(hist, cells[q], true);" in src
+    body = src[src.index("confmat_rows_kernel(Args a) {"):src.index("// A thread an element: scores")]
+    assert body.index("scan_row(") < body.index("__shfl_xor_sync") < body.index("target[r]")
+
+
+def test_confmat_calls_no_library():
+    """The kernels' bodies are written out: no library call inside."""
+    code = "\n".join(line.split("//")[0] for line in _source("confmat").splitlines())
+    assert not [name for name in LIBRARY_CALLS if name in code.lower()]
+
+
+def test_confmat_launcher_does_not_fall_back():
+    """A CUDA tensor launches the kernel or raises: no ``try``, no call of the plain version."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(kcm))
+    assert not [node for node in ast.walk(tree) if isinstance(node, ast.Try)]
+    public = next(node for node in tree.body if isinstance(node, ast.FunctionDef) and node.name == "confmat_multiclass")
+    calls = {node.func.id for node in ast.walk(public) if isinstance(node, ast.Call) and isinstance(node.func, ast.Name)}
+    assert not [c for c in calls if c.endswith("_plain")] and "launch_on" in calls
+
+
 _ABLATION = _ablation()
 _BUILDS = [("retrieval", table, name, edits)
            for table in ("RET_PATHS", "RET_BUILDS", "RET_FAULT_BUILDS")
@@ -209,6 +253,8 @@ _BUILDS += [("pairwise", "PAIRWISE_VARIANTS", name, edits)
 _BUILDS += [("sdr_toeplitz", "SDR_VARIANTS", name, edits) for name, edits in _ABLATION.SDR_VARIANTS.items()]
 _BUILDS += [("snr_moments", "SNR_VARIANTS", name, edits) for name, (edits, _) in _ABLATION.SNR_VARIANTS.items()]
 _BUILDS += [("bert_match", "BERT_VARIANTS", name, edits) for name, (edits, _) in _ABLATION.BERT_VARIANTS.items()]
+_BUILDS += [("confmat", "CONFMAT_VARIANTS", name, edits)
+            for name, (edits, *_) in _ABLATION.CONFMAT_VARIANTS.items()]
 
 
 @pytest.mark.parametrize(("source", "table", "name", "edits"), _BUILDS,

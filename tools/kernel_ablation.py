@@ -2,12 +2,12 @@
 """Where the port's redesigned kernels spend their time, on one GPU: ``ranking_pairs``' sort,
 ``binned_confmat_multilabel``'s label-group width, ``calibration_bins``' design choices,
 ``retrieval_groups``' counting threshold, ``ssim_window``'s tile and blocking, ``pairwise_lp``'s
-tiles, staging and float form, ``sdr_toeplitz``'s step and block, ``snr_moments``' loads and merge, and
-``bert_greedy_match``'s redesign against the kernel before it.
+tiles, staging and float form, ``sdr_toeplitz``'s step and block, ``snr_moments``' loads and merge,
+``bert_greedy_match``'s and ``confmat_multiclass``' redesigns against the kernels before them.
 
     python3 tools/kernel_ablation.py [--sections ranking,multilabel,calibration,calibration-widths,retrieval,
                                                   retrieval-occupancy,retrieval-builds,retrieval-fault,ssim,
-                                                  pairwise,sdr,snr,bert]
+                                                  pairwise,sdr,snr,bert,confmat]
                                      [--parent CHECKOUT] [--fault-builds NAMES] [--fault-trials N]
                                      [--sass PATH] [--json PATH]
 
@@ -125,6 +125,18 @@ determinism at WMT16 newstest2016's 2,999 pairs (128 x 128 x 1,024, lengths
 cost of a pair), and timed after a flush in two turns (parent, new, new,
 parent) and back to back.
 
+Confmat: ``csrc/confmat.cu`` built as shipped and with one change each: in the rows kernel the target
+read early (every lane, before the scores), timing-only builds that store the cell or the argmax in place
+of the atomic, or load nothing, the state row (a bulk prefetch) or each lane's candidate cell prefetched
+to L2, the row by one TMA bulk copy into shared memory, 16-byte loads with a 256-byte L2 fetch; on the
+labels path ``__match_any_sync`` on every path, the state prefetched to L2 at launch, no atomics (timing
+only); the shipped build called with the rows in blocks of 64 threads, the labels in blocks of 64 or
+128, and at case (c) on the shared histogram; with ``--parent`` (a checkout of ``7e0446e``) that
+commit's kernel with its own plan. Each checked build is held equal to the plain version at its cases of phase
+3's (a) ImageNet-1k batch, (b) Cityscapes batch, (c) nominal's 1,024 labels at C = 42 and (d)
+clustering's 50,000 at C = 1,000, timed after a flush in two turns and back to back, and each rows
+build's order of loads, shuffles and atomics is printed from ``cuobjdump -sass``.
+
 Times are ``chip_smoke.time_ms``'s: CUDA events around one call after an L2
 flush that leaves no dirty line, a spin kernel holding the card while the host
 enqueues the call; medians of 30 unless a section says otherwise. Needs a CUDA
@@ -137,6 +149,7 @@ import argparse
 import collections
 import ctypes
 import importlib
+import importlib.util
 import json
 import os
 import re
@@ -1642,15 +1655,252 @@ def _bert(flush: torch.Tensor, parent) -> dict:
     return rows
 
 
+CONFMAT_PARENT = "7e0446e"  # the kernel before the redesign
+_CM_COUNT = ("      const int cell = pair_cell(static_cast<long long>(target[r]), arg, a.n_classes, a.cells, a.has_ignore, "
+             "a.ignore);\n      if (cell >= 0) atomicAdd(hist + cell, 1);")
+_CM_ATOMIC = "      if (cell >= 0) atomicAdd(hist + cell, 1);"
+_CM_ROW = "    float best = neg_inf();\n    int arg = INT_MAX;\n    scan_row("
+_CM_TARGET = "    const long long t = static_cast<long long>(target[r]);  // every lane, before the scores\n"
+_CM_EARLY = [(_CM_ROW, _CM_TARGET + _CM_ROW),
+             (_CM_COUNT, _CM_COUNT.replace("pair_cell(static_cast<long long>(target[r]),", "pair_cell(t,"))]
+_CM_MERGE = "#pragma unroll\n    for (int offset = 16; offset > 0; offset >>= 1) {"
+_CM_ROW_PREFETCH = """    if ((threadIdx.x & 31) == 0 && !a.shared && t >= 0 && t < a.n_classes) {  // the state row t, to L2
+      const uintptr_t lo = reinterpret_cast<uintptr_t>(a.state + t * a.n_classes) & ~static_cast<uintptr_t>(15);
+      const uintptr_t hi = (reinterpret_cast<uintptr_t>(a.state + (t + 1) * a.n_classes) + 15) & ~static_cast<uintptr_t>(15);
+      asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" :: "l"(lo), "r"(static_cast<unsigned>(hi - lo)));
+    }
+"""
+_CM_CELL_PREFETCH = """    if (!a.shared && t >= 0 && t < a.n_classes && arg < a.n_classes) {  // this lane's candidate cell, to L2
+      asm volatile("prefetch.global.L2 [%0];" :: "l"(a.state + t * a.n_classes + arg));
+    }
+"""
+_CM_SCAN = "    scan_row(preds + static_cast<long long>(r) * a.n_scores, a.n_scores, a.vec, best, arg);\n"
+_CM_TMA_HELPER = r"""constexpr int kTmaBytes = 4096;  // a warp's row buffer: rows of up to 1,024 float32 scores
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) { return static_cast<unsigned>(__cvta_generic_to_shared(p)); }
+
+// The row by one bulk copy (TMA) into the warp's buffer, completing on its mbarrier, then scanned from there.
+template <typename T>
+__device__ __forceinline__ void scan_row_tma(const T* row, int n_scores, float& best, int& arg, unsigned& uses) {
+  __shared__ alignas(128) float4 rows[kRowThreads / 32][kTmaBytes / 16];
+  __shared__ alignas(8) unsigned long long bars[kRowThreads / 32];
+  const int w = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const unsigned bar = smem_u32(&bars[w]);
+  if (lane == 0) {
+    if (uses == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    const unsigned bytes = static_cast<unsigned>(n_scores) * sizeof(T);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" :: "r"(bar), "r"(bytes) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+                 :: "r"(smem_u32(rows[w])), "l"(row), "r"(bytes), "r"(bar) : "memory");
+  }
+  __syncwarp();
+  unsigned done = 0;
+  while (!done) {
+    asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(uses & 1) : "memory");
+  }
+  ++uses;
+  constexpr int kV = 16 / sizeof(T);
+  for (int j = lane; j < n_scores / kV; j += 32) {
+    const float4 raw = rows[w][j];
+    const T* chunk = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int q = 0; q < kV; ++q) take(widen(chunk[q]), j * kV + q, best, arg);
+  }
+  __syncwarp();  // the buffer read by every lane before lane 0 refills it
+}
+
+// A warp a row of scores (inner == 1).
+"""
+_CM_TMA = [("// A warp a row of scores (inner == 1).\n", _CM_TMA_HELPER),
+           ("  const int stride = gridDim.x * warps;\n", "  const int stride = gridDim.x * warps;\n  unsigned uses = 0;\n"),
+           (_CM_SCAN, "    if (a.vec && a.n_scores * static_cast<int>(sizeof(T)) <= kTmaBytes) {\n"
+                      "      scan_row_tma(preds + static_cast<long long>(r) * a.n_scores, a.n_scores, best, arg, uses);\n"
+                      "    } else {\n  " + _CM_SCAN + "    }\n")]
+_CM_LOAD = "        if (j0 + 32 * u < n_vec) raw[u] = v16[j0 + 32 * u];\n"
+_CM_LOAD_256 = """        if (j0 + 32 * u < n_vec) {
+          asm volatile("ld.global.nc.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];"
+                       : "=f"(raw[u].x), "=f"(raw[u].y), "=f"(raw[u].z), "=f"(raw[u].w) : "l"(v16 + j0 + 32 * u));
+        }
+"""
+_CM_MERGE_RULE = "  const bool merge = !LABELS || a.shared;\n"
+_CM_STATE_PREFETCH = """  if (!a.shared && threadIdx.x == 0) {  // this block's share of the state, to L2, while the labels load
+    const long long bytes = 4LL * a.cells, share = ((bytes + gridDim.x - 1) / gridDim.x + 15) / 16 * 16;
+    const long long lo = share * blockIdx.x;
+    if (lo < bytes) {
+      const unsigned size = static_cast<unsigned>((min(share, bytes - lo) + 15) / 16 * 16);
+      asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" :: "l"(reinterpret_cast<uintptr_t>(a.state) + lo),
+                   "r"(size));
+    }
+  }
+"""
+CONFMAT_VARIANTS = {  # name: (edits of csrc/confmat.cu, checked against the plain version, cases timed)
+    "shipped": ([], True, "abcd"),
+    "rows: targets read early (every lane, before the scores)": (_CM_EARLY, True, "a"),
+    "rows: targets read early, the cell stored, no atomic (timing only)": (
+        _CM_EARLY + [(_CM_ATOMIC, "      hist[r] = cell;")], False, "a"),
+    "rows: the cell stored, no atomic (timing only)": ([(_CM_ATOMIC, "      hist[r] = cell;")], False, "a"),
+    "rows: the argmax stored, no target read, no atomic (timing only)": ([(_CM_COUNT, "      hist[r] = arg;")],
+                                                                          False, "a"),
+    "rows: the state row prefetched to L2 once the target is in": (
+        _CM_EARLY + [(_CM_TARGET, _CM_TARGET + _CM_ROW_PREFETCH)], True, "a"),
+    "rows: each lane's candidate cell prefetched before the merge": (
+        _CM_EARLY + [(_CM_MERGE, _CM_CELL_PREFETCH + _CM_MERGE)], True, "a"),
+    "rows: the row by a TMA bulk copy into shared memory": (_CM_TMA, True, "a"),
+    "rows: 16-byte loads with a 256-byte L2 fetch": ([(_CM_LOAD, _CM_LOAD_256)], True, "a"),
+    "rows: no loads, a store a row (timing only)": ([(_CM_SCAN, "    arg = r % a.n_scores;\n"),
+                                                     (_CM_COUNT, "      hist[r] = arg;")], False, "a"),
+    "labels: the loads alone, no atomics (timing only)": ([(
+        "  } else if (cell >= 0) {\n    atomicAdd(hist + cell, 1);",
+        "  } else if (cell >= 0 && cell == blockDim.x * gridDim.x) {  // almost never\n    hist[0] = 1;")],
+        False, "cd"),
+    "labels: the state prefetched to L2 at launch": ([(_CM_MERGE_RULE, _CM_MERGE_RULE + _CM_STATE_PREFETCH)],
+                                                     True, "cd"),
+    "labels: lanes merged (__match_any_sync) on every path": ([(_CM_MERGE_RULE, "  const bool merge = true;\n")],
+                                                               True, "cd"),
+}
+CONFMAT_CALLS = {  # name: (a build of CONFMAT_VARIANTS, the cases, what the call changes from the plan's)
+    "labels: blocks of 64 threads": ("shipped", "cd", {"threads": 64}),
+    "labels: blocks of 128 threads": ("shipped", "cd", {"threads": 128}),
+    "labels (c): the shared histogram": ("shipped", "c", {"shared": True}),
+    "rows: blocks of 64 threads": ("shipped", "a", {"threads": 64}),
+}
+_SASS_KINDS = ("LDG", "SHFL", "RED", "ATOM", "ATOMG", "STG", "CCTL", "UBLKPF", "UBLKCP", "SYNCS", "LDS", "MATCH")
+
+
+def _sass_order(lib_path: str, kernel: str) -> str:
+    """The memory, shuffle and atomic instructions of ``kernel`` (a mangled-name fragment) in program order, runs of
+    one kind counted: where a load issues against the shuffles and the atomic."""
+    sass = subprocess.run([os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass", lib_path],
+                          capture_output=True, text=True, check=True).stdout
+    block = next((b for b in sass.split("Function : ")[1:] if kernel in b.split()[0]), "")
+    ops = [op for op in (re.sub(r"^@!?U?P\w+\s+", "", m.group(1)).split()[0] for m in
+                         (re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line) for line in block.splitlines()) if m)
+           if op.split(".")[0] in _SASS_KINDS]
+    runs = []
+    for op in ops:
+        if runs and runs[-1][0] == op:
+            runs[-1][1] += 1
+        else:
+            runs.append([op, 1])
+    return " ".join(op if n == 1 else f"{op} x{n}" for op, n in runs)
+
+
+def _confmat(flush: torch.Tensor, parent) -> dict:
+    """Every build of ``CONFMAT_VARIANTS`` and call of ``CONFMAT_CALLS`` at its cases of phase 3's (a)-(d) and,
+    with ``parent``, the parent's kernel with its own plan at all four; each checked build held equal to the plain version
+    (``torch.equal``) at its cases; timed after a flush in two turns (parent, new, new, parent) and back to back;
+    the rows kernel's load, shuffle and atomic order from ``cuobjdump -sass`` for each rows build."""
+    from torchmetrics_tpu_torch.kernels import confmat as kcm
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 4)
+    cases = {"a": (*cs._confmat_case(cs.BATCH, cs.N_CLASSES, (), gen), cs.N_CLASSES, None),
+             "b": (*cs._seg_batch(gen), cs.SEG_SHAPE[1], cs.SEG_IGNORE),
+             "c": (*cs._nominal_kernel_labels(gen), None), "d": (*cs._clustering_kernel_labels(gen), None)}
+    names = {"a": "(a) ImageNet-1k batch", "b": "(b) Cityscapes batch", "c": "(c) nominal, 1,024 labels at C = 42",
+             "d": "(d) clustering, 50,000 labels at C = 1,000"}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        builds = _edited_builds("confmat", {k: (v[0], []) for k, v in CONFMAT_VARIANTS.items()}, workdir,
+                                skip_failed=True)
+        libs = {name: (lib, report, kcm.plan) for name, (lib, report) in builds.items()}
+        paths = {name: os.path.join(workdir, f"libconfmat{i}.so") for i, name in enumerate(CONFMAT_VARIANTS)}
+        if parent:
+            old = os.path.join(workdir, "parent", "confmat.cu")
+            os.makedirs(os.path.dirname(old))
+            shutil.copy(os.path.join(parent, "torchmetrics_tpu_torch", "csrc", "confmat.cu"), old)
+            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", old[:-3] + ".so", old],
+                                  capture_output=True, text=True)
+            if proc.returncode:
+                raise RuntimeError(f"kernel_ablation: nvcc failed for the parent:\n{proc.stdout}{proc.stderr}")
+            spec = importlib.util.spec_from_file_location(
+                "parent_confmat", os.path.join(parent, "torchmetrics_tpu_torch", "kernels", "confmat.py"))
+            parent_module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(parent_module)
+            report = " ".join(l.strip() for l in (proc.stdout + proc.stderr).splitlines() if "registers" in l)
+            name = f"parent ({CONFMAT_PARENT})"
+            libs[name] = (ctypes.CDLL(old[:-3] + ".so"), report, parent_module.plan)
+            paths[name] = old[:-3] + ".so"
+        for name, path in paths.items():
+            if name in libs and (name.startswith("parent") or name.startswith("rows") or name == "shipped"):
+                print(f"[confmat] {name}: confmat_rows_kernel<float, int64> SASS order: "
+                      f"{_sass_order(path, 'confmat_rows_kernelIfx')}", flush=True)
+        runs = []  # (name, case, call)
+        variants = {f"parent ({CONFMAT_PARENT})": ("abcd", True, {})} if parent else {}
+        variants.update({name: (v[2], v[1], {}) for name, v in CONFMAT_VARIANTS.items()})
+        variants.update({name: (c, True, over) for name, (build, c, over) in CONFMAT_CALLS.items()})
+        for name, (timed_at, checked, over) in variants.items():
+            if (CONFMAT_CALLS[name][0] if name in CONFMAT_CALLS else name) not in libs:
+                continue  # its build failed (reported above)
+            lib, report, plan_of = libs[CONFMAT_CALLS[name][0] if name in CONFMAT_CALLS else name]
+            if name not in CONFMAT_CALLS:
+                print(f"[confmat] build {name!r}: {report}", flush=True)
+            fn = lib.confmat_multiclass_launch
+            fn.argtypes = kcm.ARGTYPES
+            fn.restype = ctypes.c_int
+            for case in timed_at:
+                preds, target, c, ignore = cases[case]
+                n, k, inner = kcm._layout(torch.empty((c, c)), preds, target)
+                g = plan_of(n * inner, k, inner, c, not preds.is_floating_point(), sms)
+                threads = over.get("threads", g.threads)
+                if g.mode == "labels":
+                    blocks = max(1, min(_build.cdiv(n * inner, threads), kcm.ELEMENT_BLOCKS_PER_SM * sms))
+                else:  # a warp a row, as many rows a block as warps
+                    blocks = g.blocks if threads == g.threads else _build.cdiv(n, threads // 32)
+                shared = over.get("shared", g.shared)
+
+                def call(state, fn=fn, preds=preds, target=target, c=c, ignore=ignore, g=g, n=n, k=k, inner=inner,
+                         blocks=blocks, threads=threads, shared=shared):
+                    err = fn(preds.data_ptr(), kcm.PRED_KINDS[preds.dtype], target.data_ptr(),
+                             kcm.TARGET_KINDS[target.dtype], state.data_ptr(), n, k, inner, c,
+                             int(ignore is not None), int(ignore or 0), kcm.MODES[g.mode], int(shared), blocks,
+                             threads, torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"kernel_ablation: confmat launch failed with CUDA error {err}")
+                    return state
+
+                state = torch.randint(-(2**20), 2**20, (c, c), generator=gen, device="cuda", dtype=torch.int32)
+                got = call(state.clone())
+                want = kcm._confmat_multiclass_plain(state.clone(), preds, target, ignore)
+                torch.cuda.synchronize()
+                if checked:
+                    cs.check(torch.equal(got, want), f"[confmat] {name}, {names[case]}: differs from plain")
+                runs.append((name, case, call, state, (g.mode, shared, blocks, threads)))
+        order = sorted(runs, key=lambda r: not r[0].startswith("parent"))
+        for turn in (order, order[::-1]):
+            for name, case, call, state, _ in turn:
+                rows.setdefault(f"{name}, {names[case]}, after a flush", []).append(cs.time_ms(lambda: call(state), flush))
+        for name, case, call, state, _ in order:
+            preds, target, _, _ = cases[case]
+            nbytes = preds.numel() * preds.element_size() + target.numel() * target.element_size()
+            copies = min(cs.copies_for(nbytes), cs.MAX_STREAM_COPIES)
+            sets = [(state, preds, target)] + [(state, preds.clone(), target.clone()) for _ in range(copies - 1)]
+            rows[f"{name}, {names[case]}, back to back"] = [cs.time_stream_ms(
+                lambda s, p, t, call=call: call(s, preds=p, target=t), sets, calls=len(sets) * max(1, 48 // len(sets)))]
+            del sets
+        for name, case, _, _, geometry in order:
+            flushed = rows[f"{name}, {names[case]}, after a flush"]
+            print(f"[confmat] {names[case]}, {name}: {' / '.join(f'{t:.4f}' for t in flushed)} ms after an L2 flush "
+                  f"(two turns), {rows[f'{name}, {names[case]}, back to back'][0]:.4f} ms back to back; "
+                  f"(mode, shared, blocks, threads) {geometry}", flush=True)
+    print(f"[confmat] SM clock, now and at most: {cs.sm_clocks()}", flush=True)
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--sections",
                         default="ranking,multilabel,calibration,calibration-widths,retrieval,retrieval-occupancy,"
-                                "retrieval-builds,ssim,pairwise,sdr,snr,bert",
+                                "retrieval-builds,ssim,pairwise,sdr,snr,bert,confmat",
                         help="comma-separated sections to run")
     parser.add_argument("--parent", help="a checkout of the commit before the redesign of the sections run "
                                           f"(calibration: {PARENT_COMMIT}; pairwise: {PAIRWISE_PARENT}; sdr, snr: "
-                                          f"{SDR_PARENT}; bert: {BERT_PARENT}), timed beside it")
+                                          f"{SDR_PARENT}; bert: {BERT_PARENT}; confmat: {CONFMAT_PARENT}), timed beside it")
     parser.add_argument("--sass", help="pairwise: also write the shipped build's SASS to this file")
     parser.add_argument("--fault-builds", default=",".join(RET_FAULT_BUILDS),
                         help="retrieval-fault: comma-separated builds of RET_FAULT_BUILDS to run")
@@ -1691,6 +1941,8 @@ def main() -> int:
         record["snr"] = _snr(flush, gen, args.parent)
     if "bert" in sections:
         record["bert"] = _bert(flush, args.parent)
+    if "confmat" in sections:
+        record["confmat"] = _confmat(flush, args.parent)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(record, f, indent=1)

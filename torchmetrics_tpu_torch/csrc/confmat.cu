@@ -26,26 +26,40 @@
 // 1.23 us at 3.35 TB/s (H100 SXM data sheet, 700 W). At a Cityscapes-shaped
 // batch (2, 19, 1024, 2048) float32 with int64 targets it is 352.3 MB: 105 us.
 // The N*K*S compares (79.7 M there) take 1.2 us at 67 TFLOP/s, so bytes bind.
+// At ImageNet-1k's batch the bytes stream in one round, and what is left is
+// latency: measured on an H100 (tools/kernel_ablation.py --sections confmat),
+// 256 blocks that load nothing take 5.6 us after an L2 flush, the scores'
+// stream 2.6 us more, the target 0.2 and the atomic on a cold state cell 0.3.
 //
 // What the design does about it:
-// - two layouts. Rows of many scores (S == 1, K >= 32) take a warp a row: the
-//   lanes read the row in 16-byte loads where the row is 16-byte aligned
-//   (else a score a lane, neighbouring lanes on neighbouring scores), all of
-//   a lane's loads of a round issued before its compares (a 1,000-score row
-//   is one round), each lane keeps its own (max, index), and five shuffles
-//   merge the lanes under the rules above. Everything else (segmentation's (N, C, H, W), few
-//   classes, labels) takes a thread an element: a thread walks the K scores of
-//   its pixel at stride S, so a warp's loads of one class are 32 neighbouring
-//   pixels, coalesced. Where S % 4 == 0 and the scores and targets are
-//   16-byte aligned, a thread takes four neighbouring pixels, one vector load
-//   a class, so each load moves 4x the bytes and four argmax chains overlap;
-// - contention. Where 4*C*C bytes fit in 32 KB (C <= 90), each block counts
-//   into a (C, C) histogram of its own in shared memory and flushes its
-//   non-zero cells to the state with one int32 atomic each. Otherwise the
-//   counts go to the state with global atomics. In both, the lanes of a warp
-//   that hit the same cell are merged first (`__match_any_sync`), so one
-//   atomic adds their count: in segmentation most pixels of a warp fall on the
-//   few diagonal cells;
+// - rows of many scores (S == 1, K >= 32) take a warp a row: the lanes read
+//   the row in 16-byte loads where the row is 16-byte aligned (else a score a
+//   lane, neighbouring lanes on neighbouring scores), all of a lane's loads of
+//   a round issued before its compares (a 1,000-score row is one round), each
+//   lane keeps its own (max, index), and five shuffles merge the lanes under
+//   the rules above. Lane 0 then reads the row's target: its line is in L2 by
+//   then, brought in by the warps of the neighbouring rows. Read by every lane
+//   before the scores it made the kernel slower, and neither a prefetch of the
+//   state row or of each lane's candidate cell to L2, nor the row by one TMA
+//   bulk copy, nor a 256-byte L2 fetch made it faster;
+// - scores of few classes or with a spatial size (segmentation's (N, C, H, W))
+//   take a thread an element: a thread walks the K scores of its pixel at
+//   stride S, so a warp's loads of one class are 32 neighbouring pixels,
+//   coalesced. Where S % 4 == 0 and the scores and targets are 16-byte
+//   aligned, a thread takes four neighbouring pixels, one vector load a class,
+//   so each load moves 4x the bytes and four argmax chains overlap;
+// - integer labels take a thread a label;
+// - contention. Where 4*C*C bytes fit in 32 KB (C <= 90) and the batch has at
+//   least as many elements as the histogram has cells, each block counts into
+//   a (C, C) histogram of its own in shared memory and flushes its non-zero
+//   cells to the state with one int32 atomic each. Otherwise (C > 90, or a
+//   batch smaller than its histogram, whose zeroing and flush outweigh it)
+//   elements add to the state directly. The lanes of a warp that hit the same
+//   cell are merged first (`__match_any_sync`), so one atomic adds their
+//   count: in segmentation most pixels of a warp fall on the few diagonal
+//   cells. Labels on the state skip the merge and add one atomic an element
+//   whose result nothing waits for (a RED): at C = 1,000 their lanes rarely
+//   share a cell, and the match cost more than it saved;
 // - int32 index arithmetic in unsigned form (defined wrap), the sign test and
 //   one wrap, as above.
 //
@@ -61,6 +75,9 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSharedCells = 8192;  // a block's (C, C) histogram in shared memory up to 32 KB
+constexpr int kRowThreads = 128;
+constexpr int kElementThreads = 256;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -95,11 +112,24 @@ __device__ __forceinline__ int pair_cell(long long t, int p, int n_classes, int 
   return (i >= 0 && i < cells) ? i : -1;
 }
 
-// Add one to hist[cell] for every lane whose cell >= 0; lanes on the same cell
-// share one atomic. All 32 lanes of the warp must call it.
-__device__ __forceinline__ void add_cells(int* hist, int cell) {
-  const unsigned peers = __match_any_sync(kFull, cell);
-  if (cell >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(hist + cell, __popc(peers));
+struct Args {
+  const void* preds;
+  const void* target;
+  int* state;
+  int n_rows, n_scores, inner, n_classes, cells;
+  bool has_ignore, shared, vec;
+  long long ignore;
+};
+
+// Add one to hist[cell] where cell >= 0. With `merge`, all 32 lanes of the warp must call it, and lanes on
+// the same cell share one atomic; without, one atomic an element, whose result nothing waits for.
+__device__ __forceinline__ void add_cell(int* hist, int cell, bool merge) {
+  if (merge) {
+    const unsigned peers = __match_any_sync(kFull, cell);
+    if (cell >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(hist + cell, __popc(peers));
+  } else if (cell >= 0) {
+    atomicAdd(hist + cell, 1);
+  }
 }
 
 // A lane's share of a row: all the loads of a round are issued before any
@@ -145,15 +175,6 @@ __device__ __forceinline__ void scan_row(const T* __restrict__ row, int n_scores
   }
 }
 
-struct Args {
-  const void* preds;
-  const void* target;
-  int* state;
-  int n_rows, n_scores, inner, n_classes, cells;
-  bool has_ignore, shared, vec;
-  long long ignore;
-};
-
 // Zero the block's shared histogram, or point at the state.
 __device__ __forceinline__ int* open_hist(const Args& a, int* smem) {
   if (!a.shared) return a.state;
@@ -174,7 +195,7 @@ __device__ __forceinline__ void close_hist(const Args& a, const int* smem) {
 
 // A warp a row of scores (inner == 1).
 template <typename T, typename U>
-__global__ void __launch_bounds__(128) confmat_rows_kernel(Args a) {
+__global__ void __launch_bounds__(kRowThreads) confmat_rows_kernel(Args a) {
   extern __shared__ int smem[];
   int* hist = open_hist(a, smem);
   const T* preds = static_cast<const T*>(a.preds);
@@ -194,7 +215,7 @@ __global__ void __launch_bounds__(128) confmat_rows_kernel(Args a) {
         arg = oa;
       }
     }
-    if ((threadIdx.x & 31) == 0) {
+    if ((threadIdx.x & 31) == 0) {  // the target's line is in L2 by now: its neighbours' warps read it
       const int cell = pair_cell(static_cast<long long>(target[r]), arg, a.n_classes, a.cells, a.has_ignore, a.ignore);
       if (cell >= 0) atomicAdd(hist + cell, 1);
     }
@@ -204,15 +225,16 @@ __global__ void __launch_bounds__(128) confmat_rows_kernel(Args a) {
 
 // A thread an element: scores at stride `inner` (LABELS: an integer label of type T).
 template <typename T, typename U, bool LABELS>
-__global__ void __launch_bounds__(256) confmat_elements_kernel(Args a) {
+__global__ void __launch_bounds__(kElementThreads) confmat_elements_kernel(Args a) {
   extern __shared__ int smem[];
   int* hist = open_hist(a, smem);
   const T* preds = static_cast<const T*>(a.preds);
   const U* target = static_cast<const U*>(a.target);
+  const bool merge = !LABELS || a.shared;
   const long long n = static_cast<long long>(a.n_rows) * a.inner;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const int lane = threadIdx.x & 31;
-  // warp-uniform bounds: every lane reaches add_cells on every pass
+  // warp-uniform bounds: every lane reaches add_cell on every pass
   for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x + (threadIdx.x - lane); base < n;
        base += stride) {
     const long long e = base + lane;
@@ -232,7 +254,7 @@ __global__ void __launch_bounds__(256) confmat_elements_kernel(Args a) {
       }
       cell = pair_cell(static_cast<long long>(target[e]), p, a.n_classes, a.cells, a.has_ignore, a.ignore);
     }
-    add_cells(hist, cell);
+    add_cell(hist, cell, merge);
   }
   close_hist(a, smem);
 }
@@ -268,7 +290,7 @@ __device__ __forceinline__ void load_targets(const long long* p, long long (&t)[
 // A thread four neighbouring elements (inner % 4 == 0, scores and targets 16-byte
 // aligned): one vector load a class, four argmax chains side by side.
 template <typename T, typename U>
-__global__ void __launch_bounds__(256) confmat_quads_kernel(Args a) {
+__global__ void __launch_bounds__(kElementThreads) confmat_quads_kernel(Args a) {
   extern __shared__ int smem[];
   int* hist = open_hist(a, smem);
   const T* preds = static_cast<const T*>(a.preds);
@@ -299,7 +321,7 @@ __global__ void __launch_bounds__(256) confmat_quads_kernel(Args a) {
       for (int q = 0; q < 4; ++q) cells[q] = pair_cell(t[q], arg[q], a.n_classes, a.cells, a.has_ignore, a.ignore);
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) add_cells(hist, cells[q]);
+    for (int q = 0; q < 4; ++q) add_cell(hist, cells[q], true);
   }
   close_hist(a, smem);
 }
@@ -357,6 +379,7 @@ extern "C" int confmat_multiclass_launch(const void* preds, int pred_kind, const
   a.has_ignore = has_ignore != 0;
   a.shared = shared != 0;
   a.ignore = ignore_index;
+  if (a.shared && a.cells > kSharedCells) return static_cast<int>(cudaErrorInvalidValue);
   // vector loads: along a row of scores (mode 0), or across four neighbouring elements (mode 1)
   const int elem_bytes = pred_kind == 0 ? 4 : 2;
   const bool aligned = reinterpret_cast<uintptr_t>(preds) % 16 == 0;

@@ -44,6 +44,13 @@ PRED_KINDS = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.int32
 TARGET_KINDS = {torch.int32: 0, torch.int64: 1}
 MODES = {"rows": 0, "elements": 1, "labels": 2}
 
+ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # preds, target, state
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # rows, scores, inner, classes
+    ctypes.c_int, ctypes.c_longlong,  # has_ignore, ignore_index
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # mode, shared, blocks, threads, stream
+]
+
 _launch: Optional[ctypes._CFuncPtr] = None
 
 
@@ -57,8 +64,13 @@ class Plan(NamedTuple):
 @functools.lru_cache(maxsize=256)
 def plan(n_elements: int, n_scores: int, inner: int, n_classes: int, labels: bool, sm_count: int) -> Plan:
     """The launch geometry for ``n_elements`` (N times the spatial size ``inner``)
-    elements of ``n_scores`` scores each (``labels``: integer predictions)."""
-    shared = n_classes * n_classes <= SHARED_CELLS
+    elements of ``n_scores`` scores each (``labels``: integer predictions).
+
+    A block counts into a shared histogram where it fits (C <= 90) and the batch
+    has at least as many elements as it has cells; a smaller batch adds to the
+    state directly, as C > 90 does."""
+    cells = n_classes * n_classes
+    shared = cells <= SHARED_CELLS and n_elements >= cells
     if not labels and inner == 1 and n_scores >= ROW_MIN_SCORES:
         blocks = min(cdiv(n_elements, ROW_THREADS // 32), ROW_BLOCKS_PER_SM * sm_count)
         return Plan("rows", shared, max(blocks, 1), ROW_THREADS)
@@ -70,12 +82,7 @@ def _launch_fn() -> ctypes._CFuncPtr:
     global _launch
     if _launch is None:
         fn = load_library(SOURCE).confmat_multiclass_launch
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # preds, target, state
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # rows, scores, inner, classes
-            ctypes.c_int, ctypes.c_longlong,  # has_ignore, ignore_index
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # mode, shared, blocks, threads
-        ]
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
