@@ -166,7 +166,18 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    valid similarities are all negative with and without an invalid entry on
    their axis, zero-norm embeddings, idf weights, H = 1, 33 and 4,096, Tp = Tt
    = 3,000 (past 128 listed tokens a side: passes over blocks) and an empty
-   batch;
+   batch; ``mask_iou``, segm mAP's exact mask intersections and areas, held
+   equal (``torch.equal``) to its plain version (JAX's float64 product) at a
+   COCO image (100 detections, 7 ground truths, 480 x 640), a crowded one (60
+   ground truths), PASCAL's 375 x 500 (the three timed beside ``torch.matmul``
+   of float32 copies), all-empty and all-full masks, D = G = 1, 16 images of
+   mixed sizes with D = 0 and G = 0 among them, an image of 300 + 40 masks
+   and phase 14's launch, 200 images of 100 + 7 masks (timed beside
+   ``torch.bmm`` of float32 copies);
+   ``poly_mmd``, KID's subsets' polynomial MMD^2, within 1e-5 of the terms'
+   scale of its plain version at KID's defaults (100 subsets of 1,000 of
+   10,000 x 2,048, timed beside the gathered ``torch.bmm`` form), d = 64 and
+   1,001, degrees 1-4 with given gamma and coef, m = 2 and a NaN feature;
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
@@ -194,9 +205,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    classes, about 7 ground truths and 100 detections an image, 5,000 images),
    through ``sync_ragged_states`` and compute; the item counts must survive,
    the results equal a single-process run, and every rank's matcher launches
-   be the chunks phase 3 checked; the single-process compute on rank 0 runs
-   under ``torch.profiler`` for the matcher's device time and the device
-   operations it spends most time in;
+   be the chunks phase 3 checked; the single-process compute runs once, on
+   rank 0 of the first world, under ``torch.profiler`` for the matcher's
+   device time and the device operations it spends most time in, and both
+   worlds' results are held equal to it;
 7. classification tower, one card, no sync: (i) the ImageNet-1k set through a
    ``MetricCollection`` of the confusion matrix, Cohen's kappa, MCC and the
    Jaccard index (C=1,000) with macro precision, recall and specificity, and
@@ -314,10 +326,44 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    ``InfoLM`` on a random-init ``BertForMaskedLM`` at
    bert_uncased_L-2_H-128_A-2's widths saved to a temporary directory; (iv)
    WER, CER, MER, WIL, WIP, SacreBLEU (13a), chrF++, TER, EED, SQuAD and
-   distinct bigrams over 2,000 seeded sentence pairs in updates of 100, each
-   update timed. Legs (i)-(iii) rerun their first batch on the CPU path
+   distinct bigrams over 2,000 seeded sentence pairs in updates of 100 (TER
+   and EED, Python DPs, over the first 500: depth cut for the run's time),
+   each update timed. Legs (i)-(iii) rerun their first batch on the CPU path
    (BERTScore's encoder stays on the card for both: the CPU path is the
-   metric's), (iv) its first update (states equal).
+   metric's), (iv) its first update (states equal);
+14. detection beyond bbox, one card, no sync: (i) COCO val2017's shape for
+   segm, 200 seeded images of 480 x 640 (``_coco_images``' boxes, labels,
+   scores and 1 % crowds; each box's inscribed ellipse as its mask; the image
+   count cut from 5,000 because the dense mask states hold 30.7 MB an image)
+   in batches of 20 through ``MeanAveragePrecision(iou_type="segm")`` and
+   ``iou_type=("bbox", "segm")`` with ``extended_summary=True`` (exactly 2
+   ``mask_iou`` launches, one a compute; ``coco_match`` for the matching);
+   (ii) COCO panoptic val2017's shape, 500 seeded 480 x 640 maps (133
+   categories: 80 things with RGB-encoded instance ids, 53 stuffs; 20
+   segments, void on the boundaries) in batches of 16 through
+   ``PanopticQuality`` and ``ModifiedPanopticQuality`` (exactly 1,000
+   ``confmat_multiclass`` launches, one an image and metric); (iii) the four
+   IoU-family metrics on (i)'s boxes; (iv) a ``tm_to_coco`` -> ``coco_to_tm``
+   round trip of (i)'s first batch (masks, labels, scores and crowds equal,
+   segm ``map`` equal). Each leg reruns its first batch on the CPU path
+   (counts equal, floats within 1e-6);
+15. generative image metrics, one card, no sync: (i) CIFAR-10 test's size,
+   10,000 seeded real and fake 32 x 32 images in batches of 250 through FID
+   (2048), KID (defaults: exactly one ``poly_mmd`` launch at compute), IS
+   (``logits_unbiased``, 10 splits) and MiFID, each on the random-init
+   InceptionV3 at full width in full float32; (ii) BAPPS 2AFC val's patch
+   size, 4,000 seeded 64 x 64 pairs through LPIPS with alex, vgg and squeeze;
+   (iii) PPL with 2,000 samples (cut from 10,000) of a seeded conv generator
+   (512-wide latent, 128 x 128 images resized to 64) with the VGG net. (i)'s
+   computes are held on the final states: FID, MiFID and IS computed on the
+   CPU from copies of the card's states (FID and MiFID within 1e-6 relative,
+   IS within 1e-5), KID's 100 subsets, drawn as its compute draws them, by the plain
+   version on the card within 1e-5 of the terms' scale; InceptionV3's resize
+   and network are timed on a batch. Each leg reruns its first batch on the
+   CPU path ((i) the batch's first 16 images through each metric's
+   functional core, for the CPU's time: states within 1e-4 of their scale;
+   LPIPS' first 16 pairs within 1e-4; PPL's distances on the same latents
+   within 1e-2, float32 noise over epsilon ** 2).
 
 Phases 5 and 6 run each rank as a process of its own (this script with
 ``--worker``); every kernel must have launched on the paths that run it.
@@ -1841,7 +1887,7 @@ def phase_matcher(flush: torch.Tensor):
         check(all(torch.equal(x, y) for x, y in zip(got, want)),
               f"coco_match and plain differ on mAP chunk {i} {_shape(args)}: {mismatches}")
     shapes = collections.Counter(_shape(args) for args in chunks)
-    print(f"[kernel] coco_match: exact on all {len(chunks)} chunks of the 5,000-image mAP compute, by (B, D, G, A, T) "
+    print(f"[kernel] coco_match: exact on all {len(chunks)} chunks of the {MAP_IMAGES:,}-image mAP compute, by (B, D, G, A, T) "
           f"{dict(shapes)} (items built and padded in {build_s:.2f} s, checked in {time.perf_counter() - t0:.2f} s)")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -2314,7 +2360,7 @@ def _top_device_ops(prof, n: int = 8) -> list:
 def worker_ragged(rank: int, world: int, device: torch.device) -> dict:
     """Phase 6 on one rank: ROUGE over its share of 1,000 sentence pairs and
     mAP over its share of the images, a different count on every rank, through
-    the ragged sync and compute; then the single-process run to compare."""
+    the ragged sync and compute; then, on rank 0 of the first world, the single-process run to compare."""
     import torch.distributed as dist
 
     from torchmetrics_tpu_torch.core.reductions import COLLECTIVES
@@ -2378,7 +2424,8 @@ def worker_ragged(rank: int, world: int, device: torch.device) -> dict:
         len(synced[k]) == len(ref[k]) and all(torch.equal(a, b.cpu()) for a, b in zip(synced[k], ref[k]))
         for k in ref if k != "_n"
     )
-    if rank == 0:  # the single-process value, once, under the profiler: the matcher's device time
+    if rank == 0 and dist.get_backend() == _worlds()[0][0]:  # the single-process value, once, under the
+        # profiler: the matcher's device time
         ref_values = []
         prof, out["map_ref_compute_s"] = _profiled(lambda: ref_values.append(metric.compute_state(ref)))
         ref_value = ref_values[-1]
@@ -2497,11 +2544,12 @@ def phase_sync() -> dict:
 
 
 def phase_ragged(chunk_shapes: collections.Counter) -> dict:
-    record = {}
+    record, reference = {}, None
     for backend, world in _worlds():
         results = run_world("ragged", backend, world)
         label = f"{backend} x{world}"
         first = results[0]
+        reference = reference or first  # the first world's rank 0 ran the single-process compute
         n_batches = -(-MAP_IMAGES // MAP_BATCH)
         rouge_counts = [len(b) for b in _rank_blocks(ROUGE_PAIRS // ROUGE_BATCH, world, True)]
         for r in results:
@@ -2515,22 +2563,24 @@ def phase_ragged(chunk_shapes: collections.Counter) -> dict:
             check(r["launches"]["coco_match"] > 0, f"{tag}: coco_match never launched")
             shapes = collections.Counter({tuple(shape): n for shape, n in r["shapes"]})
             check(shapes == chunk_shapes, f"{tag}: coco_match launched at {dict(shapes)}, phase 3 checked {dict(chunk_shapes)}")
-        check(first["map"] == first["map_ref"], f"[{label}] mAP {first['map']} vs single-process {first['map_ref']}")
+        check(first["map"] == reference["map_ref"],
+              f"[{label}] mAP {first['map']} vs single-process {reference['map_ref']}")
         check(0.0 < first["map"]["map"] < 1.0, f"[{label}] mAP {first['map']['map']}")
         images = [r["images"] for r in results]
         check(sum(images) == MAP_IMAGES and (world == 1 or len(set(images)) == world), f"[{label}] images per rank {images}")
-        check(first["map_ref_coco_match_kernels"] == sum(chunk_shapes.values()),
-              f"[{label}] the profiler saw {first['map_ref_coco_match_kernels']} coco_match kernels")
+        check(reference["map_ref_coco_match_kernels"] == sum(chunk_shapes.values()),
+              f"[{label}] the profiler saw {reference['map_ref_coco_match_kernels']} coco_match kernels")
+        profiled = (f"single process on rank 0 under the profiler: {first['map_ref_compute_s']:.3f} s, device "
+                    f"{first['map_ref_device_s']:.6f} s, of which coco_match {first['map_ref_coco_match_s']:.6f} s in "
+                    f"{first['map_ref_coco_match_kernels']} kernels; " if first is reference else "")
         print(f"[ragged] {label}: ROUGE updates per rank {rouge_counts}, sync {[round(r['rouge_sync_ms'], 3) for r in results]} ms, "
               f"{first['rouge']}; mAP images per rank {images} ({n_batches} batches of {MAP_BATCH}), sync "
               f"{[round(r['map_sync_ms'], 3) for r in results]} ms, collectives {first['map_collectives']}, compute "
               f"{[round(r['map_compute_s'], 3) for r in results]} s; coco_match launches "
-              f"{[r['launches']['coco_match'] for r in results]} at the chunks phase 3 checked; single process on rank 0 "
-              f"under the profiler: {first['map_ref_compute_s']:.3f} s, device {first['map_ref_device_s']:.6f} s, of which "
-              f"coco_match {first['map_ref_coco_match_s']:.6f} s in {first['map_ref_coco_match_kernels']} kernels; "
+              f"{[r['launches']['coco_match'] for r in results]} at the chunks phase 3 checked; {profiled}"
               f"map {first['map']['map']:.6f}, "
               f"map_50 {first['map']['map_50']:.6f}: equal to the single-process run")
-        for name, sec, count in first["map_ref_top_ops"]:
+        for name, sec, count in first.get("map_ref_top_ops", []):
             print(f"[ragged] {label}: single-process mAP compute, device operation {name}: {sec:.6f} s in {count}")
         record[label] = results
     return record
@@ -4526,6 +4576,8 @@ BERT_TINY = {"vocab_size": 30_522, "hidden_size": 128, "num_hidden_layers": 2, "
              "intermediate_size": 512}  # google/bert_uncased_L-2_H-128_A-2
 WIKITEXT103_TOKENS, PPL_BATCH, PPL_SEQ = 280_000, 8, 1_024  # WikiText-103 test in GPT-2 tokens, about
 TEXT_PAIRS, TEXT_UPDATE = 2_000, 100  # phase 13 (iv): the host metrics
+TEXT_DP_UPDATES = 5  # TER's and EED's Python DPs (about 2 s and 0.7 s an update): their first 500 pairs, for the
+# run's time when phases 14 and 15 came
 BERT_UPDATE, INFOLM_PAIRS, INFOLM_UPDATE, INFOLM_MAX_LENGTH = 64, 256, 32, 32
 
 
@@ -4940,7 +4992,7 @@ def phase_text() -> dict:
     """Phase 13 on one card, no sync: (i) WikiText-103 test's length through ``Perplexity``; (ii) WMT16
     newstest2016's 2,999 pairs through ``BERTScore`` on a random-init roberta-large cut to 17 layers, ``idf=True``;
     (iii) 256 pairs through ``InfoLM`` on a random-init bert_uncased_L-2_H-128_A-2 checkpoint; (iv) the host
-    metrics over 2,000 seeded sentence pairs."""
+    metrics over 2,000 seeded sentence pairs (TER and EED over the first 500)."""
     from torchmetrics_tpu_torch import text as tt
     from torchmetrics_tpu_torch.collections import MetricCollection
     from torchmetrics_tpu_torch.kernels.bert_match import bert_greedy_match
@@ -5010,8 +5062,8 @@ def phase_text() -> dict:
         "wip": (lambda d: tt.WordInfoPreserved(device=d), flat),
         "sacrebleu": (lambda d: tt.SacreBLEUScore(tokenize="13a", device=d), pairs),
         "chrf++": (lambda d: tt.CHRFScore(n_word_order=2, device=d), pairs),
-        "ter": (lambda d: tt.TranslationEditRate(device=d), pairs),
-        "eed": (lambda d: tt.ExtendedEditDistance(device=d), pairs),
+        "ter": (lambda d: tt.TranslationEditRate(device=d), pairs[:TEXT_DP_UPDATES]),
+        "eed": (lambda d: tt.ExtendedEditDistance(device=d), pairs[:TEXT_DP_UPDATES]),
         "squad": (lambda d: tt.SQuAD(device=d), _squad_batches(preds, target)),
         "distinct": (lambda d: tt.DistinctNGrams(ngram=2, ignore_index=1, device=d),
                      [(ids[i:i + TEXT_UPDATE].cuda(),) for i in range(0, TEXT_PAIRS, TEXT_UPDATE)]),
@@ -5028,6 +5080,750 @@ def phase_text() -> dict:
         del leg["tensors"]
     print(f"[text] bertscore: the random-init roberta-large (17 layers) built on the card in "
           f"{record['bertscore']['encoder_build_s']:.1f} s")
+    return record
+
+
+# ------------------------------------------------ mask_iou and poly_mmd (phase 3), phases 14 and 15
+SEGM_IMAGES, SEGM_BATCH, SEGM_HW = 200, 20, (480, 640)  # of COCO val2017's 5,000: the dense mask states
+PANOPTIC_MAPS, PANOPTIC_BATCH, PANOPTIC_SEGMENTS = 500, 16, 20  # COCO panoptic val2017's shape, cut from 5,000
+PANOPTIC_THINGS, PANOPTIC_STUFFS = tuple(range(1, 81)), tuple(range(81, 134))  # 80 things, 53 stuffs
+PANOPTIC_VOID = 0  # a category outside both: void in the target
+CIFAR_IMAGES, CIFAR_BATCH = 10_000, 250  # CIFAR-10 test: 10,000 images of 32 x 32
+BAPPS_PAIRS, BAPPS_BATCH = 4_000, 250  # BAPPS 2AFC val's patches: 64 x 64
+PPL_SAMPLES, PPL_LATENT = 2_000, 512  # of PPL's default 10,000; a 512-wide latent
+GEN_CPU_IMAGES = 16  # the generative legs rerun the first 16 images or pairs of their first batch on the CPU path
+FID_RTOL = 1e-6  # FID and MiFID, the card's compute against the CPU's on the same float64 states: the float32
+# result's rounding and two eigensolvers (cuSOLVER's, LAPACK's) on covariances of full rank
+PPL_CPU_RTOL = 1e-2  # PPL's distances, the card against the CPU: float32 image noise over epsilon ** 2 = 1e-8
+KID_TOL = 1e-5  # poly_mmd against plain: of the terms' scale (|kt_xx| + |kt_yy|) / (m (m - 1)) + 2 |k_xy| / m^2
+
+
+def _ellipse_masks(boxes: torch.Tensor, hw) -> torch.Tensor:
+    """Each xyxy box's inscribed ellipse, ``(N, H, W)`` bool on the boxes' device."""
+    h, w = hw
+    yy = torch.arange(h, device=boxes.device, dtype=torch.float32).view(1, h, 1) + 0.5
+    xx = torch.arange(w, device=boxes.device, dtype=torch.float32).view(1, 1, w) + 0.5
+    x1, y1, x2, y2 = (boxes[:, k].view(-1, 1, 1) for k in range(4))
+    rx, ry = ((x2 - x1) / 2).clamp_min(0.5), ((y2 - y1) / 2).clamp_min(0.5)
+    return ((xx - (x1 + x2) / 2) / rx) ** 2 + ((yy - (y1 + y2) / 2) / ry) ** 2 <= 1.0
+
+
+def _mask_case(gen, shapes, hw_list=None, kinds=None):
+    """Images of ellipse masks (boxes anywhere) with a few masks all empty or all full."""
+    dets, gts = [], []
+    for i, (n_d, n_g) in enumerate(shapes):
+        hw = hw_list[i] if hw_list else SEGM_HW
+        boxes = torch.rand((n_d + n_g, 4), generator=gen, device="cuda") * torch.tensor(
+            [hw[1], hw[0], hw[1], hw[0]], device="cuda", dtype=torch.float32)
+        boxes = torch.cat([torch.minimum(boxes[:, :2], boxes[:, 2:]), torch.maximum(boxes[:, :2], boxes[:, 2:])], 1)
+        masks = _ellipse_masks(boxes, hw)
+        if kinds == "edges" and n_d + n_g >= 4:
+            masks[0], masks[1], masks[-1] = False, True, True
+        dets.append(masks[:n_d].contiguous())
+        gts.append(masks[n_d:].contiguous())
+    return dets, gts
+
+
+def phase_mask_iou_kernel(flush: torch.Tensor) -> list:
+    """``mask_iou`` against its plain version (JAX's float64 product) on the card, counts equal (``torch.equal``):
+    (a) a COCO image, 100 detections and 7 ground truths of 480 x 640 (timed, the record's row), (b) a crowded one
+    of 60 ground truths (timed), (c) PASCAL's 375 x 500 (timed: H W not a multiple of 32), (d) all-empty and
+    all-full masks, (e) D = G = 1, (f) a batch of 16 images of mixed sizes with D = 0 and G = 0 among them, (g) an
+    image of 300 + 40 masks (entries of detection and ground-truth blocks), (h) phase 14's launch (timed,
+    ``_mask_iou_phase14_launch``). Library: ``torch.matmul`` of the masks as float32 copies made outside the timing
+    (exact below 2**24), TF32 off."""
+    from torchmetrics_tpu_torch.kernels import mask_iou as kmi
+    from torchmetrics_tpu_torch.utilities.precision import full_float32
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    sizes = [(480, 640), (375, 500), (427, 640), (640, 480), (333, 500), (1, 1), (7, 37), (512, 512)]
+    mixed_shapes = [(int(d), int(g)) for d, g in zip(
+        torch.randint(0, 100, (16,), generator=gen, device="cuda").tolist(),
+        torch.randint(0, 20, (16,), generator=gen, device="cuda").tolist())]
+    mixed_shapes[3], mixed_shapes[7] = (0, 5), (9, 0)
+    cases = [("(a) COCO image, D=100, G=7, 480 x 640", [(100, 7)], None, None, True),
+             ("(b) crowded, D=100, G=60, 480 x 640", [(100, 60)], None, None, True),
+             ("(c) PASCAL, D=100, G=7, 375 x 500", [(100, 7)], [(375, 500)], None, True),
+             ("(d) all-empty and all-full masks", [(6, 5)], [(48, 64)], "edges", False),
+             ("(e) D=1, G=1", [(1, 1)], None, None, False),
+             ("(f) 16 images of mixed sizes", mixed_shapes, [sizes[i % len(sizes)] for i in range(16)], None, False),
+             ("(g) D=300, G=40 at 64 x 80", [(300, 40)], [(64, 80)], None, False)]
+    rows = []
+    for label, shapes, hw, kinds, timed in cases:
+        dets, gts = _mask_case(gen, shapes, hw, kinds)
+        before = kmi.mask_iou.launches
+        got = kmi.mask_iou(dets, gts)
+        again = kmi.mask_iou(dets, gts)
+        want = kmi._mask_iou_plain(dets, gts)
+        torch.cuda.synchronize()
+        launched = any(d.shape[0] and g.shape[0] for d, g in zip(dets, gts))
+        check(kmi.mask_iou.launches == before + 2 * launched, f"mask_iou launches ({label})")
+        for i, (g_, a_, w_) in enumerate(zip(got, again, want)):
+            for part, x, y, z in zip(("inter", "det_area", "gt_area"), g_, a_, w_):
+                check(torch.equal(x, z) and torch.equal(x, y), f"mask_iou {part} differs from plain ({label}, image {i})")
+        row = {"case": label, "max_abs_err": 0.0, "images": len(shapes)}
+        if timed:
+            n_d, n_g = shapes[0]
+            h, w = hw[0] if hw else SEGM_HW
+            bytes_ = (n_d + n_g) * h * w + 4 * (n_d * n_g + n_d + n_g)
+            bound_ms = bytes_ / PEAK_BYTES_PER_S * 1e3
+            kernel_ms = time_ms(lambda: kmi.mask_iou(dets, gts), flush)
+            plain_ms = time_ms(lambda: kmi._mask_iou_plain(dets, gts), flush, reps=5, warmup=1)
+            df, gf = dets[0].flatten(1).float(), gts[0].flatten(1).float()
+            with full_float32():
+                library_ms = time_ms(lambda: torch.matmul(df, gf.T), flush, reps=10)
+            stream_ms = time_stream_ms(lambda d_, g_: kmi.mask_iou(d_, g_), [(dets, gts)] + [
+                ([d.clone() for d in dets], [g.clone() for g in gts]) for _ in range(copies_for(bytes_) - 1)], calls=8)
+            row.update({"ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": "bytes", "library_ms": library_ms, "bytes": bytes_})
+            print(f"[kernel] mask_iou {label}: {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a call back "
+                  f"to back), plain (float64 product) {plain_ms:.4f} ms, torch.matmul of float32 masks (library_ms) "
+                  f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us (bytes: {bytes_}), share "
+                  f"{bound_ms / kernel_ms:.1%}; entries {len(kmi.plan([(n_d, n_g, h * w)]))}")
+        rows.append(row)
+        del dets, gts, got, again, want
+    rows.append(_mask_iou_phase14_launch(gen, flush))
+    print(f"[kernel] mask_iou: SM clock, now and at most: {sm_clocks()}")
+    print(f"[kernel] mask_iou: counts and areas equal to plain (torch.equal) and across two launches on all "
+          f"{len(rows)} cases")
+    return rows
+
+
+def _mask_iou_phase14_launch(gen, flush: torch.Tensor) -> dict:
+    """(h) the launch of phase 14's segm computes: ``SEGM_IMAGES`` images of 100 + 7 masks of 480 x 640 (6.59 GB)
+    in one launch, counts equal to plain, timed beside its bound, the plain version and ``torch.bmm`` of float32
+    copies (26.3 GB, made outside the timing; TF32 off)."""
+    from torchmetrics_tpu_torch.kernels import mask_iou as kmi
+    from torchmetrics_tpu_torch.utilities.precision import full_float32
+
+    label = f"(h) phase 14's launch: {SEGM_IMAGES} images, D=100, G=7, 480 x 640"
+    n_d, n_g, (h, w) = 100, 7, SEGM_HW
+    dets, gts = _mask_case(gen, [(n_d, n_g)] * SEGM_IMAGES)
+    before = kmi.mask_iou.launches
+    got = kmi.mask_iou(dets, gts)
+    want = kmi._mask_iou_plain(dets, gts)
+    torch.cuda.synchronize()
+    check(kmi.mask_iou.launches == before + 1, f"mask_iou launches ({label})")
+    for i, (g_, w_) in enumerate(zip(got, want)):
+        check(all(torch.equal(x, z) for x, z in zip(g_, w_)), f"mask_iou differs from plain ({label}, image {i})")
+    del got, want
+    bytes_ = SEGM_IMAGES * ((n_d + n_g) * h * w + 4 * (n_d * n_g + n_d + n_g))
+    bound_ms = bytes_ / PEAK_BYTES_PER_S * 1e3
+    kernel_ms = time_ms(lambda: kmi.mask_iou(dets, gts), flush, reps=10)
+    plain_ms = time_ms(lambda: kmi._mask_iou_plain(dets, gts), flush, reps=3, warmup=1)
+    df = torch.stack([d.flatten(1) for d in dets]).float()
+    gf = torch.stack([g.flatten(1) for g in gts]).float().transpose(1, 2)
+    with full_float32():
+        library_ms = time_ms(lambda: torch.bmm(df, gf), flush, reps=5, warmup=1)
+    del df, gf, dets, gts
+    torch.cuda.empty_cache()
+    print(f"[kernel] mask_iou {label}: {kernel_ms:.4f} ms after an L2 flush, plain (float64 products an image) "
+          f"{plain_ms:.4f} ms, torch.bmm of float32 masks (library_ms) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"(bytes: {bytes_}), share {bound_ms / kernel_ms:.1%}")
+    return {"case": label, "max_abs_err": 0.0, "images": SEGM_IMAGES, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms, "bytes": bytes_}
+
+
+def _kid_features(gen, n, d, shift=0.0):
+    """Non-negative features like InceptionV3's pool (ReLU then mean): |N(0, 1)| scaled, plus ``shift``."""
+    return (torch.randn((n, d), generator=gen, device="cuda").abs() * 0.5 + shift).contiguous()
+
+
+def _kid_subsets(gen, n_r, n_f, subsets, m):
+    ix = torch.stack([torch.randperm(n_r, generator=gen, device="cuda")[:m] for _ in range(subsets)])
+    iy = torch.stack([torch.randperm(n_f, generator=gen, device="cuda")[:m] for _ in range(subsets)])
+    return ix, iy
+
+
+def _kid_scale(x, y, ix, iy, degree, gamma, coef):
+    """``(|kt_xx| + |kt_yy|) / (m (m - 1)) + 2 |k_xy| / m^2`` a subset, from float64 kernel matrices."""
+    out = []
+    m = ix.shape[1]
+    for rx, ry in zip(ix, iy):
+        xs, ys = x[rx].double(), y[ry].double()
+        k = [((a @ b.T) * gamma + coef).abs() ** degree for a, b in ((xs, xs), (ys, ys), (xs, ys))]
+        out.append(float((k[0].sum() - k[0].diagonal().sum() + k[1].sum() - k[1].diagonal().sum()) / (m * (m - 1))
+                         + 2 * k[2].sum() / m**2))
+    return torch.tensor(out, dtype=torch.float64, device=x.device)
+
+
+def _kid_library(x, y, ix, iy, degree, gamma, coef):
+    """The batched PyTorch form: the subsets gathered, ``torch.bmm`` for the three kernel matrices, the power
+    and the sums."""
+    xs, ys = x[ix], y[iy]
+    k = [(torch.bmm(a, b.transpose(1, 2)) * gamma + coef) ** degree for a, b in ((xs, xs), (ys, ys), (xs, ys))]
+    m = ix.shape[1]
+    kt = (k[0].sum((1, 2)) - k[0].diagonal(dim1=1, dim2=2).sum(1) + k[1].sum((1, 2))
+          - k[1].diagonal(dim1=1, dim2=2).sum(1))
+    return kt / (m * (m - 1)) - 2 * k[2].sum((1, 2)) / m**2
+
+
+def phase_poly_mmd_kernel(flush: torch.Tensor) -> list:
+    """``poly_mmd`` against its plain version (JAX's gathered subsets, float32) on the card, within
+    ``KID_TOL`` of the terms' scale: (a) KID's defaults, 100 subsets of 1,000 of 10,000 x 2,048 features (timed,
+    the record's row), (b) d = 64 and d = 1,001 (4-byte loads), (c) degrees 1-4 with given ``gamma`` and ``coef``,
+    (d) m = 2, (e) a NaN feature (NaN in the subsets that hold it, as plain). Library: the batched gather +
+    ``torch.bmm`` + power + sums (several calls, TF32 off)."""
+    from torchmetrics_tpu_torch.kernels import poly_mmd as kpm
+    from torchmetrics_tpu_torch.utilities.precision import full_float32
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
+    cases = [("(a) KID defaults: 100 subsets of 1,000 of 10,000 x 2,048", 10_000, 2048, 100, 1000, 3, None, 1.0, True)]
+    cases += [(f"(b) d = {d}", 2000, d, 10, 300, 3, None, 1.0, False) for d in (64, 1001)]
+    cases += [(f"(c) degree {k}, gamma {g}, coef {c}", 1500, 200, 6, 257, k, g, c, False)
+              for k, g, c in ((1, 0.01, 0.5), (2, 0.003, 2.0), (3, 0.002, 1.5), (4, 0.005, 1.0))]
+    cases += [("(d) m = 2", 50, 128, 20, 2, 3, None, 1.0, False),
+              ("(e) a NaN feature", 400, 96, 8, 150, 3, None, 1.0, "nan")]
+    rows = []
+    for label, n, d, subsets, m, degree, gamma, coef, timed in cases:
+        x, y = _kid_features(gen, n, d), _kid_features(gen, n, d, shift=0.05)
+        if timed == "nan":
+            x[7, 3] = float("nan")
+        ix, iy = _kid_subsets(gen, n, n, subsets, m)
+        g = 1.0 / d if gamma is None else gamma
+        before = kpm.poly_mmd.launches
+        got = kpm.poly_mmd(x, y, ix, iy, degree, g, coef)
+        again = kpm.poly_mmd(x, y, ix, iy, degree, g, coef)
+        with full_float32():
+            want = kpm._poly_mmd_plain(x, y, ix, iy, degree, g, coef)
+        torch.cuda.synchronize()
+        check(kpm.poly_mmd.launches == before + 2, f"poly_mmd launches ({label})")
+        check(torch.equal(got.isnan(), want.isnan()), f"poly_mmd's NaN differ from plain ({label})")
+        if timed == "nan":
+            check(bool(got.isnan().any()) and not bool(got.isnan().all()), f"poly_mmd NaN pattern ({label})")
+        fin = ~want.isnan()
+        scale = _kid_scale(x, y, ix, iy, degree, g, coef)
+        err = (got.double() - want.double()).abs()
+        check(bool((err[fin] <= KID_TOL * scale[fin]).all()),
+              f"poly_mmd differs from plain ({label}): max err over scale {float((err[fin] / scale[fin]).max()):.3g}")
+        check(bool(((got.double() - again.double()).abs()[fin] <= 1e-12 * scale[fin]).all()),
+              f"poly_mmd is not repeatable ({label})")
+        row = {"case": label, "max_abs_err": float(err[fin].max()) if fin.any() else 0.0,
+               "max_err_over_scale": float((err[fin] / scale[fin]).max()) if fin.any() else 0.0}
+        if timed is True:
+            pairs = m * m + m * (m - 1)  # xy, and the upper halves of xx and yy
+            flop = 2 * d * pairs * subsets
+            bound_ms = flop / PEAK_FP32_OPS_PER_S * 1e3
+            kernel_ms = time_ms(lambda: kpm.poly_mmd(x, y, ix, iy, degree, g, coef), flush, reps=10)
+            with full_float32():
+                plain_ms = time_ms(lambda: kpm._poly_mmd_plain(x, y, ix, iy, degree, g, coef), flush, reps=3,
+                                   warmup=1)
+                library_ms = time_ms(lambda: _kid_library(x, y, ix, iy, degree, g, coef), flush, reps=3, warmup=1)
+            stream_ms = time_stream_ms(lambda *a: kpm.poly_mmd(*a, degree, g, coef),
+                                       [(x, y, ix, iy), (x.clone(), y.clone(), ix.clone(), iy.clone())], calls=4)
+            row.update({"ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": "operations", "library_ms": library_ms, "flop": flop})
+            print(f"[kernel] poly_mmd {label}: {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a call back "
+                  f"to back), plain (a subset at a time) "
+                  f"{plain_ms:.4f} ms, gather + torch.bmm + power + sums (library_ms) {library_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms (fp32 operations: {flop:.3g}), share {bound_ms / kernel_ms:.1%}; "
+                  f"max err over scale {row['max_err_over_scale']:.3g}")
+        rows.append(row)
+    print(f"[kernel] poly_mmd: SM clock, now and at most: {sm_clocks()}")
+    print(f"[kernel] poly_mmd: within {KID_TOL} of the terms' scale of plain, NaN in place, repeatable, on "
+          f"{len(rows)} cases: " + "; ".join(f"{r['case']} ({r['max_err_over_scale']:.2g})" for r in rows))
+    return rows
+
+
+def _segm_batches():
+    """(i)'s COCO-val2017-shaped batches: ``_coco_images``' boxes, labels, scores and crowds, each box's inscribed
+    ellipse as its mask (480 x 640), on the card."""
+    for lo in range(0, SEGM_IMAGES, SEGM_BATCH):
+        preds, targets = _coco_images(lo, min(lo + SEGM_BATCH, SEGM_IMAGES))
+        preds, targets = _on("cuda", preds), _on("cuda", targets)
+        for d in preds + targets:
+            d["masks"] = _ellipse_masks(d["boxes"], SEGM_HW)
+        yield preds, targets
+
+
+def _to_cpu(items):
+    return [{k: v.cpu() for k, v in d.items()} for d in items]
+
+
+def _panoptic_batch(gen, n):
+    """``n`` COCO-panoptic-shaped maps (480 x 640): a nearest-seed partition into ``PANOPTIC_SEGMENTS`` segments,
+    60 % things with RGB-encoded instance ids (up to 2**24), 40 % stuffs, void (category 0) on the 2-pixel
+    boundaries in the target; the prediction's seeds jittered by 8 pixels, 90 % of its categories kept."""
+    h, w = SEGM_HW
+    yy = torch.arange(h, device="cuda", dtype=torch.float32).view(1, h, 1)
+    xx = torch.arange(w, device="cuda", dtype=torch.float32).view(1, 1, w)
+    things = torch.tensor(PANOPTIC_THINGS, device="cuda")
+    stuffs = torch.tensor(PANOPTIC_STUFFS, device="cuda")
+    preds, target = [], []
+    for _ in range(n):
+        seeds = torch.rand((PANOPTIC_SEGMENTS, 2), generator=gen, device="cuda") * torch.tensor([w, h], device="cuda")
+        is_thing = torch.rand(PANOPTIC_SEGMENTS, generator=gen, device="cuda") < 0.6
+        cat = torch.where(is_thing, things[torch.randint(0, len(things), (PANOPTIC_SEGMENTS,), generator=gen,
+                                                         device="cuda")],
+                          stuffs[torch.randint(0, len(stuffs), (PANOPTIC_SEGMENTS,), generator=gen, device="cuda")])
+        inst = torch.where(is_thing, torch.randint(1, 2**24, (PANOPTIC_SEGMENTS,), generator=gen, device="cuda"), 0)
+        jitter = torch.randn((PANOPTIC_SEGMENTS, 2), generator=gen, device="cuda") * 8.0
+        keep = torch.rand(PANOPTIC_SEGMENTS, generator=gen, device="cuda") < 0.9
+        p_cat = torch.where(keep, cat, torch.where(is_thing, things[torch.randint(0, len(things), (
+            PANOPTIC_SEGMENTS,), generator=gen, device="cuda")], stuffs[torch.randint(0, len(stuffs), (
+                PANOPTIC_SEGMENTS,), generator=gen, device="cuda")]))
+        maps = []
+        for s, c, i_ in ((seeds, cat, inst), (seeds + jitter, p_cat, inst)):
+            dist = (xx - s[:, 0].view(-1, 1, 1)) ** 2 + (yy - s[:, 1].view(-1, 1, 1)) ** 2
+            two = dist.topk(2, dim=0, largest=False)
+            seg = two.indices[0]
+            m = torch.stack([c[seg], i_[seg]], dim=-1)
+            maps.append((m, two.values[1].sqrt() - two.values[0].sqrt() < 2.0))
+        (t_map, boundary), (p_map, _) = maps
+        t_map[boundary] = torch.tensor([PANOPTIC_VOID, 0], device="cuda")
+        preds.append(p_map)
+        target.append(t_map)
+    return torch.stack(preds), torch.stack(target)
+
+
+def _panoptic_batches():
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 63)
+    for lo in range(0, PANOPTIC_MAPS, PANOPTIC_BATCH):
+        yield _panoptic_batch(gen, min(PANOPTIC_BATCH, PANOPTIC_MAPS - lo))
+
+
+def _timed_updates(metrics: dict, batches, each=None) -> dict:
+    """Update every metric with every batch (``each(batch) -> args``), each update's host time with a
+    synchronize after it; returns the medians by metric."""
+    times = {name: [] for name in metrics}
+    for batch in batches:
+        args = each(batch) if each else batch
+        for name, metric in metrics.items():
+            t0 = time.perf_counter()
+            metric.update(*args)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _timed_computes(metrics: dict) -> tuple:
+    values, ms = {}, {}
+    for name, metric in metrics.items():
+        t0 = time.perf_counter()
+        values[name] = metric.compute()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    return values, ms
+
+
+def phase_detection() -> dict:
+    """Phase 14 on one card, no sync: (i) COCO val2017's shape for segm, 200 images of 480 x 640 in batches of 20
+    through ``MeanAveragePrecision(iou_type="segm")`` and ``iou_type=("bbox", "segm")`` with
+    ``extended_summary``; (ii) COCO panoptic val2017's shape, 500 maps through ``PanopticQuality`` and
+    ``ModifiedPanopticQuality``; (iii) the IoU family on (i)'s boxes; (iv) a ``tm_to_coco`` -> ``coco_to_tm``
+    round trip of (i)'s first batch. Each leg reruns its first batch on the CPU path."""
+    from torchmetrics_tpu_torch import detection as td
+    from torchmetrics_tpu_torch.kernels import mask_iou as kmi
+    from torchmetrics_tpu_torch.kernels.coco_match import coco_match
+    from torchmetrics_tpu_torch.kernels.confmat import confmat_multiclass
+
+    record = {}
+    n_batches = -(-SEGM_IMAGES // SEGM_BATCH)
+
+    # (i) segm: one mask_iou launch a compute, over all 200 images; the matching through coco_match
+    t0 = time.perf_counter()
+    batches = list(_segm_batches())
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    mask_bytes = sum(d["masks"].numel() for p, t in batches for d in p + t)
+    metrics = {"segm": td.MeanAveragePrecision(iou_type="segm", device="cuda"),
+               "both": td.MeanAveragePrecision(iou_type=("bbox", "segm"), extended_summary=True, device="cuda")}
+    kmi.mask_iou.launches = coco_match.launches = 0
+    t0 = time.perf_counter()
+    update_ms = _timed_updates(metrics, batches)
+    values, compute_ms = _timed_computes(metrics)
+    leg_s = time.perf_counter() - t0
+    launches = {"mask_iou": kmi.mask_iou.launches, "coco_match": coco_match.launches}
+    check(launches["mask_iou"] == 2 and launches["coco_match"] > 0,
+          f"[detection segm] launches {launches}: one mask_iou launch a compute, coco_match expected")
+    segm, both = values["segm"], values["both"]
+    for key in ("map", "map_50", "mar_100"):
+        check(0.0 < float(segm[key]) <= 1.0 and float(segm[key]) == float(both[f"segm_{key}"]),
+              f"[detection segm] {key} {float(segm[key])} vs {float(both[f'segm_{key}'])}")
+    n_cls = len(both["classes"])
+    check(tuple(both["segm_precision"].shape) == (10, 101, n_cls, 4, 3) and len(both["segm_ious"]) == n_cls
+          * SEGM_IMAGES and tuple(both["bbox_scores"].shape) == (10, 101, n_cls, 4, 3),
+          f"[detection segm] extended summary shapes {tuple(both['segm_precision'].shape)}, {len(both['segm_ious'])}")
+    t_cpu = time.perf_counter()
+    first_p, first_t = batches[0]
+    card, cpu = (td.MeanAveragePrecision(iou_type=("bbox", "segm"), extended_summary=True, device=dev)
+                 for dev in ("cuda", "cpu"))
+    card.update(first_p, first_t)
+    cpu.update(_to_cpu(first_p), _to_cpu(first_t))
+    got, want = card.compute(), cpu.compute()
+    counts_card = kmi.mask_iou_counts([p["masks"] for p in first_p], [t["masks"] for t in first_t])
+    counts_cpu = kmi.mask_iou_counts([p["masks"].cpu() for p in first_p], [t["masks"].cpu() for t in first_t])
+    for i, (a, b) in enumerate(zip(counts_card, counts_cpu)):
+        check(all(torch.equal(x.cpu(), y) for x, y in zip(a, b)), f"[detection segm] image {i}'s counts differ")
+    compared = _assert_same("[detection segm] first batch", {k: v for k, v in got.items() if k[-4:] != "ious"},
+                            {k: v for k, v in want.items() if k[-4:] != "ious"}, 1e-6, 1e-6)
+    compared += _assert_same("[detection segm] first batch ious", list(got["segm_ious"].values()),
+                             list(want["segm_ious"].values()), 0.0, 0.0)
+    record["segm"] = {"images": SEGM_IMAGES, "batches": n_batches, "mask_bytes": mask_bytes, "data_s": data_s,
+                      "leg_s": leg_s, "update_ms_median": update_ms, "compute_ms": compute_ms, "launches": launches,
+                      "values": {k: float(segm[k]) for k in ("map", "map_50", "map_75", "mar_100")},
+                      "both_values": {k: float(both[k]) for k in ("bbox_map", "segm_map")},
+                      "cpu_compared": compared, "cpu_rerun_s": time.perf_counter() - t_cpu}
+    print(f"[detection] segm: {SEGM_IMAGES} images ({mask_bytes / 1e9:.2f} GB of masks, made in {data_s:.1f} s) in "
+          f"{leg_s:.1f} s; update medians {update_ms} ms, computes {compute_ms} ms; launches {launches}; values "
+          f"{record['segm']['values']}, both types {record['segm']['both_values']}; the first batch matches the CPU "
+          f"path ({compared} tensors within 1e-6, the IoUs and the {len(counts_card)} images' counts equal)")
+    del card, cpu, got, want, counts_card, counts_cpu
+
+    # (iii) the IoU family on (i)'s boxes (no kernel)
+    family = {"iou": td.IntersectionOverUnion(class_metrics=True, device="cuda"),
+              "giou": td.GeneralizedIntersectionOverUnion(device="cuda"),
+              "diou": td.DistanceIntersectionOverUnion(device="cuda"),
+              "ciou": td.CompleteIntersectionOverUnion(device="cuda")}
+    t0 = time.perf_counter()
+    update_ms = _timed_updates(family, batches)
+    values, compute_ms = _timed_computes(family)
+    leg_s = time.perf_counter() - t0
+    for name, v in values.items():
+        check(all(math.isfinite(float(x)) for x in v.values()) and -2.0 < float(v[name]) <= 1.0,
+              f"[detection iou] {name}: {v[name]}")
+    t_cpu, compared = time.perf_counter(), 0
+    for name, metric in family.items():
+        card, cpu = (type(metric)(class_metrics=metric.class_metrics, device=dev) for dev in ("cuda", "cpu"))
+        card.update(first_p, first_t)
+        cpu.update(_to_cpu(first_p), _to_cpu(first_t))
+        compared += _assert_same(f"[detection iou] {name} first batch", card.compute(), cpu.compute(), 1e-6, 1e-6)
+    record["iou_family"] = {"leg_s": leg_s, "update_ms_median": update_ms, "compute_ms": compute_ms,
+                            "values": {n: float(v[n]) for n, v in values.items()}, "classes": len(values["iou"]) - 1,
+                            "cpu_compared": compared, "cpu_rerun_s": time.perf_counter() - t_cpu}
+    print(f"[detection] IoU family over {SEGM_IMAGES} images in {leg_s:.1f} s: update medians {update_ms} ms, "
+          f"computes {compute_ms} ms, values {record['iou_family']['values']} ({record['iou_family']['classes']} "
+          f"per-class IoUs); the first batch matches the CPU path ({compared} tensors within 1e-6)")
+
+    # (iv) the COCO round trip of (i)'s first batch
+    t0 = time.perf_counter()
+    first = td.MeanAveragePrecision(iou_type=("bbox", "segm"), device="cuda")
+    first.update(first_p, first_t)
+    with tempfile.TemporaryDirectory() as tmp:
+        first.tm_to_coco(os.path.join(tmp, "segm"))
+        sizes = {side: os.path.getsize(os.path.join(tmp, f"segm_{side}.json")) for side in ("preds", "target")}
+        p2, t2 = td.MeanAveragePrecision.coco_to_tm(os.path.join(tmp, "segm_preds.json"),
+                                                    os.path.join(tmp, "segm_target.json"),
+                                                    iou_type=["bbox", "segm"], device="cuda")
+    for i, (pa, pb, ta, tb) in enumerate(zip(first_p, p2, first_t, t2)):
+        check(torch.equal(pa["masks"], pb["masks"].bool()) and torch.equal(ta["masks"], tb["masks"].bool())
+              and torch.equal(pa["labels"], pb["labels"]) and torch.equal(pa["scores"], pb["scores"])
+              and torch.equal(ta["iscrowd"], tb["iscrowd"]), f"[detection coco] image {i} changed in the round trip")
+        xyxy = torch.cat([pb["boxes"][:, :2], pb["boxes"][:, :2] + pb["boxes"][:, 2:]], 1)
+        check(bool(torch.allclose(xyxy, pa["boxes"], atol=1e-3, rtol=0)), f"[detection coco] image {i}'s boxes")
+    again = td.MeanAveragePrecision(box_format="xywh", iou_type=("bbox", "segm"), device="cuda")
+    again.update(p2, t2)
+    a, b = first.compute(), again.compute()
+    # the written areas are the boxes' (``tm_to_coco``'s rule), so the area ranges differ; "all" does not
+    for key in ("segm_map", "segm_map_50", "segm_mar_100"):
+        check(float(a[key]) == float(b[key]), f"[detection coco] {key}: {float(a[key])} vs {float(b[key])}")
+    record["coco_round_trip"] = {"json_bytes": sizes, "s": time.perf_counter() - t0, "segm_map": float(a["segm_map"])}
+    print(f"[detection] COCO round trip of the first batch ({SEGM_BATCH} images) in {record['coco_round_trip']['s']:.1f}"
+          f" s: json {sizes} bytes; masks (compressed RLE), labels, scores and crowds equal, boxes within 1e-3 after "
+          f"xywh, segm map, map_50 and mar_100 equal")
+    del batches, metrics, values, segm, both, first, again, p2, t2, first_p, first_t
+    torch.cuda.empty_cache()
+
+    # (ii) panoptic: one confmat_multiclass launch an image and metric
+    kw = {"things": set(PANOPTIC_THINGS), "stuffs": set(PANOPTIC_STUFFS)}
+    pq = {"pq": td.PanopticQuality(return_sq_and_rq=True, device="cuda", **kw),
+          "pq_modified": td.ModifiedPanopticQuality(device="cuda", **kw)}
+    confmat_multiclass.launches = 0
+    t0 = time.perf_counter()
+    update_ms = _timed_updates(pq, _panoptic_batches())
+    values, compute_ms = _timed_computes(pq)
+    leg_s = time.perf_counter() - t0
+    launches = confmat_multiclass.launches
+    check(launches == 2 * PANOPTIC_MAPS, f"[detection panoptic] {launches} confmat_multiclass launches, "
+          f"{2 * PANOPTIC_MAPS} expected (one an image and metric)")
+    check(all(0.0 < float(x) <= 1.0 for x in values["pq"]) and 0.0 < float(values["pq_modified"]) <= 1.0,
+          f"[detection panoptic] values {values}")
+    t_cpu = time.perf_counter()
+    first = next(_panoptic_batches())
+    compared = 0
+    for name, metric in pq.items():
+        card, cpu = (type(metric)(device=dev, **kw) for dev in ("cuda", "cpu"))
+        card.update(*first)
+        cpu.update(*(x.cpu() for x in first))
+        for leaf in ("true_positives", "false_positives", "false_negatives"):
+            check(torch.equal(card.metric_state[leaf].cpu(), cpu.metric_state[leaf]), f"[detection panoptic] {leaf}")
+        compared += 3 + _assert_same(f"[detection panoptic] {name} iou_sum", card.metric_state["iou_sum"],
+                                     cpu.metric_state["iou_sum"], 1e-6, 0.0)
+        compared += _assert_same(f"[detection panoptic] {name} value", card.compute(), cpu.compute(), 1e-6, 1e-7)
+    record["panoptic"] = {"maps": PANOPTIC_MAPS, "leg_s": leg_s, "update_ms_median": update_ms,
+                          "compute_ms": compute_ms, "launches": {"confmat_multiclass": launches},
+                          "values": {"pq_sq_rq": values["pq"].tolist(), "pq_modified": float(values["pq_modified"])},
+                          "cpu_compared": compared, "cpu_rerun_s": time.perf_counter() - t_cpu}
+    print(f"[detection] panoptic: {PANOPTIC_MAPS} maps in {leg_s:.1f} s: update medians {update_ms} ms ({PANOPTIC_BATCH}"
+          f" maps), computes {compute_ms} ms; {launches} confmat_multiclass launches; values "
+          f"{record['panoptic']['values']}; the first batch matches the CPU path (counts equal, iou_sum within 1e-6)")
+    return record
+
+
+class _ConvGenerator(torch.nn.Module):
+    """A seeded random conv generator: a 512-wide latent to 3 x 128 x 128 images in [-1, 1] (a linear layer to
+    256 x 8 x 8, four nearest-upsampling 3 x 3 convolutions with ReLUs, tanh)."""
+
+    def __init__(self, seed: int):
+        super().__init__()
+        with torch.random.fork_rng(devices=[]):  # the layers' default init from ``seed``, the global state kept
+            torch.manual_seed(seed)
+            self.fc = torch.nn.Linear(PPL_LATENT, 256 * 8 * 8)
+            chans = (256, 128, 64, 32, 3)
+            self.convs = torch.nn.ModuleList(torch.nn.Conv2d(a, b, 3, padding=1) for a, b in zip(chans, chans[1:]))
+
+    def sample(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        return torch.randn((n, PPL_LATENT), generator=generator, device=generator.device)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        from torchmetrics_tpu_torch.utilities.precision import full_float32
+
+        with full_float32():  # TF32 would put noise in the images that epsilon ** 2 magnifies
+            x = self.fc(z).view(-1, 256, 8, 8)
+            for i, conv in enumerate(self.convs):
+                x = conv(torch.nn.functional.interpolate(x, scale_factor=2.0, mode="nearest"))
+                x = torch.relu(x) if i < len(self.convs) - 1 else torch.tanh(x)
+        return x
+
+
+def _cifar_batches():
+    """CIFAR-10 test's size: seeded real uint8 32 x 32 images (blurred noise) and fake ones (brighter, noisier)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 64)
+    for _ in range(0, CIFAR_IMAGES, CIFAR_BATCH):
+        base = torch.rand((CIFAR_BATCH, 3, 8, 8), generator=gen, device="cuda") * 255
+        real = torch.nn.functional.interpolate(base, size=(32, 32), mode="bilinear", align_corners=False)
+        fake = real * 0.8 + 40 + torch.randn(real.shape, generator=gen, device="cuda") * 12
+        yield real.clamp(0, 255).to(torch.uint8), fake.clamp(0, 255).to(torch.uint8)
+
+
+def _bapps_batches():
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 65)
+    for _ in range(0, BAPPS_PAIRS, BAPPS_BATCH):
+        ref = torch.rand((BAPPS_BATCH, 3, 16, 16), generator=gen, device="cuda")
+        ref = torch.nn.functional.interpolate(ref, size=(64, 64), mode="bilinear", align_corners=False)
+        dist = (ref + torch.randn(ref.shape, generator=gen, device="cuda") * 0.1).clamp(0, 1)
+        yield ref * 2 - 1, dist * 2 - 1
+
+
+def _generative_computes(metrics: dict, cpu_metrics: dict, values: dict) -> dict:
+    """Phase 15 (i)'s computes held on the final states: FID, MiFID and IS computed on the CPU from copies of the
+    card's states (LAPACK's eigensolvers against cuSOLVER's) within ``FID_RTOL`` (IS within 1e-5); KID's subsets,
+    drawn as its compute draws them, by the plain version on the card within ``KID_TOL`` of the terms' scale, each
+    subset and the metric's mean and standard deviation."""
+    from torchmetrics_tpu_torch.kernels import poly_mmd as kpm
+    from torchmetrics_tpu_torch.utilities.precision import full_float32
+
+    states = {name: {k: tuple(v.cpu() for v in x) if isinstance(x, tuple) else x.cpu()
+                     for k, x in metrics[name].metric_state.items()} for name in ("fid", "mifid", "is")}
+    out = {}
+    for name in ("fid", "mifid"):
+        want = float(cpu_metrics[name].compute_state(states[name]))
+        got = float(values[name])
+        tol = FID_RTOL * abs(want)
+        out[name] = {"card": got, "cpu": want, "err": abs(got - want), "tol": tol}
+        check(abs(got - want) <= tol, f"[generative cifar] {name}: the card's compute {got!r} vs the CPU's {want!r} "
+              f"on the same states (tolerance {tol:.3g})")
+    _assert_same("[generative cifar] IS of the final states", values["is"],
+                 cpu_metrics["is"].compute_state(states["is"]), 1e-5, 1e-6)
+    out["is"] = {"card": [float(v) for v in values["is"]]}
+
+    kid = metrics["kid"]
+    x, y = (torch.cat(kid.metric_state[k]).contiguous() for k in ("real_features", "fake_features"))
+    gen = torch.Generator(device=x.device).manual_seed(0)  # ``kid_from_features``' default draws, in its order
+    ix = torch.stack([torch.randperm(x.shape[0], generator=gen, device=x.device)[:kid.subset_size]
+                      for _ in range(kid.subsets)])
+    iy = torch.stack([torch.randperm(y.shape[0], generator=gen, device=x.device)[:kid.subset_size]
+                      for _ in range(kid.subsets)])
+    g = 1.0 / x.shape[1] if kid.gamma is None else kid.gamma
+    got = kpm.poly_mmd(x, y, ix, iy, kid.degree, g, kid.coef).double()
+    with full_float32():
+        want = kpm._poly_mmd_plain(x, y, ix, iy, kid.degree, g, kid.coef).double()
+    scale = _kid_scale(x, y, ix, iy, kid.degree, g, kid.coef)
+    err = (got - want).abs()
+    check(bool((err <= KID_TOL * scale).all()),
+          f"[generative cifar] KID's subsets: poly_mmd differs from plain by {float((err / scale).max()):.3g} of scale")
+    n = kid.subsets
+    mean_tol = KID_TOL * float(scale.mean()) + 1e-6 * abs(float(want.mean()))
+    std_tol = KID_TOL * float(scale.max()) * math.sqrt(n / (n - 1)) + 1e-6 * float(want.std())
+    mean_err = abs(float(values["kid"][0]) - float(want.mean()))
+    std_err = abs(float(values["kid"][1]) - float(want.std()))
+    check(mean_err <= mean_tol and std_err <= std_tol, f"[generative cifar] KID {[float(v) for v in values['kid']]} "
+          f"vs plain {float(want.mean())!r}, {float(want.std())!r} (tolerances {mean_tol:.3g}, {std_tol:.3g})")
+    out["kid"] = {"card": [float(v) for v in values["kid"]], "plain": [float(want.mean()), float(want.std())],
+                  "errs": [mean_err, std_err], "tols": [mean_tol, std_tol],
+                  "max_err_over_scale": float((err / scale).max()), "scale_mean": float(scale.mean())}
+    return out
+
+
+def _inception_times(extractor, imgs: torch.Tensor) -> dict:
+    """InceptionV3 on a batch by CUDA events (median of 5 after a warm-up): ``preprocess`` (the resize to 299) and
+    the network to the pool tap, as ``InceptionFeatureExtractor`` calls them."""
+    from torchmetrics_tpu_torch.image.backbones.inception import preprocess
+
+    x = imgs.to(torch.float32)
+    pre = preprocess(x)
+
+    def events_ms(fn) -> float:
+        fn()
+        times = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    with torch.no_grad():
+        return {"preprocess_ms": events_ms(lambda: preprocess(x)),
+                "network_ms": events_ms(lambda: extractor.net(pre, ("pool",)))}
+
+
+def phase_generative() -> dict:
+    """Phase 15 on one card, no sync: (i) CIFAR-10 test's size, 10,000 seeded real and fake 32 x 32 images in
+    batches of 250, through FID (2048), KID (defaults: one ``poly_mmd`` launch at compute), IS
+    (``logits_unbiased``, 10 splits) and MiFID on the random-init InceptionV3 at full width, the computes held on
+    the final states (``_generative_computes``); (ii) BAPPS 2AFC val's patches, 4,000 seeded 64 x 64 pairs through
+    LPIPS with alex, vgg and squeeze; (iii) PPL with 2,000 samples of a seeded conv generator (512-wide latent,
+    128 x 128 images resized to 64) and the VGG net. Each leg reruns its first batch (its first
+    ``GEN_CPU_IMAGES`` images or pairs) on the CPU path."""
+    from torchmetrics_tpu_torch import image as ti
+    from torchmetrics_tpu_torch.kernels.poly_mmd import poly_mmd
+
+    record = {}
+    # (i) four metrics, each with its own InceptionV3 (the same seeded weights)
+    t0 = time.perf_counter()
+    make = {"fid": lambda dev: ti.FrechetInceptionDistance(feature=2048, device=dev),
+            "kid": lambda dev: ti.KernelInceptionDistance(device=dev),
+            "is": lambda dev: ti.InceptionScore(device=dev),
+            "mifid": lambda dev: ti.MemorizationInformedFrechetInceptionDistance(device=dev)}
+    metrics = {name: f("cuda") for name, f in make.items()}
+    build_s = time.perf_counter() - t0
+    times = {name: [] for name in metrics}
+    poly_mmd.launches = 0
+    t0 = time.perf_counter()
+    for j, (real, fake) in enumerate(_cifar_batches()):
+        for name, metric in metrics.items():
+            t1 = time.perf_counter()
+            if name == "is":
+                metric.update(fake)
+            else:
+                metric.update(real, real=True)
+                metric.update(fake, real=False)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t1) * 1e3)
+        if j == 0:
+            first = (real, fake)
+    values, compute_ms = _timed_computes(metrics)
+    leg_s = time.perf_counter() - t0
+    launches = poly_mmd.launches
+    check(launches == 1, f"[generative cifar] {launches} poly_mmd launches, 1 expected")
+    check(float(values["fid"]) > 0 and float(values["mifid"]) > 0 and float(values["is"][0]) >= 1.0 - 1e-6
+          and math.isfinite(float(values["kid"][0])) and float(values["kid"][1]) > 0,
+          f"[generative cifar] values {values}")
+    cpu_metrics = {name: f("cpu") for name, f in make.items()}
+    t_ref = time.perf_counter()
+    computes = _generative_computes(metrics, cpu_metrics, values)
+    computes_s = time.perf_counter() - t_ref
+    network = _inception_times(metrics["fid"].inception, first[0])
+    # the first batch's first images again, through each card metric's functional core and on the CPU path
+    t_cpu = time.perf_counter()
+    compared = 0
+    for name, card in metrics.items():
+        cpu = cpu_metrics[name]
+        states = []
+        for metric, dev in ((card, "cuda"), (cpu, "cpu")):
+            real, fake = (x[:GEN_CPU_IMAGES].to(dev) for x in first)
+            st = metric.init_state()
+            if name == "is":
+                st = metric.update_state(st, fake)
+            else:
+                st = metric.update_state(metric.update_state(st, real, real=True), fake, real=False)
+            states.append(st)
+        for leaf, want in states[1].items():
+            got = states[0][leaf]
+            got, want = (torch.cat(got) if isinstance(got, tuple) else got).cpu(), (
+                torch.cat(want) if isinstance(want, tuple) else want)
+            if not got.dtype.is_floating_point:
+                check(torch.equal(got, want), f"[generative cifar] {name}.{leaf}")
+            else:
+                err = float((got.double() - want.double()).abs().max())
+                check(err <= 1e-4 * float(want.double().abs().max()) + 1e-30,
+                      f"[generative cifar] {name}.{leaf}: card and CPU differ by {err:.3g}")
+            compared += 1
+        if name == "is":
+            compared += _assert_same("[generative cifar] IS of the first images", card.compute_state(states[0]),
+                                     cpu.compute_state(states[1]), 1e-4, 1e-5)
+    record["cifar"] = {"images": CIFAR_IMAGES, "build_s": build_s, "leg_s": leg_s,
+                       "update_ms_median": {n: statistics.median(t) for n, t in times.items()},
+                       "compute_ms": compute_ms, "launches": {"poly_mmd": launches}, "computes_held": computes,
+                       "computes_held_s": computes_s, "inception_ms": network,
+                       "values": {n: _value_summary(v) for n, v in values.items()}, "cpu_compared": compared,
+                       "cpu_rerun_s": time.perf_counter() - t_cpu}
+    print(f"[generative] CIFAR-10: {CIFAR_IMAGES} real and fake images in {leg_s:.1f} s (the four InceptionV3 built "
+          f"in {build_s:.1f} s): update medians {record['cifar']['update_ms_median']} ms a batch of {CIFAR_BATCH} "
+          f"(real and fake), computes {compute_ms} ms; {launches} poly_mmd launch; values "
+          f"{record['cifar']['values']}; the first batch's first {GEN_CPU_IMAGES} images match the CPU path "
+          f"({compared} leaves within 1e-4 of their scale) in {record['cifar']['cpu_rerun_s']:.1f} s")
+    print(f"[generative] CIFAR-10: the card's computes on the final states held in {computes_s:.1f} s: {computes}")
+    print(f"[generative] CIFAR-10: InceptionV3 a batch of {CIFAR_BATCH} (CUDA events, median of 5): preprocess "
+          f"(32 -> 299) {network['preprocess_ms']:.4f} ms, the network to the pool {network['network_ms']:.4f} ms "
+          f"({network['network_ms'] / CIFAR_BATCH:.4f} ms an image)")
+    del metrics, cpu_metrics, first, values
+    torch.cuda.empty_cache()
+
+    # (ii) LPIPS with the three nets
+    nets = {f"lpips_{n}": (lambda dev, n=n: ti.LearnedPerceptualImagePatchSimilarity(net_type=n, device=dev))
+            for n in ("alex", "vgg", "squeeze")}
+    lp = {name: f("cuda") for name, f in nets.items()}
+    t0 = time.perf_counter()
+    update_ms = _timed_updates(lp, _bapps_batches())
+    values, compute_ms = _timed_computes(lp)
+    leg_s = time.perf_counter() - t0
+    check(all(0.0 < float(v) < 10.0 for v in values.values()), f"[generative lpips] values {values}")
+    t_cpu, compared = time.perf_counter(), 0
+    first = [x[:GEN_CPU_IMAGES].cpu() for x in next(_bapps_batches())]
+    for name, f in nets.items():
+        card, cpu = f("cuda"), f("cpu")
+        card.update(*(x.cuda() for x in first))
+        cpu.update(*first)
+        compared += _assert_same(f"[generative lpips] {name} first batch", card.compute(), cpu.compute(), 1e-4, 1e-6)
+    record["lpips"] = {"pairs": BAPPS_PAIRS, "leg_s": leg_s, "update_ms_median": update_ms, "compute_ms": compute_ms,
+                       "values": {n: float(v) for n, v in values.items()}, "cpu_compared": compared,
+                       "cpu_rerun_s": time.perf_counter() - t_cpu}
+    print(f"[generative] LPIPS: {BAPPS_PAIRS} pairs in {leg_s:.1f} s: update medians {update_ms} ms a batch of "
+          f"{BAPPS_BATCH}, values {record['lpips']['values']}; the first batch's first {GEN_CPU_IMAGES} pairs match "
+          f"the CPU path (within 1e-4)")
+    del lp
+
+    # (iii) PPL on the seeded generator and the VGG net
+    gen_card = _ConvGenerator(SEED + 66).cuda().eval()
+    ppl = ti.PerceptualPathLength(num_samples=PPL_SAMPLES, device="cuda")
+    t0 = time.perf_counter()
+    ppl.update(gen_card)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    mean, std, kept = ppl.compute()
+    check(math.isfinite(float(mean)) and float(mean) > 0 and 0 < kept.numel() < PPL_SAMPLES,
+          f"[generative ppl] mean {float(mean)}, kept {kept.numel()}")
+    # the first batch again on the CPU path, on the same latents and t (the card's Philox draws are not the CPU's)
+    t_cpu = time.perf_counter()
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    z1, z2 = gen_card.sample(rng, ppl.batch_size), gen_card.sample(rng, ppl.batch_size)
+    t = torch.rand((ppl.batch_size, 1), generator=rng, device="cuda")
+    card_d = ppl._distances(gen_card, z1, z2, t, None)
+    check(torch.allclose(card_d, ppl.metric_state["distances"][0][:ppl.batch_size]),
+          "[generative ppl] the update's first batch is not its first draws")
+    ppl_cpu = ti.PerceptualPathLength(num_samples=PPL_SAMPLES, device="cpu")
+    cpu_d = ppl_cpu._distances(_ConvGenerator(SEED + 66).eval(), z1.cpu(), z2.cpu(), t.cpu(), None)
+    rel = float(((card_d.cpu() - cpu_d).abs() / cpu_d.abs()).max())
+    check(rel <= PPL_CPU_RTOL, f"[generative ppl] the first batch's distances differ from the CPU path by {rel:.3g}")
+    record["ppl"] = {"samples": PPL_SAMPLES, "update_s": update_s, "mean": float(mean), "std": float(std),
+                     "kept": kept.numel(), "cpu_max_rel_err": rel, "cpu_rerun_s": time.perf_counter() - t_cpu}
+    print(f"[generative] PPL: {PPL_SAMPLES} samples in {update_s:.1f} s (batches of {ppl.batch_size}); mean "
+          f"{float(mean):.6g}, std {float(std):.6g}, {kept.numel()} kept; the first batch's distances within "
+          f"{rel:.3g} relative of the CPU path's (tolerance {PPL_CPU_RTOL}: float32 noise over epsilon ** 2)")
     return record
 
 
@@ -5063,6 +5859,8 @@ def main() -> int:
         "sdr_toeplitz": "torchmetrics_tpu_torch/csrc/sdr_toeplitz.cu",
         "perplexity_nll": "torchmetrics_tpu_torch/csrc/perplexity.cu",
         "bert_greedy_match": "torchmetrics_tpu_torch/csrc/bert_match.cu",
+        "mask_iou": "torchmetrics_tpu_torch/csrc/mask_iou.cu",
+        "poly_mmd": "torchmetrics_tpu_torch/csrc/poly_mmd.cu",
     }
     replaces = {
         "binned_confmat_multiclass": "torchmetrics_tpu/functional/classification/precision_recall_curve.py:128",
@@ -5079,6 +5877,8 @@ def main() -> int:
         "sdr_toeplitz": "torchmetrics_tpu/functional/audio/sdr.py:69",
         "perplexity_nll": "torchmetrics_tpu/functional/text/perplexity.py:46",
         "bert_greedy_match": "torchmetrics_tpu/functional/text/bert.py:234",
+        "mask_iou": "torchmetrics_tpu/detection/mean_ap.py:65",
+        "poly_mmd": "torchmetrics_tpu/functional/image/generative.py:60",
     }
 
     seconds = {}
@@ -5109,6 +5909,8 @@ def main() -> int:
     kernel_rows["sdr_toeplitz"] = timed("phase 3 sdr_toeplitz", phase_sdr_kernel, flush)
     kernel_rows["perplexity_nll"] = timed("phase 3 perplexity_nll", phase_perplexity_kernel, flush)
     kernel_rows["bert_greedy_match"] = timed("phase 3 bert_greedy_match", phase_bert_kernel, flush)
+    kernel_rows["mask_iou"] = timed("phase 3 mask_iou", phase_mask_iou_kernel, flush)
+    kernel_rows["poly_mmd"] = timed("phase 3 poly_mmd", phase_poly_mmd_kernel, flush)
     del flush
     main = timed("phase 4", phase_main_path, kernels)
     sync = timed("phase 5", phase_sync)
@@ -5120,6 +5922,8 @@ def main() -> int:
     contingency = timed("phase 11", phase_contingency)
     audio = timed("phase 12", phase_audio)
     text = timed("phase 13", phase_text)
+    detection = timed("phase 14", phase_detection)
+    generative = timed("phase 15", phase_generative)
     kernel_rows["pairwise_lp"] += [{"case": f"Market-1501 {name} (phase 11)", "max_abs_err": entry["max_abs_err"]}
                                    for name, entry in contingency["market"]["calls"].items() if "max_abs_err" in entry]
 
@@ -5145,7 +5949,11 @@ def main() -> int:
         "sdr_toeplitz": {"audio libri2mix": audio["libri2mix"]["launches"]["sdr_toeplitz"]},
         "perplexity_nll": {"text perplexity": text["perplexity"]["launches"]["perplexity_nll"]},
         "bert_greedy_match": {"text bertscore": text["bertscore"]["launches"]["bert_greedy_match"]},
+        "mask_iou": {"detection segm": detection["segm"]["launches"]["mask_iou"]},
+        "poly_mmd": {"generative cifar": generative["cifar"]["launches"]["poly_mmd"]},
     }
+    by_path["coco_match"]["detection segm"] = detection["segm"]["launches"]["coco_match"]
+    by_path["confmat_multiclass"]["detection panoptic"] = detection["panoptic"]["launches"]["confmat_multiclass"]
     for leg in ("clustering labels", "nominal", "nominal matrices"):
         by_path["confmat_multiclass"][f"contingency {leg}"] = contingency[leg]["launches"]["confmat_multiclass"]
     for leg in ("imagenet probabilities", "imagenet logits"):
@@ -5179,7 +5987,8 @@ def main() -> int:
             json.dump({"device": device, "build_s": build_s, "seconds": seconds, "launch_floor": floor,
                        "kernels": kernel_rows, "main_path": main,
                        "sync": sync, "ragged": ragged, "tower": tower, "curves": curves, "rest": rest,
-                       "signal": signal, "contingency": contingency, "audio": audio, "text": text}, f, indent=1)
+                       "signal": signal, "contingency": contingency, "audio": audio, "text": text,
+                       "detection": detection, "generative": generative}, f, indent=1)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}}))
     return 0

@@ -279,7 +279,9 @@ SIGNAL_SLICE = ("retrieval", "retrieval.base", "retrieval.metrics", "functional.
                 "functional.image.ssim", "functional.image.spectral", "functional.image.tv", "kernels.ssim")
 KERNEL_SITES = {"calibration": "classification", "ranking": "classification", "binned_multilabel": "classification",
                 "retrieval": "retrieval", "ssim": "image", "segmentation": "segmentation", "pairwise": "pairwise",
-                "snr_moments": "audio", "sdr_toeplitz": "audio", "perplexity": "text", "bert_match": "text"}
+                "snr_moments": "audio", "sdr_toeplitz": "audio", "perplexity": "text", "bert_match": "text",
+                "poly_mmd": "image"}
+KERNEL_DETECTION_SITES = {"mask_iou": "detection/mean_ap.py"}  # a site outside ``functional/``
 CONTINGENCY_SLICE = tuple(f"{pkg}.{m}" for pkg, mods in (
     ("segmentation", ("mean_iou", "generalized_dice")), ("functional.segmentation", ("mean_iou", "generalized_dice")),
     ("clustering", ("extrinsic", "intrinsic")), ("functional.clustering", ("extrinsic", "intrinsic", "utils")),
@@ -291,6 +293,11 @@ TEXT_MODULES = ("asr", "bert", "bleu", "chrf", "eed", "infolm", "perplexity", "s
 TEXT_SLICE = ("text", "functional.text", "functional.text.helper", "functional.text.sacre_bleu", "text.distinct",
               "kernels.perplexity", "kernels.bert_match", "utilities.imports",
               *(f"{pkg}.{m}" for m in TEXT_MODULES for pkg in ("text", "functional.text")))
+DETECTION_GENERATIVE_SLICE = ("detection.iou", "detection.coco_io", "detection.panoptic_qualities",
+                              "functional.detection.iou", "functional.detection.panoptic_quality", "kernels.mask_iou",
+                              "image.generative", "image.backbones", "image.backbones.inception",
+                              "image.backbones.lpips_nets", "functional.image.generative", "functional.image.lpips",
+                              "kernels.poly_mmd", "utilities.precision")
 
 
 def test_isolation_covers_every_new_module():
@@ -301,12 +308,13 @@ def test_isolation_covers_every_new_module():
                  "regression.distribution", "utilities.enums", "utilities.checks", "utilities.formatting",
                  "kernels.calibration", "kernels.ranking", "kernels.binned_multilabel",
                  *(f"{pkg}.{m}" for m in REST_OF_CLASSIFICATION for pkg in ("classification", "functional.classification")),
-                 *SIGNAL_SLICE, *CONTINGENCY_SLICE, *AUDIO_SLICE, *TEXT_SLICE):
+                 *SIGNAL_SLICE, *CONTINGENCY_SLICE, *AUDIO_SLICE, *TEXT_SLICE, *DETECTION_GENERATIVE_SLICE):
         assert f"torchmetrics_tpu_torch.{name}" in modules
 
 
 @pytest.mark.parametrize("source", ["calibration", "ranking", "binned_multilabel", "retrieval", "ssim", "segmentation",
-                                    "pairwise", "snr_moments", "sdr_toeplitz", "perplexity", "bert_match"])
+                                    "pairwise", "snr_moments", "sdr_toeplitz", "perplexity", "bert_match", "mask_iou",
+                                    "poly_mmd"])
 def test_kernel_sources_are_plain_cuda_with_a_c_interface(source):
     """The kernels build with nvcc alone and bind through ctypes: no PyTorch, JAX or Python headers (the CUDA
     toolkit's own, cooperative groups' thread-block clusters among them, and two C++ ones)."""
@@ -315,7 +323,9 @@ def test_kernel_sources_are_plain_cuda_with_a_c_interface(source):
     toolkit = ("<climits>", "<cstdint>", "<cooperative_groups.h>")
     assert includes and all(inc.startswith("<cuda") or inc in toolkit for inc in includes), includes
     assert f'extern "C" int {source}_' in text
-    assert f"torchmetrics_tpu/functional/{KERNEL_SITES[source]}/" in text  # names the JAX site it replaces
+    site = (f"torchmetrics_tpu/{KERNEL_DETECTION_SITES[source]}" if source in KERNEL_DETECTION_SITES
+            else f"torchmetrics_tpu/functional/{KERNEL_SITES[source]}/")
+    assert site in text  # names the JAX site it replaces
 
 
 def _imported_roots(path):

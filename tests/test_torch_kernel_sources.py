@@ -17,8 +17,10 @@ import torch
 
 from torchmetrics_tpu_torch.kernels import bert_match as kbm
 from torchmetrics_tpu_torch.kernels import confmat as kcm
+from torchmetrics_tpu_torch.kernels import mask_iou as kmi
 from torchmetrics_tpu_torch.kernels import pairwise as kpw
 from torchmetrics_tpu_torch.kernels import perplexity as kppl
+from torchmetrics_tpu_torch.kernels import poly_mmd as kpm
 from torchmetrics_tpu_torch.kernels import retrieval as krt
 from torchmetrics_tpu_torch.kernels import sdr_toeplitz as ksdr
 from torchmetrics_tpu_torch.kernels import snr_moments as ksnr
@@ -264,3 +266,71 @@ def test_ablation_edits_apply_once(source, table, name, edits):
     for old, new in edits:
         assert text.count(old) == 1, f"{table} {name!r}: {old!r}"
         text = text.replace(old, new)
+
+
+@pytest.mark.parametrize(("module", "python", "kernel"), [
+    (kmi, "THREADS", "kThreads"), (kmi, "GROUP", "kGroup"), (kmi, "IN_FLIGHT", "kInFlight"),
+    (kmi, "SHARED_WORDS", "kSharedWords"),
+    (kmi, "MAX_MASKS", "kMaxMasks"), (kmi, "MAX_WORDS", "kMaxWords"),
+    (kpm, "THREADS", "kThreads"), (kpm, "CHUNK", "kChunk"),
+], ids=lambda v: v if isinstance(v, str) else v.SOURCE)
+def test_detection_and_generative_constants_are_the_kernels(module, python, kernel):
+    assert getattr(module, python) == _constant(_source(module.SOURCE), kernel)
+
+
+def test_mask_iou_source_matches_its_launcher():
+    src = _source("mask_iou")
+    # the packed bits and the areas fit the 48 KB of static shared memory; an entry's record is 12 int64
+    assert 4 * kmi.SHARED_WORDS + 4 * kmi.MAX_MASKS <= 48 * 1024
+    assert "__shared__ unsigned int bits[kSharedWords];" in src
+    assert src[src.index("struct Entry {"):src.index("};", src.index("struct Entry {"))].count("long long ") == \
+        kmi.ENTRY_FIELDS
+    # rows of an odd stride, a group's 16 ballots reached by every lane (the tail's break is warp-uniform),
+    # bit ``lane`` of word k pixel 16 lane + k, int32 atomics of non-zero counts
+    assert "const int stride = words | 1;" in src and "if (g0 + u >= groups) break;  // warp-uniform" in src
+    assert "__ballot_sync(0xffffffffu, ((part[k / 4] >> (8 * (k % 4))) & 0xffu) != 0u)" in src
+    assert "const long long px = px0 + static_cast<long long>(g0 + u) * (kGroup * 32) + 16 * lane;" in src
+    assert "if (acc) atomicAdd(inter" in src
+    # the launcher's plan: rows of an odd stride fit, and every chunk holds whole groups, one at least
+    for n_masks in (2, 3, 107, 161, kmi.MAX_MASKS):
+        words = kmi.chunk_words(n_masks)
+        assert kmi.GROUP <= words <= kmi.MAX_WORDS and words % kmi.GROUP == 0
+        assert (words | 1) * n_masks <= kmi.SHARED_WORDS
+
+
+def test_poly_mmd_source_matches_its_launcher():
+    src = _source("poly_mmd")
+    # two staged tiles of kChunk x (16 R + 4) floats, 16-byte aligned rows, within 48 KB at R = 8; the subsets on
+    # grid.y; one register tile, R = 8, for every m
+    assert "constexpr int kStride = kTile + 4;" in src and (16 * 8 + 4) * 4 % 16 == 0
+    assert 2 * kpm.CHUNK * (16 * 8 + 4) * 4 <= 48 * 1024 and "subsets > 65535" in src
+    assert f"constexpr int R = {kpm.ROWS};" in src and "template" not in src
+    # JAX's rounding: (dot * gamma) + coef rounded twice, the binary power; float64 sums, the last block's
+    # exchange leaves the scratch zero and its ticket back at zero (``_build.zero_scratch``)
+    assert "__fadd_rn(__fmul_rn(acc[r][c], gamma), coef)" in src and "integer_pow(v, degree)" in src
+    assert "atomicExch(reinterpret_cast<unsigned long long*>(sums + 3 * s + w), 0ull)" in src
+    assert "tickets[s] = 0u;" in src
+    # a thread's rows and columns: 4 ty + 64 p + r, as the tests' model takes them
+    assert "const int i = ti * kTile + 4 * ty + 64 * (r / 4) + r % 4;" in src
+    # the blocks of a subset: the m x m tiles of xy and the two upper triangles
+    assert "static_cast<long long>(tiles) * tiles + static_cast<long long>(tiles) * (tiles + 1)" in src
+    assert kpm.blocks(1000) == 8 * 8 + 8 * 9 and kpm.blocks(64) == kpm.blocks(2) == 1 + 2
+
+
+@pytest.mark.parametrize("source", ["mask_iou", "poly_mmd"])
+def test_detection_and_generative_kernels_call_no_library(source):
+    code = "\n".join(line.split("//")[0] for line in _source(source).splitlines())
+    assert not [name for name in LIBRARY_CALLS if name in code.lower()]
+
+
+@pytest.mark.parametrize(("module", "public"), [(kmi, "mask_iou"), (kpm, "poly_mmd")], ids=["mask_iou", "poly_mmd"])
+def test_detection_and_generative_launchers_do_not_fall_back(module, public):
+    """A CUDA tensor launches the kernel or raises: the launcher holds no ``try`` and never calls the plain version."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(module))
+    assert not [node for node in ast.walk(tree) if isinstance(node, ast.Try)]
+    fn = next(node for node in tree.body if isinstance(node, ast.FunctionDef) and node.name == public)
+    calls = {node.func.id for node in ast.walk(fn) if isinstance(node, ast.Call) and isinstance(node.func, ast.Name)}
+    assert not [c for c in calls if c.endswith("_plain")]

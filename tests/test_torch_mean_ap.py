@@ -134,9 +134,12 @@ def test_empty_and_unported_options():
     tm = MeanAveragePrecision(device="cpu")
     out = tm.compute_state(tm.init_state())
     assert float(out["map"]) == -1.0 and out["classes"].numel() == 0
-    for kwargs in ({"iou_type": "segm"}, {"extended_summary": True}, {"iou_type": ("bbox", "segm")}):
-        with pytest.raises(NotImplementedError):
-            MeanAveragePrecision(device="cpu", **kwargs)
+    # segm, both types and extended_summary are ported: they construct, and an empty state computes as bbox's
+    for kwargs, key in (({"iou_type": "segm"}, "map"), ({"extended_summary": True}, "precision"),
+                        ({"iou_type": ("bbox", "segm")}, "segm_map")):
+        metric = MeanAveragePrecision(device="cpu", **kwargs)
+        empty = metric.compute_state(metric.init_state())
+        assert key in empty and empty["classes"].numel() == 0
     with pytest.raises(ValueError, match="not supported"):
         MeanAveragePrecision(device="cpu", approx="sketch")
     with pytest.raises(ValueError):

@@ -149,3 +149,33 @@ def test_text_slice_is_exported_everywhere(kind):
             assert (name in space.__all__) == hasattr(jax_space, name), (space.__name__, name)
             if hasattr(jax_space, name):
                 assert getattr(space, name).__name__ == getattr(jax_space, name).__name__
+
+
+DETECTION_FUNCTIONS = ("complete_intersection_over_union", "distance_intersection_over_union",
+                       "generalized_intersection_over_union", "intersection_over_union", "modified_panoptic_quality",
+                       "panoptic_quality")
+DETECTION_CLASSES = ("CompleteIntersectionOverUnion", "DistanceIntersectionOverUnion",
+                     "GeneralizedIntersectionOverUnion", "IntersectionOverUnion", "MeanAveragePrecision",
+                     "ModifiedPanopticQuality", "PanopticQuality")
+GENERATIVE_CLASSES = ("DeterministicFeatureExtractor", "FrechetInceptionDistance", "InceptionScore",
+                      "KernelInceptionDistance", "LearnedPerceptualImagePatchSimilarity",
+                      "MemorizationInformedFrechetInceptionDistance", "PerceptualPathLength")
+
+
+@pytest.mark.parametrize(("names", "spaces"), [
+    (DETECTION_FUNCTIONS, ("functional", "functional.detection")),
+    (DETECTION_CLASSES, ("", "detection")),
+    (GENERATIVE_CLASSES, ("", "image")),
+    (("learned_perceptual_image_patch_similarity",), ("functional", "functional.image")),
+], ids=["detection functions", "detection classes", "generative classes", "lpips function"])
+def test_detection_and_generative_slice_is_exported_everywhere(names, spaces):
+    """Every detection and generative image name, from its domain namespace and the top levels, in both packages
+    alike: where the JAX namespace exports it, the port's does, the same object by name."""
+    for space in spaces:
+        port = importlib.import_module("torchmetrics_tpu_torch" + (f".{space}" if space else ""))
+        jax_space = importlib.import_module("torchmetrics_tpu" + (f".{space}" if space else ""))
+        for name in names:
+            exported = name in jax_space.__all__ if hasattr(jax_space, "__all__") else hasattr(jax_space, name)
+            assert (name in port.__all__) == exported, (space, name)
+            if hasattr(jax_space, name):
+                assert getattr(port, name).__name__ == getattr(jax_space, name).__name__, (space, name)

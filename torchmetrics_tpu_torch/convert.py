@@ -28,11 +28,20 @@ four cat lists of int32 ids and masks, InfoLM's score list and
 ``DistinctNGrams``' n-gram rows and total.
 :func:`collection_states_from_jax` does it for every member state of a
 ``MetricCollection`` (``{leader name: state}``).
+
+The generative image metrics carry weights: their feature networks'.
+:func:`inception_params_from_jax` and :func:`lpips_params_from_jax` build the
+port's InceptionV3 and LPIPS backbones from the JAX package's params pytrees
+(as numpy: HWIO kernels become OIHW), and
+:func:`deterministic_features_from_jax` and
+:func:`deterministic_lpips_from_jax` its two seeded stand-ins, so that both
+packages run on the same weights. Every tensor of the network must be given,
+each of its shape: a missing, extra or misshapen one raises ``ValueError``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -85,3 +94,96 @@ def collection_states_from_jax(collection: Any, np_states: Mapping[str, Mapping[
         raise StateRestoreError(f"JAX collection states name unknown members {unknown}", leaf=unknown[0],
                                 reason="unknown-leaf")
     return {name: state_from_jax(collection[name], st) for name, st in np_states.items()}
+
+
+def _weight(params: Mapping[str, Any], key: str, field: str, shape: tuple, hwio: bool = False) -> torch.Tensor:
+    """``params[key][field]`` as float32, HWIO kernels as OIHW, of exactly ``shape``."""
+    value = torch.as_tensor(np.array(params[key][field], dtype=np.float32))
+    if hwio:
+        value = value.permute(3, 2, 0, 1)
+    if tuple(value.shape) != tuple(shape):
+        raise ValueError(f"{key}.{field}: shape {tuple(value.shape)} (as the port lays it out), "
+                         f"expected {tuple(shape)}")
+    return value
+
+
+def _check_keys(params: Mapping[str, Any], expected: Dict[str, set]) -> None:
+    got = {k: set(v) for k, v in params.items()}
+    if got != expected:
+        missing = sorted(set(expected) - set(got)) + sorted(k for k in expected if k in got and got[k] != expected[k])
+        raise ValueError(f"JAX params do not match the network: missing or different {missing}, "
+                         f"unknown {sorted(set(got) - set(expected))}")
+
+
+def inception_params_from_jax(params: Mapping[str, Any]):
+    """The port's :class:`~torchmetrics_tpu_torch.image.backbones.inception.InceptionV3` (CPU) from the JAX
+    package's InceptionV3 params as numpy: each convolution's ``w`` (HWIO), ``scale`` and ``bias``, and
+    ``fc``'s ``w`` (2048, 1000) and ``b``."""
+    from torchmetrics_tpu_torch.image.backbones.inception import CONV_NAMES, InceptionV3
+
+    _check_keys(params, {**{n: {"w", "scale", "bias"} for n in CONV_NAMES}, "fc": {"w", "b"}})
+    net = InceptionV3()
+    with torch.no_grad():
+        for name in CONV_NAMES:
+            conv = net.conv(name)
+            conv.weight.copy_(_weight(params, name, "w", conv.weight.shape, hwio=True))
+            conv.scale.copy_(_weight(params, name, "scale", conv.scale.shape))
+            conv.bias.copy_(_weight(params, name, "bias", conv.bias.shape))
+        net.fc_w.copy_(_weight(params, "fc", "w", net.fc_w.shape))
+        net.fc_b.copy_(_weight(params, "fc", "b", net.fc_b.shape))
+    return net.eval()
+
+
+def lpips_params_from_jax(net: str, params: Mapping[str, Any]):
+    """The port's LPIPS backbone ``net`` (``"vgg"``, ``"alex"``, ``"squeeze"``; CPU) from the JAX package's
+    params as numpy: ``{"features.N": {"w": HWIO, "b": (C,)}}`` (a Fire module's three as
+    ``"features.N.squeeze"``, ``".expand1x1"``, ``".expand3x3"``)."""
+    from torchmetrics_tpu_torch.image.backbones.lpips_nets import LPIPSNet, conv_names
+
+    names = conv_names(net)
+    _check_keys(params, {n: {"w", "b"} for n in names})
+    module = LPIPSNet(net)
+    with torch.no_grad():
+        for name in names:
+            conv = module.conv(name)
+            conv.weight.copy_(_weight(params, name, "w", conv.weight.shape, hwio=True))
+            conv.bias.copy_(_weight(params, name, "b", conv.bias.shape))
+    return module.eval()
+
+
+def _stand_in_weights(arrays: Sequence[Any], shapes: Sequence[tuple], what: str) -> list:
+    if len(arrays) != len(shapes):
+        raise ValueError(f"{what}: {len(arrays)} tensors given, the network has {len(shapes)}")
+    out = []
+    for i, (a, shape) in enumerate(zip(arrays, shapes)):
+        t = torch.as_tensor(np.array(a, dtype=np.float32))
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}[{i}]: shape {tuple(t.shape)}, expected {tuple(shape)}")
+        out.append(t)
+    return out
+
+
+def deterministic_features_from_jax(kernels: Sequence[Any], proj: Any, dim: Optional[int] = None,
+                                    device: Optional[Union[str, torch.device]] = None):
+    """The port's ``DeterministicFeatureExtractor`` on the JAX stand-in's ``kernels`` (OIHW, both packages) and
+    ``proj (C, dim)``."""
+    from torchmetrics_tpu_torch.image.generative import DeterministicFeatureExtractor
+
+    proj = np.asarray(proj)
+    extractor = DeterministicFeatureExtractor(dim=dim or proj.shape[1], num_layers=len(kernels), device=device)
+    shapes = [tuple(k.shape) for k in extractor.kernels] + [tuple(extractor.proj.shape)]
+    *weights, proj_t = _stand_in_weights([*kernels, proj], shapes, "DeterministicFeatureExtractor")
+    extractor.kernels = [w.to(extractor.device) for w in weights]
+    extractor.proj = proj_t.to(extractor.device)
+    return extractor
+
+
+def deterministic_lpips_from_jax(kernels: Sequence[Any], base_channels: int = 16,
+                                 device: Optional[Union[str, torch.device]] = None):
+    """The port's ``DeterministicLPIPSNet`` on the JAX stand-in's ``kernels`` (OIHW, both packages)."""
+    from torchmetrics_tpu_torch.functional.image.lpips import DeterministicLPIPSNet
+
+    net = DeterministicLPIPSNet(n_layers=len(kernels), base_channels=base_channels, device=device)
+    weights = _stand_in_weights(kernels, [tuple(k.shape) for k in net.kernels], "DeterministicLPIPSNet")
+    net.kernels = [w.to(net.device) for w in weights]
+    return net

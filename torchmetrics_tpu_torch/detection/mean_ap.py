@@ -16,8 +16,18 @@ maxDets, image); the port concatenates each class's images once and
 selects each maxDets cap by a detection's rank in its image, which gives
 the same arrays in the same order.
 
-This slice ports ``iou_type="bbox"``. ``segm``, ``approx="sketch"``, the
-COCO file I/O and ``extended_summary`` are not ported yet and raise.
+``iou_type="segm"`` keeps bool mask states ``(N, H, W)`` as the JAX
+package does; its IoUs come from the exact intersection counts and areas of
+one ``mask_iou`` launch over every image the compute evaluates
+(:func:`~torchmetrics_tpu_torch.kernels.mask_iou.mask_iou_counts`), taken in
+float64 as ``inter / max(union, 1e-12)``, the same values as the JAX
+package's float64 product bit for bit. With both types every result key but
+``classes`` takes a ``bbox_`` or ``segm_`` prefix, and the ground-truth area
+that both passes keep is derived from the masks. ``extended_summary`` adds
+``precision``, ``recall``, ``scores`` and the ``ious`` of every (image,
+class). ``coco_to_tm`` and ``tm_to_coco`` read and write COCO files
+(:mod:`torchmetrics_tpu_torch.detection.coco_io`). ``approx="sketch"`` is
+not ported.
 
 Example::
 
@@ -43,6 +53,8 @@ from torch import Tensor
 from torchmetrics_tpu_torch.core.metric import Metric, State
 from torchmetrics_tpu_torch.functional.detection.box_ops import box_convert
 from torchmetrics_tpu_torch.functional.detection.matcher import match_batch_padded
+from torchmetrics_tpu_torch.kernels.mask_iou import mask_iou_counts
+from torchmetrics_tpu_torch.utilities.data import resolve_device
 
 _AREA_RANGES = {
     "all": (0.0, 1e10),
@@ -52,7 +64,8 @@ _AREA_RANGES = {
 }
 
 _STATE_NAMES = ("detection_scores", "detection_labels", "groundtruth_labels", "groundtruth_crowds",
-                "groundtruth_area", "detection_boxes", "groundtruth_boxes")
+                "groundtruth_area")
+_ITEM_STATES = {"bbox": ("detection_boxes", "groundtruth_boxes"), "segm": ("detection_masks", "groundtruth_masks")}
 
 
 def _box_iou_crowd(det: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray) -> np.ndarray:
@@ -69,6 +82,18 @@ def _box_iou_crowd(det: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray) -> np.n
     union = det_area[:, None] + gt_area[None, :] - inter
     union = np.where(iscrowd[None, :].astype(bool), det_area[:, None], union)
     return inter / np.maximum(union, 1e-12)
+
+
+def _mask_iou_from_counts(inter: np.ndarray, det_area: np.ndarray, gt_area: np.ndarray,
+                          iscrowd: np.ndarray) -> np.ndarray:
+    """Pairwise mask IoU from exact integer counts, crowd semantics as above, in float64: the JAX package's
+    float64 product ``d @ g.T`` and row sums give these integers, so the values are its own bit for bit."""
+    if inter.size == 0:
+        return np.zeros(inter.shape)
+    d_area = det_area.astype(np.float64)
+    union = d_area[:, None] + gt_area.astype(np.float64)[None, :] - inter.astype(np.float64)
+    union = np.where(iscrowd[None, :].astype(bool), d_area[:, None], union)
+    return inter.astype(np.float64) / np.maximum(union, 1e-12)
 
 
 def _evaluate_image(
@@ -137,26 +162,27 @@ def _matcher_items(items: List[Dict[str, np.ndarray]]) -> List[Tuple[np.ndarray,
 
 def _accumulate(tp: np.ndarray, ig: np.ndarray, scores: np.ndarray, npig: int, rec_thrs: np.ndarray):
     """pycocotools ``accumulate`` for one (class, area, maxDets) cell:
-    ``(recall (T,), precision (T, R))`` from the score-ordered matches."""
+    ``(recall (T,), precision (T, R), scores (T, R))`` from the score-ordered
+    matches, ``scores`` the score at each recall point (``extended_summary``)."""
     order = np.argsort(-scores, kind="mergesort")
-    tp, ig = tp[:, order], ig[:, order]
+    tp, ig, scores = tp[:, order], ig[:, order], scores[order]
     tp_cum = np.cumsum(tp & ~ig, axis=1).astype(np.float64)
     fp_cum = np.cumsum(~tp & ~ig, axis=1).astype(np.float64)
     n_t, nd = tp_cum.shape
     rc = tp_cum / npig
     pr = tp_cum / np.maximum(fp_cum + tp_cum, np.spacing(1))
     if not nd:
-        return np.zeros(n_t), np.zeros((n_t, len(rec_thrs)))
+        return np.zeros(n_t), np.zeros((n_t, len(rec_thrs))), np.zeros((n_t, len(rec_thrs)))
     # monotone precision envelope from the right: a reversed running max
     pr_env = np.flip(np.maximum.accumulate(np.flip(pr, axis=1), axis=1), axis=1)
     inds = np.stack([np.searchsorted(rc[ti], rec_thrs, side="left") for ti in range(n_t)])
     hit = inds < nd
     safe = np.minimum(inds, nd - 1)
-    return rc[:, -1], np.where(hit, np.take_along_axis(pr_env, safe, axis=1), 0.0)
+    return rc[:, -1], np.where(hit, np.take_along_axis(pr_env, safe, axis=1), 0.0), np.where(hit, scores[safe], 0.0)
 
 
 class MeanAveragePrecision(Metric):
-    """COCO mAP/mAR of box detections."""
+    """COCO mAP/mAR of box or mask detections."""
 
     is_differentiable = False
     higher_is_better = True
@@ -182,8 +208,6 @@ class MeanAveragePrecision(Metric):
         for it in iou_types:
             if it not in ("bbox", "segm"):
                 raise ValueError(f"Expected argument `iou_type` to be one of ('bbox', 'segm') but got {it}")
-        if iou_types != ("bbox",) or extended_summary:
-            raise NotImplementedError("MeanAveragePrecision: only iou_type='bbox' without extended_summary is ported")
         if not isinstance(class_metrics, bool):
             raise ValueError("Expected argument `class_metrics` to be a boolean")
         if average not in ("macro", "micro"):
@@ -191,7 +215,8 @@ class MeanAveragePrecision(Metric):
         if backend not in ("native", "native_numpy"):
             raise ValueError(f"Expected argument `backend` to be one of ('native', 'native_numpy') but got {backend}")
         self.box_format = box_format
-        self.iou_type = "bbox"
+        self.iou_types = iou_types
+        self.iou_type = iou_types[0]
         self.iou_thresholds = np.asarray(
             iou_thresholds if iou_thresholds is not None else np.round(np.arange(0.5, 1.0, 0.05), 2)
         )
@@ -203,9 +228,11 @@ class MeanAveragePrecision(Metric):
             raise ValueError("Argument `max_detection_thresholds` must be a list of length 3")
         self.max_detection_thresholds = sorted(mdt)
         self.class_metrics = class_metrics
+        self.extended_summary = extended_summary
         self.average = average
         self.backend = backend
-        for name in _STATE_NAMES:
+        # box and mask item states coexist when iou_types has both
+        for name in _STATE_NAMES + sum((_ITEM_STATES[t] for t in ("bbox", "segm") if t in iou_types), ()):
             self.add_state(name, [], dist_reduce_fx=None)
 
     # -------------------------------------------------------------- update
@@ -214,12 +241,13 @@ class MeanAveragePrecision(Metric):
             raise ValueError("Expected argument `preds` and `target` to be a sequence of dicts")
         if len(preds) != len(target):
             raise ValueError("Expected argument `preds` and `target` to have the same length")
+        item_keys = ["masks" if it == "segm" else "boxes" for it in self.iou_types]
         for p in preds:
-            for k in ("boxes", "scores", "labels"):
+            for k in item_keys + ["scores", "labels"]:
                 if k not in p:
                     raise ValueError(f"Expected all dicts in `preds` to contain the `{k}` key")
         for t in target:
-            for k in ("boxes", "labels"):
+            for k in item_keys + ["labels"]:
                 if k not in t:
                     raise ValueError(f"Expected all dicts in `target` to contain the `{k}` key")
         new = dict(state)
@@ -235,10 +263,14 @@ class MeanAveragePrecision(Metric):
             area = t.get("area")
             if area is not None and self._tensor(area).numel() == n_gt:
                 area = self._tensor(area).to(torch.float32).reshape(-1)
-            else:  # sentinel: the area is derived from the box at compute
+            else:  # sentinel: the area is derived from the box or mask at compute
                 area = torch.full((n_gt,), -1.0, dtype=torch.float32, device=self.device)
-            add("detection_boxes", self._convert_boxes(p["boxes"]))
-            add("groundtruth_boxes", self._convert_boxes(t["boxes"]))
+            if "bbox" in self.iou_types:
+                add("detection_boxes", self._convert_boxes(p["boxes"]))
+                add("groundtruth_boxes", self._convert_boxes(t["boxes"]))
+            if "segm" in self.iou_types:
+                add("detection_masks", self._tensor(p["masks"]).to(torch.bool))
+                add("groundtruth_masks", self._tensor(t["masks"]).to(torch.bool))
             add("detection_scores", self._tensor(p["scores"]).to(torch.float32).reshape(-1))
             add("detection_labels", self._tensor(p["labels"]).reshape(-1))
             add("groundtruth_labels", gt_labels)
@@ -251,32 +283,105 @@ class MeanAveragePrecision(Metric):
         boxes = boxes.reshape(-1, 4) if boxes.numel() else torch.zeros((0, 4), device=self.device)
         return box_convert(boxes, in_fmt=self.box_format, out_fmt="xyxy")
 
+    # ---------------------------------------------------------- coco file io
+    @staticmethod
+    def coco_to_tm(
+        coco_preds: str,
+        coco_target: str,
+        iou_type: Union[str, List[str]] = "bbox",
+        backend: str = "native",
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> Tuple[List[Dict[str, Tensor]], List[Dict[str, Tensor]]]:
+        """This metric's input lists from COCO json files, as tensors on ``device`` (the card by default).
+
+        Boxes come back in COCO xywh: construct the metric with
+        ``box_format="xywh"`` to feed them. ``backend`` is accepted for the
+        JAX package's signature; the parser is the native one.
+        """
+        from torchmetrics_tpu_torch.detection.coco_io import parse_coco_files
+
+        device = resolve_device(device)
+        preds, target = parse_coco_files(coco_preds, coco_target, iou_type)
+        to_torch = lambda d: {k: torch.as_tensor(v, device=device) for k, v in d.items()}  # noqa: E731
+        return [to_torch(p) for p in preds], [to_torch(t) for t in target]
+
+    def tm_to_coco(self, name: str = "tm_map_input") -> None:
+        """Write the accumulated inputs to ``{name}_preds.json`` and
+        ``{name}_target.json`` in COCO format: boxes in COCO xywh, masks as
+        compressed RLE."""
+        import json
+
+        from torchmetrics_tpu_torch.detection.coco_io import build_coco_dicts
+
+        host = {name: [v.cpu().numpy() for v in value] for name, value in self._state.items()
+                if isinstance(value, tuple)}
+        has_boxes, has_masks = "bbox" in self.iou_types, "segm" in self.iou_types
+        target_dict = build_coco_dicts(
+            labels=host["groundtruth_labels"],
+            boxes_xyxy=host["groundtruth_boxes"] if has_boxes else None,
+            masks=host["groundtruth_masks"] if has_masks else None,
+            crowds=host["groundtruth_crowds"],
+            area=host["groundtruth_area"],
+        )
+        preds_dict = build_coco_dicts(
+            labels=host["detection_labels"],
+            boxes_xyxy=host["detection_boxes"] if has_boxes else None,
+            masks=host["detection_masks"] if has_masks else None,
+            scores=host["detection_scores"],
+        )
+        with open(f"{name}_target.json", "w") as handle:
+            json.dump(target_dict, handle)
+        with open(f"{name}_preds.json", "w") as handle:
+            json.dump(preds_dict, handle)
+
     # -------------------------------------------------------------- compute
-    def _images(self, state: State) -> List[Dict[str, np.ndarray]]:
+    def _mask_counts(self, state: State) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Each image's exact ``(inter (D, G), det_area (D,), gt_area (G,))`` from one ``mask_iou`` launch over
+        every image (its plain version on the CPU)."""
+        counts = mask_iou_counts(list(state["detection_masks"]), list(state["groundtruth_masks"]))
+        return [tuple(c.cpu().numpy() for c in image) for image in counts]
+
+    def _images(self, state: State, iou_type: str, counts) -> List[Dict[str, np.ndarray]]:
+        """Each image's host arrays for one type's pass: scores, labels, crowds, areas and the full (D, G) IoUs.
+
+        The derived ground-truth area is the masks' whenever ``segm`` is among the types and the boxes'
+        otherwise: one area for every pass, as the JAX package keeps it."""
         images = []
-        for i in range(len(state["detection_boxes"])):
+        for i in range(len(state["detection_scores"])):
             host = {name: state[name][i].cpu().numpy() for name in _STATE_NAMES}
-            det, gt = host["detection_boxes"], host["groundtruth_boxes"]
-            derived = ((gt[:, 2] - gt[:, 0]) * (gt[:, 3] - gt[:, 1])).astype(np.float32)
+            crowd = host["groundtruth_crowds"].astype(bool)
+            if iou_type == "bbox":
+                det, gt = (state[k][i].cpu().numpy() for k in _ITEM_STATES["bbox"])
+                box_areas = [((b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])).astype(np.float32) for b in (det, gt)]
+            if counts is not None:  # segm among the types
+                inter, mask_det_area, mask_gt_area = counts[i]
+                derived = mask_gt_area.astype(np.float32)
+            else:
+                derived = box_areas[1]
+            if iou_type == "segm":
+                ious = _mask_iou_from_counts(inter, mask_det_area, mask_gt_area, crowd)
+                det_area = mask_det_area.astype(np.float32)
+            else:
+                ious = _box_iou_crowd(det, gt, crowd)
+                det_area = box_areas[0]
             user = host["groundtruth_area"].reshape(-1)
             # per annotation: a positive user area wins, anything else is derived
             images.append({
-                "det_boxes": det,
                 "det_scores": host["detection_scores"],
                 "det_labels": host["detection_labels"],
-                "gt_boxes": gt,
                 "gt_labels": host["groundtruth_labels"],
-                "gt_crowd": host["groundtruth_crowds"].astype(bool),
+                "gt_crowd": crowd,
                 "gt_area": np.where(user > 0, user, derived) if user.size else derived,
-                "det_area": ((det[:, 2] - det[:, 0]) * (det[:, 3] - det[:, 1])).astype(np.float32),
+                "det_area": det_area,
+                "ious": ious,
             })
         return images
 
-    def _class_items(self, state: State):
+    def _class_items(self, state: State, iou_type: str = "bbox", counts=None):
         """``(observed labels, classes, items)``: the state's (class, image)
         items, a list for each class, each detection list cut to the largest
         maxDets cap in score order."""
-        images = self._images(state)
+        images = self._images(state, iou_type, counts)
         labels = [r["det_labels"] for r in images] + [r["gt_labels"] for r in images]
         observed = sorted(set(np.concatenate(labels).tolist())) if images else []
         if self.average == "micro":  # one class for every label
@@ -291,26 +396,35 @@ class MeanAveragePrecision(Metric):
         # computed once and sliced per class (each IoU depends on its pair only)
         class_index = {c: k for k, c in enumerate(classes)}
         items: List[List[Dict[str, np.ndarray]]] = [[] for _ in classes]
-        for r in images:
-            ious = _box_iou_crowd(r["det_boxes"], r["gt_boxes"], r["gt_crowd"])
+        for ii, r in enumerate(images):
             for cls in np.unique(np.concatenate([r["det_labels"], r["gt_labels"]])).tolist():
                 d_sel = np.nonzero(r["det_labels"] == cls)[0]
                 g_sel = np.nonzero(r["gt_labels"] == cls)[0]
                 d_scores = r["det_scores"][d_sel]
                 d_order = np.argsort(-d_scores, kind="stable")[:max_det]
                 items[class_index[cls]].append({
-                    "ious": ious[np.ix_(d_sel, g_sel)], "scores": d_scores, "crowd": r["gt_crowd"][g_sel],
-                    "gt_area": r["gt_area"][g_sel], "det_area": r["det_area"][d_sel], "order": d_order,
+                    "ious": r["ious"][np.ix_(d_sel, g_sel)], "scores": d_scores, "crowd": r["gt_crowd"][g_sel],
+                    "gt_area": r["gt_area"][g_sel], "det_area": r["det_area"][d_sel], "order": d_order, "image": ii,
                 })
         return observed, classes, items
 
-    def _compute(self, state: State) -> Dict[str, Tensor]:
-        observed, classes, items = self._class_items(state)
+    def _compute(self, state: State) -> Dict[str, Any]:
+        counts = self._mask_counts(state) if "segm" in self.iou_types else None
+        out: Dict[str, Any] = {}
+        for i_type in self.iou_types:
+            prefix = "" if len(self.iou_types) == 1 else f"{i_type}_"
+            for k, v in self._compute_one_type(state, i_type, counts).items():
+                out[k if k == "classes" else f"{prefix}{k}"] = v  # ``classes`` is the same for every type
+        return out
+
+    def _compute_one_type(self, state: State, iou_type: str, counts) -> Dict[str, Any]:
+        observed, classes, items = self._class_items(state, iou_type, counts)
         iou_thrs, rec_thrs, max_dets = self.iou_thresholds, self.rec_thresholds, self.max_detection_thresholds
         area_names = list(_AREA_RANGES)
         n_t, n_r, n_k, n_a, n_m = len(iou_thrs), len(rec_thrs), len(classes), len(area_names), len(max_dets)
         precision = -np.ones((n_t, n_r, n_k, n_a, n_m))
         recall = -np.ones((n_t, n_k, n_a, n_m))
+        scores = -np.ones((n_t, n_r, n_k, n_a, n_m))
 
         if self.backend == "native":
             flat = [it for per_class in items for it in per_class]
@@ -324,8 +438,21 @@ class MeanAveragePrecision(Metric):
             for (ai, mi), (tp, ig, sc, npig) in cells:
                 if npig == 0:
                     continue
-                recall[:, ki, ai, mi], precision[:, :, ki, ai, mi] = _accumulate(tp, ig, sc, npig, rec_thrs)
-        return self._summarize(precision, recall, iou_thrs, area_names, max_dets, observed)
+                recall[:, ki, ai, mi], precision[:, :, ki, ai, mi], scores[:, :, ki, ai, mi] = _accumulate(
+                    tp, ig, sc, npig, rec_thrs)
+        out = self._summarize(precision, recall, iou_thrs, area_names, max_dets, observed)
+        if self.extended_summary:
+            out["precision"] = torch.as_tensor(precision, dtype=torch.float32, device=self.device)
+            out["recall"] = torch.as_tensor(recall, dtype=torch.float32, device=self.device)
+            out["scores"] = torch.as_tensor(scores, dtype=torch.float32, device=self.device)
+            # the (image, class) IoU matrices, as COCOeval.ious: (0, 0) where the image holds none of the class
+            n_images = len(state["detection_scores"])
+            ious = {(ii, classes[ki]): np.zeros((0, 0)) for ki in range(n_k) for ii in range(n_images)}
+            for ki, per_class in enumerate(items):
+                for it in per_class:
+                    ious[(it["image"], classes[ki])] = it["ious"]
+            out["ious"] = {key: torch.as_tensor(v, dtype=torch.float32, device=self.device) for key, v in ious.items()}
+        return out
 
     def _cells_native(self, per_class, max_dets):
         """``((area, maxDets), (tp, ig, scores, n_valid_gt))`` of one class

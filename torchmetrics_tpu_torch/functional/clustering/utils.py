@@ -52,8 +52,8 @@ def _dense_relabel(labels: Tensor) -> Tuple[Tensor, int]:
     return dense.reshape(labels.shape), int(uniq.shape[0])
 
 
-def calculate_contingency_matrix(preds: Tensor, target: Tensor) -> Tensor:
-    """``(n_target_clusters, n_pred_clusters)`` float32 co-occurrence counts.
+def _pair_table(rows: Tensor, cols: Tensor, k_rows: int, k_cols: int) -> Tensor:
+    """int32 ``(k_rows, k_cols)`` counts of the pairs ``(rows[i], cols[i])`` of dense ids.
 
     The kernel counts into a square ``(side, side)`` state at the int32 cell
     ``target * side + label``, so a cell ``c`` of the table goes in as target
@@ -63,22 +63,27 @@ def calculate_contingency_matrix(preds: Tensor, target: Tensor) -> Tensor:
     many, a launch each; a pair outside the slice goes to cell
     ``side * side``, which the kernel's pair rule drops.
     """
-    p_dense, kp = _dense_relabel(preds)
-    t_dense, kt = _dense_relabel(target)
-    cells = kt * kp
-    flat = t_dense.to(torch.int64) * kp + p_dense
-    table = torch.empty(cells, dtype=torch.float32, device=preds.device)
+    cells = k_rows * k_cols
+    flat = rows.to(torch.int64) * k_cols + cols
+    table = torch.empty(cells, dtype=torch.int32, device=rows.device)
     for start in range(0, cells, _TABLE_CELLS):
         size = min(_TABLE_CELLS, cells - start)
         side = math.isqrt(size - 1) + 1
         local = flat - start
         if size < cells:
             local = torch.where((local >= 0) & (local < size), local, side * side)
-        counts = torch.zeros((side, side), dtype=torch.int32, device=preds.device)
+        counts = torch.zeros((side, side), dtype=torch.int32, device=rows.device)
         counts = _multiclass_confmat_accumulate(counts, (local % side).to(torch.int32),
                                                 (local // side).to(torch.int32), None)
         table[start:start + size] = counts.view(-1)[:size]
-    return table.view(kt, kp)
+    return table.view(k_rows, k_cols)
+
+
+def calculate_contingency_matrix(preds: Tensor, target: Tensor) -> Tensor:
+    """``(n_target_clusters, n_pred_clusters)`` float32 co-occurrence counts (:func:`_pair_table`)."""
+    p_dense, kp = _dense_relabel(preds)
+    t_dense, kt = _dense_relabel(target)
+    return _pair_table(t_dense, p_dense, kt, kp).to(torch.float32)
 
 
 def calculate_entropy(labels: Tensor) -> Tensor:

@@ -1,7 +1,8 @@
 """Box primitives (counterpart of ``torchmetrics_tpu/functional/detection/box_ops.py``).
 
-``box_convert``, ``box_area`` and the pairwise ``box_iou`` as batched
-tensor expressions, float32 as in the JAX package.
+``box_convert``, ``box_area`` and the pairwise ``box_iou``,
+``generalized_box_iou``, ``distance_box_iou`` and ``complete_box_iou`` as
+batched tensor expressions, float32 as in the JAX package.
 
 Example::
 
@@ -13,6 +14,7 @@ Example::
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -58,3 +60,52 @@ def box_iou(preds: Tensor, target: Tensor) -> Tensor:
     """Pairwise IoU ``(N, M)`` of xyxy boxes."""
     inter, union = _pairwise_intersection_union(preds, target)
     return inter / torch.clamp(union, min=1e-12)
+
+
+def _hull(preds: Tensor, target: Tensor) -> Tensor:
+    """Width and height ``(N, M, 2)`` of each pair's smallest enclosing box."""
+    lt = torch.minimum(preds[:, None, :2], target[None, :, :2])
+    rb = torch.maximum(preds[:, None, 2:], target[None, :, 2:])
+    return torch.clamp(rb - lt, min=0.0)
+
+
+def generalized_box_iou(preds: Tensor, target: Tensor) -> Tensor:
+    """Pairwise GIoU: IoU less the share of the enclosing box that the union leaves empty."""
+    inter, union = _pairwise_intersection_union(preds, target)
+    iou = inter / torch.clamp(union, min=1e-12)
+    wh = _hull(preds, target)
+    hull = wh[..., 0] * wh[..., 1]
+    return iou - (hull - union) / torch.clamp(hull, min=1e-12)
+
+
+def distance_box_iou(preds: Tensor, target: Tensor) -> Tensor:
+    """Pairwise DIoU: IoU less the squared centre distance over the enclosing box's squared diagonal."""
+    inter, union = _pairwise_intersection_union(preds, target)
+    iou = inter / torch.clamp(union, min=1e-12)
+    return iou - _center_distance_term(preds, target)
+
+
+def _center_distance_term(preds: Tensor, target: Tensor) -> Tensor:
+    wh = _hull(preds, target)
+    diag_sq = wh[..., 0] ** 2 + wh[..., 1] ** 2
+    cp = (preds[:, :2] + preds[:, 2:]) / 2
+    ct = (target[:, :2] + target[:, 2:]) / 2
+    d_sq = ((cp[:, None, :] - ct[None, :, :]) ** 2).sum(-1)
+    return d_sq / torch.clamp(diag_sq, min=1e-12)
+
+
+def complete_box_iou(preds: Tensor, target: Tensor) -> Tensor:
+    """Pairwise CIoU: DIoU less the aspect-ratio term ``alpha * v``."""
+    inter, union = _pairwise_intersection_union(preds, target)
+    iou = inter / torch.clamp(union, min=1e-12)
+    diou = iou - _center_distance_term(preds, target)
+    wp = preds[:, 2] - preds[:, 0]
+    hp = preds[:, 3] - preds[:, 1]
+    wt = target[:, 2] - target[:, 0]
+    ht = target[:, 3] - target[:, 1]
+    v = (4 / math.pi**2) * (
+        torch.arctan(wt[None, :] / torch.clamp(ht[None, :], min=1e-12))
+        - torch.arctan(wp[:, None] / torch.clamp(hp[:, None], min=1e-12))
+    ) ** 2
+    alpha = v / torch.clamp(1 - iou + v, min=1e-12)
+    return diou - alpha * v

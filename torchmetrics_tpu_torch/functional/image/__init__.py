@@ -1,7 +1,5 @@
-"""Functional image signal metrics (counterpart of ``torchmetrics_tpu/functional/image/``).
-
-The learned perceptual metric (LPIPS) waits for the image backbones.
-"""
+"""Functional image metrics (counterpart of ``torchmetrics_tpu/functional/image/``): the signal metrics and
+LPIPS."""
 
 from torchmetrics_tpu_torch.functional.image.psnr import (
     peak_signal_noise_ratio,
@@ -25,7 +23,10 @@ from torchmetrics_tpu_torch.functional.image.ssim import (
 )
 from torchmetrics_tpu_torch.functional.image.tv import image_gradients, total_variation
 
+from torchmetrics_tpu_torch.functional.image.lpips import learned_perceptual_image_patch_similarity
+
 __all__ = [
+    "learned_perceptual_image_patch_similarity",
     "error_relative_global_dimensionless_synthesis",
     "image_gradients",
     "multiscale_structural_similarity_index_measure",

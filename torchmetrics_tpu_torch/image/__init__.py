@@ -1,8 +1,15 @@
-"""Image signal metrics (counterpart of ``torchmetrics_tpu/image/``).
+"""Image metrics (counterpart of ``torchmetrics_tpu/image/``): the signal metrics, and the generative metrics
+and LPIPS on the backbones of :mod:`torchmetrics_tpu_torch.image.backbones`."""
 
-The generative metrics and LPIPS wait for the image backbones.
-"""
-
+from torchmetrics_tpu_torch.image.generative import (
+    DeterministicFeatureExtractor,
+    FrechetInceptionDistance,
+    InceptionScore,
+    KernelInceptionDistance,
+    LearnedPerceptualImagePatchSimilarity,
+    MemorizationInformedFrechetInceptionDistance,
+    PerceptualPathLength,
+)
 from torchmetrics_tpu_torch.image.psnr import PeakSignalNoiseRatio, PeakSignalNoiseRatioWithBlockedEffect
 from torchmetrics_tpu_torch.image.spectral import (
     ErrorRelativeGlobalDimensionlessSynthesis,
@@ -23,10 +30,17 @@ from torchmetrics_tpu_torch.image.ssim import (
 )
 
 __all__ = [
+    "DeterministicFeatureExtractor",
     "ErrorRelativeGlobalDimensionlessSynthesis",
+    "FrechetInceptionDistance",
+    "InceptionScore",
+    "KernelInceptionDistance",
+    "LearnedPerceptualImagePatchSimilarity",
+    "MemorizationInformedFrechetInceptionDistance",
     "MultiScaleStructuralSimilarityIndexMeasure",
     "PeakSignalNoiseRatio",
     "PeakSignalNoiseRatioWithBlockedEffect",
+    "PerceptualPathLength",
     "QualityWithNoReference",
     "RelativeAverageSpectralError",
     "RootMeanSquaredErrorUsingSlidingWindow",
