@@ -177,7 +177,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    ``poly_mmd``, KID's subsets' polynomial MMD^2, within 1e-5 of the terms'
    scale of its plain version at KID's defaults (100 subsets of 1,000 of
    10,000 x 2,048, timed beside the gathered ``torch.bmm`` form), d = 64 and
-   1,001, degrees 1-4 with given gamma and coef, m = 2 and a NaN feature;
+   1,001, degrees 1-4 with given gamma and coef, m = 2, a NaN and a +inf
+   feature, KID's defaults with 8 outlier dimensions, m = 129 and 255; at
+   KID's defaults, with and without the outliers, within 1e-7 of the scale of
+   a float64 evaluation;
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
@@ -556,7 +559,7 @@ def phase_build() -> float:
     seconds = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "warning" in line:
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] {len(sources)} source(s) {sources}, {len(logs)} compiled in {seconds:.2f} s")
     return seconds
@@ -5235,16 +5238,21 @@ def _kid_subsets(gen, n_r, n_f, subsets, m):
     return ix, iy
 
 
-def _kid_scale(x, y, ix, iy, degree, gamma, coef):
-    """``(|kt_xx| + |kt_yy|) / (m (m - 1)) + 2 |k_xy| / m^2`` a subset, from float64 kernel matrices."""
-    out = []
+def _kid_float64(x, y, ix, iy, degree, gamma, coef):
+    """A float64 evaluation a subset from float64 kernel matrices of the gathered rows: the MMD^2 and the terms'
+    scale ``(|kt_xx| + |kt_yy|) / (m (m - 1)) + 2 |k_xy| / m^2``."""
+    mmd, scale = [], []
     m = ix.shape[1]
     for rx, ry in zip(ix, iy):
         xs, ys = x[rx].double(), y[ry].double()
-        k = [((a @ b.T) * gamma + coef).abs() ** degree for a, b in ((xs, xs), (ys, ys), (xs, ys))]
-        out.append(float((k[0].sum() - k[0].diagonal().sum() + k[1].sum() - k[1].diagonal().sum()) / (m * (m - 1))
-                         + 2 * k[2].sum() / m**2))
-    return torch.tensor(out, dtype=torch.float64, device=x.device)
+        k = [((a @ b.T) * gamma + coef) ** degree for a, b in ((xs, xs), (ys, ys), (xs, ys))]
+        kt = k[0].sum() - k[0].diagonal().sum() + k[1].sum() - k[1].diagonal().sum()
+        mmd.append(float(kt / (m * (m - 1)) - 2 * k[2].sum() / m**2))
+        k = [v.abs() for v in k]
+        scale.append(float((k[0].sum() - k[0].diagonal().sum() + k[1].sum() - k[1].diagonal().sum()) / (m * (m - 1))
+                           + 2 * k[2].sum() / m**2))
+    as64 = lambda v: torch.tensor(v, dtype=torch.float64, device=x.device)  # noqa: E731
+    return as64(mmd), as64(scale)
 
 
 def _kid_library(x, y, ix, iy, degree, gamma, coef):
@@ -5258,27 +5266,55 @@ def _kid_library(x, y, ix, iy, degree, gamma, coef):
     return kt / (m * (m - 1)) - 2 * k[2].sum((1, 2)) / m**2
 
 
+KID_FLOAT64_TOL = 1e-7  # poly_mmd against a float64 evaluation at (a) and (f): of the terms' scale
+KID_OUTLIERS, KID_OUTLIER_SCALE = 8, 30.0  # (f): feature dimensions this many times the others, as trained nets'
+
+
+def _poly_mmd_bounds(subsets: int, m: int, d: int) -> dict:
+    """The least times of ``poly_mmd``'s products, the xx and yy halves counted once: 2 m^2 d multiply-adds a
+    subset as float32 on the CUDA cores, and as the kernel's three TF32 passes on the tensor cores; and the bytes
+    its tiles read from L2 (each block its rows and columns once) and from device memory (a subset's rows once,
+    the tiles of a subset running together)."""
+    from torchmetrics_tpu_torch.kernels import poly_mmd as kpm
+
+    flop = 2 * d * (m * m + m * (m - 1)) * subsets
+    return {"flop": flop, "fp32_bound_ms": flop / PEAK_FP32_OPS_PER_S * 1e3,
+            "tf32_bound_ms": 3 * flop / PEAK_TF32_OPS_PER_S * 1e3,
+            "l2_bytes": kpm.blocks(m) * subsets * (kpm.ROWS + kpm.COLS) * d * 4,
+            "dram_bytes": 2 * m * d * 4 * subsets}
+
+
 def phase_poly_mmd_kernel(flush: torch.Tensor) -> list:
     """``poly_mmd`` against its plain version (JAX's gathered subsets, float32) on the card, within
     ``KID_TOL`` of the terms' scale: (a) KID's defaults, 100 subsets of 1,000 of 10,000 x 2,048 features (timed,
-    the record's row), (b) d = 64 and d = 1,001 (4-byte loads), (c) degrees 1-4 with given ``gamma`` and ``coef``,
-    (d) m = 2, (e) a NaN feature (NaN in the subsets that hold it, as plain). Library: the batched gather +
-    ``torch.bmm`` + power + sums (several calls, TF32 off)."""
+    the record's row), (b) d = 64 and d = 1,001 (4-byte loads, a ragged chunk), (c) degrees 1-4 with given
+    ``gamma`` and ``coef``, (d) m = 2, (e) a NaN feature (NaN in the subsets that hold it, as plain), (f) KID's
+    defaults with ``KID_OUTLIERS`` dimensions ``KID_OUTLIER_SCALE`` times the others, (g) a +inf feature (the
+    plain version's NaN pattern), (h) m = 129 and 255 (against the 64-row warpgroups and 128 x 128 tiles: 129 gives
+    a second row and column tile of one row, 255 a ragged one); at (a) and (f) also within ``KID_FLOAT64_TOL`` of a float64 evaluation (gathered float64 products), plain's error
+    beside. Library: the batched gather + ``torch.bmm`` + power + sums (several calls, TF32 off)."""
     from torchmetrics_tpu_torch.kernels import poly_mmd as kpm
     from torchmetrics_tpu_torch.utilities.precision import full_float32
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
-    cases = [("(a) KID defaults: 100 subsets of 1,000 of 10,000 x 2,048", 10_000, 2048, 100, 1000, 3, None, 1.0, True)]
+    kid = ("(a) KID defaults: 100 subsets of 1,000 of 10,000 x 2,048", 10_000, 2048, 100, 1000, 3, None, 1.0, True)
+    cases = [kid]
     cases += [(f"(b) d = {d}", 2000, d, 10, 300, 3, None, 1.0, False) for d in (64, 1001)]
     cases += [(f"(c) degree {k}, gamma {g}, coef {c}", 1500, 200, 6, 257, k, g, c, False)
               for k, g, c in ((1, 0.01, 0.5), (2, 0.003, 2.0), (3, 0.002, 1.5), (4, 0.005, 1.0))]
     cases += [("(d) m = 2", 50, 128, 20, 2, 3, None, 1.0, False),
-              ("(e) a NaN feature", 400, 96, 8, 150, 3, None, 1.0, "nan")]
+              ("(e) a NaN feature", 400, 96, 8, 150, 3, None, 1.0, "nan"),
+              (f"(f) KID defaults, {KID_OUTLIERS} dimensions x {KID_OUTLIER_SCALE:g}", *kid[1:-1], "outliers"),
+              ("(g) a +inf feature", 400, 96, 8, 150, 3, None, 1.0, "inf")]
+    cases += [(f"(h) m = {m}", 600, 160, 4, m, 3, None, 1.0, False) for m in (129, 255)]
     rows = []
-    for label, n, d, subsets, m, degree, gamma, coef, timed in cases:
+    for label, n, d, subsets, m, degree, gamma, coef, kind in cases:
         x, y = _kid_features(gen, n, d), _kid_features(gen, n, d, shift=0.05)
-        if timed == "nan":
-            x[7, 3] = float("nan")
+        if kind in ("nan", "inf"):
+            x[7, 3] = float(kind)
+        if kind == "outliers":
+            x[:, :KID_OUTLIERS] *= KID_OUTLIER_SCALE
+            y[:, :KID_OUTLIERS] *= KID_OUTLIER_SCALE
         ix, iy = _kid_subsets(gen, n, n, subsets, m)
         g = 1.0 / d if gamma is None else gamma
         before = kpm.poly_mmd.launches
@@ -5289,10 +5325,10 @@ def phase_poly_mmd_kernel(flush: torch.Tensor) -> list:
         torch.cuda.synchronize()
         check(kpm.poly_mmd.launches == before + 2, f"poly_mmd launches ({label})")
         check(torch.equal(got.isnan(), want.isnan()), f"poly_mmd's NaN differ from plain ({label})")
-        if timed == "nan":
+        if kind in ("nan", "inf"):
             check(bool(got.isnan().any()) and not bool(got.isnan().all()), f"poly_mmd NaN pattern ({label})")
         fin = ~want.isnan()
-        scale = _kid_scale(x, y, ix, iy, degree, g, coef)
+        exact, scale = _kid_float64(x, y, ix, iy, degree, g, coef)
         err = (got.double() - want.double()).abs()
         check(bool((err[fin] <= KID_TOL * scale[fin]).all()),
               f"poly_mmd differs from plain ({label}): max err over scale {float((err[fin] / scale[fin]).max()):.3g}")
@@ -5300,10 +5336,15 @@ def phase_poly_mmd_kernel(flush: torch.Tensor) -> list:
               f"poly_mmd is not repeatable ({label})")
         row = {"case": label, "max_abs_err": float(err[fin].max()) if fin.any() else 0.0,
                "max_err_over_scale": float((err[fin] / scale[fin]).max()) if fin.any() else 0.0}
-        if timed is True:
-            pairs = m * m + m * (m - 1)  # xy, and the upper halves of xx and yy
-            flop = 2 * d * pairs * subsets
-            bound_ms = flop / PEAK_FP32_OPS_PER_S * 1e3
+        if kind in (True, "outliers"):
+            f64 = float(((got.double() - exact).abs() / scale).max())
+            plain_f64 = float(((want.double() - exact).abs() / scale).max())
+            row.update({"float64_err_over_scale": f64, "plain_float64_err_over_scale": plain_f64})
+            print(f"[kernel] poly_mmd {label}: against float64, max err over scale {f64:.3g} (plain {plain_f64:.3g}); "
+                  f"against plain {row['max_err_over_scale']:.3g}")
+            check(f64 <= KID_FLOAT64_TOL, f"poly_mmd differs from float64 ({label}): {f64:.3g} of the terms' scale")
+        if kind is True:
+            bounds = _poly_mmd_bounds(subsets, m, d)
             kernel_ms = time_ms(lambda: kpm.poly_mmd(x, y, ix, iy, degree, g, coef), flush, reps=10)
             with full_float32():
                 plain_ms = time_ms(lambda: kpm._poly_mmd_plain(x, y, ix, iy, degree, g, coef), flush, reps=3,
@@ -5311,13 +5352,16 @@ def phase_poly_mmd_kernel(flush: torch.Tensor) -> list:
                 library_ms = time_ms(lambda: _kid_library(x, y, ix, iy, degree, g, coef), flush, reps=3, warmup=1)
             stream_ms = time_stream_ms(lambda *a: kpm.poly_mmd(*a, degree, g, coef),
                                        [(x, y, ix, iy), (x.clone(), y.clone(), ix.clone(), iy.clone())], calls=4)
-            row.update({"ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": "operations", "library_ms": library_ms, "flop": flop})
+            row.update({"ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms,
+                        "bound_ms": bounds["tf32_bound_ms"], "bound_by": "operations", "library_ms": library_ms,
+                        **bounds})
             print(f"[kernel] poly_mmd {label}: {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a call back "
-                  f"to back), plain (a subset at a time) "
-                  f"{plain_ms:.4f} ms, gather + torch.bmm + power + sums (library_ms) {library_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms (fp32 operations: {flop:.3g}), share {bound_ms / kernel_ms:.1%}; "
-                  f"max err over scale {row['max_err_over_scale']:.3g}")
+                  f"to back), plain (a subset at a time) {plain_ms:.4f} ms, gather + torch.bmm + power + sums "
+                  f"(library_ms) {library_ms:.4f} ms; bounds ({bounds['flop']:.3g} flop): three TF32 passes "
+                  f"{bounds['tf32_bound_ms']:.4f} ms (share {bounds['tf32_bound_ms'] / kernel_ms:.1%}), float32 "
+                  f"{bounds['fp32_bound_ms']:.4f} ms (share {bounds['fp32_bound_ms'] / kernel_ms:.1%}); L2 bytes "
+                  f"{bounds['l2_bytes']:.4g} ({bounds['l2_bytes'] / kernel_ms * 1e-9:.3g} TB/s), device memory "
+                  f"{bounds['dram_bytes']:.4g}; max err over scale {row['max_err_over_scale']:.3g}")
         rows.append(row)
     print(f"[kernel] poly_mmd: SM clock, now and at most: {sm_clocks()}")
     print(f"[kernel] poly_mmd: within {KID_TOL} of the terms' scale of plain, NaN in place, repeatable, on "
@@ -5638,7 +5682,7 @@ def _generative_computes(metrics: dict, cpu_metrics: dict, values: dict) -> dict
     got = kpm.poly_mmd(x, y, ix, iy, kid.degree, g, kid.coef).double()
     with full_float32():
         want = kpm._poly_mmd_plain(x, y, ix, iy, kid.degree, g, kid.coef).double()
-    scale = _kid_scale(x, y, ix, iy, kid.degree, g, kid.coef)
+    scale = _kid_float64(x, y, ix, iy, kid.degree, g, kid.coef)[1]
     err = (got - want).abs()
     check(bool((err <= KID_TOL * scale).all()),
           f"[generative cifar] KID's subsets: poly_mmd differs from plain by {float((err / scale).max()):.3g} of scale")

@@ -266,44 +266,105 @@ def test_poly_mmd_plain_on_shared_indices(degree, gamma, coef):
     np.testing.assert_array_less(np.abs(got - want), 1e-5 * _terms_scale(x, y, ix, iy, degree, g, coef))
 
 
-def _kernel_model(x, y, ix, iy, degree, gamma, coef):
-    """numpy model of ``csrc/poly_mmd.cu``'s tiles: the blocks of a subset (the xy tiles, then the upper
-    triangles of xx and yy, mapped as the kernel maps ``blockIdx.x``), each entry's dot product rounded to
-    float32, ``(dot * gamma) + coef`` rounded twice, the binary power, float64 sums with a tile off the
-    diagonal of xx or yy counted twice and i == j skipped; also counts each (matrix, i, j) pair's weight."""
+F32 = np.float32
+
+
+def _tf32_split(x):
+    """``csrc/poly_mmd.cu``'s ``split``: hi = tf32(x) by ``cvt.rna``'s rounding (0x1000 added to the bits, the low
+    13 cleared: to nearest, ties away), a NaN's hi the canonical NaN; lo = tf32(x - hi), 0 where hi is inf or
+    NaN."""
+    x = np.asarray(x, F32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        bits = x.view(np.uint32).astype(np.uint64)
+        hi = np.where(np.isnan(x), np.uint64(0x7FFFFFFF), (bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(F32)
+        rest = (x - hi).view(np.uint32).astype(np.uint64)
+        lo = ((rest + 0x1000) & 0xFFFFE000).astype(np.uint32).view(F32)
+        lo = np.where(np.isfinite(hi), lo, F32(0))
+    return hi, lo
+
+
+def _pow32(v, degree):
+    """``integer_pow``: binary exponentiation, a float32 rounding a multiply (x^3 = x * (x * x))."""
+    acc = None
+    while degree > 0:
+        if degree & 1:
+            acc = v if acc is None else (acc * v).astype(F32)
+        degree >>= 1
+        if degree > 0:
+            v = (v * v).astype(F32)
+    return acc
+
+
+def _tile_of(block, tr, tc):
+    """``tile_of``: xy's ``tr x tc`` tiles, then the upper triangles of xx and yy, row tile ``I`` with the column
+    tiles from ``first_col_tile(I)`` on."""
+    if block < tr * tc:
+        return 0, block // tc, block % tc
+    b, which, ti = block - tr * tc, 1, 0
+    while b >= tc - kpm.first_col_tile(ti):
+        b -= tc - kpm.first_col_tile(ti)
+        ti += 1
+        if ti == tr:
+            which, ti = 2, 0
+    return which, ti, kpm.first_col_tile(ti) + b
+
+
+def _tensor_core_dots(a, b, passes=3):
+    """A tile's dot products as the kernel takes them: the features zero-filled to whole chunks of
+    ``kpm.CHUNK``, each operand split (``_tf32_split``: the kernel splits a tile's rows in registers and its
+    columns in shared memory, alike), and a step of 8 features at a time the float32 accumulator gains lo.hi,
+    hi.lo and hi.hi (``passes=1``: hi.hi alone), each 8-term product exact and added with one rounding to
+    nearest; every ``kpm.PROMOTE`` chunks the accumulators go into float32 sums and start again from zero.
+    What numpy cannot model: the tensor cores' order and rounding inside a step (the card's adds are not rounded
+    to nearest: the promotion bounds what that costs). A product that comes out inf or NaN is taken again as
+    float32 fused multiply-adds in order of k, as the kernel's epilogue takes it."""
+    d = a.shape[1]
+    width = d + (-d) % kpm.CHUNK
+    pad = lambda x: np.pad(x, ((0, 0), (0, width - d)))  # noqa: E731
+    (a_hi, a_lo), (b_hi, b_lo) = _tf32_split(pad(a)), _tf32_split(pad(b))
+    terms = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)][3 - passes:]
+    acc = np.zeros((a.shape[0], b.shape[0]), F32)
+    total = np.zeros_like(acc)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for k0 in range(0, width, 8):
+            for p, q in terms:
+                acc = (acc + p[:, k0:k0 + 8].astype(np.float64) @ q[:, k0:k0 + 8].T.astype(np.float64)).astype(F32)
+            if (k0 + 8) % (kpm.CHUNK * kpm.PROMOTE) == 0:
+                total, acc = (total + acc).astype(F32), np.zeros_like(acc)
+        acc = (acc + total).astype(F32)
+        for i, j in zip(*np.nonzero(~np.isfinite(acc))):
+            dot = F32(0)
+            for k in range(d):
+                dot = F32(np.float64(a[i, k]) * np.float64(b[j, k]) + np.float64(dot))
+            acc[i, j] = dot
+    return acc
+
+
+def _kernel_model(x, y, ix, iy, degree, gamma, coef, passes=3):
+    """numpy model of ``csrc/poly_mmd.cu``'s tiles: the blocks of a subset mapped as ``tile_of`` maps
+    ``blockIdx.x`` (``kpm.ROWS x kpm.COLS`` tiles of xy, then of the upper triangles of xx and yy), each tile's
+    products by ``_tensor_core_dots``, ``(dot * gamma) + coef`` rounded twice, the binary power, float64 sums with
+    an entry of xy weighing 1, one of xx or yy with i < j weighing 2 and the rest skipped; also counts each
+    (matrix, i, j) pair's weight."""
     s_count, m = ix.shape
-    tile = 16 * kpm.ROWS
-    tiles = -(-m // tile)
+    tr, tc = kpm.tiles(m)
     out, weights = [], np.zeros((3, m, m))
     for s in range(s_count):
         sums = np.zeros(3)
         for block in range(kpm.blocks(m)):
-            if block < tiles * tiles:
-                which, ti, tj = 0, block // tiles, block % tiles
-            else:
-                t = block - tiles * tiles
-                tri = tiles * (tiles + 1) // 2
-                which = 1 if t < tri else 2
-                t -= tri if which == 2 else 0
-                ti = 0
-                while t >= tiles - ti:
-                    t -= tiles - ti
-                    ti += 1
-                tj = ti + t
+            which, ti, tj = _tile_of(block, tr, tc)
             a = (y if which == 2 else x)[(iy if which == 2 else ix)[s]]
             b = (x if which == 1 else y)[(ix if which == 1 else iy)[s]]
-            rows = np.arange(ti * tile, min(ti * tile + tile, m))
-            cols = np.arange(tj * tile, min(tj * tile + tile, m))
-            dot = (a[rows].astype(np.float64) @ b[cols].astype(np.float64).T).astype(np.float32)
-            v = (dot * np.float32(gamma)).astype(np.float32) + np.float32(coef)
-            k = v
-            for _ in range(degree - 1):
-                k = (k * v).astype(np.float32)
-            keep = np.ones(k.shape, bool)
-            if which:
-                keep &= rows[:, None] != cols[None, :]
-            w = 2.0 if which and ti != tj else 1.0
-            sums[which] += w * k.astype(np.float64)[keep].sum()
+            rows = np.arange(ti * kpm.ROWS, min(ti * kpm.ROWS + kpm.ROWS, m))
+            cols = np.arange(tj * kpm.COLS, min(tj * kpm.COLS + kpm.COLS, m))
+            keep = rows[:, None] < cols[None, :] if which else np.ones((len(rows), len(cols)), bool)
+            if not keep.any():
+                continue
+            dot = _tensor_core_dots(a[rows], b[cols], passes)
+            w = 2.0 if which else 1.0
+            with np.errstate(invalid="ignore", over="ignore"):
+                k = _pow32(((dot * F32(gamma)).astype(F32) + F32(coef)).astype(F32), degree)
+                sums[which] += w * k.astype(np.float64)[keep].sum()
             if s == 0:
                 weights[which][np.ix_(rows, cols)] += w * keep
         out.append((sums[1] + sums[2]) / (m * (m - 1)) - 2 * sums[0] / m**2)
@@ -326,6 +387,101 @@ def test_poly_mmd_kernel_model_against_jax(m, d, degree):
         upper = np.triu(weights[which]) + np.tril(weights[which], -1).T
         assert weights[which].sum() == m * (m - 1) and np.all(np.diag(weights[which]) == 0)
         assert upper.sum() == m * (m - 1)
+
+
+def _kid_like(rng, n, d, shift=0.0, outliers=8, scale=30.0):
+    """Features like InceptionV3's pool (ReLU, then the mean: |N(0, 1)| / 2) with ``outliers`` dimensions
+    ``scale`` times the others, as trained networks' features have them."""
+    x = np.abs(rng.standard_normal((n, d))) * 0.5 + shift
+    x[:, :outliers] *= scale
+    return x.astype(F32)
+
+
+def _mmd_float64(x, y, ix, iy, degree, gamma, coef):
+    """The subsets' MMD^2 from float64 kernel matrices of the gathered rows."""
+    out = []
+    for rx, ry in zip(ix, iy):
+        xs, ys = x[rx].astype(np.float64), y[ry].astype(np.float64)
+        m = len(rx)
+        k = [(a @ b.T * gamma + coef) ** degree for a, b in ((xs, xs), (ys, ys), (xs, ys))]
+        out.append((k[0].sum() - np.trace(k[0]) + k[1].sum() - np.trace(k[1])) / (m * (m - 1)) - 2 * k[2].sum() / m**2)
+    return np.asarray(out)
+
+
+def test_poly_mmd_three_tf32_passes_within_float64():
+    """On KID-like features with outlier dimensions (d = 2,048, m = 130: two row tiles, the second ragged) the
+    three-pass model stays within 1e-8 of the terms' scale of a float64 evaluation; one TF32 pass (hi.hi alone)
+    errs past 1e-7 on the same inputs."""
+    rng = np.random.default_rng(20)
+    m, n, d = 130, 150, 2048
+    x, y = _kid_like(rng, n, d), _kid_like(rng, n, d, shift=0.05)
+    ix = np.stack([rng.permutation(n)[:m] for _ in range(2)])
+    iy = np.stack([rng.permutation(n)[:m] for _ in range(2)])
+    want = _mmd_float64(x, y, ix, iy, 3, 1.0 / d, 1.0)
+    scale = _terms_scale(x, y, ix, iy, 3, 1.0 / d, 1.0)
+    three, _ = _kernel_model(x, y, ix, iy, 3, 1.0 / d, 1.0)
+    one, _ = _kernel_model(x, y, ix, iy, 3, 1.0 / d, 1.0, passes=1)
+    assert np.all(np.abs(three - want) <= 1e-8 * scale), np.abs(three - want) / scale
+    assert np.abs(one - want).max() > 1e-7 * scale.max(), np.abs(one - want) / scale
+
+
+def _tf32_reference(v: float) -> float:
+    """The TF32 value nearest float32 ``v`` (10 fraction bits at float32's exponent range, subnormals kept, ties
+    away from zero, inf past the largest), in float64 arithmetic, which holds every such value exactly."""
+    import math
+
+    if v == 0 or not math.isfinite(v):
+        return v
+    _, e = math.frexp(abs(v))  # abs(v) = f 2^e, f in [0.5, 1)
+    quantum = 2.0 ** (max(e - 1, -126) - 10)
+    rounded = math.floor(abs(v) / quantum + 0.5) * quantum
+    return math.copysign(rounded if rounded < 2.0**128 else math.inf, v)
+
+
+@pytest.mark.parametrize("bits", [
+    0x00000000, 0x80000000,  # +-0
+    0x00000001, 0x00001000, 0x00001FFF, 0x00003000, 0x807FFFFF, 0x007FF000,  # subnormals, ties among them
+    0x00800000, 0x3F800000, 0x3F801000, 0x3F803000, 0xBF801000, 0x3F800FFF, 0x3F801001, 0x40490FDB,  # ties, pi
+    0x7F7FEFFF, 0x7F7FF000, 0x7F7FFFFF, 0xFF7FFFFF,  # below and at the rounding past FLT_MAX
+    0x7F800000, 0xFF800000,  # +-inf
+    0x7FC00000, 0x7FFFFFFF, 0xFFFFFFFF, 0x7F800001, 0xFF801000,  # NaNs (CUDA's canonical one among them)
+], ids=lambda b: f"{b:#010x}")
+def test_poly_mmd_split_rounding(bits):
+    """The split's hi and lo bit for bit against an independent rounding; a NaN's hi stays a NaN (the add would
+    carry 0x7fffffff into the sign bit: -0) and lo is 0 wherever hi is not finite."""
+    x = np.array([bits], np.uint32).view(F32)
+    hi, lo = _tf32_split(x)
+    if np.isnan(x[0]):
+        assert hi.view(np.uint32)[0] == 0x7FFFFFFF and lo.view(np.uint32)[0] == 0
+        return
+    want_hi = _tf32_reference(float(x[0]))
+    assert hi[0] == want_hi and np.signbit(hi[0]) == np.signbit(want_hi)
+    want_lo = _tf32_reference(float(x[0]) - want_hi) if np.isfinite(want_hi) else 0.0
+    assert lo[0] == want_lo and (want_lo != 0 or lo.view(np.uint32)[0] in (0, 0x80000000))
+    if np.isfinite(want_hi) and abs(float(x[0])) >= 2.0**-100:  # hi + lo is x within TF32's precision of the rest
+        assert abs(float(x[0]) - want_hi - want_lo) <= abs(float(x[0]) - want_hi) * 2.0**-11
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf], ids=["nan", "+inf", "-inf"])
+def test_poly_mmd_kernel_model_non_finite_features(value):
+    """A NaN or +-inf feature: the products that come out non-finite are taken again in float32, so the subsets
+    that hold the row are NaN where JAX's are, and the others within 1e-5 of the terms' scale."""
+    rng = np.random.default_rng(21)
+    m, n, d = 20, 60, 24
+    x, y = rng.normal(size=(n, d)).astype(F32), rng.normal(size=(n, d)).astype(F32)
+    x[5, 3] = value
+    ix = np.stack([p[p != 5][:m] for p in (rng.permutation(n) for _ in range(6))])
+    ix[0, 0] = ix[3, 11] = 5  # the row in subsets 0 and 3 alone
+    iy = np.stack([rng.permutation(n)[:m] for _ in range(6)])
+    got, _ = _kernel_model(x, y, ix, iy, 3, 1.0 / d, 1.0)
+    want = np.asarray(jax.vmap(lambda a, b: jgen.poly_mmd(jnp.asarray(x)[a], jnp.asarray(y)[b], 3))(
+        jnp.asarray(ix), jnp.asarray(iy)))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(want).any() and not np.isnan(want).all()
+    fin = ~np.isnan(want)
+    with np.errstate(invalid="ignore"):
+        scale = _terms_scale(x, y, ix, iy, 3, 1.0 / d, 1.0)
+    np.testing.assert_array_less(np.abs(got - want)[fin], 1e-5 * scale[fin])
 
 
 def test_kid_with_every_row_in_each_subset():

@@ -257,6 +257,7 @@ _BUILDS += [("snr_moments", "SNR_VARIANTS", name, edits) for name, (edits, _) in
 _BUILDS += [("bert_match", "BERT_VARIANTS", name, edits) for name, (edits, _) in _ABLATION.BERT_VARIANTS.items()]
 _BUILDS += [("confmat", "CONFMAT_VARIANTS", name, edits)
             for name, (edits, *_) in _ABLATION.CONFMAT_VARIANTS.items()]
+_BUILDS += [("poly_mmd", "POLY_VARIANTS", name, edits) for name, (edits, *_) in _ABLATION.POLY_VARIANTS.items()]
 
 
 @pytest.mark.parametrize(("source", "table", "name", "edits"), _BUILDS,
@@ -272,7 +273,9 @@ def test_ablation_edits_apply_once(source, table, name, edits):
     (kmi, "THREADS", "kThreads"), (kmi, "GROUP", "kGroup"), (kmi, "IN_FLIGHT", "kInFlight"),
     (kmi, "SHARED_WORDS", "kSharedWords"),
     (kmi, "MAX_MASKS", "kMaxMasks"), (kmi, "MAX_WORDS", "kMaxWords"),
-    (kpm, "THREADS", "kThreads"), (kpm, "CHUNK", "kChunk"),
+    (kpm, "CONSUMERS", "kConsumers"), (kpm, "PRODUCERS", "kProducers"), (kpm, "CHUNK", "kChunk"),
+    (kpm, "ROWS", "kRows"), (kpm, "COLS", "kCols"), (kpm, "STAGES", "kStages"),
+    (kpm, "PROMOTE", "kPromote"),
 ], ids=lambda v: v if isinstance(v, str) else v.SOURCE)
 def test_detection_and_generative_constants_are_the_kernels(module, python, kernel):
     assert getattr(module, python) == _constant(_source(module.SOURCE), kernel)
@@ -300,21 +303,73 @@ def test_mask_iou_source_matches_its_launcher():
 
 def test_poly_mmd_source_matches_its_launcher():
     src = _source("poly_mmd")
-    # two staged tiles of kChunk x (16 R + 4) floats, 16-byte aligned rows, within 48 KB at R = 8; the subsets on
-    # grid.y; one register tile, R = 8, for every m
-    assert "constexpr int kStride = kTile + 4;" in src and (16 * 8 + 4) * 4 % 16 == 0
-    assert 2 * kpm.CHUNK * (16 * 8 + 4) * 4 <= 48 * 1024 and "subsets > 65535" in src
-    assert f"constexpr int R = {kpm.ROWS};" in src and "template" not in src
-    # JAX's rounding: (dot * gamma) + coef rounded twice, the binary power; float64 sums, the last block's
-    # exchange leaves the scratch zero and its ticket back at zero (``_build.zero_scratch``)
-    assert "__fadd_rn(__fmul_rn(acc[r][c], gamma), coef)" in src and "integer_pow(v, degree)" in src
+    # the subsets on grid.y; two producer warpgroups beside two consumer warpgroups; rows split by the kernel
+    assert "subsets > 65535" in src and "split(v[ks][e], a[0][ks][e], a[1][ks][e]);" in src
+    assert "constexpr int kThreads = kConsumers + kProducers;" in src and kpm.THREADS == 512
+    # the roles' registers by setmaxnreg, within an SM's 64 K
+    assert 'asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(kConsumerRegs));' in src
+    assert 'asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\\n" ::"n"(kProducerRegs));' in src
+    consumer_regs, producer_regs = (int(v) for v in re.findall(
+        r"constexpr int kConsumerRegs = (\d+), kProducerRegs = (\d+);", src)[0])
+    assert kpm.CONSUMERS * consumer_regs + kpm.PRODUCERS * producer_regs <= 65_536
+    assert consumer_regs % 8 == 0 and producer_regs % 8 == 0 and 24 <= producer_regs <= consumer_regs <= 256
+    # the dynamic shared memory: the swizzle's slack and the ring's slots of the columns' hi and lo, beside the rows'
+    # addresses, within a block's 227 KB; a named barrier pair a slot beside __syncthreads' 0 and the epilogue's
+    assert "constexpr int kAlign = 8 * kChunk * 4;" in src and kpm.ALIGN == 8 * kpm.CHUNK * 4
+    assert "const int dynamic = kAlign + kStages * 2 * kSlotHalf * static_cast<int>(sizeof(float));" in src
+    assert "constexpr int kSlotHalf = kCols * kChunk;" in src
+    assert kpm.SHARED_BYTES + 8 * (kpm.ROWS + kpm.COLS) + 8 * kpm.CONSUMERS // 32 + 8 <= 232_448
+    assert "constexpr int kFull = 1, kEmpty = 1 + kStages;" in src and 2 + 2 * kpm.STAGES <= 16
+    # wgmma m64nNk8, N the tile's columns: TF32 B from shared memory (128-byte rows, the 128-byte swizzle), A from
+    # registers; three passes a step of 8, small terms first
+    assert f"wgmma.mma_async.sync.aligned.m64n{kpm.COLS}k8.f32.tf32.tf32" in src and kpm.CHUNK == 32
+    assert "d |= uint64_t(1) << 62;" in src and "at ^ (((at >> 5) & (kGroups - 1)) << 2)" in src
+    assert ("          Wgmma<kCols>::run(acc, a[1][ks], bh);\n          Wgmma<kCols>::run(acc, a[0][ks], bl);\n"
+            "          Wgmma<kCols>::run(acc, a[0][ks], bh);") in src
+    # the consumers' A fragment (a warp's 16 rows, a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4)) from
+    # device memory, the next chunk's while this one's products run, split in registers; in the slots' order of a
+    # step's features (places j and j + 4 hold features 2 j and 2 j + 1) a row's two are one 8-byte load
+    assert "const int k = c * kChunk + 8 * ks + 2 * q;" in src
+    assert "const float2 x = load2(row[r], k, t.d, t.vec);" in src
+    assert "        v[ks][r] = x.x;\n        v[ks][r + 2] = x.y;" in src
+    assert "return 8 * (q >> 1) + 2 * (q & 1);" in src
+    assert "*reinterpret_cast<uint2*>(hi + p0) = make_uint2(h.x, h.z);" in src
+    assert "*reinterpret_cast<uint2*>(hi + p1) = make_uint2(h.y, h.w);" in src
+    assert "Consumer{t, wg, lane & 3, {rows[r_first], rows[r_first + 8]}," in src
+    done = src.index("// on every path: chunk c's products are done")
+    assert src.index("fetch(c + 1, v);  // while the products run") < done
+    # the producers' columns by 16-byte loads, two chunks ahead, split in registers; a warp's load covers whole rows
+    assert "return kWarpRows * (p >> 5) + 32 / kGroups * i + (p & 31) / kGroups;" in src
+    assert "      put(c, a);\n      fetch(c + 2, a);" in src
+
+    # the ring's barriers: a full one a chunk, an empty one once both warpgroups are done with a slot's products
+    assert "bar_sync<kThreads>(kFull + c % kStages);" in src and "bar_arrive<kThreads>(kFull + c % kStages);" in src
+    assert "if (c >= kStages) bar_sync<kThreads>(kEmpty + c % kStages);" in src
+    assert "if (c + kStages < t.chunks) bar_arrive<kThreads>(kEmpty + c % kStages);" in src
+    # the promotion, as the tests' model takes it, once the chunk's products are done
+    assert "if ((c + 1) % kPromote == 0) {" in src and "static_assert(kPromote >= 1," in src
+    assert done < src.index("if ((c + 1) % kPromote == 0) {")
+    # cvt.rna's rounding by an integer add and mask, a NaN kept, lo 0 where hi is not finite; a non-finite
+    # product taken again as float32 FMAs in order of k
+    assert "hi = x != x ? 0x7fffffffu : (__float_as_uint(x) + 0x1000u) & 0xffffe000u;" in src
+    assert "lo = (hi & 0x7f800000u) == 0x7f800000u ? 0u : (rest + 0x1000u) & 0xffffe000u;" in src
+    assert "for (int k = 0; k < d; ++k) dot = __fmaf_rn(a[k], b[k], dot);" in src
+    assert "if (!isfinite(dot)) {  // taken again below" in src
+    # JAX's rounding: (dot * gamma) + coef rounded twice, the binary power; float64 sums weighing 2 the entries
+    # i < j of xx and yy, the last block's exchange leaving the scratch zero and its ticket back at zero
+    assert src.count("integer_pow(__fadd_rn(__fmul_rn(dot, gamma), coef), degree)") == 2
+    assert "if (i >= m || jj >= m || (symmetric && i >= jj)) continue;" in src
+    assert "local *= symmetric ? 2.0 : 1.0;" in src
     assert "atomicExch(reinterpret_cast<unsigned long long*>(sums + 3 * s + w), 0ull)" in src
     assert "tickets[s] = 0u;" in src
-    # a thread's rows and columns: 4 ty + 64 p + r, as the tests' model takes them
-    assert "const int i = ti * kTile + 4 * ty + 64 * (r / 4) + r % 4;" in src
-    # the blocks of a subset: the m x m tiles of xy and the two upper triangles
-    assert "static_cast<long long>(tiles) * tiles + static_cast<long long>(tiles) * (tiles + 1)" in src
-    assert kpm.blocks(1000) == 8 * 8 + 8 * 9 and kpm.blocks(64) == kpm.blocks(2) == 1 + 2
+    # the accumulators as the tests' model takes them: rows r and r + 8 of a warp's 16, columns 8 j + 2 (lane % 4)
+    assert "const int r_first = 64 * wg + 16 * (warp & 3) + (lane >> 2);" in src
+    assert "const float dot = acc[4 * j + 2 * half + odd];" in src
+    # the blocks of a subset: xy's tiles, then the two upper triangles from column tile first_col_tile(I) on
+    assert "for (int i = 0; i < tr; ++i) blocks += 2LL * (tc - first_col_tile(i));" in src
+    assert "  tj = first_col_tile(ti) + b;" in src and "return (I * kRows + 1) / kCols;" in src
+    assert kpm.tiles(1000) == (8, 8) and kpm.blocks(1000) == 8 * 8 + 2 * 36
+    assert kpm.blocks(2) == 1 + 2 and kpm.blocks(129) == 4 + 2 * 3 and kpm.blocks(257) == 9 + 2 * 6
 
 
 @pytest.mark.parametrize("source", ["mask_iou", "poly_mmd"])

@@ -3,11 +3,11 @@
 ``binned_confmat_multilabel``'s label-group width, ``calibration_bins``' design choices,
 ``retrieval_groups``' counting threshold, ``ssim_window``'s tile and blocking, ``pairwise_lp``'s
 tiles, staging and float form, ``sdr_toeplitz``'s step and block, ``snr_moments``' loads and merge,
-``bert_greedy_match``'s and ``confmat_multiclass``' redesigns against the kernels before them.
+``bert_greedy_match``'s, ``confmat_multiclass``' and ``poly_mmd``'s redesigns against the kernels before them.
 
     python3 tools/kernel_ablation.py [--sections ranking,multilabel,calibration,calibration-widths,retrieval,
                                                   retrieval-occupancy,retrieval-builds,retrieval-fault,ssim,
-                                                  pairwise,sdr,snr,bert,confmat]
+                                                  pairwise,sdr,snr,bert,confmat,poly_mmd]
                                      [--parent CHECKOUT] [--fault-builds NAMES] [--fault-trials N]
                                      [--sass PATH] [--json PATH]
 
@@ -136,6 +136,25 @@ commit's kernel with its own plan. Each checked build is held equal to the plain
 3's (a) ImageNet-1k batch, (b) Cityscapes batch, (c) nominal's 1,024 labels at C = 42 and (d)
 clustering's 50,000 at C = 1,000, timed after a flush in two turns and back to back, and each rows
 build's order of loads, shuffles and atomics is printed from ``cuobjdump -sass``.
+
+POLY_MMD: ``csrc/poly_mmd.cu`` built as shipped and with one change each: the
+accumulators promoted every chunk or never (the tensor cores' float32 sums,
+unpromoted, lose 1e-6 of the terms' scale at case (f)), three slots, the rows'
+A fragments by 4-byte loads in the features' own order, one producer
+warpgroup, other register splits, the split by ``cvt.rna.tf32.f32``; and,
+timed only, one TF32 pass, no split, no loads (of the rows, of the columns, of
+both) and the products alone (with and without the promotion). With
+``--parent`` (a checkout of ``4c65b25``) the kernel before the redesign (8 x 8
+float32 FMA sums a thread) is built from that checkout's source. Each build's
+registers, spills and ptxas performance warnings from ``-Xptxas -v`` are
+printed; each is held against the plain version within phase 3's ``KID_TOL``
+and against a float64 evaluation at phase 3's cases (a), KID's defaults (100
+subsets of 1,000 of 10,000 x 2,048), and (f), the same with 8 outlier
+dimensions, and timed at (a) after a flush in two turns (parent, new, new,
+parent). The shipped build is also timed at (a) with a +inf feature in 1 % of
+the real rows and in every one of them, where the products that come out inf
+or NaN are taken again one thread an entry, its NaN held to the plain
+version's.
 
 Times are ``chip_smoke.time_ms``'s: CUDA events around one call after an L2
 flush that leaves no dirty line, a spin kernel holding the card while the host
@@ -680,7 +699,8 @@ def _edited_builds(source: str, builds: dict, workdir: str, skip_failed: bool = 
             continue
         if proc.returncode != 0:
             raise RuntimeError(f"kernel_ablation: nvcc failed for {name}:\n{log}")
-        report = " ".join(l.strip() for l in log.splitlines() if "spill" in l or "registers" in l)
+        report = " ".join(l.strip() for l in log.splitlines()
+                          if "spill" in l or "registers" in l or "Performance Loss" in l)
         built[name] = (ctypes.CDLL(lib), report)
     return built
 
@@ -1892,15 +1912,177 @@ def _confmat(flush: torch.Tensor, parent) -> dict:
     return rows
 
 
+POLY_PARENT = "4c65b25"  # the kernel before the redesign: 8 x 8 float32 FMA sums a thread, 128 x 128 tiles
+_PM_PROMOTE = "constexpr int kPromote = 2;"
+_PM_PRODUCTS = """          Wgmma<kCols>::run(acc, a[1][ks], bh);
+          Wgmma<kCols>::run(acc, a[0][ks], bl);
+          Wgmma<kCols>::run(acc, a[0][ks], bh);"""
+_PM_SPLIT_B = ("""      split(v[i].x, h.x, l.x);
+      split(v[i].y, h.y, l.y);
+      split(v[i].z, h.z, l.z);
+      split(v[i].w, h.w, l.w);""", """      h = *reinterpret_cast<const uint4*>(&v[i]);
+      l = h;""")
+_PM_SPLIT_A = ("        for (int e = 0; e < 4; ++e) split(v[ks][e], a[0][ks][e], a[1][ks][e]);",
+               "        for (int e = 0; e < 4; ++e) a[0][ks][e] = a[1][ks][e] = __float_as_uint(v[ks][e]);")
+_PM_LOADS_B = ("      v[i] = load4(col[i] + k, n, t.vec);", "      v[i] = make_float4(t.d, k, n, q);")
+_PM_LOADS_A = ("        const float2 x = load2(row[r], k, t.d, t.vec);", "        const float2 x = make_float2(k, r);")
+_PM_NO_REDO = ("        if (!isfinite(dot)) {", "        if (false) {")  # no second take
+_PM_NEVER = ("      if ((c + 1) % kPromote == 0) {", "      if (false) {")  # the accumulators never promoted
+
+
+def _pm(promote: int = 2, stages: int = 4) -> list:
+    """The edits that set the promotion period (at least 1) and the ring's slots."""
+    edits = [(_PM_PROMOTE, f"constexpr int kPromote = {promote};")] if promote != 2 else []
+    return edits + ([("constexpr int kStages = 4;", f"constexpr int kStages = {stages};")] if stages != 4 else [])
+
+
+POLY_VARIANTS = {  # name: (edits of csrc/poly_mmd.cu, checked against the plain version)
+    "shipped": ([], True),
+    "promoted every chunk": (_pm(promote=1), True),
+    "never promoted": ([_PM_NEVER], True),
+    "three slots": (_pm(stages=3), True),
+    "four-byte loads of the rows in the features' order": ([
+        ("      const int p0 = staged(column(i), pair_at(q)), p1 = staged(column(i), pair_at(q) + 4);\n"
+         "      *reinterpret_cast<uint2*>(hi + p0) = make_uint2(h.x, h.z);\n"
+         "      *reinterpret_cast<uint2*>(hi + p1) = make_uint2(h.y, h.w);\n"
+         "      *reinterpret_cast<uint2*>(hi + kSlotHalf + p0) = make_uint2(l.x, l.z);\n"
+         "      *reinterpret_cast<uint2*>(hi + kSlotHalf + p1) = make_uint2(l.y, l.w);",
+         "      const int at = staged(column(i), 4 * q);\n"
+         "      *reinterpret_cast<uint4*>(hi + at) = h;\n"
+         "      *reinterpret_cast<uint4*>(hi + kSlotHalf + at) = l;"),
+        ("        const float2 x = load2(row[r], k, t.d, t.vec);\n        v[ks][r] = x.x;\n        v[ks][r + 2] = x.y;",
+         "        const int kq = c * kChunk + 8 * ks + q;\n"
+         "        v[ks][r] = load2(row[r], kq, kq + 1, 0).x;\n"
+         "        v[ks][r + 2] = load2(row[r], kq + 4, kq + 5, 0).x;")], True),
+    "one producer warpgroup": ([("constexpr int kProducers = 256;", "constexpr int kProducers = 128;"),
+                                ("constexpr int kConsumerRegs = 192, kProducerRegs = 64;",  # within 384 x 168
+                                 "constexpr int kConsumerRegs = 192, kProducerRegs = 120;")], True),
+    "consumers 200 registers, producers 56": ([("constexpr int kConsumerRegs = 192, kProducerRegs = 64;",
+                                                "constexpr int kConsumerRegs = 200, kProducerRegs = 56;")], True),
+    "the split by cvt.rna.tf32.f32": ([(
+        "  hi = x != x ? 0x7fffffffu : (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+        "  const uint32_t rest = __float_as_uint(x - __uint_as_float(hi));\n"
+        "  lo = (hi & 0x7f800000u) == 0x7f800000u ? 0u : (rest + 0x1000u) & 0xffffe000u;",
+        '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));\n'
+        '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));\n'
+        '  lo = (hi & 0x7f800000u) == 0x7f800000u ? 0u : lo;')], True),
+    "one TF32 pass (timing only)": ([(_PM_PRODUCTS, "          Wgmma<kCols>::run(acc, a[0][ks], bh);")], False),
+    "no split (timing only)": ([_PM_SPLIT_A, _PM_SPLIT_B, _PM_NO_REDO], False),
+    "no loads (timing only)": ([_PM_LOADS_A, _PM_LOADS_B, _PM_NO_REDO], False),
+    "no loads of the rows (timing only)": ([_PM_LOADS_A, _PM_NO_REDO], False),
+    "no loads of the columns (timing only)": ([_PM_LOADS_B, _PM_NO_REDO], False),
+    "products alone (timing only)": ([_PM_LOADS_A, _PM_LOADS_B, _PM_SPLIT_A, _PM_SPLIT_B, _PM_NO_REDO], False),
+    "products alone, never promoted (timing only)": (
+        [_PM_LOADS_A, _PM_LOADS_B, _PM_SPLIT_A, _PM_SPLIT_B, _PM_NO_REDO, _PM_NEVER], False),
+}
+POLY_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+
+
+def _poly(flush: torch.Tensor, parent) -> dict:
+    """Every variant of ``poly_mmd`` and, with ``parent`` (a checkout of ``4c65b25``), the kernel before the
+    redesign at phase 3's case (a), KID's defaults (timed after a flush in two turns, parent, new, new, parent), and
+    case (f), the same with 8 outlier dimensions: each build's ptxas report, its error against the plain version and
+    against a float64 evaluation at both. Then the shipped build at (a) with a +inf feature in 1 % of the real rows
+    and in all of them (the non-finite products taken again), timed after a flush, its NaN held to plain's."""
+    from torchmetrics_tpu_torch.kernels import poly_mmd as kpm
+    from torchmetrics_tpu_torch.utilities.precision import full_float32
+
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 62)
+    n, d, subsets, m = 10_000, 2048, 100, 1000
+    x, y = cs._kid_features(gen, n, d), cs._kid_features(gen, n, d, shift=0.05)
+    ix, iy = cs._kid_subsets(gen, n, n, subsets, m)
+    xo, yo = x.clone(), y.clone()
+    xo[:, :cs.KID_OUTLIERS] *= cs.KID_OUTLIER_SCALE
+    yo[:, :cs.KID_OUTLIERS] *= cs.KID_OUTLIER_SCALE
+    cases = {"(a)": (x, y), "(f)": (xo, yo)}
+    g = 1.0 / d
+    with full_float32():
+        plain = {label: kpm._poly_mmd_plain(a, b, ix, iy, 3, g, 1.0).double() for label, (a, b) in cases.items()}
+    exact = {label: cs._kid_float64(a, b, ix, iy, 3, g, 1.0) for label, (a, b) in cases.items()}
+    out = torch.empty(subsets, device="cuda")
+    sums = torch.zeros(3 * subsets, dtype=torch.float64, device="cuda")
+    tickets = torch.zeros(subsets, dtype=torch.int32, device="cuda")
+    with tempfile.TemporaryDirectory() as workdir:
+        builds = _edited_builds("poly_mmd", {k: (v[0], []) for k, v in POLY_VARIANTS.items()}, workdir)
+        entries = {name: (lib, report, POLY_VARIANTS[name][1]) for name, (lib, report) in builds.items()}
+        if parent:
+            old = os.path.join(workdir, "parent", "poly_mmd.cu")
+            os.makedirs(os.path.dirname(old))
+            shutil.copy(os.path.join(parent, "torchmetrics_tpu_torch", "csrc", "poly_mmd.cu"), old)
+            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", old[:-3] + ".so", old],
+                                  capture_output=True, text=True)
+            if proc.returncode:
+                raise RuntimeError(f"kernel_ablation: nvcc failed for the parent:\n{proc.stdout}{proc.stderr}")
+            report = " ".join(l.strip() for l in (proc.stdout + proc.stderr).splitlines()
+                              if "spill" in l or "registers" in l)
+            entries[f"parent ({POLY_PARENT})"] = (ctypes.CDLL(old[:-3] + ".so"), report, True)
+        runs = []
+        for name, (lib, report, checked) in entries.items():
+            print(f"[poly_mmd] build {name!r}: {report}", flush=True)
+            fn = lib.poly_mmd_launch
+            fn.argtypes = POLY_ARGTYPES
+            fn.restype = ctypes.c_int
+
+            def call(a, b, fn=fn):
+                err = fn(a.data_ptr(), b.data_ptr(), ix.data_ptr(), iy.data_ptr(), out.data_ptr(), sums.data_ptr(),
+                         tickets.data_ptr(), subsets, m, d, 3, g, 1.0, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"kernel_ablation: poly_mmd launch failed with CUDA error {err}")
+                return out
+
+            for label, (a, b) in cases.items():
+                got = call(a, b).double()
+                torch.cuda.synchronize()
+                mmd, scale = exact[label]
+                err = float(((got - plain[label]).abs() / scale).max())
+                f64 = float(((got - mmd).abs() / scale).max())
+                rows[f"{name}, {label}, err over scale against plain / float64"] = [err, f64]
+                print(f"[poly_mmd] {name}, {label}: max err over scale {err:.3g} against plain, {f64:.3g} against "
+                      f"float64 (plain's {float(((plain[label] - mmd).abs() / scale).max()):.3g})", flush=True)
+                if checked:
+                    cs.check(err <= cs.KID_TOL, f"[poly_mmd] {name}, {label}: {err:.3g} of scale from plain")
+            runs.append((name, call, cases["(a)"]))
+        order = sorted(runs, key=lambda r: not r[0].startswith("parent"))  # the parent first: parent, new, new, parent
+        for turn in (order, order[::-1]):
+            for name, call, args in turn:
+                rows.setdefault(f"{name}, (a), after a flush", []).append(
+                    cs.time_ms(lambda: call(*args), flush, reps=10))
+        bound = cs._poly_mmd_bounds(subsets, m, d)
+        for name, _, _ in order:
+            flushed = rows[f"{name}, (a), after a flush"]
+            print(f"[poly_mmd] (a), {name}: {' / '.join(f'{t:.4f}' for t in flushed)} ms after an L2 flush (two "
+                  f"turns); three TF32 passes' bound {bound['tf32_bound_ms']:.4f} ms "
+                  f"({bound['tf32_bound_ms'] / min(flushed):.1%}), float32's {bound['fp32_bound_ms']:.4f} ms "
+                  f"({bound['fp32_bound_ms'] / min(flushed):.1%})", flush=True)
+        shipped = {name: call for name, call, _ in runs}["shipped"]
+        for label, every in (("1 % of the real rows", 100), ("every real row", 1)):
+            xi = x.clone()
+            xi[::every, 3] = float("inf")
+            with full_float32():
+                want = kpm._poly_mmd_plain(xi, y, ix, iy, 3, g, 1.0)
+            got = shipped(xi, y).clone()
+            torch.cuda.synchronize()
+            cs.check(torch.equal(got.isnan(), want.isnan()) and torch.equal(got.isinf(), want.isinf()),
+                     f"[poly_mmd] shipped, a +inf feature in {label}: NaN or inf differ from plain")
+            flushed = rows[f"shipped, (a), a +inf feature in {label}, after a flush"] = [
+                cs.time_ms(lambda: shipped(xi, y), flush, reps=5)]
+            print(f"[poly_mmd] (a), shipped, a +inf feature in {label} ({int(want.isnan().sum())} of {subsets} "
+                  f"subsets NaN, as plain): {flushed[0]:.4f} ms after an L2 flush", flush=True)
+    print(f"[poly_mmd] SM clock, now and at most: {cs.sm_clocks()}", flush=True)
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--sections",
                         default="ranking,multilabel,calibration,calibration-widths,retrieval,retrieval-occupancy,"
-                                "retrieval-builds,ssim,pairwise,sdr,snr,bert,confmat",
+                                "retrieval-builds,ssim,pairwise,sdr,snr,bert,confmat,poly_mmd",
                         help="comma-separated sections to run")
     parser.add_argument("--parent", help="a checkout of the commit before the redesign of the sections run "
                                           f"(calibration: {PARENT_COMMIT}; pairwise: {PAIRWISE_PARENT}; sdr, snr: "
-                                          f"{SDR_PARENT}; bert: {BERT_PARENT}; confmat: {CONFMAT_PARENT}), timed beside it")
+                                          f"{SDR_PARENT}; bert: {BERT_PARENT}; confmat: {CONFMAT_PARENT}; poly_mmd: "
+                                          f"{POLY_PARENT}), timed beside it")
     parser.add_argument("--sass", help="pairwise: also write the shipped build's SASS to this file")
     parser.add_argument("--fault-builds", default=",".join(RET_FAULT_BUILDS),
                         help="retrieval-fault: comma-separated builds of RET_FAULT_BUILDS to run")
@@ -1943,6 +2125,8 @@ def main() -> int:
         record["bert"] = _bert(flush, args.parent)
     if "confmat" in sections:
         record["confmat"] = _confmat(flush, args.parent)
+    if "poly_mmd" in sections:
+        record["poly_mmd"] = _poly(flush, args.parent)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(record, f, indent=1)

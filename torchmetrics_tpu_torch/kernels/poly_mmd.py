@@ -22,9 +22,16 @@ from torchmetrics_tpu_torch.kernels.pairwise import _integer_pow
 from torchmetrics_tpu_torch.utilities.precision import full_float32
 
 SOURCE = "poly_mmd"
-THREADS = 256  # kThreads
-CHUNK = 32  # kChunk: columns staged a step
-ROWS = 8  # R: a thread's register tile, R x R (tiles of 16 R x 16 R = 128 x 128)
+CONSUMERS = 256  # kConsumers: two warpgroups of products
+PRODUCERS = 256  # kProducers: two warpgroups of loads and splits
+THREADS = CONSUMERS + PRODUCERS
+ROWS = 128  # kRows: a tile's rows, 64 a consumer warpgroup (wgmma's M)
+COLS = 128  # kCols: a tile's columns (wgmma's N)
+CHUNK = 32  # kChunk: features a step, a 128-byte row
+STAGES = 4  # kStages: the ring's slots, each a chunk's columns split: hi, then lo
+PROMOTE = 2  # kPromote: chunks between moves of the accumulators into float32 sums
+ALIGN = 8 * CHUNK * 4  # kAlign: the 128-byte swizzle's atom of 8 rows
+SHARED_BYTES = ALIGN + STAGES * 2 * COLS * CHUNK * 4  # the launch's dynamic shared memory
 MAX_SUBSETS = 65_535  # grid.y
 MAX_INT32 = 2**31 - 1
 
@@ -42,10 +49,21 @@ def _launch_fn() -> ctypes._CFuncPtr:
     return _launch
 
 
+def tiles(m: int) -> tuple:
+    """The row and column tiles of an ``m x m`` matrix: ``ROWS`` and ``COLS`` wide."""
+    return -(-m // ROWS), -(-m // COLS)
+
+
+def first_col_tile(i: int) -> int:
+    """``first_col_tile``: the first column tile of row tile ``i`` that holds an entry i < j."""
+    return (i * ROWS + 1) // COLS
+
+
 def blocks(m: int) -> int:
-    """Blocks a subset: the 16 R x 16 R tiles of the xy matrix and the upper triangles of xx and yy."""
-    tiles = -(-m // (16 * ROWS))
-    return tiles * tiles + tiles * (tiles + 1)
+    """Blocks a subset: the ``ROWS x COLS`` tiles of the xy matrix, then those of the upper triangles of xx and
+    yy (row tile ``I`` with the column tiles from ``first_col_tile(I)`` on)."""
+    tr, tc = tiles(m)
+    return tr * tc + 2 * sum(tc - first_col_tile(i) for i in range(tr))
 
 
 def poly_kernel(f1: Tensor, f2: Tensor, degree: int = 3, gamma: Optional[float] = None, coef: float = 1.0) -> Tensor:
@@ -82,9 +100,11 @@ def _poly_mmd_plain(x: Tensor, y: Tensor, ix: Tensor, iy: Tensor, degree: int, g
 def poly_mmd(x: Tensor, y: Tensor, ix: Tensor, iy: Tensor, degree: int, gamma: float, coef: float) -> Tensor:
     """``(S,)`` float32 unbiased MMD^2 of the subsets ``x[ix[s]]``, ``y[iy[s]]``, by the CUDA kernel.
 
-    ``chip_smoke.py`` holds it against :func:`_poly_mmd_plain` on the card within
-    1e-5 of the terms' scale, ``(|kt_xx| + |kt_yy|) / (m (m - 1)) + 2 |k_xy| / m^2``
-    (the MMD cancels: a relative bound would not hold), NaN where the plain version is NaN.
+    The products run on the tensor cores in three TF32 passes (``lo.hi + hi.lo + hi.hi``); a product that comes
+    out inf or NaN is taken again in float32. ``chip_smoke.py`` holds it against :func:`_poly_mmd_plain` on the
+    card within 1e-5 of the terms' scale, ``(|kt_xx| + |kt_yy|) / (m (m - 1)) + 2 |k_xy| / m^2`` (the MMD
+    cancels: a relative bound would not hold), and against a float64 evaluation within 1e-7 of it, NaN where the
+    plain version is NaN.
 
     Args:
         x, y: float32 ``(N_r, d)`` and ``(N_f, d)``, contiguous, on one CUDA device.
