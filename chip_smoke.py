@@ -366,7 +366,29 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    CPU path ((i) the batch's first 16 images through each metric's
    functional core, for the CPU's time: states within 1e-4 of their scale;
    LPIPS' first 16 pairs within 1e-4; PPL's distances on the same latents
-   within 1e-2, float32 noise over epsilon ** 2).
+   within 1e-2, float32 noise over epsilon ** 2);
+16. multimodal and the wrappers, one card, no sync: (i) ``CLIPScore`` on a
+   random-init ``CLIPModel`` at openai/clip-vit-large-patch14's widths
+   (about 428 M parameters, drawn on the card from a seed) with a
+   character-level vocabulary, saved to a temporary directory and loaded as
+   a user would, over COCO val2017's shape: 1,000 seeded 3 x 480 x 640
+   uint8 images with seeded captions of 5-20 words in batches of 50 (the
+   truncation warning must fire); (ii) ``CLIPImageQualityAssessment`` on the
+   same model over KonIQ-10k's shape, 500 seeded 3 x 768 x 1024 images in
+   batches of 25 at ``data_range=255`` with the 16 prompt keywords and a
+   custom pair; each times the host preprocessing, the towers and the update
+   of every batch, and reruns its first batch (CLIPScore: its first 8 pairs)
+   on the CPU path (features within 1e-4 of their scale, scores within 2e-2
+   on the 0-100 scale, probabilities within 1e-2); (iii) ``FeatureShare`` of
+   FID, KID and IS at the 2048-wide pool over 2,000 of phase 15's CIFAR-10
+   images (one InceptionV3 forward an update, values within 1e-9 relative of
+   the unshared metrics'; exactly one ``poly_mmd`` launch at compute),
+   ``BootStrapper(MulticlassAccuracy)`` with 10 replicates over 10 of phase
+   4's ImageNet-1k batches (raw values equal to the CPU path's on seed 0),
+   and ``MetricTracker``, ``Running``, ``MultitaskWrapper``,
+   ``ClasswiseWrapper(MulticlassJaccardIndex)`` and ``MinMaxMetric`` over
+   those batches, each against the CPU path (exactly 20
+   ``confmat_multiclass`` launches).
 
 Phases 5 and 6 run each rank as a process of its own (this script with
 ``--worker``); every kernel must have launched on the paths that run it.
@@ -382,6 +404,7 @@ import collections
 import datetime
 import functools
 import importlib
+import importlib.util
 import json
 import math
 import os
@@ -5871,6 +5894,516 @@ def phase_generative() -> dict:
     return record
 
 
+# ------------------------------------------------ phase 16: multimodal and the wrappers
+CLIP_VIT_L14 = {  # openai/clip-vit-large-patch14's published widths: about 428 M parameters
+    "text": dict(vocab_size=49_408, hidden_size=768, intermediate_size=3_072, num_hidden_layers=12,
+                 num_attention_heads=12, max_position_embeddings=77, hidden_act="quick_gelu"),
+    "vision": dict(hidden_size=1_024, intermediate_size=4_096, num_hidden_layers=24, num_attention_heads=16,
+                   image_size=224, patch_size=14, hidden_act="quick_gelu"),
+    "projection_dim": 768,
+}
+CLIP_CHARS = "abcdefghijklmnopqrstuvwxyz0123456789.,!?;:'\"-()&/"  # each a token, and each with its </w> form
+COCO_CAPTION_IMAGES, COCO_CAPTION_BATCH, COCO_CAPTION_HW = 1_000, 50, (480, 640)  # COCO val2017's images
+KONIQ_IMAGES, KONIQ_BATCH, KONIQ_HW = 500, 25, (768, 1_024)  # KonIQ-10k's 1024 x 768 images
+CLIP_CPU_PAIRS = 8  # CLIPScore's first batch's first pairs again on the CPU path
+CLIP_FEATURE_TOL = 1e-4  # CLIP features, the card against the CPU, of their largest magnitude: full float32
+# on both, 24 layers of products summed in other orders (cuBLAS's, oneDNN's)
+CLIP_SCORE_TOL = 100 * 2 * CLIP_FEATURE_TOL  # a pair's score: 100 cos of two unit rows each off by the above
+CLIP_PROB_TOL = 100 * 2 * 2 * CLIP_FEATURE_TOL / 4  # a CLIP-IQA probability: two logits (100 cos) each off by
+# the score's bound, through the softmax's slope of at most 1/4
+SHARE_IMAGES = 2_000  # CIFAR-10 images (and as many fakes) through FeatureShare
+BOOT_BATCHES = 10  # ImageNet-1k batches of phase 4 through BootStrapper and the short wrapper leg
+
+
+class _Stopwatch:
+    """A callable's host time a call, the card synchronized before and after, appended to ``times``."""
+
+    def __init__(self, fn, times: list):
+        self.fn, self.times = fn, times
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def _clip_checkpoint(directory: str) -> dict:
+    """A random-init ``CLIPModel`` at ViT-L/14's widths (weights from ``torch.manual_seed``, drawn on the card), a
+    character-level CLIP vocabulary (``CLIP_CHARS`` and their ``</w>`` forms after the start and end tokens, no
+    merges; the text config's ``bos_token_id``/``eos_token_id`` pinned to them: a character outside the vocabulary
+    would map to the end token, where the text tower pools) and ``CLIPImageProcessor()`` at its defaults (224
+    shortest edge, 224 crop, OpenAI's mean and std), saved to ``directory``; returns the parameter count and the
+    seconds of each step."""
+    t0 = time.perf_counter()
+    from transformers import CLIPConfig, CLIPImageProcessor, CLIPModel, CLIPTokenizer
+
+    out = {"import_s": time.perf_counter() - t0}
+
+    vocab = {"<|startoftext|>": 0, "<|endoftext|>": 1}
+    for c in CLIP_CHARS:
+        vocab[c] = len(vocab)
+        vocab[c + "</w>"] = len(vocab)
+    vocab_path, merges_path = os.path.join(directory, "vocab.json"), os.path.join(directory, "merges.txt")
+    with open(vocab_path, "w") as f:
+        json.dump(vocab, f)
+    with open(merges_path, "w") as f:
+        f.write("#version: 0.2\n")
+    CLIPTokenizer(vocab_path, merges_path, model_max_length=77).save_pretrained(directory)
+    CLIPImageProcessor().save_pretrained(directory)
+    cfg = CLIPConfig(text_config=dict(CLIP_VIT_L14["text"], bos_token_id=0, eos_token_id=1, pad_token_id=1),
+                     vision_config=dict(CLIP_VIT_L14["vision"]), projection_dim=CLIP_VIT_L14["projection_dim"])
+    t0 = time.perf_counter()
+    torch.manual_seed(SEED + 70)
+    with torch.device("cuda"):
+        model = CLIPModel(cfg)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.eval().save_pretrained(directory)
+    out["save_s"] = time.perf_counter() - t0
+    out["parameters"] = sum(p.numel() for p in model.parameters())
+    return out
+
+
+def _clip_images(n: int, batch: int, hw, seed: int):
+    """Seeded uint8 ``(batch, 3, *hw)`` images made on the card: noise at a sixteenth of the size, upsampled."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for _ in range(0, n, batch):
+        base = torch.rand((batch, 3, hw[0] // 16, hw[1] // 16), generator=gen, device="cuda") * 255
+        yield torch.nn.functional.interpolate(base, size=hw, mode="bilinear", align_corners=False).round().to(
+            torch.uint8)
+
+
+def _captions(n: int, seed: int) -> list:
+    """``n`` seeded captions of 5-20 words from a vocabulary of 2,000 seeded words, each ending in a period (one
+    token a character: about half run past the text tower's 77 positions)."""
+    gen = np.random.default_rng(seed)
+    words = _seeded_words(2_000, gen)
+    return [" ".join(gen.choice(words, k)) + "." for k in gen.integers(5, 21, n)]
+
+
+def _kept(encoder, kept: dict, key: str, x):
+    """``encoder(x)``, kept in ``kept[key]``."""
+    kept[key] = encoder(x)
+    return kept[key]
+
+
+class _TowerEvents:
+    """CUDA events around a CLIP tower and its projection (a forward pre-hook on the tower, a forward hook on the
+    projection): each call's device time, ms."""
+
+    def __init__(self, tower, projection):
+        self.pairs = []
+        self.handles = [tower.register_forward_pre_hook(self._start), projection.register_forward_hook(self._end)]
+
+    def _start(self, module, args):
+        self.pairs.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
+        self.pairs[-1][0].record()
+
+    def _end(self, module, args, out):
+        self.pairs[-1][1].record()
+
+    def times_ms(self) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.pairs]
+
+    def remove(self) -> None:
+        for handle in self.handles:
+            handle.remove()
+
+
+def _clip_timers(metric, image_encoder, text_encoder) -> dict:
+    """Stopwatches on a CLIP metric's encoders and on the image processor's host pass, CUDA events on the towers."""
+    times = {"preprocess": [], "image_encoder": [], "text_encoder": [],
+             "image_tower": _TowerEvents(image_encoder.model.vision_model, image_encoder.model.visual_projection)}
+    image_encoder._pixel_values = _Stopwatch(type(image_encoder)._pixel_values.__get__(image_encoder),
+                                             times["preprocess"])
+    metric.image_encoder = _Stopwatch(image_encoder, times["image_encoder"])
+    if text_encoder is not None:
+        metric.text_encoder = _Stopwatch(text_encoder, times["text_encoder"])
+        times["text_tower"] = _TowerEvents(text_encoder.model.text_model, text_encoder.model.text_projection)
+    return times
+
+
+def _clip_medians(times: dict, updates: list) -> dict:
+    """Medians a batch, ms, and the towers' share of the card's float32 rate: the host preprocessing; the image
+    encoder (the batch's copy to the host, the preprocessing, the pixels' copy back, the tower); the image tower
+    and the text tower by CUDA events; the text encoder (the tokenizer, the copies, the tower); the update. The
+    timers are removed."""
+    out = {"preprocess": statistics.median(times["preprocess"]),
+           "image_encoder": statistics.median(times["image_encoder"]), "update": statistics.median(updates)}
+    towers = [k for k in ("image_tower", "text_tower") if k in times]
+    for key in towers:
+        out[key] = statistics.median(times[key].times_ms()[:len(updates)])
+        times[key].remove()
+    if times["text_encoder"]:
+        out["text_encoder"] = statistics.median(times["text_encoder"])
+    return out
+
+
+def _clip_tower_flop(tower: dict, tokens: int, projection: int) -> float:
+    """A CLIP tower's multiply-adds, times 2, for one input of ``tokens`` positions: the attention projections
+    and the MLP of each layer, the attention's two products, the projection of the pooled output (and for the
+    vision tower, the patch embedding)."""
+    h, i, layers = tower["hidden_size"], tower["intermediate_size"], tower["num_hidden_layers"]
+    flop = layers * (2 * tokens * (4 * h * h + 2 * h * i) + 4 * tokens * tokens * h) + 2 * h * projection
+    if "patch_size" in tower:
+        flop += 2 * (tokens - 1) * 3 * tower["patch_size"] ** 2 * h
+    return float(flop)
+
+
+def _clip_leg(ckpt: str) -> dict:
+    """(i) CLIPScore over COCO val2017's shape, 1,000 captioned images in batches of 50, and (ii) CLIP-IQA over
+    KonIQ-10k's, 500 images in batches of 25 at ``data_range=255`` with every prompt keyword and a custom pair,
+    both on the checkpoint's model on the card; each reruns its first batch (CLIPScore: its first 8 pairs) on the
+    CPU path at the same weights."""
+    import warnings
+
+    from torchmetrics_tpu_torch.multimodal import CLIPImageQualityAssessment, CLIPScore
+    from torchmetrics_tpu_torch.multimodal.backbones.clip import load_clip_encoders
+
+    tcs = importlib.import_module("torchmetrics_tpu_torch.functional.multimodal.clip_score")
+    record = {}
+    t0 = time.perf_counter()
+    image_encoder, text_encoder = load_clip_encoders(ckpt, "cuda")
+    record["load_s"] = time.perf_counter() - t0
+    check(image_encoder.model.training is False and image_encoder.device.type == "cuda",
+          "[multimodal] the CLIP model is not on the card in eval mode")
+    import PIL
+    import transformers
+
+    record["libraries"] = {"transformers": transformers.__version__, "PIL": PIL.__version__,
+                           "torchvision": importlib.util.find_spec("torchvision") is not None,
+                           "image_processor": type(image_encoder.processor.image_processor).__name__}
+    print(f"[multimodal] {record['libraries']}; the CLIP model loaded in {record['load_s']:.1f} s")
+
+    # (i) CLIPScore
+    metric = CLIPScore(model_name_or_path=ckpt, device="cuda")
+    times = _clip_timers(metric, image_encoder, text_encoder)
+    captions = _captions(COCO_CAPTION_IMAGES, SEED + 71)
+    updates, first = [], None
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for j, imgs in enumerate(_clip_images(COCO_CAPTION_IMAGES, COCO_CAPTION_BATCH, COCO_CAPTION_HW, SEED + 72)):
+            caps = captions[j * COCO_CAPTION_BATCH:(j + 1) * COCO_CAPTION_BATCH]
+            t1 = time.perf_counter()
+            metric.update(imgs, caps)
+            torch.cuda.synchronize()
+            updates.append((time.perf_counter() - t1) * 1e3)
+            if j == 0:
+                first = (imgs[:CLIP_CPU_PAIRS], caps[:CLIP_CPU_PAIRS])
+    truncated = sum("max_position_embeddings=77" in str(w.message) for w in caught)
+    values, compute_ms = _timed_computes({"clip_score": metric})
+    leg_s = time.perf_counter() - t0
+    medians = _clip_medians(times, updates)
+    vision = CLIP_VIT_L14["vision"]
+    image_flop = COCO_CAPTION_BATCH * _clip_tower_flop(
+        vision, (vision["image_size"] // vision["patch_size"]) ** 2 + 1, CLIP_VIT_L14["projection_dim"])
+    text = CLIP_VIT_L14["text"]  # every batch holds a caption cut to the 77 positions
+    text_flop = COCO_CAPTION_BATCH * _clip_tower_flop(text, text["max_position_embeddings"],
+                                                      CLIP_VIT_L14["projection_dim"])
+    medians["image_tower_fp32_share"] = image_flop / (medians["image_tower"] * 1e-3) / PEAK_FP32_OPS_PER_S
+    medians["text_tower_fp32_share"] = text_flop / (medians["text_tower"] * 1e-3) / PEAK_FP32_OPS_PER_S
+    score = float(values["clip_score"])
+    check(truncated > 0, "[multimodal clip_score] no caption ran past 77 tokens: the truncation warning never fired")
+    check(math.isfinite(score) and 0.0 <= score <= 100.0, f"[multimodal clip_score] score {score}")
+    check(float(metric.metric_state["n_samples"]) == COCO_CAPTION_IMAGES, "[multimodal clip_score] n_samples")
+    # the first batch's first pairs through each metric's functional core, on the card and on the CPU path (one
+    # pass of each tower, the features kept): the features, each pair's score, the state
+    t_cpu = time.perf_counter()
+    imgs, caps = first
+    cpu_metric = CLIPScore(model_name_or_path=ckpt, device="cpu")
+    feats = {}
+    for m, encoders, tag in ((metric, (image_encoder, text_encoder), "card"),
+                             (cpu_metric, (cpu_metric.image_encoder, cpu_metric.text_encoder), "cpu")):
+        m.image_encoder = functools.partial(_kept, encoders[0], feats, f"{tag} image")
+        m.text_encoder = functools.partial(_kept, encoders[1], feats, f"{tag} text")
+    card_state = metric.update_state(metric.init_state(), imgs, caps)
+    cpu_state = cpu_metric.update_state(cpu_metric.init_state(), imgs.cpu(), caps)
+    feature_err = max(float((feats[f"card {k}"].cpu() - feats[f"cpu {k}"]).abs().max() / feats[f"cpu {k}"].abs().max())
+                      for k in ("image", "text"))
+    card_pairs, cpu_pairs = (100 * (tcs._unit_rows(feats[f"{tag} image"], dev)
+                                    * tcs._unit_rows(feats[f"{tag} text"], dev)).sum(-1)
+                             for tag, dev in (("card", torch.device("cpu")), ("cpu", torch.device("cpu"))))
+    score_err = float((card_pairs - cpu_pairs).abs().max())
+    state_err = abs(float(card_state["score"]) - float(cpu_state["score"]))
+    check(feature_err <= CLIP_FEATURE_TOL and score_err <= CLIP_SCORE_TOL
+          and state_err <= CLIP_SCORE_TOL * CLIP_CPU_PAIRS
+          and float(card_state["n_samples"]) == float(cpu_state["n_samples"]) == CLIP_CPU_PAIRS,
+          f"[multimodal clip_score] the card against the CPU: features {feature_err:.3g} of scale (tolerance "
+          f"{CLIP_FEATURE_TOL}), pair scores {score_err:.3g} (tolerance {CLIP_SCORE_TOL}), state {state_err:.3g}")
+    record["clip_score"] = {"images": COCO_CAPTION_IMAGES, "batch": COCO_CAPTION_BATCH, "leg_s": leg_s,
+                            "medians_ms": medians, "compute_ms": compute_ms["clip_score"],
+                            "value": score, "truncation_warnings": truncated,
+                            "captions_past_77": sum(len(ids) > 77 for ids in
+                                                    text_encoder.processor.tokenizer(captions)["input_ids"]),
+                            "cpu": {"pairs": CLIP_CPU_PAIRS, "feature_err": feature_err, "score_err": score_err,
+                                    "state_err": state_err, "s": time.perf_counter() - t_cpu}}
+    print(f"[multimodal] CLIPScore: {COCO_CAPTION_IMAGES} images of {COCO_CAPTION_HW} with captions in "
+          f"{leg_s:.1f} s: medians a batch of {COCO_CAPTION_BATCH} {record['clip_score']['medians_ms']} ms, compute "
+          f"{compute_ms['clip_score']:.3f} ms; score {score:.6g}; {truncated} truncation warnings; the first "
+          f"{CLIP_CPU_PAIRS} pairs on the CPU path: features within {feature_err:.3g} of scale, scores within "
+          f"{score_err:.3g}, state within {state_err:.3g} ({record['clip_score']['cpu']['s']:.1f} s)")
+
+    # (ii) CLIP-IQA: every keyword and a custom pair
+    from torchmetrics_tpu_torch.functional.multimodal.clip_iqa import _PROMPTS
+
+    prompts = (*_PROMPTS, ("Crisp photo.", "Soft photo."))
+    t0 = time.perf_counter()
+    iqa = CLIPImageQualityAssessment(model_name_or_path=ckpt, data_range=255.0, prompts=prompts, device="cuda")
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    times = _clip_timers(iqa, image_encoder, None)
+    updates, first = [], None
+    t0 = time.perf_counter()
+    for j, imgs in enumerate(_clip_images(KONIQ_IMAGES, KONIQ_BATCH, KONIQ_HW, SEED + 73)):
+        t1 = time.perf_counter()
+        iqa.update(imgs)
+        torch.cuda.synchronize()
+        updates.append((time.perf_counter() - t1) * 1e3)
+        if j == 0:
+            first = imgs
+    values, compute_ms = _timed_computes({"clip_iqa": iqa})
+    leg_s = time.perf_counter() - t0
+    medians = _clip_medians(times, updates)
+    medians["image_tower_fp32_share"] = (KONIQ_BATCH / COCO_CAPTION_BATCH * image_flop
+                                         / (medians["image_tower"] * 1e-3) / PEAK_FP32_OPS_PER_S)
+    del image_encoder._pixel_values  # the stopwatch
+    probs = values["clip_iqa"]
+    check(len(probs) == len(prompts) and "user_defined_0" in probs
+          and all(p.shape == (KONIQ_IMAGES,) and bool(((p >= 0) & (p <= 1)).all()) for p in probs.values()),
+          f"[multimodal clip_iqa] probabilities: {[(k, tuple(p.shape)) for k, p in probs.items()]}")
+    t_cpu = time.perf_counter()
+    cpu_iqa = CLIPImageQualityAssessment(model_name_or_path=ckpt, data_range=255.0, prompts=prompts, device="cpu")
+    anchor_err = float((iqa.anchors.cpu() - cpu_iqa.anchors).abs().max())
+    card_state = iqa.update_state(iqa.init_state(), first)
+    cpu_state = cpu_iqa.update_state(cpu_iqa.init_state(), first.cpu())
+    feat_err = float((card_state["img_features"][0].cpu() - cpu_state["img_features"][0]).abs().max())
+    card_p, cpu_p = iqa.compute_state(card_state), cpu_iqa.compute_state(cpu_state)
+    prob_err = max(float((card_p[k].cpu() - cpu_p[k]).abs().max()) for k in cpu_p)
+    check(anchor_err <= CLIP_FEATURE_TOL and feat_err <= CLIP_FEATURE_TOL and prob_err <= CLIP_PROB_TOL,
+          f"[multimodal clip_iqa] the card against the CPU: anchors {anchor_err:.3g}, unit features {feat_err:.3g} "
+          f"(tolerance {CLIP_FEATURE_TOL}), probabilities {prob_err:.3g} (tolerance {CLIP_PROB_TOL})")
+    record["clip_iqa"] = {"images": KONIQ_IMAGES, "batch": KONIQ_BATCH, "prompts": len(prompts), "leg_s": leg_s,
+                          "init_ms": init_ms, "medians_ms": medians,
+                          "compute_ms": compute_ms["clip_iqa"],
+                          "means": {k: float(p.mean()) for k, p in list(probs.items())[:3]},
+                          "cpu": {"anchor_err": anchor_err, "feature_err": feat_err, "prob_err": prob_err,
+                                  "s": time.perf_counter() - t_cpu}}
+    print(f"[multimodal] CLIP-IQA: {KONIQ_IMAGES} images of {KONIQ_HW}, {len(prompts)} prompt pairs (anchors "
+          f"embedded at init in {init_ms:.1f} ms) in {leg_s:.1f} s: medians a batch of {KONIQ_BATCH} "
+          f"{record['clip_iqa']['medians_ms']} ms, compute {compute_ms['clip_iqa']:.3f} ms; the first batch on the "
+          f"CPU path: anchors within {anchor_err:.3g}, unit features {feat_err:.3g}, probabilities {prob_err:.3g} "
+          f"({record['clip_iqa']['cpu']['s']:.1f} s)")
+    return record
+
+
+def _feature_share_leg() -> dict:
+    """``FeatureShare([FID, KID, IS], feature_attr="inception")``, all three at the 2048-wide pool (the shared
+    network is the first member's), over 2,000 of phase 15's CIFAR-10 real and fake images, against the same three
+    metrics unshared on the same updates: one InceptionV3 forward an update, the values equal."""
+    from torchmetrics_tpu_torch import image as ti
+    from torchmetrics_tpu_torch.kernels.poly_mmd import poly_mmd
+    from torchmetrics_tpu_torch.wrappers import FeatureShare, NetworkCache
+
+    def make():
+        return [ti.FrechetInceptionDistance(feature=2048, device="cuda"),
+                ti.KernelInceptionDistance(feature=2048, device="cuda"),
+                ti.InceptionScore(feature=2048, device="cuda")]
+
+    fs = FeatureShare(make(), feature_attr="inception")
+    cache = fs["FrechetInceptionDistance"].inception
+    check(isinstance(cache, NetworkCache) and all(m.inception is cache for m in fs.values()),
+          "[wrappers featureshare] the members do not share one cache")
+    forwards = [0]
+    network = cache.network
+
+    def counted(x):
+        forwards[0] += 1
+        return network(x)
+
+    cache.network = counted
+    plain = dict(zip(fs.keys(), make()))
+    times = {"FeatureShare": [], **{name: [] for name in plain}}
+    calls = 0
+    t0 = time.perf_counter()
+    for j, (real, fake) in enumerate(_cifar_batches()):
+        if j * CIFAR_BATCH >= SHARE_IMAGES:
+            break
+        for imgs, is_real in ((real, True), (fake, False)):
+            t1 = time.perf_counter()
+            fs.update(imgs, real=is_real)
+            torch.cuda.synchronize()
+            times["FeatureShare"].append((time.perf_counter() - t1) * 1e3)
+            calls += 1
+            for name, m in plain.items():
+                t1 = time.perf_counter()
+                m.update(imgs, **m._filter_kwargs(real=is_real))
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t1) * 1e3)
+    check(forwards[0] == calls, f"[wrappers featureshare] {forwards[0]} InceptionV3 forwards for {calls} updates")
+    poly_mmd.launches = 0
+    shared, shared_ms = _timed_computes({"FeatureShare": fs})
+    launches = poly_mmd.launches
+    unshared, unshared_ms = _timed_computes(plain)
+    leg_s = time.perf_counter() - t0
+    errs = {}
+    for name, want in unshared.items():
+        got = shared["FeatureShare"][name]
+        pairs = list(zip(got, want)) if isinstance(want, tuple) else [(got, want)]
+        errs[name] = max(abs(float(g) - float(w)) / max(abs(float(w)), 1e-30) for g, w in pairs)
+    check(launches == 1 and all(e <= 1e-9 for e in errs.values()),
+          f"[wrappers featureshare] {launches} poly_mmd launches; shared against unshared, relative: {errs}")
+    record = {"images": SHARE_IMAGES, "updates": calls, "forwards": forwards[0], "leg_s": leg_s,
+              "update_ms_median": {n: statistics.median(t) for n, t in times.items()},
+              "compute_ms": {"FeatureShare": shared_ms["FeatureShare"], **unshared_ms},
+              "launches": {"poly_mmd": launches}, "rel_err": errs,
+              "values": {n: _value_summary(v) if isinstance(v, torch.Tensor) else [float(x) for x in v]
+                         for n, v in shared["FeatureShare"].items()}}
+    print(f"[wrappers] FeatureShare: {SHARE_IMAGES} real and fake CIFAR-10 images, {calls} updates, {forwards[0]} "
+          f"InceptionV3 forwards, in {leg_s:.1f} s: update medians {record['update_ms_median']} ms a batch of "
+          f"{CIFAR_BATCH}; computes {record['compute_ms']} ms; values {record['values']}, the unshared metrics' "
+          f"within {errs} relative; {launches} poly_mmd launch")
+    return record
+
+
+def _wrapper_legs() -> dict:
+    """BootStrapper over 10 of phase 4's ImageNet-1k batches, and a short leg of MetricTracker, Running,
+    MultitaskWrapper, ClasswiseWrapper and MinMaxMetric on the same batches, each against the CPU path."""
+    from torchmetrics_tpu_torch.classification import (
+        MulticlassAccuracy,
+        MulticlassConfusionMatrix,
+        MulticlassJaccardIndex,
+    )
+    from torchmetrics_tpu_torch.kernels.confmat import confmat_multiclass
+    from torchmetrics_tpu_torch.regression import MeanSquaredError
+    from torchmetrics_tpu_torch.wrappers import (
+        BootStrapper,
+        ClasswiseWrapper,
+        MetricTracker,
+        MinMaxMetric,
+        MultitaskWrapper,
+        Running,
+    )
+
+    data = _main_path_data(torch.Generator(device="cuda").manual_seed(SEED))
+    batches = list(_batches(data, BOOT_BATCHES))
+    cls = [b["cls"] for b in batches]
+    record = {}
+
+    def accuracy(dev):
+        return MulticlassAccuracy(num_classes=N_CLASSES, average="micro", device=dev)
+
+    def boot(metric, bs):
+        times = []
+        for b in bs:
+            t0 = time.perf_counter()
+            metric.update(*b)
+            if b[0].is_cuda:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return metric.compute(), statistics.median(times)
+
+    t0 = time.perf_counter()
+    card, card_ms = boot(BootStrapper(accuracy("cuda"), num_bootstraps=10, raw=True, seed=0), cls)
+    cpu, cpu_ms = boot(BootStrapper(accuracy("cpu"), num_bootstraps=10, raw=True, seed=0),
+                       [tuple(x.cpu() for x in b) for b in cls])
+    compared = _assert_same("[wrappers bootstrapper] raw", card["raw"], cpu["raw"], 0.0, 0.0)
+    compared += _assert_same("[wrappers bootstrapper] mean and std", {k: card[k] for k in ("mean", "std")},
+                             {k: cpu[k] for k in ("mean", "std")}, 1e-6, 0.0)
+    record["bootstrapper"] = {"batches": BOOT_BATCHES, "replicates": 10, "update_ms_median": card_ms,
+                              "cpu_update_ms_median": cpu_ms, "mean": float(card["mean"]), "std": float(card["std"]),
+                              "s": time.perf_counter() - t0}
+    print(f"[wrappers] BootStrapper(MulticlassAccuracy, 10 replicates, seed 0): {BOOT_BATCHES} batches of "
+          f"{BATCH} x {N_CLASSES}, update median {card_ms:.3f} ms (CPU path {cpu_ms:.3f}); mean "
+          f"{float(card['mean']):.6f}, std {float(card['std']):.6f}; raw equal to the CPU path's, mean and std "
+          f"within 1e-6")
+
+    def drive_all(metrics, bs):
+        out = {}
+        tracker, running, multitask, classwise, minmax = metrics
+        for step in range(3):  # three steps of three batches
+            tracker.increment()
+            for b in bs[3 * step:3 * step + 3]:
+                tracker.update(*b)
+        out["tracker"] = tracker.best_metric(return_step=True)
+        for b in bs:
+            running.update(*b)
+            classwise.update(*b)
+            out["minmax_forward"] = minmax(*b)
+        out["running"], out["classwise"] = running.compute(), classwise.compute()
+        for b, r in zip(bs, batches):
+            reg = r["reg"] if b[0].is_cuda else tuple(x.cpu() for x in r["reg"])
+            multitask.update({"cls": b[0], "reg": reg[0]}, {"cls": b[1], "reg": reg[1]})
+        out["multitask"] = multitask.compute()
+        return out
+
+    def make_all(dev):
+        return (MetricTracker(accuracy(dev)), Running(MulticlassConfusionMatrix(num_classes=N_CLASSES, device=dev),
+                                                      window=3),
+                MultitaskWrapper({"cls": accuracy(dev), "reg": MeanSquaredError(device=dev)}),
+                ClasswiseWrapper(MulticlassJaccardIndex(num_classes=N_CLASSES, average=None, device=dev)),
+                MinMaxMetric(accuracy(dev)))
+
+    t0 = time.perf_counter()
+    confmat_multiclass.launches = 0
+    card = drive_all(make_all("cuda"), cls)
+    torch.cuda.synchronize()
+    launches = confmat_multiclass.launches
+    card_s = time.perf_counter() - t0
+    cpu = drive_all(make_all("cpu"), [tuple(x.cpu() for x in b) for b in cls])
+    check(card["tracker"][1] == cpu["tracker"][1], f"[wrappers tracker] best step {card['tracker'][1]} on the card, "
+          f"{cpu['tracker'][1]} on the CPU path")
+    compared += _assert_same("[wrappers tracker] best value", card["tracker"][0], cpu["tracker"][0], 1e-6, 0.0)
+    for name in ("running", "classwise", "multitask", "minmax_forward"):
+        compared += _assert_same(f"[wrappers {name}]", card[name], cpu[name], 1e-6, 1e-7)
+    check(launches == 2 * BOOT_BATCHES, f"[wrappers] {launches} confmat_multiclass launches, "
+          f"{2 * BOOT_BATCHES} expected (Running's and ClasswiseWrapper's updates)")
+    record["short"] = {"card_s": card_s, "launches": {"confmat_multiclass": launches}, "cpu_compared": compared,
+                       "best_step": card["tracker"][1], "minmax": {k: float(card["minmax_forward"][k])
+                                                                   for k in ("min", "max")}}
+    print(f"[wrappers] MetricTracker (best step {card['tracker'][1]}), Running(window=3), MultitaskWrapper, "
+          f"ClasswiseWrapper(MulticlassJaccardIndex) and MinMaxMetric over {BOOT_BATCHES} batches in {card_s:.2f} s: "
+          f"{launches} confmat_multiclass launches; every result equal to the CPU path's ({compared} tensors)")
+    return record
+
+
+def phase_multimodal_wrappers() -> dict:
+    """Phase 16 on one card, no sync: (i) CLIPScore on a random-init CLIP at ViT-L/14's widths saved to a
+    temporary directory (``_clip_checkpoint``) over COCO val2017's shape, 1,000 seeded 3 x 480 x 640 uint8 images
+    with seeded captions of 5-20 words in batches of 50 (the truncation warning must fire); (ii) CLIP-IQA on the
+    same model over KonIQ-10k's shape, 500 seeded 3 x 768 x 1024 images in batches of 25, ``data_range=255``, the
+    16 prompt keywords and a custom pair; (iii) ``FeatureShare`` of FID, KID and IS over 2,000 of phase 15's
+    CIFAR-10 images (one InceptionV3 forward an update, values equal to the unshared metrics'; one ``poly_mmd``
+    launch at compute), ``BootStrapper`` over 10 of phase 4's ImageNet-1k batches (raw equal to the CPU path's on
+    the same seed), and MetricTracker, Running, MultitaskWrapper, ClasswiseWrapper and MinMaxMetric on those
+    batches, each against the CPU path (20 ``confmat_multiclass`` launches). Each CLIP leg times the host
+    preprocessing, the towers and the update of every batch, and reruns its first batch on the CPU path."""
+    from torchmetrics_tpu_torch.multimodal.backbones import clip as clip_backbone
+
+    tcs = importlib.import_module("torchmetrics_tpu_torch.functional.multimodal.clip_score")
+    record = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        record["checkpoint"] = _clip_checkpoint(ckpt)
+        torch.cuda.empty_cache()
+        record["checkpoint"]["build_s"] = time.perf_counter() - t0
+        print(f"[multimodal] CLIP at ViT-L/14's widths: {record['checkpoint']['parameters'] / 1e6:.1f} M parameters, "
+              f"built and saved in {record['checkpoint']['build_s']:.1f} s ({record['checkpoint']})")
+        record.update(_clip_leg(ckpt))
+        clip_backbone._CLIP_CACHE.clear()  # the models of a directory that goes now
+        tcs._RESOLVED_PAIRS.clear()
+    torch.cuda.empty_cache()
+    record["featureshare"] = _feature_share_leg()
+    torch.cuda.empty_cache()
+    record.update(_wrapper_legs())
+    return record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--json", help="also write the full record to this file")
@@ -5968,6 +6501,7 @@ def main() -> int:
     text = timed("phase 13", phase_text)
     detection = timed("phase 14", phase_detection)
     generative = timed("phase 15", phase_generative)
+    wrapped = timed("phase 16", phase_multimodal_wrappers)
     kernel_rows["pairwise_lp"] += [{"case": f"Market-1501 {name} (phase 11)", "max_abs_err": entry["max_abs_err"]}
                                    for name, entry in contingency["market"]["calls"].items() if "max_abs_err" in entry]
 
@@ -5997,6 +6531,8 @@ def main() -> int:
         "poly_mmd": {"generative cifar": generative["cifar"]["launches"]["poly_mmd"]},
     }
     by_path["coco_match"]["detection segm"] = detection["segm"]["launches"]["coco_match"]
+    by_path["poly_mmd"]["wrappers featureshare"] = wrapped["featureshare"]["launches"]["poly_mmd"]
+    by_path["confmat_multiclass"]["wrappers short leg"] = wrapped["short"]["launches"]["confmat_multiclass"]
     by_path["confmat_multiclass"]["detection panoptic"] = detection["panoptic"]["launches"]["confmat_multiclass"]
     for leg in ("clustering labels", "nominal", "nominal matrices"):
         by_path["confmat_multiclass"][f"contingency {leg}"] = contingency[leg]["launches"]["confmat_multiclass"]
@@ -6032,7 +6568,8 @@ def main() -> int:
                        "kernels": kernel_rows, "main_path": main,
                        "sync": sync, "ragged": ragged, "tower": tower, "curves": curves, "rest": rest,
                        "signal": signal, "contingency": contingency, "audio": audio, "text": text,
-                       "detection": detection, "generative": generative}, f, indent=1)
+                       "detection": detection, "generative": generative, "multimodal_wrappers": wrapped}, f,
+                      indent=1)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}}))
     return 0

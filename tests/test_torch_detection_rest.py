@@ -439,3 +439,95 @@ def test_panoptic_classes(name):
     np.testing.assert_allclose(tm.compute().numpy(), np.asarray(jm.compute()), rtol=1e-6, atol=1e-7)
     with pytest.raises(ValueError, match="shape"):
         tm.update(torch.zeros((1, 4, 2), dtype=torch.int64), torch.zeros((1, 4, 3), dtype=torch.int64))
+
+
+def _out_of_map_case(side):
+    """A thing 0 of instance 1 beside a stuff 6, ``(1, 2, 2, 2)``; ``side`` gets the thing's instance -1,
+    which moves its segment to category -1, outside the map of things {0, 1} and stuffs {6}."""
+    target = np.zeros((1, 2, 2, 2), np.int64)
+    target[0, :, 0] = [0, 1]
+    target[0, :, 1] = [6, 0]
+    preds = target.copy()
+    {"preds": preds, "target": target, "both": preds}[side][0, :, 0, 1] = -1
+    if side == "both":
+        target[0, :, 0, 1] = -1
+    return preds, target
+
+
+def _pq_outcome(pkg, fn, preds, target, **kw):
+    """The result as numpy, or the ``KeyError``'s argument."""
+    try:
+        return np.asarray(getattr(pkg, fn)(preds, target, **kw), np.float64)
+    except KeyError as err:
+        return ("KeyError", err.args)
+
+
+@pytest.mark.parametrize("side", ["preds", "target", "both"])
+@pytest.mark.parametrize("fn", ["panoptic_quality", "modified_panoptic_quality"])
+def test_panoptic_out_of_map_category_raises_as_in_jax(side, fn):
+    preds, target = _out_of_map_case(side)
+    kw = dict(things={0, 1}, stuffs={6}, **({"return_per_class": True} if fn == "panoptic_quality" else {}))
+    want = _pq_outcome(jpq, fn, jnp.asarray(preds), jnp.asarray(target), **kw)
+    assert want == ("KeyError", (-1,))
+    with pytest.raises(KeyError) as err:
+        getattr(tpq, fn)(torch.from_numpy(preds), torch.from_numpy(target), **kw)
+    assert err.value.args == (-1,)
+
+
+@pytest.mark.parametrize("side", ["preds", "target", "both"])
+@pytest.mark.parametrize("name", ["PanopticQuality", "ModifiedPanopticQuality"])
+def test_panoptic_classes_out_of_map_category_raises_as_in_jax(side, name):
+    preds, target = _out_of_map_case(side)
+    jm, tm = getattr(jdet, name)(things={0, 1}, stuffs={6}), getattr(tdet, name)(things={0, 1}, stuffs={6}, device="cpu")
+    with pytest.raises(KeyError, match="-1"):
+        jm.update(jnp.asarray(preds), jnp.asarray(target))
+    with pytest.raises(KeyError, match="-1"):
+        tm.update(torch.from_numpy(preds), torch.from_numpy(target))
+
+
+@pytest.mark.parametrize("side", ["preds", "target"])
+@pytest.mark.parametrize("fn", ["panoptic_quality", "modified_panoptic_quality"])
+def test_panoptic_out_of_map_segment_mostly_void_is_never_looked_up(side, fn):
+    """A segment outside the map that lies more than half on void is neither a match, a false negative nor a
+    false positive: the JAX package never looks it up, and neither package raises."""
+    segment = np.zeros((1, 2, 3, 2), np.int64)
+    segment[0, 0] = [0, -1]  # category -1 over the top row
+    segment[0, 1] = [6, 0]
+    void = segment.copy()
+    void[0, 0, :2] = [9, 0]  # unknown: void under two thirds of the segment
+    void[0, 0, 2] = [1, 1]
+    preds, target = (segment, void) if side == "preds" else (void, segment)
+    kw = dict(things={0, 1}, stuffs={6}, allow_unknown_preds_category=True)
+    want = _pq_outcome(jpq, fn, jnp.asarray(preds), jnp.asarray(target), **kw)
+    got = _pq_outcome(tpq, fn, torch.from_numpy(preds), torch.from_numpy(target), **kw)
+    assert isinstance(want, np.ndarray) and isinstance(got, np.ndarray)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("modified", [False, True])
+def test_panoptic_negative_instances_against_jax(seed, modified):
+    """Negative instance ids scattered over both sides: both packages raise, or neither, with equal counts."""
+    preds, target = _panoptic(seed, b=3, hw=(9, 10))
+    rng = np.random.default_rng(100 + seed)
+    for x in (preds, target):
+        x[..., 1] = np.where(rng.uniform(size=x.shape[:-1]) < 0.03, -1, x[..., 1])
+    void = jpq._get_void_color(THINGS, STUFFS)
+    cats = {c: i for i, c in enumerate([*sorted(THINGS), *sorted(STUFFS)])}
+    mod = STUFFS if modified else None
+    jp = jpq._preprocess_inputs(THINGS, STUFFS, preds, void, False)
+    jt = jpq._preprocess_inputs(THINGS, STUFFS, target, void, True)
+    for b in range(preds.shape[0]):
+        try:
+            want = jpq._panoptic_quality_update_sample(jp[b], jt[b], cats, void, mod)
+        except KeyError:
+            want = None
+        args = (torch.from_numpy(jp[b]), torch.from_numpy(jt[b]), cats, void, mod)
+        if want is None:
+            with pytest.raises(KeyError):
+                tpq._panoptic_quality_update_sample(*args)
+            continue
+        got = tpq._panoptic_quality_update_sample(*args)
+        np.testing.assert_allclose(got[0].numpy(), want[0], rtol=1e-12, atol=0)
+        for g, w in zip(got[1:], want[1:]):
+            np.testing.assert_array_equal(g.numpy(), w)

@@ -298,6 +298,12 @@ DETECTION_GENERATIVE_SLICE = ("detection.iou", "detection.coco_io", "detection.p
                               "image.generative", "image.backbones", "image.backbones.inception",
                               "image.backbones.lpips_nets", "functional.image.generative", "functional.image.lpips",
                               "kernels.poly_mmd", "utilities.precision")
+MULTIMODAL_WRAPPERS_SLICE = ("multimodal", "multimodal.clip_score", "multimodal.clip_iqa", "multimodal.backbones",
+                             "multimodal.backbones.clip", "functional.multimodal", "functional.multimodal.clip_score",
+                             "functional.multimodal.clip_iqa", "wrappers",
+                             *(f"wrappers.{m}" for m in ("abstract", "bootstrapping", "classwise", "feature_share",
+                                                         "minmax", "multioutput", "multitask", "running", "tracker",
+                                                         "transformations")))
 
 
 def test_isolation_covers_every_new_module():
@@ -308,7 +314,8 @@ def test_isolation_covers_every_new_module():
                  "regression.distribution", "utilities.enums", "utilities.checks", "utilities.formatting",
                  "kernels.calibration", "kernels.ranking", "kernels.binned_multilabel",
                  *(f"{pkg}.{m}" for m in REST_OF_CLASSIFICATION for pkg in ("classification", "functional.classification")),
-                 *SIGNAL_SLICE, *CONTINGENCY_SLICE, *AUDIO_SLICE, *TEXT_SLICE, *DETECTION_GENERATIVE_SLICE):
+                 *SIGNAL_SLICE, *CONTINGENCY_SLICE, *AUDIO_SLICE, *TEXT_SLICE, *DETECTION_GENERATIVE_SLICE,
+                 *MULTIMODAL_WRAPPERS_SLICE):
         assert f"torchmetrics_tpu_torch.{name}" in modules
 
 

@@ -30,6 +30,7 @@ NAMESPACES = [
     "torchmetrics_tpu.functional.clustering",
     "torchmetrics_tpu.functional.detection",
     "torchmetrics_tpu.functional.image",
+    "torchmetrics_tpu.functional.multimodal",
     "torchmetrics_tpu.functional.nominal",
     "torchmetrics_tpu.functional.pairwise",
     "torchmetrics_tpu.functional.regression",
@@ -37,6 +38,7 @@ NAMESPACES = [
     "torchmetrics_tpu.functional.segmentation",
     "torchmetrics_tpu.functional.text",
     "torchmetrics_tpu.image",
+    "torchmetrics_tpu.multimodal",
     "torchmetrics_tpu.nominal",
     "torchmetrics_tpu.parallel",
     "torchmetrics_tpu.regression",
@@ -44,6 +46,7 @@ NAMESPACES = [
     "torchmetrics_tpu.segmentation",
     "torchmetrics_tpu.text",
     "torchmetrics_tpu.utilities",
+    "torchmetrics_tpu.wrappers",
 ]
 
 

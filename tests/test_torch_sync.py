@@ -12,6 +12,12 @@ multisets of rows: JAX gathers each update's element over the mesh (rows
 interleave the devices per update), the port gathers each rank's rows once
 (rank after rank). AP from the synced state ``atol=1e-6``.
 
+The same world syncs the multimodal states: ``CLIPScore``'s two float32 sums
+(``rtol=1e-6``, the count exact) and ``CLIPImageQualityAssessment``'s cat of
+image features (as a multiset of rows, within ``atol=1e-6``: each package's
+float32 encoder), on linear encoders of numpy weights, with their values (CLIP-IQA's probabilities sorted) within
+``atol=1e-5``.
+
 The same world also syncs the metrics whose sync is not a sum of leaves:
 Pearson's moments (its own ``sync_states``, alone and inside a
 ``MetricCollection``; ranks hold different row counts), ``CatMetric``'s cat,
@@ -133,6 +139,42 @@ def _slice6_batches(rank):
     return out
 
 
+MULTIMODAL = ("clip_score", "clip_iqa")
+_IMAGE_W = np.random.default_rng(60).normal(size=(3, 6)).astype(np.float32)
+_TEXT_TABLE = np.random.default_rng(61).normal(size=(5, 6)).astype(np.float32)
+
+
+def _multimodal_metrics(pkg):
+    """CLIPScore and CLIP-IQA on linear encoders: an image's channel means times a weight, a caption's row of a
+    table by its length."""
+    if pkg == "torch":
+        from torchmetrics_tpu_torch.multimodal import CLIPImageQualityAssessment, CLIPScore
+
+        xp, kw = torch, {"device": "cpu"}
+        w, table = torch.from_numpy(_IMAGE_W), torch.from_numpy(_TEXT_TABLE)
+    else:
+        import jax.numpy as xp
+
+        from torchmetrics_tpu.multimodal import CLIPImageQualityAssessment, CLIPScore
+
+        kw, w, table = {}, xp.asarray(_IMAGE_W), xp.asarray(_TEXT_TABLE)
+    enc = {"image_encoder": lambda imgs: imgs.mean((2, 3)) @ w,
+           "text_encoder": lambda texts: table[xp.asarray([len(t) % 5 for t in texts])]}
+    return {"clip_score": CLIPScore(**enc, **kw),
+            "clip_iqa": CLIPImageQualityAssessment(prompts=("quality", "warm"), data_range=255.0, **enc, **kw)}
+
+
+def _multimodal_batches(rank):
+    """Two updates a rank, of 2 and 3 images of pixel scale, with captions of random lengths (the JAX mesh stacks
+    the ranks' states: their shapes agree)."""
+    rng = np.random.default_rng(70 + rank)
+    out = []
+    for n in (2, 3):
+        captions = ["a" * int(k) for k in rng.integers(1, 9, n)]
+        out.append((rng.uniform(0, 255, (n, 3, 4, 5)).astype(np.float32), captions))
+    return out
+
+
 def _rank_checks(rank, world, inputs):
     """Everything one rank does; the parent compares the results."""
     out = {"distributed": distributed_available()}
@@ -195,6 +237,15 @@ def _rank_checks(rank, world, inputs):
     for args in batches["pearson"]:
         states = col.update_states(states, *map(torch.from_numpy, args))
     out["collection"] = col.sync_states(states)
+
+    out["multimodal"] = {}
+    for name, metric in _multimodal_metrics("torch").items():
+        st = metric.init_state()
+        for imgs, captions in _multimodal_batches(rank):
+            args = (torch.from_numpy(imgs), captions) if name == "clip_score" else (torch.from_numpy(imgs),)
+            st = metric.update_state(st, *args)
+        synced = metric.sync_states(st)
+        out["multimodal"][name] = (synced, metric.compute_state(synced))
     return out
 
 
@@ -260,6 +311,17 @@ def world(tmp_path_factory):
             states.append(st)
         synced = _jax_mesh_sync(states, lambda st, m=m: m.sync_states(st, "data"))
         ref["slice6"][name] = (synced, np.asarray(m.compute_state(jax_like(synced))))
+    ref["multimodal"] = {}
+    for name, m in _multimodal_metrics("jax").items():
+        states = []
+        for r in range(WORLD):
+            st = m.init_state()
+            for imgs, captions in _multimodal_batches(r):
+                st = m.update_state(st, *((jnp.asarray(imgs), captions) if name == "clip_score" else
+                                          (jnp.asarray(imgs),)))
+            states.append(st)
+        synced = _jax_mesh_sync(states, lambda st, m=m: m.sync_states(st, "data"))
+        ref["multimodal"][name] = (synced, m.compute_state(jax_like(synced)))
     mesh = metric_mesh(WORLD)
     ref["sharded_update"] = jax_sharded_update(jmetrics["acc"], jnp.asarray(probs), jnp.asarray(target), mesh=mesh)
     return results, ref
@@ -431,3 +493,29 @@ def test_collection_sync_calls_pearsons_own_sync(world):
             assert torch.equal(synced[k], v), k
         assert int(r["collection"]["r2"]["total"]) == sum((r_ + 1) * 3 + 4 for r_ in range(WORLD))
         assert int(r["collection"]["mae"]["_n"]) == WORLD * 2
+
+
+@pytest.mark.parametrize("name", MULTIMODAL)
+def test_multimodal_syncs_match_jax(world, name):
+    results, ref = world
+    want, want_value = ref["multimodal"][name]
+    n_images = 5 * WORLD
+    for r in results:
+        got, value = r["multimodal"][name]
+        assert set(got) == set(want)
+        assert int(got["_n"]) == WORLD * 2 and got["_n"].dtype == torch.int32
+        if name == "clip_score":
+            for k in ("score", "n_samples"):
+                assert got[k].dtype == torch.float32 and got[k].shape == ()
+                np.testing.assert_allclose(float(got[k]), float(np.asarray(want[k])), rtol=1e-6, err_msg=k)
+            assert float(got["n_samples"]) == n_images
+            np.testing.assert_allclose(float(value), float(np.asarray(want_value)), rtol=0, atol=1e-5)
+        else:  # one tensor of every rank's rows, rank after rank; JAX interleaves the devices per update
+            rows = got["img_features"][0].numpy()
+            want_rows = np.concatenate([np.asarray(x) for x in want["img_features"]])
+            assert rows.shape == (n_images, 6)
+            np.testing.assert_allclose(rows[np.lexsort(rows.T[::-1])], want_rows[np.lexsort(want_rows.T[::-1])],
+                                       rtol=0, atol=1e-6)
+            for k in ("quality", "warm"):
+                np.testing.assert_allclose(np.sort(value[k].numpy()), np.sort(np.asarray(want_value[k])), rtol=0,
+                                           atol=1e-5, err_msg=k)

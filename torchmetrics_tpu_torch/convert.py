@@ -35,7 +35,11 @@ port's InceptionV3 and LPIPS backbones from the JAX package's params pytrees
 (as numpy: HWIO kernels become OIHW), and
 :func:`deterministic_features_from_jax` and
 :func:`deterministic_lpips_from_jax` its two seeded stand-ins, so that both
-packages run on the same weights. Every tensor of the network must be given,
+packages run on the same weights; :func:`clip_image_encoder_from_jax` does it
+for CLIPScore's and CLIP-IQA's stand-in image encoder (the JAX package draws
+its weights with threefry, the port from a ``torch.Generator``). The CLIP
+model itself needs no converter: both packages load the same checkpoint
+directory. Every tensor of the network must be given,
 each of its shape: a missing, extra or misshapen one raises ``ValueError``.
 """
 
@@ -187,3 +191,17 @@ def deterministic_lpips_from_jax(kernels: Sequence[Any], base_channels: int = 16
     weights = _stand_in_weights(kernels, [tuple(k.shape) for k in net.kernels], "DeterministicLPIPSNet")
     net.kernels = [w.to(net.device) for w in weights]
     return net
+
+
+def clip_image_encoder_from_jax(w1: Any, proj: Any, device: Optional[Union[str, torch.device]] = None):
+    """The port's ``DeterministicImageEncoder`` on the JAX stand-in's ``w1 (16, 3, 3, 3)`` (OIHW, both packages)
+    and ``proj (16, dim)``."""
+    from torchmetrics_tpu_torch.functional.multimodal.clip_score import DeterministicImageEncoder
+
+    proj = np.asarray(proj)
+    encoder = DeterministicImageEncoder(dim=proj.shape[-1], device=device)
+    w1_t, proj_t = _stand_in_weights([w1, proj], [tuple(encoder.w1.shape), tuple(encoder.proj.shape)],
+                                     "DeterministicImageEncoder")
+    encoder.w1.copy_(w1_t)
+    encoder.proj.copy_(proj_t)
+    return encoder

@@ -77,11 +77,30 @@ def _preprocess_inputs(
     return torch.stack([torch.where(known, cat, void_color[0]), torch.where(known, inst, void_color[1])], dim=-1)
 
 
-def _continuous_ids(cats: Tensor, cat_id_to_continuous_id: Dict[int, int]) -> Tensor:
-    """Each category id's continuous id (a category outside the map gives 0: the callers mask it out)."""
+def _continuous_ids(cats: Tensor, cat_id_to_continuous_id: Dict[int, int]) -> Tuple[Tensor, Tensor]:
+    """Each category id's continuous id, and whether the map holds the category.
+
+    A category outside the map (a segment with a negative instance id falls one category below its own:
+    ``code // base``) gets continuous id 0; :func:`_raise_out_of_map` refuses it wherever it would be booked.
+    """
     keys = torch.tensor(sorted(cat_id_to_continuous_id), dtype=torch.int64, device=cats.device)
     values = torch.tensor([cat_id_to_continuous_id[k] for k in keys.tolist()], dtype=torch.int64, device=cats.device)
-    return values[torch.searchsorted(keys, cats).clamp_max(keys.numel() - 1)]
+    pos = torch.searchsorted(keys, cats).clamp_max(keys.numel() - 1)
+    return values[pos], keys[pos] == cats
+
+
+def _raise_out_of_map(looked_up: Tuple[Tensor, ...], cats: Tuple[Tensor, ...]) -> None:
+    """``KeyError`` naming the first category that a lookup of the JAX package's dict would miss.
+
+    ``looked_up[i]`` marks the segments whose category ``cats[i]`` is looked up and lies outside the map, in the
+    JAX package's order: matching pairs, then false negatives, then false positives. It reads the device once
+    when no lookup misses.
+    """
+    if not bool(torch.stack([m.any() for m in looked_up]).any()):
+        return
+    for mask, cat in zip(looked_up, cats):
+        if bool(mask.any()):
+            raise KeyError(int(cat[mask].min()))
 
 
 def _panoptic_quality_update_sample(
@@ -107,7 +126,7 @@ def _panoptic_quality_update_sample(
     pred_void = (table * t_void[None, :]).sum(1)  # each pred segment's pixels on void target
     void_target = (table * p_void[:, None]).sum(0)  # each target segment's pixels on void pred
     p_cat, t_cat = torch.div(p_codes, base, rounding_mode="floor"), torch.div(t_codes, base, rounding_mode="floor")
-    p_cont, t_cont = _continuous_ids(p_cat, cat_id_to_continuous_id), _continuous_ids(t_cat, cat_id_to_continuous_id)
+    (p_cont, p_known), (t_cont, t_known) = (_continuous_ids(c, cat_id_to_continuous_id) for c in (p_cat, t_cat))
     modified = _ids(stuffs_modified_metric, device)
     p_mod, t_mod = torch.isin(p_cat, modified), torch.isin(t_cat, modified)
 
@@ -117,6 +136,12 @@ def _panoptic_quality_update_sample(
     match = pair & ~t_mod[None, :] & (iou > 0.5)
     stuff = pair & t_mod[None, :] & (iou > 0)
     cols = t_cont[None, :].expand_as(table)
+    # false negatives and positives: unmatched segments at most half void (the modified stuffs are counted apart)
+    fn_any = ~match.any(0) & ~t_void & (void_target.to(torch.float64) / target_areas.to(torch.float64) <= 0.5)
+    fp_any = ~match.any(1) & ~p_void & (pred_void.to(torch.float64) / pred_areas.to(torch.float64) <= 0.5)
+    # the JAX package looks each pair's category up, then each such unmatched segment's; a modified stuff's
+    # lookup cannot miss (the map holds every stuff)
+    _raise_out_of_map((pair.any(0) & ~t_known, fn_any & ~t_known, fp_any & ~p_known), (t_cat, t_cat, p_cat))
 
     iou_sum = torch.zeros(n_cat, dtype=torch.float64, device=device)
     iou_sum.index_add_(0, cols[match | stuff], iou[match | stuff])
@@ -124,9 +149,7 @@ def _panoptic_quality_update_sample(
     tp.index_add_(0, cols[match], torch.ones_like(cols[match]))
     # the modified metric: every target segment of a modified stuff counts as one true positive
     tp.index_add_(0, t_cont[t_mod], torch.ones_like(t_cont[t_mod]))
-    # false negatives and positives: unmatched segments at most half void, outside the modified stuffs
-    fn_sel = ~match.any(0) & ~t_void & ~t_mod & (void_target.to(torch.float64) / target_areas.to(torch.float64) <= 0.5)
-    fp_sel = ~match.any(1) & ~p_void & ~p_mod & (pred_void.to(torch.float64) / pred_areas.to(torch.float64) <= 0.5)
+    fn_sel, fp_sel = fn_any & ~t_mod, fp_any & ~p_mod
     fn = torch.zeros(n_cat, dtype=torch.int64, device=device)
     fn.index_add_(0, t_cont[fn_sel], torch.ones_like(t_cont[fn_sel]))
     fp = torch.zeros(n_cat, dtype=torch.int64, device=device)
