@@ -180,7 +180,24 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    1,001, degrees 1-4 with given gamma and coef, m = 2, a NaN and a +inf
    feature, KID's defaults with 8 outlier dimensions, m = 129 and 255; at
    KID's defaults, with and without the outliers, within 1e-7 of the scale of
-   a float64 evaluation;
+   a float64 evaluation; ``quantile_hist``, the curve sketch's insert, held
+   equal (``torch.equal``) to its plain version (JAX's one-hot, stack and float
+   scatter-add) from a random non-zero state, two launches equal, at
+   ImageNet-1k's batch (1,024 x 1,000 multiclass), MS-COCO's (256 x 80
+   multilabel) and the binary batch (the three timed, beside floor +
+   ``index_add_``, a yardstick; library: none), on NaN, +-inf, -0.0, 0, 1.0,
+   1.5, -0.5 and every cell edge with the values one ulp either side of it, ignored
+   rows and elements, every row ignored, multiclass targets outside [0, C),
+   multilabel targets 2 and -1, 50,000 binary rows (chunks of rows), the
+   MS-COCO set in one launch, 10,000 bins (float atomics straight into the
+   state), 3 cells and an empty batch; ``hll_insert``, DistinctNGrams'
+   HyperLogLog insert, its registers and total equal to its plain version
+   (JAX's window stack, key chain and scatter-max) from random registers, two
+   launches equal, at phase 17's WikiText-103 batch (8 x 1,024 GPT-2 ids) at n
+   = 1-4 (timed, beside ``scatter_reduce_(amax)`` of ranks computed outside the
+   timing, a yardstick; library: none), precision 4, 14 and 18, ``ignore_index``
+   windows, every window ignored, n longer than a row, ids -1, 2**31 - 1 and
+   -2**31, the whole set in one launch at p = 14 and 18, and an empty batch;
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
@@ -201,7 +218,14 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    1e-6 of it; the collectives, bytes a bucket and sync time are printed.
    A second collection (mean, sum, max, cat, R2 and Pearson, whose sync is
    its own) syncs the rows' top score and whether it is right, timed apart;
-   every rank must equal the single-process run;
+   every rank must equal the single-process run. A third (phase 17 (vi)):
+   a sketch-mode ``MulticlassAUROC`` over each rank's batches, a
+   DistinctNGrams HyperLogLog over its blocks of phase 17's WikiText-103
+   token batches and a BLEU reservoir of 256 over its blocks of phase 6's
+   1,000 pairs, one coalesced sync: one ``all_reduce`` a (dtype, op) bucket
+   (the histogram and the registers in theirs) and one fixed-shape gather
+   for the reservoir, and every synced leaf equal to the single-process
+   state bit for bit;
 6. ragged: in the same two worlds, a different item count on every rank:
    ``ROUGEScore`` over 1,000 seeded sentence pairs and
    ``MeanAveragePrecision`` over a COCO-val2017-shaped seeded set (80
@@ -388,7 +412,37 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    and ``MetricTracker``, ``Running``, ``MultitaskWrapper``,
    ``ClasswiseWrapper(MulticlassJaccardIndex)`` and ``MinMaxMetric`` over
    those batches, each against the CPU path (exactly 20
-   ``confmat_multiclass`` launches).
+   ``confmat_multiclass`` launches);
+17. the sketches (every ``approx`` mode), one card, no sync: (i) phase 4's
+   ImageNet-1k set (50,000 x 1,000 in batches of 1,024) through
+   ``MulticlassAUROC`` and ``MulticlassAveragePrecision`` with
+   ``approx="sketch"`` (one group: exactly 49 ``quantile_hist`` launches),
+   phase 7 (iii)'s MS-COCO set (40,504 x 80 in batches of 256) through
+   ``MultilabelAUROC(approx="sketch")`` (159) and phase 7 (iv)'s binary rows
+   through ``BinaryAUROC`` and ``BinaryROC`` (49), and one batch of them
+   that requires grad (one launch, the histogram of the detached scores);
+   each value equal, within 1e-6, to the binned path at exactly the sketch's
+   201 edges, and each AUROC within the histogram's ``auc_error_bound`` of
+   the exact path; (ii)
+   ``MulticlassCalibrationError(approx="sketch")`` on the ImageNet-1k
+   batches (the ``calibration_bins`` kernel, its counts in float leaves),
+   equal to the exact path at 200 bins; (iii) WikiText-103 test's length in
+   GPT-2 token ids (Zipf-distributed, seeded) through
+   ``DistinctNGrams(approx="sketch")`` at n = 1-4 (exactly 140 ``hll_insert``
+   launches), each estimate within 4 x its RSE of the exact ratio; (iv)
+   ``BLEUScore`` and ``SacreBLEUScore(approx="reservoir")`` over WMT16
+   newstest2016's 2,999 seeded pairs (1,024 kept: the reservoir rows equal the
+   CPU run's bit for bit; the estimate printed beside the exact score and the
+   stamped bound) and ``ROUGEScore(approx="reservoir")`` over phase 6's
+   1,000 pairs (all kept: equal to the exact path within 1e-6); (v)
+   ``MeanAveragePrecision(approx="sketch")`` over phase 6's 5,000
+   COCO-val2017-shaped images in updates of 100 (each update's items matched
+   on the card by ``coco_match``), its histograms and counters equal to the
+   CPU run's, the sketch ``map`` printed beside the exact one and the stamped
+   bound (whether the documented one-sided bound held is recorded, and a miss
+   does not fail the phase: no JAX test holds it). Legs (i)-(iii) rerun their
+   first batches on the CPU path (states equal bit for bit; calibration's
+   ``conf_sum`` within 1e-5).
 
 Phases 5 and 6 run each rank as a process of its own (this script with
 ``--worker``); every kernel must have launched on the paths that run it.
@@ -2298,12 +2352,15 @@ def worker_sync(rank: int, world: int, device: torch.device) -> dict:
         exact = k in ("max", "cat")
         equal2[k] = bool(got.shape == want.shape and (torch.equal(got, want) if exact else
                                                       torch.allclose(got, want, rtol=SYNC2_RTOL, atol=0)))
+    sketch = _sketch_sync(rank, world, device, batches)
     return {
+        **sketch,
         "col2_sync_ms": sync2_ms, "col2_equal": equal2, "col2_cat_rows": int(values2["cat"].shape[0]),
         "col2_pearson_n": float(synced2["pearson"]["n_total"]),
         "col2_values": {k: float(v) for k, v in values2.items() if v.numel() == 1},
         "rank": rank, "batches": len(mine), "rows": sum(batches[i][0].shape[0] for i in mine),
-        "launches": {"binned_confmat_multiclass": launches}, "update_s": update_s, "sync_ms": sync_ms,
+        "launches": {"binned_confmat_multiclass": launches, **sketch["sketch_launches"]}, "update_s": update_s,
+        "sync_ms": sync_ms,
         "compute_ms": compute_ms, "collectives": collectives, "bucket_bytes": plan.bucket_bytes(),
         "gathered_bytes": {k: ap[k][0].numel() * ap[k][0].element_size() for k in ("preds", "target", "weight")},
         "ap_rows": ap["preds"][0].shape[0], "n": {k: int(v["_n"]) for k, v in synced.items()},
@@ -2553,6 +2610,22 @@ def phase_sync() -> dict:
                 tol = 1e-6 if k == "ap" else 0.0
                 check(abs(v - r["ref_values"][k]) <= tol, f"{tag}: {k} {v} vs single-process {r['ref_values'][k]}")
                 check(v == first["values"][k], f"{tag}: {k} differs from rank 0")
+        for r in results:
+            tag = f"[{label}] rank {r['rank']}, sketches"
+            check(not r["sketch_unequal"], f"{tag}: synced leaves differ from the single-process run: "
+                                           f"{r['sketch_unequal']}")
+            check(r["sketch_collectives"] == {"all_reduce": len(r["sketch_buckets"]), "all_gather": 1},
+                  f"{tag}: collectives {r['sketch_collectives']} for buckets {r['sketch_buckets']}")
+            check(r["sketch_passthrough"] == ["corpus_sample"], f"{tag}: passthrough {r['sketch_passthrough']}")
+            check(r["sketch_launches"]["quantile_hist"] > 0 and r["sketch_launches"]["hll_insert"] > 0,
+                  f"{tag}: launches {r['sketch_launches']}")
+            check(r["sketch_values"] == first["sketch_values"], f"{tag}: values differ from rank 0")
+        print(f"[sync] {label}: sketches (a sketch-mode AUROC, a DistinctNGrams HyperLogLog and a BLEU reservoir of "
+              f"{BLEU_SYNC_SAMPLE}): one coalesced plan, collectives {first['sketch_collectives']} for buckets "
+              f"{first['sketch_buckets']} and the reservoir's fixed-shape gather; sync "
+              f"{[round(r['sketch_sync_ms'], 3) for r in results]} ms; launches per rank "
+              f"{[r['sketch_launches'] for r in results]}; every synced leaf equals the single-process state; values "
+              f"{first['sketch_values']}")
         for r in results:
             tag = f"[{label}] rank {r['rank']}, second collection"
             check(all(r["col2_equal"].values()), f"{tag}: differs from the single-process run: {r['col2_equal']}")
@@ -6404,6 +6477,687 @@ def phase_multimodal_wrappers() -> dict:
     return record
 
 
+# ------------------------------------------ quantile_hist and hll_insert (phase 3), phase 17: the sketches
+SKETCH_BINS = 200  # approx="sketch"'s default grid (approx_error 1/200): 201 cells
+SKETCH_TOL = 1e-6  # a sketch curve against the binned curve at the sketch's edges (JAX's property)
+BLEU_SYNC_SAMPLE = 256  # phase 5's BLEU reservoir: 1,000 pairs overflow it, so its merge keeps the bottom k
+DISTINCT_NGRAMS = (1, 2, 3, 4)
+ZIPF_EXPONENT = 1.1  # the token ids of the DistinctNGrams legs: Zipf-distributed over GPT-2's vocabulary
+# an H100 SM has 64 INT32 lanes beside its 128 FP32 ones: integer operations at half the float32 rate
+INT32_OPS_PER_S = PEAK_FP32_OPS_PER_S / 2
+HLL_OPS_PER_TOKEN, HLL_OPS_PER_WINDOW = 11, 16  # a key-chain step (an add, mix32's ten); the seed's mix, the rank
+
+
+def _sketch_edge_scores(sketch, dev) -> torch.Tensor:
+    """NaN, +-inf, -0.0, 0, 1.0, 1.5, -0.5 and every cell edge with the float32 values one ulp either side."""
+    edges = sketch.edges_on(dev)
+    special = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0, 0.0, 1.0, 1.5, -0.5], device=dev)
+    return torch.cat([special, edges, torch.nextafter(edges, edges - 1), torch.nextafter(edges, edges + 1)])
+
+
+def _qh_case(gen, n, k, task, sketch, edits=()):
+    """A formatted curve batch on the card (float32 scores, int32 targets, 0/1 float32 weights) and a random
+    non-zero integer-valued float32 state."""
+    dev = torch.device("cuda")
+    shape = (n,) if task == "binary" else (n, k)
+    if task == "multiclass":
+        scores = torch.softmax(3.0 * torch.randn((n, k), generator=gen, device=dev), dim=1)
+        target = torch.randint(0, k, (n,), generator=gen, device=dev, dtype=torch.int32)
+        weights = torch.ones((n,), device=dev)
+    else:
+        scores = torch.rand(shape, generator=gen, device=dev)
+        target = (torch.rand(shape, generator=gen, device=dev) < 0.3).to(torch.int32)
+        weights = torch.ones(shape, device=dev)
+    if "edges" in edits and scores.numel():
+        special = _sketch_edge_scores(sketch, dev)
+        m = min(scores.numel(), special.numel())
+        scores.view(-1)[:m] = special[:m]
+    if "ignored" in edits:
+        weights[torch.rand(weights.shape, generator=gen, device=dev) < 0.2] = 0.0
+    if "all ignored" in edits:
+        weights.zero_()
+    if "targets" in edits and n:
+        if task == "multiclass":  # outside [0, k): a negative for every class
+            target[::7], target[3::11] = k, -1
+        else:  # a target t adds 1 - t to the negative cell and t to the positive one
+            target.view(-1)[::5], target.view(-1)[1::7] = 2, -1
+    cells = sketch.bins + 1
+    hist = torch.randint(0, 50, (2, cells) if task == "binary" else (k, 2, cells), generator=gen, device=dev)
+    return scores.contiguous(), target.contiguous(), weights.contiguous(), hist.to(torch.float32)
+
+
+def _floor_index_add(hist, scores, target, weights, sketch):
+    """floor + index_add_ (several PyTorch calls, a yardstick): each entry's cell and side, then one ``index_add_``
+    of the weights into the state."""
+    n = scores.shape[0]
+    k = scores.shape[1] if scores.ndim == 2 else 1
+    cell = torch.nan_to_num(torch.floor(scores.reshape(n, k) * sketch.scale).clamp_(0, sketch.bins), nan=0.0).long()
+    cls = torch.arange(k, device=scores.device)
+    if scores.ndim == 2 and target.ndim == 1:
+        side, w = (target[:, None] == cls).long(), weights[:, None].expand(n, k)
+    else:
+        side, w = target.reshape(n, k).long(), weights.reshape(n, k)
+    idx = (cls * 2 + side) * (sketch.bins + 1) + cell
+    hist.view(-1).index_add_(0, idx.reshape(-1), w.reshape(-1))
+
+
+def phase_quantile_hist_kernel(flush: torch.Tensor) -> list:
+    """``quantile_hist`` against its plain version (JAX's one-hot, broadcast, stack and float scatter-add) on the
+    card, from a random non-zero state: the new state equal (``torch.equal``) and two launches equal. Timed at
+    ImageNet-1k's batch (1,024 x 1,000 multiclass, the record's row), MS-COCO's multilabel batch (256 x 80) and the
+    binary batch (1,024), beside floor + ``index_add_`` (a yardstick; library: none)."""
+    from torchmetrics_tpu_torch.kernels import quantile_hist as kqh
+    from torchmetrics_tpu_torch.sketches import QuantileSketch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    grid = QuantileSketch(SKETCH_BINS)
+    fine = QuantileSketch(10_000)  # 10,001 cells: past a block's shared memory, float atomics into the state
+    cases = [  # (what, n, k, task, sketch, edits, timed)
+        ("(a) ImageNet-1k batch, multiclass", BATCH, N_CLASSES, "multiclass", grid, (), True),
+        ("(b) MS-COCO batch, multilabel", COCO_ML_BATCH, COCO_ML_LABELS, "multilabel", grid, (), True),
+        ("(c) binary batch", BATCH, 1, "binary", grid, (), True),
+        ("NaN, +-inf, -0.0, 1.0 and an ulp either side of every cell edge, multiclass", 300, 7, "multiclass", grid,
+         ("edges",), False),
+        ("edge scores, multilabel", 256, 5, "multilabel", grid, ("edges",), False),
+        ("edge scores, binary", 700, 1, "binary", grid, ("edges",), False),
+        ("ignored rows, multiclass", BATCH, N_CLASSES, "multiclass", grid, ("ignored",), False),
+        ("ignored elements, multilabel", COCO_ML_BATCH, COCO_ML_LABELS, "multilabel", grid, ("ignored",), False),
+        ("every row ignored", 512, 10, "multiclass", grid, ("all ignored",), False),
+        ("every element ignored, multilabel", 100, 3, "multilabel", grid, ("all ignored",), False),
+        ("targets outside [0, C)", 1000, 9, "multiclass", grid, ("targets",), False),
+        ("targets 2 and -1, multilabel", 300, 4, "multilabel", grid, ("targets",), False),
+        ("50,000 binary rows: chunks of rows", N_SAMPLES, 1, "binary", grid, ("edges",), False),
+        ("the MS-COCO set in one launch", COCO_ML_IMAGES, COCO_ML_LABELS, "multilabel", grid, (), False),
+        ("10,000 bins: global atomics", 256, 10, "multiclass", fine, ("edges",), False),
+        ("3 cells", 333, 2, "multilabel", QuantileSketch(2), ("edges", "ignored"), False),
+        ("empty batch", 0, 6, "multiclass", grid, (), False),
+    ]
+    rows = []
+    for what, n, k, task, sketch, edits, timed in cases:
+        scores, target, weights, hist = _qh_case(gen, n, k, task, sketch, edits)
+        before = kqh.quantile_hist.launches
+        got = kqh.quantile_hist(hist.clone(), scores, target, weights, sketch)
+        again = kqh.quantile_hist(hist.clone(), scores, target, weights, sketch)
+        want = kqh._quantile_hist_plain(hist, scores, target, weights, sketch)
+        torch.cuda.synchronize()
+        label = f"{what}: {task} {tuple(scores.shape)}, {sketch.bins} bins"
+        check(kqh.quantile_hist.launches == before + (2 if n else 0), f"quantile_hist launches ({label})")
+        check(torch.equal(got, want), f"quantile_hist and plain differ ({label}): max abs err "
+                                      f"{float((got - want).abs().max()) if got.numel() else 0.0}")
+        check(torch.equal(got, again), f"quantile_hist is not deterministic ({label})")
+        row = {"case": label, "what": what, "max_abs_err": 0.0}
+        if timed:
+            nbytes = 4 * (scores.numel() + target.numel() + weights.numel() + 2 * hist.numel())
+            bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            pl = kqh.plan(n, k, sketch.bins + 1, torch.cuda.get_device_properties(0).multi_processor_count)
+            h_kernel, h_yard = hist.clone(), hist.clone()
+            kernel_ms = time_ms(lambda: kqh.quantile_hist(h_kernel, scores, target, weights, sketch), flush)
+            plain_ms = time_ms(lambda: kqh._quantile_hist_plain(hist, scores, target, weights, sketch), flush,
+                               reps=10, warmup=1)
+            yard_ms = time_ms(lambda: _floor_index_add(h_yard, scores, target, weights, sketch), flush, reps=10,
+                              warmup=1)
+            # copies past the L2 where they fit in MAX_STREAM_COPIES (a small batch's calls stay under a few hundred)
+            sets = [(scores, target, weights)] + [(scores.clone(), target.clone(), weights.clone())
+                                                  for _ in range(min(copies_for(nbytes), MAX_STREAM_COPIES) - 1)]
+            stream_ms = time_stream_ms(lambda s_, t_, w_: kqh.quantile_hist(h_kernel, s_, t_, w_, sketch), sets,
+                                       calls=len(sets) * max(1, 24 // len(sets)))
+            del sets
+            row.update({"plan": pl._asdict(), "ms": kernel_ms, "stream_ms": stream_ms, "plain_ms": plain_ms,
+                        "floor_index_add_yardstick_ms": yard_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                        "bytes": nbytes, "library_ms": None})
+            print(f"[kernel] quantile_hist {label}: exact, {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms "
+                  f"a call back to back; plan {tuple(pl)}), plain (one-hot, stack, index_add) {plain_ms:.4f} ms, "
+                  f"floor + index_add_ (a yardstick) {yard_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us (bytes: "
+                  f"{nbytes}), share {bound_ms / kernel_ms:.1%}; library_ms: none")
+        rows.append(row)
+        del scores, target, weights, hist, got, again, want
+    print(f"[kernel] quantile_hist: equal to plain and deterministic on all {len(cases)} cases: "
+          + "; ".join(r["what"] for r in rows))
+    return rows
+
+
+def _zipf_ids(gen: np.random.Generator, shape) -> np.ndarray:
+    """Seeded int32 token ids, Zipf-distributed over GPT-2's vocabulary (frequent and rare n-grams, as text has)."""
+    return (np.minimum(gen.zipf(ZIPF_EXPONENT, size=shape), GPT2_VOCAB) - 1).astype(np.int32)
+
+
+def _wikitext_token_batches() -> list:
+    """WikiText-103 test's length in GPT-2 token ids (``WIKITEXT103_TOKENS``) as the ``(8, 1,024)`` batches of
+    phase 13, the last batch's tail past the set's end ``-100``, on the card."""
+    gen = np.random.default_rng(SEED + 71)
+    per_batch = PPL_BATCH * PPL_SEQ
+    out = []
+    for start in range(0, WIKITEXT103_TOKENS, per_batch):
+        ids = _zipf_ids(gen, (PPL_BATCH, PPL_SEQ))
+        ids.reshape(-1)[max(0, WIKITEXT103_TOKENS - start):] = -100
+        out.append(torch.from_numpy(ids).cuda())
+    return out
+
+
+def phase_hll_kernel(flush: torch.Tensor) -> list:
+    """``hll_insert`` against its plain version (JAX's window stack, key chain, rank and scatter-max) on the card:
+    the registers and the total equal (``torch.equal``), two launches equal. Timed at phase 17's batch, 8 x 1,024
+    GPT-2 token ids at n = 2 and precision 11 (the record's row), and at n = 1, 3 and 4, beside
+    ``scatter_reduce_(amax)`` of the keys' ranks computed outside the timing (a yardstick; library: none)."""
+    from torchmetrics_tpu_torch.kernels import hll as khll
+    from torchmetrics_tpu_torch.sketches import HyperLogLog
+
+    gen = np.random.default_rng(SEED + 72)
+    wiki = (PPL_BATCH, PPL_SEQ)
+    cases = [  # (what, shape, ngram, ignore_index, precision, edits, timed)
+        ("(a) WikiText-103 batch, n=2, p=11", wiki, 2, -100, 11, ("tail",), True),
+        *((f"WikiText-103 batch, n={n}, p=11", wiki, n, -100, 11, ("tail",), True) for n in (1, 3, 4)),
+        *((f"precision {p}", wiki, 2, -100, p, ("tail",), False) for p in (4, 14, 18)),
+        ("ignore_index windows (10 % of the tokens), n=3", wiki, 3, -100, 11, ("ignore",), False),
+        ("every window ignored", (4, 64), 2, -100, 11, ("all ignored",), False),
+        ("n longer than a row", (5, 3), 4, None, 11, (), False),
+        ("ids -1, 2**31 - 1 and -2**31, no ignore_index", (3, 200), 2, None, 11, ("wrap",), False),
+        ("the whole set in one launch, p=14", (WIKITEXT103_TOKENS // PPL_SEQ, PPL_SEQ), 2, -100, 14, (), False),
+        ("the whole set in one launch, p=18", (WIKITEXT103_TOKENS // PPL_SEQ, PPL_SEQ), 4, -100, 18, (), False),
+        ("empty batch", (0, PPL_SEQ), 2, -100, 11, (), False),
+    ]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for what, shape, ngram, ignore_index, precision, edits, timed in cases:
+        ids = _zipf_ids(gen, shape)
+        if "tail" in edits:
+            ids.reshape(-1)[-100:] = -100
+        if "ignore" in edits:
+            ids[gen.random(shape) < 0.1] = -100
+        if "all ignored" in edits:
+            ids[:, ::2] = -100
+        if "wrap" in edits:
+            ids.reshape(-1)[::7], ids.reshape(-1)[3::11], ids.reshape(-1)[5::13] = -1, 2**31 - 1, -2**31
+        tokens = torch.from_numpy(ids).cuda()
+        hll = HyperLogLog(precision=precision)
+        regs0 = torch.randint(0, 4, (hll.m,), dtype=torch.int32, device="cuda")
+        total0 = torch.tensor(float(gen.integers(0, 1000)), device="cuda")
+        before = khll.hll_insert.launches
+        got, got_total = khll.hll_insert(regs0.clone(), total0, tokens, ngram, ignore_index, hll)
+        again, again_total = khll.hll_insert(regs0.clone(), total0, tokens, ngram, ignore_index, hll)
+        want, want_total = khll._hll_insert_plain(regs0, total0, tokens, ngram, ignore_index, hll)
+        torch.cuda.synchronize()
+        windows = shape[0] * max(0, shape[1] - ngram + 1)
+        label = f"{what}: {tuple(shape)}, n={ngram}, p={precision}"
+        check(khll.hll_insert.launches == before + (2 if windows else 0), f"hll_insert launches ({label})")
+        check(torch.equal(got, want) and torch.equal(got_total, want_total),
+              f"hll_insert and plain differ ({label}): registers {int((got != want).sum())} apart, total "
+              f"{float(got_total)} vs {float(want_total)}")
+        check(torch.equal(got, again) and torch.equal(got_total, again_total), f"hll_insert is not deterministic ({label})")
+        row = {"case": label, "what": what, "max_abs_err": 0.0}
+        if timed:
+            nbytes = 4 * (tokens.numel() + 2 * hll.m + 2)
+            ops = windows * (HLL_OPS_PER_TOKEN * ngram + HLL_OPS_PER_WINDOW)
+            bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+            from torchmetrics_tpu_torch.sketches.cardinality import hll_index_rank, mix32
+            from torchmetrics_tpu_torch.text.distinct import window_keys
+
+            keys, valid = window_keys(tokens, ngram, ignore_index)
+
+            idx, rank = hll_index_rank(mix32(keys, hll.seed), precision)
+            rank = torch.where(valid, rank, 0).to(torch.int32)
+            r_kernel, r_yard = regs0.clone(), regs0.clone()
+            kernel_ms = time_ms(lambda: khll.hll_insert(r_kernel, total0, tokens, ngram, ignore_index, hll), flush)
+            plain_ms = time_ms(lambda: khll._hll_insert_plain(regs0, total0, tokens, ngram, ignore_index, hll), flush,
+                               reps=10, warmup=1)
+            yard_ms = time_ms(lambda: r_yard.scatter_reduce_(0, idx, rank, reduce="amax"), flush, reps=10, warmup=1)
+            sets = [(tokens,)] + [(tokens.clone(),) for _ in range(min(copies_for(nbytes), MAX_STREAM_COPIES) - 1)]
+            stream_ms = time_stream_ms(lambda t_: khll.hll_insert(r_kernel, total0, t_, ngram, ignore_index, hll),
+                                       sets, calls=len(sets) * max(1, 24 // len(sets)))
+            del sets
+            bound_ms = max(bytes_ms, ops_ms)
+            row.update({"blocks": khll.blocks_for(windows, precision, sms), "ms": kernel_ms, "stream_ms": stream_ms,
+                        "plain_ms": plain_ms, "scatter_amax_yardstick_ms": yard_ms, "bound_ms": bound_ms,
+                        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes,
+                        "int_ops": ops, "library_ms": None})
+            print(f"[kernel] hll_insert {label}: exact, {kernel_ms:.4f} ms after an L2 flush ({stream_ms:.4f} ms a "
+                  f"call back to back; {row['blocks']} blocks), plain (window stack, key chain, scatter_reduce) "
+                  f"{plain_ms:.4f} ms, scatter_reduce_(amax) of precomputed ranks (a yardstick) {yard_ms:.4f} ms, "
+                  f"bound {bound_ms * 1e3:.3f} us (by {row['bound_by']}: {nbytes} bytes, {ops} integer operations "
+                  f"at {INT32_OPS_PER_S / 1e12:.1f} TOP/s), share {bound_ms / kernel_ms:.1%}; library_ms: none")
+        rows.append(row)
+        del tokens, got, again, want
+    print(f"[kernel] hll_insert: equal to plain and deterministic on all {len(cases)} cases: "
+          + "; ".join(r["what"] for r in rows))
+    return rows
+
+
+CE_SUM_RTOL, CE_SUM_ATOL = 1e-5, 1e-6  # calibration_bins' conf_sum (32.32 sums) against plain float32 (phase 9)
+
+
+def _equal_states(tag: str, got: dict, want: dict, close=()) -> None:
+    """Every leaf equal (``torch.equal``) between the card and the CPU: the sketches' counts are exact. The leaves
+    named in ``close`` (calibration's ``conf_sum``, sums of confidences) within ``CE_SUM_RTOL``/``CE_SUM_ATOL``."""
+    check(set(got) == set(want), f"{tag}: keys {sorted(got)} vs {sorted(want)}")
+    for k, w in want.items():
+        g = got[k].cpu()
+        if k in close:
+            _assert_same(f"{tag}.{k}", g, w, CE_SUM_RTOL, CE_SUM_ATOL)
+        else:
+            check(g.dtype == w.dtype and torch.equal(g, w), f"{tag}.{k} differs between the card and the CPU")
+
+
+def _sketch_leg(leg, make, batches, kernels, cpu_batches: int = CPU_RERUN_BATCHES, close=(),
+                value_rtol: float = SKETCH_TOL):
+    """``batches()`` (``(args, kwargs)`` of card tensors) through the collection ``make("cuda")``, the launches of
+    ``kernels`` counted from 0 over this run only; the first ``cpu_batches`` batches again through ``make("cpu")``:
+    the states equal (the sketches count exactly; the leaves in ``close`` as ``_equal_states`` says), the values
+    within ``value_rtol``. Returns the record, the card collection and its values."""
+    col, times, early = make("cuda"), [], None
+    for kernel in kernels:
+        kernel.launches = 0
+    torch.cuda.synchronize()
+    t_leg = time.perf_counter()
+    for i, (args, kwargs) in enumerate(batches()):
+        t0 = time.perf_counter()
+        col.update(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i + 1 == cpu_batches:
+            early = _snapshot(col)
+    t0 = time.perf_counter()
+    values = col.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    leg_s = time.perf_counter() - t_leg
+    launches = {k.__name__: k.launches for k in kernels}
+    t_cpu = time.perf_counter()
+    cpu_col = make("cpu")
+    for args, kwargs in (b for _, b in zip(range(cpu_batches), batches())):
+        cpu_col.update(*map(_cpu, args), **{k: _cpu(v) for k, v in kwargs.items()})
+    for name, member in cpu_col.items(keep_base=True):
+        tag = f"[{leg}] {name} after {cpu_batches} batches"
+        _equal_states(f"{tag}: state", early[name], member.metric_state, close)
+        _assert_same(f"{tag}: value", col[name].compute_state(early[name]), member.compute(), value_rtol, 1e-7)
+    record = {"batches": i + 1, "launches": launches, "leg_s": leg_s, "update_ms_median": statistics.median(times),
+              "compute_ms": compute_ms, "values": {k: _value_summary(v) for k, v in values.items()},
+              "cpu_rerun_s": time.perf_counter() - t_cpu}
+    return record, col, values
+
+
+def _max_abs_diff(got, want) -> float:
+    """The largest absolute difference of two results (tensors, or tuples of them: a ROC's three)."""
+    if isinstance(want, (tuple, list)):
+        check(len(got) == len(want), f"{len(got)} parts vs {len(want)}")
+        return max((_max_abs_diff(g, w) for g, w in zip(got, want)), default=0.0)
+    check(got.shape == want.shape, f"shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    return float((got - want).abs().max()) if want.numel() else 0.0
+
+
+def _sketch_against(leg, record, values, reference: dict, tol: float, what: str) -> None:
+    """Each value of the sketch run within ``tol`` of ``reference`` (the binned path at the sketch's edges)."""
+    record[f"vs_{what}"] = {}
+    for name, want in reference.items():
+        diff = _max_abs_diff(values[name], want)
+        check(diff <= tol, f"[{leg}] {name}: the sketch is {diff:.3g} from the {what} path (> {tol})")
+        record[f"vs_{what}"][name] = diff
+
+
+def _curve_references(make_binned, make_exact, batches) -> tuple:
+    """The binned path at the sketch's edges and the exact path over the same batches, on the card."""
+    binned, exact = make_binned(), make_exact()
+    for args, kwargs in batches():
+        binned.update(*args, **kwargs)
+        exact.update(*args, **kwargs)
+    return binned.compute(), exact.compute()
+
+
+def _auroc_bound_check(leg, record, metric, value, exact) -> None:
+    """The sketch AUROC within the largest per-class ``auc_error_bound`` of its histogram from the exact AUROC."""
+    bound = float(metric._sketch.auc_error_bound(metric.metric_state["score_hist"]).max())
+    diff = abs(float(value) - float(exact))
+    check(diff <= bound + SKETCH_TOL, f"[{leg}] AUROC {float(value):.6f} is {diff:.3g} from exact {float(exact):.6f}, "
+                                      f"past the sketch's bound {bound:.3g}")
+    record["auroc"] = {"sketch": float(value), "exact": float(exact), "diff": diff, "auc_error_bound": bound}
+
+
+def _sketch_curves(kernels) -> dict:
+    """Phase 17 (i) and (ii): ImageNet-1k's set through sketch-mode multiclass AUROC and AP (one compute group:
+    one quantile_hist launch a batch) and calibration error; MS-COCO's multilabel set through MultilabelAUROC;
+    the binary rows of phase 7 (iv) through BinaryAUROC and BinaryROC."""
+    from torchmetrics_tpu_torch import classification as tc
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    record = {}
+    data = _main_path_data(torch.Generator(device="cuda").manual_seed(SEED))
+    probs, target = data[0], data[1]
+
+    def imagenet_batches():
+        return ((b["cls"], {}) for b in _batches(data))
+
+    def imagenet(d, **kw):  # one compute group: one update a batch
+        return MetricCollection({"auroc": tc.MulticlassAUROC(num_classes=N_CLASSES, validate_args=False, device=d, **kw),
+                                 "ap": tc.MulticlassAveragePrecision(num_classes=N_CLASSES, validate_args=False, device=d,
+                                                                     **kw)}, compute_groups=[["auroc", "ap"]])
+
+    n_batches = -(-N_SAMPLES // BATCH)
+    leg = "sketches imagenet"
+    rec, col, values = _sketch_leg(leg, lambda d: imagenet(d, approx="sketch"), imagenet_batches, kernels)
+    check(rec["launches"] == {"quantile_hist": n_batches, "hll_insert": 0}, f"[{leg}] launches {rec['launches']}")
+    edges = col["auroc"].thresholds.tolist()
+    binned, exact = _curve_references(lambda: imagenet("cuda", thresholds=edges), lambda: imagenet("cuda"),
+                                      imagenet_batches)
+    _sketch_against(leg, rec, values, binned, SKETCH_TOL, "binned")
+    _auroc_bound_check(leg, rec, col["auroc"], values["auroc"], exact["auroc"])
+    rec["ap"] = {"sketch": float(values["ap"]), "exact": float(exact["ap"])}
+    record["imagenet"] = rec
+    del col, binned, exact
+    torch.cuda.empty_cache()
+
+    # (ii) calibration: the kernel of the exact path computes the update, its counts added into float leaves
+    leg = "sketches calibration"
+
+    def calibration(d, **kw):
+        return MetricCollection({"ce": tc.MulticlassCalibrationError(num_classes=N_CLASSES, validate_args=False,
+                                                                     device=d, **kw)}, compute_groups=False)
+
+    rec, col, values = _sketch_leg(leg, lambda d: calibration(d, approx="sketch"), imagenet_batches, kernels,
+                                   close=("conf_sum",), value_rtol=CE_SUM_RTOL)
+    check(col["ce"].n_bins == SKETCH_BINS, f"[{leg}] {col['ce'].n_bins} bins")
+    exact_col = calibration("cuda", n_bins=SKETCH_BINS)
+    for args, kwargs in imagenet_batches():
+        exact_col.update(*args, **kwargs)
+    _sketch_against(leg, rec, values, exact_col.compute(), SKETCH_TOL, "binned")
+    for leaf in ("acc_sum", "count"):
+        check(torch.equal(col["ce"].metric_state[leaf], exact_col["ce"].metric_state[leaf].to(torch.float32)),
+              f"[{leg}] {leaf} differs from the exact path's int32 counts")
+    record["calibration"] = rec
+    del col, exact_col
+
+    # MS-COCO 2014 val's multilabel shape
+    leg = "sketches coco"
+    scores, labels = _coco_multilabel_data(torch.Generator(device="cuda").manual_seed(SEED + 73))
+
+    def coco_batches():
+        return (((scores[i:i + COCO_ML_BATCH], labels[i:i + COCO_ML_BATCH]), {})
+                for i in range(0, COCO_ML_IMAGES, COCO_ML_BATCH))
+
+    def coco(d, **kw):
+        return MetricCollection({"auroc": tc.MultilabelAUROC(num_labels=COCO_ML_LABELS, validate_args=False, device=d,
+                                                             **kw)}, compute_groups=False)
+
+    rec, col, values = _sketch_leg(leg, lambda d: coco(d, approx="sketch"), coco_batches, kernels)
+    check(rec["launches"] == {"quantile_hist": -(-COCO_ML_IMAGES // COCO_ML_BATCH), "hll_insert": 0},
+          f"[{leg}] launches {rec['launches']}")
+    binned, exact = _curve_references(lambda: coco("cuda", thresholds=col["auroc"].thresholds.tolist()),
+                                      lambda: coco("cuda"), coco_batches)
+    _sketch_against(leg, rec, values, binned, SKETCH_TOL, "binned")
+    _auroc_bound_check(leg, rec, col["auroc"], values["auroc"], exact["auroc"])
+    record["coco"] = rec
+    del col, binned, exact, scores, labels
+
+    # the binary rows: the top score and whether the top-1 prediction is right
+    leg = "sketches binary"
+    conf, pred = probs.max(1)
+    right = (pred == target).to(torch.int32)
+
+    def binary_batches():
+        return (((conf[i:i + BATCH], right[i:i + BATCH]), {}) for i in range(0, N_SAMPLES, BATCH))
+
+    def binary(d, **kw):
+        return MetricCollection({"auroc": tc.BinaryAUROC(validate_args=False, device=d, **kw),
+                                 "roc": tc.BinaryROC(validate_args=False, device=d, **kw)},
+                                compute_groups=[["auroc", "roc"]])
+
+    rec, col, values = _sketch_leg(leg, lambda d: binary(d, approx="sketch"), binary_batches, kernels)
+    check(rec["launches"] == {"quantile_hist": n_batches, "hll_insert": 0}, f"[{leg}] launches {rec['launches']}")
+    binned, exact = _curve_references(lambda: binary("cuda", thresholds=col["auroc"].thresholds.tolist()),
+                                      lambda: binary("cuda"), binary_batches)
+    _sketch_against(leg, rec, values, binned, SKETCH_TOL, "binned")
+    _auroc_bound_check(leg, rec, col["auroc"], values["auroc"], exact["auroc"])
+    record["binary"] = rec
+    del col, binned, exact
+
+    # scores that require grad take the kernel as well (they only choose a cell: the histogram has no gradient)
+    leg = "sketches requires_grad"
+    with_grad, detached = (tc.BinaryAUROC(validate_args=False, approx="sketch", device="cuda") for _ in range(2))
+    kernels[0].launches = 0
+    with_grad.update(conf[:BATCH].clone().requires_grad_(), right[:BATCH])
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    check(launches == {"quantile_hist": 1, "hll_insert": 0}, f"[{leg}] launches {launches}")
+    detached.update(conf[:BATCH], right[:BATCH])
+    check(torch.equal(with_grad.metric_state["score_hist"], detached.metric_state["score_hist"]),
+          f"[{leg}] the histogram differs from the detached scores' one")
+    record["requires_grad"] = {"launches": launches}
+    del data
+    torch.cuda.empty_cache()
+    return record
+
+
+def _sketch_distinct(kernels) -> dict:
+    """Phase 17 (iii): WikiText-103 test's length in GPT-2 token ids through DistinctNGrams(approx="sketch") at
+    n = 1-4 (one hll_insert launch a batch and n), each estimate within 4 x its RSE of the exact ratio."""
+    from torchmetrics_tpu_torch import text as tt
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    leg = "sketches distinct"
+    batches_ = _wikitext_token_batches()
+
+    def batches():
+        return (((b,), {}) for b in batches_)
+
+    def make(d, **kw):
+        return MetricCollection({f"n{n}": tt.DistinctNGrams(n, ignore_index=-100, device=d, **kw)
+                                 for n in DISTINCT_NGRAMS}, compute_groups=False)
+
+    rec, col, values = _sketch_leg(leg, lambda d: make(d, approx="sketch"), batches, kernels, cpu_batches=1)
+    check(rec["launches"] == {"quantile_hist": 0, "hll_insert": len(batches_) * len(DISTINCT_NGRAMS)},
+          f"[{leg}] launches {rec['launches']}")
+    exact = make("cuda")
+    for (args, _) in batches():
+        exact.update(*args)
+    exact_values = exact.compute()
+    rec["ratios"] = {}
+    for name, value in values.items():
+        rse = col[name]._hll.relative_error
+        want = float(exact_values[name])
+        diff = abs(float(value) - want)
+        check(diff <= 4 * rse * want, f"[{leg}] {name}: estimate {float(value):.6f} vs exact {want:.6f}, past 4 x RSE")
+        rec["ratios"][name] = {"sketch": float(value), "exact": want, "rel_err": diff / want, "rse": rse,
+                               "total": float(col[name].metric_state["total"])}
+    return rec
+
+
+def _reservoir_leg(leg, make, updates, exact_make=None) -> dict:
+    """A reservoir metric over ``updates`` on the card and on the CPU: the reservoir rows and the sample count
+    equal bit for bit; the estimate beside the exact path's value (on the card) and the stamped bound."""
+    card, cpu = make("cuda"), make("cpu")
+    t0 = time.perf_counter()
+    for preds, target in updates:
+        card.update(preds, target)
+    value = card.compute()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    for preds, target in updates:
+        cpu.update(preds, target)
+    for leaf in ("corpus_sample", "samples_total"):
+        got, want = card.metric_state[leaf].cpu(), cpu.metric_state[leaf]
+        check(got.dtype == want.dtype and torch.equal(got, want), f"[{leg}] {leaf} differs from the CPU run's")
+    rec = {"card_s": card_s, "kept": int(card._reservoir.count(card.metric_state["corpus_sample"])),
+           "seen": int(card.metric_state["samples_total"]), "bound": card._gather_approx_provenance()["bound"],
+           "value": _value_summary(value) if not isinstance(value, dict) else {k: float(v) for k, v in value.items()}}
+    if exact_make is not None:
+        exact = exact_make("cuda")
+        for preds, target in updates:
+            exact.update(preds, target)
+        rec["exact"] = (float(exact.compute()) if not isinstance(value, dict)
+                        else {k: float(v) for k, v in exact.compute().items()})
+        rec["tensors"], rec["exact_tensors"] = value, exact.compute()
+    return rec
+
+
+def _sketch_reservoirs() -> dict:
+    """Phase 17 (iv): BLEU and SacreBLEU reservoirs over WMT16 newstest2016's 2,999 seeded pairs (past the
+    default sample of 1,024) and the ROUGE reservoir over phase 6's 1,000 pairs (all kept: equal to exact)."""
+    from torchmetrics_tpu_torch import text as tt
+
+    gen = np.random.default_rng(SEED + 74)
+    words = _seeded_words(5_000, gen)
+    preds = _zipf_sentences(WMT16_PAIRS, words, (10, WMT16_MAX_TOKENS), gen)
+    target = [[s] for s in _zipf_sentences(WMT16_PAIRS, words, (10, WMT16_MAX_TOKENS), gen)]
+    updates = [(preds[i:i + TEXT_UPDATE], target[i:i + TEXT_UPDATE]) for i in range(0, WMT16_PAIRS, TEXT_UPDATE)]
+    record = {}
+    for name, cls in (("bleu", tt.BLEUScore), ("sacrebleu", tt.SacreBLEUScore)):
+        rec = _reservoir_leg(f"sketches {name}", lambda d: cls(approx="reservoir", device=d), updates,
+                             lambda d: cls(device=d))
+        check(rec["seen"] == WMT16_PAIRS and rec["kept"] == 1024 and 0 < rec["bound"] < 1,
+              f"[sketches {name}] kept {rec['kept']} of {rec['seen']}, bound {rec['bound']}")
+        del rec["tensors"], rec["exact_tensors"]
+        record[name] = rec
+    r_preds, r_target = _sentence_pairs(ROUGE_PAIRS)
+    r_updates = [(r_preds[i:i + ROUGE_BATCH], r_target[i:i + ROUGE_BATCH]) for i in range(0, ROUGE_PAIRS, ROUGE_BATCH)]
+    rec = _reservoir_leg("sketches rouge", lambda d: tt.ROUGEScore(approx="reservoir", device=d), r_updates,
+                         lambda d: tt.ROUGEScore(device=d))
+    check(rec["kept"] == ROUGE_PAIRS and rec["bound"] == 0.0, f"[sketches rouge] kept {rec['kept']}")
+    for k, want in rec.pop("exact_tensors").items():
+        got = rec["tensors"][k]
+        check(abs(float(got) - float(want)) <= SKETCH_TOL, f"[sketches rouge] {k} {float(got)} vs exact {float(want)}")
+    del rec["tensors"]
+    record["rouge"] = rec
+    return record
+
+
+def _sketch_map() -> dict:
+    """Phase 17 (v): the ``MAP_IMAGES`` COCO-val2017-shaped images through MeanAveragePrecision(approx="sketch")
+    on the card (each update's items matched by one ``coco_match`` launch a chunk) and on the CPU (histograms and
+    counters equal), the sketch map beside the exact map and the bound."""
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision
+    from torchmetrics_tpu_torch.kernels.coco_match import coco_match
+
+    leg = "sketches map"
+    batches = [_coco_images(i, min(i + MAP_BATCH, MAP_IMAGES)) for i in range(0, MAP_IMAGES, MAP_BATCH)]
+    card, cpu, exact = (MeanAveragePrecision(approx="sketch", device="cuda"),
+                        MeanAveragePrecision(approx="sketch", device="cpu"), MeanAveragePrecision(device="cuda"))
+    on_card = [(_on("cuda", preds), _on("cuda", target)) for preds, target in batches]
+    coco_match.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for preds, target in on_card:
+        card.update(preds, target)
+    value = card.compute()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {"coco_match": coco_match.launches}
+    check(launches["coco_match"] >= len(batches), f"[{leg}] coco_match launches {launches}")
+    t0 = time.perf_counter()
+    for preds, target in batches:
+        cpu.update(_on("cpu", preds), _on("cpu", target))
+    cpu_s = time.perf_counter() - t0
+    _equal_states(f"[{leg}] state", card.metric_state, cpu.metric_state)
+    for preds, target in on_card:
+        exact.update(preds, target)
+    exact_value = exact.compute()
+    sketch_map, exact_map = float(value["map"]), float(exact_value["map"])
+    bound = card._gather_approx_provenance()["bound"]
+    # JAX's docstring: the sketch never exceeds the exact value and stays within the bound; no JAX test holds it,
+    # so a miss is recorded as a finding about the reference and does not fail the phase
+    holds = sketch_map <= exact_map + SKETCH_TOL and exact_map - sketch_map <= bound + SKETCH_TOL
+    return {"images": MAP_IMAGES, "batches": len(batches), "launches": launches, "card_s": card_s, "cpu_s": cpu_s,
+            "map": sketch_map, "exact_map": exact_map, "bound": bound, "documented_bound_holds": holds,
+            "mar_100": float(value["mar_100"]), "exact_mar_100": float(exact_value["mar_100"])}
+
+
+def phase_sketches() -> dict:
+    """Phase 17 on one card, no sync: every approx mode through the metric classes a user calls, at the shapes of
+    the earlier phases (``_sketch_curves``, ``_sketch_distinct``, ``_sketch_reservoirs``, ``_sketch_map``)."""
+    from torchmetrics_tpu_torch.kernels.hll import hll_insert
+    from torchmetrics_tpu_torch.kernels.quantile_hist import quantile_hist
+
+    kernels = (quantile_hist, hll_insert)
+    record = _sketch_curves(kernels)
+    record["distinct"] = _sketch_distinct(kernels)
+    record["reservoirs"] = _sketch_reservoirs()
+    record["map"] = _sketch_map()
+    for name in ("imagenet", "calibration", "coco", "binary", "distinct"):
+        leg = record[name]
+        print(f"[sketches] {name}: {leg['batches']} batches, the first {CPU_RERUN_BATCHES if name != 'distinct' else 1} "
+              f"again on the CPU path (states equal); update median {leg['update_ms_median']:.4f} ms (host clock, a "
+              f"synchronize after each), compute {leg['compute_ms']:.4f} ms, leg {leg['leg_s']:.2f} s; launches "
+              f"{leg['launches']}; values {leg['values']}; against the binned path at the edges "
+              f"{leg.get('vs_binned')}; {('AUROC ' + str(leg['auroc'])) if 'auroc' in leg else ''}"
+              f"{('ratios ' + str(leg['ratios'])) if 'ratios' in leg else ''}")
+    for name, leg in record["reservoirs"].items():
+        print(f"[sketches] {name} reservoir: kept {leg['kept']} of {leg['seen']} (rows equal to the CPU run's), "
+              f"estimate {leg['value']} beside exact {leg.get('exact')}, stamped bound {leg['bound']:.6f}, "
+              f"{leg['card_s']:.2f} s on the card")
+    m = record["map"]
+    print(f"[sketches] map: {m['images']} images in {m['batches']} updates, {m['card_s']:.2f} s on the card "
+          f"({m['launches']['coco_match']} coco_match launches), {m['cpu_s']:.2f} s on the CPU (histograms and "
+          f"counters equal to the CPU run's), sketch map "
+          f"{m['map']:.6f} beside exact {m['exact_map']:.6f}, stamped bound {m['bound']:.6f}: the documented "
+          f"one-sided bound {'holds' if m['documented_bound_holds'] else 'does NOT hold (a finding about the JAX '
+          'reference, ROADMAP Queue 3)'}; mar_100 {m['mar_100']:.6f} beside {m['exact_mar_100']:.6f}")
+    return record
+
+
+def _sketch_sync_collection(device):
+    """Phase 5's sketch leg (phase 17 (vi)): a sketch-mode AUROC, a DistinctNGrams HyperLogLog and a BLEU
+    reservoir, synced by one coalesced plan."""
+    from torchmetrics_tpu_torch import classification as tc, text as tt
+    from torchmetrics_tpu_torch.collections import MetricCollection
+
+    return MetricCollection({
+        "auroc": tc.MulticlassAUROC(num_classes=N_CLASSES, approx="sketch", validate_args=False, device=device),
+        "distinct": tt.DistinctNGrams(2, ignore_index=-100, approx="sketch", device=device),
+        "bleu": tt.BLEUScore(approx="reservoir", sample_size=BLEU_SYNC_SAMPLE, device=device),
+    }, compute_groups=False)
+
+
+def _sketch_sync(rank: int, world: int, device: torch.device, cls_batches: list) -> dict:
+    """Phase 17 (vi) on one rank of a phase-5 world: this rank's blocks of the ImageNet-1k batches, the WikiText-103
+    token batches and phase 6's 1,000 pairs through the three sketch metrics, one coalesced sync, then the
+    single-process states over every block, which every synced leaf must equal bit for bit."""
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch.core.reductions import COLLECTIVES
+    from torchmetrics_tpu_torch.kernels.hll import hll_insert
+    from torchmetrics_tpu_torch.kernels.quantile_hist import quantile_hist
+    from torchmetrics_tpu_torch.parallel.coalesce import plan_for_metrics
+
+    preds, target = _sentence_pairs(ROUGE_PAIRS)
+    check(len(set(preds)) == len(preds), "phase 6's pairs repeat a prediction: the reservoir keys would tie")
+    streams = {
+        "auroc": cls_batches,
+        "distinct": [(t.to(device),) for t in _wikitext_token_batches()],
+        "bleu": [(preds[i:i + ROUGE_BATCH], [[t] for t in target[i:i + ROUGE_BATCH]])
+                 for i in range(0, ROUGE_PAIRS, ROUGE_BATCH)],
+    }
+    col = _sketch_sync_collection(device)
+    metrics = dict(col.items(keep_base=True))
+    for kernel in (quantile_hist, hll_insert):
+        kernel.launches = 0
+    states = {}
+    for name, metric in metrics.items():
+        st = metric.init_state()
+        for i in _rank_blocks(len(streams[name]), world, uneven=False)[rank]:
+            st = metric.update_state(st, *streams[name][i])
+        states[name] = st
+    torch.cuda.synchronize()
+    launches = {"quantile_hist": quantile_hist.launches, "hll_insert": hll_insert.launches}
+    plan = plan_for_metrics(list(metrics.values()), [states[n] for n in metrics])
+    dist.barrier()
+    before = dict(COLLECTIVES)
+    t0 = time.perf_counter()
+    synced = col.sync_states(states)
+    torch.cuda.synchronize()
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    collectives = {k: v - before.get(k, 0) for k, v in COLLECTIVES.items() if v - before.get(k, 0)}
+    unequal = []
+    for name, metric in metrics.items():
+        ref = metric.init_state()
+        for args in streams[name]:
+            ref = metric.update_state(ref, *args)
+        for leaf, want in ref.items():
+            got = synced[name][leaf]
+            if not (got.dtype == want.dtype and torch.equal(got, want)):
+                unequal.append(f"{name}.{leaf}")
+    return {"sketch_launches": launches, "sketch_sync_ms": sync_ms, "sketch_collectives": collectives,
+            "sketch_buckets": [(b.dtype, b.op, [s.name for s in b.slots]) for b in plan.buckets],
+            "sketch_passthrough": [name for _, name, _ in plan.passthrough], "sketch_unequal": unequal,
+            "sketch_values": {k: float(v) for k, v in col.compute_states(synced).items()}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--json", help="also write the full record to this file")
@@ -6438,6 +7192,8 @@ def main() -> int:
         "bert_greedy_match": "torchmetrics_tpu_torch/csrc/bert_match.cu",
         "mask_iou": "torchmetrics_tpu_torch/csrc/mask_iou.cu",
         "poly_mmd": "torchmetrics_tpu_torch/csrc/poly_mmd.cu",
+        "quantile_hist": "torchmetrics_tpu_torch/csrc/quantile_hist.cu",
+        "hll_insert": "torchmetrics_tpu_torch/csrc/hll.cu",
     }
     replaces = {
         "binned_confmat_multiclass": "torchmetrics_tpu/functional/classification/precision_recall_curve.py:128",
@@ -6456,6 +7212,8 @@ def main() -> int:
         "bert_greedy_match": "torchmetrics_tpu/functional/text/bert.py:234",
         "mask_iou": "torchmetrics_tpu/detection/mean_ap.py:65",
         "poly_mmd": "torchmetrics_tpu/functional/image/generative.py:60",
+        "quantile_hist": "torchmetrics_tpu/classification/precision_recall_curve.py:110",
+        "hll_insert": "torchmetrics_tpu/text/distinct.py:83",
     }
 
     seconds = {}
@@ -6488,6 +7246,8 @@ def main() -> int:
     kernel_rows["bert_greedy_match"] = timed("phase 3 bert_greedy_match", phase_bert_kernel, flush)
     kernel_rows["mask_iou"] = timed("phase 3 mask_iou", phase_mask_iou_kernel, flush)
     kernel_rows["poly_mmd"] = timed("phase 3 poly_mmd", phase_poly_mmd_kernel, flush)
+    kernel_rows["quantile_hist"] = timed("phase 3 quantile_hist", phase_quantile_hist_kernel, flush)
+    kernel_rows["hll_insert"] = timed("phase 3 hll_insert", phase_hll_kernel, flush)
     del flush
     main = timed("phase 4", phase_main_path, kernels)
     sync = timed("phase 5", phase_sync)
@@ -6502,6 +7262,7 @@ def main() -> int:
     detection = timed("phase 14", phase_detection)
     generative = timed("phase 15", phase_generative)
     wrapped = timed("phase 16", phase_multimodal_wrappers)
+    sketches = timed("phase 17", phase_sketches)
     kernel_rows["pairwise_lp"] += [{"case": f"Market-1501 {name} (phase 11)", "max_abs_err": entry["max_abs_err"]}
                                    for name, entry in contingency["market"]["calls"].items() if "max_abs_err" in entry]
 
@@ -6529,8 +7290,12 @@ def main() -> int:
         "bert_greedy_match": {"text bertscore": text["bertscore"]["launches"]["bert_greedy_match"]},
         "mask_iou": {"detection segm": detection["segm"]["launches"]["mask_iou"]},
         "poly_mmd": {"generative cifar": generative["cifar"]["launches"]["poly_mmd"]},
+        "quantile_hist": {f"sketches {leg}": sketches[leg]["launches"]["quantile_hist"]
+                          for leg in ("imagenet", "coco", "binary", "requires_grad")},
+        "hll_insert": {"sketches distinct": sketches["distinct"]["launches"]["hll_insert"]},
     }
     by_path["coco_match"]["detection segm"] = detection["segm"]["launches"]["coco_match"]
+    by_path["coco_match"]["sketches map"] = sketches["map"]["launches"]["coco_match"]
     by_path["poly_mmd"]["wrappers featureshare"] = wrapped["featureshare"]["launches"]["poly_mmd"]
     by_path["confmat_multiclass"]["wrappers short leg"] = wrapped["short"]["launches"]["confmat_multiclass"]
     by_path["confmat_multiclass"]["detection panoptic"] = detection["panoptic"]["launches"]["confmat_multiclass"]
@@ -6559,7 +7324,8 @@ def main() -> int:
             **{k: first_row[k] for k in ("two_call_ms", "bucketize_bincount_ms", "softmax_bucketize_bincount_ms",
                                          "sort_gather_cumsum_ms", "query_layout_ms", "sort_cumsum_segment_ms",
                                          "conv_ssim_yardstick_ms", "bincount_yardstick_ms", "chain_bound_ms",
-                                         "least_chain_ms", "library_float64_ms", "bmm_amax_yardstick_ms")
+                                         "least_chain_ms", "library_float64_ms", "bmm_amax_yardstick_ms",
+                                         "floor_index_add_yardstick_ms", "scatter_amax_yardstick_ms")
                if k in first_row},
         })
     if args.json:
@@ -6568,7 +7334,8 @@ def main() -> int:
                        "kernels": kernel_rows, "main_path": main,
                        "sync": sync, "ragged": ragged, "tower": tower, "curves": curves, "rest": rest,
                        "signal": signal, "contingency": contingency, "audio": audio, "text": text,
-                       "detection": detection, "generative": generative, "multimodal_wrappers": wrapped}, f,
+                       "detection": detection, "generative": generative, "multimodal_wrappers": wrapped,
+                       "sketches": sketches}, f,
                       indent=1)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}}))

@@ -163,8 +163,10 @@ def test_task_wrapper_and_auroc_exact_refused():
     assert isinstance(tc.AveragePrecision(task="binary", device="cpu"), tc.BinaryAveragePrecision)
     with pytest.raises(ValueError, match="not supported"):
         tc.AveragePrecision(task="ranking", device="cpu")
-    # the exact AUROC is ported; its sketch layout is what stays refused
+    # the exact AUROC and its sketch layout are ported; explicit thresholds beside approx="sketch" stay refused
     exact = tc.MulticlassAUROC(num_classes=3, thresholds=None, device="cpu")
     assert {exact._reductions[k].value for k in ("preds", "target", "weight")} == {"cat"}
-    with pytest.raises(ValueError, match="approx"):
-        tc.MulticlassAUROC(num_classes=3, thresholds=None, approx="sketch", device="cpu")
+    sketch = tc.MulticlassAUROC(num_classes=3, thresholds=None, approx="sketch", device="cpu")
+    assert sketch._defaults["score_hist"].shape == (3, 2, 201) and sketch._reductions["score_hist"].bucket_op == "sum"
+    with pytest.raises(ValueError, match="thresholds"):
+        tc.MulticlassAUROC(num_classes=3, thresholds=10, approx="sketch", device="cpu")

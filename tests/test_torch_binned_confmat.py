@@ -180,10 +180,11 @@ def test_multiclass_pr_curve_parity():
 
 
 def test_exact_layout_not_ported():
-    # the exact layout is ported (cat states); its sketch replacement is not
+    # the exact layout is ported (cat states), and its sketch replacement; the sketch refuses explicit thresholds
     assert "confmat" not in tc.MulticlassAUROC(num_classes=C, device="cpu")._defaults
-    with pytest.raises(ValueError, match="approx"):
-        tc.MulticlassAUROC(num_classes=C, approx="sketch", device="cpu")
+    assert set(tc.MulticlassAUROC(num_classes=C, approx="sketch", device="cpu")._defaults) == {"score_hist"}
+    with pytest.raises(ValueError, match="thresholds"):
+        tc.MulticlassAUROC(num_classes=C, thresholds=20, approx="sketch", device="cpu")
     with pytest.raises(ValueError):
         tc.MulticlassAUROC(num_classes=C, thresholds=1, device="cpu")
     with pytest.raises(ValueError):

@@ -276,8 +276,11 @@ def test_wrapper_collection_and_pickle():
     assert type(tc.CalibrationError(task="multiclass", num_classes=3, **CPU)) is tc.MulticlassCalibrationError
     with pytest.raises(ValueError, match="not supported"):
         tc.CalibrationError(task="multilabel", **CPU)
-    with pytest.raises(ValueError, match="not supported by the PyTorch port"):
-        tc.BinaryCalibrationError(approx="sketch", **CPU)
+    # sketch mode is ported (a 200-bin grid of float32 leaves); an approx_error past 0.5 stays refused, as in JAX
+    sketch = tc.BinaryCalibrationError(approx="sketch", **CPU)
+    assert sketch.n_bins == 200 and sketch._defaults["count"].dtype == torch.float32
+    with pytest.raises(ValueError, match="approx_error"):
+        tc.BinaryCalibrationError(approx="sketch", approx_error=0.7, **CPU)
     kw = {"num_classes": C, "n_bins": 10}
     jcoll = jcol.MetricCollection({n: jc.MulticlassCalibrationError(norm=n, **kw) for n in ("l1", "l2", "max")})
     tcoll = tcol.MetricCollection({n: tc.MulticlassCalibrationError(norm=n, **kw, **CPU) for n in ("l1", "l2", "max")})

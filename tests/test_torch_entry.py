@@ -218,7 +218,8 @@ def test_metric_device_contract():
     assert tc.MulticlassAccuracy(num_classes=C, device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kwarg", ["sync_on_compute", "jit", "nan_strategy", "approx", "axis_name", "process_group"])
+@pytest.mark.parametrize("kwarg", ["sync_on_compute", "jit", "nan_strategy", "compute_on_cpu", "axis_name",
+                                   "process_group"])
 def test_unported_base_kwargs_raise(kwarg):
     with pytest.raises(ValueError, match="not supported by the PyTorch port"):
         tc.MulticlassAccuracy(num_classes=C, device="cpu", **{kwarg: None})
@@ -281,7 +282,8 @@ KERNEL_SITES = {"calibration": "classification", "ranking": "classification", "b
                 "retrieval": "retrieval", "ssim": "image", "segmentation": "segmentation", "pairwise": "pairwise",
                 "snr_moments": "audio", "sdr_toeplitz": "audio", "perplexity": "text", "bert_match": "text",
                 "poly_mmd": "image"}
-KERNEL_DETECTION_SITES = {"mask_iou": "detection/mean_ap.py"}  # a site outside ``functional/``
+KERNEL_DETECTION_SITES = {"mask_iou": "detection/mean_ap.py",  # sites outside ``functional/``
+                          "quantile_hist": "classification/precision_recall_curve.py", "hll": "text/distinct.py"}
 CONTINGENCY_SLICE = tuple(f"{pkg}.{m}" for pkg, mods in (
     ("segmentation", ("mean_iou", "generalized_dice")), ("functional.segmentation", ("mean_iou", "generalized_dice")),
     ("clustering", ("extrinsic", "intrinsic")), ("functional.clustering", ("extrinsic", "intrinsic", "utils")),
@@ -304,6 +306,8 @@ MULTIMODAL_WRAPPERS_SLICE = ("multimodal", "multimodal.clip_score", "multimodal.
                              *(f"wrappers.{m}" for m in ("abstract", "bootstrapping", "classwise", "feature_share",
                                                          "minmax", "multioutput", "multitask", "running", "tracker",
                                                          "transformations")))
+SKETCH_SLICE = ("sketches", "sketches.cardinality", "sketches.quantile", "sketches.reservoir", "kernels.quantile_hist",
+                "kernels.hll")
 
 
 def test_isolation_covers_every_new_module():
@@ -315,13 +319,13 @@ def test_isolation_covers_every_new_module():
                  "kernels.calibration", "kernels.ranking", "kernels.binned_multilabel",
                  *(f"{pkg}.{m}" for m in REST_OF_CLASSIFICATION for pkg in ("classification", "functional.classification")),
                  *SIGNAL_SLICE, *CONTINGENCY_SLICE, *AUDIO_SLICE, *TEXT_SLICE, *DETECTION_GENERATIVE_SLICE,
-                 *MULTIMODAL_WRAPPERS_SLICE):
+                 *MULTIMODAL_WRAPPERS_SLICE, *SKETCH_SLICE):
         assert f"torchmetrics_tpu_torch.{name}" in modules
 
 
 @pytest.mark.parametrize("source", ["calibration", "ranking", "binned_multilabel", "retrieval", "ssim", "segmentation",
                                     "pairwise", "snr_moments", "sdr_toeplitz", "perplexity", "bert_match", "mask_iou",
-                                    "poly_mmd"])
+                                    "poly_mmd", "quantile_hist", "hll"])
 def test_kernel_sources_are_plain_cuda_with_a_c_interface(source):
     """The kernels build with nvcc alone and bind through ctypes: no PyTorch, JAX or Python headers (the CUDA
     toolkit's own, cooperative groups' thread-block clusters among them, and two C++ ones)."""

@@ -17,15 +17,18 @@ import torch
 
 from torchmetrics_tpu_torch.kernels import bert_match as kbm
 from torchmetrics_tpu_torch.kernels import confmat as kcm
+from torchmetrics_tpu_torch.kernels import hll as khll
 from torchmetrics_tpu_torch.kernels import mask_iou as kmi
 from torchmetrics_tpu_torch.kernels import pairwise as kpw
 from torchmetrics_tpu_torch.kernels import perplexity as kppl
 from torchmetrics_tpu_torch.kernels import poly_mmd as kpm
+from torchmetrics_tpu_torch.kernels import quantile_hist as kqh
 from torchmetrics_tpu_torch.kernels import retrieval as krt
 from torchmetrics_tpu_torch.kernels import sdr_toeplitz as ksdr
 from torchmetrics_tpu_torch.kernels import snr_moments as ksnr
 from torchmetrics_tpu_torch.kernels import segmentation as kseg
 from torchmetrics_tpu_torch.kernels import ssim as kss
+from torchmetrics_tpu_torch.text import distinct
 
 REPO = Path(__file__).resolve().parent.parent
 CSRC = REPO / "torchmetrics_tpu_torch" / "csrc"
@@ -258,6 +261,7 @@ _BUILDS += [("bert_match", "BERT_VARIANTS", name, edits) for name, (edits, _) in
 _BUILDS += [("confmat", "CONFMAT_VARIANTS", name, edits)
             for name, (edits, *_) in _ABLATION.CONFMAT_VARIANTS.items()]
 _BUILDS += [("poly_mmd", "POLY_VARIANTS", name, edits) for name, (edits, *_) in _ABLATION.POLY_VARIANTS.items()]
+_BUILDS += [("quantile_hist", "QH_VARIANTS", name, edits) for name, edits in _ABLATION.QH_VARIANTS.items()]
 
 
 @pytest.mark.parametrize(("source", "table", "name", "edits"), _BUILDS,
@@ -380,6 +384,49 @@ def test_detection_and_generative_kernels_call_no_library(source):
 
 @pytest.mark.parametrize(("module", "public"), [(kmi, "mask_iou"), (kpm, "poly_mmd")], ids=["mask_iou", "poly_mmd"])
 def test_detection_and_generative_launchers_do_not_fall_back(module, public):
+    """A CUDA tensor launches the kernel or raises: the launcher holds no ``try`` and never calls the plain version."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(module))
+    assert not [node for node in ast.walk(tree) if isinstance(node, ast.Try)]
+    fn = next(node for node in tree.body if isinstance(node, ast.FunctionDef) and node.name == public)
+    calls = {node.func.id for node in ast.walk(fn) if isinstance(node, ast.Call) and isinstance(node.func, ast.Name)}
+    assert not [c for c in calls if c.endswith("_plain")]
+
+
+@pytest.mark.parametrize(("module", "python", "kernel"), [
+    (kqh, "THREADS", "kThreads"), (kqh, "UNROLL", "kUnroll"), (khll, "THREADS", "kThreads"), (khll, "SHARED_PRECISION", "kSharedPrecision"),
+], ids=lambda v: v if isinstance(v, str) else v.SOURCE)
+def test_sketch_constants_are_the_kernels(module, python, kernel):
+    assert getattr(module, python) == _constant(_source(module.SOURCE), kernel)
+
+
+def test_sketch_sources_match_their_launchers():
+    qh, hl = _source("quantile_hist"), _source("hll")
+    # quantile_hist: 48 KB of counts a block, JAX's cell rule without a fused multiply-add, int32 counts flushed
+    # into the float32 state by one atomic a non-zero count
+    assert "constexpr int kSharedBytes = 48 * 1024;" in qh and kqh.SHARED_BYTES == 48 * 1024
+    assert "floorf(__fmul_rn(__fsub_rn(v, lo), scale))" in qh
+    assert "if (v != 0) atomicAdd(out + i, static_cast<float>(v));" in qh
+    assert "chunks > 65535" in qh and kqh.MAX_CHUNKS == 65_535
+    # hll: the key chain's salts, the HLL seed's mix, clz of the rest, the last block's total and reset
+    assert "h = mix32(static_cast<uint32_t>(t) + h, 0x9E3779B9u * static_cast<uint32_t>(k + 1));" in hl
+    assert distinct.KEY_SALT == 0x9E3779B9
+    assert "const int rank = rest == 0 ? 33 - a.precision : __clz(rest) + 1;" in hl
+    assert "a.total_out[0] = __fadd_rn(a.total_in[0], __ull2float_rn(count));" in hl
+    assert "*a.acc = 0;" in hl and "*a.ticket = 0;" in hl
+
+
+@pytest.mark.parametrize("source", ["quantile_hist", "hll"])
+def test_sketch_kernels_call_no_library(source):
+    code = "\n".join(line.split("//")[0] for line in _source(source).splitlines())
+    assert not [name for name in LIBRARY_CALLS if name in code.lower()]
+
+
+@pytest.mark.parametrize(("module", "public"), [(kqh, "quantile_hist"), (khll, "hll_insert")],
+                         ids=["quantile_hist", "hll_insert"])
+def test_sketch_launchers_do_not_fall_back(module, public):
     """A CUDA tensor launches the kernel or raises: the launcher holds no ``try`` and never calls the plain version."""
     import ast
     import inspect

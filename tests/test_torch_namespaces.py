@@ -44,6 +44,7 @@ NAMESPACES = [
     "torchmetrics_tpu.regression",
     "torchmetrics_tpu.retrieval",
     "torchmetrics_tpu.segmentation",
+    "torchmetrics_tpu.sketches",
     "torchmetrics_tpu.text",
     "torchmetrics_tpu.utilities",
     "torchmetrics_tpu.wrappers",

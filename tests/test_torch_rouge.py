@@ -90,5 +90,7 @@ def test_single_strings_empty_and_bad_args():
         ROUGEScore(rouge_keys="rouge10", device="cpu")
     with pytest.raises(ValueError):
         ROUGEScore(accumulate="sum", device="cpu")
-    with pytest.raises(ValueError, match="not supported"):
-        ROUGEScore(approx="reservoir", device="cpu")
+    # the reservoir is ported; a sample size below 1 stays refused, as in JAX
+    assert set(ROUGEScore(approx="reservoir", device="cpu")._defaults) == {"corpus_sample", "samples_total"}
+    with pytest.raises(ValueError, match="sample_size"):
+        ROUGEScore(approx="reservoir", sample_size=0, device="cpu")

@@ -221,8 +221,10 @@ def test_bleu_errors_and_empty():
         tft.sacre_bleu_score(["a"], [["a"]], tokenize="nope")
     with pytest.raises(ValueError, match="tokenize"):
         tt.SacreBLEUScore(tokenize="nope", **CPU)
-    with pytest.raises(ValueError, match="not supported by the PyTorch port"):
-        tt.BLEUScore(approx="reservoir", **CPU)
+    # the reservoir is ported; an unknown approx mode stays refused, as in JAX
+    assert set(tt.BLEUScore(approx="reservoir", **CPU)._defaults) == {"corpus_sample", "samples_total"}
+    with pytest.raises(ValueError, match="approx"):
+        tt.BLEUScore(approx="sketchy", **CPU)
 
 
 @pytest.mark.parametrize("cls", ["BLEUScore", "SacreBLEUScore"])
@@ -677,8 +679,10 @@ def test_distinct_ngrams(ngram, ignore_index):
 
 
 def test_distinct_errors():
-    with pytest.raises(ValueError, match="not supported by the PyTorch port"):
-        tt.DistinctNGrams(approx="sketch", **CPU)
+    # the HyperLogLog mode is ported; approx_error without approx stays refused, as in JAX
+    assert tt.DistinctNGrams(approx="sketch", **CPU)._defaults["registers"].shape == (2048,)
+    with pytest.raises(ValueError, match="approx_error"):
+        tt.DistinctNGrams(approx_error=0.01, **CPU)
     with pytest.raises(ValueError, match="ngram"):
         tt.DistinctNGrams(0, **CPU)
     with pytest.raises(ValueError, match="at least 3"):

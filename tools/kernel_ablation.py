@@ -3,11 +3,12 @@
 ``binned_confmat_multilabel``'s label-group width, ``calibration_bins``' design choices,
 ``retrieval_groups``' counting threshold, ``ssim_window``'s tile and blocking, ``pairwise_lp``'s
 tiles, staging and float form, ``sdr_toeplitz``'s step and block, ``snr_moments``' loads and merge,
-``bert_greedy_match``'s, ``confmat_multiclass``' and ``poly_mmd``'s redesigns against the kernels before them.
+``bert_greedy_match``'s, ``confmat_multiclass``' and ``poly_mmd``'s redesigns against the kernels before them,
+and the loads ``quantile_hist`` keeps in flight.
 
     python3 tools/kernel_ablation.py [--sections ranking,multilabel,calibration,calibration-widths,retrieval,
                                                   retrieval-occupancy,retrieval-builds,retrieval-fault,ssim,
-                                                  pairwise,sdr,snr,bert,confmat,poly_mmd]
+                                                  pairwise,sdr,snr,bert,confmat,poly_mmd,quantile_hist]
                                      [--parent CHECKOUT] [--fault-builds NAMES] [--fault-trials N]
                                      [--sass PATH] [--json PATH]
 
@@ -136,6 +137,11 @@ commit's kernel with its own plan. Each checked build is held equal to the plain
 3's (a) ImageNet-1k batch, (b) Cityscapes batch, (c) nominal's 1,024 labels at C = 42 and (d)
 clustering's 50,000 at C = 1,000, timed after a flush in two turns and back to back, and each rows
 build's order of loads, shuffles and atomics is printed from ``cuobjdump -sass``.
+
+QUANTILE_HIST: ``csrc/quantile_hist.cu`` built with 1, 2, 4, 8 (shipped) and 16
+entries a thread loaded before it counts any (``kUnroll``), each timed by its C
+entry after a flush at phase 3's three timed cases and the MS-COCO set in one
+launch, under phase 3's check (the state equal to the plain version's).
 
 POLY_MMD: ``csrc/poly_mmd.cu`` built as shipped and with one change each: the
 accumulators promoted every chunk or never (the tensor cores' float32 sums,
@@ -2073,11 +2079,65 @@ def _poly(flush: torch.Tensor, parent) -> dict:
     return rows
 
 
+_QH_UNROLL = "constexpr int kUnroll = 8;  // entries a thread loads before it counts any"
+QH_VARIANTS = {  # name: the source text replaced in csrc/quantile_hist.cu; "shipped" first
+    "shipped (kUnroll 8)": [],
+    **{f"kUnroll {u}": [(_QH_UNROLL, _QH_UNROLL.replace("= 8;", f"= {u};"))] for u in (1, 2, 4, 16)},
+}
+QH_CASES = (("(a) ImageNet-1k batch", cs.BATCH, cs.N_CLASSES, "multiclass"),
+            ("(b) MS-COCO batch", cs.COCO_ML_BATCH, cs.COCO_ML_LABELS, "multilabel"),
+            ("(c) binary batch", cs.BATCH, 1, "binary"),
+            ("the MS-COCO set in one launch", cs.COCO_ML_IMAGES, cs.COCO_ML_LABELS, "multilabel"))
+
+
+def _quantile_hist(flush: torch.Tensor, gen: torch.Generator) -> dict:
+    """Every variant of ``quantile_hist`` (``QH_VARIANTS``) at ``QH_CASES``, through its C entry with the launcher's
+    plan, timed after a flush; each state held equal to the plain version's first."""
+    from torchmetrics_tpu_torch.kernels import quantile_hist as kqh
+    from torchmetrics_tpu_torch.sketches import QuantileSketch
+
+    grid = QuantileSketch(cs.SKETCH_BINS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        builds = _edited_builds("quantile_hist", {k: (v, []) for k, v in QH_VARIANTS.items()}, workdir)
+        for name, (_, report) in builds.items():
+            print(f"[quantile_hist] {name}: {report}", flush=True)
+        for label, n, k, task in QH_CASES:
+            scores, target, weights, hist = cs._qh_case(gen, n, k, task, grid)
+            want = kqh._quantile_hist_plain(hist, scores, target, weights, grid)
+            pl = kqh.plan(n, k, grid.bins + 1, sms)
+            stream = torch.cuda.current_stream().cuda_stream
+            line = {}
+            for name, (lib, _) in builds.items():
+                fn = lib.quantile_hist_launch
+                pp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+                fn.argtypes = [pp, pp, pp, pp, ll, i, i, f, f, i, i, ll, i, i, pp]
+                fn.restype = ctypes.c_int
+
+                def call(h, fn=fn):
+                    err = fn(scores.data_ptr(), target.data_ptr(), weights.data_ptr(), h.data_ptr(), n, k, grid.bins,
+                             float(grid.lo), float(grid.scale), int(task == "multiclass"), pl.slice,
+                             pl.rows_per_chunk, pl.chunks, int(pl.shared), stream)
+                    cs.check(err == 0, f"quantile_hist {name}: CUDA error {err}")
+
+                got = hist.clone()
+                call(got)
+                torch.cuda.synchronize()
+                cs.check(torch.equal(got, want), f"quantile_hist {name} differs from plain at {label}")
+                timed = hist.clone()
+                line[name] = cs.time_ms(lambda: call(timed), flush)
+            rows[label] = {"plan": pl._asdict(), "ms": line}
+            print(f"[quantile_hist] {label} {task} ({n}, {k}), plan {tuple(pl)}: "
+                  + ", ".join(f"{name} {ms * 1e3:.2f} us" for name, ms in line.items()), flush=True)
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--sections",
                         default="ranking,multilabel,calibration,calibration-widths,retrieval,retrieval-occupancy,"
-                                "retrieval-builds,ssim,pairwise,sdr,snr,bert,confmat,poly_mmd",
+                                "retrieval-builds,ssim,pairwise,sdr,snr,bert,confmat,poly_mmd,quantile_hist",
                         help="comma-separated sections to run")
     parser.add_argument("--parent", help="a checkout of the commit before the redesign of the sections run "
                                           f"(calibration: {PARENT_COMMIT}; pairwise: {PAIRWISE_PARENT}; sdr, snr: "
@@ -2127,6 +2187,8 @@ def main() -> int:
         record["confmat"] = _confmat(flush, args.parent)
     if "poly_mmd" in sections:
         record["poly_mmd"] = _poly(flush, args.parent)
+    if "quantile_hist" in sections:
+        record["quantile_hist"] = _quantile_hist(flush, gen)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(record, f, indent=1)

@@ -4,8 +4,12 @@ The state is the binned sufficient statistics, ``sum``-reduced: ``conf_sum``
 float32, ``acc_sum`` and ``count`` int32, each ``(n_bins + 1,)``. An update
 on the card is one launch of the ``calibration_bins`` kernel
 (``functional.classification.calibration_error._calibration_accumulate``).
-The JAX package's sketch mode (``approx="sketch"``) is refused, as every
-``approx`` is in the port so far.
+With ``approx="sketch"`` the grid is sized by
+``QuantileSketch.for_error(approx_error)`` (200 bins by default; the kernel
+takes at most 1,023, so an ``approx_error`` below 1/1,023 raises on the card),
+the three leaves are float32 and carry the sketch's sum
+spec, as in the JAX package; the kernel still computes the update, and its
+int32 counts of the batch are added into the float leaves.
 
 Example::
 
@@ -31,6 +35,7 @@ from torchmetrics_tpu_torch.functional.classification.calibration_error import (
     _ce_compute_from_bins,
     _ce_validate,
 )
+from torchmetrics_tpu_torch.sketches.quantile import QuantileSketch
 
 
 class _CalibrationErrorBase(Metric):
@@ -43,22 +48,35 @@ class _CalibrationErrorBase(Metric):
     #: the class count of a row of scores; None for binary scores
     _rows_of: Optional[int] = None
 
+    #: QuantileSketch when ``approx="sketch"`` sized the confidence grid
+    _sketch: Optional[QuantileSketch] = None
+
     def _init_bins(self, n_bins: int, norm: str) -> None:
         if norm not in ("l1", "l2", "max"):
             raise ValueError(f"Argument `norm` is expected to be one of ('l1', 'l2', 'max') but got {norm}")
         _ce_validate(n_bins)
         self.norm = norm
+        spec = "sum"
+        if self.approx == "sketch":  # the binned state is a fixed-grid sketch: size the grid from the bound
+            self._sketch = QuantileSketch.for_error(self.approx_error)
+            n_bins = self._sketch.bins
+            spec = self._sketch.reduce_spec
         self.n_bins = n_bins
-        # n_bins + 1: the last bin holds conf == 1.0 exactly; the counts are int32
-        counts = torch.zeros(n_bins + 1, dtype=torch.int32)
-        self.add_state("conf_sum", torch.zeros(n_bins + 1, dtype=torch.float32), dist_reduce_fx="sum")
-        self.add_state("acc_sum", counts, dist_reduce_fx="sum", value_range=(0.0, float("inf")))
-        self.add_state("count", counts, dist_reduce_fx="sum", value_range=(0.0, float("inf")))
+        # n_bins + 1: the last bin holds conf == 1.0 exactly; the counts are int32, float32 in sketch mode
+        counts = torch.zeros(n_bins + 1, dtype=torch.int32 if self._sketch is None else torch.float32)
+        self.add_state("conf_sum", torch.zeros(n_bins + 1, dtype=torch.float32), dist_reduce_fx=spec)
+        self.add_state("acc_sum", counts, dist_reduce_fx=spec, value_range=(0.0, float("inf")))
+        self.add_state("count", counts, dist_reduce_fx=spec, value_range=(0.0, float("inf")))
 
     def _update(self, state: State, preds: Tensor, target: Tensor) -> State:
         old = (state["conf_sum"], state["acc_sum"], state["count"])
+        if self._sketch is not None:  # the batch's int32 counts, then added into the float leaves
+            zero = torch.zeros_like(old[1], dtype=torch.int32)
+            old = (old[0], zero, zero)
         new = _calibration_accumulate(old, self._tensor(preds), self._tensor(target), self._rows_of,
                                       self.ignore_index)
+        if self._sketch is not None:
+            new = (new[0], state["acc_sum"] + new[1].to(torch.float32), state["count"] + new[2].to(torch.float32))
         return dict(zip(("conf_sum", "acc_sum", "count"), new))
 
     def _compute(self, state: State) -> Tensor:

@@ -10,8 +10,14 @@ tensor, ``(T, 2, 2)``, ``(T, C, 2, 2)`` or ``(T, L, 2, 2)``, ``sum``-reduced,
 which one call of a hand CUDA kernel updates on the card:
 ``binned_confmat_multiclass`` (``csrc/binned_confmat.cu``) for the
 multiclass task, ``binned_confmat_multilabel`` (``csrc/binned_multilabel.cu``)
-for the other two. The sketch layout
-(``approx="sketch"``) waits for a later slice.
+for the other two. With ``approx="sketch"`` the state is a fixed-grid
+(negative, positive) histogram pair ``score_hist``, float32 ``(2, bins + 1)``,
+``(C, 2, bins + 1)`` or ``(L, 2, bins + 1)``
+(:class:`~torchmetrics_tpu_torch.sketches.QuantileSketch`, ``bins`` from
+``approx_error``, 200 by default), which one launch of the ``quantile_hist``
+kernel (``csrc/quantile_hist.cu``) adds each batch into, in place, on the card;
+the curves are computed at the grid's edges, every point on the exact curve.
+Explicit ``thresholds`` with ``approx="sketch"`` raise, as in the JAX package.
 
 Example::
 
@@ -49,6 +55,8 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _sort_thresholds,
     _validate_thresholds,
 )
+from torchmetrics_tpu_torch.kernels.quantile_hist import _quantile_hist_plain, quantile_hist
+from torchmetrics_tpu_torch.sketches.quantile import QuantileSketch
 from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
 
 # the kwargs the curve task wrapper drops before it builds the task's class, as the JAX wrapper does
@@ -59,11 +67,28 @@ CURVE_DROPS = {
 }
 
 
+def _sketch_accumulate(hist: Tensor, p: Tensor, t: Tensor, w: Tensor, sketch: QuantileSketch) -> Tensor:
+    """The curve histogram pair after one formatted batch.
+
+    On the card it is one ``quantile_hist`` launch, which adds into ``hist``
+    in place (the curve formats' weights are 0/1, the kernel's contract); a
+    CPU state takes the plain version, out of place. The scores only choose a
+    cell, so the histogram carries no gradient: scores that require grad are
+    detached and take the same route.
+    """
+    p = p.detach()
+    if hist.device.type == "cpu":
+        return _quantile_hist_plain(hist, p, t, w, sketch)
+    return quantile_hist(hist, p.contiguous(), t.contiguous(), w.contiguous(), sketch)
+
+
 class _CurveBase(Metric):
-    """Shared state handling for the curve metrics (exact and binned layouts).
+    """Shared state handling for the curve metrics (exact, binned and sketch layouts).
 
     A subclass sets ``_format`` (the batch formatting of its task) and
-    ``_accumulate_binned`` (its binned state update).
+    ``_accumulate_binned`` (its binned state update). In sketch mode the
+    thresholds are the sketch's edges, so every binned ``_compute`` applies
+    to the projected histogram unchanged.
     """
 
     is_differentiable = False
@@ -71,8 +96,25 @@ class _CurveBase(Metric):
     full_state_update = False
     _device_attrs = ("thresholds", "_thresholds_sorted", "_thresholds_order")
 
+    #: QuantileSketch when ``approx="sketch"`` replaced the cat states
+    _sketch: Optional[QuantileSketch] = None
+
     def _init_curve_state(self, thresholds: Union[int, Sequence[float], Tensor], confmat_shape: Tuple[int, ...]) -> None:
         self.thresholds = _adjust_threshold_arg(thresholds, self.device)
+        if self.approx == "sketch":
+            if self.thresholds is not None:
+                raise ValueError(
+                    "approx='sketch' replaces the unbounded thresholds=None state; explicit "
+                    "`thresholds` are already a bounded binned state: drop one of the two"
+                )
+            self._sketch = QuantileSketch.for_error(self.approx_error)
+            self.thresholds = self._sketch.edges_on(self.device)
+            self._thresholds_sorted = self._thresholds_order = None
+            # the kernel adds into the histogram in place (update_state's contract for these leaves)
+            self._inplace_leaves = ("score_hist",)
+            self.add_state("score_hist", self._sketch.init((*confmat_shape, 2)),
+                           dist_reduce_fx=self._sketch.reduce_spec)
+            return
         if self.thresholds is None:
             self._thresholds_sorted = self._thresholds_order = None
             for name in ("preds", "target", "weight"):
@@ -89,6 +131,8 @@ class _CurveBase(Metric):
 
     def _update(self, state: State, preds: Tensor, target: Tensor) -> State:
         p, t, w = self._format(self._tensor(preds), self._tensor(target))
+        if self._sketch is not None:
+            return {"score_hist": _sketch_accumulate(state["score_hist"], p, t, w, self._sketch)}
         if self.thresholds is None:
             return {"preds": state["preds"] + (p,), "target": state["target"] + (t,), "weight": state["weight"] + (w,)}
         sorted_thresholds = (self._thresholds_sorted, self._thresholds_order)
@@ -96,6 +140,11 @@ class _CurveBase(Metric):
 
     def _exact_state(self, state: State) -> Tuple[Tensor, Tensor, Tensor]:
         return dim_zero_cat(state["preds"]), dim_zero_cat(state["target"]), dim_zero_cat(state["weight"])
+
+    def compute_state(self, state: State) -> Any:
+        if self._sketch is not None:  # the histogram pair as the binned confusion layout at the edges
+            state = {**state, "confmat": self._sketch.curve_confmat(state["score_hist"])}
+        return super().compute_state(state)
 
 
 class BinaryPrecisionRecallCurve(_CurveBase):

@@ -25,7 +25,11 @@ sums or distance list), BLEU's and SacreBLEU's numerator, denominator and
 lengths, chrF's count arrays and sentence list, EED's sentence list, TER's and
 SQuAD's sums, Perplexity's ``total_log_probs`` and ``count``, BERTScore's
 four cat lists of int32 ids and masks, InfoLM's score list and
-``DistinctNGrams``' n-gram rows and total.
+``DistinctNGrams``' n-gram rows and total, and every sketch leaf of the
+``approx`` modes (``torchmetrics_tpu_torch.sketches``): the curves' float32
+``score_hist``, calibration's float32 bins, mAP's histograms and counters,
+``DistinctNGrams``' int32 HyperLogLog registers and the reservoirs of BLEU,
+SacreBLEU and ROUGE with their int32 ``samples_total``.
 :func:`collection_states_from_jax` does it for every member state of a
 ``MetricCollection`` (``{leader name: state}``).
 

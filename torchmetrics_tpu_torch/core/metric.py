@@ -42,7 +42,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.core.reductions import Reduce, canonical_reduce, merge_leaf
+from torchmetrics_tpu_torch.core.reductions import Reduce, SketchReduce, canonical_reduce, merge_leaf
 from torchmetrics_tpu_torch.utilities.data import resolve_device, to_tensor
 from torchmetrics_tpu_torch.utilities.exceptions import StateRestoreError
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
@@ -51,8 +51,8 @@ State = Dict[str, Any]
 
 _N = "_n"  # reserved state key: int32 update counter, sum-merged
 
-# ctor kwargs of the JAX base that drive sync, compilation, non-finite guards
-# or approximate states; this port has none of them yet, so each is refused
+# ctor kwargs of the JAX base that drive sync, compilation or non-finite
+# guards; this port has none of them yet, so each is refused
 UNPORTED_BASE_KWARGS = frozenset(
     {
         "sync_on_compute",
@@ -64,14 +64,30 @@ UNPORTED_BASE_KWARGS = frozenset(
         "distributed_available_fn",
         "process_group",
         "compute_on_cpu",
-        "approx",
-        "approx_error",
     }
 )
 
 # every ctor kwarg of the base, the refused ones too: wrappers that forward leftover kwargs elsewhere
 # (``PermutationInvariantTraining``) split on this set
-METRIC_BASE_KWARGS = frozenset({"device", "compute_with_cache"}) | UNPORTED_BASE_KWARGS
+METRIC_BASE_KWARGS = frozenset({"device", "compute_with_cache", "approx", "approx_error"}) | UNPORTED_BASE_KWARGS
+
+#: approximation modes a metric may opt into: ``"sketch"`` replaces cat states
+#: with fixed-shape mergeable summaries (histograms, HyperLogLog registers),
+#: ``"reservoir"`` keeps a deterministic bottom-k-by-hash corpus sample
+APPROX_MODES = (None, "sketch", "reservoir")
+
+
+def _validate_approx(approx: Optional[str], approx_error: Optional[float]) -> Tuple[Optional[str], Optional[float]]:
+    """Shared ctor/``set_approx`` validation of the approximation config."""
+    if approx not in APPROX_MODES:
+        raise ValueError(f"Arg `approx` must be None, 'sketch' or 'reservoir', got {approx!r}")
+    if approx_error is not None:
+        if approx is None:
+            raise ValueError("`approx_error` requires `approx='sketch'` or `approx='reservoir'`")
+        approx_error = float(approx_error)
+        if not (0.0 < approx_error <= 0.5):
+            raise ValueError(f"`approx_error` must be in (0, 0.5], got {approx_error}")
+    return approx, approx_error
 
 
 def _copy_shared(value: Any, storages: set) -> Any:
@@ -99,6 +115,14 @@ class Metric:
             the current CUDA device.
         compute_with_cache: cache the ``compute`` result until the next
             update or reset.
+        approx: ``None`` (exact states), ``"sketch"`` or ``"reservoir"``:
+            the metric families with a sketch layout (the curve family,
+            calibration error, mAP, DistinctNGrams; the reservoir of BLEU,
+            SacreBLEU and ROUGE) replace their unbounded states with
+            fixed-size mergeable sketches (``torchmetrics_tpu_torch.sketches``);
+            every other metric takes the argument and computes exactly.
+        approx_error: the target error bound of ``approx`` (each sketch
+            documents what it bounds); ``None`` picks the sketch's default.
     """
 
     is_differentiable: Optional[bool] = None
@@ -122,11 +146,13 @@ class Metric:
         if unported:
             raise ValueError(f"Metric arguments {unported} are not supported by the PyTorch port yet")
         self.compute_with_cache: bool = kwargs.pop("compute_with_cache", True)
+        approx, approx_error = kwargs.pop("approx", None), kwargs.pop("approx_error", None)
+        self.approx, self.approx_error = _validate_approx(approx, approx_error)
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {list(kwargs)}")
         self.device = resolve_device(device)
         self._defaults: Dict[str, Any] = {}
-        self._reductions: Dict[str, Union[Reduce, Callable]] = {}
+        self._reductions: Dict[str, Union[Reduce, Callable, SketchReduce]] = {}
         self._persistent: Dict[str, bool] = {}
         self._value_ranges: Dict[str, Tuple[float, float]] = {}
         self._state: State = {_N: self._zero_count()}
@@ -141,7 +167,7 @@ class Metric:
         self,
         name: str,
         default: Union[Tensor, np.ndarray, int, float, list, Sequence],
-        dist_reduce_fx: Optional[Union[str, Callable]] = None,
+        dist_reduce_fx: Optional[Union[str, Callable, SketchReduce]] = None,
         persistent: bool = False,
         value_range: Optional[Tuple[float, float]] = None,
     ) -> None:
@@ -149,7 +175,9 @@ class Metric:
 
         ``default`` is a tensor (tensor state) or an empty list (list state,
         stored as a tuple of tensors). ``dist_reduce_fx`` is one of
-        sum|mean|max|min|cat, a callable, or None. ``value_range=(lo, hi)``
+        sum|mean|max|min|cat, a callable, a
+        :class:`~torchmetrics_tpu_torch.core.reductions.SketchReduce` spec
+        for a fixed-shape sketch leaf, or None. ``value_range=(lo, hi)``
         declares the values the leaf can hold.
         """
         if name.startswith("_"):
@@ -320,6 +348,32 @@ class Metric:
         self._state = self.init_state()
         self._computed = None
         self._forward_cache = None
+
+    def set_approx(self, approx: Optional[str], approx_error: Optional[float] = None) -> None:
+        """Switch a constructed metric between its exact and approximate state layouts.
+
+        Only metrics that define ``_install_approx_states`` (which registers
+        their leaves under the current ``approx`` config) support the switch;
+        any other raises ``ValueError``. The accumulated state is dropped: the
+        old layout's leaves cannot be read under the new one.
+        """
+        approx, approx_error = _validate_approx(approx, approx_error)
+        rebuild = getattr(self, "_install_approx_states", None)
+        if rebuild is None:
+            raise ValueError(
+                f"{type(self).__name__} does not support runtime approx switching: "
+                "it defines no _install_approx_states re-registration hook. "
+                "Construct a fresh instance with approx=... instead."
+            )
+        self.approx, self.approx_error = approx, approx_error
+        for name in list(self._reductions):
+            del self._reductions[name]
+            self._defaults.pop(name, None)
+            self._persistent.pop(name, None)
+            self._value_ranges.pop(name, None)
+            self._state.pop(name, None)
+        rebuild()
+        self.reset()
 
     # ------------------------------------------------------------- lifecycle
     def clone(self) -> "Metric":

@@ -9,7 +9,10 @@ state leaf combine, in two lowerings of one semantic operation:
   ``torch.distributed``'s default process group (NCCL on the GPU, gloo on
   the CPU). SUM, MAX and MIN are one ``all_reduce``; MEAN is a sum divided by
   the world size (an integer leaf comes back as float32, as JAX's ``pmean``
-  true-divides it); CAT, NONE and callables gather.
+  true-divides it); CAT, NONE and callables gather. A
+  :class:`SketchReduce` leaf (``torchmetrics_tpu_torch.sketches``) with a
+  ``bucket_op`` is one ``all_reduce`` of that op; a structural one (a
+  reservoir) is one fixed-shape ``all_gather`` and its ``combine_stacked``.
 
 JAX's in-graph ``sync_leaf`` and its cross-process ``host_sync_leaf`` are one
 function here: ``torch.distributed`` is already cross-process.
@@ -28,6 +31,7 @@ exchange of shapes that an uneven gather needs first).
 from __future__ import annotations
 
 from collections import Counter
+from dataclasses import dataclass
 from enum import Enum
 from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
@@ -43,26 +47,74 @@ class Reduce(str, Enum):
     MIN = "min"
     CAT = "cat"
     NONE = "none"
+    #: marker value only: a sketch leaf registers a concrete :class:`SketchReduce`, never the bare string
+    SKETCH = "sketch"
 
 
-ReduceFx = Union[Reduce, str, Callable, None]
+@dataclass(frozen=True)
+class SketchReduce:
+    """Reduction spec of a fixed-shape mergeable sketch leaf.
+
+    ``bucket_op`` in ``"sum" | "max" | "min"`` declares the merge as that
+    elementwise op: such a leaf rides the coalescing planner's fused dtype
+    bucket of the op, as SUM/MAX/MIN leaves do. ``bucket_op=None`` declares a
+    structural merge (a reservoir's sort-and-keep-k): ``combine_stacked``
+    folds a stacked ``(m, *leaf_shape)`` tensor of sketches into one, and the
+    sync is one fixed-shape gather and the combine.
+    """
+
+    kind: str
+    bucket_op: Optional[str] = None
+    combine_stacked: Optional[Callable] = None
+
+    def __post_init__(self) -> None:
+        if self.bucket_op not in (None, "sum", "max", "min"):
+            raise ValueError(
+                f"SketchReduce.bucket_op must be one of 'sum'/'max'/'min'/None, got {self.bucket_op!r}"
+            )
+        if self.bucket_op is None and self.combine_stacked is None:
+            raise ValueError(
+                "SketchReduce with bucket_op=None needs a `combine_stacked` callable "
+                "(stacked (m, ...) sketches -> one merged sketch)"
+            )
+
+    @property
+    def n_sync_gathers(self) -> int:
+        """Fixed-shape gathers one sync of this leaf launches (0 when the merge rides an all-reduce bucket)."""
+        return 0 if self.bucket_op is not None else 1
+
+
+def is_sketch_reduce(fx: Any) -> bool:
+    return isinstance(fx, SketchReduce)
+
+
+ReduceFx = Union[Reduce, str, Callable, SketchReduce, None]
 ListState = Tuple[Tensor, ...]
 
 
-def canonical_reduce(fx: ReduceFx) -> Union[Reduce, Callable]:
-    """Normalize a user-provided ``dist_reduce_fx`` into a :class:`Reduce` or callable."""
+def canonical_reduce(fx: ReduceFx) -> Union[Reduce, Callable, SketchReduce]:
+    """Normalize a user-provided ``dist_reduce_fx`` into a :class:`Reduce`, :class:`SketchReduce` or callable."""
     if fx is None:
         return Reduce.NONE
-    if isinstance(fx, Reduce):
+    if isinstance(fx, SketchReduce):
+        return fx
+    if isinstance(fx, Reduce) and fx is not Reduce.SKETCH:
         return fx
     if callable(fx):
         return fx
     try:
-        return Reduce(str(fx))
+        canon = Reduce(str(fx.value if isinstance(fx, Reduce) else fx))
     except ValueError:
         raise ValueError(
-            f"`dist_reduce_fx` must be one of {[r.value for r in Reduce]}, a callable, or None; got {fx!r}"
+            f"`dist_reduce_fx` must be one of {[r.value for r in Reduce]}, a callable, a SketchReduce spec, "
+            f"or None; got {fx!r}"
         ) from None
+    if canon is Reduce.SKETCH:
+        raise ValueError(
+            "dist_reduce_fx='sketch' is a marker, not a spec: pass a concrete SketchReduce instance "
+            "(e.g. torchmetrics_tpu_torch.sketches.QuantileSketch(...).reduce_spec)"
+        )
+    return canon
 
 
 def reduce_identity(reduce: Any, dtype: torch.dtype) -> Optional[Tensor]:
@@ -70,9 +122,14 @@ def reduce_identity(reduce: Any, dtype: torch.dtype) -> Optional[Tensor]:
 
     ``merge(x, identity) == x`` for the elementwise families: 0 for SUM and
     MEAN, -inf/+inf for MAX/MIN (``iinfo.min``/``iinfo.max`` on integer
-    leaves, False/True on bool leaves). CAT, NONE and callables have no
-    elementwise identity: ``None``.
+    leaves, False/True on bool leaves); a sketch with a ``bucket_op`` that of
+    its op. CAT, NONE, structural sketches and callables have no elementwise
+    identity: ``None``.
     """
+    if isinstance(reduce, SketchReduce):
+        if reduce.bucket_op is None:
+            return None
+        reduce = {"sum": Reduce.SUM, "max": Reduce.MAX, "min": Reduce.MIN}[reduce.bucket_op]
     if not isinstance(reduce, Reduce):
         return None
     if reduce in (Reduce.SUM, Reduce.MEAN):
@@ -98,6 +155,14 @@ def merge_leaf(
 
     For ``MEAN`` the merge is the running mean weighted by update counts.
     """
+    if isinstance(reduce, SketchReduce):
+        if reduce.bucket_op == "sum":
+            return a + b
+        if reduce.bucket_op == "max":
+            return torch.maximum(a, b)
+        if reduce.bucket_op == "min":
+            return torch.minimum(a, b)
+        return reduce.combine_stacked(torch.stack([a, b]))
     if callable(reduce) and not isinstance(reduce, Reduce):
         return reduce(torch.stack([a, b]))
     if reduce == Reduce.SUM:
@@ -231,10 +296,18 @@ def sync_leaf(
     order (a list state: each rank's items concatenated, gathered once, back
     as a one-tensor tuple, or ``()`` where no rank holds an item); none
     stacks the ranks' copies (per element of a list state, whose ranks must
-    hold as many items); a callable reduces the stacked copies. ``device``
-    places the collective of a list state that holds no item on this rank.
+    hold as many items); a callable reduces the stacked copies. A sketch with
+    a ``bucket_op`` is one ``all_reduce`` of that op; a structural sketch is
+    one fixed-shape ``all_gather`` (every rank's leaf has the spec's shape, so
+    no shape exchange) and its ``combine_stacked``. ``device`` places the
+    collective of a list state that holds no item on this rank.
     """
     reduce = canonical_reduce(reduce)
+    if isinstance(reduce, SketchReduce):
+        if reduce.bucket_op is not None:
+            return all_reduce(value, reduce.bucket_op)
+        copies = _all_gather_list(value, "all_gather") if in_group() else [value]
+        return reduce.combine_stacked(torch.stack(copies))
     if isinstance(value, tuple):
         device = value[0].device if value else device
         if reduce == Reduce.CAT:

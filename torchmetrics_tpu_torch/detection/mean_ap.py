@@ -26,8 +26,24 @@ package's float64 product bit for bit. With both types every result key but
 that both passes keep is derived from the masks. ``extended_summary`` adds
 ``precision``, ``recall``, ``scores`` and the ``ious`` of every (image,
 class). ``coco_to_tm`` and ``tm_to_coco`` read and write COCO files
-(:mod:`torchmetrics_tpu_torch.detection.coco_io`). ``approx="sketch"`` is
-not ported.
+(:mod:`torchmetrics_tpu_torch.detection.coco_io`).
+
+``approx="sketch"`` swaps the per-image list states for fixed-shape score
+histograms per (class, IoU threshold)
+(:class:`~torchmetrics_tpu_torch.sketches.QuantileSketch`, over the class ids
+``[0, sketch_classes)``): each (class, image) item is matched at update time
+(area range "all", the largest maxDets cap), on the metric's device by
+:func:`~torchmetrics_tpu_torch.functional.detection.matcher.match_batch` with
+``backend="native"`` and on the host by ``_evaluate_image`` with
+``backend="native_numpy"``, and only the true- and false-positive score
+histograms, the true-positive counts
+at each cap and the valid ground truths and detections a class accumulate,
+all ``sum``-merged (the planner's sum buckets, no gather). Every histogram
+cell boundary is an exact operating point of the exact PR curve, so the
+sketch's interpolated AP can only fall below the exact one, by at most the
+data-dependent bound that :meth:`MeanAveragePrecision._gather_approx_provenance`
+reports after a compute. The area-banded keys are -1. As in the JAX package,
+``approx="sketch"`` refuses ``iou_type="segm"`` and ``extended_summary``.
 
 Example::
 
@@ -52,8 +68,9 @@ from torch import Tensor
 
 from torchmetrics_tpu_torch.core.metric import Metric, State
 from torchmetrics_tpu_torch.functional.detection.box_ops import box_convert
-from torchmetrics_tpu_torch.functional.detection.matcher import match_batch_padded
+from torchmetrics_tpu_torch.functional.detection.matcher import _CHUNK, _bucket, match_batch, match_batch_padded
 from torchmetrics_tpu_torch.kernels.mask_iou import mask_iou_counts
+from torchmetrics_tpu_torch.sketches.quantile import QuantileSketch
 from torchmetrics_tpu_torch.utilities.data import resolve_device
 
 _AREA_RANGES = {
@@ -82,6 +99,20 @@ def _box_iou_crowd(det: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray) -> np.n
     union = det_area[:, None] + gt_area[None, :] - inter
     union = np.where(iscrowd[None, :].astype(bool), det_area[:, None], union)
     return inter / np.maximum(union, 1e-12)
+
+
+def _box_iou_crowd_padded(det: Tensor, gt: Tensor, crowd: Tensor) -> Tensor:
+    """:func:`_box_iou_crowd` of padded items in torch: ``(B, D, G)`` float32 from ``(B, D, 4)`` and ``(B, G, 4)``
+    float32 boxes and ``(B, G)`` crowd flags, the same operations in the same order, so the same values."""
+    lt = torch.maximum(det[:, :, None, :2], gt[:, None, :, :2])
+    rb = torch.minimum(det[:, :, None, 2:], gt[:, None, :, 2:])
+    wh = torch.clamp_min(rb - lt, 0)
+    inter = wh[..., 0] * wh[..., 1]
+    det_area = (det[..., 2] - det[..., 0]) * (det[..., 3] - det[..., 1])
+    gt_area = (gt[..., 2] - gt[..., 0]) * (gt[..., 3] - gt[..., 1])
+    union = det_area[:, :, None] + gt_area[:, None, :] - inter
+    union = torch.where(crowd[:, None, :], det_area[:, :, None], union)
+    return (inter / torch.clamp_min(union, 1e-12)).contiguous()
 
 
 def _mask_iou_from_counts(inter: np.ndarray, det_area: np.ndarray, gt_area: np.ndarray,
@@ -199,6 +230,7 @@ class MeanAveragePrecision(Metric):
         extended_summary: bool = False,
         average: str = "macro",
         backend: str = "native",
+        sketch_classes: int = 91,
         **kwargs: Any,
     ) -> None:
         super().__init__(**kwargs)
@@ -231,8 +263,37 @@ class MeanAveragePrecision(Metric):
         self.extended_summary = extended_summary
         self.average = average
         self.backend = backend
+        if not (isinstance(sketch_classes, int) and sketch_classes >= 1):
+            raise ValueError(f"Argument `sketch_classes` must be a positive int, got {sketch_classes!r}")
+        #: the class ids of the sketch-mode histograms, ``[0, sketch_classes)``; 91 covers the COCO category ids
+        self.sketch_classes = sketch_classes
+        self._install_approx_states()
+
+    def _install_approx_states(self) -> None:
+        """Register the state leaves of the current ``approx`` config (the :meth:`set_approx` hook)."""
+        if self.approx == "sketch":
+            if "segm" in self.iou_types:
+                raise ValueError(
+                    "MeanAveragePrecision(approx='sketch') supports iou_type='bbox' only: "
+                    "mask states cannot be histogram-summarized"
+                )
+            if self.extended_summary:
+                raise ValueError(
+                    "MeanAveragePrecision(approx='sketch') does not keep the raw "
+                    "per-detection arrays `extended_summary` reports; use the exact path"
+                )
+            self._map_sketch = QuantileSketch.for_error(self.approx_error)
+            k, t, m = self.sketch_classes, len(self.iou_thresholds), len(self.max_detection_thresholds)
+            spec = self._map_sketch.reduce_spec
+            self.add_state("score_hist_tp", self._map_sketch.init((k, t)), dist_reduce_fx=spec)
+            self.add_state("score_hist_fp", self._map_sketch.init((k, t)), dist_reduce_fx=spec)
+            self.add_state("tp_count", torch.zeros((m, k, t)), dist_reduce_fx="sum")
+            self.add_state("gt_total", torch.zeros((k,)), dist_reduce_fx="sum")
+            self.add_state("det_total", torch.zeros((k,)), dist_reduce_fx="sum")
+            return
+        self._map_sketch = None
         # box and mask item states coexist when iou_types has both
-        for name in _STATE_NAMES + sum((_ITEM_STATES[t] for t in ("bbox", "segm") if t in iou_types), ()):
+        for name in _STATE_NAMES + sum((_ITEM_STATES[t] for t in ("bbox", "segm") if t in self.iou_types), ()):
             self.add_state(name, [], dist_reduce_fx=None)
 
     # -------------------------------------------------------------- update
@@ -250,6 +311,8 @@ class MeanAveragePrecision(Metric):
             for k in item_keys + ["labels"]:
                 if k not in t:
                     raise ValueError(f"Expected all dicts in `target` to contain the `{k}` key")
+        if self._map_sketch is not None:
+            return self._update_sketch(state, preds, target)
         new = dict(state)
 
         def add(name: str, value: Tensor) -> None:
@@ -282,6 +345,275 @@ class MeanAveragePrecision(Metric):
         boxes = self._tensor(boxes).to(torch.float32)
         boxes = boxes.reshape(-1, 4) if boxes.numel() else torch.zeros((0, 4), device=self.device)
         return box_convert(boxes, in_fmt=self.box_format, out_fmt="xyxy")
+
+    # ------------------------------------------------------------ sketch mode
+    def _update_sketch(self, state: State, preds: List[Dict[str, Tensor]], target: List[Dict[str, Tensor]]) -> State:
+        """Match each (class, image) item of the update now (area range "all", the largest maxDets cap) and fold
+        only the true- and false-positive score histograms and the exact counters in (float32, as the JAX package).
+
+        With ``backend="native"`` the whole update runs on the metric's device: the items are padded together,
+        their IoUs computed, matched by one :func:`match_batch` call a chunk of ``_CHUNK`` items (the
+        ``coco_match`` kernel on the card) and folded by ``index_add``; one host read an update sizes the padding.
+        ``backend="native_numpy"`` matches image by image on the host with ``_evaluate_image``, the oracle.
+        """
+        if self.backend == "native_numpy":
+            return self._update_sketch_numpy(state, preds, target)
+        if not preds:
+            return dict(state)
+        sketch, n_k, n_t = self._map_sketch, self.sketch_classes, len(self.iou_thresholds)
+        max_dets, dev = self.max_detection_thresholds, self.device
+        det_boxes, det_scores, det_labels, det_img, gt_boxes, gt_labels, gt_crowd, gt_area, gt_img = (
+            self._sketch_batch(preds, target))
+        det_key, gt_key = det_img * n_k + det_labels, gt_img * n_k + gt_labels
+        keys, inverse = torch.unique(torch.cat([det_key, gt_key]), return_inverse=True)
+        n_items, n_det = keys.shape[0], det_key.shape[0]
+        if n_items == 0:
+            return dict(state)
+        det_item, gt_item = inverse[:n_det], inverse[n_det:]
+        det_count = torch.bincount(det_item, minlength=n_items)
+        gt_count = torch.bincount(gt_item, minlength=n_items)
+        # the one host read: each label's range (checked against the class space) and the padding's sizes
+        labels = [(x, what) for x, what in ((det_labels, "preds"), (gt_labels, "target")) if x.numel()]
+        head = torch.stack([v for x, _ in labels for v in (x.min(), x.max())] + [det_count.max(), gt_count.max()])
+        *ranges, most_dets, most_gts = head.tolist()
+        for (_, what), low, high in zip(labels, ranges[::2], ranges[1::2]):
+            if low < 0 or high >= n_k:
+                raise ValueError(
+                    f"approx='sketch' holds per-class histograms over a fixed class "
+                    f"space [0, {n_k}); got a `{what}` label {low if low < 0 else high}. "
+                    "Raise `sketch_classes` to cover the label space."
+                )
+        n_d, n_g = _bucket(min(most_dets, max_dets[-1])), _bucket(most_gts)
+        # each item's detections in score order (stable, as ``_evaluate_image`` takes them), cut to the cap; the
+        # ones past it go to a spare column that is dropped
+        order = torch.sort(-det_scores, stable=True).indices
+        order = order[torch.sort(det_item[order], stable=True).indices]
+        d_item = det_item[order]
+        d_rank = torch.arange(n_det, device=dev) - (torch.cumsum(det_count, 0) - det_count)[d_item]
+        d_rank = torch.where(d_rank < max_dets[-1], d_rank, n_d)
+        g_order = torch.sort(gt_item, stable=True).indices
+        g_item = gt_item[g_order]
+        g_rank = torch.arange(g_item.shape[0], device=dev) - (torch.cumsum(gt_count, 0) - gt_count)[g_item]
+
+        def pad(n: int, item: Tensor, rank: Tensor, value: Tensor) -> Tensor:
+            out = torch.zeros((n_items, n + 1, *value.shape[1:]), dtype=value.dtype, device=dev)
+            out[item, rank] = value
+            return out[:, :n].contiguous()
+
+        boxes_d = pad(n_d, d_item, d_rank, det_boxes[order])
+        scores_d = pad(n_d, d_item, d_rank, det_scores[order])
+        valid_d = pad(n_d, d_item, d_rank, torch.ones_like(d_item, dtype=torch.bool))
+        boxes_g = pad(n_g, g_item, g_rank, gt_boxes[g_order])
+        crowd_g = pad(n_g, g_item, g_rank, gt_crowd[g_order])
+        valid_g = pad(n_g, g_item, g_rank, torch.ones_like(g_item, dtype=torch.bool))
+        lo, hi = _AREA_RANGES["all"]
+        area_g = pad(n_g, g_item, g_rank, gt_area[g_order])
+        ignored_g = (crowd_g | (area_g < lo) | (area_g > hi)) & valid_g
+        area_d = (boxes_d[..., 2] - boxes_d[..., 0]) * (boxes_d[..., 3] - boxes_d[..., 1])
+        out_of_range = (area_d < lo) | (area_d > hi)
+        cls = keys % n_k
+        thrs = torch.as_tensor(np.asarray(self.iou_thresholds, np.float32), device=dev)
+        h_tp, h_fp = (state[name].reshape(-1) for name in ("score_hist_tp", "score_hist_fp"))
+        tp_count = state["tp_count"]
+        n_cells = sketch.bins + 1
+        for a in range(0, n_items, _CHUNK):
+            b = slice(a, a + _CHUNK)
+            ious = _box_iou_crowd_padded(boxes_d[b], boxes_g[b], crowd_g[b])
+            matched, det_ignored = match_batch(ious, crowd_g[b], ignored_g[b, None], valid_d[b], valid_g[b], thrs)
+            matched, det_ignored = matched[:, 0], det_ignored[:, 0]  # (B, T, D)
+            ig = det_ignored | (~matched & out_of_range[b, None])
+            tp = matched & ~ig & valid_d[b, None]
+            fp = ~matched & ~ig & valid_d[b, None]
+            cell = ((cls[b, None, None] * n_t + torch.arange(n_t, device=dev)[:, None]) * n_cells
+                    + sketch.cell_index(scores_d[b])[:, None]).reshape(-1)
+            h_tp = h_tp.index_add(0, cell, tp.reshape(-1).to(h_tp.dtype))
+            h_fp = h_fp.index_add(0, cell, fp.reshape(-1).to(h_fp.dtype))
+            caps = torch.stack([tp[..., :mdet].sum(-1) for mdet in max_dets], 0)  # (M, B, T)
+            tp_count = tp_count.index_add(1, cls[b], caps.to(tp_count.dtype))
+        counted = (valid_g & ~ignored_g).sum(-1).to(state["gt_total"].dtype)
+        return {
+            "score_hist_tp": h_tp.reshape(state["score_hist_tp"].shape),
+            "score_hist_fp": h_fp.reshape(state["score_hist_fp"].shape),
+            "tp_count": tp_count,
+            "gt_total": state["gt_total"].index_add(0, cls, counted),
+            "det_total": state["det_total"].index_add(0, cls, valid_d.sum(-1).to(state["det_total"].dtype)),
+        }
+
+    def _sketch_batch(self, preds: List[Dict[str, Tensor]], target: List[Dict[str, Tensor]]) -> Tuple[Tensor, ...]:
+        """The update's detections and ground truths concatenated on the metric's device: ``(det_boxes xyxy,
+        det_scores, det_labels, det_image, gt_boxes, gt_labels, gt_crowd, gt_area, gt_image)``, labels and images
+        int64, the labels zero under ``average="micro"``; a ground truth's area is its positive user area, else its
+        box's."""
+        dev = self.device
+
+        def flat(x: Any, dtype: torch.dtype) -> Tensor:
+            return self._tensor(x).to(dtype).reshape(-1)
+
+        det_boxes = self._convert_boxes(torch.cat([flat(p["boxes"], torch.float32) for p in preds]))
+        gt_boxes = self._convert_boxes(torch.cat([flat(t["boxes"], torch.float32) for t in target]))
+        det_scores = torch.cat([flat(p["scores"], torch.float32) for p in preds])
+        det_labels = [flat(p["labels"], torch.int64) for p in preds]
+        gt_labels = [flat(t["labels"], torch.int64) for t in target]
+        crowd, user = [], []
+        for t, labels in zip(target, gt_labels):
+            n_gt = labels.shape[0]
+            crowd.append(torch.zeros(n_gt, dtype=torch.bool, device=dev) if t.get("iscrowd") is None
+                         else flat(t["iscrowd"], torch.bool))
+            area = None if t.get("area") is None else flat(t["area"], torch.float32)
+            user.append(area if area is not None and area.numel() == n_gt else torch.full((n_gt,), -1.0, device=dev))
+
+        def image_of(per_image: List[Tensor]) -> Tensor:
+            sizes = torch.tensor([x.shape[0] for x in per_image], device=dev)
+            return torch.repeat_interleave(torch.arange(len(per_image), device=dev), sizes)
+
+        det_img, gt_img = image_of(det_labels), image_of(gt_labels)
+        det_labels, gt_labels, user = torch.cat(det_labels), torch.cat(gt_labels), torch.cat(user)
+        if self.average == "micro":
+            det_labels, gt_labels = torch.zeros_like(det_labels), torch.zeros_like(gt_labels)
+        derived = (gt_boxes[:, 2] - gt_boxes[:, 0]) * (gt_boxes[:, 3] - gt_boxes[:, 1])
+        return (det_boxes, det_scores, det_labels, det_img, gt_boxes, gt_labels, torch.cat(crowd),
+                torch.where(user > 0, user, derived), gt_img)
+
+    def _update_sketch_numpy(self, state: State, preds: List[Dict[str, Tensor]],
+                             target: List[Dict[str, Tensor]]) -> State:
+        """The same fold matched image by image on the host by ``_evaluate_image``, as the JAX package does."""
+        sketch, n_k, n_t = self._map_sketch, self.sketch_classes, len(self.iou_thresholds)
+        max_dets = self.max_detection_thresholds
+        h_tp, h_fp, tp_count, gt_total, det_total = (
+            state[name].cpu().numpy().astype(np.float32)
+            for name in ("score_hist_tp", "score_hist_fp", "tp_count", "gt_total", "det_total"))
+        arng = _AREA_RANGES["all"]
+
+        def host(x: Any, dtype) -> np.ndarray:
+            return (x.cpu().numpy() if isinstance(x, Tensor) else np.asarray(x)).astype(dtype).reshape(-1)
+
+        for p, t in zip(preds, target):
+            det_boxes = self._convert_boxes(p["boxes"]).cpu().numpy().reshape(-1, 4)
+            gt_boxes = self._convert_boxes(t["boxes"]).cpu().numpy().reshape(-1, 4)
+            det_scores = host(p["scores"], np.float32)
+            det_labels = host(p["labels"], np.int64)
+            gt_labels = host(t["labels"], np.int64)
+            n_gt = gt_labels.shape[0]
+            crowds = host(t.get("iscrowd", np.zeros(n_gt, np.int64)), np.int64).astype(bool)
+            area = t.get("area")
+            user_area = host(area, np.float32) if area is not None else np.zeros((0,), np.float32)
+            if user_area.size != n_gt:
+                user_area = np.full((n_gt,), -1.0, np.float32)
+            derived = ((gt_boxes[:, 2] - gt_boxes[:, 0]) * (gt_boxes[:, 3] - gt_boxes[:, 1])).astype(np.float32)
+            gt_area = np.where(user_area > 0, user_area, derived) if user_area.size else derived
+            det_area = ((det_boxes[:, 2] - det_boxes[:, 0]) * (det_boxes[:, 3] - det_boxes[:, 1])).astype(np.float32)
+            if self.average == "micro":
+                det_labels = np.zeros_like(det_labels)
+                gt_labels = np.zeros_like(gt_labels)
+            for arr, what in ((det_labels, "preds"), (gt_labels, "target")):
+                if arr.size and (arr.min() < 0 or arr.max() >= n_k):
+                    raise ValueError(
+                        f"approx='sketch' holds per-class histograms over a fixed class "
+                        f"space [0, {n_k}); got a `{what}` label {int(arr.min()) if arr.min() < 0 else int(arr.max())}. "
+                        "Raise `sketch_classes` to cover the label space."
+                    )
+            for cls in np.union1d(det_labels, gt_labels):
+                d_sel = det_labels == cls
+                g_sel = gt_labels == cls
+                ious = _box_iou_crowd(det_boxes[d_sel], gt_boxes[g_sel], crowds[g_sel])
+                tp, ig, sc, nv = _evaluate_image(ious, det_scores[d_sel], crowds[g_sel], gt_area[g_sel],
+                                                 det_area[d_sel], self.iou_thresholds, arng, max_dets[-1])
+                gt_total[cls] += nv
+                det_total[cls] += sc.shape[0]
+                if sc.shape[0]:
+                    idx = sketch.cell_index(torch.from_numpy(sc)).numpy()
+                    ti = np.broadcast_to(np.arange(n_t)[:, None], tp.shape)
+                    ci = np.broadcast_to(idx[None, :], tp.shape)
+                    np.add.at(h_tp[cls], (ti, ci), (tp & ~ig).astype(np.float32))
+                    np.add.at(h_fp[cls], (ti, ci), (~tp & ~ig).astype(np.float32))
+                for mi, mdet in enumerate(max_dets):
+                    tp_count[mi, cls] += (tp[:, :mdet] & ~ig[:, :mdet]).sum(axis=1)
+        out = {"score_hist_tp": h_tp, "score_hist_fp": h_fp, "tp_count": tp_count, "gt_total": gt_total,
+               "det_total": det_total}
+        return {name: torch.as_tensor(v, device=self.device) for name, v in out.items()}
+
+    def _compute_sketch(self, state: State) -> Dict[str, Tensor]:
+        """mAP/mAR from the sketch state, on the host in float64, as the JAX package computes them.
+
+        Every histogram cell boundary is an exact operating point of the exact
+        PR curve, so the interpolated AP over boundary points can only fall
+        below the exact envelope, by at most ``max_b (pmax_b - pmin_b)`` a
+        (class, threshold), where ``pmax_b`` removes cell b's own false
+        positives from the denominator: the mean of that over the valid
+        classes is the bound stamped for ``_gather_approx_provenance``. The
+        area-banded keys are -1.
+        """
+        h_tp, h_fp, tp_count, gt_total, det_total = (
+            state[name].cpu().numpy().astype(np.float64)
+            for name in ("score_hist_tp", "score_hist_fp", "tp_count", "gt_total", "det_total"))
+        rec_thrs, iou_thrs, mdt = self.rec_thresholds, self.iou_thresholds, self.max_detection_thresholds
+        n_k, n_t, n_r = h_tp.shape[0], h_tp.shape[1], len(rec_thrs)
+        # cumulative counts from the top score cell down: column j covers scores >= edges[C-1-j]
+        tp_rev, fp_rev = h_tp[..., ::-1], h_fp[..., ::-1]
+        tp_c, fp_c = np.cumsum(tp_rev, axis=-1), np.cumsum(fp_rev, axis=-1)
+        valid_cls = gt_total > 0
+        rc = tp_c / np.maximum(gt_total, 1.0)[:, None, None]
+        pr = tp_c / np.maximum(tp_c + fp_c, np.spacing(1))
+        pr_env = np.flip(np.maximum.accumulate(np.flip(pr, axis=-1), axis=-1), axis=-1)
+        n_c = pr.shape[-1]
+        precision = -np.ones((n_t, n_r, n_k))
+        recall = -np.ones((n_t, n_k))
+        for ki in range(n_k):
+            if not valid_cls[ki]:
+                continue
+            for ti in range(n_t):
+                inds = np.searchsorted(rc[ki, ti], rec_thrs, side="left")
+                precision[ti, :, ki] = np.where(inds < n_c, pr_env[ki, ti, np.minimum(inds, n_c - 1)], 0.0)
+            recall[:, ki] = tp_count[-1, ki] / gt_total[ki]
+        # within cell b the exact envelope can exceed the boundary precision by at most pmax_b - pmin_b
+        denom_max = np.maximum(tp_c + fp_c - fp_rev, np.spacing(1))
+        diff = np.where(tp_c + fp_c > 0, tp_c / denom_max - pr, 0.0)
+        per_kt = diff.max(axis=-1)  # (K, T)
+        self.__dict__["_sketch_map_bound"] = float(per_kt[valid_cls].mean()) if valid_cls.any() else 0.0
+
+        def mean_valid(x: np.ndarray) -> float:
+            valid = x[x > -1]
+            return float(valid.mean()) if valid.size else -1.0
+
+        def ar(tpc_row: np.ndarray) -> float:  # (K, T) recall at one maxDets cap
+            return mean_valid(np.where(gt_total[:, None] > 0, tpc_row / np.maximum(gt_total[:, None], 1.0), -1.0))
+
+        res: Dict[str, float] = {
+            "map": mean_valid(precision), "map_50": -1.0, "map_75": -1.0,
+            "map_small": -1.0, "map_medium": -1.0, "map_large": -1.0,
+            f"mar_{mdt[0]}": ar(tp_count[0]), f"mar_{mdt[1]}": ar(tp_count[1]), f"mar_{mdt[2]}": ar(tp_count[2]),
+            "mar_small": -1.0, "mar_medium": -1.0, "mar_large": -1.0,
+        }
+        for thr, key in ((0.5, "map_50"), (0.75, "map_75")):
+            sel = np.where(np.isclose(iou_thrs, thr))[0]
+            if len(sel):
+                res[key] = mean_valid(precision[sel])
+        map_per_class: Union[float, np.ndarray] = -1.0
+        mar_per_class: Union[float, np.ndarray] = -1.0
+        observed = np.where(valid_cls | (det_total > 0))[0]
+        if self.class_metrics and valid_cls.any():
+            map_per_class = np.asarray([mean_valid(precision[:, :, ki]) for ki in observed], np.float32)
+            mar_per_class = np.asarray([mean_valid(recall[:, ki]) for ki in observed], np.float32)
+        out = {k: torch.tensor(v, dtype=torch.float32, device=self.device) for k, v in res.items()}
+        out["map_per_class"] = torch.as_tensor(np.asarray(map_per_class, np.float32), device=self.device)
+        out[f"mar_{mdt[-1]}_per_class"] = torch.as_tensor(np.asarray(mar_per_class, np.float32), device=self.device)
+        out["classes"] = torch.as_tensor(observed.astype(np.int32).squeeze(), device=self.device)
+        return out
+
+    def _gather_approx_provenance(self) -> Optional[Dict[str, Any]]:
+        """The sketch's provenance row, with the data-dependent mAP bound of the last ``compute`` (the grid's
+        ``eps`` before one)."""
+        if self._map_sketch is None:
+            return None
+        sketch = self._map_sketch
+        return {
+            "source": "gather_approx",
+            "kind": "sketch-map",
+            "bins": sketch.bins,
+            "eps": float(sketch.eps),
+            "classes": self.sketch_classes,
+            "bound": float(self.__dict__.get("_sketch_map_bound", sketch.eps)),
+        }
 
     # ---------------------------------------------------------- coco file io
     @staticmethod
@@ -409,6 +741,8 @@ class MeanAveragePrecision(Metric):
         return observed, classes, items
 
     def _compute(self, state: State) -> Dict[str, Any]:
+        if self._map_sketch is not None:
+            return self._compute_sketch(state)
         counts = self._mask_counts(state) if "segm" in self.iou_types else None
         out: Dict[str, Any] = {}
         for i_type in self.iou_types:

@@ -9,9 +9,13 @@ sorted by ``(dtype, op)`` and slot order follows entry and table order, as
 in the JAX planner, so every rank issues the same collectives in the same
 order.
 
-Leaves that cannot share a bucket pass through :func:`~torchmetrics_tpu_torch.core.reductions.sync_leaf`
-one by one: cat, none and callable reductions, list states, and integer MEAN
-leaves (their mean is a float, and a bucket must not change a dtype).
+Sketch leaves (:class:`~torchmetrics_tpu_torch.core.reductions.SketchReduce`)
+with a ``bucket_op`` ride the fused dtype bucket of that op, as SUM, MAX and
+MIN leaves do. Leaves that cannot share a bucket pass through
+:func:`~torchmetrics_tpu_torch.core.reductions.sync_leaf` one by one: cat,
+none and callable reductions, structural sketches (one fixed-shape gather
+each, no shape exchange), list states, and integer MEAN leaves (their mean is
+a float, and a bucket must not change a dtype).
 
 This slice ports the exact planner only. Compression, sharded buckets, the
 quarantine ``weight``, ``SyncPolicy``, ``SyncStepper`` and ``SyncAdvisor``
@@ -39,7 +43,14 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from torchmetrics_tpu_torch.core.reductions import Reduce, all_reduce, canonical_reduce, sync_leaf, world_size
+from torchmetrics_tpu_torch.core.reductions import (
+    Reduce,
+    SketchReduce,
+    all_reduce,
+    canonical_reduce,
+    sync_leaf,
+    world_size,
+)
 
 State = Dict[str, Any]
 
@@ -151,6 +162,14 @@ def build_sync_plan(
                 per_item = reduce == Reduce.NONE
                 n_pass += len(value) if per_item else 1
                 n_shapes += len(value) if per_item else 1
+                continue
+            if isinstance(reduce, SketchReduce):
+                if reduce.bucket_op is None:  # structural: one fixed-shape gather and the combine
+                    passthrough.append((e, name, reduce))
+                    n_pass += reduce.n_sync_gathers
+                    continue
+                slot = _Slot(entry=e, name=name, shape=tuple(value.shape), size=value.numel(), mean=False)
+                groups.setdefault((dtype_name(value.dtype), reduce.bucket_op), []).append(slot)
                 continue
             gathered = not isinstance(reduce, Reduce) or reduce not in _PSUM_FAMILY
             int_mean = reduce == Reduce.MEAN and not value.dtype.is_floating_point
