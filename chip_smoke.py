@@ -198,6 +198,16 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    timing, a yardstick; library: none), precision 4, 14 and 18, ``ignore_index``
    windows, every window ignored, n longer than a row, ids -1, 2**31 - 1 and
    -2**31, the whole set in one launch at p = 14 and 18, and an empty batch;
+   ``int8_quantize`` and ``int8_dequant_sum``, the int8 chunk codec of the
+   compressed syncs, equal (``torch.equal``, a NaN equal to a NaN in its place)
+   to their plain versions: the pack (the jitted scale and the host's), the
+   sum of the n packed rows in JAX's order packed again and not, the host's
+   sum, and the unpack side by side, at FID's 2,048-feature bucket in a world
+   of 4 (the timed rows: the pack, phase 2's sum packed again, the final
+   unpack) and of 1, the eval collection's bucket, chunks of 8, 9, 256 and
+   1,024, lengths 1, chunk - 1 and n * chunk + 1, a chunk of zeros, values
+   half-way between two codes, the +-127 edges, subnormals, NaN, +-inf and
+   -0.0 (timed beside a chain of PyTorch calls, a yardstick; library: none);
 4. main path: the single-device eval step (``MulticlassAccuracy`` micro,
    ``MulticlassF1Score`` macro, ``MulticlassAUROC(thresholds=20)``,
    ``MeanSquaredError``) over an ImageNet-1k validation-sized set, 50,000
@@ -444,7 +454,27 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    first batches on the CPU path (states equal bit for bit; calibration's
    ``conf_sum`` within 1e-5).
 
-Phases 5 and 6 run each rank as a process of its own (this script with
+18. sync engineering, in phase 5's two worlds: (i) FID's 2,048-feature state
+   (integer-valued seeded features from a callable extractor, 10,000 real and
+   10,000 fake rows fed over the ranks in proportion 1 : 2 : ... : world)
+   synced exact, ``bf16``, ``int8``, sharded (both covariance sums a
+   ``reduce_scatter``) and sharded ``int8``: the collectives each issued equal
+   to its plan's ``n_collectives``, the exact and sharded states equal to one
+   process's bit for bit (and FID's value on rank 0), each compressed bucket
+   within its declared bound of the exact one, per chunk (bf16: ``2**-8`` a
+   rounding, one a ring hop), each sync timed beside ``bucket_wire_bytes``'
+   model; (ii) a weight-masked sync (the last rank's weight 0): sum, min, max
+   and MEAN leaves equal to the other ranks' combination; (iii) phase 5's
+   Accuracy, F1 and AUROC through ``sharded_collection_update`` with
+   ``SyncPolicy(every_n_steps=4)`` (``None`` on deferred steps, each synced
+   window equal to the every-step sync, the values equal to phase 5's bit for
+   bit), with ``at_compute=True``, and a snapshot mid-window restored into a
+   new stepper; (iv) mAP and ROUGE registered on one ``DeferredRaggedSync``
+   over phase 6's data: one ``all_gather`` a wire type at compute, the values
+   equal to phase 6's. The ``int8_quantize`` and ``int8_dequant_sum``
+   launches of (i) are counted per rank.
+
+Phases 5, 6 and 18 run each rank as a process of its own (this script with
 ``--worker``); every kernel must have launched on the paths that run it.
 
 The line before the last is the kernel record (JSON); the last line is
@@ -2523,7 +2553,7 @@ def worker_ragged(rank: int, world: int, device: torch.device) -> dict:
 
 
 def worker_main(args) -> int:
-    """One rank of a phase-5 or phase-6 world: ``--worker sync|ragged``."""
+    """One rank of a phase-5, 6 or 18 world: ``--worker sync|ragged|engineering``."""
     import torch.distributed as dist
 
     sys.path.insert(0, REPO)
@@ -2534,6 +2564,8 @@ def worker_main(args) -> int:
     try:
         if args.worker == "sync":
             result = worker_sync(args.rank, args.world, device)
+        elif args.worker == "engineering":
+            result = worker_engineering(args.rank, args.world, device)
         else:
             result = worker_ragged(args.rank, args.world, device)
         dist.barrier()
@@ -7158,6 +7190,510 @@ def _sketch_sync(rank: int, world: int, device: torch.device, cls_batches: list)
             "sketch_values": {k: float(v) for k, v in col.compute_states(synced).items()}}
 
 
+
+# ------------------------------------------------ phase 3 and 18: the int8 codec, sync engineering
+FID_FEATURES = 2_048
+FID_BUCKET = 2 * (FID_FEATURES * FID_FEATURES + FID_FEATURES)  # FID's float32 sum bucket: 8,392,704 values
+EVAL_BUCKET = 88_003  # the size of the eval collection's (Accuracy, F1, AUROC at 1,000 classes) count bucket
+CODEC_CHUNK = 256
+CODEC_OPS_PER_VALUE = 8  # |x|, max, the divide, rint, two clamps, the convert, the store's address: fp32 work a value
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``torch.equal``, a NaN equal to a NaN in the same place."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+def _codec_values(gen: torch.Generator, size: int, chunk: int, edits) -> torch.Tensor:
+    """``size`` float32 values on the card: a covariance-like spread of magnitudes (a chunk's scale between
+    1e-3 and 1e3), counts for ``"counts"``, and the edge chunks of ``edits`` at the front."""
+    dev = torch.device("cuda")
+    if "counts" in edits:
+        return torch.randint(0, 50_000, (size,), generator=gen, device=dev).to(torch.float32)
+    x = torch.randn((size,), generator=gen, device=dev)
+    n_chunks = -(-size // chunk)
+    scale = 10.0 ** torch.randint(-3, 4, (n_chunks,), generator=gen, device=dev).to(torch.float32)
+    x = (x * scale.repeat_interleave(chunk)[:size]).contiguous()
+    pos = 0
+    for edit in edits:
+        seg = x[pos : pos + chunk]
+        if seg.numel() == 0:
+            break
+        if edit == "zeros":
+            seg.zero_()
+        elif edit == "halfway":  # scale 0.5 exactly: (k + 0.5) * 0.5 lies half-way between two codes
+            k = torch.randint(-126, 126, seg.shape, generator=gen, device=dev).to(torch.float32)
+            seg.copy_((k + 0.5) * 0.5)
+            seg[0] = 63.5
+        elif edit == "edges":  # +-127 codes and the values just inside them
+            seg.uniform_(-1.0, 1.0, generator=gen).mul_(3.0)
+            seg[: min(4, seg.numel())] = torch.tensor([3.0, -3.0, 2.9999998, -2.9999998], device=dev)[: seg.numel()]
+        elif edit == "subnormal":
+            seg.copy_(torch.randint(-50, 50, seg.shape, generator=gen, device=dev).to(torch.float32) * 1e-44)
+        elif edit == "nan":
+            seg[seg.numel() // 2] = float("nan")
+            seg[0], seg[-1] = float("inf"), -float("inf")
+        elif edit == "inf":
+            seg[1 % seg.numel()] = float("inf")
+        elif edit == "neg_zero":
+            seg.fill_(-0.0)
+        pos += chunk
+    return x
+
+
+def _codec_chain(blocks: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The codec as a short chain of PyTorch calls (abs, amax, divide, round, clamp, convert, cat): a
+    yardstick, not the function (no NaN rule, the scale by a division)."""
+    xc = blocks.reshape(blocks.shape[0], -1, chunk)
+    scale = xc.abs().amax(-1, keepdim=True) / 127.0
+    q = (xc / scale).round().clamp(-127, 127).to(torch.int8)
+    return torch.cat([q.reshape(blocks.shape[0], -1).view(torch.uint8),
+                      scale.reshape(blocks.shape[0], -1).view(torch.uint8)], 1)
+
+
+def phase_int8_codec_kernel(flush: torch.Tensor) -> dict:
+    """``int8_quantize`` and ``int8_dequant_sum`` against their plain versions on the card, ``torch.equal`` (a
+    NaN equal to a NaN in its place): each case packs ``n`` destination blocks (the in-graph and the host scale),
+    sums the ``n`` packed rows as the int8 all-reduce's phase 2 does (packed again, and not), in JAX's jitted
+    order and in the host's, and unpacks them side by side (k = n). Timed at FID's 2,048-feature bucket in a
+    world of 4 (the record's rows: phase 1's pack, phase 2's sum packed again, the final unpack) and of 1, beside
+    a chain of PyTorch calls (a yardstick; library: none)."""
+    from torchmetrics_tpu_torch.kernels import int8_codec as kic
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 180)
+    edge = ("zeros", "halfway", "edges", "subnormal", "nan", "inf", "neg_zero")
+    cases = [  # (what, size, n, chunk, edits, timed)
+        ("(a) FID's 2,048-feature bucket, n=4", FID_BUCKET, 4, CODEC_CHUNK, (), True),
+        ("FID's 2,048-feature bucket, n=1", FID_BUCKET, 1, CODEC_CHUNK, (), True),
+        ("the eval collection's bucket, n=4", EVAL_BUCKET, 4, CODEC_CHUNK, ("counts",), False),
+        *((f"chunk {c}, n=4, the edge chunks", 40_000 + 3, 4, c, edge, False) for c in (8, 256, 1024)),
+        *((f"chunk {c}, n=1, the edge chunks", 9 * c, 1, c, edge, False) for c in (8, 9, 256, 1024)),
+        *((f"length {what}, chunk {c}, n=4", size, 4, c, ("edges",), False)
+          for c in (8, 256, 1024) for what, size in (("1", 1), ("chunk-1", c - 1), ("n*chunk+1", 4 * c + 1))),
+    ]
+    rows = {"int8_quantize": [], "int8_dequant_sum": []}
+    for what, size, n, chunk, edits, timed in cases:
+        flat = _codec_values(gen, size, chunk, edits)
+        n_chunks = -(-size // (n * chunk))
+        blocks = torch.nn.functional.pad(flat, (0, n * n_chunks * chunk - size)).reshape(n, n_chunks * chunk)
+        label = f"{what}: {size} values, {n_chunks} chunks of {chunk} a block"
+        before = (kic.int8_quantize.launches, kic.int8_dequant_sum.launches)
+        checks = {}
+        for host in (False, True):
+            got, want = kic.int8_quantize(blocks, chunk, host), kic._int8_quantize_plain(blocks, chunk, host)
+            checks[f"pack{' host' if host else ''}"] = torch.equal(got, want)
+        packed = kic.int8_quantize(blocks, chunk)
+        again = kic.int8_quantize(blocks, chunk)
+        checks["pack twice"] = torch.equal(packed, again)
+        for mode, req, host in (("sum", True, False), ("sum", False, False), ("sum", False, True),
+                                ("concat", False, False)):
+            got = kic.int8_dequant_sum(packed, chunk, mode, req, host)
+            want = kic._int8_dequant_sum_plain(packed, chunk, mode, req, host)
+            checks[f"{mode}{' packed' if req else ''}{' host' if host else ''}"] = _same(got, want)
+        torch.cuda.synchronize()
+        check(all(checks.values()), f"int8 codec and plain differ ({label}): {checks}")
+        check((kic.int8_quantize.launches - before[0], kic.int8_dequant_sum.launches - before[1]) == (4, 4),
+              f"int8 codec launches ({label})")
+        q_row = {"case": label, "what": what, "max_abs_err": 0.0}
+        d_row = {"case": f"{label}, phase 2 (the sum of {n} packed rows, packed again)", "what": what, "max_abs_err": 0.0}
+        if timed:
+            width = kic.packed_width(n_chunks, chunk)
+            in_bytes, out_bytes = 4 * blocks.numel(), packed.numel()
+            sets = [(blocks,)] + [(blocks.clone(),) for _ in range(min(copies_for(in_bytes), 8) - 1)]
+            q_ms = time_ms(lambda: kic.int8_quantize(blocks, chunk), flush)
+            q_stream = time_stream_ms(lambda b_: kic.int8_quantize(b_, chunk), sets, calls=len(sets) * 3)
+            q_plain = time_ms(lambda: kic._int8_quantize_plain(blocks, chunk), flush, reps=10, warmup=1)
+            q_chain = time_ms(lambda: _codec_chain(blocks, chunk), flush, reps=10, warmup=1)
+            del sets
+            q_bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
+            q_ops_ms = blocks.numel() * CODEC_OPS_PER_VALUE / FP32_INSTR_PER_S * 1e3
+            q_row.update({"ms": q_ms, "stream_ms": q_stream, "plain_ms": q_plain, "torch_chain_yardstick_ms": q_chain,
+                          "bound_ms": max(q_bytes_ms, q_ops_ms), "bound_by": "bytes" if q_bytes_ms >= q_ops_ms
+                          else "operations", "bytes": in_bytes + out_bytes, "library_ms": None})
+            d_sets = [(packed,)] + [(packed.clone(),) for _ in range(min(copies_for(packed.numel()), 8) - 1)]
+            d_ms = time_ms(lambda: kic.int8_dequant_sum(packed, chunk, "sum", True), flush)
+            d_stream = time_stream_ms(lambda p_: kic.int8_dequant_sum(p_, chunk, "sum", True), d_sets,
+                                      calls=len(d_sets) * 3)
+            d_plain = time_ms(lambda: kic._int8_dequant_sum_plain(packed, chunk, "sum", True), flush, reps=10, warmup=1)
+            c_ms = time_ms(lambda: kic.int8_dequant_sum(packed, chunk, "concat"), flush)
+            c_plain = time_ms(lambda: kic._int8_dequant_sum_plain(packed, chunk, "concat"), flush, reps=10, warmup=1)
+            del d_sets
+            d_bytes_ms = (packed.numel() + width) / PEAK_BYTES_PER_S * 1e3
+            c_bytes_ms = (packed.numel() + 4 * blocks.numel()) / PEAK_BYTES_PER_S * 1e3
+            # a convert and an FMA for each of the n x N/n summed values, then the pack of the N/n sums
+            d_ops_ms = (2 * blocks.numel() + CODEC_OPS_PER_VALUE * blocks.numel() // n) / FP32_INSTR_PER_S * 1e3
+            d_row.update({"ms": d_ms, "stream_ms": d_stream, "plain_ms": d_plain,
+                          "bound_ms": max(d_bytes_ms, d_ops_ms),
+                          "bound_by": "bytes" if d_bytes_ms >= d_ops_ms else "operations",
+                          "bytes": packed.numel() + width, "library_ms": None,
+                          "concat_ms": c_ms, "concat_plain_ms": c_plain, "concat_bound_ms": c_bytes_ms})
+            print(f"[kernel] int8_quantize {label}: equal, {q_ms:.4f} ms after an L2 flush ({q_stream:.4f} ms a call "
+                  f"back to back), plain {q_plain:.4f} ms, a PyTorch chain (a yardstick) {q_chain:.4f} ms, bound "
+                  f"{q_row['bound_ms'] * 1e3:.3f} us (by {q_row['bound_by']}: {in_bytes} + {out_bytes} bytes), share "
+                  f"{q_row['bound_ms'] / q_ms:.1%}; library_ms: none")
+            print(f"[kernel] int8_dequant_sum {label}: phase 2 (sum of {n} packed rows, packed again) {d_ms:.4f} ms "
+                  f"({d_stream:.4f} back to back), plain {d_plain:.4f} ms, bound {d_row['bound_ms'] * 1e3:.3f} us "
+                  f"(by {d_row['bound_by']}: {packed.numel()} + {width} bytes), share {d_row['bound_ms'] / d_ms:.1%}; "
+                  f"the final unpack {c_ms:.4f} ms, plain {c_plain:.4f} ms, bound {c_bytes_ms * 1e3:.3f} us "
+                  f"({packed.numel()} + {4 * blocks.numel()} bytes), share {c_bytes_ms / c_ms:.1%}; library_ms: none")
+        rows["int8_quantize"].append(q_row)
+        rows["int8_dequant_sum"].append(d_row)
+        del flat, blocks, packed, again
+    print(f"[kernel] int8 codec: equal to plain on all {len(cases)} cases: " + "; ".join(r["what"] for r in
+                                                                                          rows["int8_quantize"]))
+    return rows
+
+
+FID_SYNC_ROWS = 10_000  # real rows, and as many fake ones, fed unevenly over the ranks
+FID_SYNC_BATCH = 500
+CADENCE_K = 4
+WEIGHT_LEAF = 4_096
+SYNC_MODES = ("exact", "bf16", "int8", "sharded", "sharded int8")
+
+
+def _fid_feature_set(real: bool, device) -> torch.Tensor:
+    """The whole seeded feature set on the card: integer-valued 2,048-wide rows, so every float32 moment sum
+    is exact in any order (the sync is measured, not InceptionV3)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 181 + (0 if real else 1))
+    rows = torch.randint(-4, 5, (FID_SYNC_ROWS, FID_FEATURES), generator=gen, device=device)
+    return (rows + (0 if real else 1)).to(torch.float32)
+
+
+class _FeatureRows:
+    """A feature extractor that returns its input: the rows are already 2,048-wide features."""
+
+    num_features = FID_FEATURES
+
+    def __call__(self, x):
+        return x
+
+
+def _fid_metric(device, mode: str):
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance
+
+    fid = FrechetInceptionDistance(feature=_FeatureRows(), device=device)
+    if mode.startswith("sharded"):
+        fid.set_state_sharding("real_features_cov_sum", "sharded")
+        fid.set_state_sharding("fake_features_cov_sum", "sharded")
+    return fid
+
+
+def _fid_state(fid, real_rows: torch.Tensor, fake_rows: torch.Tensor):
+    st = fid.init_state()
+    for rows, real in ((real_rows, True), (fake_rows, False)):
+        for i in range(0, rows.shape[0], FID_SYNC_BATCH):
+            st = fid.update_state(st, rows[i : i + FID_SYNC_BATCH], real)
+    return st
+
+
+def _chunk_error_ok(got: torch.Tensor, want: torch.Tensor, chunk: int, rel: float) -> bool:
+    """Every value of ``got`` within ``rel`` of the largest magnitude of its chunk of ``want`` (chunks of the
+    layout the codec ran on, from the front)."""
+    pad = -want.numel() % chunk
+    amax = torch.nn.functional.pad(want.abs().reshape(-1), (0, pad)).reshape(-1, chunk).amax(1)
+    bound = (rel * amax).repeat_interleave(chunk)[: want.numel()]
+    return bool(((got.reshape(-1) - want.reshape(-1)).abs() <= bound).all())
+
+
+def _equal_steps(batches: list, steps: int) -> list:
+    """``batches`` as ``steps`` updates, the largest batch halved until there are as many: every rank of a
+    deferred sync must take the same number of steps."""
+    out = list(batches)
+    while len(out) < steps:
+        i = max(range(len(out)), key=lambda j: out[j][0].shape[0])
+        p, t = out.pop(i)
+        half = p.shape[0] // 2
+        out[i:i] = [(p[:half], t[:half]), (p[half:], t[half:])]
+    return out
+
+
+def _sync_leg_fid(rank: int, world: int, device: torch.device) -> dict:
+    """(i): FID's 2,048-feature state synced exact, bf16, int8, sharded and sharded int8."""
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch.core.reductions import COLLECTIVES
+    from torchmetrics_tpu_torch.parallel.coalesce import bucket_scatter_size, plan_for_metric
+    from torchmetrics_tpu_torch.parallel.compress import CompressionConfig, bucket_wire_bytes, predicted_error_bound
+
+    real_all, fake_all = _fid_feature_set(True, device), _fid_feature_set(False, device)
+    mine = _rank_blocks(FID_SYNC_ROWS, world, uneven=True)[rank]
+    ref_fid = _fid_metric(device, "exact")
+    ref_state = _fid_state(ref_fid, real_all, fake_all)  # the single-process state
+    out = {"rows": len(mine), "modes": {}}
+    values = {}
+    for mode in SYNC_MODES:
+        fid = _fid_metric(device, mode)
+        comp = CompressionConfig("int8") if "int8" in mode else CompressionConfig("bf16") if mode == "bf16" else None
+        st = _fid_state(fid, real_all[mine.start : mine.stop], fake_all[mine.start : mine.stop])
+        plan = plan_for_metric(fid, st, compression=comp)
+        wire = sum(bucket_wire_bytes(bucket_scatter_size(b, world), 4, world, b.compression, sharded=b.sharded)
+                   for b in plan.buckets)
+        dist.barrier()
+        torch.cuda.synchronize()
+        before = dict(COLLECTIVES)
+        t0 = time.perf_counter()
+        synced = fid.sync_states(st, compression=comp)
+        torch.cuda.synchronize()
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        issued = {k: v - before.get(k, 0) for k, v in COLLECTIVES.items() if v - before.get(k, 0)}
+        data = sum(v for k, v in issued.items() if k in ("all_reduce", "all_gather", "all_to_all", "reduce_scatter"))
+        full = fid._unpad_sharded(synced)  # a collective where leaves are sharded: the blocks gathered
+        record = {"sync_ms": sync_ms, "wire_bytes_model": wire, "collectives": issued, "plan_collectives":
+                  plan.n_collectives, "collectives_match": data == plan.n_collectives,
+                  "buckets": [(b.dtype, b.op, b.sharded, None if b.compression is None else b.compression.mode)
+                              for b in plan.buckets]}
+        if mode in ("exact", "sharded"):
+            # every moment sum (the update counts differ: a rank's rows take their own batches)
+            record["equal_single_process"] = all(torch.equal(full[k], ref_state[k]) for k in ref_state if k != "_n")
+            if mode == "sharded":
+                record["block_rows"] = int(synced["real_features_cov_sum"].shape[0])
+        else:  # each compressed bucket within its declared bound, per chunk of the layout it was packed in
+            exact = ref_state
+            ok = {}
+            for b in plan.buckets:
+                if b.compression is None:
+                    ok[b.dtype + "/" + b.op] = all(torch.equal(full[s.name], exact[s.name]) for s in b.slots
+                                                   if s.name != "_n")
+                    continue
+                spec = b.compression
+                # int8: the declared two-stage bound, one stage where sharded (psum_scatter_int8 packs once);
+                # bf16: 2**-8 a rounding to bfloat16, one a hop of the ring
+                rel = (world * 2.0 ** -8 if spec.mode == "bf16" else predicted_error_bound(spec.mode, stages=1)
+                       if b.sharded else spec.error_bound)
+                if b.sharded:  # this rank's block of each slot, chunked along its row
+                    ok["sharded"] = all(_chunk_error_ok(synced[s.name], exact[s.name].reshape(
+                        world, -1, FID_FEATURES)[rank], spec.chunk, rel) for s in b.slots)
+                else:
+                    got_flat = torch.cat([full[s.name].reshape(-1) for s in b.slots])
+                    want_flat = torch.cat([exact[s.name].reshape(-1) for s in b.slots])
+                    ok[b.dtype + "/" + b.op] = _chunk_error_ok(got_flat, want_flat, spec.chunk, rel)
+            record["within_bound"] = ok
+        if rank == 0 and mode in ("exact", "sharded"):
+            values[mode] = float(fid.compute_state(full))
+        out["modes"][mode] = record
+    if rank == 0:
+        values["single process"] = float(ref_fid.compute_state(ref_state))
+    out["fid"] = values
+    return out
+
+
+def _sync_leg_weight(rank: int, world: int, device: torch.device) -> dict:
+    """(ii): the last rank quarantined (weight 0): every leaf equals the other ranks' own combination."""
+    from torchmetrics_tpu_torch.parallel import coalesced_sync_state
+
+    def state_of(r):
+        gen = torch.Generator(device=device).manual_seed(SEED + 190 + r)
+        ints = lambda lo, hi, dtype=torch.float32: torch.randint(lo, hi, (WEIGHT_LEAF,), generator=gen,  # noqa: E731
+                                                                 device=device).to(dtype)
+        return {"s": ints(-1000, 1000), "m": ints(-1000, 1000), "lo": ints(-10**6, 10**6),
+                "hi": ints(-10**6, 10**6, torch.int32), "_n": torch.tensor(r + 1, dtype=torch.int32, device=device)}
+
+    table = {"s": "sum", "m": "mean", "lo": "min", "hi": "max"}
+    masked = world - 1
+    synced = coalesced_sync_state(state_of(rank), table, weight=0.0 if rank == masked else 1.0)
+    others = [state_of(r) for r in range(world) if r != masked]
+    want = {"s": torch.zeros(WEIGHT_LEAF, device=device), "m": torch.zeros(WEIGHT_LEAF, device=device),
+            "lo": torch.full((WEIGHT_LEAF,), float("inf"), device=device),
+            "hi": torch.full((WEIGHT_LEAF,), torch.iinfo(torch.int32).min, dtype=torch.int32, device=device),
+            "_n": torch.tensor(0, dtype=torch.int32, device=device)}
+    for st in others:
+        want = {"s": want["s"] + st["s"], "m": want["m"] + st["m"], "lo": torch.minimum(want["lo"], st["lo"]),
+                "hi": torch.maximum(want["hi"], st["hi"]), "_n": want["_n"] + st["_n"]}
+    # a tensor divisor: a CUDA division by a Python number multiplies by its reciprocal, the sync divides
+    want["m"] = want["m"] / torch.full_like(want["m"], float(max(len(others), 1)))
+    return {"masked_rank": masked, "equal": {k: bool(torch.equal(synced[k], want[k])) for k in want}}
+
+
+def _sync_leg_cadence(rank: int, world: int, device: torch.device) -> dict:
+    """(iii): phase 5's eval collection through ``sharded_collection_update`` with ``SyncPolicy(every_n_steps=4)``
+    and with ``at_compute=True``, against the every-step sync; a snapshot mid-window restored into a new
+    stepper."""
+    from torchmetrics_tpu_torch.parallel import SyncPolicy, SyncStepper, flush_sync, sharded_collection_update
+
+    data = _main_path_data(torch.Generator(device=device).manual_seed(SEED))
+    batches = [b["cls"] for b in _batches(data)]
+    blocks = _rank_blocks(len(batches), world, uneven=False)
+    steps = _equal_steps([batches[i] for i in blocks[rank]], max(len(b) for b in blocks))
+    cadenced, per_step = _sync_collection3(device), _sync_collection3(device)
+    ref, returned, equal_at_sync = None, [], []
+    t0 = time.perf_counter()
+    for p, t in steps:
+        got = sharded_collection_update(cadenced, p, t, sync_policy=SyncPolicy(every_n_steps=CADENCE_K))
+        synced = sharded_collection_update(per_step, p, t)
+        ref = synced if ref is None else per_step.merge_states(ref, synced)
+        returned.append(got is not None)
+        if got is not None:
+            equal_at_sync.append(all(torch.equal(got[k][leaf], ref[k][leaf]) for k in ref for leaf in ref[k]))
+    final = flush_sync(cadenced)
+    torch.cuda.synchronize()
+    leg_s = time.perf_counter() - t0
+    values = {k: float(v) for k, v in per_step.compute_states(final).items()}
+    stepper = SyncStepper(_sync_collection3(device), policy=SyncPolicy(at_compute=True))
+    deferred = [stepper.update(p, t) is None for p, t in steps]
+    at_compute = {k: float(v) for k, v in stepper.compute().items()}
+    policy = SyncPolicy(every_n_steps=CADENCE_K)
+    stepper = SyncStepper(_sync_collection3(device), policy=policy)
+    cut = CADENCE_K + CADENCE_K // 2
+    for p, t in steps[:cut]:
+        stepper.update(p, t)
+    snap, pending = stepper.snapshot(), stepper.pending
+    for p, t in steps[cut:]:
+        stepper.update(p, t)
+    uninterrupted = {k: float(v) for k, v in stepper.compute().items()}
+    restored = SyncStepper(_sync_collection3(device), policy=policy)
+    restored.restore(snap)
+    for p, t in steps[cut:]:
+        restored.update(p, t)
+    resumed = {k: float(v) for k, v in restored.compute().items()}
+    return {"steps": len(steps), "returned": returned, "equal_at_sync": equal_at_sync,
+            "final_equal": all(torch.equal(final[k][leaf], ref[k][leaf]) for k in ref for leaf in ref[k]),
+            "values": values, "at_compute_deferred": all(deferred), "at_compute": at_compute,
+            "snapshot_pending": pending, "resumed": resumed, "uninterrupted": uninterrupted, "leg_s": leg_s}
+
+
+def _sync_collection3(device):
+    """Phase 5's eval collection less AP (its cat states take the ragged path): Accuracy, F1 and AUROC."""
+    col = _sync_collection(device)
+    return type(col)({k: col[k] for k in ("acc", "f1", "auroc")})
+
+
+def _sync_leg_deferred(rank: int, world: int, device: torch.device) -> dict:
+    """(iv): mAP and ROUGE registered on one ``DeferredRaggedSync`` over phase 6's data, one gather a dtype;
+    every rank computes ROUGE, rank 0 mAP too (its compute is host-bound: phase 6 computes it on every rank)."""
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch.core.reductions import COLLECTIVES
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision
+    from torchmetrics_tpu_torch.parallel import DeferredRaggedSync
+    from torchmetrics_tpu_torch.text import ROUGEScore
+
+    preds, target = _sentence_pairs(ROUGE_PAIRS)
+    rouge = ROUGEScore(rouge_keys=("rouge1", "rougeL"), device=device)
+    metric = MeanAveragePrecision(device=device)
+    metric._value_ranges.update({"detection_labels": (0, MAP_CLASSES - 1), "groundtruth_labels": (0, MAP_CLASSES - 1),
+                                 "groundtruth_crowds": (0, 1)})
+    shared = DeferredRaggedSync()
+    shared.register(metric, "map")
+    shared.register(rouge, "rouge")
+    for j in _rank_blocks(ROUGE_PAIRS // ROUGE_BATCH, world, uneven=True)[rank]:
+        sl = slice(j * ROUGE_BATCH, (j + 1) * ROUGE_BATCH)
+        shared.update_for("rouge", preds[sl], target[sl])
+    for j in _rank_blocks(-(-MAP_IMAGES // MAP_BATCH), world, uneven=True)[rank]:
+        p, t = _coco_images(j * MAP_BATCH, min((j + 1) * MAP_BATCH, MAP_IMAGES))
+        shared.update_for("map", _on(device, p), _on(device, t))
+    dist.barrier()
+    before = dict(COLLECTIVES)
+    t0 = time.perf_counter()
+    synced = shared.sync()
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    issued = {k: v - before.get(k, 0) for k, v in COLLECTIVES.items() if v - before.get(k, 0)}
+    wires = set()
+    for key, m in shared._members.items():
+        from torchmetrics_tpu_torch.parallel.compress import packed_int_dtype
+
+        for leaf, items in synced[key].items():
+            if isinstance(items, tuple) and items:
+                rng = m._value_ranges.get(leaf)
+                wires.add(str(packed_int_dtype(items[0].dtype, rng) if rng else items[0].dtype))
+    t0 = time.perf_counter()
+    keys = list(synced) if rank == 0 else ["rouge"]  # mAP's host-bound compute once a world: phase 6 holds the rest
+    values = {key: {k: float(v) for k, v in shared._members[key].compute_state(synced[key]).items()
+                    if v.numel() == 1 and k != "classes"} for key in keys}
+    torch.cuda.synchronize()
+    return {"sync_ms": sync_ms, "collectives": issued, "wire_dtypes": sorted(wires), "values": values,
+            "compute_s": time.perf_counter() - t0, "images": len(synced["map"]["detection_scores"])}
+
+
+def worker_engineering(rank: int, world: int, device: torch.device) -> dict:
+    """Phase 18 on one rank: (i) FID's sync in five forms, (ii) the weight mask, (iii) the deferred eval
+    collection, (iv) the shared deferred ragged sync; the int8 codec's launches counted on the way."""
+    from torchmetrics_tpu_torch.kernels.int8_codec import int8_dequant_sum, int8_quantize
+
+    int8_quantize.launches = int8_dequant_sum.launches = 0
+    seconds = {}
+    t0 = time.perf_counter()
+    fid = _sync_leg_fid(rank, world, device)
+    launches = {"int8_quantize": int8_quantize.launches, "int8_dequant_sum": int8_dequant_sum.launches}
+    seconds["fid"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    weight = _sync_leg_weight(rank, world, device)
+    cadence = _sync_leg_cadence(rank, world, device)
+    seconds["weight and cadence"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deferred = _sync_leg_deferred(rank, world, device)
+    seconds["deferred"] = time.perf_counter() - t0
+    return {"rank": rank, "launches": launches, "fid": fid, "weight": weight, "cadence": cadence,
+            "deferred": deferred, "seconds": seconds}
+
+
+def phase_engineering(sync: dict, ragged: dict) -> dict:
+    """Phase 18 in both worlds; the cadence leg's values against phase 5's, the deferred leg's against phase 6's."""
+    record = {}
+    for backend, world in _worlds():
+        results = run_world("engineering", backend, world)
+        label = f"{backend} x{world}"
+        first = results[0]
+        for r in results:
+            tag = f"[{label}] rank {r['rank']}"
+            for mode, m in r["fid"]["modes"].items():
+                check(m["collectives_match"], f"{tag}: FID {mode}: collectives {m['collectives']} vs the plan's "
+                                              f"{m['plan_collectives']}")
+                if "equal_single_process" in m:
+                    check(m["equal_single_process"], f"{tag}: FID {mode}: the synced state differs from one process's")
+                else:
+                    check(all(m["within_bound"].values()), f"{tag}: FID {mode} outside its bound: {m['within_bound']}")
+            check(r["fid"]["modes"]["sharded"]["block_rows"] == FID_FEATURES // world, f"{tag}: sharded block rows")
+            check(r["launches"]["int8_quantize"] > 0 and r["launches"]["int8_dequant_sum"] > 0,
+                  f"{tag}: int8 codec launches {r['launches']}")
+            check(all(r["weight"]["equal"].values()), f"{tag}: weighted sync {r['weight']['equal']}")
+            c = r["cadence"]
+            want_returned = [(i + 1) % CADENCE_K == 0 for i in range(c["steps"])]
+            check(c["returned"] == want_returned and all(c["equal_at_sync"]) and c["final_equal"],
+                  f"{tag}: cadence returned {c['returned']}, equal at sync steps {c['equal_at_sync']}, final "
+                  f"{c['final_equal']}")
+            check(c["values"] == {k: sync[label][0]["values"][k] for k in c["values"]},
+                  f"{tag}: cadence values {c['values']} vs phase 5's {sync[label][0]['values']}")
+            check(c["at_compute_deferred"] and c["at_compute"] == c["values"], f"{tag}: at_compute {c['at_compute']}")
+            check(c["resumed"] == c["uninterrupted"] == c["values"] and c["snapshot_pending"] == CADENCE_K // 2,
+                  f"{tag}: restored {c['resumed']} vs {c['uninterrupted']}")
+            d = r["deferred"]
+            gathers = d["collectives"].get("all_gather", 0)
+            # a gather a wire type, and the shape tables' gather with its size exchange
+            check(gathers == len(d["wire_dtypes"]) + 1 and d["collectives"].get("shape_gather") == 1,
+                  f"{tag}: deferred ragged collectives {d['collectives']} for wire types {d['wire_dtypes']}")
+            check(d["images"] == MAP_IMAGES, f"{tag}: {d['images']} images after the deferred sync")
+            ragged_first = ragged[label][0]
+            check(r["rank"] != 0 or d["values"]["map"] == ragged_first["map"],
+                  f"{tag}: deferred mAP {d['values'].get('map')} vs phase 6's {ragged_first['map']}")
+            for k, v in d["values"]["rouge"].items():
+                check(abs(v - ragged_first["rouge"][k]) <= 1e-6, f"{tag}: deferred {k} {v} vs phase 6's")
+        fid = first["fid"]["fid"]
+        check(fid["exact"] == fid["sharded"] == fid["single process"] and math.isfinite(fid["exact"]),
+              f"[{label}] FID exact {fid['exact']}, sharded {fid['sharded']}, one process {fid['single process']}")
+        for mode in SYNC_MODES:
+            m = first["fid"]["modes"][mode]
+            print(f"[engineering] {label}: FID {mode}: sync {[round(r['fid']['modes'][mode]['sync_ms'], 3) for r in results]}"
+                  f" ms per rank beside {m['wire_bytes_model']} modelled wire bytes a rank (bucket_wire_bytes), "
+                  f"collectives {m['collectives']} = the plan's {m['plan_collectives']}, buckets {m['buckets']}")
+        print(f"[engineering] {label}: FID exact = sharded = one process's = {fid['exact']!r}; rows per rank "
+              f"{[r['fid']['rows'] for r in results]}; int8 codec launches per rank {[r['launches'] for r in results]}")
+        print(f"[engineering] {label}: weight mask (rank {first['weight']['masked_rank']} out): every leaf equals the "
+              f"other ranks' combination; cadence every {CADENCE_K} steps over {first['cadence']['steps']} steps "
+              f"({[round(r['cadence']['leg_s'], 2) for r in results]} s with the every-step reference), values "
+              f"{first['cadence']['values']} equal phase 5's, at_compute and a restore mid-window equal")
+        print(f"[engineering] {label}: deferred mAP + ROUGE: one gather a wire type {first['deferred']['wire_dtypes']} "
+              f"beside the shape tables', "
+              f"collectives {first['deferred']['collectives']}, sync {[round(r['deferred']['sync_ms'], 3) for r in results]}"
+              f" ms, compute {[round(r['deferred']['compute_s'], 3) for r in results]} s; values equal phase 6's; leg "
+              f"seconds per rank {[{k: round(v, 2) for k, v in r['seconds'].items()} for r in results]}")
+        record[label] = results
+    return record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--json", help="also write the full record to this file")
@@ -7194,6 +7730,8 @@ def main() -> int:
         "poly_mmd": "torchmetrics_tpu_torch/csrc/poly_mmd.cu",
         "quantile_hist": "torchmetrics_tpu_torch/csrc/quantile_hist.cu",
         "hll_insert": "torchmetrics_tpu_torch/csrc/hll.cu",
+        "int8_quantize": "torchmetrics_tpu_torch/csrc/int8_codec.cu",
+        "int8_dequant_sum": "torchmetrics_tpu_torch/csrc/int8_codec.cu",
     }
     replaces = {
         "binned_confmat_multiclass": "torchmetrics_tpu/functional/classification/precision_recall_curve.py:128",
@@ -7214,6 +7752,8 @@ def main() -> int:
         "poly_mmd": "torchmetrics_tpu/functional/image/generative.py:60",
         "quantile_hist": "torchmetrics_tpu/classification/precision_recall_curve.py:110",
         "hll_insert": "torchmetrics_tpu/text/distinct.py:83",
+        "int8_quantize": "torchmetrics_tpu/parallel/compress.py:222",
+        "int8_dequant_sum": "torchmetrics_tpu/parallel/compress.py:233",
     }
 
     seconds = {}
@@ -7248,6 +7788,7 @@ def main() -> int:
     kernel_rows["poly_mmd"] = timed("phase 3 poly_mmd", phase_poly_mmd_kernel, flush)
     kernel_rows["quantile_hist"] = timed("phase 3 quantile_hist", phase_quantile_hist_kernel, flush)
     kernel_rows["hll_insert"] = timed("phase 3 hll_insert", phase_hll_kernel, flush)
+    kernel_rows.update(timed("phase 3 int8 codec", phase_int8_codec_kernel, flush))
     del flush
     main = timed("phase 4", phase_main_path, kernels)
     sync = timed("phase 5", phase_sync)
@@ -7263,6 +7804,7 @@ def main() -> int:
     generative = timed("phase 15", phase_generative)
     wrapped = timed("phase 16", phase_multimodal_wrappers)
     sketches = timed("phase 17", phase_sketches)
+    engineering = timed("phase 18", phase_engineering, sync, ragged)
     kernel_rows["pairwise_lp"] += [{"case": f"Market-1501 {name} (phase 11)", "max_abs_err": entry["max_abs_err"]}
                                    for name, entry in contingency["market"]["calls"].items() if "max_abs_err" in entry]
 
@@ -7293,6 +7835,8 @@ def main() -> int:
         "quantile_hist": {f"sketches {leg}": sketches[leg]["launches"]["quantile_hist"]
                           for leg in ("imagenet", "coco", "binary", "requires_grad")},
         "hll_insert": {"sketches distinct": sketches["distinct"]["launches"]["hll_insert"]},
+        "int8_quantize": {},
+        "int8_dequant_sum": {},
     }
     by_path["coco_match"]["detection segm"] = detection["segm"]["launches"]["coco_match"]
     by_path["coco_match"]["sketches map"] = sketches["map"]["launches"]["coco_match"]
@@ -7305,7 +7849,7 @@ def main() -> int:
         by_path["binned_confmat_multiclass"][f"rest {leg}"] = rest[leg]["launches"]["binned_confmat_multiclass"]
     for leg in ("coco", "binary"):
         by_path["binned_confmat_multilabel"][f"rest {leg}"] = rest[leg]["launches"]["binned_confmat_multilabel"]
-    for name, record in (("sync", sync), ("ragged", ragged)):
+    for name, record in (("sync", sync), ("ragged", ragged), ("engineering", engineering)):
         for label, results in record.items():
             for kernel, count in ((k, sum(r["launches"][k] for r in results)) for k in results[0]["launches"]):
                 by_path[kernel][f"{name} {label}"] = count
@@ -7325,7 +7869,9 @@ def main() -> int:
                                          "sort_gather_cumsum_ms", "query_layout_ms", "sort_cumsum_segment_ms",
                                          "conv_ssim_yardstick_ms", "bincount_yardstick_ms", "chain_bound_ms",
                                          "least_chain_ms", "library_float64_ms", "bmm_amax_yardstick_ms",
-                                         "floor_index_add_yardstick_ms", "scatter_amax_yardstick_ms")
+                                         "floor_index_add_yardstick_ms", "scatter_amax_yardstick_ms",
+                                         "torch_chain_yardstick_ms", "concat_ms", "concat_plain_ms",
+                                         "concat_bound_ms")
                if k in first_row},
         })
     if args.json:
@@ -7335,7 +7881,7 @@ def main() -> int:
                        "sync": sync, "ragged": ragged, "tower": tower, "curves": curves, "rest": rest,
                        "signal": signal, "contingency": contingency, "audio": audio, "text": text,
                        "detection": detection, "generative": generative, "multimodal_wrappers": wrapped,
-                       "sketches": sketches}, f,
+                       "sketches": sketches, "engineering": engineering}, f,
                       indent=1)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}}))

@@ -170,8 +170,10 @@ def test_bad_inputs_raise():
         MetricCollection([tc.MulticlassAccuracy(num_classes=3, device="cpu"), tc.MulticlassAccuracy(num_classes=3, device="cpu")])
     with pytest.raises(ValueError):
         MetricCollection({"a": 3})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 11"):
         MetricCollection(tc.MulticlassAccuracy(num_classes=3, device="cpu"), jit=True)
+    with pytest.raises(ValueError, match="SyncPolicy"):
+        MetricCollection(tc.MulticlassAccuracy(num_classes=3, device="cpu"), sync_policy={"every_n_steps": 2})
 
 
 # ------------------------------------------------------------ the gloo world

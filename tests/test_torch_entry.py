@@ -283,7 +283,8 @@ KERNEL_SITES = {"calibration": "classification", "ranking": "classification", "b
                 "snr_moments": "audio", "sdr_toeplitz": "audio", "perplexity": "text", "bert_match": "text",
                 "poly_mmd": "image"}
 KERNEL_DETECTION_SITES = {"mask_iou": "detection/mean_ap.py",  # sites outside ``functional/``
-                          "quantile_hist": "classification/precision_recall_curve.py", "hll": "text/distinct.py"}
+                          "quantile_hist": "classification/precision_recall_curve.py", "hll": "text/distinct.py",
+                          "int8_codec": "parallel/compress.py"}
 CONTINGENCY_SLICE = tuple(f"{pkg}.{m}" for pkg, mods in (
     ("segmentation", ("mean_iou", "generalized_dice")), ("functional.segmentation", ("mean_iou", "generalized_dice")),
     ("clustering", ("extrinsic", "intrinsic")), ("functional.clustering", ("extrinsic", "intrinsic", "utils")),
@@ -308,6 +309,8 @@ MULTIMODAL_WRAPPERS_SLICE = ("multimodal", "multimodal.clip_score", "multimodal.
                                                          "transformations")))
 SKETCH_SLICE = ("sketches", "sketches.cardinality", "sketches.quantile", "sketches.reservoir", "kernels.quantile_hist",
                 "kernels.hll")
+SYNC_ENGINEERING_SLICE = ("parallel", "parallel.compress", "parallel.coalesce", "parallel.ragged", "parallel.sync",
+                          "kernels.int8_codec", "core.reductions", "core.metric", "collections", "regression.correlation")
 
 
 def test_isolation_covers_every_new_module():
@@ -319,13 +322,13 @@ def test_isolation_covers_every_new_module():
                  "kernels.calibration", "kernels.ranking", "kernels.binned_multilabel",
                  *(f"{pkg}.{m}" for m in REST_OF_CLASSIFICATION for pkg in ("classification", "functional.classification")),
                  *SIGNAL_SLICE, *CONTINGENCY_SLICE, *AUDIO_SLICE, *TEXT_SLICE, *DETECTION_GENERATIVE_SLICE,
-                 *MULTIMODAL_WRAPPERS_SLICE, *SKETCH_SLICE):
+                 *MULTIMODAL_WRAPPERS_SLICE, *SKETCH_SLICE, *SYNC_ENGINEERING_SLICE):
         assert f"torchmetrics_tpu_torch.{name}" in modules
 
 
 @pytest.mark.parametrize("source", ["calibration", "ranking", "binned_multilabel", "retrieval", "ssim", "segmentation",
                                     "pairwise", "snr_moments", "sdr_toeplitz", "perplexity", "bert_match", "mask_iou",
-                                    "poly_mmd", "quantile_hist", "hll"])
+                                    "poly_mmd", "quantile_hist", "hll", "int8_codec"])
 def test_kernel_sources_are_plain_cuda_with_a_c_interface(source):
     """The kernels build with nvcc alone and bind through ctypes: no PyTorch, JAX or Python headers (the CUDA
     toolkit's own, cooperative groups' thread-block clusters among them, and two C++ ones)."""

@@ -436,3 +436,70 @@ def test_sketch_launchers_do_not_fall_back(module, public):
     fn = next(node for node in tree.body if isinstance(node, ast.FunctionDef) and node.name == public)
     calls = {node.func.id for node in ast.walk(fn) if isinstance(node, ast.Call) and isinstance(node.func, ast.Name)}
     assert not [c for c in calls if c.endswith("_plain")]
+
+
+def test_int8_codec_constants_are_the_kernels():
+    from torchmetrics_tpu_torch.kernels import int8_codec as kic
+
+    src = _source("int8_codec")
+    assert kic.THREADS == _constant(src, "kThreads")
+    assert "constexpr float kLevels = 127.0f;" in src and "constexpr float kRcpLevels = 1.0f / 127.0f;" in src
+    assert kic.RCP_LEVELS == float(torch.tensor(1.0) / torch.tensor(127.0))
+    assert "chunk < 8" in src and kic.MIN_CHUNK == 8 and kic.SCALE_BYTES == 4
+
+
+def test_int8_codec_source_matches_its_plain_version():
+    """JAX's arithmetic as the plain version and the tests' model take it: the in-graph scale a multiply by
+    float32(1/127), the host scale a division; an IEEE quotient rounded half to even, a NaN code 0; the sum
+    fma(q0, s0, q1 s1) then fma(qj, sj, acc), the host's rounded products added into 0; no contraction
+    anywhere else (every product and add an explicit rounding intrinsic)."""
+    src = _source("int8_codec")
+    assert "return host_scale ? __fdiv_rn(m, kLevels) : __fmul_rn(m, kRcpLevels);" in src
+    assert "if (nan || !(m > 0.0f)) return 1.0f;" in src
+    assert "const float r = rintf(__fdiv_rn(x, scale));" in src and "if (r != r) return 0;" in src
+    assert "return static_cast<int8_t>(fminf(fmaxf(r, -kLevels), kLevels));" in src
+    assert "m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, offset));" in src and "nan = __any_sync(0xffffffffu, nan);" in src
+    assert "float acc = dequantized(packed + (k > 1 ? stride : 0), width, c, chunk, i);" in src
+    assert src.count("acc = __fmaf_rn(code(") == 2
+    assert "for (int j = 0; j < k; ++j) acc = __fadd_rn(acc, dequantized(packed + j * stride, width, c, chunk, i));" in src
+    assert "return __fmul_rn(static_cast<float>(q), load_scale(row + width + 4 * c));" in src
+    # the requantize of psum_int8's phase 2 takes the in-graph scale
+    assert "const float scale = chunk_scale(m, nan, false);  // the in-graph requantize of psum_int8" in src
+    assert "--use_fast_math" not in " ".join(__import__("torchmetrics_tpu_torch.kernels._build",
+                                                        fromlist=["NVCC_FLAGS"]).NVCC_FLAGS)
+
+
+def test_int8_codec_calls_no_library():
+    code = "\n".join(line.split("//")[0] for line in _source("int8_codec").splitlines())
+    assert not [name for name in LIBRARY_CALLS if name in code.lower()]
+
+
+@pytest.mark.parametrize("public", ["int8_quantize", "int8_dequant_sum"])
+def test_int8_codec_launchers_do_not_fall_back(public):
+    """A CUDA tensor launches the kernel or raises: the launcher holds no ``try`` and never calls the plain version."""
+    import ast
+    import inspect
+
+    from torchmetrics_tpu_torch.kernels import int8_codec as kic
+
+    tree = ast.parse(inspect.getsource(kic))
+    assert not [node for node in ast.walk(tree) if isinstance(node, ast.Try)]
+    fn = next(node for node in tree.body if isinstance(node, ast.FunctionDef) and node.name == public)
+    calls = {node.func.id for node in ast.walk(fn) if isinstance(node, ast.Call) and isinstance(node.func, ast.Name)}
+    assert not [c for c in calls if c.endswith("_plain")]
+
+
+def test_int8_codec_dispatch_is_by_device_alone():
+    """The compressed syncs take the kernels on a CUDA tensor and the plain versions on the CPU, by the tensor's
+    device and nothing else."""
+    import ast
+    import inspect
+
+    from torchmetrics_tpu_torch.parallel import compress
+
+    tree = ast.parse(inspect.getsource(compress))
+    assert not [node for node in ast.walk(tree) if isinstance(node, ast.Try)]
+    for name in ("_quantize_chunks", "_dequantize_chunks"):
+        fn = next(node for node in tree.body if isinstance(node, ast.FunctionDef) and node.name == name)
+        branch = fn.body[1]
+        assert isinstance(branch, ast.If) and ast.unparse(branch.test) in ("blocks.is_cuda", "packed.is_cuda")

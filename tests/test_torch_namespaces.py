@@ -183,3 +183,23 @@ def test_detection_and_generative_slice_is_exported_everywhere(names, spaces):
             assert (name in port.__all__) == exported, (space, name)
             if hasattr(jax_space, name):
                 assert getattr(port, name).__name__ == getattr(jax_space, name).__name__, (space, name)
+
+
+def test_parallel_exports_of_the_sync_engineering_slice():
+    """``torchmetrics_tpu.parallel``'s names that the port holds since the sync-engineering slice; JAX's
+    ``SyncAdvisor`` and ``SyncAutotuner`` (and its helpers) wait for the observability and compile slices, and
+    ``metric_mesh`` has no counterpart (the port syncs one rank a device over the default process group)."""
+    import torchmetrics_tpu.parallel as jpar
+    import torchmetrics_tpu_torch.parallel as tpar
+
+    ported = {"CompressionConfig", "CompressionSpec", "DeferredRaggedSync", "SyncPolicy", "SyncStepper",
+              "apply_sync_plan", "bucketed_collective_count", "build_sync_plan", "cadence_stepper",
+              "coalesced_host_sync", "coalesced_metric_sync", "coalesced_sync_state", "distributed_available",
+              "flush_sync", "gather_all_arrays", "per_leaf_collective_count", "reduce_op",
+              "sharded_collection_update", "sharded_list_update", "sharded_update", "sync_ragged_states", "sync_state"}
+    waiting = {"SyncAdvisor", "SyncAutotuner", "committed_policy", "policy_dict"}
+    waiting |= {"metric_mesh"}  # no counterpart
+    assert set(jpar.__all__) == ported | waiting
+    assert ported <= set(tpar.__all__) and not waiting & set(tpar.__all__)
+    for name in ported:
+        assert getattr(tpar, name).__name__ == getattr(jpar, name).__name__, name

@@ -297,10 +297,16 @@ def test_bitpacked_wire_types():
 
 
 def test_deferred_options_raise():
+    """The two-stage route and ``owner`` are ported: an unknown route raises JAX's ``ValueError``."""
+    from torchmetrics_tpu_torch.parallel import DeferredRaggedSync
+
     state = {"items": (torch.ones(2),), "_n": torch.tensor(1, dtype=torch.int32)}
-    for kwargs in ({"route": "two_stage"}, {"n_processes": 2}, {"dcn_allgather": print}, {"owner": object()}):
-        with pytest.raises(NotImplementedError):
-            sync_ragged_states({"items": "cat"}, state, **kwargs)
+    with pytest.raises(ValueError, match="route"):
+        sync_ragged_states({"items": "cat"}, state, route="hierarchical")
+    with pytest.raises(ValueError, match="route"):
+        DeferredRaggedSync(route="hierarchical")
+    out = sync_ragged_states({"items": "cat"}, state, route="two_stage", owner=object())  # one process: flat
+    assert [tuple(v.shape) for v in out["items"]] == [(2,)] and int(out["_n"]) == 1
 
 
 if __name__ == "__main__":

@@ -440,13 +440,18 @@ def test_one_rank_sync_applies_the_reductions():
 
 
 def test_deferred_options_raise():
-    state = {"s": torch.ones(2), "_n": torch.tensor(1, dtype=torch.int32)}
-    for kwargs in ({"compression": object()}, {"weight": torch.tensor(1.0)}, {"shardings": {"s": 0}}):
-        with pytest.raises(NotImplementedError):
-            coalesced_sync_state(state, {"s": "sum"}, **kwargs)
-    with pytest.raises(NotImplementedError):
-        sharded_update(MulticlassAccuracy(num_classes=3, device="cpu"), torch.tensor([0]), torch.tensor([0]),
-                       verify_consistency=True)
+    """Compression, the weight and shardings are ported; the divergence checks wait for the resilience slice."""
+    from torchmetrics_tpu_torch.parallel import SyncPolicy, SyncStepper
+
+    metric = MulticlassAccuracy(num_classes=3, device="cpu")
+    for kwargs in ({"verify_consistency": True}, {"on_divergence": "quarantine"},
+                   {"verify_consistency": True, "sync_policy": SyncPolicy(every_n_steps=2)}):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            sharded_update(metric, torch.tensor([0]), torch.tensor([0]), **kwargs)
+        with pytest.raises(NotImplementedError, match="item 9"):
+            SyncStepper(metric, **{k: v for k, v in kwargs.items() if k != "sync_policy"})
+    with pytest.raises(ValueError, match="on_divergence"):
+        sharded_update(metric, torch.tensor([0]), torch.tensor([0]), on_divergence="ignore")
 
 
 if __name__ == "__main__":

@@ -11,8 +11,11 @@ The functional API threads ``{leader name: state}`` dicts through
 ``sync_states`` syncs every leader in ONE coalesced plan (one ``all_reduce``
 per (dtype, op) bucket over the whole collection).
 
-The JAX collection's fused single-graph update (``jit=True``), its sync
-policy and its telemetry are not ported yet.
+``sync_policy`` (a :class:`~torchmetrics_tpu_torch.parallel.coalesce.SyncPolicy`)
+is the default cadence of ``parallel.sharded_collection_update`` on the
+collection. The JAX collection's fused single-graph update (``jit=True``)
+needs the compile slice and its telemetry the observability slice, neither
+ported yet.
 
 Example::
 
@@ -69,8 +72,17 @@ class MetricCollection(dict):
         sync_policy: Optional[Any] = None,
     ) -> None:
         super().__init__()
-        if jit or sync_policy is not None:
-            raise NotImplementedError("MetricCollection(jit=True) and sync_policy are not ported yet")
+        if jit:
+            raise NotImplementedError(
+                "MetricCollection(jit=True) is not ported yet: it needs the compile slice (ROADMAP Queue 1 item 11)"
+            )
+        if sync_policy is not None:
+            from torchmetrics_tpu_torch.parallel.coalesce import SyncPolicy
+
+            if not isinstance(sync_policy, SyncPolicy):
+                raise ValueError(f"Expected `sync_policy` to be a parallel.SyncPolicy, got {type(sync_policy)}")
+        # default cadence for sharded_collection_update(...) on this collection
+        self._sync_policy = sync_policy
         self.prefix = self._check_arg(prefix, "prefix")
         self.postfix = self._check_arg(postfix, "postfix")
         self._enable_compute_groups = compute_groups
@@ -308,7 +320,8 @@ class MetricCollection(dict):
         # take the renamed ones from ``items()``, and a clone of a prefixed
         # collection would carry the old prefix in its keys (as the JAX
         # package's clone does)
-        return self.__class__.__new__, (self.__class__,), self.__dict__, None, iter(dict.items(self))
+        state = {k: v for k, v in self.__dict__.items() if k != "_cadence_stepper"}  # belongs to this object
+        return self.__class__.__new__, (self.__class__,), state, None, iter(dict.items(self))
 
     def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
         mc = deepcopy(self)

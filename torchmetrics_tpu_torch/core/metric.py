@@ -11,6 +11,13 @@ family writes into the state it is given, see ``update_state``):
     ``merge_states(a, b) -> State``
     ``sync_states(state) -> State`` (over ``torch.distributed``'s default group)
 
+A SUM tensor leaf may be sharded over the ranks (``add_state(state_sharding=...)``
+or :meth:`Metric.set_state_sharding`): its sync is one ``reduce_scatter``
+and each rank keeps its block of the sum. ``compute_state`` on a synced
+state then gathers the blocks (one ``all_gather`` a sharded leaf), so in a
+world of several ranks it is a collective that every rank must call; its
+value equals, bit for bit, the compute on the replicated sync.
+
 facade:
     ``update / compute / forward / reset / clone / state_dict / load_state_dict``
 
@@ -42,7 +49,16 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from torchmetrics_tpu_torch.core.reductions import Reduce, SketchReduce, canonical_reduce, merge_leaf
+from torchmetrics_tpu_torch.core.reductions import (
+    Reduce,
+    ShardSpec,
+    SketchReduce,
+    all_gather_rows,
+    canonical_reduce,
+    canonical_sharding,
+    merge_leaf,
+    world_size,
+)
 from torchmetrics_tpu_torch.utilities.data import resolve_device, to_tensor
 from torchmetrics_tpu_torch.utilities.exceptions import StateRestoreError
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
@@ -155,6 +171,8 @@ class Metric:
         self._reductions: Dict[str, Union[Reduce, Callable, SketchReduce]] = {}
         self._persistent: Dict[str, bool] = {}
         self._value_ranges: Dict[str, Tuple[float, float]] = {}
+        #: the sharding spec of each sharded SUM tensor leaf
+        self._state_shardings: Dict[str, ShardSpec] = {}
         self._state: State = {_N: self._zero_count()}
         self._computed: Any = None
         self._forward_cache: Any = None
@@ -170,6 +188,7 @@ class Metric:
         dist_reduce_fx: Optional[Union[str, Callable, SketchReduce]] = None,
         persistent: bool = False,
         value_range: Optional[Tuple[float, float]] = None,
+        state_sharding: Optional[Union[str, ShardSpec]] = None,
     ) -> None:
         """Register a state leaf.
 
@@ -178,7 +197,11 @@ class Metric:
         sum|mean|max|min|cat, a callable, a
         :class:`~torchmetrics_tpu_torch.core.reductions.SketchReduce` spec
         for a fixed-shape sketch leaf, or None. ``value_range=(lo, hi)``
-        declares the values the leaf can hold.
+        declares the values the leaf can hold. ``state_sharding``
+        (``"replicated"``, the default, ``"sharded"`` or a
+        :class:`~torchmetrics_tpu_torch.core.reductions.ShardSpec`) shards a
+        SUM tensor leaf over the ranks: its sync is one ``reduce_scatter`` and
+        each rank keeps its block until ``compute_state`` gathers.
         """
         if name.startswith("_"):
             raise ValueError(f"State name {name!r} must not start with '_'")
@@ -204,6 +227,47 @@ class Metric:
             raise ValueError("state variable must be a tensor or an empty list")
         self._reductions[name] = canonical_reduce(dist_reduce_fx)
         self._persistent[name] = persistent
+        spec = canonical_sharding(state_sharding)
+        if spec is not None:
+            self._install_sharding(name, spec)
+
+    def _install_sharding(self, name: str, spec: ShardSpec) -> None:
+        """Check and install one leaf's :class:`ShardSpec`, with JAX's refusals."""
+        reduce = self._reductions.get(name)
+        if reduce is not Reduce.SUM:
+            raise ValueError(
+                f"state_sharding requires dist_reduce_fx='sum' (leaf {name!r} has "
+                f"{reduce!r}): only sum-family leaves have a zero identity the "
+                "reduce-scatter padding and quarantine masking rely on"
+            )
+        default = self._defaults[name]
+        if isinstance(default, tuple):
+            raise ValueError(f"state_sharding does not apply to list (cat) state {name!r}")
+        if spec.axis >= default.ndim:
+            raise ValueError(
+                f"ShardSpec.axis={spec.axis} out of range for state {name!r} with shape {tuple(default.shape)}"
+            )
+        if type(self).sync_states is not Metric.sync_states:
+            raise ValueError(
+                f"{type(self).__name__} overrides sync_states with its own cross-shard "
+                "aggregation; state_sharding only applies to the standard coalesced sync"
+            )
+        self._state_shardings[name] = spec
+
+    def set_state_sharding(self, name: str, sharding: Optional[Union[str, ShardSpec]]) -> None:
+        """Install (or clear, with ``None``/``"replicated"``) a leaf's sharding spec on a constructed metric."""
+        if name not in self._reductions:
+            raise KeyError(f"{name!r} is not a registered state leaf of {type(self).__name__}")
+        spec = canonical_sharding(sharding)
+        if spec is None:
+            self._state_shardings.pop(name, None)
+            return
+        self._install_sharding(name, spec)
+
+    @property
+    def state_shardings(self) -> Dict[str, ShardSpec]:
+        """A copy of the per-leaf sharding specs."""
+        return dict(self._state_shardings)
 
     # -------------------------------------------------------- functional core
     def init_state(self) -> State:
@@ -229,21 +293,70 @@ class Metric:
     def compute_state(self, state: State) -> Any:
         """Pure compute on a state.
 
-        A result that shares memory with a leaf the update writes in place
-        is a copy, so a later update does not change it.
+        Sharded leaves that hold this rank's block of a sync are gathered
+        first and their padding sliced off (:meth:`_unpad_sharded`): then
+        this is a collective every rank must call. A result that shares
+        memory with a leaf the update writes in place is a copy, so a later
+        update does not change it.
         """
-        value = self._compute(state)
+        value = self._compute(self._unpad_sharded(state))
         if not self._inplace_leaves:
             return value
         live = {state[name].untyped_storage().data_ptr() for name in self._inplace_leaves if name in state}
         return _copy_shared(value, live)
 
+    def _unpad_sharded(self, state: State) -> State:
+        """``state`` with each sharded leaf as the logical leaf: a rank's block of a sync (shard dimension
+        ``ceil(d / world)``) gathered in rank order, the padding of a padded leaf sliced off. The same object
+        when nothing is sharded."""
+        shardings = self.__dict__.get("_state_shardings") or {}
+        if not shardings:
+            return state
+        out = dict(state)
+        n = world_size()
+        for name, spec in shardings.items():
+            leaf = out.get(name)
+            if leaf is None or isinstance(leaf, tuple):
+                continue
+            d, got = self._defaults[name].shape[spec.axis], leaf.shape[spec.axis]
+            if got == d:
+                continue
+            if n > 1 and got == -(-d // n):
+                leaf = torch.cat(list(all_gather_rows(leaf.contiguous())), dim=spec.axis)
+            elif got < d:
+                raise ValueError(
+                    f"sharded leaf {name!r} has {got} entries on axis {spec.axis}: neither the leaf ({d}) nor "
+                    f"a block of it in this world of {n}"
+                )
+            out[name] = leaf.narrow(spec.axis, 0, d)
+        return out
+
+    def _align_sharded(self, name: str, a_leaf: Any, b_leaf: Any) -> Tuple[Any, Any]:
+        """Zero-pad the shorter of two sharded-leaf operands on the shard axis (a padded copy and a logical
+        one merge exactly: zeros are the SUM identity)."""
+        spec = self._state_shardings.get(name)
+        if spec is None or isinstance(a_leaf, tuple):
+            return a_leaf, b_leaf
+        da, db = a_leaf.shape[spec.axis], b_leaf.shape[spec.axis]
+        if da == db:
+            return a_leaf, b_leaf
+
+        def pad(leaf: Tensor, to: int) -> Tensor:
+            widths = [0, 0] * (leaf.ndim - spec.axis - 1) + [0, to - leaf.shape[spec.axis]]
+            return torch.nn.functional.pad(leaf, widths)
+
+        to = max(da, db)
+        return (pad(a_leaf, to) if da < to else a_leaf), (pad(b_leaf, to) if db < to else b_leaf)
+
     def merge_states(self, a: State, b: State) -> State:
         """Combine two states under the per-leaf reduction table (pure)."""
-        out: State = {
-            name: merge_leaf(reduce, a[name], b[name], n_a=a[_N], n_b=b[_N])
-            for name, reduce in self._reductions.items()
-        }
+        out: State = {}
+        shardings = self.__dict__.get("_state_shardings") or {}
+        for name, reduce in self._reductions.items():
+            a_leaf, b_leaf = a[name], b[name]
+            if name in shardings:
+                a_leaf, b_leaf = self._align_sharded(name, a_leaf, b_leaf)
+            out[name] = merge_leaf(reduce, a_leaf, b_leaf, n_a=a[_N], n_b=b[_N])
         out[_N] = a[_N] + b[_N]
         return out
 
@@ -255,14 +368,28 @@ class Metric:
         the ``_n`` counter rides the int32 sum bucket, so after one update on
         every rank it equals the world size. A synced CAT list state is one
         tensor of every rank's rows in rank order (the reference's order; the
-        JAX package interleaves the devices per update). ``compression`` and
-        ``weight`` are not ported yet.
+        JAX package interleaves the devices per update).
+
+        ``compression`` (a
+        :class:`~torchmetrics_tpu_torch.parallel.compress.CompressionConfig`)
+        quantizes the large float32 sum buckets; ``weight`` (this rank's 0/1
+        scalar) masks this rank out of the sync. Sharded leaves come back as
+        this rank's block.
         """
         from torchmetrics_tpu_torch.parallel.coalesce import coalesced_sync_state
 
         sub: State = {name: state[name] for name in self._reductions}
         sub[_N] = state[_N]
-        return coalesced_sync_state(sub, self._reductions, compression=compression, weight=weight)
+        return coalesced_sync_state(sub, self._reductions, compression=compression, weight=weight,
+                                    shardings=self.__dict__.get("_state_shardings") or None)
+
+    def sync_out_specs(self) -> Dict[str, Optional[ShardSpec]]:
+        """``{leaf: ShardSpec or None}`` of a synced state: a sharded leaf holds this rank's block on its
+        spec's axis, every other leaf (``_n`` too) is replicated (``None``). The port has no
+        ``PartitionSpec``, so this stands for JAX's ``shard_map`` out_specs."""
+        specs: Dict[str, Optional[ShardSpec]] = {name: self._state_shardings.get(name) for name in self._reductions}
+        specs[_N] = None
+        return specs
 
     def host_sync_states(self, state: State) -> State:
         """:meth:`sync_states`: ``torch.distributed`` is already cross-process."""
@@ -371,6 +498,7 @@ class Metric:
             self._defaults.pop(name, None)
             self._persistent.pop(name, None)
             self._value_ranges.pop(name, None)
+            self._state_shardings.pop(name, None)
             self._state.pop(name, None)
         rebuild()
         self.reset()
@@ -484,10 +612,12 @@ class Metric:
                 d[name] = d[name].to(cpu)
         d["_computed"] = None
         d["_forward_cache"] = None
+        d.pop("_cadence_stepper", None)  # a sharded_update(sync_policy=...) carry belongs to this object only
         return d
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
         self.__dict__.update(state)
+        self.__dict__.setdefault("_state_shardings", {})
         self._place(self.device)
 
     def _place(self, device: torch.device) -> None:

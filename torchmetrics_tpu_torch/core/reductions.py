@@ -24,8 +24,14 @@ JAX gathers each tuple element over the mesh instead, which interleaves the
 devices element by element; the rows are the same multiset.
 
 Every collective the port issues is counted in :data:`COLLECTIVES` by kind:
-``all_reduce``, ``all_gather`` (data) and ``shape_gather`` (the small
-exchange of shapes that an uneven gather needs first).
+``all_reduce``, ``all_gather`` (data), ``shape_gather`` (the small exchange
+of shapes that an uneven gather needs first), and the compressed and
+sharded syncs' ``all_to_all`` and ``reduce_scatter``. NCCL and gloo run
+each of them on CUDA tensors (gloo's ``reduce_scatter_tensor`` takes its
+input as one flat tensor): the port copies nothing to the host for them.
+
+A SUM tensor leaf may be sharded over the ranks (:class:`ShardSpec`): its
+sync is one ``reduce_scatter`` and each rank keeps only its block.
 """
 
 from __future__ import annotations
@@ -82,6 +88,36 @@ class SketchReduce:
     def n_sync_gathers(self) -> int:
         """Fixed-shape gathers one sync of this leaf launches (0 when the merge rides an all-reduce bucket)."""
         return 0 if self.bucket_op is not None else 1
+
+
+@dataclass(frozen=True)
+class ShardSpec:
+    """Sharding spec of one SUM-reduced tensor state leaf across the ranks.
+
+    A sharded leaf's sync is one ``reduce_scatter`` (wire bytes ``(n-1)/n B``
+    a rank instead of the all-reduce's ``2(n-1)/n B``) and each rank keeps
+    only its ``B/n`` block until ``compute_state`` gathers. ``axis`` is the
+    leaf dimension to scatter along; a dimension the world size does not
+    divide is zero-padded (the SUM identity) to the next multiple, and
+    ``compute_state`` slices the padding back off.
+    """
+
+    axis: int = 0
+
+    def __post_init__(self) -> None:
+        if not isinstance(self.axis, int) or self.axis < 0:
+            raise ValueError(f"ShardSpec.axis must be a non-negative int, got {self.axis!r}")
+
+
+def canonical_sharding(spec: Union[str, ShardSpec, None]) -> Optional[ShardSpec]:
+    """``None``/``"replicated"`` -> ``None``; ``"sharded"`` -> ``ShardSpec(axis=0)``; a :class:`ShardSpec` as is."""
+    if spec is None or spec == "replicated":
+        return None
+    if spec == "sharded":
+        return ShardSpec(axis=0)
+    if isinstance(spec, ShardSpec):
+        return spec
+    raise ValueError(f"state_sharding must be 'replicated', 'sharded', a ShardSpec, or None; got {spec!r}")
 
 
 def is_sketch_reduce(fx: Any) -> bool:
@@ -221,6 +257,34 @@ def all_reduce(x: Tensor, op: str) -> Tensor:
         dist.all_reduce(out, op=getattr(dist.ReduceOp, _OPS[op]))
         COLLECTIVES["all_reduce"] += 1
     return out
+
+
+def all_to_all_rows(x: Tensor) -> Tensor:
+    """``x`` of ``(world, P)``: row ``j`` goes to rank ``j``; returns ``(world, P)`` with row ``j`` from rank ``j``."""
+    if not in_group():
+        return x.clone()
+    src = x.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src)
+    COLLECTIVES["all_to_all"] += 1
+    return out
+
+
+def reduce_scatter_rows(x: Tensor) -> Tensor:
+    """``x`` of ``(world, K)``: the sum over the ranks of row ``rank``, ``(K,)``."""
+    if not in_group():
+        return x[0].clone()
+    out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, x.reshape(-1), op=dist.ReduceOp.SUM)  # gloo wants the rows end to end
+    COLLECTIVES["reduce_scatter"] += 1
+    return out
+
+
+def all_gather_rows(x: Tensor) -> Tensor:
+    """Every rank's ``x``, stacked in rank order: ``(world, *x.shape)``; one list ``all_gather``."""
+    if not in_group():
+        return x[None].clone()
+    return torch.stack(_all_gather_list(x, "all_gather"))
 
 
 def _all_gather_list(x: Tensor, kind: str) -> List[Tensor]:

@@ -70,9 +70,19 @@ class PearsonCorrCoef(Metric):
         return out
 
     def sync_states(self, state: State, compression: Any = None, weight: Any = None) -> State:
-        """Every rank's moments, gathered in one buffer, combined pairwise in rank order."""
+        """Every rank's moments, gathered in one buffer, combined pairwise in rank order.
+
+        The moments do not combine leaf by leaf, so this sync has no bucket to
+        compress and no collective to mask: as JAX's override, which takes
+        neither, it raises ``TypeError`` when given a compression or a weight.
+        ``coalesced_metric_sync`` calls it without the compression (the sync
+        stays exact) and with the weight (it raises).
+        """
         if compression is not None or weight is not None:
-            raise NotImplementedError("PearsonCorrCoef.sync_states(compression=..., weight=...) is not ported yet")
+            raise TypeError(
+                f"{type(self).__name__}.sync_states takes no compression or weight: its moments are gathered "
+                "and combined pairwise, not reduced in a bucket"
+            )
         flat = torch.cat([state[k].reshape(-1) for k in _MOMENTS])
         ranks = torch.stack(gather_all_tensors(flat))  # (world, 5 * outputs + 1)
         stacked, offset = [], 0

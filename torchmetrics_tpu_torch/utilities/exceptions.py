@@ -18,14 +18,18 @@ class StateRestoreError(TorchMetricsUserError):
 
     Attributes:
         leaf: name of the offending state leaf.
-        reason: mismatch category: ``"kind"``, ``"shape"``, ``"dtype"`` or
-            ``"unknown-leaf"``.
+        reason: mismatch category: ``"kind"``, ``"shape"``, ``"dtype"``,
+            ``"unknown-leaf"`` or ``"mesh-shape"`` (a ``SyncStepper``
+            snapshot restored onto another world size).
+        mesh_shape: the world size the snapshot was taken in, when known.
     """
 
-    def __init__(self, message: str, leaf: Optional[str] = None, reason: Optional[str] = None) -> None:
+    def __init__(self, message: str, leaf: Optional[str] = None, reason: Optional[str] = None,
+                 mesh_shape: Optional[tuple] = None) -> None:
         super().__init__(message)
         self.leaf = leaf
         self.reason = reason
+        self.mesh_shape = mesh_shape
 
 
 class ReplicaDivergenceError(TorchMetricsUserError):
